@@ -1,0 +1,56 @@
+"""Load the JAX package's parameters into the port.
+
+``torch`` cannot reproduce ``jax.random``, so parity between the two
+packages is checked on the same parameters: the JAX ``Model.init`` pytree,
+brought to the host as numpy arrays (``jax.tree.map(np.asarray, params)``),
+goes through :func:`params_from_jax`.  The port keeps the JAX layout,
+including the stacked ``run{r}`` layer dimension (the JAX model stacks each
+run of same-kind layers with a leading axis for ``lax.scan``; the port
+indexes the same axis per layer), so conversion is a checked leaf-by-leaf
+copy.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models.model import Model
+
+
+def _leaf(a, device):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":        # ml_dtypes bfloat16: no torch view
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def _convert(tree, device, lead, path):
+    if isinstance(tree, dict):
+        return {k: _convert(v, device, lead, f"{path}.{k}")
+                for k, v in tree.items()}
+    t = _leaf(tree, device)
+    if lead is not None and (t.dim() == 0 or t.shape[0] != lead):
+        raise ValueError(f"{path}: expected a leading layer dimension of "
+                         f"{lead}, got shape {tuple(t.shape)}")
+    return t
+
+
+def params_from_jax(tree_of_numpy: dict, cfg, device="cuda") -> dict:
+    """The port's parameters for ``cfg`` from the JAX ``Model.init`` pytree
+    (nested dicts of numpy arrays).  Checks that the tree has exactly the
+    top-level entries of ``cfg``'s model and that every ``run{r}`` leaf
+    stacks that run's layer count on its leading axis."""
+    runs = Model(cfg, device=device).runs
+    want = {"embed", "final_norm"} | {f"run{r}" for r in range(len(runs))}
+    if not cfg.tie_embeddings:
+        want.add("lm_head")
+    if set(tree_of_numpy) != want:
+        raise ValueError(f"parameter tree has {sorted(tree_of_numpy)}, "
+                         f"{cfg.name} needs {sorted(want)}")
+    out = {}
+    for key, sub in tree_of_numpy.items():
+        lead = runs[int(key[3:])][1] if key.startswith("run") else None
+        out[key] = _convert(sub, device, lead, key)
+    return out

@@ -1,0 +1,128 @@
+"""Top-k gating with expert capacity, GShard-style (counterpart of
+``repro/core/gating.py``).
+
+Routing must match the JAX package exactly (expert ids, slots, drop masks,
+routed counts), so the two places where the frameworks differ are pinned:
+
+  * ``lax.top_k`` breaks ties toward the lower index and ``torch.topk``
+    does not: the top-k here is a *stable* descending sort;
+  * the sort-based slot assignment uses ``jnp.argsort(stable=True)``: here
+    ``torch.sort(stable=True)``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+
+
+@dataclass(frozen=True)
+class GateConfig:
+    n_experts: int
+    top_k: int = 1
+    capacity_factor: float = 1.25
+    normalize_topk: bool = False   # qwen3 norm_topk_prob
+    aux_loss_weight: float = 1e-2
+    z_loss_weight: float = 1e-3
+    gate_dtype: torch.dtype = torch.float32
+    # slot assignment: "sort" (stable sort, O(S*k log S*k)) or "cumsum"
+    # (the GShard one-hot reference).  Identical outputs.
+    impl: str = "sort"
+
+
+def capacity(tokens: int, cfg: GateConfig, align: int = 8) -> int:
+    """Per-expert capacity T for a pool of ``tokens`` tokens (the JAX
+    package's float ceiling, verbatim)."""
+    c = int(-(-cfg.top_k * cfg.capacity_factor * tokens // cfg.n_experts))
+    return max(align, -(-c // align) * align)
+
+
+class GateResult:
+    """One token pool's routing decision; memoizes :func:`flat_slots` per
+    ``(cap, n_experts)``."""
+
+    __slots__ = ("expert_idx", "slot_idx", "weights", "aux", "_flat")
+
+    def __init__(self, expert_idx, slot_idx, weights, aux):
+        self.expert_idx = expert_idx
+        self.slot_idx = slot_idx
+        self.weights = weights
+        self.aux = aux
+        self._flat = {}
+
+    def flat(self, cap: int, n_experts: int):
+        """Cached :func:`flat_slots` for this routing decision."""
+        key = (cap, n_experts)
+        if key not in self._flat:
+            self._flat[key] = flat_slots(self.expert_idx, self.slot_idx,
+                                         cap, n_experts)
+        return self._flat[key]
+
+
+def topk_gate(x, wg, cfg: GateConfig, cap: int) -> GateResult:
+    """Route tokens to experts.
+
+    x: (S, M) tokens; wg: (M, E) gate weights; cap: per-expert capacity of
+    this pool (an int: per-expert capacity vectors come with expert
+    placement, in a later slice).
+
+    Returns a :class:`GateResult`: expert_idx (S, k) int32, slot_idx (S, k)
+    int32 (>= cap means dropped), weights (S, k) f32 (0 for dropped) and
+    aux (load-balance loss, z-loss, per-expert load and routed rows).
+    """
+    if not isinstance(cap, int):
+        raise TypeError("topk_gate: cap must be an int in this slice")
+    S, _ = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    dev = x.device
+    logits = x.to(cfg.gate_dtype) @ wg.to(cfg.gate_dtype)
+    probs = torch.softmax(logits, dim=-1)                        # (S, E)
+    srt = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_w = srt.values[:, :k]
+    expert_idx = srt.indices[:, :k].to(torch.int32).contiguous()  # (S, k)
+    if cfg.normalize_topk:
+        gate_w = gate_w / torch.sum(gate_w, dim=-1, keepdim=True)
+
+    # Capacity assignment with choice-major priority (all 1st choices win
+    # slots before any 2nd choice), GShard semantics.
+    flat_e = expert_idx.T.reshape(-1).long()                     # (k*S,)
+    if cfg.impl == "sort":
+        order = torch.sort(flat_e, stable=True).indices
+        sorted_e = flat_e[order]
+        first = torch.searchsorted(sorted_e,
+                                   torch.arange(E, device=dev), side="left")
+        slot_sorted = torch.arange(k * S, device=dev) - first[sorted_e]
+        slot_flat = torch.empty_like(slot_sorted)
+        slot_flat[order] = slot_sorted
+        load = torch.bincount(flat_e, minlength=E).float()
+    elif cfg.impl == "cumsum":
+        onehot = F.one_hot(flat_e, E)                            # (k*S, E)
+        pos = torch.cumsum(onehot, dim=0) - 1
+        slot_flat = pos.gather(1, flat_e[:, None])[:, 0]
+        load = onehot.sum(dim=0).float()
+    else:
+        raise ValueError(f"unknown gate impl {cfg.impl!r}")
+    slot_idx = slot_flat.reshape(k, S).T.to(torch.int32).contiguous()
+    kept = slot_idx < cap
+    weights = torch.where(kept, gate_w,
+                          torch.zeros((), device=dev)).float().contiguous()
+
+    # Aux losses (Switch/GShard load balancing + router z-loss).
+    me = probs.mean(dim=0)
+    ce = F.one_hot(expert_idx[:, 0].long(), E).float().mean(dim=0)
+    aux_loss = cfg.aux_loss_weight * E * torch.sum(me * ce)
+    z_loss = cfg.z_loss_weight * torch.mean(
+        torch.square(torch.logsumexp(logits, dim=-1)))
+    aux = {"aux_loss": aux_loss, "z_loss": z_loss, "load": load,
+           "routed": torch.clamp(load, max=float(cap)),
+           "drop_frac": 1.0 - kept.float().mean()}
+    return GateResult(expert_idx, slot_idx, weights, aux)
+
+
+def flat_slots(expert_idx, slot_idx, cap: int, n_experts: int):
+    """Flat capacity-buffer index per (token, choice); ``n_experts * cap``
+    marks a dropped choice (the kernels' drop sentinel)."""
+    return torch.where(slot_idx < cap, expert_idx * cap + slot_idx,
+                       n_experts * cap).to(torch.int32)

@@ -1,0 +1,138 @@
+"""Dropless fused grouped expert FFN (counterpart of
+``repro/kernels/expert_ffn_grouped.py::expert_ffn_grouped``).
+
+One op: gather each expert's routed token rows, run the expert FFN in f32
+and scatter the gate-weighted outputs back to token order.  CUDA tensors go
+through ``csrc/expert_ffn_grouped.cu``; CPU tensors through the plain
+``expert_ffn_grouped_ref``.  The routed-row metadata (``slot_metadata``) is
+built on the device in torch.
+
+``expert_ffn_grouped.launches`` counts the CUDA op's launches (one per call:
+the C entry point launches its up, down and combine kernels together).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import expert_ffn_grouped_ref
+
+ACT_CODE = {"silu": 0, "gelu": 1}
+WIRE_CODE = {"f32": 0, "bf16": 1}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_C_ARGS = (_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
+           _I, _I, _I, _I, _I, _I, _I, _I, _P)
+
+
+@functools.cache
+def _c_fn():
+    fn = _build.library("expert_ffn_grouped").repro_expert_ffn_grouped
+    fn.argtypes = _C_ARGS
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def slot_rows(flat_idx, n_tokens, n_experts, cap):
+    """Invert the gate's (token -> slot) map: per-slot source row ids
+    ``rid`` (E, cap) int32 (``n_tokens`` marks an empty slot) and
+    per-expert routed-row counts (E,) int32.
+
+    JAX's ``.at[flat].set(..., mode="drop")`` silently drops the drop
+    sentinel ``E * cap``; torch indexing would raise on it, so the scatter
+    goes into one extra row that is sliced off."""
+    S, k = flat_idx.shape
+    n = n_experts * cap
+    dev = flat_idx.device
+    src = torch.arange(S * k, dtype=torch.int32, device=dev) // k
+    rid = torch.full((n + 1,), n_tokens, dtype=torch.int32, device=dev)
+    rid[flat_idx.reshape(-1).long()] = src
+    rid = rid[:n].reshape(n_experts, cap)
+    counts = (rid < n_tokens).sum(dim=1, dtype=torch.int32)
+    return rid, counts
+
+
+def slot_metadata(flat_idx, weights, n_tokens, n_experts, cap):
+    """``(rid, ws, counts)`` exactly as the JAX ``slot_metadata``: row ids
+    and counts from :func:`slot_rows` plus per-slot f32 gate weights."""
+    rid, counts = slot_rows(flat_idx, n_tokens, n_experts, cap)
+    n = n_experts * cap
+    ws = torch.zeros((n + 1,), dtype=torch.float32, device=flat_idx.device)
+    ws[flat_idx.reshape(-1).long()] = weights.reshape(-1).float()
+    return rid, ws[:n].reshape(n_experts, cap), counts
+
+
+def _check(x, flat_idx, weights, w1, w3, w2, cap, act, wire):
+    if x.dim() != 2:
+        raise ValueError(f"expert_ffn_grouped: x must be (S, M), got "
+                         f"{tuple(x.shape)}")
+    S, M = x.shape
+    if w1.dim() != 3 or w2.dim() != 3:
+        raise ValueError("expert_ffn_grouped: w1 (E, M, F) and w2 (E, F, M)")
+    E, _, F = w1.shape
+    if w1.shape != (E, M, F) or w2.shape != (E, F, M):
+        raise ValueError(f"expert_ffn_grouped: weight shapes "
+                         f"{tuple(w1.shape)} / {tuple(w2.shape)} do not fit "
+                         f"x {tuple(x.shape)}")
+    if w3 is not None and (w3.shape != w1.shape or w3.dtype != w1.dtype):
+        raise ValueError("expert_ffn_grouped: w3 must match w1")
+    if w2.dtype != w1.dtype:
+        raise ValueError("expert_ffn_grouped: w1 and w2 dtypes differ")
+    if flat_idx.dim() != 2 or flat_idx.shape[0] != S \
+            or flat_idx.dtype != torch.int32:
+        raise ValueError("expert_ffn_grouped: flat_idx must be int32 (S, k)")
+    if weights.shape != flat_idx.shape or weights.dtype != torch.float32:
+        raise ValueError("expert_ffn_grouped: weights must be float32 (S, k)")
+    if act not in ACT_CODE or wire not in WIRE_CODE:
+        raise ValueError(f"expert_ffn_grouped: act {act!r} / wire {wire!r} "
+                         f"not supported (act {sorted(ACT_CODE)}, wire "
+                         f"{sorted(WIRE_CODE)})")
+    if int(cap) <= 0 or E * int(cap) >= 2 ** 31:
+        raise ValueError(f"expert_ffn_grouped: cap {cap} out of range")
+    tensors = [x, flat_idx, weights, w1, w2] + ([w3] if w3 is not None
+                                                else [])
+    if any(t.device != x.device for t in tensors):
+        raise ValueError("expert_ffn_grouped: operands on different devices")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("expert_ffn_grouped: operands must be contiguous")
+
+
+def expert_ffn_grouped(x, flat_idx, weights, w1, w3, w2, *, cap,
+                       act="silu", wire="f32"):
+    """Fused dispatch -> ragged FFN -> combine.  x: (S, M) float32 or
+    bfloat16; flat_idx (S, k) int32 flat slots (``E * cap`` = dropped);
+    weights (S, k) float32; w1/w3 (E, M, F), w2 (E, F, M) of one dtype (w3
+    None for 2-layer experts).  Returns (S, M) in x's dtype."""
+    if x.device.type == "cpu":
+        return expert_ffn_grouped_ref(x, flat_idx, weights, w1, w3, w2,
+                                      cap=cap, act=act, wire=wire)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"expert_ffn_grouped: no kernel for device "
+                           f"{x.device}")
+    _check(x, flat_idx, weights, w1, w3, w2, cap, act, wire)
+    S, M = x.shape
+    E, _, F = w1.shape
+    k = flat_idx.shape[1]
+    cap = int(cap)
+    x_code = _build.dtype_code(x, "expert_ffn_grouped x")
+    w_code = _build.dtype_code(w1, "expert_ffn_grouped weights")
+    rid, counts = slot_rows(flat_idx, S, E, cap)
+    mid = torch.empty((E * cap, F), dtype=torch.float32, device=x.device)
+    hbuf = torch.empty((E * cap, M), dtype=torch.float32, device=x.device)
+    y = torch.empty_like(x)
+    err = _c_fn()(
+        x.data_ptr(), x_code, flat_idx.data_ptr(), weights.data_ptr(),
+        rid.data_ptr(), counts.data_ptr(), w1.data_ptr(),
+        w3.data_ptr() if w3 is not None else None, w2.data_ptr(), w_code,
+        mid.data_ptr(), hbuf.data_ptr(), y.data_ptr(), S, k, M, F, E, cap,
+        ACT_CODE[act], WIRE_CODE[wire], _build.stream_ptr(x.device))
+    _build.check_launch(err, "expert_ffn_grouped")
+    expert_ffn_grouped.launches += 1
+    return y
+
+
+expert_ffn_grouped.launches = 0

@@ -1,0 +1,77 @@
+"""Plain PyTorch versions of the port's kernels (counterpart of
+``repro/kernels/ref.py``).
+
+They are the ground truth the CUDA kernels are held to on the card, and
+what a kernel wrapper runs when its tensor lies on the CPU.  Each follows
+its JAX oracle step for step, including the order of the casts.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+import torch.nn.functional as F
+
+#: Expert activations.  ``jax.nn.gelu`` defaults to the tanh approximation,
+#: so every gelu in the port is ``approximate="tanh"``.
+ACT = {"silu": F.silu, "gelu": functools.partial(F.gelu, approximate="tanh")}
+
+
+def expert_ffn_ref(x, w1, w3, w2, *, act="silu"):
+    """Grouped expert FFN. x: (E, T, M); w1/w3: (E, M, F); w2: (E, F, M).
+    Mixed dtypes promote as in ``jnp.einsum``."""
+    dt = torch.promote_types(x.dtype, w1.dtype)
+    x = x.to(dt)
+    h = torch.einsum("etm,emf->etf", x, w1.to(dt))
+    if w3 is not None:
+        h = ACT[act](h) * torch.einsum("etm,emf->etf", x, w3.to(dt))
+    else:
+        h = ACT[act](h)
+    return torch.einsum("etf,efm->etm", h, w2.to(dt))
+
+
+def moe_dispatch_ref(x, flat_idx, n_slots):
+    """Scatter tokens into the flat capacity buffer.
+    x: (S, M); flat_idx: (S, k) int in [0, n_slots] (n_slots = drop).
+    Returns (n_slots, M)."""
+    S, M = x.shape
+    k = flat_idx.shape[1]
+    buf = torch.zeros((n_slots + 1, M), dtype=x.dtype, device=x.device)
+    src = x[:, None, :].expand(S, k, M).reshape(S * k, M)
+    buf.index_add_(0, flat_idx.reshape(-1).long(), src)
+    return buf[:-1]
+
+
+def moe_combine_ref(buf, flat_idx, weights):
+    """Gather expert outputs back to tokens. buf: (n_slots, M);
+    flat_idx: (S, k); weights: (S, k). Returns (S, M)."""
+    n_slots, M = buf.shape
+    idx = flat_idx.long().clamp(max=n_slots - 1)
+    vals = buf[idx.reshape(-1)].reshape(*flat_idx.shape, M)
+    w = torch.where(flat_idx < n_slots, weights,
+                    torch.zeros((), dtype=weights.dtype,
+                                device=weights.device))
+    return torch.einsum("sk,skm->sm", w.to(buf.dtype), vals)
+
+
+def expert_ffn_grouped_ref(x, flat_idx, weights, w1, w3, w2, *, cap,
+                           act="silu", wire="f32"):
+    """Single-device fused op: dispatch gather -> (wire round trip) ->
+    expert FFN in f32 -> (wire round trip) -> combine scatter + weight dot.
+    x: (S, M); flat_idx/weights: (S, k); returns (S, M) in x.dtype."""
+    E = w1.shape[0]
+
+    def rt(v):   # fused wire round-trip at a pool boundary
+        return v.to(torch.bfloat16).to(v.dtype) if wire == "bf16" else v
+
+    buf = rt(moe_dispatch_ref(x, flat_idx, E * cap))
+    h = expert_ffn_ref(buf.reshape(E, cap, -1).float(), w1, w3, w2, act=act)
+    h = rt(h.reshape(E * cap, -1))
+    return moe_combine_ref(h, flat_idx, weights).to(x.dtype)
+
+
+def rmsnorm_ref(x, scale, eps=1e-5):
+    xf = x.float()
+    ms = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale).to(x.dtype)

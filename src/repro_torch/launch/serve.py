@@ -1,0 +1,215 @@
+"""Serving launcher of the port: continuous-batching engine over synthetic
+traffic, on one CUDA card.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b \\
+      --layers 4 --requests 16 --max-batch 8 --gen 32
+
+The flags are the JAX launcher's for what the port's engine supports, plus
+``--layers N`` (cut the depth, keep the full width) and ``--device``.
+Weights are random from ``--seed``.  Without a CUDA card the launcher
+stops with an error; ``--device cpu`` asks for the CPU explicitly.  TF32 is
+switched off for matmuls and cuDNN: the JAX reference computes in full f32.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+from dataclasses import replace
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.models import Model
+from repro_torch.serve import Engine, SamplerConfig, latency_stats
+
+
+def resolve_device(name: str) -> torch.device:
+    """``cuda`` (the default) must exist; ``cpu`` only when asked for."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("error: no CUDA device available; the port serves "
+                         "on the card (pass --device cpu to run on the CPU)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return dev
+
+
+def device_profile(engine, params, requests, wall_ms, top=12):
+    """Serve ``requests`` again under ``torch.profiler`` and sum device
+    kernel time by kernel name and by the op that launched it.  The
+    profiler slows the host many times over, so the busy share divides
+    the device time by ``wall_ms``, the wall time of the same requests
+    served unprofiled.  Returns {wall_ms, busy_ms, busy_share, n_kernels,
+    top, top_ops}, the last two lists of {name, calls, ms}; one stream,
+    so kernel durations do not overlap."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        engine.run(params, requests)
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        calls, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (calls + 1, us + e.time_range.elapsed_us())
+    busy_ms = sum(us for _, us in by_name.values()) / 1e3
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    # the same device time attributed to the PyTorch op that launched it
+    ops = sorted(((e.key, e.count, e.self_device_time_total)
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CPU
+                  and e.self_device_time_total > 0),
+                 key=lambda r: -r[2])[:top]
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
+            "busy_share": busy_ms / wall_ms,
+            "n_kernels": sum(c for c, _ in by_name.values()),
+            "top": [{"name": n, "calls": c, "ms": us / 1e3}
+                    for n, (c, us) in rows],
+            "top_ops": [{"name": n, "calls": c, "ms": us / 1e3}
+                        for n, c, us in ops]}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to N layers at full width (0 = all)")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--arrival-rate", type=float, default=0.0,
+                    help="requests/s (0 = all arrive at t=0)")
+    ap.add_argument("--max-batch", type=int, default=8,
+                    help="decode batch / KV rows")
+    ap.add_argument("--max-len", type=int, default=256)
+    ap.add_argument("--prompt-len", type=int, default=16,
+                    help="max synthetic prompt length")
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--prefill-batch", type=int, default=1)
+    ap.add_argument("--block-size", type=int, default=16,
+                    help="KV page size in tokens (must divide --max-len)")
+    ap.add_argument("--n-blocks", type=int, default=0,
+                    help="KV arena pages (0 = max_batch * max_len / "
+                         "block_size)")
+    ap.add_argument("--prefix-cache", action=argparse.BooleanOptionalAction,
+                    default=True)
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="chunked prefill size in tokens (0 = one-shot)")
+    ap.add_argument("--schedule", default=None,
+                    help="force one MoE schedule (auto | s1g in this slice)")
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--top-k", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log-json", default=None,
+                    help="write latency + engine stats to this file")
+    ap.add_argument("--profile", action="store_true",
+                    help="warm up, serve, then serve again under "
+                         "torch.profiler; print device time by kernel and "
+                         "the device's busy share (CUDA only)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="tiny run, assert clean completion")
+    args = ap.parse_args(argv)
+    if args.requests < 1:
+        ap.error("--requests must be >= 1")
+    if args.max_batch < 1:
+        ap.error("--max-batch must be >= 1")
+    if args.smoke:
+        args.requests = min(args.requests, 8)
+        args.gen = min(args.gen, 8)
+        args.max_len = min(args.max_len, 64)
+        args.prompt_len = min(args.prompt_len, 12)
+    dev = resolve_device(args.device)
+    if args.profile and dev.type != "cuda":
+        ap.error("--profile measures the card: it needs --device cuda")
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    if args.layers:
+        cfg = replace(cfg, n_layers=args.layers)
+    model = Model(cfg, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    params = model.init(gen)
+
+    def make_engine():
+        return Engine(model, max_batch=args.max_batch, max_len=args.max_len,
+                      schedule=args.schedule,
+                      prefill_batch=args.prefill_batch,
+                      block_size=args.block_size,
+                      n_blocks=args.n_blocks or None,
+                      prefix_cache=args.prefix_cache,
+                      prefill_chunk=args.prefill_chunk)
+
+    rng = np.random.RandomState(args.seed)
+    sampler = SamplerConfig(temperature=args.temperature, top_k=args.top_k,
+                            seed=args.seed)
+    requests = [dict(prompt=rng.randint(0, cfg.vocab_size,
+                                        int(rng.randint(
+                                            4, max(args.prompt_len, 5)))),
+                     max_new_tokens=args.gen, sampler=sampler,
+                     arrival=(i / args.arrival_rate
+                              if args.arrival_rate > 0 else 0.0))
+                for i in range(args.requests)]
+    profile = None
+    if args.profile:
+        make_engine().run(params, requests)       # warm-up, not measured
+    engine = make_engine()
+    t0 = time.perf_counter()
+    done = engine.run(params, requests)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    if args.profile:
+        profile = device_profile(make_engine(), params, requests, wall_ms)
+
+    stats = latency_stats(done)
+    s = engine.stats
+    where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+             else "cpu")
+    print(f"device: {where}; {cfg.name} with {cfg.n_layers} layers")
+    print(f"served {stats['n_requests']} requests / "
+          f"{stats['n_tokens']} tokens: {stats['tok_per_s']:.1f} tok/s  "
+          f"p50 {stats['p50_ms']:.0f}ms  p95 {stats['p95_ms']:.0f}ms  "
+          f"p99 {stats['p99_ms']:.0f}ms  "
+          f"ttft_p50 {stats['ttft_p50_ms']:.0f}ms")
+    print(f"engine: {s['prefill_calls']} prefill calls "
+          f"({s['prefill_tokens']} tokens), {s['decode_calls']} decode "
+          f"rounds ({s['decode_tokens']} tokens), max_active "
+          f"{s['max_active']}/{engine.max_batch}")
+    print(f"paged kv: {s['prefix_hits']} prefix hits "
+          f"({s['prefix_tokens']} tokens reused), peak pages "
+          f"{s['peak_blocks']}/{engine.pool.n_blocks} "
+          f"(block size {engine.block_size})")
+    if profile is not None:
+        print(f"profile: device busy {profile['busy_ms']:.1f} ms "
+              f"(profiled run) over {profile['wall_ms']:.1f} ms wall "
+              f"(unprofiled run): {100 * profile['busy_share']:.1f}% busy; "
+              f"{profile['n_kernels']} kernel launches")
+        for title, key in (("by kernel", "top"), ("by op", "top_ops")):
+            print(f" device time {title}:")
+            for row in profile[key]:
+                print(f"  {row['ms']:9.3f} ms {row['calls']:6d} x  "
+                      f"{row['name'][:90]}")
+    if args.log_json:
+        os.makedirs(os.path.dirname(os.path.abspath(args.log_json)),
+                    exist_ok=True)
+        with open(args.log_json, "w") as f:
+            json.dump({"device": where, "latency": stats, "engine": s,
+                       "profile": profile}, f, indent=1)
+    if done:
+        print("sample:", done[0].tokens[:16])
+    if args.smoke:
+        if len(done) != args.requests or not all(c.tokens for c in done):
+            raise SystemExit("smoke: not every request completed")
+        print("SERVE SMOKE OK")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,78 @@
+"""Decoder blocks of the serving path (counterpart of
+``repro/models/blocks.py``): the ``dense`` and ``moe`` kinds (and their
+``_full`` variants), init and the paged forward."""
+
+from __future__ import annotations
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.moe import apply_moe, init_moe_params
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.attention import AttnConfig
+from repro_torch.models.layers import (apply_ffn, apply_norm, init_ffn,
+                                       init_norm)
+
+#: Block kinds this slice runs.
+KINDS = ("dense", "moe")
+
+
+def base_kind(kind: str) -> str:
+    return kind[:-5] if kind.endswith("_full") else kind
+
+
+def attn_config(cfg: ModelConfig, kind: str) -> AttnConfig:
+    full = kind.endswith("_full")
+    return AttnConfig(
+        d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.hd, rope_theta=cfg.rope_theta,
+        use_rope=cfg.use_rope and not full,
+        causal=cfg.arch_type != "encoder",
+        window=None if full else cfg.attn_window,
+        chunk=None if full else cfg.attn_chunk,
+        qkv_bias=cfg.qkv_bias)
+
+
+def _check_kind(kind: str) -> None:
+    if base_kind(kind) not in KINDS:
+        raise NotImplementedError(
+            f"block kind {kind!r} comes with a later slice of the port "
+            f"(this slice runs {KINDS})")
+
+
+def init_block(generator, cfg: ModelConfig, kind: str, dtype) -> dict:
+    _check_kind(kind)
+    dev = generator.device
+    p = {"norm1": init_norm(cfg.d_model, cfg.norm_type, dev),
+         "attn": attn_mod.init_attn(generator, attn_config(cfg, kind),
+                                    dtype)}
+    if base_kind(kind) == "moe":
+        p["moe"] = init_moe_params(generator, cfg.moe, dtype)
+        p["norm2"] = init_norm(cfg.d_model, cfg.norm_type, dev)
+    elif cfg.d_ff:
+        p["ffn"] = init_ffn(generator, cfg.d_model, cfg.d_ff, glu=cfg.glu,
+                            bias=cfg.ffn_bias, dtype=dtype)
+        if not cfg.parallel_block:
+            p["norm2"] = init_norm(cfg.d_model, cfg.norm_type, dev)
+    return p
+
+
+def paged_block(p, cfg: ModelConfig, kind: str, x, cache, table, starts,
+                lens, *, schedule=None, infer=False):
+    """Block forward over a paged KV arena: decode (C=1, ``infer=True``),
+    one-shot and chunked prefill (``infer=False``) all run this one path.
+    ``cache`` is this layer's ``{"attn": arena}``, updated in place.
+    Returns the block's output."""
+    _check_kind(kind)
+    acfg = attn_config(cfg, kind)
+    eps = cfg.norm_eps
+    h = apply_norm(p["norm1"], x, eps, cfg.kernel)
+    a = attn_mod.paged_chunk_attn(p["attn"], acfg, h, cache["attn"], table,
+                                  starts, lens)
+    if cfg.parallel_block:
+        return x + (a + apply_ffn(p["ffn"], h, cfg.ffn_act))
+    x = x + a
+    h2 = apply_norm(p["norm2"], x, eps, cfg.kernel)
+    if base_kind(kind) == "moe":
+        y, _ = apply_moe(h2, p["moe"], cfg=cfg.moe, schedule=schedule,
+                         infer=infer)
+        return x + y
+    return x + apply_ffn(p["ffn"], h2, cfg.ffn_act)

@@ -1,0 +1,85 @@
+"""The port stands alone: no file under ``src/repro_torch/`` and no line of
+``chip_smoke.py`` imports JAX or the JAX package, importing the port
+builds nothing (the CUDA sources compile on the first CUDA call only), and
+its entry points need a card unless the caller asks for the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.join(os.path.dirname(__file__), "..")
+PORT = os.path.join(REPO, "src", "repro_torch")
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _sources():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(PORT):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return out
+
+
+def _imported(path):
+    tree = ast.parse(open(path, encoding="utf-8").read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "id", getattr(node.func, "attr", "")) in (
+                    "import_module", "__import__") and node.args \
+                and isinstance(node.args[0], ast.Constant):
+            yield node.args[0].value
+
+
+def test_no_jax_or_jax_package_imports():
+    sources = _sources()
+    assert len(sources) > 20
+    bad = [(os.path.relpath(p, REPO), name) for p in sources
+           for name in _imported(p)
+           if name.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_importing_the_port_builds_nothing():
+    code = """
+import pkgutil, subprocess, sys
+def refuse(*a, **k):
+    raise AssertionError("a subprocess was started while importing")
+subprocess.Popen = refuse
+import repro_torch
+for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    __import__(m.name)
+from repro_torch.kernels import _build
+assert not _build._libs, _build._libs
+assert "torch.utils.cpp_extension" not in sys.modules
+assert not any(n == "jax" or n.startswith(("jax.", "repro."))
+               for n in sys.modules)
+print("OK", len(list(pkgutil.walk_packages(repro_torch.__path__))))
+"""
+    r = _run(["-c", code])
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout.startswith("OK")
+
+
+def _run(args):
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    return subprocess.run([sys.executable, *args], env=env, cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_entry_points_refuse_to_run_without_a_card():
+    """The launcher stops with a clear error rather than carry on on the
+    CPU, and ``chip_smoke.py`` exits non-zero and prints no result."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the entry points would run on it")
+    r = _run(["-m", "repro_torch.launch.serve", "--arch",
+              "qwen3-moe-30b-a3b", "--reduced", "--smoke"])
+    assert r.returncode != 0 and "no CUDA device" in r.stderr, r.stderr
+    r = _run([os.path.join(REPO, "chip_smoke.py")])
+    assert r.returncode != 0 and '"ok"' not in r.stdout, r.stdout
