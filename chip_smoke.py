@@ -5,24 +5,35 @@
 
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 repository's ``src/`` next to this file; imports nothing of JAX.  Phases,
-each fatal on error:
+each fatal on error (nothing is caught, nothing falls back to the CPU or
+to a plain version):
 
   1. the card's name and power limit (``nvidia-smi``);
   2. build every CUDA source of the port (one ``nvcc`` each, in parallel);
   3. hold each kernel against its plain PyTorch version on the card at the
-     serving path's shapes, and time kernel, plain version, the bound
-     (bytes at 3.35 TB/s or flops at the type's peak, whichever is larger)
-     and, for rmsnorm, ``torch.nn.functional.rms_norm`` as a yardstick;
+     serving and training paths' shapes, and time kernel, plain version,
+     the bound (bytes at 3.35 TB/s or flops at the type's peak, whichever
+     is larger) and, as a yardstick the port never calls,
+     ``torch.nn.functional.rms_norm`` / ``scaled_dot_product_attention``;
   4. serve full-width qwen3-moe-30b-a3b cut to 4 layers (random weights
      from a seed) through ``Engine``: 16 requests, some sharing a 32-token
-     prefix, once one-shot and once with 32-token prefill chunks; both
-     kernels' launch counts must be > 0; one request's logits are checked
-     against a reference forward with the plain versions swapped in;
+     prefix, once one-shot and once with 32-token prefill chunks; the
+     serving kernels' launch counts must be > 0; one request's logits are
+     checked against a reference forward with the plain versions swapped
+     in;
   5. serve the same requests forward and in reversed arrival order (prefix
      cache off, so each request's prefill is the same computation in both
      runs): every request's greedy tokens must be identical;
-  6. print the kernels' JSON line, then ``{"ok": true, ...}`` as the last
-     line.
+  6. train full-width qwen3-moe-30b-a3b cut to 4 layers, batch 1 x 2048
+     ``SyntheticLM`` tokens: loss and gradient norm of one step with the
+     kernels against one with the plain versions from the same parameters,
+     then 10 AdamW steps through ``Trainer``: every loss finite, the last
+     three below the first, launches per step of all three kernels > 0;
+  7. the same for gpt2-moe at its full size (12 layers), batch 8 x 1024,
+     5 steps (layernorm: no rmsnorm launches);
+  8. print the kernels' JSON line (launches and phase-3 numbers of phase
+     6, and under ``by_path`` each path's launches beside the phase-3 row
+     at that path's shapes), then ``{"ok": true, ...}`` as the last line.
 """
 
 from __future__ import annotations
@@ -90,7 +101,8 @@ def check_rmsnorm(dev):
     # bf16 output may differ by one bf16 ulp (2^-8 relative).
     for label, R, dt, tol in (("decode", 8, torch.float32, 1e-5),
                               ("prefill128", 128, torch.float32, 1e-5),
-                              ("prefill128-bf16", 128, torch.bfloat16, 1e-2)):
+                              ("prefill128-bf16", 128, torch.bfloat16, 1e-2),
+                              ("train-qwen3", 2048, torch.float32, 1e-5)):
         D = 2048
         x = torch.randn((R, D), generator=g, device=dev).to(dt)
         scale = 1.0 + 0.1 * torch.randn((D,), generator=g, device=dev)
@@ -118,36 +130,55 @@ def check_grouped(dev):
     from repro_torch.kernels.expert_ffn_grouped import (expert_ffn_grouped,
                                                         slot_rows)
     from repro_torch.kernels.ref import expert_ffn_grouped_ref
-    mcfg = get_config("qwen3-moe-30b-a3b").moe
-    gate = mcfg.gate_config()
-    E, M, F, k = mcfg.n_experts, mcfg.d_model, mcfg.d_ff, mcfg.top_k
     g = torch.Generator(device=dev).manual_seed(2)
 
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=g, device=dev).mul_(scale)
 
-    w = {"w1": randn(E, M, F, scale=M ** -0.5),
-         "w3": randn(E, M, F, scale=M ** -0.5),
-         "w2": randn(E, F, M, scale=F ** -0.5)}
-    wg = randn(M, E, scale=M ** -0.5)
-    wbf = {key: v.to(torch.bfloat16) for key, v in w.items()}
+    weights_of = {}
+
+    def arch_weights(arch):
+        """(MoEConfig, f32 weights, gate weight) of ``arch``, made once."""
+        if arch not in weights_of:
+            mcfg = get_config(arch).moe
+            E, M, F = mcfg.n_experts, mcfg.d_model, mcfg.d_ff
+            w = {"w1": randn(E, M, F, scale=M ** -0.5),
+                 "w3": randn(E, M, F, scale=M ** -0.5),
+                 "w2": randn(E, F, M, scale=F ** -0.5)}
+            weights_of[arch] = (mcfg, w, randn(M, E, scale=M ** -0.5))
+        return weights_of[arch]
+
     rows = []
-    # (label, tokens, infer, x dtype, weights, glu, act, wire, tol): f32
-    # sums of 2048 and 768 products in another order than cuBLAS's; a bf16
-    # output or bf16 wire rounding may differ by one bf16 ulp.
-    cases = (("decode", 8, True, torch.float32, w, True, "silu", "f32", 1e-4),
-             ("prefill128", 128, False, torch.float32, w, True, "silu",
-              "f32", 1e-4),
-             ("decode-bf16", 8, True, torch.bfloat16, wbf, True, "silu",
-              "f32", 1e-2),
-             ("decode-wire-bf16", 8, True, torch.float32, w, True, "silu",
+    # (label, arch, tokens, infer, x dtype, bf16 weights, glu, act, wire,
+    # tol): f32 sums of up to 3072 products in another order than cuBLAS's;
+    # a bf16 output or bf16 wire rounding may differ by one bf16 ulp.  The
+    # serving shapes first, then the two training steps' (phases 6 and 7:
+    # all tokens of a step, the training capacity, each model's experts).
+    q3, g2 = "qwen3-moe-30b-a3b", "gpt2-moe"
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = (("decode", q3, 8, True, f32, False, True, "silu", "f32", 1e-4),
+             ("prefill128", q3, 128, False, f32, False, True, "silu", "f32",
+              1e-4),
+             ("decode-bf16", q3, 8, True, bf16, True, True, "silu", "f32",
+              1e-2),
+             ("decode-wire-bf16", q3, 8, True, f32, False, True, "silu",
               "bf16", 1e-2),
-             ("decode-gelu-2layer", 8, True, torch.float32, w, False, "gelu",
+             ("decode-gelu-2layer", q3, 8, True, f32, False, False, "gelu",
+              "f32", 1e-4),
+             ("train-qwen3", q3, 2048, False, f32, False, True, "silu",
+              "f32", 1e-4),
+             ("train-gpt2-moe", g2, 8192, False, f32, False, False, "silu",
               "f32", 1e-4))
-    for label, S, infer, dt, ws, glu, act, wire, tol in cases:
-        _, cap = shard_pool_capacity(S, 1, 1, gate, infer=infer)
+    for label, arch, S, infer, dt, wbf, glu, act, wire, tol in cases:
+        mcfg, w, wg = arch_weights(arch)
+        if label.startswith("train-") and (glu, act) != (mcfg.glu, mcfg.act):
+            raise AssertionError(f"{label}: not {arch}'s expert FFN")
+        E, M, F, k = mcfg.n_experts, mcfg.d_model, mcfg.d_ff, mcfg.top_k
+        ws = {key: v.to(bf16) for key, v in w.items()} if wbf else w
+        _, cap = shard_pool_capacity(S, 1, 1, mcfg.gate_config(),
+                                     infer=infer)
         x = randn(S, M)
-        r = topk_gate(x, wg, gate, cap)
+        r = topk_gate(x, wg, mcfg.gate_config(), cap)
         flat, weights = r.flat(cap, E), r.weights
         x = x.to(dt)
         w3 = ws["w3"] if glu else None
@@ -181,6 +212,67 @@ def check_grouped(dev):
             f"{b_ms:.4f} ms ({b_by})")
         rows.append(dict(label=label, max_abs_err=err, ms=ms, plain_ms=plain,
                          bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    return rows
+
+
+def check_flash(dev):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    g = torch.Generator(device=dev).manual_seed(3)
+    rows = []
+    # (label, B, L, H, K, hd, dtype, causal, window, tol): the two training
+    # shapes, a window narrower than L, non-causal, bf16.  f32: sums of up
+    # to 2048 terms in another order, and the online softmax's per-tile
+    # rescaling; bf16 output: one bf16 ulp.
+    cases = (("qwen3", 1, 2048, 32, 4, 128, torch.float32, True, None, 5e-5),
+             ("gpt2-moe", 8, 1024, 12, 12, 64, torch.float32, True, None,
+              5e-5),
+             ("window256", 2, 1024, 8, 2, 128, torch.float32, True, 256,
+              5e-5),
+             ("non-causal", 2, 512, 12, 12, 64, torch.float32, False, None,
+              5e-5),
+             ("qwen3-bf16", 1, 2048, 32, 4, 128, torch.bfloat16, True, None,
+              2e-2))
+    for label, B, L, H, K, hd, dt, causal, window, tol in cases:
+        q = torch.randn((B, L, H, hd), generator=g, device=dev).to(dt)
+        k = torch.randn((B, L, K, hd), generator=g, device=dev).to(dt)
+        v = torch.randn((B, L, K, hd), generator=g, device=dev).to(dt)
+        kw = dict(causal=causal, window=window, scale=hd ** -0.5)
+        err = compare(f"flash_attention[{label}]",
+                      flash_attention(q, k, v, **kw),
+                      flash_attention_plain(q, k, v, **kw), tol)
+        ms = time_ms(lambda: flash_attention(q, k, v, **kw))
+        plain = time_ms(lambda: flash_attention_plain(q, k, v, **kw),
+                        iters=5)
+        # the yardstick, on (B, H, L, hd) copies made outside the timing
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        pos = torch.arange(L, device=dev)
+        d = pos[:, None] - pos[None, :]
+        mask = None
+        if window is not None:
+            mask = (d >= 0) & (d < window) if causal else d < window
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+            scale=hd ** -0.5, enable_gqa=True))
+        # the (query, key) pairs this data needs: causal rows see q + 1
+        # keys, windowed rows at most ``window``
+        seen = torch.full((L,), L, device=dev)
+        if causal:
+            seen = pos + 1
+        if window is not None:
+            seen = torch.clamp(seen, max=window)
+        pairs = int(seen.sum()) * B * H
+        es = q.element_size()
+        b_ms, b_by = bound(B * (2 * L * H + 2 * L * K) * hd * es,
+                           4 * pairs * hd, dt)
+        log(f"  flash_attention[{label}] B={B} L={L} H={H} K={K} hd={hd} "
+            f"{dt} causal={causal} window={window}: max_abs_err {err:.3e} "
+            f"(tol {tol:.0e}) kernel {ms:.4f} ms  plain {plain:.4f} ms  "
+            f"sdpa {lib:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+        rows.append(dict(label=label, max_abs_err=err, ms=ms, plain_ms=plain,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib))
     return rows
 
 
@@ -222,11 +314,13 @@ def serve(model, params, prompts, *, gen, order=None, **engine_kw):
 @contextlib.contextmanager
 def plain_ops():
     """Swap the plain PyTorch versions in behind ``get_op`` (the reference
-    forward of phase 4 only)."""
+    forward of phase 4 and the reference step of phases 6 and 7 only)."""
     from repro_torch.kernels import ref, registry
+    from repro_torch.kernels.flash_attention import flash_attention_plain
     saved = dict(registry._OPS)
     registry._OPS.update(rmsnorm=ref.rmsnorm_ref,
-                         expert_ffn_grouped=ref.expert_ffn_grouped_ref)
+                         expert_ffn_grouped=ref.expert_ffn_grouped_ref,
+                         flash_attention=flash_attention_plain)
     try:
         yield
     finally:
@@ -286,6 +380,93 @@ def serve_report(label, done, eng, wall, n_requests, gen):
     return st
 
 
+# --- phases 6 and 7: training ----------------------------------------------
+
+def kernel_wrappers():
+    from repro_torch.kernels.expert_ffn_grouped import expert_ffn_grouped
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    return {"rmsnorm": rmsnorm, "flash_attention": flash_attention,
+            "expert_ffn_grouped": expert_ffn_grouped}
+
+
+def reference_step(model, params, batch):
+    """Loss and gradient norm of one step (no update), with the kernels and
+    with the plain versions, from the same parameters.  Loss within 1e-4
+    relative, gradient norm within 1e-3: f32 throughout, but the plain
+    backward scatters with atomics and the routing of a near tie may flip."""
+    import torch
+    from repro_torch.optim.adamw import global_norm, leaves
+    flat = leaves(params)
+    for t in flat:
+        t.requires_grad_(True)
+    out = []
+    for ctx in (contextlib.nullcontext(), plain_ops()):
+        with ctx:
+            loss, _ = model.loss(params, batch)
+            grads = torch.autograd.grad(loss, flat)
+            out.append((loss.item(), global_norm(grads).item()))
+            del grads, loss
+    (lk, gk), (lp, gp) = out
+    if not (abs(lk - lp) <= 1e-4 * abs(lp) and abs(gk - gp) <= 1e-3 * gp):
+        raise AssertionError(f"loss {lk} / grad norm {gk} with the kernels, "
+                             f"{lp} / {gp} with the plain versions")
+    return out
+
+
+def train(label, cfg, dev, *, batch, seq, steps, lr, uses):
+    """Phases 6 and 7: ``reference_step``, then ``steps`` AdamW steps
+    through ``Trainer`` with the kernels' counts set to 0 just before.
+    Returns the launches of the run by kernel."""
+    import math
+
+    import torch
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer
+    model = Model(cfg, device=dev)
+    tr = Trainer(model, AdamWConfig(lr=lr, warmup_steps=2,
+                                    total_steps=steps))
+    params, opt_state = tr.setup(torch.Generator(device=dev).manual_seed(0))
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                  global_batch=batch))
+    log(f"  {label}: {cfg.name}, {cfg.n_layers} layers, {n_bytes / 1e9:.2f} "
+        f"GB of parameters, batch {batch} x {seq} tokens, remat "
+        f"{cfg.remat}")
+    (lk, gk), (lp, gp) = reference_step(model, params, data.tensors(0, dev))
+    log(f"  {label}: one step from the same parameters: loss {lk:.6f} "
+        f"(kernels) vs {lp:.6f} (plain), grad norm {gk:.6f} vs {gp:.6f}")
+    wrappers = kernel_wrappers()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers.values():
+        fn.launches = 0
+    params, opt_state, hist = tr.run(params, opt_state, data, steps,
+                                     log_every=1)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [h["loss"] for h in hist]
+    step_ms = (hist[-1]["wall_s"] - hist[0]["wall_s"]) / (steps - 1) * 1e3
+    log(f"  {label}: {steps} steps, losses "
+        f"{' '.join(f'{x:.4f}' for x in losses)}; {step_ms:.1f} ms/step and "
+        f"{batch * seq / step_ms * 1e3:.1f} tokens/s after the first step; "
+        f"peak device memory {peak:.2f} GB; launches per step "
+        f"{ {k: v / steps for k, v in launches.items()} }")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{label}: non-finite loss in {losses}")
+    if not sum(losses[-3:]) / 3 < losses[0]:
+        raise AssertionError(f"{label}: loss did not fall: {losses}")
+    if any(launches[name] <= 0 for name in uses):
+        raise AssertionError(f"{label}: a kernel of the path was never "
+                             f"launched: {launches}")
+    del params, opt_state, tr, model
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -297,8 +478,6 @@ def main() -> int:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
-    from repro_torch.kernels.expert_ffn_grouped import expert_ffn_grouped
-    from repro_torch.kernels.rmsnorm import rmsnorm
     from repro_torch.models import Model
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -328,6 +507,7 @@ def main() -> int:
     log("phase 3: kernels vs plain versions on the card")
     rms = check_rmsnorm(dev)
     grp = check_grouped(dev)
+    fla = check_flash(dev)
 
     # 4. serve full width, 4 layers
     cfg = replace(get_config("qwen3-moe-30b-a3b"), n_layers=N_LAYERS)
@@ -348,20 +528,23 @@ def main() -> int:
         f"max_abs_err {err_ref:.3e}")
 
     runs = {}
+    wrappers = kernel_wrappers()
     for label, kw in (("one-shot", {}), ("chunked-32", {"prefill_chunk": 32})):
         torch.cuda.reset_peak_memory_stats()
-        rmsnorm.launches = expert_ffn_grouped.launches = 0
+        for fn in wrappers.values():
+            fn.launches = 0
         done, eng, wall = serve(model, params, prompts, gen=gen, **kw)
-        launches = {"rmsnorm": rmsnorm.launches,
-                    "expert_ffn_grouped": expert_ffn_grouped.launches}
+        launches = {name: fn.launches for name, fn in wrappers.items()}
         st = serve_report(label, done, eng, wall, len(prompts), gen)
         peak = torch.cuda.max_memory_allocated() / 1e9
         log(f"  {label}: peak device memory {peak:.2f} GB; launches "
             f"{launches}")
-        if min(launches.values()) <= 0:
+        if min(launches["rmsnorm"], launches["expert_ffn_grouped"]) <= 0:
             raise AssertionError(f"{label}: a kernel of the path was never "
                                  f"launched: {launches}")
         runs[label] = (done, launches, st)
+    path_launches = {"serve_one_shot": runs["one-shot"][1],
+                     "serve_chunked_32": runs["chunked-32"][1]}
     same = sum(runs["one-shot"][0][i].tokens == runs["chunked-32"][0][i].tokens
                for i in range(len(prompts)))
     log(f"  one-shot vs chunked: {same}/{len(prompts)} requests with "
@@ -378,20 +561,66 @@ def main() -> int:
     log(f"phase 5: {len(prompts)} requests, forward vs reversed arrival "
         f"order: identical greedy tokens")
 
-    # 6. results
-    launches = runs["one-shot"][1]
+    del model, params, runs, fwd, rev, done, eng
+    torch.cuda.empty_cache()
+
+    # 6. and 7. train qwen3 (full width, 4 layers) and gpt2-moe (full size)
+    # qwen3 at lr 1e-3 (gpt2-moe's) spikes from its router z-loss in the
+    # first steps; at 1e-4 the loss falls step by step
+    log(f"phase 6: train {cfg.name} full width, {N_LAYERS} layers")
+    path_launches["train_qwen3"] = train(
+        "qwen3", cfg, dev, batch=1, seq=2048, steps=10, lr=1e-4,
+        uses=("rmsnorm", "flash_attention", "expert_ffn_grouped"))
+    log("phase 7: train gpt2-moe at its full size")
+    path_launches["train_gpt2_moe"] = train(
+        "gpt2-moe", get_config("gpt2-moe"), dev, batch=8, seq=1024, steps=5,
+        lr=1e-3, uses=("flash_attention", "expert_ffn_grouped"))
+
+    # 8. results.  Each kernel's top-level numbers are phase 6's, this
+    # slice's main path: its launches there and the phase-3 row at the
+    # shapes that path gives the kernel.  ``by_path`` pairs every path's
+    # launches (counts set to 0 just before the run, read just after) with
+    # the phase-3 row at that path's shapes (serving: decode, the shape of
+    # most of its launches), or null where the path does not launch the
+    # kernel.
+    rows = {"rmsnorm": {r["label"]: r for r in rms},
+            "expert_ffn_grouped": {r["label"]: r for r in grp},
+            "flash_attention": {r["label"]: r for r in fla}}
+    shape_of = {  # (kernel, path) -> phase-3 row label
+        ("rmsnorm", "serve_one_shot"): "decode",
+        ("rmsnorm", "serve_chunked_32"): "decode",
+        ("rmsnorm", "train_qwen3"): "train-qwen3",
+        ("expert_ffn_grouped", "serve_one_shot"): "decode",
+        ("expert_ffn_grouped", "serve_chunked_32"): "decode",
+        ("expert_ffn_grouped", "train_qwen3"): "train-qwen3",
+        ("expert_ffn_grouped", "train_gpt2_moe"): "train-gpt2-moe",
+        ("flash_attention", "train_qwen3"): "qwen3",
+        ("flash_attention", "train_gpt2_moe"): "gpt2-moe"}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     kernels = []
-    for name, source, replaces, row in (
+    for name, source, replaces in (
             ("rmsnorm", "src/repro_torch/csrc/rmsnorm.cu",
-             "src/repro/kernels/rmsnorm.py:12", rms[0]),
+             "src/repro/kernels/rmsnorm.py:12"),
             ("expert_ffn_grouped", "src/repro_torch/csrc/expert_ffn_grouped.cu",
-             "src/repro/kernels/expert_ffn_grouped.py:136", grp[0])):
+             "src/repro/kernels/expert_ffn_grouped.py:136"),
+            ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:28")):
+        by_path = {}
+        for path, launches in path_launches.items():
+            label = shape_of.get((name, path))
+            if (launches[name] > 0) != (label is not None):
+                raise AssertionError(f"{name}: {launches[name]} launches on "
+                                     f"{path}, phase-3 shape {label}")
+            by_path[path] = {"launches": launches[name], "shape": label,
+                             **{k: rows[name][label][k] if label else None
+                                for k in keys}}
+        main_row = rows[name][shape_of[(name, "train_qwen3")]]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+            "replaces": replaces,
+            "launches": path_launches["train_qwen3"][name],
+            **{k: main_row[k] for k in keys}, "by_path": by_path})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

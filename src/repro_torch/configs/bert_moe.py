@@ -1,0 +1,13 @@
+"""BERT-Base-MoE: the paper's §VI-D real-world model — BERT-Base with its
+FFN replaced by an MoE layer (E=8, GELU experts) [paper Table V]."""
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.moe import MoEConfig
+
+CONFIG = ModelConfig(
+    name="bert-moe", arch_type="moe", n_layers=12, d_model=768,
+    n_heads=12, n_kv_heads=12, d_ff=3072, vocab_size=30522,
+    use_rope=False, norm_type="layernorm", glu=False, ffn_act="gelu",
+    ffn_bias=True, qkv_bias=True,
+    moe=MoEConfig(d_model=768, d_ff=3072, n_experts=8, top_k=2,
+                  capacity_factor=1.2, glu=False, schedule="auto"),
+    moe_period=2, source="paper §VI-D / NAACL-HLT 2019")

@@ -5,6 +5,8 @@ from importlib import import_module
 
 _MODULES = {
     "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
+    "gpt2-moe": "repro_torch.configs.gpt2_moe",
+    "bert-moe": "repro_torch.configs.bert_moe",
 }
 
 

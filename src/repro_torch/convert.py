@@ -1,4 +1,4 @@
-"""Load the JAX package's parameters into the port.
+"""Load the JAX package's parameters (and AdamW state) into the port.
 
 ``torch`` cannot reproduce ``jax.random``, so parity between the two
 packages is checked on the same parameters: the JAX ``Model.init`` pytree,
@@ -54,3 +54,26 @@ def params_from_jax(tree_of_numpy: dict, cfg, device="cuda") -> dict:
         lead = runs[int(key[3:])][1] if key.startswith("run") else None
         out[key] = _convert(sub, device, lead, key)
     return out
+
+
+def opt_state_from_jax(state_of_numpy: dict, cfg, device="cuda") -> dict:
+    """The port's AdamW state from the JAX ``adamw_init`` / ``adamw_update``
+    state (``{"mu", "nu": param-shaped trees, "step": int32 scalar}``, as
+    numpy): the moments convert as parameters do, the step to a 0-d int32
+    tensor."""
+    if set(state_of_numpy) != {"mu", "nu", "step"}:
+        raise ValueError(f"optimizer state has {sorted(state_of_numpy)}, "
+                         f"want ['mu', 'nu', 'step']")
+    return {"mu": params_from_jax(state_of_numpy["mu"], cfg, device),
+            "nu": params_from_jax(state_of_numpy["nu"], cfg, device),
+            "step": torch.tensor(int(np.asarray(state_of_numpy["step"])),
+                                 dtype=torch.int32, device=device)}
+
+
+def to_numpy(tree):
+    """A nested dict of tensors as a nested dict of numpy arrays (bf16 as
+    f32), for comparison with the JAX package's trees."""
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

@@ -1,7 +1,8 @@
 """The MoE layer on one rank (counterpart of ``repro/core/moe.py``).
 
 On one device the JAX package's autoscheduler picks ``s1g`` for every
-serving shape (``tests/test_torch_moe.py`` pins that), and on a rank that is
+serving and training shape (``tests/test_torch_moe.py`` and
+``tests/test_torch_train.py`` pin that), and on a rank that is
 its whole combined group ``s1g`` lowers to ``plan.fuse_grouped(local=True)``:
 ``topk_gate`` followed by one fused ``expert_ffn_grouped`` call.  That is
 what ``apply_moe`` runs here for ``schedule`` ``"auto"`` or ``"s1g"``.  The

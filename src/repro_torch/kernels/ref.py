@@ -18,6 +18,26 @@ import torch.nn.functional as F
 ACT = {"silu": F.silu, "gelu": functools.partial(F.gelu, approximate="tanh")}
 
 
+def flash_attention_ref(q, k, v, *, causal=True, window=None, scale=None):
+    """q, k, v: (B, L, H, hd) (K/V already head-repeated).  f32 scores
+    masked with ``-inf``, f32 softmax; returns (B, Lq, H, hd) in q's
+    dtype."""
+    B, Lq, H, hd = q.shape
+    Lk = k.shape[1]
+    scale = scale if scale is not None else hd ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    qp = torch.arange(Lq, device=q.device)[:, None]
+    kp = torch.arange(Lk, device=q.device)[None, :]
+    ok = torch.ones((Lq, Lk), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= kp <= qp
+    if window is not None:
+        ok &= qp - kp < window
+    s = torch.where(ok[None, None], s, -torch.inf)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
 def expert_ffn_ref(x, w1, w3, w2, *, act="silu"):
     """Grouped expert FFN. x: (E, T, M); w1/w3: (E, M, F); w2: (E, F, M).
     Mixed dtypes promote as in ``jnp.einsum``."""

@@ -1,0 +1,123 @@
+"""Training launcher of the port, on one CUDA card.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-moe-30b-a3b \\
+      --layers 4 --seq 2048 --batch 1 --steps 10 --lr 1e-4
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-moe \\
+      --reduced --device cpu --steps 3
+
+The flags are the JAX launcher's for what the port runs, plus ``--device``
+and ``--profile``.  ``--layers N`` cuts the depth and keeps the full width
+(with ``--reduced``, the reduced config's depth).  Weights are random from
+a fixed seed; batches are ``SyntheticLM``'s.  Without a CUDA card the
+launcher stops with an error; ``--device cpu`` asks for the CPU.  Flags of
+the JAX launcher for what later slices bring (guards, faults, placement,
+checkpoints, any wire dtype: training's backward through the wire round
+trip is not yet held against JAX) are refused with an error, never
+ignored.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from dataclasses import replace
+
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.data import DataConfig, SyntheticLM
+from repro_torch.launch.common import device_profile, resolve_device
+from repro_torch.models import Model
+from repro_torch.optim import AdamWConfig
+from repro_torch.train import Trainer
+
+LATER = "comes with a later slice of the port"
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=None)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--schedule", default=None, choices=["auto", "s1g"],
+                    help="MoE schedule (one rank: auto resolves to s1g)")
+    ap.add_argument("--wire-dtype", default=None)
+    ap.add_argument("--placement", default="uniform",
+                    choices=["uniform", "auto"])
+    ap.add_argument("--guards", action="store_true")
+    ap.add_argument("--faults", default=None)
+    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--profile", action="store_true",
+                    help="after training, run one more step under "
+                         "torch.profiler; print device time by kernel and "
+                         "the device's busy share (CUDA only)")
+    args = ap.parse_args(argv)
+    for flag, used in (("--guards", args.guards), ("--faults", args.faults),
+                       ("--ckpt", args.ckpt),
+                       ("--placement auto", args.placement == "auto"),
+                       ("--wire-dtype", args.wire_dtype is not None)):
+        if used:
+            ap.error(f"{flag} {LATER}")
+    if args.steps < 1:
+        ap.error("--steps must be >= 1")
+    dev = resolve_device(args.device)
+    if args.profile and dev.type != "cuda":
+        ap.error("--profile measures the card: it needs --device cuda")
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced(n_layers=args.layers or 2)
+    elif args.layers:
+        cfg = replace(cfg, n_layers=args.layers)
+
+    model = Model(cfg, device=dev)
+    opt = AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 5),
+                      total_steps=args.steps)
+    tr = Trainer(model, opt, schedule=args.schedule)
+    params, opt_state = tr.setup(torch.Generator(device=dev).manual_seed(0))
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=args.seq, global_batch=args.batch))
+    where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+             else "cpu")
+    print(f"device: {where}; {cfg.name} with {cfg.n_layers} layers, "
+          f"batch {args.batch} x {args.seq} tokens", flush=True)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params, opt_state, hist = tr.run(params, opt_state, data, args.steps)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    tokens = args.steps * args.batch * args.seq
+    print(f"{args.steps} steps in {wall:.3f} s: {wall / args.steps * 1e3:.1f}"
+          f" ms/step, {tokens / wall:.1f} tokens/s (first step included)")
+    if dev.type == "cuda":
+        print(f"peak device memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    if args.profile:
+        batch = data.tensors(args.steps, dev)
+        t1 = time.perf_counter()
+        tr.train_step(params, opt_state, batch)
+        torch.cuda.synchronize(dev)
+        wall_ms = (time.perf_counter() - t1) * 1e3
+        prof = device_profile(
+            lambda: tr.train_step(params, opt_state, batch), wall_ms)
+        print(f"profile: one step, device busy {prof['busy_ms']:.1f} ms "
+              f"(profiled) over {wall_ms:.1f} ms wall (unprofiled): "
+              f"{100 * prof['busy_share']:.1f}% busy; {prof['n_kernels']} "
+              f"kernel launches")
+        for title, key in (("by kernel", "top"), ("by op", "top_ops")):
+            print(f" device time {title}:")
+            for row in prof[key]:
+                print(f"  {row['ms']:9.3f} ms {row['calls']:6d} x  "
+                      f"{row['name'][:90]}")
+    print(f"final loss {hist[-1]['loss']:.4f} (start {hist[0]['loss']:.4f})")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,11 +1,18 @@
-"""Attention for the serving path (counterpart of the paged parts of
-``repro/models/attention.py``).
+"""Attention (counterpart of ``repro/models/attention.py``): the training
+forward ``apply_attn`` and the serving engine's ``paged_chunk_attn``.
 
-The JAX serving engine's attention is ``paged_chunk_attn``: plain array
-code, no Pallas kernel (the flash kernel serves training and slab prefill
-only, which come with a later slice).  The port keeps its layout, op order
-and mask constants: ``-inf`` score masking and VALUE-zeroed invalid K/V
-writes, without which an idle row's NaN would reach the null page.
+``apply_attn`` takes the ``flash_attention`` op (the CUDA kernel for a
+tensor on the card, its plain version on the CPU) for self-attention over
+contiguous-from-zero positions without chunking, exactly where the JAX
+package takes its Pallas kernel; otherwise the full ``sdpa_full`` or, above
+``flash_threshold``, the KV-block scan ``sdpa_flash_scan`` with its
+recompute backward.  Those two mask with the finite ``-1e30``
+(``_mask_bias``), as JAX does.
+
+``paged_chunk_attn`` is plain array code in JAX too, no Pallas kernel.  The
+port keeps its layout, op order and mask constants: ``-inf`` score masking
+and VALUE-zeroed invalid K/V writes, without which an idle row's NaN would
+reach the null page.
 """
 
 from __future__ import annotations
@@ -15,6 +22,7 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.kernels.registry import get_op
 from repro_torch.models.layers import apply_rope, dense_init
 
 
@@ -31,6 +39,8 @@ class AttnConfig:
     chunk: int | None = None      # llama4-style chunked local attention
     qkv_bias: bool = False
     softmax_scale: float | None = None
+    flash_block: int = 512        # KV block for the scan path
+    flash_threshold: int = 2048   # use the scan path above this length
 
     @property
     def scale(self):
@@ -50,6 +60,153 @@ def init_attn(generator, cfg: AttnConfig, dtype=torch.float32):
         p["bk"] = torch.zeros((K * hd,), dtype=dtype, device=dev)
         p["bv"] = torch.zeros((K * hd,), dtype=dtype, device=dev)
     return p
+
+
+# --- training / prefill forward ----------------------------------------------
+
+def _mask_bias(cfg: AttnConfig, q_pos, k_pos):
+    """Additive f32 mask from query/key absolute positions.  The constant is
+    the finite ``-1e30``: fully masked KV blocks stay NaN-free in the online
+    softmax and give exactly-zero probabilities in the recompute backward."""
+    d = q_pos[:, None] - k_pos[None, :]
+    ok = torch.ones_like(d, dtype=torch.bool)
+    if cfg.causal:
+        ok &= d >= 0
+    if cfg.window is not None:
+        ok &= d < cfg.window
+    if cfg.chunk is not None:
+        ok &= (q_pos[:, None] // cfg.chunk) == (k_pos[None, :] // cfg.chunk)
+    zero = torch.zeros((), dtype=torch.float32, device=d.device)
+    return torch.where(ok, zero, torch.full_like(zero, -1e30))
+
+
+def _repeat_kv(k, n_rep):
+    return k if n_rep == 1 else torch.repeat_interleave(k, n_rep, dim=2)
+
+
+def sdpa_full(q, k, v, bias, scale):
+    """q: (B,Lq,H,hd)  k,v: (B,Lk,H,hd)  bias: (Lq,Lk) or (B,1,Lq,Lk)."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    s = s + (bias if bias.dim() == 4 else bias[None, None])
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def _flash_fwd_scan(q, k, v, cfg: AttnConfig, q_pos, k_pos, blk):
+    B, Lq, H, hd = q.shape
+    qf = q.float() * cfg.scale
+    m = torch.full((B, H, Lq), -1e30, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, H, Lq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, H, Lq, hd), dtype=torch.float32, device=q.device)
+    for i in range(k.shape[1] // blk):
+        sl = slice(i * blk, (i + 1) * blk)
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, k[:, sl].float())
+        s = s + _mask_bias(cfg, q_pos, k_pos[sl])[None, None]
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", p, v[:, sl].float())
+        m = m_new
+    l = torch.clamp(l, min=1e-30)
+    out = (acc / l[..., None]).transpose(1, 2).to(q.dtype)
+    return out, m + torch.log(l)                          # lse: (B, H, Lq)
+
+
+def _flash_bwd_scan(q, k, v, out, lse, dout, cfg: AttnConfig, q_pos, k_pos,
+                    blk):
+    qf = q.float() * cfg.scale
+    do = dout.float().transpose(1, 2)                     # (B, H, Lq, hd)
+    of = out.float().transpose(1, 2)
+    D = torch.sum(do * of, dim=-1)                        # (B, H, Lq)
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dks, dvs = [], []
+    for i in range(k.shape[1] // blk):
+        sl = slice(i * blk, (i + 1) * blk)
+        ks, vs = k[:, sl].float(), v[:, sl].float()
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, ks)
+        s = s + _mask_bias(cfg, q_pos, k_pos[sl])[None, None]
+        p = torch.exp(s - lse[..., None])                 # (B, H, Lq, blk)
+        dvs.append(torch.einsum("bhqk,bhqd->bkhd", p, do))
+        dp = torch.einsum("bhqd,bkhd->bhqk", do, vs)
+        ds = p * (dp - D[..., None])
+        dq = dq + torch.einsum("bhqk,bkhd->bqhd", ds, ks) * cfg.scale
+        dks.append(torch.einsum("bhqk,bqhd->bkhd", ds, qf))
+    return (dq.to(q.dtype), torch.cat(dks, dim=1).to(k.dtype),
+            torch.cat(dvs, dim=1).to(v.dtype))
+
+
+class _FlashScan(torch.autograd.Function):
+    """The scan's flash backward: saves only (q, k, v, out, lse) and
+    rebuilds each block's probabilities, O(L * block) memory both ways."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cfg, q_pos, k_pos, blk):
+        out, lse = _flash_fwd_scan(q, k, v, cfg, q_pos, k_pos, blk)
+        ctx.save_for_backward(q, k, v, out, lse, q_pos, k_pos)
+        ctx.cfg, ctx.blk = cfg, blk
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, q_pos, k_pos = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd_scan(q, k, v, out, lse, dout, ctx.cfg,
+                                     q_pos, k_pos, ctx.blk)
+        return dq, dk, dv, None, None, None, None
+
+
+def sdpa_flash_scan(q, k, v, cfg: AttnConfig, q_pos, k_pos):
+    """Online-softmax attention over KV blocks of ``cfg.flash_block``
+    (halved until it divides Lk).  q: (B,Lq,H,hd); k, v: (B,Lk,H,hd)."""
+    blk = min(cfg.flash_block, k.shape[1])
+    while k.shape[1] % blk:
+        blk //= 2
+    return _FlashScan.apply(q, k, v, cfg, q_pos, k_pos, blk)
+
+
+def apply_attn(p, cfg: AttnConfig, x, *, positions=None, kv_x=None,
+               kv_positions=None, kernel=None):
+    """Training/prefill forward.  x: (B, L, D); ``kv_x`` != None is cross
+    attention.  Returns (B, L, D)."""
+    B, L, D = x.shape
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    src = kv_x if kv_x is not None else x
+    Lk = src.shape[1]
+    q = (x @ p["wq"]).reshape(B, L, H, hd)
+    k = (src @ p["wk"]).reshape(B, Lk, K, hd)
+    v = (src @ p["wv"]).reshape(B, Lk, K, hd)
+    if cfg.qkv_bias:
+        q = q + p["bq"].reshape(H, hd)
+        k = k + p["bk"].reshape(K, hd)
+        v = v + p["bv"].reshape(K, hd)
+    # the kernel derives positions from tile indices: it covers only the
+    # default contiguous-from-zero layout (recorded before the aranges)
+    contiguous_pos = positions is None and kv_positions is None
+    if positions is None:
+        positions = torch.arange(L, device=x.device)
+    if kv_positions is None:
+        kv_positions = torch.arange(Lk, device=x.device)
+    if cfg.use_rope and kv_x is None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, kv_positions, cfg.rope_theta)
+    if cfg.chunk is None and kv_x is None and contiguous_pos:
+        # K/V stay in their native GQA layout: the kernel maps each query
+        # head to its kv head, no repeat is written
+        op = get_op("flash_attention", cfg=kernel, causal=cfg.causal,
+                    window=cfg.window, scale=cfg.scale)
+        out = op(q.contiguous(), k.contiguous(), v.contiguous())
+    else:
+        k = _repeat_kv(k, H // K)
+        v = _repeat_kv(v, H // K)
+        if max(L, Lk) > cfg.flash_threshold:
+            out = sdpa_flash_scan(q, k, v, cfg, positions, kv_positions)
+        else:
+            bias = _mask_bias(cfg, positions, kv_positions) if (
+                cfg.causal or cfg.window or cfg.chunk) else torch.zeros(
+                    (L, Lk), dtype=torch.float32, device=x.device)
+            out = sdpa_full(q, k, v, bias, cfg.scale)
+    return out.reshape(B, L, H * hd) @ p["wo"]
 
 
 def init_cache(cfg: AttnConfig, batch, max_len, dtype=torch.float32,

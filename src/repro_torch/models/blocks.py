@@ -1,8 +1,10 @@
-"""Decoder blocks of the serving path (counterpart of
-``repro/models/blocks.py``): the ``dense`` and ``moe`` kinds (and their
-``_full`` variants), init and the paged forward."""
+"""Decoder blocks (counterpart of ``repro/models/blocks.py``): the
+``dense`` and ``moe`` kinds (and their ``_full`` variants), init, the
+training forward ``apply_block`` and the serving engine's paged forward."""
 
 from __future__ import annotations
+
+import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.moe import apply_moe, init_moe_params
@@ -53,6 +55,33 @@ def init_block(generator, cfg: ModelConfig, kind: str, dtype) -> dict:
         if not cfg.parallel_block:
             p["norm2"] = init_norm(cfg.d_model, cfg.norm_type, dev)
     return p
+
+
+def apply_block(p, cfg: ModelConfig, kind: str, x, *, positions=None,
+                schedule=None):
+    """Full-sequence forward.  Returns ``(x, aux)``: ``aux["loss"]`` the
+    scalar router-loss contribution (aux + z loss) and
+    ``aux["expert_load"]`` the (E,) routed rows, (0,) for dense blocks."""
+    _check_kind(kind)
+    acfg = attn_config(cfg, kind)
+    eps = cfg.norm_eps
+    aux = {"loss": torch.zeros((), dtype=torch.float32, device=x.device),
+           "expert_load": torch.zeros((0,), dtype=torch.float32,
+                                      device=x.device)}
+    h = apply_norm(p["norm1"], x, eps, cfg.kernel)
+    a = attn_mod.apply_attn(p["attn"], acfg, h, positions=positions,
+                            kernel=cfg.kernel)
+    if cfg.parallel_block:
+        return x + (a + apply_ffn(p["ffn"], h, cfg.ffn_act)), aux
+    x = x + a
+    h2 = apply_norm(p["norm2"], x, eps, cfg.kernel)
+    if base_kind(kind) == "moe":
+        y, maux = apply_moe(h2, p["moe"], cfg=cfg.moe, schedule=schedule)
+        aux = {"loss": aux["loss"] + maux["aux_loss"] + maux["z_loss"],
+               "expert_load": maux["expert_load"]}
+    else:
+        y = apply_ffn(p["ffn"], h2, cfg.ffn_act)
+    return x + y, aux
 
 
 def paged_block(p, cfg: ModelConfig, kind: str, x, cache, table, starts,

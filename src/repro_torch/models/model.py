@@ -1,12 +1,14 @@
-"""Model assembly for the serving path (counterpart of
-``repro/models/model.py``): embedding -> blocks over a paged KV arena ->
-final norm -> LM head.
+"""Model assembly (counterpart of ``repro/models/model.py``): embedding ->
+blocks -> final norm -> LM head, for training (``forward``, ``loss``) and
+for the serving engine's steps over a paged KV arena (``paged_step``).
 
 Parameters keep the JAX package's pytree layout: ``embed``,
 ``final_norm``, ``lm_head`` and one ``run{r}`` dict per run of same-kind
 layers, whose tensors carry a leading layer dimension.  Layer ``i`` of a
-run is a view ``t[i]`` of those tensors, so the JAX parameters load
-unchanged (``repro_torch.convert``) and nothing is copied per step.
+run is a view of those tensors (``layer_view``; ``layer_views`` for all
+layers at once), so the JAX parameters load unchanged
+(``repro_torch.convert``), nothing is copied per step, and a layer's
+gradients land in the stacked tensors.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks as blk
@@ -23,10 +27,25 @@ from repro_torch.models.layers import (apply_norm, embed, init_embedding,
                                        unembed)
 
 
+#: at most this many f32 logits (batch x chunk x vocab) per CE chunk, as
+#: in JAX's ``Model.loss``
+CE_CHUNK_ELEMENTS = 1 << 28
+
+
 def layer_view(tree: dict, i: int) -> dict:
     """Layer ``i`` of a run's stacked parameter (or cache) dict: views."""
     return {k: layer_view(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+def layer_views(tree: dict, n: int) -> list:
+    """All ``n`` layers of a run's stacked parameter dict, as views
+    (``torch.unbind`` of every leaf).  In a backward, unbind's gradient
+    stacks the layers' gradients once, where indexing ``t[i]`` layer by
+    layer would fill and add a full-size gradient for every layer."""
+    cols = {k: layer_views(v, n) if isinstance(v, dict) else torch.unbind(v)
+            for k, v in tree.items()}
+    return [{k: v[i] for k, v in cols.items()} for i in range(n)]
 
 
 def _stack(make, n: int) -> dict:
@@ -109,6 +128,82 @@ class Model:
         else:
             logits = x @ params["lm_head"]["w"]
         return logits * cfg.logit_scale
+
+    def _layer(self, p, kind, x, schedule):
+        y, aux = blk.apply_block(p, self.cfg, kind, x, schedule=schedule)
+        return y, aux["loss"], aux["expert_load"]
+
+    def _backbone(self, params, batch, *, schedule=None):
+        """Embedding -> blocks -> final norm (no LM head).  With
+        ``cfg.remat`` each block runs under activation checkpointing, so
+        its forward (kernels included) runs again in the backward."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        B, L = tokens.shape
+        x = embed(params["embed"], tokens)
+        if not cfg.use_rope:
+            x = x + sinusoidal_positions(L, cfg.d_model, x.device).to(x.dtype)
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        expert_load = torch.zeros((0,), dtype=torch.float32, device=x.device)
+        for r, (kind, n) in enumerate(self.runs):
+            for p in layer_views(params[f"run{r}"], n):
+                if cfg.remat:
+                    x, loss, load = checkpoint(self._layer, p, kind, x,
+                                               schedule, use_reentrant=False)
+                else:
+                    x, loss, load = self._layer(p, kind, x, schedule)
+                aux_total = aux_total + loss
+                if load.shape[-1]:
+                    expert_load = load if not expert_load.shape[-1] \
+                        else expert_load + load
+        x = apply_norm(params["final_norm"], x, cfg.norm_eps, cfg.kernel)
+        return x, {"aux_loss": aux_total, "expert_load": expert_load}
+
+    def forward(self, params, batch, *, schedule=None):
+        """Full-sequence forward (train / prefill).  Returns (logits,
+        aux)."""
+        x, aux = self._backbone(params, batch, schedule=schedule)
+        return self._head(params, x), aux
+
+    def _ce_sums(self, params, x, labels):
+        """(sum of -log p(label), count of labels >= 0) over one chunk."""
+        logp = F.log_softmax(self._head(params, x).float(), dim=-1)
+        ll = torch.gather(logp, -1, labels.clamp(min=0)[..., None].long())
+        m = (labels >= 0).float()
+        return torch.sum(-ll[..., 0] * m), torch.sum(m)
+
+    def loss(self, params, batch, *, schedule=None):
+        """Mean next-token CE over ``batch["labels"]`` (< 0 = ignored) plus
+        the router losses.  Returns ``(total, metrics)`` with ``ce``,
+        ``aux``, ``ppl_proxy`` and ``expert_load`` (routed rows per expert,
+        summed over layers; (0,) for dense models).
+
+        CE runs in sequence chunks, halved while ``B * chunk * V`` exceeds
+        ``CE_CHUNK_ELEMENTS``, each chunk checkpointed, so the (B, L, V) f32
+        logits are never materialized whole."""
+        cfg = self.cfg
+        labels = batch["labels"]
+        B, L = labels.shape
+        hidden, aux = self._backbone(params, batch, schedule=schedule)
+        chunk = L
+        while B * chunk * cfg.vocab_size > CE_CHUNK_ELEMENTS \
+                and chunk % 2 == 0:
+            chunk //= 2
+        n_chunks = L // chunk if L % chunk == 0 else 1
+        if n_chunks <= 1:
+            tot, n = self._ce_sums(params, hidden, labels)
+        else:
+            tot = n = 0.0
+            for c in range(n_chunks):
+                sl = slice(c * chunk, (c + 1) * chunk)
+                s, m = checkpoint(self._ce_sums, params, hidden[:, sl],
+                                  labels[:, sl], use_reentrant=False)
+                tot, n = tot + s, n + m
+        ce = tot / torch.clamp(n, min=1.0)
+        total = ce + aux["aux_loss"]
+        return total, {"ce": ce, "aux": aux["aux_loss"],
+                       "ppl_proxy": torch.exp(torch.clamp(ce, max=20.0)),
+                       "expert_load": aux["expert_load"]}
 
     def paged_step(self, params, cache, batch, *, schedule=None,
                    infer: bool = False):

@@ -1,12 +1,16 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
-version, and the grouped kernel's contract (deterministic, row-independent,
-NaN rows never leak, dropped choices skipped).  Marked ``cuda``: they skip
+version, the grouped kernel's contract (deterministic, row-independent,
+NaN rows never leak, dropped choices skipped), and each op's gradient
+through the registry's recompute backward.  Marked ``cuda``: they skip
 where there is no card, and run there with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: f32 1e-5 relative (the same sums in another order), bf16 one
-bf16 ulp (2e-2).  Nothing here imports JAX.
+Tolerances: f32 1e-5 relative (the same sums in another order; flash
+attention 2e-5: its online softmax rescales the running sums once per KV
+tile), bf16 one bf16 ulp (2e-2).  Gradients: the same plain backward on
+the kernel's and the plain version's saved inputs, so equal within 1e-5.
+Nothing here imports JAX.
 """
 
 import pytest
@@ -14,7 +18,10 @@ import torch
 
 from repro_torch.core.gating import GateConfig, topk_gate
 from repro_torch.kernels.expert_ffn_grouped import expert_ffn_grouped
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
 from repro_torch.kernels.ref import expert_ffn_grouped_ref, rmsnorm_ref
+from repro_torch.kernels.registry import get_op
 from repro_torch.kernels.rmsnorm import rmsnorm
 
 pytestmark = pytest.mark.cuda
@@ -94,3 +101,95 @@ def test_grouped_is_deterministic_and_row_independent(dev):
                                        w3, w2, cap=cap)[n_mates:])
     assert torch.isfinite(outs[0]).all()
     assert torch.equal(outs[0], outs[1])
+
+
+# (B, Lq, Lk, H, K, hd, dtype, causal, window, tol): GQA and MHA, both
+# head dims, ragged tiles (L not a multiple of 64), Lq != Lk (positions
+# aligned at the top), a window narrower than L (rows whose first visited
+# tile is fully masked), non-causal, and bf16.
+FLASH_CASES = [
+    (2, 128, 128, 8, 2, 128, torch.float32, True, None, 2e-5),
+    (2, 96, 96, 4, 4, 64, torch.float32, True, None, 2e-5),
+    (1, 200, 200, 4, 1, 64, torch.float32, True, 48, 2e-5),
+    (1, 256, 256, 4, 2, 128, torch.float32, False, 100, 2e-5),
+    (2, 64, 160, 4, 2, 64, torch.float32, False, None, 2e-5),
+    (1, 100, 130, 4, 4, 128, torch.float32, True, None, 2e-5),
+    (1, 160, 96, 4, 2, 64, torch.float32, True, None, 2e-5),
+    (2, 128, 128, 8, 2, 128, torch.bfloat16, True, None, 2e-2),
+    (1, 192, 192, 4, 4, 64, torch.bfloat16, True, 40, 2e-2),
+]
+
+
+@pytest.mark.parametrize("B,Lq,Lk,H,K,hd,dtype,causal,window,tol",
+                         FLASH_CASES)
+def test_flash_attention_vs_plain(dev, B, Lq, Lk, H, K, hd, dtype, causal,
+                                  window, tol):
+    g = torch.Generator(device=dev).manual_seed(Lq + hd)
+    q = torch.randn((B, Lq, H, hd), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, Lk, K, hd), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, Lk, K, hd), generator=g, device=dev).to(dtype)
+    n0 = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0 + 1
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(got, flash_attention(q, k, v, causal=causal,
+                                            window=window))
+
+
+def test_flash_attention_rejects_what_it_cannot_take(dev):
+    q = torch.zeros((1, 8, 2, 32), device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q, q, q)
+    q = torch.zeros((1, 8, 4, 64), device=dev)
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention(q, q[:, :, :3].contiguous(), q[:, :, :3].contiguous())
+    with pytest.raises(ValueError, match="dtypes"):
+        flash_attention(q, q.bfloat16(), q.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), q, q)
+
+
+def _grad_case(name, dev):
+    """(op, plain, args, differentiable positions) on the card."""
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev).mul_(scale)
+
+    if name == "rmsnorm":
+        return (get_op("rmsnorm", eps=1e-6),
+                lambda x, s: rmsnorm_ref(x, s, 1e-6),
+                [randn(64, 256), 1.0 + 0.1 * randn(256)], (0, 1))
+    if name == "flash_attention":
+        st = dict(causal=True, window=None, scale=0.125)
+        return (get_op("flash_attention", **st),
+                lambda q, k, v: flash_attention_plain(q, k, v, **st),
+                [randn(2, 96, 8, 64), randn(2, 96, 2, 64),
+                 randn(2, 96, 2, 64)], (0, 1, 2))
+    x, flat, w, (w1, w3, w2), cap = _moe(dev, cap=8)
+    return (get_op("expert_ffn_grouped", cap=cap, act="silu", wire="f32"),
+            lambda *a: expert_ffn_grouped_ref(*a, cap=cap, act="silu",
+                                              wire="f32"),
+            [x, flat, w, w1, w3, w2], (0, 2, 3, 4, 5))
+
+
+@pytest.mark.parametrize("name", ["rmsnorm", "flash_attention",
+                                  "expert_ffn_grouped"])
+def test_op_gradient_is_the_plain_versions(dev, name):
+    """Forward through the kernel, backward by plain recompute: the
+    gradient equals the plain version's own autograd gradient."""
+    op, plain, args, diff = _grad_case(name, dev)
+    outs, grads = [], []
+    for fn in (op, plain):
+        leaves = [a.detach().clone().requires_grad_(i in diff)
+                  for i, a in enumerate(args)]
+        y = fn(*leaves)
+        ct = torch.linspace(-1, 1, y.numel(), device=dev).reshape(y.shape)
+        grads.append(torch.autograd.grad(y, [leaves[i] for i in diff], ct))
+        outs.append(y.detach())
+    torch.testing.assert_close(outs[0], outs[1], rtol=2e-5, atol=2e-5)
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)

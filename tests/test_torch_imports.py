@@ -81,5 +81,23 @@ def test_entry_points_refuse_to_run_without_a_card():
     r = _run(["-m", "repro_torch.launch.serve", "--arch",
               "qwen3-moe-30b-a3b", "--reduced", "--smoke"])
     assert r.returncode != 0 and "no CUDA device" in r.stderr, r.stderr
+    r = _run(["-m", "repro_torch.launch.train", "--arch", "gpt2-moe",
+              "--reduced", "--steps", "1"])
+    assert r.returncode != 0 and "no CUDA device" in r.stderr, r.stderr
     r = _run([os.path.join(REPO, "chip_smoke.py")])
     assert r.returncode != 0 and '"ok"' not in r.stdout, r.stdout
+
+
+@pytest.mark.parametrize("flag", [
+    ["--guards"], ["--faults", "nan_grad@step=1"], ["--ckpt", "ck"],
+    ["--placement", "auto"], ["--wire-dtype", "fp8_e4m3"],
+    ["--wire-dtype", "bf16"], ["--wire-dtype", "f32"]])
+def test_train_launcher_refuses_flags_of_later_slices(flag, capsys):
+    """A JAX launcher flag the port does not run yet is an error, never a
+    silent no-op (checked before any device or model is touched)."""
+    from repro_torch.launch.train import main
+    with pytest.raises(SystemExit) as exc:
+        main(["--arch", "gpt2-moe", "--reduced", "--device", "cpu",
+              "--steps", "1", *flag])
+    assert exc.value.code == 2
+    assert "later slice" in capsys.readouterr().err

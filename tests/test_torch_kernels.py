@@ -171,7 +171,7 @@ class TestSeam:
         with pytest.raises(ValueError, match="device"):
             get_op("rmsnorm", cfg=KernelConfig(backend="ref"))
         with pytest.raises(KeyError):
-            get_op("flash_attention")
+            get_op("moe_dispatch")
 
     def test_no_fallback_off_the_cpu(self):
         # a tensor that is neither on the CPU nor on a card gets no kernel
