@@ -10,30 +10,41 @@ to a plain version):
 
   1. the card's name and power limit (``nvidia-smi``);
   2. build every CUDA source of the port (one ``nvcc`` each, in parallel);
-  3. hold each kernel against its plain PyTorch version on the card at the
-     serving and training paths' shapes, and time kernel, plain version,
-     the bound (bytes at 3.35 TB/s or flops at the type's peak, whichever
-     is larger) and, as a yardstick the port never calls,
-     ``torch.nn.functional.rms_norm`` / ``scaled_dot_product_attention``;
+  3. hold each of the seven kernels against its plain PyTorch version on
+     the card at the serving and training paths' shapes (plus a duplicate-
+     slot dispatch, a partial-tile ragged FFN and bf16 cases), check the
+     fp8 wire codec's bytes on the card against the CPU's, and time kernel,
+     plain version, the bound (bytes at 3.35 TB/s or flops at the type's
+     peak, whichever is larger) and, as a yardstick the port never calls,
+     ``torch.nn.functional.rms_norm`` / ``scaled_dot_product_attention`` /
+     ``Tensor.index_add_``;
   4. serve full-width qwen3-moe-30b-a3b cut to 4 layers (random weights
      from a seed) through ``Engine``: 16 requests, some sharing a 32-token
-     prefix, once one-shot and once with 32-token prefill chunks; the
-     serving kernels' launch counts must be > 0; one request's logits are
-     checked against a reference forward with the plain versions swapped
-     in;
+     prefix, once one-shot, once with 32-token prefill chunks and once
+     one-shot under the ``s1d`` schedule; each run's kernels' launch counts
+     must be > 0; one request's logits are checked against a reference
+     forward with the plain versions swapped in, under both schedules;
   5. serve the same requests forward and in reversed arrival order (prefix
      cache off, so each request's prefill is the same computation in both
      runs): every request's greedy tokens must be identical;
-  6. train full-width qwen3-moe-30b-a3b cut to 4 layers, batch 1 x 2048
+  6. one gpt2-moe MoE layer at full width (8 x 1024 tokens) under
+     baseline, s1, s2, s2h, s1d, s1_pipe and s2_pipe (2 chunks): bitwise
+     equal to each other, within 1e-4 of s1g and of the same layer with
+     the plain versions; each schedule's forward timed;
+  7. train full-width qwen3-moe-30b-a3b cut to 4 layers, batch 1 x 2048
      ``SyntheticLM`` tokens: loss and gradient norm of one step with the
      kernels against one with the plain versions from the same parameters,
-     then 10 AdamW steps through ``Trainer``: every loss finite, the last
-     three below the first, launches per step of all three kernels > 0;
-  7. the same for gpt2-moe at its full size (12 layers), batch 8 x 1024,
-     5 steps (layernorm: no rmsnorm launches);
-  8. print the kernels' JSON line (launches and phase-3 numbers of phase
-     6, and under ``by_path`` each path's launches beside the phase-3 row
-     at that path's shapes), then ``{"ok": true, ...}`` as the last line.
+     then AdamW steps through ``Trainer``: every loss finite, the last
+     three below the first, launches per step as predicted; under the
+     default schedule (s1g, 10 steps) and under s1g with the fp8 wire
+     (5 steps);
+  8. the same for gpt2-moe at its full size (12 layers), batch 8 x 1024,
+     5 steps, under the default schedule and under s1 with 2 chunks
+     (layernorm: no rmsnorm launches);
+  9. print the kernels' JSON line (each kernel's launches on its main path
+     and the phase-3 row at that path's shapes, and under ``by_path``
+     every path's launches beside the phase-3 row at that path's shapes),
+     then ``{"ok": true, ...}`` as the last line.
 """
 
 from __future__ import annotations
@@ -276,6 +287,253 @@ def check_flash(dev):
     return rows
 
 
+def _gate_case(g, dev, arch, S, infer):
+    """(MoEConfig, x, gate result, cap) for ``S`` random tokens of
+    ``arch`` at the capacity its path uses."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.gating import topk_gate
+    from repro_torch.core.moe import shard_pool_capacity
+    mcfg = get_config(arch).moe
+    E, M = mcfg.n_experts, mcfg.d_model
+    _, cap = shard_pool_capacity(S, 1, 1, mcfg.gate_config(), infer=infer)
+    x = torch.randn((S, M), generator=g, device=dev)
+    wg = torch.randn((M, E), generator=g, device=dev).mul_(M ** -0.5)
+    return mcfg, x, topk_gate(x, wg, mcfg.gate_config(), cap), cap
+
+
+def check_dispatch_combine(dev):
+    """moe_dispatch and moe_combine at the paths' shapes: serving decode
+    (s1d), the qwen3 and gpt2-moe training steps, bf16, and a dispatch
+    whose every odd token shares its even neighbour's first slot."""
+    import torch
+    from repro_torch.kernels.moe_dispatch import moe_combine, moe_dispatch
+    from repro_torch.kernels.ref import moe_combine_ref, moe_dispatch_ref
+    g = torch.Generator(device=dev).manual_seed(4)
+    q3, g2 = "qwen3-moe-30b-a3b", "gpt2-moe"
+    f32, bf16 = torch.float32, torch.bfloat16
+    disp, comb = [], []
+    # (label, arch, tokens, infer, dtype, duplicates).  Tolerances: dispatch
+    # 0 (each slot receives at most one value: 0 + v == v), duplicates 1e-6
+    # (two f32 terms summed by atomics in either order); combine 1e-6 in
+    # f32 (k terms in choice order against cuBLAS's), bf16 one ulp (2e-2).
+    for label, arch, S, infer, dt, dup in (
+            ("decode", q3, 8, True, f32, False),
+            ("train-qwen3", q3, 2048, False, f32, False),
+            ("train-gpt2-moe", g2, 8192, False, f32, False),
+            ("train-gpt2-moe-bf16", g2, 8192, False, bf16, False),
+            ("duplicates", g2, 8192, False, f32, True)):
+        mcfg, x, r, cap = _gate_case(g, dev, arch, S, infer)
+        E, M, k = mcfg.n_experts, mcfg.d_model, mcfg.top_k
+        n = E * cap
+        flat, w = r.flat(cap, E), r.weights
+        if dup:
+            flat = flat.clone()
+            flat[1::2, 0] = flat[0::2, 0]
+        x = x.to(dt)
+        es = x.element_size()
+        tol = 1e-6 if dup else 0.0
+        err = compare(f"moe_dispatch[{label}]", moe_dispatch(x, flat, n),
+                      moe_dispatch_ref(x, flat, n), tol)
+        ms = time_ms(lambda: moe_dispatch(x, flat, n))
+        plain = time_ms(lambda: moe_dispatch_ref(x, flat, n))
+        src = x[:, None].expand(S, k, M).reshape(S * k, M)
+        idx = flat.reshape(-1).long()
+        zbuf = torch.zeros((n + 1, M), dtype=dt, device=dev)
+        lib = time_ms(lambda: zbuf.index_add_(0, idx, src))
+        b_ms, b_by = bound(S * M * es + S * k * 4 + n * M * es, S * k * M,
+                           dt)
+        log(f"  moe_dispatch[{label}] S={S} k={k} M={M} n_slots={n} {dt}: "
+            f"max_abs_err {err:.3e} (tol {tol:.0e}) kernel {ms:.4f} ms  "
+            f"plain {plain:.4f} ms  index_add_ {lib:.4f} ms  bound "
+            f"{b_ms:.4f} ms ({b_by})")
+        disp.append(dict(label=label, max_abs_err=err, ms=ms, plain_ms=plain,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+        if dup:
+            continue
+        buf = torch.randn((n, M), generator=g, device=dev).to(dt)
+        tol = 1e-6 if dt == f32 else 2e-2
+        err = compare(f"moe_combine[{label}]", moe_combine(buf, flat, w),
+                      moe_combine_ref(buf, flat, w), tol)
+        ms = time_ms(lambda: moe_combine(buf, flat, w))
+        plain = time_ms(lambda: moe_combine_ref(buf, flat, w))
+        kept = int((flat < n).sum())
+        b_ms, b_by = bound(kept * M * es + S * k * 8 + S * M * es,
+                           2 * kept * M, dt)
+        log(f"  moe_combine[{label}] S={S} k={k} M={M} kept {kept} {dt}: "
+            f"max_abs_err {err:.3e} (tol {tol:.0e}) kernel {ms:.4f} ms  "
+            f"plain {plain:.4f} ms  (no single PyTorch call)  bound "
+            f"{b_ms:.4f} ms ({b_by})")
+        comb.append(dict(label=label, max_abs_err=err, ms=ms, plain_ms=plain,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    return disp, comb
+
+
+def check_expert_ffn(dev):
+    """expert_ffn at the paths' shapes: s1d serving decode (qwen3, SwiGLU)
+    and gpt2-moe's training capacity buffer, whole and as one of two
+    chunks (two-layer silu).  Tolerance 1e-4: f32 sums of up to 3072
+    products in another order than cuBLAS's."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.moe import shard_pool_capacity
+    from repro_torch.kernels.expert_ffn import expert_ffn
+    from repro_torch.kernels.ref import expert_ffn_ref
+    g = torch.Generator(device=dev).manual_seed(5)
+    rows = []
+    for label, arch, S, infer, n_chunks in (
+            ("decode", "qwen3-moe-30b-a3b", 8, True, 1),
+            ("train-gpt2-moe", "gpt2-moe", 8192, False, 1),
+            ("train-gpt2-moe-chunk", "gpt2-moe", 8192, False, 2)):
+        mcfg = get_config(arch).moe
+        E, M, F = mcfg.n_experts, mcfg.d_model, mcfg.d_ff
+        _, cap = shard_pool_capacity(S, 1, 1, mcfg.gate_config(),
+                                     infer=infer)
+        T = cap // n_chunks
+        x = torch.randn((E, T, M), generator=g, device=dev)
+        w1 = torch.randn((E, M, F), generator=g, device=dev).mul_(M ** -0.5)
+        w3 = torch.randn((E, M, F), generator=g, device=dev).mul_(
+            M ** -0.5) if mcfg.glu else None
+        w2 = torch.randn((E, F, M), generator=g, device=dev).mul_(F ** -0.5)
+        act = mcfg.act
+        err = compare(f"expert_ffn[{label}]",
+                      expert_ffn(x, w1, w3, w2, act=act),
+                      expert_ffn_ref(x, w1, w3, w2, act=act), 1e-4)
+        ms = time_ms(lambda: expert_ffn(x, w1, w3, w2, act=act))
+        plain = time_ms(lambda: expert_ffn_ref(x, w1, w3, w2, act=act),
+                        iters=5)
+        n_mat = 3 if mcfg.glu else 2
+        b_ms, b_by = bound(2 * E * T * M * 4 + n_mat * E * M * F * 4,
+                           2 * n_mat * E * T * M * F, torch.float32)
+        log(f"  expert_ffn[{label}] E={E} T={T} M={M} F={F} glu="
+            f"{mcfg.glu} act={act}: max_abs_err {err:.3e} (tol 1e-4) "
+            f"kernel {ms:.4f} ms  plain {plain:.4f} ms  (no single PyTorch "
+            f"call)  bound {b_ms:.4f} ms ({b_by})")
+        rows.append(dict(label=label, max_abs_err=err, ms=ms, plain_ms=plain,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None))
+        del x, w1, w3, w2
+    return rows
+
+
+def check_ragged(dev):
+    """expert_ffn_ragged at qwen3's s1g + fp8 training step (E 128, one
+    group, cap 160, counts min(load, cap) of a random gate), with counts
+    that cut 16-row tiles, and on a bf16 pool.  Tolerance 1e-4 (f32, as
+    expert_ffn; bf16 output one ulp, 2e-2); rows at or past a count must be
+    exactly 0."""
+    import torch
+    from repro_torch.kernels.expert_ffn_grouped import expert_ffn_ragged
+    from repro_torch.kernels.ref import expert_ffn_ragged_ref
+    g = torch.Generator(device=dev).manual_seed(6)
+    mcfg, _, r, cap = _gate_case(g, dev, "qwen3-moe-30b-a3b", 2048, False)
+    E, M, F = mcfg.n_experts, mcfg.d_model, mcfg.d_ff
+    w1, w3 = (torch.randn((E, M, F), generator=g, device=dev).mul_(M ** -0.5)
+              for _ in range(2))
+    w2 = torch.randn((E, F, M), generator=g, device=dev).mul_(F ** -0.5)
+    gate_counts = torch.clamp(r.aux["load"], max=float(cap)).to(
+        torch.int32)[:, None].contiguous()
+    partial = torch.randint(0, 41, (E, 1), generator=g, device=dev,
+                            dtype=torch.int32)
+    rows = []
+    for label, counts, dt, tol in (
+            ("train-qwen3-fp8", gate_counts, torch.float32, 1e-4),
+            ("partial", partial, torch.float32, 1e-4),
+            ("train-qwen3-fp8-bf16", gate_counts, torch.bfloat16, 2e-2)):
+        xb = torch.randn((E, 1, cap, M), generator=g, device=dev).to(dt)
+        got = expert_ffn_ragged(xb, counts, w1, w3, w2)
+        err = compare(f"expert_ffn_ragged[{label}]", got,
+                      expert_ffn_ragged_ref(xb, counts, w1, w3, w2), tol)
+        tail = torch.arange(cap, device=dev)[None, None, :] \
+            >= counts[:, :, None]
+        if not bool((got[tail] == 0).all()):
+            raise AssertionError(f"expert_ffn_ragged[{label}]: a row past "
+                                 f"its count is not exactly 0")
+        ms = time_ms(lambda: expert_ffn_ragged(xb, counts, w1, w3, w2))
+        plain = time_ms(lambda: expert_ffn_ragged_ref(xb, counts, w1, w3,
+                                                      w2), iters=5)
+        routed = int(counts.sum())
+        hit = int((counts > 0).sum())
+        es = xb.element_size()
+        b_ms, b_by = bound(routed * M * es + E * cap * M * es + E * 4
+                           + hit * 3 * M * F * 4, 2 * 3 * routed * M * F,
+                           torch.float32)
+        log(f"  expert_ffn_ragged[{label}] E={E} G=1 c={cap} M={M} F={F} "
+            f"{dt}: routed rows {routed}, hit experts {hit}; max_abs_err "
+            f"{err:.3e} (tol {tol:.0e}), tail rows exactly 0; kernel "
+            f"{ms:.4f} ms  plain {plain:.4f} ms  (no single PyTorch call)  "
+            f"bound {b_ms:.4f} ms ({b_by})")
+        rows.append(dict(label=label, max_abs_err=err, ms=ms, plain_ms=plain,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    return rows
+
+
+def check_codec(dev):
+    """The fp8 wire codec on the card (``cat`` and ``view`` of fp8
+    tensors): bytes equal to the CPU's for the same input, and the round
+    trip's time at qwen3's s1g + fp8 pool (128 x 160 rows of 2048)."""
+    import torch
+    from repro_torch.core.collectives import (CommConfig, wire_decode,
+                                              wire_encode, wire_roundtrip)
+    comm = CommConfig(wire_dtype="fp8_e4m3")
+    x = torch.randn((1024, 2048), device=dev)
+    x[3] *= 1e3
+    enc = wire_encode(x, comm)
+    ne = enc.view(torch.uint8).cpu() != wire_encode(x.cpu(), comm).view(
+        torch.uint8)
+    if ne.any():
+        raise AssertionError(
+            f"fp8 wire_encode: {int(ne[:, :-4].sum())} payload and "
+            f"{int(ne[:, -4:].sum())} scale-tail bytes on the card differ "
+            f"from the CPU's")
+    if not torch.equal(wire_decode(enc, comm, torch.float32).cpu(),
+                       wire_decode(enc.cpu(), comm, torch.float32)):
+        raise AssertionError("fp8 wire_decode differs from the CPU's")
+    pool = torch.randn((128 * 160, 2048), device=dev)
+    ms = time_ms(lambda: wire_roundtrip(pool, comm))
+    log(f"  fp8 wire codec: bytes on the card equal the CPU's; round trip "
+        f"of a (20480, 2048) f32 pool {ms:.4f} ms")
+    return ms
+
+
+def check_schedules(dev):
+    """Phase 6: one gpt2-moe MoE layer at full width under the one-rank
+    schedules: bitwise equal to each other, within 1e-4 of s1g and of the
+    plain versions; each schedule's forward timed (no grad)."""
+    from dataclasses import replace
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.moe import apply_moe, init_moe_params
+    cfg = get_config("gpt2-moe").moe
+    params = init_moe_params(torch.Generator(device=dev).manual_seed(7), cfg)
+    x = torch.randn((8, 1024, cfg.d_model),
+                    generator=torch.Generator(device=dev).manual_seed(8),
+                    device=dev)
+    outs, times = {}, {}
+    runs = (("baseline", 1), ("s1", 1), ("s2", 1), ("s2h", 1), ("s1d", 1),
+            ("s1_pipe", 2), ("s2_pipe", 2), ("s1g", 1))
+    with torch.no_grad():
+        for sched, n in runs:
+            c = replace(cfg, schedule=sched, pipeline_chunks=n)
+            outs[sched], aux = apply_moe(x, params, cfg=c)
+            times[sched] = time_ms(lambda: apply_moe(x, params, cfg=c),
+                                   iters=5)
+        with plain_ops():
+            plain, _ = apply_moe(x, params, cfg=replace(cfg, schedule="s1"))
+    want = outs["baseline"]
+    bad = [sch for sch, _ in runs[:-1] if not torch.equal(outs[sch], want)]
+    if bad:
+        raise AssertionError(f"phase 6: {bad} differ bitwise from baseline")
+    err_g = compare("phase 6: s1g vs the others", outs["s1g"], want, 1e-4)
+    err_p = compare("phase 6: kernels vs plain versions", want, plain, 1e-4)
+    log(f"  gpt2-moe MoE layer, 8 x 1024 tokens, drop fraction "
+        f"{float(aux['drop_frac']):.4f}: {', '.join(s for s, _ in runs[:-1])}"
+        f" bitwise equal; s1g max_abs_err {err_g:.3e}, plain versions "
+        f"{err_p:.3e} (tol 1e-4); forward ms "
+        + " ".join(f"{s} {t:.3f}" for s, t in times.items()))
+    return times
+
+
 # --- phases 4 and 5: serving ------------------------------------------------
 
 def make_requests(vocab, n=16, prefix_len=32, seed=0):
@@ -314,13 +572,11 @@ def serve(model, params, prompts, *, gen, order=None, **engine_kw):
 @contextlib.contextmanager
 def plain_ops():
     """Swap the plain PyTorch versions in behind ``get_op`` (the reference
-    forward of phase 4 and the reference step of phases 6 and 7 only)."""
-    from repro_torch.kernels import ref, registry
-    from repro_torch.kernels.flash_attention import flash_attention_plain
+    forward of phase 4, the plain layer of phase 6 and the reference steps
+    of phases 7 and 8 only)."""
+    from repro_torch.kernels import registry
     saved = dict(registry._OPS)
-    registry._OPS.update(rmsnorm=ref.rmsnorm_ref,
-                         expert_ffn_grouped=ref.expert_ffn_grouped_ref,
-                         flash_attention=flash_attention_plain)
+    registry._OPS.update(registry.PLAIN)
     try:
         yield
     finally:
@@ -328,10 +584,11 @@ def plain_ops():
         registry._OPS.update(saved)
 
 
-def reference_check(model, params, prompt):
-    """Last-position logits of one one-shot prefill, kernels vs plain
-    versions, on fresh arenas.  f32 throughout; tolerance 1e-3 of the
-    logits' scale (4 layers of f32 sums in different orders)."""
+def reference_check(model, params, prompt, schedule=None):
+    """Last-position logits of one one-shot prefill under ``schedule``,
+    kernels vs plain versions, on fresh arenas.  f32 throughout; tolerance
+    1e-3 of the logits' scale (4 layers of f32 sums in different
+    orders)."""
     import numpy as np
     import torch
     from repro_torch.serve.engine import prefill_bucket
@@ -349,7 +606,8 @@ def reference_check(model, params, prompt):
     for ctx in (contextlib.nullcontext(), plain_ops()):
         with ctx, torch.no_grad():
             logits, _ = model.paged_step(params, model.init_cache(nb + 1, 16),
-                                         batch, infer=False)
+                                         batch, schedule=schedule,
+                                         infer=False)
         out.append(logits)
     err = compare("paged_step logits (kernels vs plain)", out[0], out[1],
                   1e-3)
@@ -383,18 +641,35 @@ def serve_report(label, done, eng, wall, n_requests, gen):
 # --- phases 6 and 7: training ----------------------------------------------
 
 def kernel_wrappers():
-    from repro_torch.kernels.expert_ffn_grouped import expert_ffn_grouped
+    from repro_torch.kernels.expert_ffn import expert_ffn
+    from repro_torch.kernels.expert_ffn_grouped import (expert_ffn_grouped,
+                                                        expert_ffn_ragged)
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_dispatch import moe_combine, moe_dispatch
     from repro_torch.kernels.rmsnorm import rmsnorm
     return {"rmsnorm": rmsnorm, "flash_attention": flash_attention,
-            "expert_ffn_grouped": expert_ffn_grouped}
+            "expert_ffn_grouped": expert_ffn_grouped,
+            "moe_dispatch": moe_dispatch, "moe_combine": moe_combine,
+            "expert_ffn": expert_ffn, "expert_ffn_ragged": expert_ffn_ragged}
 
 
-def reference_step(model, params, batch):
+def reset_counts():
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    return wrappers
+
+
+def read_counts(wrappers):
+    return {name: fn.launches for name, fn in wrappers.items()}
+
+
+def reference_step(model, params, batch, schedule=None, grad_rtol=1e-3):
     """Loss and gradient norm of one step (no update), with the kernels and
     with the plain versions, from the same parameters.  Loss within 1e-4
-    relative, gradient norm within 1e-3: f32 throughout, but the plain
-    backward scatters with atomics and the routing of a near tie may flip."""
+    relative, gradient norm within ``grad_rtol`` (1e-3): f32 throughout,
+    but the plain backward scatters with atomics and the routing of a near
+    tie may flip."""
     import torch
     from repro_torch.optim.adamw import global_norm, leaves
     flat = leaves(params)
@@ -403,20 +678,23 @@ def reference_step(model, params, batch):
     out = []
     for ctx in (contextlib.nullcontext(), plain_ops()):
         with ctx:
-            loss, _ = model.loss(params, batch)
+            loss, _ = model.loss(params, batch, schedule=schedule)
             grads = torch.autograd.grad(loss, flat)
             out.append((loss.item(), global_norm(grads).item()))
             del grads, loss
     (lk, gk), (lp, gp) = out
-    if not (abs(lk - lp) <= 1e-4 * abs(lp) and abs(gk - gp) <= 1e-3 * gp):
+    if not (abs(lk - lp) <= 1e-4 * abs(lp) and abs(gk - gp) <= grad_rtol * gp):
         raise AssertionError(f"loss {lk} / grad norm {gk} with the kernels, "
                              f"{lp} / {gp} with the plain versions")
     return out
 
 
-def train(label, cfg, dev, *, batch, seq, steps, lr, uses):
-    """Phases 6 and 7: ``reference_step``, then ``steps`` AdamW steps
-    through ``Trainer`` with the kernels' counts set to 0 just before.
+def train(label, cfg, dev, *, batch, seq, steps, lr, uses, schedule=None,
+          per_step=None, grad_rtol=1e-3):
+    """Phases 7 and 8: ``reference_step``, then ``steps`` AdamW steps
+    through ``Trainer`` under ``schedule`` with the kernels' counts set to 0
+    just before.  Every kernel in ``uses`` must launch; ``per_step`` maps
+    kernels to their predicted launches per step, which must hold exactly.
     Returns the launches of the run by kernel."""
     import math
 
@@ -427,26 +705,26 @@ def train(label, cfg, dev, *, batch, seq, steps, lr, uses):
     from repro_torch.train import Trainer
     model = Model(cfg, device=dev)
     tr = Trainer(model, AdamWConfig(lr=lr, warmup_steps=2,
-                                    total_steps=steps))
+                                    total_steps=steps), schedule=schedule)
     params, opt_state = tr.setup(torch.Generator(device=dev).manual_seed(0))
     n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                   global_batch=batch))
     log(f"  {label}: {cfg.name}, {cfg.n_layers} layers, {n_bytes / 1e9:.2f} "
         f"GB of parameters, batch {batch} x {seq} tokens, remat "
-        f"{cfg.remat}")
-    (lk, gk), (lp, gp) = reference_step(model, params, data.tensors(0, dev))
+        f"{cfg.remat}, schedule {schedule or cfg.moe.schedule}, "
+        f"{cfg.moe.pipeline_chunks} chunk(s), wire {cfg.moe.comm.wire_dtype}")
+    (lk, gk), (lp, gp) = reference_step(model, params, data.tensors(0, dev),
+                                        schedule, grad_rtol)
     log(f"  {label}: one step from the same parameters: loss {lk:.6f} "
         f"(kernels) vs {lp:.6f} (plain), grad norm {gk:.6f} vs {gp:.6f}")
-    wrappers = kernel_wrappers()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in wrappers.values():
-        fn.launches = 0
+    wrappers = reset_counts()
     params, opt_state, hist = tr.run(params, opt_state, data, steps,
                                      log_every=1)
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches = read_counts(wrappers)
     peak = torch.cuda.max_memory_allocated() / 1e9
     losses = [h["loss"] for h in hist]
     step_ms = (hist[-1]["wall_s"] - hist[0]["wall_s"]) / (steps - 1) * 1e3
@@ -462,9 +740,69 @@ def train(label, cfg, dev, *, batch, seq, steps, lr, uses):
     if any(launches[name] <= 0 for name in uses):
         raise AssertionError(f"{label}: a kernel of the path was never "
                              f"launched: {launches}")
+    for name, n in (per_step or {}).items():
+        if launches[name] != n * steps:
+            raise AssertionError(f"{label}: {launches[name]} {name} "
+                                 f"launches in {steps} steps, predicted "
+                                 f"{n} per step")
     del params, opt_state, tr, model
     torch.cuda.empty_cache()
     return launches
+
+
+#: kernel -> (source, the TPU kernel it replaces, its main path, the phase-3
+#: row at that path's shapes)
+KERNELS = {
+    "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
+                "src/repro/kernels/rmsnorm.py:12", "train_qwen3",
+                "train-qwen3"),
+    "expert_ffn_grouped": ("src/repro_torch/csrc/expert_ffn_grouped.cu",
+                           "src/repro/kernels/expert_ffn_grouped.py:136",
+                           "train_qwen3", "train-qwen3"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:28",
+                        "train_qwen3", "qwen3"),
+    "moe_dispatch": ("src/repro_torch/csrc/moe_dispatch.cu",
+                     "src/repro/kernels/moe_dispatch.py:22",
+                     "train_gpt2_moe_s1_pipe2", "train-gpt2-moe"),
+    "moe_combine": ("src/repro_torch/csrc/moe_dispatch.cu",
+                    "src/repro/kernels/moe_dispatch.py:72",
+                    "train_gpt2_moe_s1_pipe2", "train-gpt2-moe"),
+    "expert_ffn": ("src/repro_torch/csrc/expert_ffn.cu",
+                   "src/repro/kernels/expert_ffn.py:25",
+                   "train_gpt2_moe_s1_pipe2", "train-gpt2-moe-chunk"),
+    "expert_ffn_ragged": ("src/repro_torch/csrc/expert_ffn.cu",
+                          "src/repro/kernels/expert_ffn_grouped.py:41",
+                          "train_qwen3_s1g_fp8", "train-qwen3-fp8"),
+}
+
+#: (kernel, path) -> the phase-3 row at the shapes that path gives the
+#: kernel (serving: decode, the shape of most of its launches); a pair not
+#: listed must launch the kernel no time on that path
+SHAPE_OF = {
+    ("rmsnorm", "serve_one_shot"): "decode",
+    ("rmsnorm", "serve_chunked_32"): "decode",
+    ("rmsnorm", "serve_one_shot_s1d"): "decode",
+    ("rmsnorm", "train_qwen3"): "train-qwen3",
+    ("rmsnorm", "train_qwen3_s1g_fp8"): "train-qwen3",
+    ("expert_ffn_grouped", "serve_one_shot"): "decode",
+    ("expert_ffn_grouped", "serve_chunked_32"): "decode",
+    ("expert_ffn_grouped", "train_qwen3"): "train-qwen3",
+    ("expert_ffn_grouped", "train_gpt2_moe"): "train-gpt2-moe",
+    ("flash_attention", "train_qwen3"): "qwen3",
+    ("flash_attention", "train_qwen3_s1g_fp8"): "qwen3",
+    ("flash_attention", "train_gpt2_moe"): "gpt2-moe",
+    ("flash_attention", "train_gpt2_moe_s1_pipe2"): "gpt2-moe",
+    ("moe_dispatch", "serve_one_shot_s1d"): "decode",
+    ("moe_dispatch", "train_qwen3_s1g_fp8"): "train-qwen3",
+    ("moe_dispatch", "train_gpt2_moe_s1_pipe2"): "train-gpt2-moe",
+    ("moe_combine", "serve_one_shot_s1d"): "decode",
+    ("moe_combine", "train_qwen3_s1g_fp8"): "train-qwen3",
+    ("moe_combine", "train_gpt2_moe_s1_pipe2"): "train-gpt2-moe",
+    ("expert_ffn", "serve_one_shot_s1d"): "decode",
+    ("expert_ffn", "train_gpt2_moe_s1_pipe2"): "train-gpt2-moe-chunk",
+    ("expert_ffn_ragged", "train_qwen3_s1g_fp8"): "train-qwen3-fp8",
+}
 
 
 def main() -> int:
@@ -477,12 +815,14 @@ def main() -> int:
     from dataclasses import replace
 
     from repro_torch.configs import get_config
+    from repro_torch.core.collectives import CommConfig
     from repro_torch.kernels import _build
     from repro_torch.models import Model
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
 
     # 1. the card
     smi = subprocess.run(
@@ -505,9 +845,14 @@ def main() -> int:
 
     # 3. kernels vs plain versions
     log("phase 3: kernels vs plain versions on the card")
-    rms = check_rmsnorm(dev)
-    grp = check_grouped(dev)
-    fla = check_flash(dev)
+    rows = {"rmsnorm": check_rmsnorm(dev),
+            "expert_ffn_grouped": check_grouped(dev),
+            "flash_attention": check_flash(dev)}
+    rows["moe_dispatch"], rows["moe_combine"] = check_dispatch_combine(dev)
+    rows["expert_ffn"] = check_expert_ffn(dev)
+    rows["expert_ffn_ragged"] = check_ragged(dev)
+    check_codec(dev)
+    torch.cuda.empty_cache()
 
     # 4. serve full width, 4 layers
     cfg = replace(get_config("qwen3-moe-30b-a3b"), n_layers=N_LAYERS)
@@ -523,32 +868,39 @@ def main() -> int:
     prompts = make_requests(cfg.vocab_size)
     gen = 32
     serve(model, params, prompts[:2], gen=4)          # warm-up (not counted)
-    err_ref = reference_check(model, params, prompts[0])
-    log(f"  reference check: paged_step logits, kernels vs plain versions: "
-        f"max_abs_err {err_ref:.3e}")
+    for sched in (None, "s1d"):
+        err_ref = reference_check(model, params, prompts[0], sched)
+        log(f"  reference check ({sched or 'auto'}): paged_step logits, "
+            f"kernels vs plain versions: max_abs_err {err_ref:.3e}")
 
     runs = {}
-    wrappers = kernel_wrappers()
-    for label, kw in (("one-shot", {}), ("chunked-32", {"prefill_chunk": 32})):
+    path_launches = {}
+    for label, path, kw, uses in (
+            ("one-shot", "serve_one_shot", {},
+             ("rmsnorm", "expert_ffn_grouped")),
+            ("chunked-32", "serve_chunked_32", {"prefill_chunk": 32},
+             ("rmsnorm", "expert_ffn_grouped")),
+            ("one-shot-s1d", "serve_one_shot_s1d", {"schedule": "s1d"},
+             ("rmsnorm", "moe_dispatch", "expert_ffn", "moe_combine"))):
         torch.cuda.reset_peak_memory_stats()
-        for fn in wrappers.values():
-            fn.launches = 0
+        wrappers = reset_counts()
         done, eng, wall = serve(model, params, prompts, gen=gen, **kw)
-        launches = {name: fn.launches for name, fn in wrappers.items()}
+        launches = read_counts(wrappers)
         st = serve_report(label, done, eng, wall, len(prompts), gen)
         peak = torch.cuda.max_memory_allocated() / 1e9
         log(f"  {label}: peak device memory {peak:.2f} GB; launches "
-            f"{launches}")
-        if min(launches["rmsnorm"], launches["expert_ffn_grouped"]) <= 0:
+            f"{ {k: v for k, v in launches.items() if v} }")
+        if min(launches[name] for name in uses) <= 0:
             raise AssertionError(f"{label}: a kernel of the path was never "
                                  f"launched: {launches}")
-        runs[label] = (done, launches, st)
-    path_launches = {"serve_one_shot": runs["one-shot"][1],
-                     "serve_chunked_32": runs["chunked-32"][1]}
-    same = sum(runs["one-shot"][0][i].tokens == runs["chunked-32"][0][i].tokens
-               for i in range(len(prompts)))
-    log(f"  one-shot vs chunked: {same}/{len(prompts)} requests with "
-        f"identical tokens (prefill capacity drops depend on the chunking)")
+        runs[label] = done
+        path_launches[path] = launches
+    for other in ("chunked-32", "one-shot-s1d"):
+        same = sum(runs["one-shot"][i].tokens == runs[other][i].tokens
+                   for i in range(len(prompts)))
+        log(f"  one-shot vs {other}: {same}/{len(prompts)} requests with "
+            f"identical tokens (prefill capacity drops depend on the "
+            f"chunking; s1d sums in other kernels)")
 
     # 5. determinism and batch independence
     fwd, _, _ = serve(model, params, prompts, gen=gen, prefix_cache=False)
@@ -564,63 +916,77 @@ def main() -> int:
     del model, params, runs, fwd, rev, done, eng
     torch.cuda.empty_cache()
 
-    # 6. and 7. train qwen3 (full width, 4 layers) and gpt2-moe (full size)
+    # 6. the schedules on one rank
+    log("phase 6: one gpt2-moe MoE layer under every one-rank schedule")
+    check_schedules(dev)
+    torch.cuda.empty_cache()
+
+    # 7. and 8. train qwen3 (full width, 4 layers) and gpt2-moe (full
+    # size), each under the default schedule and under this slice's path.
     # qwen3 at lr 1e-3 (gpt2-moe's) spikes from its router z-loss in the
     # first steps; at 1e-4 the loss falls step by step
-    log(f"phase 6: train {cfg.name} full width, {N_LAYERS} layers")
+    log(f"phase 7: train {cfg.name} full width, {N_LAYERS} layers")
     path_launches["train_qwen3"] = train(
         "qwen3", cfg, dev, batch=1, seq=2048, steps=10, lr=1e-4,
-        uses=("rmsnorm", "flash_attention", "expert_ffn_grouped"))
-    log("phase 7: train gpt2-moe at its full size")
+        uses=("rmsnorm", "flash_attention", "expert_ffn_grouped"),
+        per_step={"rmsnorm": 17, "flash_attention": 8,
+                  "expert_ffn_grouped": 8})
+    # the fp8 wire turns the flash and rmsnorm kernels' last-bit
+    # differences into whole e4m3 steps where a value sits at a rounding
+    # boundary: the first step's gradient norm moved 2.2e-3 (loss 5.8e-5;
+    # the CPU tests see the same against JAX), so it is held to 1e-2
+    fp8 = replace(cfg, moe=replace(cfg.moe,
+                                   comm=CommConfig(wire_dtype="fp8_e4m3")))
+    path_launches["train_qwen3_s1g_fp8"] = train(
+        "qwen3 s1g fp8", fp8, dev, batch=1, seq=2048, steps=5, lr=1e-4,
+        schedule="s1g", grad_rtol=1e-2,
+        uses=("moe_dispatch", "expert_ffn_ragged", "moe_combine"),
+        per_step={"moe_dispatch": 8, "expert_ffn_ragged": 8,
+                  "moe_combine": 8, "rmsnorm": 17, "flash_attention": 8,
+                  "expert_ffn_grouped": 0, "expert_ffn": 0})
+    log("phase 8: train gpt2-moe at its full size")
+    g2 = get_config("gpt2-moe")
     path_launches["train_gpt2_moe"] = train(
-        "gpt2-moe", get_config("gpt2-moe"), dev, batch=8, seq=1024, steps=5,
-        lr=1e-3, uses=("flash_attention", "expert_ffn_grouped"))
+        "gpt2-moe", g2, dev, batch=8, seq=1024, steps=5, lr=1e-3,
+        uses=("flash_attention", "expert_ffn_grouped"),
+        per_step={"flash_attention": 24, "expert_ffn_grouped": 12})
+    g2s1 = replace(g2, moe=replace(g2.moe, pipeline_chunks=2))
+    path_launches["train_gpt2_moe_s1_pipe2"] = train(
+        "gpt2-moe s1 2 chunks", g2s1, dev, batch=8, seq=1024, steps=5,
+        lr=1e-3, schedule="s1", uses=("moe_dispatch", "expert_ffn",
+                                      "moe_combine"),
+        per_step={"moe_dispatch": 12, "moe_combine": 12, "expert_ffn": 24,
+                  "flash_attention": 24, "expert_ffn_grouped": 0,
+                  "rmsnorm": 0})
 
-    # 8. results.  Each kernel's top-level numbers are phase 6's, this
-    # slice's main path: its launches there and the phase-3 row at the
-    # shapes that path gives the kernel.  ``by_path`` pairs every path's
-    # launches (counts set to 0 just before the run, read just after) with
-    # the phase-3 row at that path's shapes (serving: decode, the shape of
-    # most of its launches), or null where the path does not launch the
-    # kernel.
-    rows = {"rmsnorm": {r["label"]: r for r in rms},
-            "expert_ffn_grouped": {r["label"]: r for r in grp},
-            "flash_attention": {r["label"]: r for r in fla}}
-    shape_of = {  # (kernel, path) -> phase-3 row label
-        ("rmsnorm", "serve_one_shot"): "decode",
-        ("rmsnorm", "serve_chunked_32"): "decode",
-        ("rmsnorm", "train_qwen3"): "train-qwen3",
-        ("expert_ffn_grouped", "serve_one_shot"): "decode",
-        ("expert_ffn_grouped", "serve_chunked_32"): "decode",
-        ("expert_ffn_grouped", "train_qwen3"): "train-qwen3",
-        ("expert_ffn_grouped", "train_gpt2_moe"): "train-gpt2-moe",
-        ("flash_attention", "train_qwen3"): "qwen3",
-        ("flash_attention", "train_gpt2_moe"): "gpt2-moe"}
+    # 9. results.  Each kernel's top-level numbers are those of its main
+    # path (KERNELS): its launches there, counted from 0 just before the
+    # run, and the phase-3 row at the shapes that path gives it.
+    # ``by_path`` pairs every path's launches with the phase-3 row at that
+    # path's shapes, or null where the path does not launch the kernel.
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+    by_label = {name: {r["label"]: r for r in rs}
+                for name, rs in rows.items()}
     kernels = []
-    for name, source, replaces in (
-            ("rmsnorm", "src/repro_torch/csrc/rmsnorm.cu",
-             "src/repro/kernels/rmsnorm.py:12"),
-            ("expert_ffn_grouped", "src/repro_torch/csrc/expert_ffn_grouped.cu",
-             "src/repro/kernels/expert_ffn_grouped.py:136"),
-            ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-             "src/repro/kernels/flash_attention.py:28")):
+    for name, (source, replaces, main_path, main_label) in KERNELS.items():
         by_path = {}
         for path, launches in path_launches.items():
-            label = shape_of.get((name, path))
+            label = SHAPE_OF.get((name, path))
             if (launches[name] > 0) != (label is not None):
                 raise AssertionError(f"{name}: {launches[name]} launches on "
                                      f"{path}, phase-3 shape {label}")
             by_path[path] = {"launches": launches[name], "shape": label,
-                             **{k: rows[name][label][k] if label else None
-                                for k in keys}}
-        main_row = rows[name][shape_of[(name, "train_qwen3")]]
+                             **{k: by_label[name][label][k] if label
+                                else None for k in keys}}
+        main_row = by_label[name][main_label]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces,
-            "launches": path_launches["train_qwen3"][name],
+            "replaces": replaces, "main_path": main_path,
+            "launches": path_launches[main_path][name],
             **{k: main_row[k] for k in keys}, "by_path": by_path})
+    log(f"chip_smoke: all phases passed in "
+        f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

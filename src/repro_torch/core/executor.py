@@ -1,0 +1,294 @@
+"""Lower a schedule :class:`~repro_torch.core.plan.Plan` to PyTorch, stage
+by stage (counterpart of ``repro/core/executor.py``).
+
+``execute`` walks the validated plan graph on one rank and emits, for each
+stage kind, the call sequence of the JAX executor: the collectives of
+``repro_torch.core.collectives`` (the identity plus the wire codec on a
+one-member group) and the kernel seam's ops.  All schedule-specific
+knowledge lives in the plans; this module knows only how to emit one stage
+of each kind:
+
+  gate          topk_gate over the stage input's token pool
+  dispatch      ``moe_dispatch`` scatter into (E, cap, M)
+  mp_split      this rank's slice (the identity at one rank)
+  dispatch_a2a  EP AlltoAll (baseline layout) or fused EP&ESP AlltoAll
+                (expert-major dump); ``hier=...`` the two-hop form (s2h)
+  expert_ffn    ``expert_ffn`` on the local expert batch
+  allreduce     psum over ESP (baseline partial sums)
+  combine_a2a   the return AlltoAll; ``saa=True`` the chunked SAA combine
+                + MP-AllGather; ``stack_ag=True`` the per-chunk stacked
+                AllGather (s2/s2h capacity restore)
+  ag_mp         AllGather over ESP (baseline entry, wire-exempt) or MP
+                (S1 exit, wire)
+  combine       ``moe_combine`` gather + gate-weight mix
+  rs_mp         exit split (the baseline's ESP-Split)
+  slice/merge   micro-chunk bookkeeping inserted by ``split_capacity``
+  expert_ffn_grouped  the dropless grouped FFN (``plan.fuse_grouped``):
+                local fused op, its fp8 composition, or the pool form
+
+Wire precision: stages with ``wire=True`` get the plan's stamped
+``CommConfig`` and call the ``wire_*`` collective twins; everything else
+calls the raw collectives.  A plan that carries an expert placement raises
+``NotImplementedError``: placement comes with a later slice of the port.
+The JAX module's ``execute_prefix`` (the stage-timing harness) comes with
+the ``obs`` slice.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import collectives as coll
+from repro_torch.core.gating import combine, dispatch, topk_gate
+from repro_torch.core.plan import INPUT, Plan, validate
+from repro_torch.kernels.registry import get_op
+
+
+def expert_ffn(xb, w1, w3, w2, info):
+    """Per-expert FFN on this rank's (El, t, M) batch (the kernel seam's
+    ``expert_ffn``).  On more than one ESP rank the output would be a
+    partial sum that the caller reduces."""
+    op = get_op("expert_ffn", cfg=info.kernel, act=info.act)
+    return op(xb.contiguous(), w1, w3 if info.glu else None, w2)
+
+
+def _group(info, key):
+    """Resolve a logical axis key to (mesh axis names, group size)."""
+    return {"ep": (info.ep_axes, info.n_ep),
+            "esp": (info.esp_axes, info.n_esp),
+            "mp": (info.mp_axes, info.n_mp)}[key]
+
+
+def _gate_cap(info, spec: str) -> int:
+    """Per-expert capacity for the token pool a gate stage sees."""
+    if spec == "pool":           # the unsplit s_local pool (s2, seqpar)
+        return info.cap
+    if spec == "esp_pool":       # post-ESP-AllGather pool (baseline)
+        return info.cap * info.n_esp
+    if spec == "mp_shard":       # this MP rank's 1/N_MP slice (s1)
+        return info.cap // info.n_mp
+    raise ValueError(f"unknown gate cap spec {spec!r}")
+
+
+class _Ctx:
+    __slots__ = ("info", "wg", "w1", "w3", "w2", "comm", "gate", "dtype")
+
+    def __init__(self, info, wg, w1, w3, w2, comm, dtype):
+        self.info, self.comm = info, comm
+        self.wg, self.w1, self.w3, self.w2 = wg, w1, w3, w2
+        self.gate = None     # (GateResult, cap) once the gate stage ran
+        self.dtype = dtype   # layer-input dtype (raw-wire decode target)
+
+
+def _emit(st, vals, ctx):
+    """Lower one stage; ``vals`` are its deps' values in order."""
+    info = ctx.info
+    E = info.gate.n_experts
+    Ne, Ns, Nm = info.n_ep, info.n_esp, info.n_mp
+    G = info.combined_group
+    comm = ctx.comm if st.wire else None
+    kind = st.kind
+
+    if kind == "gate":
+        cap = _gate_cap(info, st.p("cap", "pool"))
+        g = topk_gate(vals[0], ctx.wg, info.gate, cap)
+        ctx.gate = (g, cap)
+        return ctx.gate
+
+    if kind == "dispatch":
+        tokens, (g, cap) = vals
+        return dispatch(tokens, g.expert_idx, g.slot_idx, cap, E,
+                        info.kernel, flat=g.flat(cap, E))
+
+    if kind in ("mp_split", "rs_mp"):
+        axes, n = _group(info, st.axes[0])
+        return coll.mp_split(vals[0], axes, n, axis=st.p("axis", 0))
+
+    if kind == "ag_mp":
+        axes, n = _group(info, st.axes[0])
+        axis = st.p("axis", 0)
+        if st.wire:
+            return coll.wire_mp_all_gather(vals[0], axes, n, comm,
+                                           axis=axis)
+        return coll.mp_all_gather(vals[0], axes, n, axis=axis)
+
+    if kind == "dispatch_a2a":
+        d = vals[0]
+        if not st.p("fused"):
+            # baseline layout: (E, c, M) -> (Ne, El, c, M) EP blocks
+            sb = d.reshape(Ne, d.shape[0] // Ne, d.shape[1], -1)
+            rb = coll.wire_ep_all_to_all(sb, info.ep_axes, Ne, comm)
+            return coll.to_expert_batch(rb)
+        sb = coll.dump_em(d, Ne, Ns)                    # (El, G, c, M)
+        hier = st.p("hier")
+        if hier:
+            rb = coll.wire_hier_ep_esp_all_to_all(
+                sb, info.ep_axes, info.esp_axes, Ne, Ns, comm, axis=1,
+                order=hier)
+        elif st.p("raw") and coll.wire_raw_ok(comm):
+            # grouped-kernel consumer: the payload stays encoded (f32/bf16
+            # are plain casts); the ragged FFN's f32 upcast is the decode
+            rb = coll.ep_esp_all_to_all(
+                coll.wire_encode(sb, comm), info.ep_axes, info.esp_axes, G,
+                split_axis=1, concat_axis=1)
+        else:
+            rb = coll.wire_ep_esp_all_to_all(
+                sb, info.ep_axes, info.esp_axes, G, comm, split_axis=1,
+                concat_axis=1)
+        return coll.to_expert_batch_em(rb)              # (El, G*c, M)
+
+    if kind == "expert_ffn":
+        return expert_ffn(vals[0], ctx.w1, ctx.w3, ctx.w2, info)
+
+    if kind == "expert_ffn_grouped":
+        return _emit_grouped(st, vals, ctx)
+
+    if kind == "allreduce":
+        axes, n = _group(info, st.axes[0])
+        return coll.psum(vals[0], axes, n)
+
+    if kind == "combine_a2a":
+        h = vals[0]
+        if not st.p("fused"):
+            back = coll.wire_ep_all_to_all(
+                coll.from_expert_batch(h, Ne), info.ep_axes, Ne, comm)
+            return back.reshape(back.shape[0] * back.shape[1],
+                                back.shape[2], -1)      # (E, c, M)
+        y4 = coll.from_expert_batch_em(h, G)
+        if st.p("saa"):
+            return coll.saa_combine_allgather(
+                y4, info.ep_axes, info.esp_axes, info.mp_axes, n_ep=Ne,
+                n_esp=Ns, n_mp=Nm,
+                n_chunks=st.p("saa_chunks", info.saa_chunks),
+                comm=comm)                              # (E, c*Nm, M)
+        hier = st.p("hier")
+        if hier:
+            back = coll.wire_hier_ep_esp_all_to_all(
+                y4, info.ep_axes, info.esp_axes, Ne, Ns, comm, axis=1,
+                order=hier)
+        elif st.p("raw") and coll.wire_raw_ok(comm):
+            # grouped-kernel producer: its output is already in the wire
+            # dtype; move it raw, decode once, then reduce in f32
+            back = coll.wire_decode(
+                coll.ep_esp_all_to_all(y4, info.ep_axes, info.esp_axes, G,
+                                       split_axis=1, concat_axis=1),
+                comm, ctx.dtype)
+        else:
+            back = coll.wire_ep_esp_all_to_all(
+                y4, info.ep_axes, info.esp_axes, G, comm, split_axis=1,
+                concat_axis=1)
+        mine = coll.undump_reduce_em(back, Ne, Ns)      # (E, c, M)
+        if not st.p("stack_ag"):
+            return mine
+        if Nm == 1:
+            part = mine[:, None]                        # (E, 1, c, M)
+        else:
+            part = coll.wire_all_gather_stacked(
+                mine, tuple(info.mp_axes), Nm, comm, axis=1)
+        return part.reshape(mine.shape[0], -1, part.shape[-1])
+
+    if kind == "combine":
+        buf, (g, cap) = vals
+        return combine(buf, g.expert_idx, g.slot_idx, g.weights, cap,
+                       info.kernel, flat=g.flat(cap, E))
+
+    if kind == "slice":
+        i, n = st.p("index"), st.p("n")
+        axis = st.p("axis", 1)
+        cs = vals[0].shape[axis] // n
+        return vals[0].narrow(axis, i * cs, cs)
+
+    if kind == "merge":
+        axis = st.p("axis", 1)
+        if st.p("mode", "concat") == "concat":
+            return (vals[0] if len(vals) == 1
+                    else torch.cat(vals, dim=axis))
+        # stack_mp: parts are (E, Nm*cs, M); restore the (mp_rank, chunk,
+        # slot) capacity order of the pre-split buffer
+        parts = [p.reshape(p.shape[0], Nm, -1, p.shape[-1]) for p in vals]
+        stacked = torch.stack(parts, dim=2)             # (E, Nm, n, cs, M)
+        return stacked.reshape(stacked.shape[0], -1, stacked.shape[-1])
+
+    raise ValueError(f"executor: unknown stage kind {kind!r}")
+
+
+def _emit_grouped(st, vals, ctx):
+    """Lower an ``expert_ffn_grouped`` stage (``plan.fuse_grouped``).
+
+    Local form (``local=True``; deps: token slice + gate): the fused
+    ``expert_ffn_grouped`` op, with the f32/bf16 wire round trip at its two
+    pool boundaries.  fp8's scale-tail codec cannot fuse, so it composes
+    dispatch -> :func:`collectives.wire_roundtrip` -> ``expert_ffn_ragged``
+    (one group, counts ``min(load, cap)``) -> wire round trip -> combine.
+
+    Pool form (deps: the dispatch-AlltoAll receive buffer): exchange the
+    per-(expert, sender) routed-row counts over the combined group and run
+    ``expert_ffn_ragged`` on the buffer.
+    """
+    info = ctx.info
+    E = info.gate.n_experts
+    Ne, Ns = info.n_ep, info.n_esp
+    G = info.combined_group
+    comm = ctx.comm if st.wire else None
+
+    if st.p("local"):
+        tokens, (g, cap) = vals
+        wd = getattr(comm, "wire_dtype", "f32") if comm is not None \
+            else "f32"
+        if coll.wire_raw_ok(comm):
+            op = get_op("expert_ffn_grouped", cfg=info.kernel, act=info.act,
+                        cap=cap, wire=wd)
+            return op(tokens.contiguous(), g.flat(cap, E), g.weights,
+                      ctx.w1, ctx.w3 if info.glu else None, ctx.w2)
+        d = dispatch(tokens, g.expert_idx, g.slot_idx, cap, E, info.kernel,
+                     flat=g.flat(cap, E))                # (E, cap, M)
+        d = coll.wire_roundtrip(d, comm)
+        cnt = torch.clamp(g.aux["load"], max=float(cap)).to(
+            torch.int32)[:, None].contiguous()
+        op = get_op("expert_ffn_ragged", cfg=info.kernel, act=info.act)
+        h = op(d.reshape(E, 1, cap, -1).contiguous(), cnt, ctx.w1,
+               ctx.w3 if info.glu else None, ctx.w2)
+        h = coll.wire_roundtrip(h.reshape(E, cap, -1), comm)
+        return combine(h, g.expert_idx, g.slot_idx, g.weights, cap,
+                       info.kernel, flat=g.flat(cap, E))
+
+    h = vals[0]                                  # (El, G*c, M), maybe raw
+    g, cap = ctx.gate
+    El, Gc, M = h.shape
+    c = Gc // G
+    # this chunk covers capacity slots [ci*c, (ci+1)*c) of every expert;
+    # slots are contiguous from 0, so its routed rows per expert are
+    # clip(routed - ci*c, 0, c)
+    ci = st.p("chunk_index", 0)
+    routed = torch.clamp(g.aux["load"], max=float(cap)).to(torch.int32)
+    cnt = torch.clamp(routed - ci * c, 0, c)                     # (E,)
+    nl = E // Ne
+    snd = cnt.reshape(Ne, nl).T[:, :, None].expand(nl, Ne, Ns).reshape(
+        nl, G)
+    rcv = coll.ep_esp_all_to_all(snd, info.ep_axes, info.esp_axes, G,
+                                 split_axis=1, concat_axis=1)   # (El, G)
+    op = get_op("expert_ffn_ragged", cfg=info.kernel, act=info.act)
+    out = op(h.reshape(El, G, c, M).contiguous(), rcv.contiguous(), ctx.w1,
+             ctx.w3 if info.glu else None, ctx.w2)
+    return out.reshape(El, Gc, M)
+
+
+def execute(plan: Plan, x, wg, w1, w3, w2, info):
+    """Run one MoE layer under ``plan`` on one rank.  ``x`` is the (S, M)
+    token slice; returns ``(y, aux)`` with the gate's aux (aux and z
+    losses, load, routed rows, drop fraction)."""
+    if getattr(plan, "placement", None) is not None:
+        raise NotImplementedError(
+            f"plan {plan.name!r} carries an expert placement: placement "
+            "comes with a later slice of the port")
+    order = validate(plan)
+    ctx = _Ctx(info, wg, w1, w3, w2, getattr(plan, "comm", None), x.dtype)
+    env = {INPUT: x}
+    for st in order:
+        env[st.name] = _emit(st, [env[d] for d in st.deps], ctx)
+    if ctx.gate is None:
+        raise ValueError(f"plan {plan.name!r} has no gate stage")
+    g, _ = ctx.gate
+    # the JAX executor pmeans the scalar aux over every axis: the identity
+    # on one rank, the only layout apply_moe builds
+    return env[plan.output], dict(g.aux)

@@ -1,5 +1,8 @@
-"""Top-k gating with expert capacity, GShard-style (counterpart of
-``repro/core/gating.py``).
+"""Top-k gating with expert capacity, GShard-style, plus the scatter
+dispatch / gather combine that move tokens in and out of the per-expert
+capacity buffer (counterpart of ``repro/core/gating.py``).  ``dispatch``
+and ``combine`` compute the flat slot indices here and run the scatter and
+gather through the kernel seam (``moe_dispatch``, ``moe_combine``).
 
 Routing must match the JAX package exactly (expert ids, slots, drop masks,
 routed counts), so the two places where the frameworks differ are pinned:
@@ -13,9 +16,12 @@ routed counts), so the two places where the frameworks differ are pinned:
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels.registry import KernelConfig, get_op
 
 
 @dataclass(frozen=True)
@@ -126,3 +132,27 @@ def flat_slots(expert_idx, slot_idx, cap: int, n_experts: int):
     marks a dropped choice (the kernels' drop sentinel)."""
     return torch.where(slot_idx < cap, expert_idx * cap + slot_idx,
                        n_experts * cap).to(torch.int32)
+
+
+def dispatch(x, expert_idx, slot_idx, cap: int, n_experts: int,
+             kernel: Optional[KernelConfig] = None, *, flat=None):
+    """Scatter tokens into the (E, cap, M) capacity buffer; dropped
+    choices (slot >= cap) are discarded.  ``flat`` reuses a precomputed
+    :func:`flat_slots` (see :meth:`GateResult.flat`)."""
+    M = x.shape[-1]
+    if flat is None:
+        flat = flat_slots(expert_idx, slot_idx, cap, n_experts)
+    op = get_op("moe_dispatch", cfg=kernel, n_slots=n_experts * cap)
+    return op(x.contiguous(), flat).reshape(n_experts, cap, M)
+
+
+def combine(buf, expert_idx, slot_idx, weights, cap: int,
+            kernel: Optional[KernelConfig] = None, *, flat=None):
+    """Gather expert outputs back to token order and mix them with the
+    gate weights (dropped choices contribute zero)."""
+    E = buf.shape[0]
+    M = buf.shape[-1]
+    if flat is None:
+        flat = flat_slots(expert_idx, slot_idx, cap, E)
+    op = get_op("moe_combine", cfg=kernel)
+    return op(buf.reshape(E * cap, M).contiguous(), flat, weights)

@@ -1,13 +1,20 @@
 """The MoE layer on one rank (counterpart of ``repro/core/moe.py``).
 
-On one device the JAX package's autoscheduler picks ``s1g`` for every
-serving and training shape (``tests/test_torch_moe.py`` and
-``tests/test_torch_train.py`` pin that), and on a rank that is
-its whole combined group ``s1g`` lowers to ``plan.fuse_grouped(local=True)``:
-``topk_gate`` followed by one fused ``expert_ffn_grouped`` call.  That is
-what ``apply_moe`` runs here for ``schedule`` ``"auto"`` or ``"s1g"``.  The
-multi-rank schedules (baseline, s1, s2, s2h, s1d, ``*_pipe``) need NCCL
-collectives and come with a later slice.
+``apply_moe`` runs every schedule of the JAX package's ``SCHEDULES`` (and
+any schedule registered with ``plan.register_plan``) through the ported
+plan IR: ``schedules.BODY[name]`` or the ``*_pipe`` bodies build the plan
+and ``executor.execute`` lowers it.  On one rank (``n_ep = n_esp = n_mp =
+1``) every collective is the identity plus the wire codec, so every
+schedule runs gate -> ``moe_dispatch`` -> (wire) -> ``expert_ffn`` ->
+(wire) -> ``moe_combine``, and ``s1g`` the fused ``expert_ffn_grouped``
+(or, on an fp8 wire, dispatch -> ``expert_ffn_ragged`` -> combine).
+
+``schedule="auto"`` is ``s1g`` with one chunk: the JAX autoscheduler's
+decision at one rank, for every serving and training shape
+(``tests/test_torch_moe.py`` and ``tests/test_torch_train.py`` pin it).
+``CommConfig(wire_dtype="auto")`` and ``autosched="measured"`` need the
+cost model and the measured calibration, which come with a later slice:
+they raise.  So does a multi-rank layout.
 """
 
 from __future__ import annotations
@@ -17,11 +24,17 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.core.gating import GateConfig, capacity, topk_gate
-from repro_torch.kernels.registry import KernelConfig, get_op
+from repro_torch.core import executor
+from repro_torch.core import plan as planlib
+from repro_torch.core.collectives import CommConfig
+from repro_torch.core.gating import GateConfig, capacity
+from repro_torch.core.pipeline import PIPELINE_OF, UNCHUNKED_OF
+from repro_torch.core.schedules import BODY, SCHEDULES, MoEShardInfo
+from repro_torch.kernels.registry import KernelConfig
 
-#: Schedules this slice runs (one rank: gate -> fused grouped kernel).
-LOCAL_SCHEDULES = ("auto", "s1g")
+#: the JAX autoscheduler's (schedule, n_chunks) at one rank
+AUTO_AT_ONE_RANK = ("s1g", 1)
+LATER = "comes with a later slice of the port"
 
 
 @dataclass(frozen=True)
@@ -36,13 +49,14 @@ class MoEConfig:
     normalize_topk: bool = False
     aux_loss_weight: float = 1e-2
     z_loss_weight: float = 1e-3
-    schedule: str = "auto"        # "auto" | "s1g" in this slice
+    schedule: str = "auto"        # any name in schedules.SCHEDULES, or a
+    #   schedule registered via plan.register_plan
+    saa_chunks: int = 4
+    pipeline_chunks: int = 1      # micro-chunks for the *_pipe bodies (1 = off)
+    autosched: str = "analytic"   # "auto" decision mode ("measured" raises)
     act: str = "silu"             # expert activation ("silu" | "gelu")
     kernel: KernelConfig = KernelConfig()
-    # the JAX package's ``comm.wire_dtype``: "f32" or "bf16" round trip at
-    # the fused kernel's pool boundaries (fp8 and "auto" come with the
-    # collectives slice)
-    wire: str = "f32"
+    comm: CommConfig = CommConfig()  # wire format: f32 | bf16 | fp8_e4m3
 
     def gate_config(self) -> GateConfig:
         return GateConfig(
@@ -94,38 +108,72 @@ def shard_pool_capacity(tokens_global: int, n_token_shard: int, n_mp: int,
     return s_local, cap
 
 
+def resolve_schedule(cfg: MoEConfig, schedule=None):
+    """(schedule name, n_chunks) that ``apply_moe`` runs on one rank:
+    ``"auto"`` -> ``AUTO_AT_ONE_RANK``; a chunk count > 1 routes a base
+    schedule to its ``*_pipe`` body, as the JAX ``apply_moe`` does."""
+    sched = schedule or cfg.schedule
+    n_chunks = max(cfg.pipeline_chunks, 1)
+    wire = (cfg.comm or CommConfig()).wire_dtype
+    if wire == "auto":
+        raise NotImplementedError(
+            f"wire_dtype='auto' needs the autoscheduler's cost model, which "
+            f"{LATER}; pick f32, bf16 or fp8_e4m3")
+    if cfg.autosched != "analytic":
+        raise NotImplementedError(
+            f"autosched={cfg.autosched!r} (the measured calibration) {LATER}")
+    if sched == "auto":
+        sched, n_chunks = AUTO_AT_ONE_RANK
+    if n_chunks > 1 and sched in PIPELINE_OF:
+        sched = PIPELINE_OF[sched]
+    if sched not in BODY and UNCHUNKED_OF.get(sched, sched) \
+            not in planlib.PLANS:
+        raise KeyError(f"unknown schedule {sched!r}: not in schedules.BODY "
+                       f"nor the plan registry (have "
+                       f"{sorted(set(SCHEDULES) | set(planlib.PLANS))})")
+    return sched, n_chunks
+
+
 def apply_moe(x, params: dict, *, cfg: MoEConfig, schedule=None,
               infer: bool = False):
-    """One MoE layer on one rank.  x: (B, L, M).  Returns ``(y, aux)``
-    with aux ``aux_loss``, ``z_loss``, ``drop_frac`` and ``expert_load``
-    (the (E,) routed rows), as the JAX ``apply_moe`` returns them.
+    """One MoE layer on one rank under the configured schedule.
+    x: (B, L, M).  Returns ``(y, aux)`` with aux ``aux_loss``, ``z_loss``,
+    ``drop_frac`` and ``expert_load`` (the (E,) routed rows), as the JAX
+    ``apply_moe`` returns them.
 
     ``infer=True`` marks a decode pool (drop-free capacity); prefill
     pools (``infer=False``) take the training capacity, so padding rows of
     a prefill bucket compete for slots exactly as in the JAX engine.
     """
-    sched = schedule or cfg.schedule
-    if sched not in LOCAL_SCHEDULES:
-        raise NotImplementedError(
-            f"schedule {sched!r} runs across ranks and comes with the "
-            f"multi-rank slice of the port; this slice runs "
-            f"{LOCAL_SCHEDULES} on one rank (gate -> expert_ffn_grouped)")
     B, L, M = x.shape
-    E = cfg.n_experts
+    sched, n_chunks = resolve_schedule(cfg, schedule)
     gate_cfg = cfg.gate_config()
-    _, cap = shard_pool_capacity(B * L, 1, 1, gate_cfg, infer=infer)
+    s_local, cap = shard_pool_capacity(B * L, 1, 1, gate_cfg, infer=infer)
+    comm = cfg.comm or CommConfig()
+    info = MoEShardInfo(
+        ep_axes=("ep",), esp_axes=("esp",), mp_axes=("mp",), n_ep=1,
+        n_esp=1, n_mp=1, tokens=s_local, cap=cap, gate=gate_cfg,
+        act=cfg.act, glu=cfg.glu, saa_chunks=cfg.saa_chunks,
+        pipeline_chunks=n_chunks, kernel=cfg.kernel,
+        comm=CommConfig(wire_dtype=comm.wire_dtype, scaling=comm.scaling))
+    body = BODY.get(sched)
+    if body is None:
+        # a schedule registered via plan.register_plan without a BODY
+        # alias: execute its plan directly, chunked per pipeline_chunks
+        base = UNCHUNKED_OF.get(sched, sched)
+
+        def body(xt, wg, w1, w3_, w2, info):
+            return executor.execute(planlib.build_plan(base, info), xt, wg,
+                                    w1, w3_, w2, info)
     xt = x.reshape(B * L, M)
-    g = topk_gate(xt, params["wg"], gate_cfg, cap)
-    op = get_op("expert_ffn_grouped", cfg=cfg.kernel, act=cfg.act, cap=cap,
-                wire=cfg.wire)
-    y = op(xt, g.flat(cap, E), g.weights, params["w1"],
-           params.get("w3") if cfg.glu else None, params["w2"])
+    y, gaux = body(xt, params["wg"], params["w1"],
+                   params.get("w3") if cfg.glu else None, params["w2"], info)
     y = y.reshape(B, L, M).to(x.dtype)
     if cfg.n_shared_experts:
         h = torch.einsum("blm,mf->blf", x, params["shared_w1"])
         h = torch.nn.functional.silu(h) * torch.einsum(
             "blm,mf->blf", x, params["shared_w3"])
         y = y + torch.einsum("blf,fm->blm", h, params["shared_w2"])
-    aux = {k: g.aux[k] for k in ("aux_loss", "z_loss", "drop_frac")}
-    aux["expert_load"] = g.aux["routed"]
+    aux = {k: gaux[k] for k in ("aux_loss", "z_loss", "drop_frac")}
+    aux["expert_load"] = gaux["routed"]
     return y, aux

@@ -28,7 +28,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("rmsnorm", "expert_ffn_grouped", "flash_attention")
+SOURCES = ("rmsnorm", "expert_ffn_grouped", "flash_attention", "moe_dispatch",
+           "expert_ffn")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 

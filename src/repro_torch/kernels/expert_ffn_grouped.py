@@ -1,14 +1,21 @@
-"""Dropless fused grouped expert FFN (counterpart of
-``repro/kernels/expert_ffn_grouped.py::expert_ffn_grouped``).
+"""Dropless grouped expert FFN (counterpart of
+``repro/kernels/expert_ffn_grouped.py``), in two forms:
 
-One op: gather each expert's routed token rows, run the expert FFN in f32
-and scatter the gate-weighted outputs back to token order.  CUDA tensors go
-through ``csrc/expert_ffn_grouped.cu``; CPU tensors through the plain
-``expert_ffn_grouped_ref``.  The routed-row metadata (``slot_metadata``) is
-built on the device in torch.
+``expert_ffn_grouped``
+    One fused op: gather each expert's routed token rows, run the expert
+    FFN in f32 and scatter the gate-weighted outputs back to token order.
+    CUDA tensors go through ``csrc/expert_ffn_grouped.cu``; CPU tensors
+    through the plain ``expert_ffn_grouped_ref``.  The routed-row metadata
+    (``slot_metadata``) is built on the device in torch.
+``expert_ffn_ragged``
+    The FFN over an (E, G, c, M) pool with (E, G) routed-row counts: row
+    tiles past a count are skipped and rows at or past it are exact zeros.
+    CUDA tensors go through ``csrc/expert_ffn.cu``'s ragged entry point;
+    CPU tensors through ``expert_ffn_ragged_ref``.
 
-``expert_ffn_grouped.launches`` counts the CUDA op's launches (one per call:
-the C entry point launches its up, down and combine kernels together).
+``expert_ffn_grouped.launches`` and ``expert_ffn_ragged.launches`` count
+the CUDA ops' launches (one per call: each C entry point launches its
+kernels together).
 """
 
 from __future__ import annotations
@@ -19,9 +26,11 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import expert_ffn_grouped_ref
+from repro_torch.kernels.expert_ffn import (ACT_CODE, check_weights,
+                                            launch_ffn)
+from repro_torch.kernels.ref import (expert_ffn_grouped_ref,
+                                     expert_ffn_ragged_ref)
 
-ACT_CODE = {"silu": 0, "gelu": 1}
 WIRE_CODE = {"f32": 0, "bf16": 1}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -71,33 +80,20 @@ def _check(x, flat_idx, weights, w1, w3, w2, cap, act, wire):
         raise ValueError(f"expert_ffn_grouped: x must be (S, M), got "
                          f"{tuple(x.shape)}")
     S, M = x.shape
-    if w1.dim() != 3 or w2.dim() != 3:
-        raise ValueError("expert_ffn_grouped: w1 (E, M, F) and w2 (E, F, M)")
-    E, _, F = w1.shape
-    if w1.shape != (E, M, F) or w2.shape != (E, F, M):
-        raise ValueError(f"expert_ffn_grouped: weight shapes "
-                         f"{tuple(w1.shape)} / {tuple(w2.shape)} do not fit "
-                         f"x {tuple(x.shape)}")
-    if w3 is not None and (w3.shape != w1.shape or w3.dtype != w1.dtype):
-        raise ValueError("expert_ffn_grouped: w3 must match w1")
-    if w2.dtype != w1.dtype:
-        raise ValueError("expert_ffn_grouped: w1 and w2 dtypes differ")
+    E, _ = check_weights("expert_ffn_grouped", x, M, w1, w3, w2, act)
     if flat_idx.dim() != 2 or flat_idx.shape[0] != S \
             or flat_idx.dtype != torch.int32:
         raise ValueError("expert_ffn_grouped: flat_idx must be int32 (S, k)")
     if weights.shape != flat_idx.shape or weights.dtype != torch.float32:
         raise ValueError("expert_ffn_grouped: weights must be float32 (S, k)")
-    if act not in ACT_CODE or wire not in WIRE_CODE:
-        raise ValueError(f"expert_ffn_grouped: act {act!r} / wire {wire!r} "
-                         f"not supported (act {sorted(ACT_CODE)}, wire "
-                         f"{sorted(WIRE_CODE)})")
+    if wire not in WIRE_CODE:
+        raise ValueError(f"expert_ffn_grouped: wire {wire!r} not supported "
+                         f"({sorted(WIRE_CODE)})")
     if int(cap) <= 0 or E * int(cap) >= 2 ** 31:
         raise ValueError(f"expert_ffn_grouped: cap {cap} out of range")
-    tensors = [x, flat_idx, weights, w1, w2] + ([w3] if w3 is not None
-                                                else [])
-    if any(t.device != x.device for t in tensors):
+    if any(t.device != x.device for t in (flat_idx, weights)):
         raise ValueError("expert_ffn_grouped: operands on different devices")
-    if not all(t.is_contiguous() for t in tensors):
+    if not (flat_idx.is_contiguous() and weights.is_contiguous()):
         raise ValueError("expert_ffn_grouped: operands must be contiguous")
 
 
@@ -136,3 +132,31 @@ def expert_ffn_grouped(x, flat_idx, weights, w1, w3, w2, *, cap,
 
 
 expert_ffn_grouped.launches = 0
+
+
+def expert_ffn_ragged(xb, counts, w1, w3, w2, *, act="silu"):
+    """Ragged grouped FFN.  xb: (E, G, c, M) float32 or bfloat16; counts:
+    (E, G) int32 routed rows per group; w1/w3 (E, M, F), w2 (E, F, M) of
+    one dtype (w3 None for two-layer experts).  Returns (E, G, c, M) in
+    xb's dtype, computed in f32, rows >= counts[e, g] exactly 0."""
+    if xb.device.type == "cpu":
+        return expert_ffn_ragged_ref(xb, counts, w1, w3, w2, act=act)
+    if xb.device.type != "cuda":
+        raise RuntimeError(f"expert_ffn_ragged: no kernel for device "
+                           f"{xb.device}")
+    if xb.dim() != 4 or xb.shape[0] != w1.shape[0]:
+        raise ValueError(f"expert_ffn_ragged: xb must be (E, G, c, M) with "
+                         f"E = {w1.shape[0]}, got {tuple(xb.shape)}")
+    E, G, c, M = xb.shape
+    if counts.shape != (E, G) or counts.dtype != torch.int32 \
+            or counts.device != xb.device or not counts.is_contiguous():
+        raise ValueError(f"expert_ffn_ragged: counts must be contiguous "
+                         f"int32 ({E}, {G}) on xb's device, got "
+                         f"{counts.dtype} {tuple(counts.shape)}")
+    y = launch_ffn("expert_ffn_ragged", xb, counts, w1, w3, w2, xb.dtype,
+                   act, G, c)
+    expert_ffn_ragged.launches += 1
+    return y.reshape(E, G, c, M)
+
+
+expert_ffn_ragged.launches = 0

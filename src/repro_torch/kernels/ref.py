@@ -51,6 +51,18 @@ def expert_ffn_ref(x, w1, w3, w2, *, act="silu"):
     return torch.einsum("etf,efm->etm", h, w2.to(dt))
 
 
+def expert_ffn_ragged_ref(xb, counts, w1, w3, w2, *, act="silu"):
+    """Ragged grouped FFN over a (E, G, c, M) pool with (E, G) routed-row
+    counts: the FFN in f32, rows at index >= counts[e, g] multiplied by 0
+    (exact zeros for finite values), cast back to ``xb.dtype``."""
+    E, G, c, M = xb.shape
+    h = expert_ffn_ref(xb.reshape(E, G * c, M).float(), w1, w3, w2, act=act)
+    mask = torch.arange(c, device=xb.device)[None, None, :] \
+        < counts[:, :, None]
+    h = h.reshape(E, G, c, M) * mask[..., None].to(h.dtype)
+    return h.to(xb.dtype)
+
+
 def moe_dispatch_ref(x, flat_idx, n_slots):
     """Scatter tokens into the flat capacity buffer.
     x: (S, M); flat_idx: (S, k) int in [0, n_slots] (n_slots = drop).

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core.schedules import SCHEDULES
 from repro_torch.launch.common import device_profile, resolve_device
 from repro_torch.models import Model
 from repro_torch.serve import Engine, SamplerConfig, latency_stats
@@ -54,8 +55,9 @@ def main(argv=None):
                     default=True)
     ap.add_argument("--prefill-chunk", type=int, default=0,
                     help="chunked prefill size in tokens (0 = one-shot)")
-    ap.add_argument("--schedule", default=None,
-                    help="force one MoE schedule (auto | s1g in this slice)")
+    ap.add_argument("--schedule", default=None, choices=SCHEDULES,
+                    help="force one MoE schedule, run on one rank "
+                         "(default: auto, which is s1g there)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)

@@ -3,17 +3,21 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-moe-30b-a3b \\
       --layers 4 --seq 2048 --batch 1 --steps 10 --lr 1e-4
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-moe \\
+      --schedule s1 --pipeline-chunks 2 --steps 10
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-moe \\
       --reduced --device cpu --steps 3
 
 The flags are the JAX launcher's for what the port runs, plus ``--device``
-and ``--profile``.  ``--layers N`` cuts the depth and keeps the full width
-(with ``--reduced``, the reduced config's depth).  Weights are random from
-a fixed seed; batches are ``SyntheticLM``'s.  Without a CUDA card the
+and ``--profile``: ``--schedule`` takes every name of the JAX package's
+``SCHEDULES`` (run on one rank), ``--pipeline-chunks`` the ``*_pipe``
+bodies' chunk count and ``--wire-dtype`` f32, bf16 or fp8_e4m3.
+``--layers N`` cuts the depth and keeps the full width (with
+``--reduced``, the reduced config's depth).  Weights are random from a
+fixed seed; batches are ``SyntheticLM``'s.  Without a CUDA card the
 launcher stops with an error; ``--device cpu`` asks for the CPU.  Flags of
-the JAX launcher for what later slices bring (guards, faults, placement,
-checkpoints, any wire dtype: training's backward through the wire round
-trip is not yet held against JAX) are refused with an error, never
-ignored.
+the JAX launcher for what later slices bring (``--wire-dtype auto``,
+``--autosched``, guards, faults, placement, checkpoints) are refused with
+an error, never ignored.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ from dataclasses import replace
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core.collectives import CommConfig
+from repro_torch.core.schedules import SCHEDULES
 from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.launch.common import device_profile, resolve_device
 from repro_torch.models import Model
@@ -43,9 +49,18 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--lr", type=float, default=1e-3)
-    ap.add_argument("--schedule", default=None, choices=["auto", "s1g"],
-                    help="MoE schedule (one rank: auto resolves to s1g)")
-    ap.add_argument("--wire-dtype", default=None)
+    ap.add_argument("--schedule", default=None, choices=SCHEDULES,
+                    help="Parm schedule override, run on one rank (auto "
+                         "resolves to s1g there)")
+    ap.add_argument("--pipeline-chunks", type=int, default=None,
+                    help="micro-chunk count for the pipelined bodies "
+                         "(1 = unchunked)")
+    ap.add_argument("--autosched", default=None,
+                    choices=["analytic", "measured"])
+    ap.add_argument("--wire-dtype", default=None,
+                    choices=["f32", "bf16", "fp8_e4m3", "auto"],
+                    help="wire format of the MoE collectives (on one rank "
+                         "the codec's round trip)")
     ap.add_argument("--placement", default="uniform",
                     choices=["uniform", "auto"])
     ap.add_argument("--guards", action="store_true")
@@ -60,16 +75,27 @@ def main(argv=None):
     for flag, used in (("--guards", args.guards), ("--faults", args.faults),
                        ("--ckpt", args.ckpt),
                        ("--placement auto", args.placement == "auto"),
-                       ("--wire-dtype", args.wire_dtype is not None)):
+                       ("--autosched", args.autosched),
+                       ("--wire-dtype auto", args.wire_dtype == "auto")):
         if used:
             ap.error(f"{flag} {LATER}")
     if args.steps < 1:
         ap.error("--steps must be >= 1")
+    if args.pipeline_chunks is not None and args.pipeline_chunks < 1:
+        ap.error("--pipeline-chunks must be >= 1")
     dev = resolve_device(args.device)
     if args.profile and dev.type != "cuda":
         ap.error("--profile measures the card: it needs --device cuda")
 
     cfg = get_config(args.arch)
+    if cfg.moe is not None:
+        moe_kw = {}
+        if args.pipeline_chunks is not None:
+            moe_kw["pipeline_chunks"] = args.pipeline_chunks
+        if args.wire_dtype:
+            moe_kw["comm"] = replace(cfg.moe.comm or CommConfig(),
+                                     wire_dtype=args.wire_dtype)
+        cfg = replace(cfg, moe=replace(cfg.moe, **moe_kw))
     if args.reduced:
         cfg = cfg.reduced(n_layers=args.layers or 2)
     elif args.layers:
@@ -86,6 +112,10 @@ def main(argv=None):
              else "cpu")
     print(f"device: {where}; {cfg.name} with {cfg.n_layers} layers, "
           f"batch {args.batch} x {args.seq} tokens", flush=True)
+    if cfg.moe is not None:
+        print(f"moe: schedule {args.schedule or cfg.moe.schedule}, "
+              f"{cfg.moe.pipeline_chunks} chunk(s), wire "
+              f"{cfg.moe.comm.wire_dtype}", flush=True)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()

@@ -94,7 +94,7 @@ class Engine:
     enables shared-prefix reuse and ``prefill_chunk`` > 0 splits prompts
     into chunks of that many tokens, alternating with decode rounds.
     ``prefill_batch`` caps how many admissions share one prefill call.
-    ``schedule`` forces one MoE schedule ("auto" or "s1g" in this slice).
+    ``schedule`` forces one MoE schedule (any name of ``SCHEDULES``).
     Tensors live on the model's device.
     """
 

@@ -1,14 +1,20 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
 version, the grouped kernel's contract (deterministic, row-independent,
-NaN rows never leak, dropped choices skipped), and each op's gradient
-through the registry's recompute backward.  Marked ``cuda``: they skip
+NaN rows never leak, dropped choices skipped), dispatch's exactness,
+the dense and ragged FFN's row independence and exact zero tails, that a
+CUDA tensor a kernel cannot take raises instead of falling back to the
+plain version, and each op's gradient through the registry (recompute or
+closed form) against the plain version's own.  Marked ``cuda``: they skip
 where there is no card, and run there with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: f32 1e-5 relative (the same sums in another order; flash
 attention 2e-5: its online softmax rescales the running sums once per KV
-tile), bf16 one bf16 ulp (2e-2).  Gradients: the same plain backward on
+tile), bf16 one bf16 ulp (2e-2).  Dispatch without duplicate slots is
+exact (each slot receives one value); with duplicates its atomics sum in
+an undefined order: 64 f32 terms of O(1) into one slot, 5e-5 (measured
+1.6e-6).  Gradients: the same plain backward on
 the kernel's and the plain version's saved inputs, so equal within 1e-5.
 Nothing here imports JAX.
 """
@@ -17,10 +23,16 @@ import pytest
 import torch
 
 from repro_torch.core.gating import GateConfig, topk_gate
-from repro_torch.kernels.expert_ffn_grouped import expert_ffn_grouped
+from repro_torch.kernels.expert_ffn import expert_ffn
+from repro_torch.kernels.expert_ffn_grouped import (expert_ffn_grouped,
+                                                    expert_ffn_ragged)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
-from repro_torch.kernels.ref import expert_ffn_grouped_ref, rmsnorm_ref
+from repro_torch.kernels.moe_dispatch import moe_combine, moe_dispatch
+from repro_torch.kernels.ref import (expert_ffn_grouped_ref,
+                                     expert_ffn_ragged_ref, expert_ffn_ref,
+                                     moe_combine_ref, moe_dispatch_ref,
+                                     rmsnorm_ref)
 from repro_torch.kernels.registry import get_op
 from repro_torch.kernels.rmsnorm import rmsnorm
 
@@ -170,6 +182,25 @@ def _grad_case(name, dev):
                 [randn(2, 96, 8, 64), randn(2, 96, 2, 64),
                  randn(2, 96, 2, 64)], (0, 1, 2))
     x, flat, w, (w1, w3, w2), cap = _moe(dev, cap=8)
+    E, M = w1.shape[0], w1.shape[1]
+    if name == "moe_dispatch":
+        return (get_op("moe_dispatch", n_slots=E * cap),
+                lambda x, f: moe_dispatch_ref(x, f, E * cap), [x, flat],
+                (0,))
+    if name == "moe_combine":
+        buf = randn(E * cap, M)
+        return (get_op("moe_combine"), moe_combine_ref, [buf, flat, w],
+                (0, 2))
+    if name == "expert_ffn":
+        return (get_op("expert_ffn", act="silu"),
+                lambda *a: expert_ffn_ref(*a, act="silu"),
+                [randn(E, 21, M), w1, w3, w2], (0, 1, 2, 3))
+    if name == "expert_ffn_ragged":
+        counts = torch.randint(0, 22, (E, 2), generator=g, device=dev,
+                               dtype=torch.int32)
+        return (get_op("expert_ffn_ragged", act="silu"),
+                lambda *a: expert_ffn_ragged_ref(*a, act="silu"),
+                [randn(E, 2, 21, M), counts, w1, w3, w2], (0, 2, 3, 4))
     return (get_op("expert_ffn_grouped", cap=cap, act="silu", wire="f32"),
             lambda *a: expert_ffn_grouped_ref(*a, cap=cap, act="silu",
                                               wire="f32"),
@@ -177,10 +208,13 @@ def _grad_case(name, dev):
 
 
 @pytest.mark.parametrize("name", ["rmsnorm", "flash_attention",
-                                  "expert_ffn_grouped"])
+                                  "expert_ffn_grouped", "expert_ffn",
+                                  "expert_ffn_ragged", "moe_dispatch",
+                                  "moe_combine"])
 def test_op_gradient_is_the_plain_versions(dev, name):
-    """Forward through the kernel, backward by plain recompute: the
-    gradient equals the plain version's own autograd gradient."""
+    """Forward through the kernel, backward by plain recompute or the
+    closed-form transpose: the gradient equals the plain version's own
+    autograd gradient."""
     op, plain, args, diff = _grad_case(name, dev)
     outs, grads = [], []
     for fn in (op, plain):
@@ -193,3 +227,125 @@ def test_op_gradient_is_the_plain_versions(dev, name):
     torch.testing.assert_close(outs[0], outs[1], rtol=2e-5, atol=2e-5)
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def _slots(dev, S=300, k=2, E=8, cap=64, seed=7):
+    """A gate's flat slots for S tokens: distinct kept slots, some drops."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((S, 96), generator=g, device=dev)
+    r = topk_gate(x, torch.randn((96, E), generator=g, device=dev),
+                  GateConfig(n_experts=E, top_k=k), cap)
+    return r.flat(cap, E), r.weights, E * cap
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_dispatch_vs_plain(dev, dtype):
+    flat, _, n_slots = _slots(dev)
+    assert (flat == n_slots).any(), "the case must drop choices"
+    x = torch.randn((flat.shape[0], 200), device=dev).to(dtype)
+    n0 = moe_dispatch.launches
+    got = moe_dispatch(x, flat, n_slots)
+    torch.cuda.synchronize()
+    assert moe_dispatch.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == (n_slots, 200)
+    assert torch.equal(got, moe_dispatch_ref(x, flat, n_slots))
+
+
+def test_moe_dispatch_sums_duplicate_slots(dev):
+    x = torch.randn((64, 130), device=dev)
+    flat = torch.randint(0, 9, (64, 3), device=dev, dtype=torch.int32)
+    flat[:, 0] = 2                     # 64 tokens into one slot
+    flat[5] = 8                        # the drop sentinel (n_slots = 8)
+    torch.testing.assert_close(moe_dispatch(x, flat, 8),
+                               moe_dispatch_ref(x, flat, 8), rtol=0,
+                               atol=5e-5)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6),
+                                       (torch.bfloat16, 2e-2)])
+def test_moe_combine_vs_plain(dev, dtype, tol):
+    flat, w, n_slots = _slots(dev)
+    buf = torch.randn((n_slots, 200), device=dev).to(dtype)
+    n0 = moe_combine.launches
+    got = moe_combine(buf, flat, w)
+    torch.cuda.synchronize()
+    assert moe_combine.launches == n0 + 1
+    assert got.dtype == dtype
+    dropped = (flat == n_slots).all(dim=1)
+    assert torch.equal(got[dropped], torch.zeros_like(got[dropped]))
+    torch.testing.assert_close(got.float(),
+                               moe_combine_ref(buf, flat, w).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("glu,act,dtype,tol", [
+    (True, "silu", torch.float32, 1e-5),
+    (False, "gelu", torch.float32, 1e-5),
+    (True, "silu", torch.bfloat16, 2e-2)])
+def test_expert_ffn_vs_plain_and_row_independent(dev, glu, act, dtype, tol):
+    x, _, _, (w1, w3, w2), _ = _moe(dev, glu=glu)
+    E, M = w1.shape[0], w1.shape[1]
+    xb = torch.randn((E, 37, M), device=dev)             # 37: ragged tiles
+    ws = [None if t is None else t.to(dtype) for t in (w1, w3, w2)]
+    n0 = expert_ffn.launches
+    got = expert_ffn(xb.to(dtype), *ws, act=act)
+    torch.cuda.synchronize()
+    assert expert_ffn.launches == n0 + 1
+    want = expert_ffn_ref(xb.to(dtype), *ws, act=act)
+    assert got.dtype == want.dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    # capacity chunks (the *_pipe bodies) give the same rows bitwise
+    parts = [expert_ffn(xb[:, a:b].contiguous().to(dtype), *ws, act=act)
+             for a, b in ((0, 16), (16, 37))]
+    assert torch.equal(torch.cat(parts, dim=1), got)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_expert_ffn_ragged_vs_plain(dev, dtype, tol):
+    _, _, _, (w1, w3, w2), _ = _moe(dev)
+    E, M = w1.shape[0], w1.shape[1]
+    c = 40
+    xb = torch.randn((E, 2, c, M), device=dev).to(dtype)
+    counts = torch.randint(0, c + 1, (E, 2), device=dev, dtype=torch.int32)
+    counts[0] = torch.tensor([0, c])               # empty and full
+    counts[1] = torch.tensor([5, 17])              # partial 16-row tiles
+    n0 = expert_ffn_ragged.launches
+    got = expert_ffn_ragged(xb, counts, w1, w3, w2)
+    torch.cuda.synchronize()
+    assert expert_ffn_ragged.launches == n0 + 1
+    assert got.dtype == dtype
+    torch.testing.assert_close(
+        got.float(), expert_ffn_ragged_ref(xb, counts, w1, w3, w2).float(),
+        rtol=tol, atol=tol)
+    for e in range(E):
+        for gi in range(2):
+            n = int(counts[e, gi])
+            assert (got[e, gi, n:] == 0).all(), (e, gi)
+
+
+def test_new_kernels_raise_instead_of_falling_back(dev):
+    """A CUDA tensor the kernel cannot take (float16, or operands on two
+    devices) raises; no wrapper computes it with the plain version."""
+    flat, w, n_slots = _slots(dev)
+    x = torch.randn((flat.shape[0], 64), device=dev)
+    with pytest.raises(TypeError, match="dtype"):
+        moe_dispatch(x.half(), flat, n_slots)
+    with pytest.raises(TypeError, match="dtype"):
+        moe_combine(torch.zeros((n_slots, 64), device=dev).half(), flat, w)
+    with pytest.raises(ValueError, match="devices"):
+        moe_combine(torch.zeros((n_slots, 64), device=dev), flat.cpu(), w)
+    _, _, _, (w1, w3, w2), _ = _moe(dev)
+    E, M = w1.shape[0], w1.shape[1]
+    with pytest.raises(TypeError, match="dtype"):
+        expert_ffn(torch.zeros((E, 4, M), device=dev).half(), w1, w3, w2)
+    with pytest.raises(ValueError, match="devices"):
+        expert_ffn(torch.zeros((E, 4, M), device=dev), w1.cpu(), w3.cpu(),
+                   w2.cpu())
+    counts = torch.zeros((E, 1), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError, match="dtype"):
+        expert_ffn_ragged(torch.zeros((E, 1, 4, M), device=dev).half(),
+                          counts, w1, w3, w2)
+    with pytest.raises(ValueError, match="counts"):
+        expert_ffn_ragged(torch.zeros((E, 1, 4, M), device=dev),
+                          counts.long(), w1, w3, w2)

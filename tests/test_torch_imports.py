@@ -90,8 +90,8 @@ def test_entry_points_refuse_to_run_without_a_card():
 
 @pytest.mark.parametrize("flag", [
     ["--guards"], ["--faults", "nan_grad@step=1"], ["--ckpt", "ck"],
-    ["--placement", "auto"], ["--wire-dtype", "fp8_e4m3"],
-    ["--wire-dtype", "bf16"], ["--wire-dtype", "f32"]])
+    ["--placement", "auto"], ["--wire-dtype", "auto"],
+    ["--autosched", "analytic"], ["--autosched", "measured"]])
 def test_train_launcher_refuses_flags_of_later_slices(flag, capsys):
     """A JAX launcher flag the port does not run yet is an error, never a
     silent no-op (checked before any device or model is touched)."""

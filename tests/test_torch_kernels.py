@@ -1,7 +1,9 @@
 """The port's kernel modules on the CPU: the plain PyTorch versions that
 CPU tensors run (``repro_torch.kernels``) against the JAX package's Pallas
 kernels (interpret mode, as tests/test_grouped_kernel.py runs them) and
-its jnp oracles, on the same numpy inputs.
+its jnp oracles, on the same numpy inputs; the closed-form gradients of
+dispatch, combine and the ragged FFN against ``jax.vjp``; and the wire
+codec's bytes against the JAX package's ``wire_encode``.
 
 Tolerances: f32 1e-5 (the same sums taken by two frameworks in different
 orders, over at most 64 terms of O(1) values); a bfloat16 output or a bf16
@@ -21,10 +23,16 @@ from repro.core.gating import GateConfig as JGateConfig  # noqa: E402
 from repro.core.gating import capacity as j_capacity  # noqa: E402
 from repro.core.gating import topk_gate as j_topk_gate  # noqa: E402
 from repro.kernels import expert_ffn_grouped as j_grouped  # noqa: E402
+from repro.core import collectives as jcoll  # noqa: E402
+from repro.kernels.registry import KernelConfig as JKernelConfig  # noqa
 from repro.kernels.registry import get_op as j_get_op  # noqa: E402
+from repro_torch.core import collectives as tcoll  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels.expert_ffn import expert_ffn  # noqa: E402
 from repro_torch.kernels.expert_ffn_grouped import (  # noqa: E402
-    expert_ffn_grouped, slot_metadata)
+    expert_ffn_grouped, expert_ffn_ragged, slot_metadata)
+from repro_torch.kernels.moe_dispatch import (moe_combine,  # noqa: E402
+                                              moe_dispatch)
 from repro_torch.kernels.registry import KernelConfig, get_op  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm  # noqa: E402
 
@@ -144,6 +152,198 @@ class TestGroupedVsJax:
         assert rid.dtype == cnt.dtype == torch.int32
 
 
+class TestDispatchCombineVsJax:
+    """Dispatch with duplicate slots and the drop sentinel; combine with
+    dropped choices.  A duplicate slot sums its tokens: 2 terms, in token
+    order in all three implementations (f32 1e-5; bf16 one ulp)."""
+
+    N_SLOTS = 12
+
+    def _case(self, seed):
+        rng = np.random.RandomState(seed)
+        x = rng.randn(S, M).astype(np.float32)
+        flat = rng.randint(0, self.N_SLOTS + 1, (S, K)).astype(np.int32)
+        flat[0] = [3, 3]                       # one token, one slot twice
+        flat[1, 0] = flat[2, 1] = 5            # two tokens, one slot
+        flat[3] = self.N_SLOTS                 # both choices dropped
+        w = rng.rand(S, K).astype(np.float32)
+        return x, flat, w
+
+    @pytest.mark.parametrize("backend", ["ref", "pallas"])
+    @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+    def test_dispatch(self, backend, dtype):
+        x, flat, _ = self._case(0)
+        want = j_get_op("moe_dispatch", backend=backend,
+                        n_slots=self.N_SLOTS)(_j(x, dtype), _j(flat))
+        tdt = torch.float32 if dtype == jnp.float32 else torch.bfloat16
+        got = moe_dispatch(_t(x, tdt), _t(flat), self.N_SLOTS)
+        assert got.dtype == tdt and got.shape == (self.N_SLOTS, M)
+        tol = F32_TOL if dtype == jnp.float32 else BF16_TOL
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want.astype(jnp.float32)),
+                                   **tol)
+
+    @pytest.mark.parametrize("backend", ["ref", "pallas"])
+    @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+    def test_combine(self, backend, dtype):
+        _, flat, w = self._case(1)
+        buf = np.random.RandomState(2).randn(self.N_SLOTS, M).astype(
+            np.float32)
+        want = j_get_op("moe_combine", backend=backend)(
+            _j(buf, dtype), _j(flat), _j(w))
+        tdt = torch.float32 if dtype == jnp.float32 else torch.bfloat16
+        got = moe_combine(_t(buf, tdt), _t(flat), _t(w))
+        assert got.dtype == tdt
+        assert (got[3] == 0).all()             # every choice dropped
+        tol = F32_TOL if dtype == jnp.float32 else BF16_TOL
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want.astype(jnp.float32)),
+                                   **tol)
+
+    def test_closed_form_gradients_match_jax(self):
+        """The registry's closed-form transposes against ``jax.vjp`` of
+        the JAX ops (f32; the same few-term sums)."""
+        x, flat, w = self._case(3)
+        buf = np.random.RandomState(4).randn(self.N_SLOTS, M).astype(
+            np.float32)
+        gd = np.random.RandomState(5).randn(self.N_SLOTS, M).astype(
+            np.float32)
+        gc = np.random.RandomState(6).randn(S, M).astype(np.float32)
+        n = self.N_SLOTS
+        _, vjp = jax.vjp(lambda a: j_get_op("moe_dispatch", n_slots=n)(
+            a, _j(flat)), _j(x))
+        want_x, = vjp(_j(gd))
+        _, vjp = jax.vjp(lambda b, ww: j_get_op("moe_combine")(
+            b, _j(flat), ww), _j(buf), _j(w))
+        want_b, want_w = vjp(_j(gc))
+        tx = _t(x).requires_grad_(True)
+        got_x, = torch.autograd.grad(
+            get_op("moe_dispatch", n_slots=n)(tx, _t(flat)), tx, _t(gd))
+        tb, tw = _t(buf).requires_grad_(True), _t(w).requires_grad_(True)
+        got_b, got_w = torch.autograd.grad(
+            get_op("moe_combine")(tb, _t(flat), tw), (tb, tw), _t(gc))
+        for got, want in ((got_x, want_x), (got_b, want_b),
+                          (got_w, want_w)):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       **F32_TOL)
+
+
+class TestExpertFfnVsJax:
+    """``expert_ffn`` with T not a multiple of the Pallas token tile, and
+    the ragged FFN with a count of 0, partial tiles and full tiles (the
+    Pallas kernel run with 8-row tiles).  f32 1e-5 against the oracle,
+    5e-4 against the Pallas kernel (the tolerance the JAX package's own
+    tests give its kernel against its oracle)."""
+
+    @pytest.mark.parametrize("backend", ["ref", "pallas"])
+    @pytest.mark.parametrize("glu,act", [(True, "silu"), (False, "gelu")])
+    def test_expert_ffn(self, backend, glu, act):
+        rng = np.random.RandomState(8)
+        x = rng.randn(E, 37, M).astype(np.float32)
+        w1, w3, w2 = _weights(9, glu)
+        want = j_get_op("expert_ffn", backend=backend, act=act)(
+            _j(x), _j(w1), _j(w3), _j(w2))
+        got = expert_ffn(_t(x), _t(w1), None if w3 is None else _t(w3),
+                         _t(w2), act=act)
+        tol = F32_TOL if backend == "ref" else dict(rtol=5e-4, atol=5e-4)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
+
+    COUNTS = np.array([[0, 24], [5, 8], [13, 0], [16, 3]], np.int32)
+
+    @pytest.mark.parametrize("backend", ["ref", "pallas"])
+    @pytest.mark.parametrize("glu,act", [(True, "silu"), (False, "gelu")])
+    def test_ragged(self, backend, glu, act):
+        rng = np.random.RandomState(10)
+        xb = rng.randn(E, 2, 24, M).astype(np.float32)
+        w1, w3, w2 = _weights(11, glu)
+        want = j_get_op("expert_ffn_ragged", backend=backend, act=act,
+                        cfg=JKernelConfig(block_t=8))(
+            _j(xb), _j(self.COUNTS), _j(w1), _j(w3), _j(w2))
+        got = expert_ffn_ragged(_t(xb), _t(self.COUNTS), _t(w1),
+                                None if w3 is None else _t(w3), _t(w2),
+                                act=act).numpy()
+        tol = F32_TOL if backend == "ref" else dict(rtol=5e-4, atol=5e-4)
+        np.testing.assert_allclose(got, np.asarray(want), **tol)
+        for e in range(E):
+            for g in range(2):
+                n = int(self.COUNTS[e, g])
+                assert (got[e, g, n:] == 0.0).all(), (e, g)
+                assert (np.abs(got[e, g, :n]) > 0).any() or n == 0
+
+    def test_ragged_bf16_keeps_its_dtype(self):
+        rng = np.random.RandomState(12)
+        xb = rng.randn(E, 2, 24, M).astype(np.float32)
+        w1, w3, w2 = _weights(13, True)
+        want = j_get_op("expert_ffn_ragged", backend="ref")(
+            _j(xb, jnp.bfloat16), _j(self.COUNTS), _j(w1), _j(w3), _j(w2))
+        got = expert_ffn_ragged(_t(xb, torch.bfloat16), _t(self.COUNTS),
+                                _t(w1), _t(w3), _t(w2))
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want.astype(jnp.float32)),
+                                   **BF16_TOL)
+
+    def test_ragged_closed_form_gradient_matches_jax(self):
+        rng = np.random.RandomState(14)
+        xb = rng.randn(E, 2, 24, M).astype(np.float32)
+        ct = rng.randn(E, 2, 24, M).astype(np.float32)
+        w1, w3, w2 = _weights(15, True)
+        _, vjp = jax.vjp(lambda *a: j_get_op("expert_ffn_ragged")(
+            a[0], _j(self.COUNTS), *a[1:]), _j(xb), _j(w1), _j(w3), _j(w2))
+        want = vjp(_j(ct))
+        args = [_t(a).requires_grad_(True) for a in (xb, w1, w3, w2)]
+        got = torch.autograd.grad(
+            get_op("expert_ffn_ragged")(args[0], _t(self.COUNTS), *args[1:]),
+            args, _t(ct))
+        for g, w in zip(got, want):
+            w = np.asarray(w)
+            np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                       atol=1e-5 * np.abs(w).max())
+
+
+class TestWireCodecVsJax:
+    """``wire_encode``'s bytes are the JAX package's: bf16, and fp8_e4m3
+    with per-row absmax scaling (the f32 scale bitcast into a 4-byte tail)
+    and without scaling (clipped at +-448); ``wire_decode`` inverts them
+    to the same values."""
+
+    @pytest.mark.parametrize("wire,scaling", [("bf16", "per_chunk"),
+                                              ("fp8_e4m3", "per_chunk"),
+                                              ("fp8_e4m3", "none")])
+    def test_bytes(self, wire, scaling):
+        x = np.random.RandomState(16).randn(64, 40).astype(np.float32)
+        x[3] *= 1e3                         # past +-448 before scaling
+        x[5] = 0.0                          # an all-zero row
+        jc = jcoll.CommConfig(wire_dtype=wire, scaling=scaling)
+        tc = tcoll.CommConfig(wire_dtype=wire, scaling=scaling)
+        jw = jcoll.wire_encode(jnp.asarray(x), jc)
+        tw = tcoll.wire_encode(_t(x), tc)
+        assert tuple(tw.shape) == jw.shape
+        np.testing.assert_array_equal(
+            tw.contiguous().view(torch.uint8).numpy(),
+            np.asarray(jw).view(np.uint8))
+        np.testing.assert_array_equal(
+            tcoll.wire_decode(tw, tc, torch.float32).numpy(),
+            np.asarray(jcoll.wire_decode(jw, jc, jnp.float32)))
+
+    def test_fp8_backward_reencodes_the_cotangent(self):
+        """The fp8 round trip's backward is JAX's ``custom_vjp``: the
+        cotangent goes through its own encode/decode."""
+        rng = np.random.RandomState(17)
+        x, g = rng.randn(8, 40).astype(np.float32), rng.randn(8, 40)
+        g = (g * 1e-3).astype(np.float32)
+        jc = jcoll.CommConfig(wire_dtype="fp8_e4m3")
+        _, vjp = jax.vjp(lambda a: jcoll.wire_roundtrip(a, jc),
+                         jnp.asarray(x))
+        want, = vjp(jnp.asarray(g))
+        tx = _t(x).requires_grad_(True)
+        got, = torch.autograd.grad(
+            tcoll.wire_roundtrip(tx, tcoll.CommConfig(wire_dtype="fp8_e4m3")),
+            tx, _t(g))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        assert not np.array_equal(got.numpy(), g)
+
+
 class TestRmsnormVsJax:
     @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
     @pytest.mark.parametrize("backend", ["ref", "pallas"])
@@ -171,7 +371,7 @@ class TestSeam:
         with pytest.raises(ValueError, match="device"):
             get_op("rmsnorm", cfg=KernelConfig(backend="ref"))
         with pytest.raises(KeyError):
-            get_op("moe_dispatch")
+            get_op("no_such_op")
 
     def test_no_fallback_off_the_cpu(self):
         # a tensor that is neither on the CPU nor on a card gets no kernel
@@ -185,3 +385,22 @@ class TestSeam:
                 torch.empty((2, 1), device="meta"),
                 torch.empty((1, 8, 4), device="meta"), None,
                 torch.empty((1, 4, 8), device="meta"), cap=8)
+
+    def test_no_fallback_off_the_cpu_for_the_moe_ops(self):
+        flat = torch.empty((2, 1), dtype=torch.int32, device="meta")
+        w1 = torch.empty((1, 8, 4), device="meta")
+        w2 = torch.empty((1, 4, 8), device="meta")
+        calls = [
+            lambda: moe_dispatch(torch.empty((2, 8), device="meta"), flat,
+                                 4),
+            lambda: moe_combine(torch.empty((4, 8), device="meta"), flat,
+                                torch.empty((2, 1), device="meta")),
+            lambda: expert_ffn(torch.empty((1, 3, 8), device="meta"), w1,
+                               None, w2),
+            lambda: expert_ffn_ragged(
+                torch.empty((1, 1, 3, 8), device="meta"),
+                torch.empty((1, 1), dtype=torch.int32, device="meta"), w1,
+                None, w2)]
+        for call in calls:
+            with pytest.raises(RuntimeError, match="no kernel"):
+                call()

@@ -25,6 +25,7 @@ from repro.core.perfmodel import MoELayerShape  # noqa: E402
 from repro.core.pipeline import clamp_chunks  # noqa: E402
 from repro.parallel.mesh import ParallelDims, make_mesh  # noqa: E402
 from repro_torch.core import moe as tmoe  # noqa: E402
+from repro_torch.core.collectives import CommConfig as TCommConfig  # noqa
 
 MESH_DIMS = ParallelDims(ep=("data",), esp=("model",), mp=("model",))
 
@@ -41,7 +42,7 @@ def _cfgs(*, M=32, F=48, E=8, k=2, cf=1.25, glu=True, act="silu",
     kw = dict(d_model=M, d_ff=F, n_experts=E, top_k=k, capacity_factor=cf,
               glu=glu, act=act, normalize_topk=normalize, schedule="s1g")
     return (jmoe.MoEConfig(comm=CommConfig(wire_dtype=wire), **kw),
-            tmoe.MoEConfig(wire=wire, **kw))
+            tmoe.MoEConfig(comm=TCommConfig(wire_dtype=wire), **kw))
 
 
 def _params(cfg, seed):
@@ -91,12 +92,30 @@ def test_apply_moe_matches_jax_s1g(infer, variant):
 
 
 def test_other_schedules_wait_for_a_later_slice():
+    """Every schedule runs on one rank now; what still needs a later slice
+    (the cost model's wire pick, the measured calibration, a multi-rank
+    group, an expert placement) raises, never runs as something else."""
+    from repro_torch.core import collectives, executor, plan, schedules
     _, tcfg = _cfgs()
     x = torch.zeros((1, 4, tcfg.d_model))
     p = {key: torch.from_numpy(v) for key, v in _params(tcfg, 0).items()}
     for sched in ("s1", "s2", "baseline", "s1d"):
-        with pytest.raises(NotImplementedError, match="multi-rank"):
-            tmoe.apply_moe(x, p, cfg=tcfg, schedule=sched)
+        y, _ = tmoe.apply_moe(x, p, cfg=tcfg, schedule=sched)
+        assert y.shape == x.shape
+    for kw in (dict(comm=TCommConfig(wire_dtype="auto")),
+               dict(autosched="measured")):
+        with pytest.raises(NotImplementedError, match="later slice"):
+            tmoe.apply_moe(x, p, cfg=dataclasses.replace(tcfg, **kw))
+    with pytest.raises(NotImplementedError, match="multi-rank"):
+        collectives.ep_esp_all_to_all(x, ("ep",), ("esp",), 2)
+    info = schedules.MoEShardInfo(
+        ep_axes=("ep",), esp_axes=("esp",), mp_axes=("mp",), n_ep=1,
+        n_esp=1, n_mp=1, tokens=4, cap=8, gate=tcfg.gate_config())
+    placed = dataclasses.replace(plan.build_plan("s1", info),
+                                 placement=object())
+    with pytest.raises(NotImplementedError, match="placement"):
+        executor.execute(placed, x[0], p["wg"], p["w1"], p["w3"], p["w2"],
+                         info)
 
 
 def test_shard_pool_capacity_matches_jax():
