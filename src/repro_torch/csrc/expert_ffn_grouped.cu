@@ -7,61 +7,72 @@
 // return the gate-weighted sum of each token's k expert outputs, with the
 // optional bf16 wire round-trip at the two pool boundaries.
 //
-// What bounds it on an H100: memory, at every serving shape.  The op reads
-// every routed expert's weights once (3 * M * F elements per hit expert) and
-// does 2 * 3 * rows * M * F flops on them, i.e. about rows_per_expert / 2
-// flop/byte in f32.  Decode (8 tokens x top-8) touches at most 64 of 128
-// experts with ~1 row each and a 512-token prefill ~32 rows each: both far
-// below the f32 ridge (~20 flop/byte), so the floor is the hit experts'
-// weight bytes at 3.35 TB/s.
+// What bounds it on an H100.  The op reads every hit expert's weights once
+// (n_mat * M * F elements each) and does 2 * n_mat * routed * M * F flops:
+// about rows_per_expert / 2 flop per f32 byte.  At decode (8 tokens x
+// top-8, ~1 row per hit expert) that is far below the f32 ridge (67 TFLOP/s
+// over 3.35 TB/s = 20 flop/byte): bytes bound it.  At the training steps
+// (qwen3: ~128 rows per expert, gpt2-moe: ~2048) it is far above: the f32
+// FMA rate bounds it.  No tensor cores: the reference is f32 and TF32 keeps
+// 10 mantissa bits, which the stated tolerances do not allow.
 //
-// Design (a simple, right kernel first; wgmma/TMA/cp.async come later):
+// Design:
 //   * The routed-row metadata (slot -> token row, routed rows per expert) is
 //     built on the device in torch by the wrapper.  Slots of an expert are
 //     contiguous from 0 (GShard slot priority), so `counts` are ragged group
 //     sizes.
-//   * up:   grid (F/64, ceil(cap/16), E).  A block whose 16-row tile lies
-//           past the expert's routed count returns before touching memory,
-//           so unrouted experts' weights are never read.  Live blocks gather
-//           their rows by id (pad and unrouted rows are skipped, never
-//           multiplied by a zero weight, so NaN rows cannot leak), stream
-//           32-deep slabs of w1/w3 through shared memory and keep
-//           4 rows x 1 column of f32 accumulators per thread.  Epilogue:
-//           act(h1) [* h3] into an f32 (E*cap, F) scratch.
-//   * down: grid (M/64, ceil(cap/16), E), the same tiling over w2, with the
-//           wire round-trip in the epilogue, into an f32 (E*cap, M) scratch.
+//   * up and down run on one register-blocked mainloop (fma_tile.cuh): a
+//     block of 256 threads owns BM routed rows x 128 B columns and streams
+//     32-deep slabs of A and B through a ring of cp.async stages.
+//       up:   A = the expert's routed x rows, gathered by id straight into
+//             shared memory (pad and unrouted rows are zero-filled, never
+//             read, so NaN rows cannot leak); B = 64 columns of w1 beside
+//             the same 64 of w3 under GLU (a thread holds 4 x 4 of each of
+//             h1 and h3), else 128 columns of w1.  Epilogue: act(h1) [* h3]
+//             into an f32 (E*cap, F) scratch.  With the bf16 wire, each x
+//             slab is rounded through bf16 in shared memory once it lands.
+//       down: A = the expert's contiguous rows of that scratch, B = 128
+//             columns of w2; the wire round-trip in the epilogue, into an
+//             f32 (E*cap, M) scratch.
+//     A block whose row tile lies past the expert's routed count returns
+//     before touching memory, so unrouted experts' weights are never read.
+//   * BM follows the rows per expert, chosen by the launcher from the
+//     capacity: 16 rows (a 4-stage ring of 16 KB weight slabs, three
+//     blocks per SM: the bytes-bound decode), 64 (qwen3's training cap
+//     160: tiles of 64 + 64 + 32) or 128 (gpt2-moe's 2464: 20 passes over
+//     an expert's weights instead of 154 at 16 rows).  A tile multiplies
+//     only its 16-row groups that hold live rows, and a warp whose rows are
+//     all dead only copies: at decode (1-2 live rows of 16) one warp of
+//     eight multiplies, so the weight stream, not the FMAs, sets the time
+//     (multiplying all 16 rows made decode bound by FMAs, not bytes).  Mixed
+//     x / weight dtypes take the 64-row instance.  Every instance runs the
+//     same k-order FMA chains, so the choice never changes a bit of the
+//     output.
 //   * combine: one block row per token sums its k choices in choice order
-//           (as moe_combine_ref) and casts to x's dtype.  Dropped choices
-//           are skipped.
-// No float atomics anywhere and every output row is a fixed-order sum over
-// its own inputs: the result is deterministic and independent of which
-// other tokens share a tile (the serving engine's batch-independence rests
-// on this).
+//     (as moe_combine_ref) and casts to x's dtype.  Dropped choices are
+//     skipped.
+// Every output element is one fmaf chain over k in ascending order from
+// 0.f over its own row (no split-K, no atomics): the result is
+// deterministic, independent of which other tokens share a tile (the
+// serving engine's batch independence rests on this), and equal bit for
+// bit to dispatch -> expert_ffn -> combine (csrc/expert_ffn.cu computes
+// the same chains).  x rows, weight rows and the scratch rows must be
+// 16-byte aligned (the wrapper checks; cp.async copies 16 bytes).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "fma_tile.cuh"
+
 namespace {
 
-constexpr int kBT = 16;        // routed rows per tile
-constexpr int kBN = 64;        // output columns per block
-constexpr int kBK = 32;        // reduction depth per shared-memory slab
-constexpr int kThreads = 256;  // kBN columns x 4 row groups
-constexpr int kRowsPerThread = kBT / (kThreads / kBN);
-constexpr int kCombineThreads = 256;
+using repro::bf16_round;
+using repro::FmaTile;
+using repro::kSegs;
+using repro::kTileThreads;
+using repro::store;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-// The fused wire codec: a round trip through bf16 (round to nearest even).
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
+constexpr int kCombineThreads = 256;
 
 // act: 0 = silu, 1 = gelu in its tanh form (jax.nn.gelu's default).
 __device__ __forceinline__ float act_fn(float v, int act) {
@@ -70,143 +81,158 @@ __device__ __forceinline__ float act_fn(float v, int act) {
   return 0.5f * v * (1.f + tanhf(c * (v + 0.044715f * v * v * v)));
 }
 
-template <typename TX, typename TW, bool kGlu>
-__global__ void __launch_bounds__(kThreads)
+template <int BM>
+struct Inst {  // each row-tile instance's ring depth and blocks per SM
+  static constexpr int kStages = BM == 128 ? 3 : 4;
+  static constexpr int kMinBlocks = BM == 16 ? 3 : BM == 64 ? 2 : 1;
+  template <typename TA, typename TB>
+  using Tile = FmaTile<TA, TB, BM, kStages>;
+};
+
+// The mainloop over the 16-row groups of a tile that hold its nrows live
+// rows (a power of two of them at BM 128): dead groups' accumulators stay
+// 0 and are not stored.  qwen3's last tile of an expert holds 1-32 rows.
+template <typename TA, typename TB, int BM>
+__device__ __forceinline__ void run_mainloop(
+    char* smem,
+    const TA* const (&a_row)[Inst<BM>::template Tile<TA, TB>::kAPer],
+    const TA* a_any, const TB* const (&b_src)[2], int b_split, int ldb,
+    const int (&b_cols)[2], int K, bool round_a, int nrows,
+    float (&acc)[BM / 16][4 * kSegs]) {
+  constexpr int kS = Inst<BM>::kStages;
+  const int live = (nrows + 15) / 16;
+#define REPRO_MAINLOOP(L)                                                  \
+  repro::fma_mainloop<TA, TB, BM, kS, L>(smem, a_row, a_any, b_src,        \
+                                             b_split, ldb, b_cols, K,      \
+                                             round_a, nrows, acc)
+  if constexpr (BM == 64) {
+    if (live <= 1) REPRO_MAINLOOP(1);
+    else if (live == 2) REPRO_MAINLOOP(2);
+    else if (live == 3) REPRO_MAINLOOP(3);
+    else REPRO_MAINLOOP(4);
+  } else if constexpr (BM == 128) {
+    if (live <= 1) REPRO_MAINLOOP(1);
+    else if (live == 2) REPRO_MAINLOOP(2);
+    else if (live <= 4) REPRO_MAINLOOP(4);
+    else REPRO_MAINLOOP(8);
+  } else {
+    REPRO_MAINLOOP(BM / 16);
+  }
+#undef REPRO_MAINLOOP
+}
+
+template <typename TX, typename TW, int BM, bool kGlu>
+__global__ void __launch_bounds__(kTileThreads, Inst<BM>::kMinBlocks)
 grouped_up_kernel(const TX* __restrict__ x, const int* __restrict__ rid,
                   const int* __restrict__ counts, const TW* __restrict__ w1,
                   const TW* __restrict__ w3, float* __restrict__ mid, int S,
                   int M, int F, int cap, int act, int wire) {
+  using T = typename Inst<BM>::template Tile<TX, TW>;
+  constexpr int kOut = kGlu ? 1 : kSegs;  // 64-column groups of mid
   const int e = blockIdx.z;
-  const int r0 = blockIdx.y * kBT;
+  const int r0 = blockIdx.y * BM;
   const int cnt = min(counts[e], cap);
   if (r0 >= cnt) return;  // ragged: empty (expert, row tile) pairs skipped
-  const int nrows = min(kBT, cnt - r0);
-  const int f0 = blockIdx.x * kBN;
+  const int nrows = min(BM, cnt - r0);
+  const int n0 = blockIdx.x * 64 * kOut;
+  extern __shared__ float4 smem4[];
 
-  __shared__ int src[kBT];
-  __shared__ float xs[kBT][kBK + 1];
-  __shared__ float w1s[kBK][kBN];
-  __shared__ float w3s[kGlu ? kBK : 1][kBN];
-
-  const int tid = threadIdx.x;
-  if (tid < kBT) {
-    int id = -1;
-    if (tid < nrows) {
-      const int v = rid[static_cast<size_t>(e) * cap + r0 + tid];
-      if (v >= 0 && v < S) id = v;
+  const TX* a_row[T::kAPer];
+#pragma unroll
+  for (int p = 0; p < T::kAPer; ++p) {
+    const int row = T::chunk_row(p);
+    const TX* src = nullptr;
+    if (row < nrows) {
+      const int id = rid[static_cast<size_t>(e) * cap + r0 + row];
+      if (id >= 0 && id < S) src = x + static_cast<size_t>(id) * M;
     }
-    src[tid] = id;
+    a_row[p] = src;
   }
-  __syncthreads();
-
-  const int col = tid % kBN;
-  const int rg = tid / kBN;
-  float a1[kRowsPerThread];
-  float a3[kRowsPerThread];
+  // B: w1's columns n0.., then (GLU) w3's same columns
+  const size_t woff = static_cast<size_t>(e) * M * F + n0;
+  const TW* b_src[2] = {w1 + woff, kGlu ? w3 + woff : w1 + woff};
+  const int b_cols[2] = {F - n0, kGlu ? F - n0 : 0};
+  float acc[T::kTM][4 * kSegs];
 #pragma unroll
-  for (int j = 0; j < kRowsPerThread; ++j) a1[j] = a3[j] = 0.f;
-  const size_t wbase = static_cast<size_t>(e) * M * F;
+  for (int i = 0; i < T::kTM; ++i)
+#pragma unroll
+    for (int j = 0; j < 4 * kSegs; ++j) acc[i][j] = 0.f;
+  run_mainloop<TX, TW, BM>(reinterpret_cast<char*>(smem4), a_row, x, b_src,
+                           kOut, F, b_cols, M, wire != 0, nrows, acc);
 
-  for (int k0 = 0; k0 < M; k0 += kBK) {
-    for (int i = tid; i < kBT * kBK; i += kThreads) {
-      const int r = i / kBK, kk = i % kBK, m = k0 + kk, id = src[r];
-      float v = 0.f;
-      if (id >= 0 && m < M) {
-        v = to_f32(x[static_cast<size_t>(id) * M + m]);
-        if (wire) v = bf16_round(v);
+  const int ty = threadIdx.x >> 4;
+  const int f0 = n0 + (threadIdx.x & 15) * 4;
+#pragma unroll
+  for (int i = 0; i < T::kTM; ++i) {
+    const int r = ty + 16 * i;
+    if (r >= nrows) continue;
+    float* out = mid + (static_cast<size_t>(e) * cap + r0 + r) * F;
+#pragma unroll
+    for (int g = 0; g < kOut; ++g) {
+      const int f = f0 + 64 * g;
+      if (f >= F) continue;
+      float h[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        h[j] = act_fn(acc[i][4 * g + j], act);
+        if constexpr (kGlu) h[j] *= acc[i][4 * (g + kOut) + j];
       }
-      xs[r][kk] = v;
-    }
-    for (int i = tid; i < kBK * kBN; i += kThreads) {
-      const int kk = i / kBN, c = i % kBN, m = k0 + kk, f = f0 + c;
-      const bool ok = m < M && f < F;
-      const size_t off = wbase + static_cast<size_t>(m) * F + f;
-      w1s[kk][c] = ok ? to_f32(w1[off]) : 0.f;
-      if constexpr (kGlu) w3s[kk][c] = ok ? to_f32(w3[off]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float b1 = w1s[kk][col];
-#pragma unroll
-      for (int j = 0; j < kRowsPerThread; ++j) {
-        const float a = xs[rg * kRowsPerThread + j][kk];
-        a1[j] = fmaf(a, b1, a1[j]);
-        if constexpr (kGlu) a3[j] = fmaf(a, w3s[kk][col], a3[j]);
-      }
-    }
-    __syncthreads();
-  }
-
-  const int f = f0 + col;
-  if (f >= F) return;
-#pragma unroll
-  for (int j = 0; j < kRowsPerThread; ++j) {
-    const int r = rg * kRowsPerThread + j;
-    if (r < nrows) {
-      float h = act_fn(a1[j], act);
-      if constexpr (kGlu) h *= a3[j];
-      mid[(static_cast<size_t>(e) * cap + r0 + r) * F + f] = h;
+      *reinterpret_cast<float4*>(out + f) = make_float4(h[0], h[1], h[2],
+                                                        h[3]);
     }
   }
 }
 
-template <typename TW>
-__global__ void __launch_bounds__(kThreads)
+template <typename TW, int BM>
+__global__ void __launch_bounds__(kTileThreads, Inst<BM>::kMinBlocks)
 grouped_down_kernel(const float* __restrict__ mid,
                     const int* __restrict__ counts, const TW* __restrict__ w2,
                     float* __restrict__ hbuf, int M, int F, int cap,
                     int wire) {
+  using T = typename Inst<BM>::template Tile<float, TW>;
   const int e = blockIdx.z;
-  const int r0 = blockIdx.y * kBT;
+  const int r0 = blockIdx.y * BM;
   const int cnt = min(counts[e], cap);
   if (r0 >= cnt) return;
-  const int nrows = min(kBT, cnt - r0);
-  const int m0 = blockIdx.x * kBN;
-
-  __shared__ float hs[kBT][kBK + 1];
-  __shared__ float ws[kBK][kBN];
-
-  const int tid = threadIdx.x;
-  const int col = tid % kBN;
-  const int rg = tid / kBN;
-  float acc[kRowsPerThread];
-#pragma unroll
-  for (int j = 0; j < kRowsPerThread; ++j) acc[j] = 0.f;
+  const int nrows = min(BM, cnt - r0);
+  const int m0 = blockIdx.x * 64 * kSegs;
+  extern __shared__ float4 smem4[];
   const size_t row0 = static_cast<size_t>(e) * cap + r0;
-  const size_t wbase = static_cast<size_t>(e) * F * M;
 
-  for (int k0 = 0; k0 < F; k0 += kBK) {
-    for (int i = tid; i < kBT * kBK; i += kThreads) {
-      const int r = i / kBK, kk = i % kBK, fk = k0 + kk;
-      hs[r][kk] = (r < nrows && fk < F) ? mid[(row0 + r) * F + fk] : 0.f;
-    }
-    for (int i = tid; i < kBK * kBN; i += kThreads) {
-      const int kk = i / kBN, c = i % kBN, fk = k0 + kk, m = m0 + c;
-      ws[kk][c] = (fk < F && m < M)
-                      ? to_f32(w2[wbase + static_cast<size_t>(fk) * M + m])
-                      : 0.f;
-    }
-    __syncthreads();
+  const float* a_row[T::kAPer];
 #pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float b = ws[kk][col];
-#pragma unroll
-      for (int j = 0; j < kRowsPerThread; ++j) {
-        acc[j] = fmaf(hs[rg * kRowsPerThread + j][kk], b, acc[j]);
-      }
-    }
-    __syncthreads();
+  for (int p = 0; p < T::kAPer; ++p) {
+    const int row = T::chunk_row(p);
+    a_row[p] = row < nrows ? mid + (row0 + row) * F : nullptr;
   }
-
-  const int m = m0 + col;
-  if (m >= M) return;
+  const TW* wb = w2 + static_cast<size_t>(e) * F * M + m0;
+  const TW* b_src[2] = {wb, wb};
+  const int b_cols[2] = {M - m0, 0};
+  float acc[T::kTM][4 * kSegs];
 #pragma unroll
-  for (int j = 0; j < kRowsPerThread; ++j) {
-    const int r = rg * kRowsPerThread + j;
-    if (r < nrows) {
-      const float v = wire ? bf16_round(acc[j]) : acc[j];
-      hbuf[(row0 + r) * M + m] = v;
+  for (int i = 0; i < T::kTM; ++i)
+#pragma unroll
+    for (int j = 0; j < 4 * kSegs; ++j) acc[i][j] = 0.f;
+  run_mainloop<float, TW, BM>(reinterpret_cast<char*>(smem4), a_row, mid,
+                              b_src, kSegs, M, b_cols, F, false, nrows, acc);
+
+  const int ty = threadIdx.x >> 4;
+  const int mc = m0 + (threadIdx.x & 15) * 4;
+#pragma unroll
+  for (int i = 0; i < T::kTM; ++i) {
+    const int r = ty + 16 * i;
+    if (r >= nrows) continue;
+    float* out = hbuf + (row0 + r) * M;
+#pragma unroll
+    for (int g = 0; g < kSegs; ++g) {
+      const int m = mc + 64 * g;
+      if (m >= M) continue;
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        v[j] = wire ? bf16_round(acc[i][4 * g + j]) : acc[i][4 * g + j];
+      *reinterpret_cast<float4*>(out + m) = make_float4(v[0], v[1], v[2],
+                                                        v[3]);
     }
   }
 }
@@ -234,22 +260,79 @@ grouped_combine_kernel(const float* __restrict__ hbuf,
   store(y + static_cast<size_t>(s) * M + m, acc);
 }
 
-template <typename TX, typename TW>
+template <typename K>
+cudaError_t set_smem(K kern, int bytes) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kern,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+template <typename TX, typename TW, int BM, bool kGlu>
 cudaError_t launch_up(const void* x, const int* rid, const int* counts,
                       const void* w1, const void* w3, float* mid, int S, int M,
                       int F, int E, int cap, int act, int wire,
                       cudaStream_t st) {
-  const dim3 grid((F + kBN - 1) / kBN, (cap + kBT - 1) / kBT, E);
-  if (w3 != nullptr) {
-    grouped_up_kernel<TX, TW, true><<<grid, kThreads, 0, st>>>(
-        static_cast<const TX*>(x), rid, counts, static_cast<const TW*>(w1),
-        static_cast<const TW*>(w3), mid, S, M, F, cap, act, wire);
-  } else {
-    grouped_up_kernel<TX, TW, false><<<grid, kThreads, 0, st>>>(
-        static_cast<const TX*>(x), rid, counts, static_cast<const TW*>(w1),
-        nullptr, mid, S, M, F, cap, act, wire);
-  }
+  constexpr int kBytes = Inst<BM>::template Tile<TX, TW>::kSmemBytes;
+  constexpr int kBN = kGlu ? 64 : 128;  // F columns per block
+  auto kern = grouped_up_kernel<TX, TW, BM, kGlu>;
+  cudaError_t err = set_smem(kern, kBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((F + kBN - 1) / kBN, (cap + BM - 1) / BM, E);
+  kern<<<grid, kTileThreads, kBytes, st>>>(
+      static_cast<const TX*>(x), rid, counts, static_cast<const TW*>(w1),
+      static_cast<const TW*>(w3), mid, S, M, F, cap, act, wire);
   return cudaGetLastError();
+}
+
+template <typename TW, int BM>
+cudaError_t launch_down(const float* mid, const int* counts, const void* w2,
+                        float* hbuf, int M, int F, int E, int cap, int wire,
+                        cudaStream_t st) {
+  constexpr int kBytes = Inst<BM>::template Tile<float, TW>::kSmemBytes;
+  constexpr int kBN = 64 * kSegs;
+  auto kern = grouped_down_kernel<TW, BM>;
+  cudaError_t err = set_smem(kern, kBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((M + kBN - 1) / kBN, (cap + BM - 1) / BM, E);
+  kern<<<grid, kTileThreads, kBytes, st>>>(
+      mid, counts, static_cast<const TW*>(w2), hbuf, M, F, cap, wire);
+  return cudaGetLastError();
+}
+
+template <typename TX, typename TW, int BM>
+cudaError_t launch_ffn(const void* x, const int* rid, const int* counts,
+                       const void* w1, const void* w3, const void* w2,
+                       float* mid, float* hbuf, int S, int M, int F, int E,
+                       int cap, int act, int wire, cudaStream_t st) {
+  cudaError_t err =
+      w3 != nullptr
+          ? launch_up<TX, TW, BM, true>(x, rid, counts, w1, w3, mid, S, M, F,
+                                        E, cap, act, wire, st)
+          : launch_up<TX, TW, BM, false>(x, rid, counts, w1, w3, mid, S, M,
+                                         F, E, cap, act, wire, st);
+  if (err != cudaSuccess) return err;
+  return launch_down<TW, BM>(mid, counts, w2, hbuf, M, F, E, cap, wire, st);
+}
+
+// The row-tile instance for a capacity (rows per expert): see the note at
+// the top.  Any choice gives the same bits.
+template <typename TX, typename TW>
+cudaError_t launch_by_rows(const void* x, const int* rid, const int* counts,
+                           const void* w1, const void* w3, const void* w2,
+                           float* mid, float* hbuf, int S, int M, int F,
+                           int E, int cap, int act, int wire,
+                           cudaStream_t st) {
+  if (cap <= 48)
+    return launch_ffn<TX, TW, 16>(x, rid, counts, w1, w3, w2, mid, hbuf, S,
+                                  M, F, E, cap, act, wire, st);
+  if (cap <= 320)
+    return launch_ffn<TX, TW, 64>(x, rid, counts, w1, w3, w2, mid, hbuf, S,
+                                  M, F, E, cap, act, wire, st);
+  return launch_ffn<TX, TW, 128>(x, rid, counts, w1, w3, w2, mid, hbuf, S, M,
+                                 F, E, cap, act, wire, st);
 }
 
 }  // namespace
@@ -257,8 +340,9 @@ cudaError_t launch_up(const void* x, const int* rid, const int* counts,
 // x_dtype / w_dtype: 0 = float32, 1 = bfloat16; y has x's dtype.  w3 may be
 // null (2-layer experts).  act: 0 = silu, 1 = gelu (tanh).  wire: 0 = f32,
 // 1 = bf16 round trip.  rid (E*cap) and counts (E) come from the wrapper's
-// slot metadata; mid (E*cap, F) and hbuf (E*cap, M) are f32 scratch.
-// Returns the first cudaError_t of the three launches (0 on success).
+// slot metadata; mid (E*cap, F) and hbuf (E*cap, M) are f32 scratch.  Rows
+// of x, w1/w3, w2 and mid must be 16-byte aligned.  Returns the first
+// cudaError_t of the three launches (0 on success).
 extern "C" int repro_expert_ffn_grouped(
     const void* x, int x_dtype, const int* flat, const float* weights,
     const int* rid, const int* counts, const void* w1, const void* w3,
@@ -266,35 +350,26 @@ extern "C" int repro_expert_ffn_grouped(
     int k, int M, int F, int E, int cap, int act, int wire, void* stream) {
   if (S <= 0 || M <= 0) return static_cast<int>(cudaSuccess);
   if (x_dtype < 0 || x_dtype > 1 || w_dtype < 0 || w_dtype > 1 || E <= 0 ||
-      cap <= 0 || F <= 0 || k <= 0)
+      cap <= 0 || F <= 0 || k <= 0 || E > 65535 || (cap + 15) / 16 > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
 
   if (x_dtype == 0 && w_dtype == 0)
-    err = launch_up<float, float>(x, rid, counts, w1, w3, mid, S, M, F, E, cap,
-                                  act, wire, st);
+    err = launch_by_rows<float, float>(x, rid, counts, w1, w3, w2, mid, hbuf,
+                                       S, M, F, E, cap, act, wire, st);
+  else if (x_dtype == 1 && w_dtype == 1)
+    err = launch_by_rows<__nv_bfloat16, __nv_bfloat16>(
+        x, rid, counts, w1, w3, w2, mid, hbuf, S, M, F, E, cap, act, wire,
+        st);
   else if (x_dtype == 0)
-    err = launch_up<float, __nv_bfloat16>(x, rid, counts, w1, w3, mid, S, M, F,
-                                          E, cap, act, wire, st);
-  else if (w_dtype == 0)
-    err = launch_up<__nv_bfloat16, float>(x, rid, counts, w1, w3, mid, S, M, F,
-                                          E, cap, act, wire, st);
+    err = launch_ffn<float, __nv_bfloat16, 64>(x, rid, counts, w1, w3, w2,
+                                               mid, hbuf, S, M, F, E, cap,
+                                               act, wire, st);
   else
-    err = launch_up<__nv_bfloat16, __nv_bfloat16>(x, rid, counts, w1, w3, mid,
-                                                  S, M, F, E, cap, act, wire,
-                                                  st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  const dim3 dgrid((M + kBN - 1) / kBN, (cap + kBT - 1) / kBT, E);
-  if (w_dtype == 0)
-    grouped_down_kernel<float><<<dgrid, kThreads, 0, st>>>(
-        mid, counts, static_cast<const float*>(w2), hbuf, M, F, cap, wire);
-  else
-    grouped_down_kernel<__nv_bfloat16><<<dgrid, kThreads, 0, st>>>(
-        mid, counts, static_cast<const __nv_bfloat16*>(w2), hbuf, M, F, cap,
-        wire);
-  err = cudaGetLastError();
+    err = launch_ffn<__nv_bfloat16, float, 64>(x, rid, counts, w1, w3, w2,
+                                               mid, hbuf, S, M, F, E, cap,
+                                               act, wire, st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const dim3 cgrid(S, (M + kCombineThreads - 1) / kCombineThreads);

@@ -5,8 +5,9 @@ shared library with a plain C interface (no PyTorch headers: a source that
 includes ``torch/extension.h`` takes minutes to compile, a plain one
 seconds).  ``build_all`` starts one ``nvcc`` per source, all at once, and
 waits for them; ``library(name)`` builds on first call and returns the
-loaded ``ctypes.CDLL``.  Libraries are named by a hash of their source and
-flags, so an edited source is rebuilt and an unchanged one is reused.
+loaded ``ctypes.CDLL``.  Libraries are named by a hash of their source, the
+shared headers and the flags, so an edited source or header is rebuilt and
+an unchanged one is reused.
 
 Outputs go to ``build/repro_torch/`` at the repository root (git-ignored),
 created on first build.  Importing this module builds nothing and imports
@@ -53,7 +54,10 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
+    """The library path of ``csrc/<name>.cu``, tagged by a hash of the source,
+    every shared header (``csrc/*.cuh``) and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
@@ -117,6 +121,19 @@ def dtype_code(t, what: str) -> int:
 def stream_ptr(device) -> int:
     """The raw ``cudaStream_t`` of PyTorch's current stream on ``device``."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def check_aligned(what: str, rows: dict, tensors: dict) -> None:
+    """Raise ``ValueError`` unless every row length in ``rows`` (name ->
+    bytes) and every tensor's start address in ``tensors`` (name -> tensor)
+    is a multiple of 16 bytes: the kernels copy with 16-byte ``cp.async``."""
+    bad = [f"{n} rows of {b} bytes" for n, b in rows.items() if b % 16]
+    bad += [f"{n} starting at byte {t.data_ptr() % 16} of 16"
+            for n, t in tensors.items()
+            if t is not None and t.data_ptr() % 16]
+    if bad:
+        raise ValueError(f"{what}: not 16-byte aligned ({', '.join(bad)}): "
+                         f"the CUDA kernel copies 16 bytes at a time")
 
 
 def check_launch(err: int, what: str) -> None:

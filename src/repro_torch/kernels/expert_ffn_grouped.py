@@ -80,7 +80,7 @@ def _check(x, flat_idx, weights, w1, w3, w2, cap, act, wire):
         raise ValueError(f"expert_ffn_grouped: x must be (S, M), got "
                          f"{tuple(x.shape)}")
     S, M = x.shape
-    E, _ = check_weights("expert_ffn_grouped", x, M, w1, w3, w2, act)
+    E, F = check_weights("expert_ffn_grouped", x, M, w1, w3, w2, act)
     if flat_idx.dim() != 2 or flat_idx.shape[0] != S \
             or flat_idx.dtype != torch.int32:
         raise ValueError("expert_ffn_grouped: flat_idx must be int32 (S, k)")
@@ -95,6 +95,11 @@ def _check(x, flat_idx, weights, w1, w3, w2, cap, act, wire):
         raise ValueError("expert_ffn_grouped: operands on different devices")
     if not (flat_idx.is_contiguous() and weights.is_contiguous()):
         raise ValueError("expert_ffn_grouped: operands must be contiguous")
+    _build.check_aligned(
+        "expert_ffn_grouped",
+        {"x": M * x.element_size(), "w1/w3": F * w1.element_size(),
+         "w2": M * w2.element_size(), "f32 scratch": F * 4},
+        {"x": x, "w1": w1, "w3": w3, "w2": w2})
 
 
 def expert_ffn_grouped(x, flat_idx, weights, w1, w3, w2, *, cap,

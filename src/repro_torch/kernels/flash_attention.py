@@ -70,6 +70,7 @@ def _check(q, k, v, window):
         raise ValueError("flash_attention: q, k and v on different devices")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k and v must be contiguous")
+    _build.check_aligned("flash_attention", {}, {"q": q, "k": k, "v": v})
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, scale=None):

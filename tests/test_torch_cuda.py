@@ -4,7 +4,11 @@ NaN rows never leak, dropped choices skipped), dispatch's exactness,
 the dense and ragged FFN's row independence and exact zero tails, that a
 CUDA tensor a kernel cannot take raises instead of falling back to the
 plain version, and each op's gradient through the registry (recompute or
-closed form) against the plain version's own.  Marked ``cuda``: they skip
+closed form) against the plain version's own; the grouped kernel's three
+row-tile instances at counts that cut their tiles, and its FMA-order
+contract: bitwise equal to dispatch -> expert_ffn -> combine; and that a
+row or address the 16-byte copies cannot take raises.  Marked ``cuda``:
+they skip
 where there is no card, and run there with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -115,8 +119,110 @@ def test_grouped_is_deterministic_and_row_independent(dev):
     assert torch.equal(outs[0], outs[1])
 
 
+# The grouped kernel's row-tile instances, as csrc/expert_ffn_grouped.cu
+# picks them from the capacity: 16 rows up to cap 48, 64 up to 320, else
+# 128.  Each is run at routed rows per expert of 1, BM-1, BM, BM+1 and
+# 2 BM + 3 (a lone row, tiles cut one short, exact, one over, and a third
+# tile of 3 rows), with F = 200 and M = 136 (neither a multiple of the 128
+# B columns nor M of the 32-deep slab).
+ROW_TILES = [(16, 40), (64, 200), (128, 400)]          # (BM, cap)
+
+
+def _routed(dev, counts, cap, M, k=2, seed=0):
+    """x (S, M), flat slots (S, k) and f32 gate weights that give expert e
+    exactly ``counts[e]`` routed rows (its slots 0..counts[e]-1, dealt to
+    the tokens in a random order); the unused choices of the last token
+    are dropped (``E * cap``)."""
+    g = torch.Generator().manual_seed(seed)
+    E = len(counts)
+    slots = torch.cat([e * cap + torch.arange(c)
+                       for e, c in enumerate(counts)])
+    slots = slots[torch.randperm(len(slots), generator=g)]
+    S = -(-len(slots) // k)
+    flat = torch.full((S * k,), E * cap, dtype=torch.int32)
+    flat[:len(slots)] = slots
+    x = torch.randn((S, M), generator=g)
+    w = torch.rand((S, k), generator=g)
+    return x.to(dev), flat.reshape(S, k).to(dev), w.to(dev)
+
+
+def _expert_weights(dev, E, M, F, glu, seed=1):
+    g = torch.Generator().manual_seed(seed)
+    w1 = torch.randn((E, M, F), generator=g) * M ** -0.5
+    w3 = torch.randn((E, M, F), generator=g) * M ** -0.5 if glu else None
+    w2 = torch.randn((E, F, M), generator=g) * F ** -0.5
+    return [None if t is None else t.to(dev) for t in (w1, w3, w2)]
+
+
+@pytest.mark.parametrize("bm,cap", ROW_TILES)
+@pytest.mark.parametrize("glu,act,xdt,wdt,wire,tol", [
+    (True, "silu", torch.float32, torch.float32, "f32", 1e-5),
+    (False, "gelu", torch.float32, torch.float32, "f32", 1e-5),
+    (True, "gelu", torch.bfloat16, torch.bfloat16, "f32", 2e-2),
+    (False, "silu", torch.bfloat16, torch.bfloat16, "bf16", 2e-2),
+    (True, "silu", torch.float32, torch.float32, "bf16", 2e-2),
+    (True, "silu", torch.float32, torch.bfloat16, "f32", 1e-5),
+])
+def test_grouped_row_tiles_vs_plain(dev, bm, cap, glu, act, xdt, wdt, wire,
+                                    tol):
+    M, F = 136, 200
+    counts = [1, bm - 1, bm, bm + 1, 2 * bm + 3]
+    x, flat, w = _routed(dev, counts, cap, M)
+    ws = [None if t is None else t.to(wdt)
+          for t in _expert_weights(dev, len(counts), M, F, glu)]
+    x = x.to(xdt)
+    n0 = expert_ffn_grouped.launches
+    got = expert_ffn_grouped(x, flat, w, *ws, cap=cap, act=act, wire=wire)
+    torch.cuda.synchronize()
+    assert expert_ffn_grouped.launches == n0 + 1
+    want = expert_ffn_grouped_ref(x, flat, w, *ws, cap=cap, act=act,
+                                  wire=wire)
+    assert got.dtype == xdt and got.shape == x.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(got, expert_ffn_grouped(x, flat, w, *ws, cap=cap,
+                                               act=act, wire=wire))
+
+
+@pytest.mark.parametrize("bm,cap", ROW_TILES)
+@pytest.mark.parametrize("glu,act", [(True, "silu"), (False, "gelu")])
+def test_grouped_is_bitwise_the_dense_path(dev, bm, cap, glu, act):
+    """At f32 with no wire, every output element of every row-tile
+    instance is the same fmaf chain as dispatch -> expert_ffn -> combine
+    computes: the two agree bit for bit."""
+    M, F = 136, 200
+    counts = [1, bm - 1, bm, bm + 1, 2 * bm + 3]
+    E = len(counts)
+    x, flat, w = _routed(dev, counts, cap, M, seed=bm)
+    w1, w3, w2 = _expert_weights(dev, E, M, F, glu, seed=bm + 1)
+    got = expert_ffn_grouped(x, flat, w, w1, w3, w2, cap=cap, act=act)
+    pool = moe_dispatch(x, flat, E * cap).reshape(E, cap, M)
+    dense = expert_ffn(pool, w1, w3, w2, act=act).reshape(E * cap, M)
+    assert torch.equal(got, moe_combine(dense, flat, w))
+
+
+def test_kernels_reject_misaligned_rows(dev):
+    """The 16-byte cp.async copies need 16-byte rows and start addresses:
+    anything else raises ValueError; nothing falls back."""
+    x, flat, w, (w1, w3, w2), cap = _moe(dev, M=130)      # 520-byte rows
+    with pytest.raises(ValueError, match="16-byte"):
+        expert_ffn_grouped(x, flat, w, w1, w3, w2, cap=cap)
+    x, flat, w, (w1, w3, w2), cap = _moe(dev, F=98)       # 392-byte rows
+    with pytest.raises(ValueError, match="16-byte"):
+        expert_ffn_grouped(x, flat, w, w1, w3, w2, cap=cap)
+    x, flat, w, (w1, w3, w2), cap = _moe(dev)
+    shifted = torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape)
+    shifted.copy_(x)
+    with pytest.raises(ValueError, match="16-byte"):
+        expert_ffn_grouped(shifted, flat, w, w1, w3, w2, cap=cap)
+    q = torch.randn((1, 64, 4, 64), device=dev)
+    qs = torch.empty(q.numel() + 2, device=dev)[2:].view(q.shape)
+    qs.copy_(q)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(qs, q, q)
+
+
 # (B, Lq, Lk, H, K, hd, dtype, causal, window, tol): GQA and MHA, both
-# head dims, ragged tiles (L not a multiple of 64), Lq != Lk (positions
+# head dims, ragged tiles, Lq != Lk (positions
 # aligned at the top), a window narrower than L (rows whose first visited
 # tile is fully masked), non-causal, and bf16.
 FLASH_CASES = [
@@ -129,6 +235,17 @@ FLASH_CASES = [
     (1, 160, 96, 4, 2, 64, torch.float32, True, None, 2e-5),
     (2, 128, 128, 8, 2, 128, torch.bfloat16, True, None, 2e-2),
     (1, 192, 192, 4, 4, 64, torch.bfloat16, True, 40, 2e-2),
+    # L not a multiple of the query tile (128 rows) nor of the KV tile (64
+    # keys), at both head dims
+    (2, 200, 200, 4, 2, 64, torch.float32, True, None, 2e-5),
+    (1, 300, 300, 8, 2, 128, torch.float32, True, 70, 2e-5),
+    (1, 150, 270, 4, 1, 128, torch.float32, True, None, 2e-5),
+    (1, 270, 150, 4, 4, 64, torch.float32, False, 130, 2e-5),
+    # windowed tiles with unmasked interiors and a late first tile
+    (1, 1100, 1100, 2, 1, 64, torch.float32, True, 300, 2e-5),
+    (1, 700, 700, 4, 2, 128, torch.float32, True, 200, 2e-5),
+    (2, 333, 333, 4, 2, 128, torch.bfloat16, True, None, 2e-2),
+    (1, 190, 190, 6, 3, 64, torch.bfloat16, True, 50, 2e-2),
 ]
 
 

@@ -404,3 +404,47 @@ class TestSeam:
         for call in calls:
             with pytest.raises(RuntimeError, match="no kernel"):
                 call()
+
+
+def _shifted(shape, dtype=torch.float32):
+    """A contiguous tensor that starts 4 bytes past a 16-byte boundary."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 1, dtype=dtype)[1:].view(shape)
+
+
+@pytest.mark.parametrize("case", ["aligned", "x_rows", "w_rows", "x_start",
+                                  "w2_start", "bf16_rows"])
+def test_grouped_check_rejects_misaligned(case):
+    """The check a CUDA call passes before the grouped kernel's 16-byte
+    cp.async copies, on CPU tensors: rows of x, w1/w3, w2 and the f32
+    scratch, and every start address, must be 16-byte aligned."""
+    from repro_torch.kernels import expert_ffn_grouped as g
+    Mx, Fx, dt = {"x_rows": (130, 96, torch.float32),
+                  "w_rows": (256, 98, torch.float32),
+                  "bf16_rows": (260, 96, torch.bfloat16)}.get(
+                      case, (256, 96, torch.float32))
+    x = _shifted((8, Mx)) if case == "x_start" else torch.zeros((8, Mx),
+                                                                dtype=dt)
+    w1 = torch.zeros((4, Mx, Fx), dtype=dt)
+    w2 = (_shifted((4, Fx, Mx)) if case == "w2_start"
+          else torch.zeros((4, Fx, Mx), dtype=dt))
+    flat = torch.zeros((8, 2), dtype=torch.int32)
+    w = torch.zeros((8, 2))
+    if case == "aligned":
+        g._check(x, flat, w, w1, w1, w2, 4, "silu", "f32")
+        return
+    with pytest.raises(ValueError, match="16-byte"):
+        g._check(x, flat, w, w1, w1, w2, 4, "silu", "f32")
+
+
+@pytest.mark.parametrize("shift", [0, 1])
+def test_flash_check_rejects_misaligned(shift):
+    from repro_torch.kernels import flash_attention as fa
+    shape = (1, 8, 2, 64)
+    q = _shifted(shape) if shift else torch.zeros(shape)
+    k = torch.zeros(shape)
+    if not shift:
+        fa._check(q, k, k, None)
+        return
+    with pytest.raises(ValueError, match="16-byte"):
+        fa._check(q, k, k, None)
