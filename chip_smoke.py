@@ -11,7 +11,8 @@ to a plain version):
   1. the card's name and power limit (``nvidia-smi``);
   2. build every CUDA source of the port (one ``nvcc`` each, in parallel)
      and print ``ptxas``'s registers and spills: the redesigned
-     ``flash_attention`` and ``expert_ffn_grouped`` must spill 0 bytes;
+     ``flash_attention``, ``expert_ffn_grouped``, ``rmsnorm`` and
+     ``moe_dispatch`` sources must spill 0 bytes;
   3. hold each of the seven kernels against its plain PyTorch version on
      the card at the serving and training paths' shapes (plus a duplicate-
      slot dispatch, a partial-tile ragged FFN and bf16 cases), check the
@@ -65,7 +66,8 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM
 PEAK_FLOPS = {"torch.float32": 67e12, "torch.bfloat16": 989e12}
 N_LAYERS = 4
 #: sources whose every kernel instance must spill 0 bytes (ptxas -v)
-NO_SPILL = ("flash_attention", "expert_ffn_grouped")
+NO_SPILL = ("flash_attention", "expert_ffn_grouped", "rmsnorm",
+            "moe_dispatch")
 
 
 def log(msg):
@@ -320,9 +322,11 @@ def check_dispatch_combine(dev):
     f32, bf16 = torch.float32, torch.bfloat16
     disp, comb = [], []
     # (label, arch, tokens, infer, dtype, duplicates).  Tolerances: dispatch
-    # 0 (each slot receives at most one value: 0 + v == v), duplicates 1e-6
-    # (two f32 terms summed by atomics in either order); combine 1e-6 in
-    # f32 (k terms in choice order against cuBLAS's), bf16 one ulp (2e-2).
+    # 0 (each slot receives at most one value: 0 + v == v), duplicates 0
+    # too (the kernel sums in token order, the plain version's atomics in
+    # either order, and two f32 terms give the same sum either way);
+    # combine 1e-6 in f32 (k terms in choice order against cuBLAS's), bf16
+    # one ulp (2e-2).
     for label, arch, S, infer, dt, dup in (
             ("decode", q3, 8, True, f32, False),
             ("train-qwen3", q3, 2048, False, f32, False),
@@ -338,7 +342,7 @@ def check_dispatch_combine(dev):
             flat[1::2, 0] = flat[0::2, 0]
         x = x.to(dt)
         es = x.element_size()
-        tol = 1e-6 if dup else 0.0
+        tol = 0.0
         err = compare(f"moe_dispatch[{label}]", moe_dispatch(x, flat, n),
                       moe_dispatch_ref(x, flat, n), tol)
         ms = time_ms(lambda: moe_dispatch(x, flat, n))

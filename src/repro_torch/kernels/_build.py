@@ -118,9 +118,24 @@ def dtype_code(t, what: str) -> int:
     return code
 
 
-def stream_ptr(device) -> int:
-    """The raw ``cudaStream_t`` of PyTorch's current stream on ``device``."""
-    return torch.cuda.current_stream(device).cuda_stream
+def on_card(t, what: str) -> bool:
+    """True for a CUDA tensor (its wrapper launches the kernel), False for
+    a CPU one (its wrapper runs the plain version); any other device
+    raises ``RuntimeError``.  Reads ``is_cuda`` first: building the
+    ``torch.device`` costs about a microsecond a call."""
+    if t.is_cuda:
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise RuntimeError(f"{what}: no kernel for device {t.device}")
+
+
+def stream_ptr(index: int) -> int:
+    """The raw ``cudaStream_t`` of PyTorch's current stream on card
+    ``index`` (``Tensor.get_device()``), read anew on every call, so a
+    launch inside ``torch.cuda.stream(s)`` goes to ``s``.  Reads the raw
+    pointer without building a ``torch.cuda.Stream``."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check_aligned(what: str, rows: dict, tensors: dict) -> None:

@@ -53,7 +53,7 @@ def check_weights(what, x, M, w1, w3, w2, act):
         raise ValueError(f"{what}: act {act!r} not supported "
                          f"({sorted(ACT_CODE)})")
     ws = [w1, w2] + ([w3] if w3 is not None else [])
-    if any(t.device != x.device for t in ws):
+    if any(t.get_device() != x.get_device() for t in ws):
         raise ValueError(f"{what}: operands on different devices")
     if not all(t.is_contiguous() for t in [x, *ws]):
         raise ValueError(f"{what}: operands must be contiguous")
@@ -77,7 +77,7 @@ def launch_ffn(what, x, counts, w1, w3, w2, out_dtype, act, groups, rows):
                       device=x.device)
     y = torch.empty((E * groups * rows, M), dtype=out_dtype, device=x.device)
     w3p = w3.data_ptr() if w3 is not None else None
-    stream = _build.stream_ptr(x.device)
+    stream = _build.stream_ptr(x.get_device())
     dense, ragged = _c_fns()
     if counts is None:
         err = dense(x.data_ptr(), x_code, w1.data_ptr(), w3p, w2.data_ptr(),
@@ -96,10 +96,8 @@ def expert_ffn(x, w1, w3, w2, *, act="silu"):
     (E, M, F); w2: (E, F, M) (w3 None for two-layer experts), float32 or
     bfloat16.  Returns (E, T, M) in the promoted dtype of x and the
     weights, computed in f32."""
-    if x.device.type == "cpu":
+    if not _build.on_card(x, "expert_ffn"):
         return expert_ffn_ref(x, w1, w3, w2, act=act)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"expert_ffn: no kernel for device {x.device}")
     if x.dim() != 3 or x.shape[0] != w1.shape[0]:
         raise ValueError(f"expert_ffn: x must be (E, T, M) with E = "
                          f"{w1.shape[0]}, got {tuple(x.shape)}")

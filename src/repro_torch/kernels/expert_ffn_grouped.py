@@ -91,7 +91,7 @@ def _check(x, flat_idx, weights, w1, w3, w2, cap, act, wire):
                          f"({sorted(WIRE_CODE)})")
     if int(cap) <= 0 or E * int(cap) >= 2 ** 31:
         raise ValueError(f"expert_ffn_grouped: cap {cap} out of range")
-    if any(t.device != x.device for t in (flat_idx, weights)):
+    if any(t.get_device() != x.get_device() for t in (flat_idx, weights)):
         raise ValueError("expert_ffn_grouped: operands on different devices")
     if not (flat_idx.is_contiguous() and weights.is_contiguous()):
         raise ValueError("expert_ffn_grouped: operands must be contiguous")
@@ -108,12 +108,9 @@ def expert_ffn_grouped(x, flat_idx, weights, w1, w3, w2, *, cap,
     bfloat16; flat_idx (S, k) int32 flat slots (``E * cap`` = dropped);
     weights (S, k) float32; w1/w3 (E, M, F), w2 (E, F, M) of one dtype (w3
     None for 2-layer experts).  Returns (S, M) in x's dtype."""
-    if x.device.type == "cpu":
+    if not _build.on_card(x, "expert_ffn_grouped"):
         return expert_ffn_grouped_ref(x, flat_idx, weights, w1, w3, w2,
                                       cap=cap, act=act, wire=wire)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"expert_ffn_grouped: no kernel for device "
-                           f"{x.device}")
     _check(x, flat_idx, weights, w1, w3, w2, cap, act, wire)
     S, M = x.shape
     E, _, F = w1.shape
@@ -130,7 +127,7 @@ def expert_ffn_grouped(x, flat_idx, weights, w1, w3, w2, *, cap,
         rid.data_ptr(), counts.data_ptr(), w1.data_ptr(),
         w3.data_ptr() if w3 is not None else None, w2.data_ptr(), w_code,
         mid.data_ptr(), hbuf.data_ptr(), y.data_ptr(), S, k, M, F, E, cap,
-        ACT_CODE[act], WIRE_CODE[wire], _build.stream_ptr(x.device))
+        ACT_CODE[act], WIRE_CODE[wire], _build.stream_ptr(x.get_device()))
     _build.check_launch(err, "expert_ffn_grouped")
     expert_ffn_grouped.launches += 1
     return y
@@ -144,17 +141,15 @@ def expert_ffn_ragged(xb, counts, w1, w3, w2, *, act="silu"):
     (E, G) int32 routed rows per group; w1/w3 (E, M, F), w2 (E, F, M) of
     one dtype (w3 None for two-layer experts).  Returns (E, G, c, M) in
     xb's dtype, computed in f32, rows >= counts[e, g] exactly 0."""
-    if xb.device.type == "cpu":
+    if not _build.on_card(xb, "expert_ffn_ragged"):
         return expert_ffn_ragged_ref(xb, counts, w1, w3, w2, act=act)
-    if xb.device.type != "cuda":
-        raise RuntimeError(f"expert_ffn_ragged: no kernel for device "
-                           f"{xb.device}")
     if xb.dim() != 4 or xb.shape[0] != w1.shape[0]:
         raise ValueError(f"expert_ffn_ragged: xb must be (E, G, c, M) with "
                          f"E = {w1.shape[0]}, got {tuple(xb.shape)}")
     E, G, c, M = xb.shape
     if counts.shape != (E, G) or counts.dtype != torch.int32 \
-            or counts.device != xb.device or not counts.is_contiguous():
+            or counts.get_device() != xb.get_device() \
+            or not counts.is_contiguous():
         raise ValueError(f"expert_ffn_ragged: counts must be contiguous "
                          f"int32 ({E}, {G}) on xb's device, got "
                          f"{counts.dtype} {tuple(counts.shape)}")

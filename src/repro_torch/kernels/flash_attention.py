@@ -66,7 +66,8 @@ def _check(q, k, v, window):
         raise ValueError(f"flash_attention: window {window} must be >= 1")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("flash_attention: q, k and v dtypes differ")
-    if k.device != q.device or v.device != q.device:
+    dev = q.get_device()
+    if k.get_device() != dev or v.get_device() != dev:
         raise ValueError("flash_attention: q, k and v on different devices")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k and v must be contiguous")
@@ -78,12 +79,9 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
     (float32 or bfloat16), hd 64 or 128.  Returns (B, Lq, H, hd) in q's
     dtype.  CPU tensors take the plain version; CUDA tensors take the
     kernel, or raise if it cannot take them."""
-    if q.device.type == "cpu":
+    if not _build.on_card(q, "flash_attention"):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"flash_attention: no kernel for device "
-                           f"{q.device}")
     _check(q, k, v, window)
     B, Lq, H, hd = q.shape
     _, Lk, K, _ = k.shape
@@ -92,7 +90,7 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
     out = torch.empty_like(q)
     err = _c_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   B, Lq, Lk, H, K, hd, float(scale), int(bool(causal)),
-                  int(window or 0), code, _build.stream_ptr(q.device))
+                  int(window or 0), code, _build.stream_ptr(q.get_device()))
     _build.check_launch(err, "flash_attention")
     flash_attention.launches += 1
     return out

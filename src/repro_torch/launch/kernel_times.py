@@ -1,22 +1,35 @@
-"""Device time of the port's redesigned kernels at the main paths' shapes.
+"""Event, device and host time of the port's kernels at the main paths'
+shapes.
 
     PYTHONPATH=src python -m repro_torch.launch.kernel_times [--iters 20]
+        [--kernels rmsnorm,moe_dispatch,...]
 
-For ``expert_ffn_grouped`` (qwen3-moe-30b-a3b decode, 8 tokens; the qwen3
-and gpt2-moe training steps, every slot filled) and ``flash_attention``
-(both training shapes), prints the time of back-to-back wrapper calls
-(CUDA events, as ``chip_smoke.py`` phase 3 times them: the wrapper's host
-work included) beside the device time per call and per launch of every
-kernel the call launches (``torch.profiler``: kernel durations only).
-Where the two differ, the host, not the card, sets the event time.
-Random inputs from a seed; needs a card.
+Cases, by kernel: ``expert_ffn_grouped`` (qwen3-moe-30b-a3b decode, 8
+tokens; the qwen3 and gpt2-moe training steps, every slot filled),
+``flash_attention`` (both training shapes), ``rmsnorm`` (decode 8 x 2048,
+prefill 128 x 2048 in f32 and bf16, qwen3's training step 2048 x 2048),
+``moe_dispatch`` (qwen3 decode, both training steps, gpt2-moe's in bf16,
+and its step with every odd token sharing its even neighbour's first
+slot) and ``moe_combine`` (decode, both steps, bf16): the shapes of
+``chip_smoke.py`` phase 3.  For each it prints the time of back-to-back
+wrapper calls (CUDA events, as phase 3 times them: the wrapper's host work
+included), the host time per call (wall clock over the same back-to-back
+calls, nothing synchronised inside the loop), and the device time per call
+and per launch of every kernel the call launches (``torch.profiler``:
+kernel durations only).  Where the event time exceeds the device time, the
+host, not the card, sets it.  ``rmsnorm`` and ``moe_dispatch`` get the
+same split for their one-call yardsticks, ``F.rms_norm`` and
+``torch.index_add``, and a split of their wrappers' host time at decode
+into its parts.  Random inputs from a seed; needs a card.
 """
 
 from __future__ import annotations
 
 import argparse
+import time
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.launch.common import device_profile, resolve_device
 
@@ -33,6 +46,20 @@ def _event_ms(fn, iters):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def _host_us(fn, iters):
+    """Host wall time per call of ``iters`` back-to-back calls, with no
+    synchronisation inside the loop (µs)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
 
 
 def _grouped_case(arch, S, infer, dev, g):
@@ -67,35 +94,173 @@ def _flash_case(B, L, H, K, hd, dev, g):
             lambda: flash_attention(q, k, v, causal=True))
 
 
+def _rmsnorm_case(R, dtype, dev, g):
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    D = 2048
+    x = torch.randn((R, D), generator=g, device=dev).to(dtype)
+    scale = 1.0 + 0.1 * torch.randn((D,), generator=g, device=dev)
+    w = scale.to(dtype)
+    return (f"rmsnorm ({R}, {D}) {dtype}",
+            lambda: rmsnorm(x, scale, eps=1e-6),
+            ("F.rms_norm", lambda: F.rms_norm(x, (D,), weight=w, eps=1e-6)))
+
+
+def _gate(arch, S, infer, dev, g):
+    """(x, flat slots, gate weights, n_slots) of ``S`` random tokens of
+    ``arch`` at the capacity its path uses."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.gating import topk_gate
+    from repro_torch.core.moe import shard_pool_capacity
+    mcfg = get_config(arch).moe
+    E, M = mcfg.n_experts, mcfg.d_model
+    _, cap = shard_pool_capacity(S, 1, 1, mcfg.gate_config(), infer=infer)
+    x = torch.randn((S, M), generator=g, device=dev)
+    wg = torch.randn((M, E), generator=g, device=dev).mul_(M ** -0.5)
+    r = topk_gate(x, wg, mcfg.gate_config(), cap)
+    return x, r.flat(cap, E), r.weights, E * cap
+
+
+def _dispatch_case(arch, S, infer, dtype, dup, dev, g):
+    from repro_torch.kernels.moe_dispatch import moe_dispatch
+    x, flat, _, n = _gate(arch, S, infer, dev, g)
+    if dup:
+        flat = flat.clone()
+        flat[1::2, 0] = flat[0::2, 0]
+    x = x.to(dtype)
+    k, M = flat.shape[1], x.shape[1]
+    src = x[:, None].expand(S, k, M).reshape(S * k, M)
+    idx = flat.reshape(-1).long()
+    zeros = torch.zeros((n + 1, M), dtype=dtype, device=dev)
+    return (f"moe_dispatch {arch} S={S} k={k} M={M} n_slots={n} {dtype}"
+            + (" duplicates" if dup else ""),
+            lambda: moe_dispatch(x, flat, n),
+            ("torch.index_add", lambda: torch.index_add(zeros, 0, idx, src)))
+
+
+def _combine_case(arch, S, infer, dtype, dev, g):
+    from repro_torch.kernels.moe_dispatch import moe_combine
+    x, flat, w, n = _gate(arch, S, infer, dev, g)
+    buf = torch.randn((n, x.shape[1]), generator=g, device=dev).to(dtype)
+    return (f"moe_combine {arch} S={S} n_slots={n} {dtype}",
+            lambda: moe_combine(buf, flat, w), None)
+
+
+def _report(label, fn, iters):
+    """Print event, host and device time of ``fn`` and of its kernels."""
+    ev = _event_ms(fn, iters)
+    host = _host_us(fn, iters)
+    prof = device_profile(lambda: [fn() for _ in range(iters)],
+                          ev * iters, top=8)
+    # calls as the profiler saw them: the heaviest kernel launches once per
+    # call
+    n = prof["top"][0]["calls"]
+    print(f"{label}: event {ev:.4f} ms per call; host {host:.1f} us per "
+          f"call; device {prof['busy_ms'] / n:.4f} ms per call ({n} calls "
+          f"traced)")
+    for row in prof["top"]:
+        print(f"    {row['ms'] / row['calls']:8.4f} ms per launch  "
+              f"x{row['calls']}  {row['name'][:100]}")
+
+
+def _host_parts(dev, g, iters):
+    """Host time per call of the parts of the rmsnorm and moe_dispatch
+    wrappers at decode's shapes: the whole call, its allocation, the stream
+    read, the pointer reads, packing the C call's arguments, and the C call
+    (ctypes and the launch; and ctypes alone, a call that launches
+    nothing).  The rest of the wrapper is its checks."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import moe_dispatch as md
+    from repro_torch.kernels import rmsnorm as rn
+    x = torch.randn((8, 2048), generator=g, device=dev)
+    scale = torch.rand((2048,), generator=g, device=dev) + 0.5
+    out = torch.empty_like(x)
+    card = x.get_device()
+    stream = _build.stream_ptr(card)
+    norm = (x.data_ptr(), scale.data_ptr(), out.data_ptr(), stream, 8, 2048,
+            0, 1e-6)
+    norm_packed, norm_none = rn._ARGS(*norm), rn._ARGS(*norm[:4], 0,
+                                                         *norm[5:])
+    xd, flat, _, n = _gate("qwen3-moe-30b-a3b", 8, True, dev, g)
+    buf = torch.empty((n, 2048), device=dev)
+    disp = (xd.data_ptr(), flat.data_ptr(), buf.data_ptr(), stream, 0, 8, 8,
+            2048, n)
+    disp_packed = md._DISPATCH_ARGS(*disp)
+    disp_none = md._DISPATCH_ARGS(*disp[:8], 0)
+    norm_fn, disp_fn = rn._c_fns()[0], md._c_fns()[0]
+    parts = (
+        ("rmsnorm: whole call", lambda: rn.rmsnorm(x, scale, eps=1e-6)),
+        ("  torch.empty_like(x)", lambda: torch.empty_like(x)),
+        ("  _build.stream_ptr", lambda: _build.stream_ptr(card)),
+        ("  3 data_ptr()", lambda: (x.data_ptr(), scale.data_ptr(),
+                                    out.data_ptr())),
+        ("  pack the C call's arguments", lambda: rn._ARGS(*norm)),
+        ("  C call (ctypes + launch)", lambda: norm_fn(norm_packed)),
+        ("  C call of 0 rows (ctypes, no launch)",
+         lambda: norm_fn(norm_none)),
+        ("moe_dispatch: whole call", lambda: md.moe_dispatch(xd, flat, n)),
+        ("  x.new_empty((n, M))", lambda: xd.new_empty((n, 2048))),
+        ("  pack the C call's arguments",
+         lambda: md._DISPATCH_ARGS(*disp)),
+        ("  C call (ctypes + launch)", lambda: disp_fn(disp_packed)),
+        ("  C call of 0 slots (ctypes, no launch)",
+         lambda: disp_fn(disp_none)),
+    )
+    for label, fn in parts:
+        print(f"host parts {label}: {_host_us(fn, iters):.2f} us per call")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kernels", default=None,
+                    help="comma-separated kernels to time (default: all)")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     g = torch.Generator(device=dev).manual_seed(args.seed)
-    makers = (lambda: _grouped_case("qwen3-moe-30b-a3b", 8, True, dev, g),
-              lambda: _grouped_case("qwen3-moe-30b-a3b", 2048, False, dev,
-                                    g),
-              lambda: _grouped_case("gpt2-moe", 8192, False, dev, g),
-              lambda: _flash_case(1, 2048, 32, 4, 128, dev, g),
-              lambda: _flash_case(8, 1024, 12, 12, 64, dev, g))
+    q3, g2 = "qwen3-moe-30b-a3b", "gpt2-moe"
+    f32, bf16 = torch.float32, torch.bfloat16
+    makers = {
+        "expert_ffn_grouped": (
+            lambda: _grouped_case(q3, 8, True, dev, g),
+            lambda: _grouped_case(q3, 2048, False, dev, g),
+            lambda: _grouped_case(g2, 8192, False, dev, g)),
+        "flash_attention": (
+            lambda: _flash_case(1, 2048, 32, 4, 128, dev, g),
+            lambda: _flash_case(8, 1024, 12, 12, 64, dev, g)),
+        "rmsnorm": tuple(
+            (lambda R=R, dt=dt: _rmsnorm_case(R, dt, dev, g))
+            for R, dt in ((8, f32), (128, f32), (128, bf16), (2048, f32))),
+        "moe_dispatch": tuple(
+            (lambda a=a, S=S, inf=inf, dt=dt, dup=dup:
+             _dispatch_case(a, S, inf, dt, dup, dev, g))
+            for a, S, inf, dt, dup in (
+                (q3, 8, True, f32, False), (q3, 2048, False, f32, False),
+                (g2, 8192, False, f32, False), (g2, 8192, False, bf16, False),
+                (g2, 8192, False, f32, True))),
+        "moe_combine": tuple(
+            (lambda a=a, S=S, inf=inf, dt=dt:
+             _combine_case(a, S, inf, dt, dev, g))
+            for a, S, inf, dt in (
+                (q3, 8, True, f32), (q3, 2048, False, f32),
+                (g2, 8192, False, f32), (g2, 8192, False, bf16))),
+    }
+    chosen = args.kernels.split(",") if args.kernels else list(makers)
+    unknown = sorted(set(chosen) - set(makers))
+    if unknown:
+        ap.error(f"unknown kernels {unknown} (have {sorted(makers)})")
     print(f"card: {torch.cuda.get_device_name(0)}")
-    for make in makers:
-        label, fn = make()
-        ev = _event_ms(fn, args.iters)
-        prof = device_profile(lambda: [fn() for _ in range(args.iters)],
-                              ev * args.iters, top=8)
-        # calls as the profiler saw them: its heaviest kernel launches once
-        # per call
-        n = prof["top"][0]["calls"]
-        print(f"{label}: event {ev:.4f} ms per call; device "
-              f"{prof['busy_ms'] / n:.4f} ms per call ({n} calls traced)")
-        for row in prof["top"]:
-            print(f"    {row['ms'] / row['calls']:8.4f} ms per launch  "
-                  f"x{row['calls']}  {row['name'][:100]}")
-        del fn
-        torch.cuda.empty_cache()
+    if {"rmsnorm", "moe_dispatch"} & set(chosen):
+        _host_parts(dev, g, 200)
+    for name in chosen:
+        for make in makers[name]:
+            label, fn, *yard = make()
+            _report(label, fn, args.iters)
+            if yard and yard[0] is not None:
+                lib_name, lib_fn = yard[0]
+                _report(f"  yardstick {lib_name}", lib_fn, args.iters)
+            del fn, yard
+            torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

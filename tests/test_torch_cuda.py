@@ -7,19 +7,23 @@ plain version, and each op's gradient through the registry (recompute or
 closed form) against the plain version's own; the grouped kernel's three
 row-tile instances at counts that cut their tiles, and its FMA-order
 contract: bitwise equal to dispatch -> expert_ffn -> combine; and that a
-row or address the 16-byte copies cannot take raises.  Marked ``cuda``:
-they skip
+row or address the 16-byte copies cannot take raises.  rmsnorm's vector
+and scalar paths, its rows' independence of the batch and its launch on
+the current stream; dispatch's sums in token order (bitwise a loop on the
+CPU), its rows written on dirty memory, its edge cases and its one launch
+per call.  Marked ``cuda``: they skip
 where there is no card, and run there with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: f32 1e-5 relative (the same sums in another order; flash
 attention 2e-5: its online softmax rescales the running sums once per KV
-tile), bf16 one bf16 ulp (2e-2).  Dispatch without duplicate slots is
-exact (each slot receives one value); with duplicates its atomics sum in
-an undefined order: 64 f32 terms of O(1) into one slot, 5e-5 (measured
-1.6e-6).  Gradients: the same plain backward on
-the kernel's and the plain version's saved inputs, so equal within 1e-5.
+tile), bf16 one bf16 ulp (2e-2).  Dispatch is bitwise: each slot's sum
+in token order, then choice order (without duplicates each slot receives
+one value); the plain version's atomics sum duplicates in an undefined
+order: 64 f32 terms of O(1) into one slot, 5e-5 (measured 1.6e-6).
+Gradients: the same plain backward on the kernel's and the plain
+version's saved inputs, so equal within 1e-5.
 Nothing here imports JAX.
 """
 
@@ -38,7 +42,7 @@ from repro_torch.kernels.ref import (expert_ffn_grouped_ref,
                                      moe_combine_ref, moe_dispatch_ref,
                                      rmsnorm_ref)
 from repro_torch.kernels.registry import get_op
-from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.kernels.rmsnorm import kernel_path, rmsnorm
 
 pytestmark = pytest.mark.cuda
 
@@ -75,6 +79,73 @@ def test_rmsnorm_vs_plain(dev, dtype, tol):
     torch.testing.assert_close(rmsnorm(x, scale, eps=1e-6),
                                rmsnorm_ref(x, scale, 1e-6), rtol=tol,
                                atol=tol)
+
+
+# (D, dtype, path): the 16-byte vector path's (threads per row, vectors
+# per thread), every instance the rule picks, or None for the scalar path
+# (rows not a multiple of 16 bytes, or wider than 8 vectors per thread at
+# 256 threads)
+RMS_PATHS = [(64, torch.float32, (32, 1)), (256, torch.float32, (32, 2)),
+             (512, torch.float32, (32, 4)), (2048, torch.float32, (128, 4)),
+             (4096, torch.float32, (256, 4)),
+             (8192, torch.float32, (256, 8)), (130, torch.float32, None),
+             (12288, torch.float32, None), (2048, torch.bfloat16, (64, 4)),
+             (2056, torch.bfloat16, (128, 4)), (2052, torch.bfloat16, None)]
+
+
+@pytest.mark.parametrize("D,dtype,path", RMS_PATHS)
+def test_rmsnorm_paths_vs_plain(dev, D, dtype, path):
+    """Each path the wrapper picks by shape, against the plain version
+    (f32 1e-5, bf16 one ulp); a start address off 16 bytes takes the
+    scalar path with the same result."""
+    g = torch.Generator(device=dev).manual_seed(D)
+    x = torch.randn((19, D), generator=g, device=dev).mul_(3).to(dtype)
+    scale = torch.rand((D,), generator=g, device=dev) + 0.5
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert kernel_path(x, scale, torch.empty_like(x)) == path
+    n0 = rmsnorm.launches
+    got = rmsnorm(x, scale, eps=1e-6)
+    assert rmsnorm.launches == n0 + 1
+    want = rmsnorm_ref(x, scale, 1e-6)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    shifted = torch.empty(x.numel() + 8, dtype=dtype, device=dev)[
+        1:x.numel() + 1].view(x.shape)
+    shifted.copy_(x)
+    assert kernel_path(shifted, scale, shifted) is None
+    torch.testing.assert_close(rmsnorm(shifted, scale, eps=1e-6).float(),
+                               want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("D,dtype,path", RMS_PATHS)
+def test_rmsnorm_row_is_independent_of_the_batch(dev, D, dtype, path):
+    """A row's bits are the same normalised alone, in any batch, at any
+    position (blocks of 1, 2, 4 or 8 rows cut the batch differently): the
+    sum of squares depends on the row and D alone."""
+    g = torch.Generator(device=dev).manual_seed(D + 1)
+    x = torch.randn((40, D), generator=g, device=dev).to(dtype)
+    scale = torch.rand((D,), generator=g, device=dev) + 0.5
+    full = rmsnorm(x, scale)
+    for r in (0, 17, 39):
+        assert torch.equal(rmsnorm(x[r:r + 1].contiguous(), scale),
+                           full[r:r + 1])
+    assert torch.equal(rmsnorm(x[5:13].contiguous(), scale), full[5:13])
+
+
+def test_rmsnorm_follows_the_current_stream(dev):
+    """A launch inside ``torch.cuda.stream(side)`` is ordered on ``side``:
+    it reads x after the side stream's earlier (slow) write of x."""
+    x = torch.zeros((64, 2048), device=dev)
+    new = torch.randn((64, 2048), device=dev)
+    scale = torch.rand((2048,), device=dev) + 0.5
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(50_000_000)          # tens of ms on the card
+        x.copy_(new)
+        got = rmsnorm(x, scale)
+    side.synchronize()
+    torch.testing.assert_close(got, rmsnorm_ref(new, scale), rtol=1e-5,
+                               atol=1e-5)
 
 
 @pytest.mark.parametrize("glu,act,wire,dtype,tol", [
@@ -368,14 +439,133 @@ def test_moe_dispatch_vs_plain(dev, dtype):
     assert torch.equal(got, moe_dispatch_ref(x, flat, n_slots))
 
 
+def _loop_sum(x, flat, n_slots):
+    """The dispatch contract written as a loop on the CPU: each slot's sum
+    from 0 in token order, then choice order, rounded to x's dtype after
+    each addition."""
+    x, flat = x.cpu(), flat.cpu().tolist()
+    acc = torch.zeros((n_slots, x.shape[1]), dtype=x.dtype)
+    for s, row in enumerate(flat):
+        for slot in row:
+            if 0 <= slot < n_slots:
+                acc[slot] = acc[slot] + x[s]
+    return acc
+
+
 def test_moe_dispatch_sums_duplicate_slots(dev):
+    """64 tokens into one slot (and random repeats): bitwise the loop sum
+    in token order; against the plain version, whose atomics add in an
+    undefined order, within 5e-5 (64 f32 terms of O(1))."""
     x = torch.randn((64, 130), device=dev)
     flat = torch.randint(0, 9, (64, 3), device=dev, dtype=torch.int32)
     flat[:, 0] = 2                     # 64 tokens into one slot
     flat[5] = 8                        # the drop sentinel (n_slots = 8)
-    torch.testing.assert_close(moe_dispatch(x, flat, 8),
-                               moe_dispatch_ref(x, flat, 8), rtol=0,
+    got = moe_dispatch(x, flat, 8)
+    assert torch.equal(got.cpu(), _loop_sum(x, flat, 8))
+    torch.testing.assert_close(got, moe_dispatch_ref(x, flat, 8), rtol=0,
                                atol=5e-5)
+
+
+# (S, k, M, n_slots, dtype): M 130 f32 and 260 bf16 take the scalar path
+# (rows not a multiple of 16 bytes), the others 16-byte vectors; 40 slots
+# fill 5 blocks of 8 rows, 2000 slots 250 of them, and 30000 slots blocks
+# of about 60 rows (four blocks per SM), whose edges the random repeats
+# straddle
+DISPATCH_CASES = [(96, 3, 256, 40, torch.float32),
+                  (96, 3, 130, 40, torch.float32),
+                  (96, 3, 256, 40, torch.bfloat16),
+                  (96, 3, 260, 40, torch.bfloat16),
+                  (500, 4, 64, 2000, torch.float32),
+                  (500, 4, 64, 2000, torch.bfloat16),
+                  (4000, 2, 32, 30000, torch.float32)]
+
+
+@pytest.mark.parametrize("S,k,M,n_slots,dtype", DISPATCH_CASES)
+def test_moe_dispatch_duplicates_bitwise_in_token_order(dev, S, k, M,
+                                                        n_slots, dtype):
+    """Repeated slots, three or more choices on some, drops, and pairs of
+    repeats on both sides of every 8-row block edge: bitwise the token-
+    order loop sum (bf16: rounded after each addition)."""
+    g = torch.Generator(device=dev).manual_seed(S + M)
+    x = torch.randn((S, M), generator=g, device=dev).mul_(50).to(dtype)
+    flat = torch.randint(0, n_slots + 1, (S, k), generator=g, device=dev,
+                         dtype=torch.int32)
+    flat[:8, 0] = 3                              # eight tokens, one slot
+    flat[8:12] = 5                               # every choice, one slot
+    edges = torch.arange(8, min(n_slots, 8 * (S // 4)), 8, device=dev,
+                         dtype=torch.int32)[:S // 4 - 4]
+    n_e = edges.numel()
+    flat[12:12 + n_e, 0] = edges - 1             # rows 7 | 8, 15 | 16 ...
+    flat[12 + n_e:12 + 2 * n_e, 0] = edges
+    flat[12 + 2 * n_e:12 + 3 * n_e, 0] = edges - 1
+    flat[12 + 3 * n_e:12 + 4 * n_e, 0] = edges
+    got = moe_dispatch(x, flat, n_slots)
+    assert got.dtype == dtype and got.shape == (n_slots, M)
+    assert torch.equal(got.cpu(), _loop_sum(x, flat, n_slots))
+
+
+def test_moe_dispatch_more_entries_than_a_block_lists(dev):
+    """4096 tokens into one slot (more than the 256 entries each warp of a
+    block lists in shared memory) and one into each of its neighbours: the
+    block sums by scanning flat itself, still in token order, bitwise."""
+    S = 4096
+    x = torch.randn((S, 256), device=dev)
+    flat = torch.full((S, 2), 64, dtype=torch.int32, device=dev)
+    flat[:, 0] = 9
+    flat[0, 1], flat[1, 1] = 8, 10
+    flat[2, 1] = 9
+    got = moe_dispatch(x, flat, 64)
+    assert torch.equal(got.cpu(), _loop_sum(x, flat, 64))
+
+
+def test_moe_dispatch_writes_every_row_on_dirty_memory(dev):
+    """The caching allocator hands the buffer back full of NaNs: every row
+    no choice names comes out exactly 0 (no memset: the kernel writes it),
+    and the rest equal the plain version bitwise."""
+    flat, _, n_slots = _slots(dev)
+    x = torch.randn((flat.shape[0], 200), device=dev)
+    torch.cuda.synchronize()
+    dirty = torch.full((n_slots, 200), float("nan"), device=dev)
+    del dirty                                    # back to the cache
+    got = moe_dispatch(x, flat, n_slots)
+    unused = torch.ones(n_slots + 1, dtype=torch.bool, device=dev)
+    unused[flat.reshape(-1).long()] = False
+    assert bool((got[unused[:-1]] == 0).all())
+    assert not bool(got.isnan().any())
+    assert torch.equal(got, moe_dispatch_ref(x, flat, n_slots))
+
+
+def test_moe_dispatch_edge_cases(dev):
+    """No tokens, every choice dropped: all rows 0.  No slots: an empty
+    buffer and no launch."""
+    for S in (0, 37):
+        x = torch.randn((S, 64), device=dev)
+        flat = torch.full((S, 2), 50, dtype=torch.int32, device=dev)
+        n0 = moe_dispatch.launches
+        got = moe_dispatch(x, flat, 50)
+        assert moe_dispatch.launches == n0 + 1
+        assert got.shape == (50, 64) and bool((got == 0).all())
+    x = torch.randn((5, 64), device=dev)
+    n0 = moe_dispatch.launches
+    got = moe_dispatch(x, torch.zeros((5, 2), dtype=torch.int32, device=dev),
+                       0)
+    assert got.shape == (0, 64) and moe_dispatch.launches == n0
+
+
+def test_moe_dispatch_is_one_kernel_launch(dev):
+    """One call is one kernel on the card: no memset, nothing else."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    flat, _, n_slots = _slots(dev)
+    x = torch.randn((flat.shape[0], 256), device=dev)
+    moe_dispatch(x, flat, n_slots)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        moe_dispatch(x, flat, n_slots)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    assert len(names) == 1 and "dispatch_kernel" in names[0], names
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6),

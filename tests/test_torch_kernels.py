@@ -185,6 +185,59 @@ class TestDispatchCombineVsJax:
 
     @pytest.mark.parametrize("backend", ["ref", "pallas"])
     @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+    def test_dispatch_sums_duplicates_in_token_order(self, backend, dtype):
+        """Four choices of three tokens name slot 2, and random slots
+        repeat elsewhere.  The JAX op (its jnp oracle, and the Pallas
+        kernel in interpret mode) takes each slot's sum from 0 in token
+        order, then choice order, rounded to the dtype after each addition:
+        equal bitwise to that loop, the order the CUDA kernel keeps.  The
+        rows' magnitudes make choice-then-token order give other bits,
+        which the test checks too.  The port's plain version equals the
+        loop bitwise in f32.  In bf16 it is ``index_add_`` on the CPU,
+        which adds a slot's terms in f32 and rounds once: bitwise that, and
+        within the roundings between it and the loop, half a bf16 ulp
+        (2^-8 relative) of each rounded partial sum and of the result."""
+        big = 1e7 if dtype == jnp.float32 else 3e2
+        rng = np.random.RandomState(9)
+        x = rng.randn(S, M).astype(np.float32)
+        x[1] *= big                              # twice into slot 2
+        x[6] = -2.0 * x[1] + rng.randn(M).astype(np.float32)
+        flat = rng.randint(3, self.N_SLOTS + 1, (S, K)).astype(np.int32)
+        flat[1] = [2, 2]
+        flat[4, 1] = flat[6, 0] = 2
+        tdt = torch.float32 if dtype == jnp.float32 else torch.bfloat16
+        tx = _t(x, tdt)
+        entries = [(s, j) for s in range(S) for j in range(K)
+                   if flat[s, j] < self.N_SLOTS]
+
+        def loop_sum(order, acc_dtype=tdt):
+            acc = torch.zeros((self.N_SLOTS, M), dtype=acc_dtype)
+            for s, j in order:
+                acc[flat[s, j]] = acc[flat[s, j]] + tx[s].to(acc_dtype)
+            return acc
+
+        want = loop_sum(entries)
+        by_choice = sorted(entries, key=lambda e: (e[1], e[0]))
+        assert not torch.equal(want[2], loop_sum(by_choice)[2])
+        jgot = j_get_op("moe_dispatch", backend=backend,
+                        n_slots=self.N_SLOTS)(_j(x, dtype), _j(flat))
+        np.testing.assert_array_equal(np.asarray(jgot.astype(jnp.float32)),
+                                      want.float().numpy())
+        got = moe_dispatch(tx, _t(flat), self.N_SLOTS)
+        if tdt == torch.float32:
+            assert torch.equal(got, want)
+            return
+        wide = loop_sum(entries, torch.float32)
+        assert torch.equal(got, wide.to(tdt))
+        acc = torch.zeros((self.N_SLOTS, M), dtype=tdt)
+        bound = wide.abs() * 2.0 ** -8           # the one final rounding
+        for s, j in entries:
+            acc[flat[s, j]] = acc[flat[s, j]] + tx[s]
+            bound[flat[s, j]] += acc[flat[s, j]].float().abs() * 2.0 ** -8
+        assert ((got.float() - want.float()).abs() <= bound).all()
+
+    @pytest.mark.parametrize("backend", ["ref", "pallas"])
+    @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
     def test_combine(self, backend, dtype):
         _, flat, w = self._case(1)
         buf = np.random.RandomState(2).randn(self.N_SLOTS, M).astype(
