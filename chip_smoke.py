@@ -10,9 +10,9 @@ to a plain version):
 
   1. the card's name and power limit (``nvidia-smi``);
   2. build every CUDA source of the port (one ``nvcc`` each, in parallel)
-     and print ``ptxas``'s registers and spills: the redesigned
-     ``flash_attention``, ``expert_ffn_grouped``, ``rmsnorm`` and
-     ``moe_dispatch`` sources must spill 0 bytes;
+     and print ``ptxas``'s registers and spills: every source must spill 0
+     bytes (``expert_ffn_grouped`` and ``expert_ffn`` share
+     ``ffn_tile.cuh``'s up and down kernels);
   3. hold each of the seven kernels against its plain PyTorch version on
      the card at the serving and training paths' shapes (plus a duplicate-
      slot dispatch, a partial-tile ragged FFN and bf16 cases), check the
@@ -25,8 +25,13 @@ to a plain version):
      from a seed) through ``Engine``: 16 requests, some sharing a 32-token
      prefix, once one-shot, once with 32-token prefill chunks and once
      one-shot under the ``s1d`` schedule; each run's kernels' launch counts
-     must be > 0; one request's logits are checked against a reference
-     forward with the plain versions swapped in, under both schedules;
+     must be > 0; one-shot under ``s1d`` must give one-shot's tokens for
+     every request; then once one-shot and once chunked at the drop-free
+     capacity factor (n_experts / top_k), which must agree for every
+     request (at the config's own factor the prefill pools' drops depend
+     on the chunking, as in the JAX engine: logged, not asserted); one
+     request's logits are checked against a reference forward with the
+     plain versions swapped in, under both schedules;
   5. serve the same requests forward and in reversed arrival order (prefix
      cache off, so each request's prefill is the same computation in both
      runs): every request's greedy tokens must be identical;
@@ -36,9 +41,12 @@ to a plain version):
      path's FMA chains), within 1e-4 of the same layer with the plain
      versions; each schedule's forward timed;
   7. train full-width qwen3-moe-30b-a3b cut to 4 layers, batch 1 x 2048
-     ``SyntheticLM`` tokens: loss and gradient norm of one step with the
-     kernels against one with the plain versions from the same parameters,
-     then AdamW steps through ``Trainer``: every loss finite, the last
+     ``SyntheticLM`` tokens: the first step taken twice from the same
+     parameters, AdamW state and batch must give ``torch.equal`` parameters
+     and moments (no deterministic flag, no ``CUBLAS_WORKSPACE_CONFIG``);
+     loss and gradient norm of one step with the kernels against one with
+     the plain versions from the same parameters, then AdamW steps through
+     ``Trainer``: every loss finite, the last
      three below the first, launches per step as predicted; under the
      default schedule (s1g, 10 steps) and under s1g with the fp8 wire
      (5 steps);
@@ -67,7 +75,7 @@ PEAK_FLOPS = {"torch.float32": 67e12, "torch.bfloat16": 989e12}
 N_LAYERS = 4
 #: sources whose every kernel instance must spill 0 bytes (ptxas -v)
 NO_SPILL = ("flash_attention", "expert_ffn_grouped", "rmsnorm",
-            "moe_dispatch")
+            "moe_dispatch", "expert_ffn")
 
 
 def log(msg):
@@ -323,8 +331,8 @@ def check_dispatch_combine(dev):
     disp, comb = [], []
     # (label, arch, tokens, infer, dtype, duplicates).  Tolerances: dispatch
     # 0 (each slot receives at most one value: 0 + v == v), duplicates 0
-    # too (the kernel sums in token order, the plain version's atomics in
-    # either order, and two f32 terms give the same sum either way);
+    # too (the kernel and the plain version's sorted index_put_ both sum
+    # in token order);
     # combine 1e-6 in f32 (k terms in choice order against cuBLAS's), bf16
     # one ulp (2e-2).
     for label, arch, S, infer, dt, dup in (
@@ -679,8 +687,8 @@ def reference_step(model, params, batch, schedule=None, grad_rtol=1e-3):
     """Loss and gradient norm of one step (no update), with the kernels and
     with the plain versions, from the same parameters.  Loss within 1e-4
     relative, gradient norm within ``grad_rtol`` (1e-3): f32 throughout,
-    but the plain backward scatters with atomics and the routing of a near
-    tie may flip."""
+    but the kernels' forwards sum in other orders than the plain versions'
+    and the routing of a near tie may flip."""
     import torch
     from repro_torch.optim.adamw import global_norm, leaves
     flat = leaves(params)
@@ -711,16 +719,25 @@ def train(label, cfg, dev, *, batch, seq, steps, lr, uses, schedule=None,
 
     import torch
     from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.determinism import first_step_twice
     from repro_torch.models import Model
     from repro_torch.optim import AdamWConfig
     from repro_torch.train import Trainer
     model = Model(cfg, device=dev)
     tr = Trainer(model, AdamWConfig(lr=lr, warmup_steps=2,
                                     total_steps=steps), schedule=schedule)
-    params, opt_state = tr.setup(torch.Generator(device=dev).manual_seed(0))
-    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                   global_batch=batch))
+    # the first step twice from one state: bitwise, with no deterministic
+    # flag and no CUBLAS_WORKSPACE_CONFIG (the backward sums in order)
+    bad = first_step_twice(tr, data.tensors(0, dev))
+    if bad:
+        raise AssertionError(f"{label}: the first step taken twice from "
+                             f"the same state differs in leaves {bad} of "
+                             f"the parameters and AdamW moments")
+    params, opt_state = tr.setup(torch.Generator(device=dev).manual_seed(0))
+    n_leaves = len(_leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     log(f"  {label}: {cfg.name}, {cfg.n_layers} layers, {n_bytes / 1e9:.2f} "
         f"GB of parameters, batch {batch} x {seq} tokens, remat "
         f"{cfg.remat}, schedule {schedule or cfg.moe.schedule}, "
@@ -728,7 +745,9 @@ def train(label, cfg, dev, *, batch, seq, steps, lr, uses, schedule=None,
     (lk, gk), (lp, gp) = reference_step(model, params, data.tensors(0, dev),
                                         schedule, grad_rtol)
     log(f"  {label}: one step from the same parameters: loss {lk:.6f} "
-        f"(kernels) vs {lp:.6f} (plain), grad norm {gk:.6f} vs {gp:.6f}")
+        f"(kernels) vs {lp:.6f} (plain), grad norm {gk:.6f} vs {gp:.6f}; "
+        f"the first step taken twice: all {3 * n_leaves} parameter and "
+        f"moment tensors torch.equal")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     wrappers = reset_counts()
@@ -919,12 +938,39 @@ def main() -> int:
                                  f"launched: {launches}")
         runs[label] = done
         path_launches[path] = launches
-    for other in ("chunked-32", "one-shot-s1d"):
-        same = sum(runs["one-shot"][i].tokens == runs[other][i].tokens
-                   for i in range(len(prompts)))
-        log(f"  one-shot vs {other}: {same}/{len(prompts)} requests with "
-            f"identical tokens (prefill capacity drops depend on the "
-            f"chunking; s1d sums in other kernels)")
+    # s1d runs dispatch -> expert_ffn -> combine, the grouped kernel's
+    # FMA chains (phase 6 holds the two bitwise): the same tokens
+    bad = [i for i in range(len(prompts))
+           if runs["one-shot"][i].tokens != runs["one-shot-s1d"][i].tokens]
+    if bad:
+        raise AssertionError(f"phase 4: requests {bad} differ between "
+                             f"one-shot serving under auto and under s1d")
+    log(f"  one-shot vs one-shot-s1d: {len(prompts)}/{len(prompts)} "
+        f"requests with identical tokens")
+    same = sum(runs["one-shot"][i].tokens == runs["chunked-32"][i].tokens
+               for i in range(len(prompts)))
+    # prefill pools take the training capacity (infer=False), so which
+    # rows drop depends on the chunking, in the JAX engine as here; at
+    # capacity_factor = n_experts / top_k no pool can drop a row, and
+    # chunked prefill must then give one-shot's tokens
+    moe = cfg.moe
+    free = Model(replace(cfg, moe=replace(
+        moe, capacity_factor=moe.n_experts / moe.top_k)), device=dev)
+    df = {label: serve(free, params, prompts, gen=gen, **kw)[0]
+          for label, kw in (("one-shot", {}),
+                            ("chunked-32", {"prefill_chunk": 32}))}
+    bad = [i for i in range(len(prompts))
+           if df["one-shot"][i].tokens != df["chunked-32"][i].tokens]
+    if bad:
+        raise AssertionError(f"phase 4: at drop-free capacity requests "
+                             f"{bad} differ between one-shot and chunked "
+                             f"prefill")
+    log(f"  one-shot vs chunked-32: {same}/{len(prompts)} requests with "
+        f"identical tokens at capacity_factor {moe.capacity_factor} (the "
+        f"prefill pools' drops depend on the chunking, as in the JAX "
+        f"engine); {len(prompts)}/{len(prompts)} at the drop-free "
+        f"capacity_factor {moe.n_experts / moe.top_k:g}")
+    del free, df
 
     # 5. determinism and batch independence
     fwd, _, _ = serve(model, params, prompts, gen=gen, prefix_cache=False)
@@ -965,7 +1011,7 @@ def main() -> int:
         "qwen3 s1g fp8", fp8, dev, batch=1, seq=2048, steps=5, lr=1e-4,
         schedule="s1g", grad_rtol=1e-2,
         uses=("moe_dispatch", "expert_ffn_ragged", "moe_combine"),
-        per_step={"moe_dispatch": 8, "expert_ffn_ragged": 8,
+        per_step={"moe_dispatch": 12, "expert_ffn_ragged": 8,
                   "moe_combine": 8, "rmsnorm": 17, "flash_attention": 8,
                   "expert_ffn_grouped": 0, "expert_ffn": 0})
     log("phase 8: train gpt2-moe at its full size")
@@ -979,7 +1025,7 @@ def main() -> int:
         "gpt2-moe s1 2 chunks", g2s1, dev, batch=8, seq=1024, steps=5,
         lr=1e-3, schedule="s1", uses=("moe_dispatch", "expert_ffn",
                                       "moe_combine"),
-        per_step={"moe_dispatch": 12, "moe_combine": 12, "expert_ffn": 24,
+        per_step={"moe_dispatch": 18, "moe_combine": 12, "expert_ffn": 24,
                   "flash_attention": 24, "expert_ffn_grouped": 0,
                   "rmsnorm": 0})
 

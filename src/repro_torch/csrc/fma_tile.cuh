@@ -1,7 +1,7 @@
 // Shared pieces of the port's f32 FMA kernels for Hopper (sm_90a):
 // 16-byte cp.async copies with zero fill, shared-memory fragment loads that
 // widen bf16 exactly, and the register-blocked GEMM mainloop of the expert
-// FFN kernels (csrc/expert_ffn_grouped.cu).
+// FFN kernels (csrc/ffn_tile.cuh's up and down kernels).
 //
 // The mainloop computes, for one block of 256 threads, a BM x 128 tile of
 // A (BM rows, K deep, row-major) times B (K rows, two 64-column segments,
@@ -11,8 +11,7 @@
 // split-K, no second partial accumulator, no reassociation, and no fast
 // math: the chain of an element is the same whatever BM, the thread tile,
 // the ring depth, or the other rows that share its tile, so every instance
-// gives the same bits (and the same bits as cuBLAS's SIMT SGEMM and the
-// dense and ragged kernels of csrc/expert_ffn.cu at the measured shapes).
+// gives the same bits, in the grouped, dense and ragged forms alike.
 // K slabs past K are zero-filled, so they add fmaf(0, 0, acc) = acc.
 //
 // Layout.  Thread t is (ty, tx) = (t / 16, t % 16).  It owns A rows

@@ -63,7 +63,9 @@ def check_weights(what, x, M, w1, w3, w2, act):
 def launch_ffn(what, x, counts, w1, w3, w2, out_dtype, act, groups, rows):
     """Run the CUDA FFN over ``groups`` groups of ``rows`` rows per expert:
     the dense entry point when ``counts`` is None, else the ragged one
-    (output in x's dtype).  Returns the (E * groups * rows, M) output."""
+    (output in x's dtype).  Returns the (E * groups * rows, M) output.
+    Rows and start addresses must be 16-byte aligned (the kernels copy
+    with 16-byte ``cp.async``): anything else raises ``ValueError``."""
     M = x.shape[-1]
     E, F = check_weights(what, x, M, w1, w3, w2, act)
     if E * groups * rows >= 2 ** 31 or -(-rows // 16) > 65535 \
@@ -73,6 +75,10 @@ def launch_ffn(what, x, counts, w1, w3, w2, out_dtype, act, groups, rows):
     x_code = _build.dtype_code(x, f"{what} x")
     w_code = _build.dtype_code(w1, f"{what} weights")
     y_code = _build.DTYPE_CODE[out_dtype]
+    _build.check_aligned(
+        what, {"x": M * x.element_size(), "w1/w3": F * w1.element_size(),
+               "w2": M * w2.element_size(), "f32 scratch": F * 4},
+        {"x": x, "w1": w1, "w3": w3, "w2": w2})
     mid = torch.empty((E * groups * rows, F), dtype=torch.float32,
                       device=x.device)
     y = torch.empty((E * groups * rows, M), dtype=out_dtype, device=x.device)

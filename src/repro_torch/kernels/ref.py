@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -63,16 +64,47 @@ def expert_ffn_ragged_ref(xb, counts, w1, w3, w2, *, act="silu"):
     return h.to(xb.dtype)
 
 
+def scatter_rows_in_order(src, idx, n_rows):
+    """``out[idx[i]] += src[i]`` for i in ascending order, from zeros,
+    rounded to ``src.dtype`` after each addition: the order of JAX's
+    ``zeros.at[idx].add(src)``.  src: (N, M); idx: (N,) int32 or int64 in
+    [0, n_rows] (``n_rows`` = dropped).  Returns (n_rows, M).
+
+    The passes are planned on the host from one read of ``idx``.  Where
+    no kept row is named twice, one ``index_add_`` (each row receives at
+    most one term, so any order gives the same bits); else one
+    ``index_add_`` per occurrence rank (an entry's position among the
+    entries naming its row, in entry order): within a pass no kept row
+    repeats, so each addition rounds once, and the passes run in entry
+    order.  Dropped entries land in one discarded row, or in no pass."""
+    N, M = src.shape
+    out = torch.zeros((n_rows + 1, M), dtype=src.dtype, device=src.device)
+    ids = idx.cpu().numpy().astype(np.int64)
+    n_pass = int(np.bincount(ids, minlength=n_rows + 1)[:n_rows].max(
+        initial=0))
+    if n_pass <= 1:
+        return out.index_add_(0, idx, src)[:-1]
+    order = np.argsort(ids, kind="stable")
+    srt = ids[order]
+    rank = np.empty_like(ids)
+    rank[order] = np.arange(N) - np.searchsorted(srt, srt)
+    for r in range(n_pass):
+        sel = np.nonzero(rank == r)[0]
+        out.index_add_(0, torch.from_numpy(ids[sel]).to(src.device),
+                       src[torch.from_numpy(sel).to(src.device)])
+    return out[:-1]
+
+
 def moe_dispatch_ref(x, flat_idx, n_slots):
     """Scatter tokens into the flat capacity buffer.
     x: (S, M); flat_idx: (S, k) int in [0, n_slots] (n_slots = drop).
-    Returns (n_slots, M)."""
+    Returns (n_slots, M).  A slot several choices name holds their sum in
+    token-then-choice order, rounded to x's dtype after each addition
+    (JAX's ``.at[].add``)."""
     S, M = x.shape
     k = flat_idx.shape[1]
-    buf = torch.zeros((n_slots + 1, M), dtype=x.dtype, device=x.device)
     src = x[:, None, :].expand(S, k, M).reshape(S * k, M)
-    buf.index_add_(0, flat_idx.reshape(-1).long(), src)
-    return buf[:-1]
+    return scatter_rows_in_order(src, flat_idx.reshape(-1), n_slots)
 
 
 def moe_combine_ref(buf, flat_idx, weights):

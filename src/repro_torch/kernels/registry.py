@@ -17,7 +17,9 @@ differentiates each op as it does.  ``moe_dispatch``, ``moe_combine`` and
 ``expert_ffn_ragged`` have closed-form transposes (JAX's
 ``_dispatch_analytic_vjp``, ``_combine_analytic_vjp`` and
 ``_ragged_analytic_vjp``), written in plain torch in
-``autograd.Function``s that save only what JAX's residuals hold.  The
+``autograd.Function``s that save only what JAX's residuals hold; combine's
+buffer cotangent is a ``moe_dispatch`` (the kernel on the card), which
+sums repeated slots in JAX's order with no atomics.  The
 others recompute through their plain versions (``_with_ref_vjp``,
 ``_grouped_fused_vjp``): a call that needs a gradient goes through
 :class:`_RecomputeVJP`, whose forward runs the op (kernel or plain
@@ -126,8 +128,10 @@ class _DispatchVJP(torch.autograd.Function):
 
 class _CombineVJP(torch.autograd.Function):
     """Combine's transpose: a scatter-add of ``w[s, j] * g[s]`` into the
-    slots (w.r.t. the buffer) and the gathered rows dotted with the
-    cotangent (w.r.t. the weights); dropped choices get zero.  Saves
+    slots (w.r.t. the buffer), summed in entry order by ``moe_dispatch``
+    (the CUDA kernel on the card, the plain version on the CPU: JAX's
+    bits, and the same bits every run), and the gathered rows dotted with
+    the cotangent (w.r.t. the weights); dropped choices get zero.  Saves
     ``(buf, flat_idx, weights)``."""
 
     @staticmethod
@@ -144,10 +148,12 @@ class _CombineVJP(torch.autograd.Function):
         idx = flat.long()
         cot_buf = cot_w = None
         if ctx.needs_input_grad[2]:
+            # JAX's .at[flat].add(src): a dispatch with k = 1 sums a
+            # repeated slot's rows in entry order, with no atomics
             w = torch.where(kept, weights, 0.0).to(buf.dtype)
             src = w[:, :, None] * g[:, None, :].to(buf.dtype)
-            cot_buf = buf.new_zeros((n_slots + 1, M)).index_add_(
-                0, idx.reshape(-1), src.reshape(S * k, M))[:-1]
+            cot_buf = moe_dispatch(src.reshape(S * k, M),
+                                   flat.reshape(S * k, 1), n_slots)
         if ctx.needs_input_grad[4]:
             vals = buf[idx.clamp(max=n_slots - 1).reshape(-1)]
             cot_w = torch.einsum("sm,skm->sk", g.to(buf.dtype),

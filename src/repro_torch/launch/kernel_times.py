@@ -6,6 +6,9 @@ shapes.
 
 Cases, by kernel: ``expert_ffn_grouped`` (qwen3-moe-30b-a3b decode, 8
 tokens; the qwen3 and gpt2-moe training steps, every slot filled),
+``expert_ffn`` (qwen3's s1d decode buffer, 128 x 8 rows; one of the two
+chunks of gpt2-moe's s1 step, 8 x 1232 rows), ``expert_ffn_ragged``
+(qwen3's s1g + fp8 step, 128 x 160 slots),
 ``flash_attention`` (both training shapes), ``rmsnorm`` (decode 8 x 2048,
 prefill 128 x 2048 in f32 and bf16, qwen3's training step 2048 x 2048),
 ``moe_dispatch`` (qwen3 decode, both training steps, gpt2-moe's in bf16,
@@ -20,7 +23,8 @@ kernel durations only).  Where the event time exceeds the device time, the
 host, not the card, sets it.  ``rmsnorm`` and ``moe_dispatch`` get the
 same split for their one-call yardsticks, ``F.rms_norm`` and
 ``torch.index_add``, and a split of their wrappers' host time at decode
-into its parts.  Random inputs from a seed; needs a card.
+into its parts; the two expert FFNs get it for their plain versions
+(einsums on cuBLAS).  Random inputs from a seed; needs a card.
 """
 
 from __future__ import annotations
@@ -83,6 +87,52 @@ def _grouped_case(arch, S, infer, dev, g):
     return (f"expert_ffn_grouped {arch} S={S} cap={cap}",
             lambda: expert_ffn_grouped(x, flat, w, w1, w3, w2, cap=cap,
                                        act=mcfg.act))
+
+
+def _ffn_case(arch, S, infer, n_chunks, dev, g):
+    """expert_ffn on ``arch``'s capacity buffer for ``S`` tokens, cut into
+    ``n_chunks`` (s1d decode: qwen3, 8 tokens; gpt2-moe's s1 step: 8192
+    tokens, 2 chunks), with the plain version beside it."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.moe import shard_pool_capacity
+    from repro_torch.kernels.expert_ffn import expert_ffn
+    from repro_torch.kernels.ref import expert_ffn_ref
+    mcfg = get_config(arch).moe
+    E, M, F = mcfg.n_experts, mcfg.d_model, mcfg.d_ff
+    _, cap = shard_pool_capacity(S, 1, 1, mcfg.gate_config(), infer=infer)
+    T = cap // n_chunks
+    x = torch.randn((E, T, M), generator=g, device=dev)
+    w1 = torch.randn((E, M, F), generator=g, device=dev).mul_(M ** -0.5)
+    w3 = torch.randn((E, M, F), generator=g, device=dev).mul_(
+        M ** -0.5) if mcfg.glu else None
+    w2 = torch.randn((E, F, M), generator=g, device=dev).mul_(F ** -0.5)
+    act = mcfg.act
+    return (f"expert_ffn {arch} E={E} T={T} M={M} F={F}",
+            lambda: expert_ffn(x, w1, w3, w2, act=act),
+            ("plain expert_ffn_ref",
+             lambda: expert_ffn_ref(x, w1, w3, w2, act=act)))
+
+
+def _ragged_case(dev, g):
+    """expert_ffn_ragged at qwen3's s1g + fp8 step (E 128, one group, cap
+    160, a random gate's counts), with the plain version beside it."""
+    from repro_torch.kernels.expert_ffn_grouped import expert_ffn_ragged
+    from repro_torch.kernels.ref import expert_ffn_ragged_ref
+    q3 = "qwen3-moe-30b-a3b"
+    x, flat, _, n = _gate(q3, 2048, False, dev, g)
+    E, M = 128, x.shape[1]
+    cap, F = n // E, 768
+    counts = torch.bincount(flat.reshape(-1).long(), minlength=n + 1)[:n]
+    counts = counts.reshape(E, cap).sum(dim=1, dtype=torch.int32)[:, None]
+    w1, w3 = (torch.randn((E, M, F), generator=g, device=dev).mul_(M ** -0.5)
+              for _ in range(2))
+    w2 = torch.randn((E, F, M), generator=g, device=dev).mul_(F ** -0.5)
+    xb = torch.randn((E, 1, cap, M), generator=g, device=dev)
+    return (f"expert_ffn_ragged {q3} E={E} c={cap} routed "
+            f"{int(counts.sum())}",
+            lambda: expert_ffn_ragged(xb, counts.contiguous(), w1, w3, w2),
+            ("plain expert_ffn_ragged_ref",
+             lambda: expert_ffn_ragged_ref(xb, counts, w1, w3, w2)))
 
 
 def _flash_case(B, L, H, K, hd, dev, g):
@@ -151,12 +201,9 @@ def _report(label, fn, iters):
     host = _host_us(fn, iters)
     prof = device_profile(lambda: [fn() for _ in range(iters)],
                           ev * iters, top=8)
-    # calls as the profiler saw them: the heaviest kernel launches once per
-    # call
-    n = prof["top"][0]["calls"]
     print(f"{label}: event {ev:.4f} ms per call; host {host:.1f} us per "
-          f"call; device {prof['busy_ms'] / n:.4f} ms per call ({n} calls "
-          f"traced)")
+          f"call; device {prof['busy_ms'] / iters:.4f} ms per call ({iters} "
+          f"calls traced)")
     for row in prof["top"]:
         print(f"    {row['ms'] / row['calls']:8.4f} ms per launch  "
               f"x{row['calls']}  {row['name'][:100]}")
@@ -225,6 +272,10 @@ def main(argv=None):
             lambda: _grouped_case(q3, 8, True, dev, g),
             lambda: _grouped_case(q3, 2048, False, dev, g),
             lambda: _grouped_case(g2, 8192, False, dev, g)),
+        "expert_ffn": (
+            lambda: _ffn_case(q3, 8, True, 1, dev, g),
+            lambda: _ffn_case(g2, 8192, False, 2, dev, g)),
+        "expert_ffn_ragged": (lambda: _ragged_case(dev, g),),
         "flash_attention": (
             lambda: _flash_case(1, 2048, 32, 4, 128, dev, g),
             lambda: _flash_case(8, 1024, 12, 12, 64, dev, g)),

@@ -9,7 +9,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.ref import ACT
+from repro_torch.kernels.ref import ACT, scatter_rows_in_order
 from repro_torch.kernels.registry import get_op
 
 
@@ -111,8 +111,33 @@ def init_embedding(generator, vocab, d_model, dtype=torch.float32):
     return {"table": t.mul_(0.02).to(dtype)}
 
 
+class _EmbedVJP(torch.autograd.Function):
+    """``table[ids]`` whose backward sums a row's cotangents in ids order,
+    the same bits every run: on the CPU by ``scatter_rows_in_order``
+    (JAX's bits; the CPU's accumulating ``index_put_``, autograd's
+    default, adds from several threads in no fixed order), on the card by
+    the accumulating ``index_put_``, which there sorts the ids stably and
+    sums each run of them in order."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.n_rows = table.shape[0]
+        return table[ids]
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        g = g.reshape(-1, g.shape[-1])
+        ids = ids.reshape(-1)
+        if g.is_cuda:
+            out = g.new_zeros((ctx.n_rows, g.shape[-1]))
+            return out.index_put_((ids,), g, accumulate=True), None
+        return scatter_rows_in_order(g, ids, ctx.n_rows), None
+
+
 def embed(p, ids):
-    return p["table"][ids]
+    return _EmbedVJP.apply(p["table"], ids)
 
 
 def unembed(p, x):

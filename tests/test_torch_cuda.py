@@ -11,7 +11,11 @@ row or address the 16-byte copies cannot take raises.  rmsnorm's vector
 and scalar paths, its rows' independence of the batch and its launch on
 the current stream; dispatch's sums in token order (bitwise a loop on the
 CPU), its rows written on dirty memory, its edge cases and its one launch
-per call.  Marked ``cuda``: they skip
+per call.  The dense and ragged FFN on all three row-tile instances and
+mixed dtypes: bitwise the grouped kernel's pre-combine rows and each
+other, dead ragged tiles written on dirty memory.  A training step taken
+twice from one state, on each training path of the smoke at reduced
+size: bitwise, with no deterministic flag.  Marked ``cuda``: they skip
 where there is no card, and run there with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -19,9 +23,8 @@ where there is no card, and run there with
 Tolerances: f32 1e-5 relative (the same sums in another order; flash
 attention 2e-5: its online softmax rescales the running sums once per KV
 tile), bf16 one bf16 ulp (2e-2).  Dispatch is bitwise: each slot's sum
-in token order, then choice order (without duplicates each slot receives
-one value); the plain version's atomics sum duplicates in an undefined
-order: 64 f32 terms of O(1) into one slot, 5e-5 (measured 1.6e-6).
+in token order, then choice order, in the kernel and the plain version
+alike.
 Gradients: the same plain backward on the kernel's and the plain
 version's saved inputs, so equal within 1e-5.
 Nothing here imports JAX.
@@ -273,7 +276,8 @@ def test_grouped_is_bitwise_the_dense_path(dev, bm, cap, glu, act):
 
 def test_kernels_reject_misaligned_rows(dev):
     """The 16-byte cp.async copies need 16-byte rows and start addresses:
-    anything else raises ValueError; nothing falls back."""
+    anything else raises ValueError, in the grouped, dense and ragged FFN
+    and in flash attention; nothing falls back."""
     x, flat, w, (w1, w3, w2), cap = _moe(dev, M=130)      # 520-byte rows
     with pytest.raises(ValueError, match="16-byte"):
         expert_ffn_grouped(x, flat, w, w1, w3, w2, cap=cap)
@@ -285,6 +289,23 @@ def test_kernels_reject_misaligned_rows(dev):
     shifted.copy_(x)
     with pytest.raises(ValueError, match="16-byte"):
         expert_ffn_grouped(shifted, flat, w, w1, w3, w2, cap=cap)
+    E = w1.shape[0]
+    for bad in (dict(M=130), dict(F=98)):                 # 520 / 392 bytes
+        _, _, _, (v1, v3, v2), _ = _moe(dev, **bad)
+        xb = torch.randn((E, 8, v1.shape[1]), device=dev)
+        with pytest.raises(ValueError, match="16-byte"):
+            expert_ffn(xb, v1, v3, v2)
+        counts = torch.full((E, 1), 8, dtype=torch.int32, device=dev)
+        with pytest.raises(ValueError, match="16-byte"):
+            expert_ffn_ragged(xb[:, None], counts, v1, v3, v2)
+    xb = torch.randn((E, 8, x.shape[1]), device=dev)
+    xs = torch.empty(xb.numel() + 1, device=dev)[1:].view(xb.shape)
+    xs.copy_(xb)
+    with pytest.raises(ValueError, match="16-byte"):
+        expert_ffn(xs, w1, w3, w2)
+    counts = torch.full((E, 1), 8, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        expert_ffn_ragged(xs[:, None], counts, w1, w3, w2)
     q = torch.randn((1, 64, 4, 64), device=dev)
     qs = torch.empty(q.numel() + 2, device=dev)[2:].view(q.shape)
     qs.copy_(q)
@@ -454,16 +475,15 @@ def _loop_sum(x, flat, n_slots):
 
 def test_moe_dispatch_sums_duplicate_slots(dev):
     """64 tokens into one slot (and random repeats): bitwise the loop sum
-    in token order; against the plain version, whose atomics add in an
-    undefined order, within 5e-5 (64 f32 terms of O(1))."""
+    in token order, and bitwise the plain version, which adds a slot's
+    terms one occurrence rank at a time in the same order."""
     x = torch.randn((64, 130), device=dev)
     flat = torch.randint(0, 9, (64, 3), device=dev, dtype=torch.int32)
     flat[:, 0] = 2                     # 64 tokens into one slot
     flat[5] = 8                        # the drop sentinel (n_slots = 8)
     got = moe_dispatch(x, flat, 8)
     assert torch.equal(got.cpu(), _loop_sum(x, flat, 8))
-    torch.testing.assert_close(got, moe_dispatch_ref(x, flat, 8), rtol=0,
-                               atol=5e-5)
+    assert torch.equal(got, moe_dispatch_ref(x, flat, 8))
 
 
 # (S, k, M, n_slots, dtype): M 130 f32 and 260 bf16 take the scalar path
@@ -484,8 +504,9 @@ DISPATCH_CASES = [(96, 3, 256, 40, torch.float32),
 def test_moe_dispatch_duplicates_bitwise_in_token_order(dev, S, k, M,
                                                         n_slots, dtype):
     """Repeated slots, three or more choices on some, drops, and pairs of
-    repeats on both sides of every 8-row block edge: bitwise the token-
-    order loop sum (bf16: rounded after each addition)."""
+    repeats on both sides of every 8-row block edge: the kernel and the
+    plain version on the card and on the CPU, each bitwise the token-order
+    loop sum (bf16: rounded after each addition)."""
     g = torch.Generator(device=dev).manual_seed(S + M)
     x = torch.randn((S, M), generator=g, device=dev).mul_(50).to(dtype)
     flat = torch.randint(0, n_slots + 1, (S, k), generator=g, device=dev,
@@ -501,7 +522,12 @@ def test_moe_dispatch_duplicates_bitwise_in_token_order(dev, S, k, M,
     flat[12 + 3 * n_e:12 + 4 * n_e, 0] = edges
     got = moe_dispatch(x, flat, n_slots)
     assert got.dtype == dtype and got.shape == (n_slots, M)
-    assert torch.equal(got.cpu(), _loop_sum(x, flat, n_slots))
+    want = _loop_sum(x, flat, n_slots)
+    assert torch.equal(got.cpu(), want)
+    # the plain version on the card (CUDA's sorted accumulating
+    # index_put_) and on the CPU (one pass per occurrence rank) alike
+    assert torch.equal(moe_dispatch_ref(x, flat, n_slots).cpu(), want)
+    assert torch.equal(moe_dispatch_ref(x.cpu(), flat.cpu(), n_slots), want)
 
 
 def test_moe_dispatch_more_entries_than_a_block_lists(dev):
@@ -585,26 +611,95 @@ def test_moe_combine_vs_plain(dev, dtype, tol):
                                rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("glu,act,dtype,tol", [
-    (True, "silu", torch.float32, 1e-5),
-    (False, "gelu", torch.float32, 1e-5),
-    (True, "silu", torch.bfloat16, 2e-2)])
-def test_expert_ffn_vs_plain_and_row_independent(dev, glu, act, dtype, tol):
+# T rows per expert: 8 and 37 take the 16-row tiles (1-3 live 16-row
+# groups), 160 the 64-row ones (64 + 64 + 32), 300 the 128-row ones (128 +
+# 128 + 44: 1-8 live groups a tile); mixed x / weight dtypes take the 64-row
+# ones at any T
+@pytest.mark.parametrize("T", [8, 37, 160, 300])
+@pytest.mark.parametrize("glu,act,xdt,wdt,tol", [
+    (True, "silu", torch.float32, torch.float32, 1e-5),
+    (False, "gelu", torch.float32, torch.float32, 1e-5),
+    (True, "silu", torch.bfloat16, torch.bfloat16, 2e-2),
+    (True, "silu", torch.float32, torch.bfloat16, 1e-5),
+    (False, "silu", torch.bfloat16, torch.float32, 1e-5)])
+def test_expert_ffn_vs_plain_and_row_independent(dev, T, glu, act, xdt, wdt,
+                                                 tol):
     x, _, _, (w1, w3, w2), _ = _moe(dev, glu=glu)
     E, M = w1.shape[0], w1.shape[1]
-    xb = torch.randn((E, 37, M), device=dev)             # 37: ragged tiles
-    ws = [None if t is None else t.to(dtype) for t in (w1, w3, w2)]
+    xb = torch.randn((E, T, M), device=dev).to(xdt)
+    ws = [None if t is None else t.to(wdt) for t in (w1, w3, w2)]
     n0 = expert_ffn.launches
-    got = expert_ffn(xb.to(dtype), *ws, act=act)
+    got = expert_ffn(xb, *ws, act=act)
     torch.cuda.synchronize()
     assert expert_ffn.launches == n0 + 1
-    want = expert_ffn_ref(xb.to(dtype), *ws, act=act)
-    assert got.dtype == want.dtype
+    want = expert_ffn_ref(xb, *ws, act=act)
+    assert got.dtype == want.dtype == torch.promote_types(xdt, wdt)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
-    # capacity chunks (the *_pipe bodies) give the same rows bitwise
-    parts = [expert_ffn(xb[:, a:b].contiguous().to(dtype), *ws, act=act)
-             for a, b in ((0, 16), (16, 37))]
+    # capacity chunks (the *_pipe bodies), each on its own row tiles, give
+    # the same rows bitwise
+    cut = T // 2 + 1
+    parts = [expert_ffn(xb[:, a:b].contiguous(), *ws, act=act)
+             for a, b in ((0, cut), (cut, T))]
     assert torch.equal(torch.cat(parts, dim=1), got)
+
+
+@pytest.mark.parametrize("bm,cap", ROW_TILES)
+@pytest.mark.parametrize("xdt,wdt", [(torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16),
+                                     (torch.float32, torch.bfloat16)])
+def test_dense_rows_are_bitwise_the_grouped_pre_combine_rows(dev, bm, cap,
+                                                             xdt, wdt):
+    """One choice per token at gate weight 1: the grouped kernel's output
+    row is its pre-combine row (fmaf(1, h, 0) = h).  Dense expert_ffn on
+    the dispatched buffer computes the same fmaf chains on every instance:
+    the same bits, up to the cast to x's dtype that the grouped op takes."""
+    M, F = 136, 200
+    counts = [1, bm - 1, bm, bm + 1, 2 * bm + 3]
+    E = len(counts)
+    x, flat, _ = _routed(dev, counts, cap, M, k=1, seed=bm + 2)
+    x = x.to(xdt)
+    ws = [t.to(wdt) for t in _expert_weights(dev, E, M, F, True, seed=bm)]
+    ones = torch.ones(flat.shape, device=dev)
+    got = expert_ffn_grouped(x, flat, ones, *ws, cap=cap)
+    pool = moe_dispatch(x, flat, E * cap).reshape(E, cap, M)
+    dense = expert_ffn(pool, *ws).reshape(E * cap, M)
+    kept = flat[:, 0] < E * cap
+    rows = dense[flat[kept, 0].long()]
+    assert torch.equal(got[kept], rows.to(xdt))
+
+
+def test_expert_ffn_ragged_full_counts_are_the_dense_rows(dev):
+    """Every count equal to c: the ragged form is the dense form on the
+    same rows, bitwise (one mainloop, one fmaf chain per element)."""
+    _, _, _, (w1, w3, w2), _ = _moe(dev)
+    E, M = w1.shape[0], w1.shape[1]
+    for c in (8, 160, 300):
+        xb = torch.randn((E, 2, c, M), device=dev)
+        counts = torch.full((E, 2), c, dtype=torch.int32, device=dev)
+        got = expert_ffn_ragged(xb, counts, w1, w3, w2)
+        dense = expert_ffn(xb.reshape(E, 2 * c, M), w1, w3, w2)
+        assert torch.equal(got.reshape(E, 2 * c, M), dense), c
+
+
+def test_expert_ffn_ragged_writes_dead_tiles_on_dirty_memory(dev):
+    """The caching allocator hands the output back full of NaNs: rows past
+    a count, whole tiles past it and groups of count 0 come out exactly 0
+    (the kernel writes them); the rest equal a clean run bitwise."""
+    _, _, _, (w1, w3, w2), _ = _moe(dev)
+    E, M = w1.shape[0], w1.shape[1]
+    c = 160
+    xb = torch.randn((E, 1, c, M), device=dev)
+    counts = torch.randint(0, c + 1, (E, 1), device=dev, dtype=torch.int32)
+    counts[:3, 0] = torch.tensor([0, 5, 70], device=dev)
+    want = expert_ffn_ragged(xb, counts, w1, w3, w2)
+    torch.cuda.synchronize()
+    dirty = torch.full((E * c, M), float("nan"), device=dev)
+    del dirty                                    # back to the cache
+    got = expert_ffn_ragged(xb, counts, w1, w3, w2)
+    assert not bool(got.isnan().any())
+    assert torch.equal(got, want)
+    tail = torch.arange(c, device=dev)[None, None, :] >= counts[:, :, None]
+    assert bool((got[tail] == 0).all())
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
@@ -656,3 +751,34 @@ def test_new_kernels_raise_instead_of_falling_back(dev):
     with pytest.raises(ValueError, match="counts"):
         expert_ffn_ragged(torch.zeros((E, 1, 4, M), device=dev),
                           counts.long(), w1, w3, w2)
+
+
+@pytest.mark.parametrize("arch,schedule,chunks,wire", [
+    ("qwen3-moe-30b-a3b", None, 1, "f32"),
+    ("qwen3-moe-30b-a3b", "s1g", 1, "fp8_e4m3"),
+    ("gpt2-moe", None, 1, "f32"),
+    ("gpt2-moe", "s1", 2, "f32")])
+def test_training_step_repeats_bitwise(dev, arch, schedule, chunks, wire):
+    """The first step taken twice from the same parameters, AdamW state
+    and batch gives torch.equal parameters and moments: the backward sums
+    in fixed orders (combine's cotangent through the dispatch kernel), so
+    no deterministic flag is needed."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.collectives import CommConfig
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.determinism import first_step_twice
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer
+    assert not torch.are_deterministic_algorithms_enabled()
+    cfg = get_config(arch).reduced()
+    cfg = replace(cfg, moe=replace(cfg.moe, pipeline_chunks=chunks,
+                                   comm=CommConfig(wire_dtype=wire)))
+    tr = Trainer(Model(cfg, device=dev), AdamWConfig(lr=1e-3,
+                                                     warmup_steps=2),
+                 schedule=schedule)
+    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=128,
+                                   global_batch=4)).tensors(0, dev)
+    assert first_step_twice(tr, batch) == []

@@ -193,10 +193,7 @@ class TestDispatchCombineVsJax:
         equal bitwise to that loop, the order the CUDA kernel keeps.  The
         rows' magnitudes make choice-then-token order give other bits,
         which the test checks too.  The port's plain version equals the
-        loop bitwise in f32.  In bf16 it is ``index_add_`` on the CPU,
-        which adds a slot's terms in f32 and rounds once: bitwise that, and
-        within the roundings between it and the loop, half a bf16 ulp
-        (2^-8 relative) of each rounded partial sum and of the result."""
+        loop, and the JAX op, bitwise in both dtypes."""
         big = 1e7 if dtype == jnp.float32 else 3e2
         rng = np.random.RandomState(9)
         x = rng.randn(S, M).astype(np.float32)
@@ -210,10 +207,10 @@ class TestDispatchCombineVsJax:
         entries = [(s, j) for s in range(S) for j in range(K)
                    if flat[s, j] < self.N_SLOTS]
 
-        def loop_sum(order, acc_dtype=tdt):
-            acc = torch.zeros((self.N_SLOTS, M), dtype=acc_dtype)
+        def loop_sum(order):
+            acc = torch.zeros((self.N_SLOTS, M), dtype=tdt)
             for s, j in order:
-                acc[flat[s, j]] = acc[flat[s, j]] + tx[s].to(acc_dtype)
+                acc[flat[s, j]] = acc[flat[s, j]] + tx[s]
             return acc
 
         want = loop_sum(entries)
@@ -224,17 +221,36 @@ class TestDispatchCombineVsJax:
         np.testing.assert_array_equal(np.asarray(jgot.astype(jnp.float32)),
                                       want.float().numpy())
         got = moe_dispatch(tx, _t(flat), self.N_SLOTS)
-        if tdt == torch.float32:
-            assert torch.equal(got, want)
-            return
-        wide = loop_sum(entries, torch.float32)
-        assert torch.equal(got, wide.to(tdt))
-        acc = torch.zeros((self.N_SLOTS, M), dtype=tdt)
-        bound = wide.abs() * 2.0 ** -8           # the one final rounding
-        for s, j in entries:
-            acc[flat[s, j]] = acc[flat[s, j]] + tx[s]
-            bound[flat[s, j]] += acc[flat[s, j]].float().abs() * 2.0 ** -8
-        assert ((got.float() - want.float()).abs() <= bound).all()
+        assert got.dtype == tdt
+        assert torch.equal(got, want)
+        np.testing.assert_array_equal(got.float().numpy(),
+                                      np.asarray(jgot.astype(jnp.float32)))
+
+    @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+    def test_combine_cotangent_sums_repeated_slots_as_jax(self, dtype):
+        """Combine's buffer cotangent scatters ``w[s, j] * g[s]`` into the
+        slots; where slots repeat, the registry's closed form sums them in
+        entry order, rounded to the buffer's dtype after each addition:
+        bitwise ``jax.vjp`` of the JAX combine, in bf16 too."""
+        rng = np.random.RandomState(14)
+        buf = rng.randn(self.N_SLOTS, M).astype(np.float32)
+        g = rng.randn(S, M).astype(np.float32)
+        g[1] *= 3e2                               # twice into slot 2
+        g[6] = -2.0 * g[1] + rng.randn(M).astype(np.float32)
+        flat = rng.randint(3, self.N_SLOTS + 1, (S, K)).astype(np.int32)
+        flat[1] = [2, 2]
+        flat[4, 1] = flat[6, 0] = 2
+        w = (rng.rand(S, K) + 0.5).astype(np.float32)
+        _, vjp = jax.vjp(lambda b: j_get_op("moe_combine")(
+            b, _j(flat), _j(w)), _j(buf, dtype))
+        want, = vjp(_j(g, dtype))
+        tdt = torch.float32 if dtype == jnp.float32 else torch.bfloat16
+        tb = _t(buf, tdt).requires_grad_(True)
+        got, = torch.autograd.grad(
+            get_op("moe_combine")(tb, _t(flat), _t(w)), tb, _t(g, tdt))
+        assert got.dtype == tdt
+        np.testing.assert_array_equal(got.float().numpy(),
+                                      np.asarray(want.astype(jnp.float32)))
 
     @pytest.mark.parametrize("backend", ["ref", "pallas"])
     @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])

@@ -1,8 +1,9 @@
 """The port's serving path on reduced qwen3-moe-30b-a3b with the JAX
 package's parameters (``repro_torch.convert.params_from_jax``): paged-step
 logits against the JAX ``Model.paged_step``, greedy token streams against
-the JAX ``Engine``, and the port's own chunked-vs-one-shot and
-prefix-hit-vs-cold streams.
+the JAX ``Engine`` (also chunked at a capacity factor whose prefill pools
+drop rows), and the port's own chunked-vs-one-shot and prefix-hit-vs-cold
+streams.
 
 Tolerance for logits: 1e-4 (f32; two layers of the same math in two
 frameworks differ by ~1e-6, far below it).  Token streams must be equal:
@@ -113,6 +114,36 @@ def test_greedy_streams_match_jax_engine(setup):
     got = _serve(eng, tparams, prompts)
     assert got == want
     assert eng.stats["prefix_hits"] == 1
+
+
+def test_chunked_streams_with_capacity_drops_match_jax_engine(
+        setup, monkeypatch):
+    """At capacity_factor 0.5 a 16-token prefill pool keeps 8 of each
+    expert's 16 rows, and which rows drop depends on the chunking.  The
+    JAX engine makes the same drops: chunked greedy streams equal the JAX
+    engine's, drops and all."""
+    from repro_torch.core import executor
+    jmodel, jparams, tmodel, tparams, mesh, dims = setup
+    jcfg = dataclasses.replace(jmodel.cfg, moe=dataclasses.replace(
+        jmodel.cfg.moe, capacity_factor=0.5))
+    tcfg = dataclasses.replace(tmodel.cfg, moe=dataclasses.replace(
+        tmodel.cfg.moe, capacity_factor=0.5))
+    drops = []
+    gate = executor.topk_gate
+
+    def counting_gate(*args):
+        r = gate(*args)
+        drops.append(float(r.aux["drop_frac"]))
+        return r
+
+    monkeypatch.setattr(executor, "topk_gate", counting_gate)
+    prompts = _prompts(tmodel.cfg.vocab_size, seed=5)
+    kw = dict(max_batch=4, max_len=64, block_size=8, prefill_chunk=16)
+    want = _serve(JEngine(build_model(jcfg), mesh, dims, **kw), jparams,
+                  prompts)
+    got = _serve(Engine(Model(tcfg, device="cpu"), **kw), tparams, prompts)
+    assert max(drops) > 0, "the prefill pools must drop rows"
+    assert got == want
 
 
 def test_chunked_and_prefix_hit_streams_match_one_shot_cold(setup):

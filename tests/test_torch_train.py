@@ -6,8 +6,10 @@ activation checkpointing); one ``adamw_update`` with the stacked-leaf
 weight-decay mask; a 5-step ``Trainer`` run (losses, parameters and AdamW
 state) for gpt2-moe and qwen3-moe-30b-a3b under ``auto``, gpt2-moe under
 ``s1`` with two chunks and qwen3-moe-30b-a3b under ``s1g`` with the fp8
-wire; the synthetic batches; and the autoscheduler decisions that let the
-port run ``"auto"`` as ``s1g`` at training shapes.
+wire; the synthetic batches; the autoscheduler decisions that let the
+port run ``"auto"`` as ``s1g`` at training shapes; the first step taken
+twice from one state on each of those four paths (bitwise); and the
+embedding's gradient against ``jax.vjp`` (bitwise).
 
 Tolerances: loss and CE 1e-5 relative (f32, two layers of the same math
 summed in other orders); a gradient leaf within 1e-4 of its largest entry
@@ -325,3 +327,46 @@ def test_autosched_picks_s1g_at_training_shapes(B, L, arch):
                           for n in autosched.DEFAULT_CHUNKS}))
     d = autosched.decide(shape, chunk_candidates=cands)
     assert (d.schedule, d.n_chunks, d.wire_dtype) == ("s1g", 1, "f32"), d
+
+
+@pytest.mark.parametrize("arch,schedule,chunks,wire", [
+    ("qwen3-moe-30b-a3b", None, 1, "f32"),
+    ("qwen3-moe-30b-a3b", "s1g", 1, "fp8_e4m3"),
+    ("gpt2-moe", None, 1, "f32"),
+    ("gpt2-moe", "s1", 2, "f32")])
+def test_first_step_repeats_bitwise(arch, schedule, chunks, wire):
+    """The first step taken twice from the same parameters, AdamW state
+    and batch gives torch.equal parameters and moments on the CPU too:
+    every scatter of the backward (the embedding's, combine's, the plain
+    dispatch's) sums in a fixed order."""
+    from repro_torch.launch.determinism import first_step_twice
+    from repro_torch.train import Trainer as TTrainer
+    cfg = get_config(arch).reduced()
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, pipeline_chunks=chunks, comm=TCommConfig(wire_dtype=wire)))
+    tr = TTrainer(Model(cfg, device="cpu"),
+                  t_adamw.AdamWConfig(lr=1e-3, warmup_steps=2),
+                  schedule=schedule)
+    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                                   global_batch=4)).tensors(0, "cpu")
+    assert first_step_twice(tr, batch) == []
+
+
+def test_embedding_gradient_is_jax_bits():
+    """The embedding's backward sums a row's cotangents in ids order, as
+    the transpose of JAX's gather does: bitwise ``jax.vjp``, with tokens
+    that repeat up to 40 times."""
+    from repro_torch.models.layers import embed
+    rng = np.random.RandomState(3)
+    table = rng.randn(16, 8).astype(np.float32)
+    ids = rng.randint(0, 16, (4, 40)).astype(np.int32)
+    ids[:, ::2] = 5
+    g = (rng.randn(4, 40, 8) * 10.0 ** rng.randint(-3, 4, (4, 40, 1))
+         ).astype(np.float32)
+    _, vjp = jax.vjp(lambda t: t[jnp.asarray(ids)], jnp.asarray(table))
+    want, = vjp(jnp.asarray(g))
+    t = torch.from_numpy(table).requires_grad_(True)
+    got, = torch.autograd.grad(embed({"table": t},
+                                     torch.from_numpy(ids).long()), t,
+                               torch.from_numpy(g))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
