@@ -43,17 +43,35 @@ to a plain version):
   7. train full-width qwen3-moe-30b-a3b cut to 4 layers, batch 1 x 2048
      ``SyntheticLM`` tokens: the first step taken twice from the same
      parameters, AdamW state and batch must give ``torch.equal`` parameters
-     and moments (no deterministic flag, no ``CUBLAS_WORKSPACE_CONFIG``);
-     loss and gradient norm of one step with the kernels against one with
-     the plain versions from the same parameters, then AdamW steps through
-     ``Trainer``: every loss finite, the last
-     three below the first, launches per step as predicted; under the
-     default schedule (s1g, 10 steps) and under s1g with the fp8 wire
-     (5 steps);
+     and moments (no deterministic flag, no ``CUBLAS_WORKSPACE_CONFIG``),
+     and the first step of ``make_guarded_train_step`` (lr_scale 1.0,
+     grad_fault 0.0, the fp8 monitor on) from the same seed must give
+     ``torch.equal`` parameters, moments and step counter and the same
+     loss bits as the plain step; loss and gradient norm of one step with
+     the kernels against one with the plain versions from the same
+     parameters, then AdamW steps through ``Trainer``: every loss finite,
+     the last three below the first, launches per step as predicted;
+     under the default schedule (s1g, 10 steps) and under s1g with the
+     fp8 wire (5 steps);
   8. the same for gpt2-moe at its full size (12 layers), batch 8 x 1024,
      5 steps, under the default schedule and under s1 with 2 chunks
      (layernorm: no rmsnorm launches);
-  9. print the kernels' JSON line (each kernel's launches on its main path
+  9. guarded training: gpt2-moe at full width cut to 4 layers (2 MoE
+     layers; checkpoints of both moments are 1.6 GB, not 12 layers' 3.9),
+     batch 8 x 1024, s1g with the fp8 wire, checkpoints in a temporary
+     directory.  (a) ``nan_grad@step=3-5;ckpt_bitflip@save=2``, max_skips
+     2, a snapshot every 2 steps, 2 retained, 10 steps: the exact counters
+     and events (the NaN cotangents saturate the fp8 encodes, so the fp8
+     fallback fires at step 3; the rollback at step 4 skips the corrupt
+     step-2 file and restores step 0), a finite last loss;
+     (b) save, one step, restore in place, the same step again: ``torch.
+     equal``, with each save's and restore's seconds and GB/s; (c)
+     ``fp8_sat@factor=64``: the fallback fires after step 0, the ragged
+     path (dispatch, ``expert_ffn_ragged``, combine) launches in step 0
+     only and ``expert_ffn_grouped`` from step 1 on, each at the per-layer
+     counts of phases 7 and 8, every loss finite; (d) ms per step of the
+     plain and the guarded clean loop, three runs each, in turns;
+ 10. print the kernels' JSON line (each kernel's launches on its main path
      and the phase-3 row at that path's shapes, and under ``by_path``
      every path's launches beside the phase-3 row at that path's shapes),
      then ``{"ok": true, ...}`` as the last line.
@@ -195,7 +213,9 @@ def check_grouped(dev):
              ("train-qwen3", q3, 2048, False, f32, False, True, "silu",
               "f32", 1e-4),
              ("train-gpt2-moe", g2, 8192, False, f32, False, False, "silu",
-              "f32", 1e-4))
+              "f32", 1e-4),
+             ("train-gpt2-moe-wire-bf16", g2, 8192, False, f32, False, False,
+              "silu", "bf16", 1e-2))
     for label, arch, S, infer, dt, wbf, glu, act, wire, tol in cases:
         mcfg, w, wg = arch_weights(arch)
         if label.startswith("train-") and (glu, act) != (mcfg.glu, mcfg.act):
@@ -436,48 +456,69 @@ def check_expert_ffn(dev):
 
 
 def check_ragged(dev):
-    """expert_ffn_ragged at qwen3's s1g + fp8 training step (E 128, one
-    group, cap 160, counts min(load, cap) of a random gate), with counts
-    that cut 16-row tiles, and on a bf16 pool.  Tolerance 1e-4 (f32, as
+    """expert_ffn_ragged at the s1g + fp8 training steps (one group, counts
+    min(load, cap) of a random gate): qwen3's (E 128, cap 160, SwiGLU), with
+    counts that cut 16-row tiles and on a bf16 pool, and gpt2-moe's (E 8,
+    8192 tokens, two-layer silu; phase 9).  Tolerance 1e-4 (f32, as
     expert_ffn; bf16 output one ulp, 2e-2); rows at or past a count must be
     exactly 0."""
     import torch
+    g = torch.Generator(device=dev).manual_seed(6)
+    rows = []
+    for arch, S, cases in (
+            ("qwen3-moe-30b-a3b", 2048, (
+                ("train-qwen3-fp8", "gate", torch.float32, 1e-4),
+                ("partial", "partial", torch.float32, 1e-4),
+                ("train-qwen3-fp8-bf16", "gate", torch.bfloat16, 2e-2))),
+            ("gpt2-moe", 8192, (
+                ("train-gpt2-moe-fp8", "gate", torch.float32, 1e-4),))):
+        rows += _ragged_rows(g, dev, arch, S, cases)
+    return rows
+
+
+def _ragged_rows(g, dev, arch, S, cases):
+    import torch
     from repro_torch.kernels.expert_ffn_grouped import expert_ffn_ragged
     from repro_torch.kernels.ref import expert_ffn_ragged_ref
-    g = torch.Generator(device=dev).manual_seed(6)
-    mcfg, _, r, cap = _gate_case(g, dev, "qwen3-moe-30b-a3b", 2048, False)
+    mcfg, _, r, cap = _gate_case(g, dev, arch, S, False)
     E, M, F = mcfg.n_experts, mcfg.d_model, mcfg.d_ff
     w1, w3 = (torch.randn((E, M, F), generator=g, device=dev).mul_(M ** -0.5)
               for _ in range(2))
+    if not mcfg.glu:
+        w3 = None
     w2 = torch.randn((E, F, M), generator=g, device=dev).mul_(F ** -0.5)
-    gate_counts = torch.clamp(r.aux["load"], max=float(cap)).to(
-        torch.int32)[:, None].contiguous()
-    partial = torch.randint(0, 41, (E, 1), generator=g, device=dev,
-                            dtype=torch.int32)
+    n_mat = 3 if mcfg.glu else 2
+    act = mcfg.act
+    counts_of = {
+        "gate": torch.clamp(r.aux["load"], max=float(cap)).to(
+            torch.int32)[:, None].contiguous(),
+        "partial": torch.randint(0, 41, (E, 1), generator=g, device=dev,
+                                 dtype=torch.int32)}
     rows = []
-    for label, counts, dt, tol in (
-            ("train-qwen3-fp8", gate_counts, torch.float32, 1e-4),
-            ("partial", partial, torch.float32, 1e-4),
-            ("train-qwen3-fp8-bf16", gate_counts, torch.bfloat16, 2e-2)):
+    for label, kind, dt, tol in cases:
+        counts = counts_of[kind]
         xb = torch.randn((E, 1, cap, M), generator=g, device=dev).to(dt)
-        got = expert_ffn_ragged(xb, counts, w1, w3, w2)
+        got = expert_ffn_ragged(xb, counts, w1, w3, w2, act=act)
         err = compare(f"expert_ffn_ragged[{label}]", got,
-                      expert_ffn_ragged_ref(xb, counts, w1, w3, w2), tol)
+                      expert_ffn_ragged_ref(xb, counts, w1, w3, w2, act=act),
+                      tol)
         tail = torch.arange(cap, device=dev)[None, None, :] \
             >= counts[:, :, None]
         if not bool((got[tail] == 0).all()):
             raise AssertionError(f"expert_ffn_ragged[{label}]: a row past "
                                  f"its count is not exactly 0")
-        ms = time_ms(lambda: expert_ffn_ragged(xb, counts, w1, w3, w2))
+        ms = time_ms(lambda: expert_ffn_ragged(xb, counts, w1, w3, w2,
+                                               act=act))
         plain = time_ms(lambda: expert_ffn_ragged_ref(xb, counts, w1, w3,
-                                                      w2), iters=5)
+                                                      w2, act=act), iters=5)
         routed = int(counts.sum())
         hit = int((counts > 0).sum())
         es = xb.element_size()
         b_ms, b_by = bound(routed * M * es + E * cap * M * es + E * 4
-                           + hit * 3 * M * F * 4, 2 * 3 * routed * M * F,
-                           torch.float32)
+                           + hit * n_mat * M * F * 4,
+                           2 * n_mat * routed * M * F, torch.float32)
         log(f"  expert_ffn_ragged[{label}] E={E} G=1 c={cap} M={M} F={F} "
+            f"glu={mcfg.glu} act={act} "
             f"{dt}: routed rows {routed}, hit experts {hit}; max_abs_err "
             f"{err:.3e} (tol {tol:.0e}), tail rows exactly 0; kernel "
             f"{ms:.4f} ms  plain {plain:.4f} ms  (no single PyTorch call)  "
@@ -719,22 +760,42 @@ def train(label, cfg, dev, *, batch, seq, steps, lr, uses, schedule=None,
 
     import torch
     from repro_torch.data import DataConfig, SyntheticLM
-    from repro_torch.launch.determinism import first_step_twice
+    from repro_torch.launch.determinism import first_steps
     from repro_torch.models import Model
     from repro_torch.optim import AdamWConfig
-    from repro_torch.train import Trainer
+    from repro_torch.runtime import (disable_fp8_monitor, enable_fp8_monitor,
+                                     reset_fp8_counter)
+    from repro_torch.train import Trainer, make_guarded_train_step
     model = Model(cfg, device=dev)
     tr = Trainer(model, AdamWConfig(lr=lr, warmup_steps=2,
                                     total_steps=steps), schedule=schedule)
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                   global_batch=batch))
     # the first step twice from one state: bitwise, with no deterministic
-    # flag and no CUBLAS_WORKSPACE_CONFIG (the backward sums in order)
-    bad = first_step_twice(tr, data.tensors(0, dev))
+    # flag and no CUBLAS_WORKSPACE_CONFIG (the backward sums in order); and
+    # the guarded step on the clean path: bitwise the plain one
+    guarded = make_guarded_train_step(model, tr.opt_cfg, schedule)
+
+    def guarded_clean(params, opt_state, batch):
+        enable_fp8_monitor()
+        try:
+            return guarded(params, opt_state, batch, 1.0, 0.0)
+        finally:
+            disable_fp8_monitor()
+            reset_fp8_counter()
+
+    bad, bad_guarded = first_steps(tr, data.tensors(0, dev), [
+        tr.train_step, tr.train_step, guarded_clean])
     if bad:
         raise AssertionError(f"{label}: the first step taken twice from "
-                             f"the same state differs in leaves {bad} of "
-                             f"the parameters and AdamW moments")
+                             f"the same state differs in tensors {bad} of "
+                             f"the parameters, AdamW moments, step and "
+                             f"loss")
+    if bad_guarded:
+        raise AssertionError(f"{label}: the guarded first step (lr_scale "
+                             f"1.0, grad_fault 0.0) differs from the plain "
+                             f"one in tensors {bad_guarded} of the "
+                             f"parameters, AdamW moments, step and loss")
     params, opt_state = tr.setup(torch.Generator(device=dev).manual_seed(0))
     n_leaves = len(_leaves(params))
     n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
@@ -746,8 +807,9 @@ def train(label, cfg, dev, *, batch, seq, steps, lr, uses, schedule=None,
                                         schedule, grad_rtol)
     log(f"  {label}: one step from the same parameters: loss {lk:.6f} "
         f"(kernels) vs {lp:.6f} (plain), grad norm {gk:.6f} vs {gp:.6f}; "
-        f"the first step taken twice: all {3 * n_leaves} parameter and "
-        f"moment tensors torch.equal")
+        f"the first step taken twice, and once guarded (lr_scale 1.0, "
+        f"grad_fault 0.0, fp8 monitor on): all {3 * n_leaves} parameter "
+        f"and moment tensors, the step counter and the loss torch.equal")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     wrappers = reset_counts()
@@ -777,6 +839,223 @@ def train(label, cfg, dev, *, batch, seq, steps, lr, uses, schedule=None,
                                  f"{n} per step")
     del params, opt_state, tr, model
     torch.cuda.empty_cache()
+    return launches
+
+
+# --- phase 9: guarded training -----------------------------------------------
+
+#: phase 9 (a): the plan, and the guard events it must give as (kind, step,
+#: streak, restored step): skips at 3 and 4 (max_skips 2), the fp8
+#: fallback at step 3 (the NaN cotangents saturate the backward's fp8
+#: encodes), a rollback at 4 past the bit-flipped step-2 snapshot to step
+#: 0, a skip at 5; tests/test_torch_runtime.py pins the same list against
+#: the JAX package on the CPU
+PHASE9_FAULTS = "nan_grad@step=3-5;ckpt_bitflip@save=2"
+PHASE9_EVENTS = [("skip", 3, 1, None), ("fp8_fallback", None, None, None),
+                 ("skip", 4, 2, None), ("rollback", 4, None, 0),
+                 ("skip", 5, 1, None)]
+PHASE9_COUNTERS = {"steps": 10, "skipped": 3, "rollbacks": 1,
+                   "loss_spikes": 0, "fp8_fallbacks": 1,
+                   "rollback_unavailable": 0}
+
+
+def _state_tensors(params, opt_state):
+    return (_leaves(params) + _leaves(opt_state["mu"])
+            + _leaves(opt_state["nu"]) + [opt_state["step"]])
+
+
+def guarded_training(dev, g2, fp8_per_layer, grouped_per_layer):
+    """Phase 9 (see the module docstring).  ``fp8_per_layer`` maps the
+    ragged path's kernels to their launches per MoE layer and step (phase
+    7's qwen3 s1g + fp8 run), ``grouped_per_layer`` is
+    ``expert_ffn_grouped``'s (phase 8's gpt2-moe run).  Returns the
+    launches of the (a) and (c) runs by kernel, as two paths."""
+    import math
+    import tempfile
+    from dataclasses import replace
+
+    import torch
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.core import autosched, collectives
+    from repro_torch.core.collectives import CommConfig
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import (FaultPlan, GuardConfig,
+                                     disable_fp8_monitor, reset_fp8_counter)
+    from repro_torch.train import Trainer
+
+    cfg = replace(g2, n_layers=4, moe=replace(
+        g2.moe, comm=CommConfig(wire_dtype="fp8_e4m3")))
+    n_moe = sum(n for kind, n in cfg.runs() if "moe" in kind)
+    model = Model(cfg, device=dev)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=1024,
+                                  global_batch=8))
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+
+    def trainer(**kw):
+        tr = Trainer(model, opt, schedule="s1g", **kw)
+        return (tr, *tr.setup(torch.Generator(device=dev).manual_seed(0)))
+
+    def reset_globals():
+        autosched.set_wire_ceiling(None)
+        collectives.set_fp8_sat_injection(0.0)
+        disable_fp8_monitor()
+        reset_fp8_counter()
+
+    def state_bytes(params, opt_state):
+        return sum(t.numel() * t.element_size()
+                   for t in _state_tensors(params, opt_state))
+
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the faulted run
+        tr, params, opt_state = trainer(
+            ckpt_path=os.path.join(tmp, "run.npz"),
+            guards=GuardConfig(max_skips=2),
+            faults=FaultPlan.parse(PHASE9_FAULTS), ckpt_retain=2)
+        p_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+        s_bytes = state_bytes(params, opt_state)
+        log(f"  {cfg.name}, {cfg.n_layers} layers ({n_moe} MoE), s1g, wire "
+            f"fp8_e4m3, batch 8 x 1024: {p_bytes / 1e9:.3f} GB of "
+            f"parameters, {s_bytes / 1e9:.3f} GB per snapshot with both "
+            f"moments; faults {PHASE9_FAULTS}")
+        wrappers = reset_counts()
+        params, opt_state, hist = tr.run(params, opt_state, data, 10,
+                                         log_every=1, ckpt_every=2)
+        torch.cuda.synchronize()
+        launches["train_gpt2_moe_guarded_s1g_fp8"] = read_counts(wrappers)
+        gs, mgr = tr.guard_state, tr.rollback_mgr
+        events = [(e["kind"], e.get("step"), e.get("streak"),
+                   e.get("restored_step")) for e in gs.events]
+        if events != PHASE9_EVENTS or gs.counters != PHASE9_COUNTERS:
+            raise AssertionError(f"phase 9 (a): events {gs.events}, "
+                                 f"counters {gs.counters}")
+        snaps = [(e["kind"], e["step"]) for e in mgr.events]
+        restored = [e for e in mgr.events if e["kind"] == "rollback"]
+        if (snaps != [("snapshot", 0), ("snapshot", 2), ("rollback", 4),
+                      ("snapshot", 6), ("snapshot", 8)]
+                or not restored[0]["path"].endswith("run.step00000000.npz")
+                or mgr.store.steps() != [6, 8]):
+            raise AssertionError(f"phase 9 (a): the store's history "
+                                 f"{mgr.events}, retained "
+                                 f"{mgr.store.steps()}")
+        losses = [h["loss"] for h in hist]
+        if not math.isfinite(losses[-1]) or [
+                i for i, x in enumerate(losses) if not math.isfinite(x)] \
+                != [3, 4, 5]:
+            raise AssertionError(f"phase 9 (a): losses {losses}")
+        log(f"  (a) 10 steps: losses {' '.join(f'{x:.4f}' for x in losses)}"
+            f"; events {gs.events}; {gs.summary()}; the rollback at step 4 "
+            f"skipped the corrupt step-2 snapshot and restored step 0; "
+            f"retained {mgr.store.steps()}; launches "
+            f"{ {k: v for k, v in read_counts(wrappers).items() if v} }")
+        reset_globals()
+
+        # (b) save -> restore in place -> one more step, bitwise
+        path = os.path.join(tmp, "b.npz")
+        live = {"params": params, "opt_state": opt_state}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(path, live, 10)
+        t_save = time.perf_counter() - t0
+        batch = data.tensors(10, dev)
+        ptrs = [t.data_ptr() for t in _state_tensors(params, opt_state)]
+        params, opt_state, m = tr.train_step(params, opt_state, batch)
+        want = [t.detach().to("cpu") for t in
+                _state_tensors(params, opt_state)] + [m["loss"].cpu()]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, step = load_checkpoint(path, into=live)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        params, opt_state, m = tr.train_step(params, opt_state, batch)
+        got = _state_tensors(params, opt_state) + [m["loss"]]
+        bad = [i for i, (a, b) in enumerate(zip(want, got))
+               if not torch.equal(a, b.detach().to("cpu"))]
+        if step != 10 or bad or ptrs != [
+                t.data_ptr() for t in _state_tensors(params, opt_state)]:
+            raise AssertionError(f"phase 9 (b): restored step {step}; "
+                                 f"tensors {bad} differ after the round "
+                                 f"trip, or a tensor moved")
+        gb = s_bytes / 1e9
+        log(f"  (b) save {t_save:.3f} s ({gb / t_save:.2f} GB/s), restore "
+            f"in place {t_restore:.3f} s ({gb / t_restore:.2f} GB/s; "
+            f"two reads of the file: crc check, then copy_) of "
+            f"{gb:.3f} GB ({os.path.getsize(path) / 1e9:.3f} GB on disk); "
+            f"one more step after the round trip: all {len(want)} "
+            f"tensors and the loss torch.equal, every tensor in place")
+        del tr, params, opt_state, live, want, got, m
+        torch.cuda.empty_cache()
+
+    # (c) injected fp8 saturation: the ragged path in step 0, then the
+    # fused grouped kernel on the bf16 wire
+    tr, params, opt_state = trainer(guards=GuardConfig(),
+                                    faults=FaultPlan.parse(
+                                        "fp8_sat@factor=64"))
+    wrappers = reset_counts()
+    per_step, inner = [], tr.guarded_step
+
+    def counted(*args):
+        before = read_counts(wrappers)
+        out = inner(*args)
+        after = read_counts(wrappers)
+        per_step.append({k: after[k] - before[k] for k in after})
+        return out
+
+    tr.guarded_step = counted
+    params, opt_state, hist = tr.run(params, opt_state, data, 4,
+                                     log_every=1)
+    torch.cuda.synchronize()
+    launches["train_gpt2_moe_fp8_fallback"] = read_counts(wrappers)
+    gs = tr.guard_state
+    ragged = {k: n * n_moe for k, n in fp8_per_layer.items()}
+    first = {**ragged, "expert_ffn_grouped": 0}
+    later = {**{k: 0 for k in ragged},
+             "expert_ffn_grouped": grouped_per_layer * n_moe}
+    seen = [{k: c[k] for k in first} for c in per_step]
+    losses = [h["loss"] for h in hist]
+    if ([e["kind"] for e in gs.events] != ["fp8_fallback"]
+            or autosched.wire_ceiling() != "bf16"
+            or seen != [first] + [later] * 3
+            or not all(math.isfinite(x) for x in losses)):
+        raise AssertionError(f"phase 9 (c): events {gs.events}, ceiling "
+                             f"{autosched.wire_ceiling()}, launches per "
+                             f"step {seen} (predicted {first} in step 0, "
+                             f"{later} after), losses {losses}")
+    log(f"  (c) fp8_sat@factor=64: {gs.events[0]}; launches per step "
+        f"{seen} (predicted from phases 7 and 8); losses "
+        f"{' '.join(f'{x:.4f}' for x in losses)}")
+    reset_globals()
+    del tr, params, opt_state
+    torch.cuda.empty_cache()
+
+    # (d) the guarded clean loop against the plain one, in turns (the
+    # host is shared: step times move between runs, so three pairs, each
+    # side first as often)
+    times, steps = [], 8
+    for guarded in (False, True, True, False, False, True):
+        tr, params, opt_state = trainer(
+            guards=GuardConfig() if guarded else None)
+        hist = tr.run(params, opt_state, data, steps, log_every=1)[2]
+        torch.cuda.synchronize()
+        ms = (hist[-1]["wall_s"] - hist[0]["wall_s"]) / (steps - 1) * 1e3
+        times.append(("guarded" if guarded else "plain", ms,
+                      hist[-1]["loss"]))
+        reset_globals()
+        del tr, params, opt_state, hist
+        torch.cuda.empty_cache()
+    if len({loss for _, _, loss in times}) != 1:
+        raise AssertionError(f"phase 9 (d): the plain and guarded clean "
+                             f"runs end on different losses: {times}")
+    med = {side: sorted(ms for label, ms, _ in times if label == side)[1]
+           for side in ("plain", "guarded")}
+    log(f"  (d) ms/step after the first step ({steps} steps, each step's "
+        f"loss read), in turns: "
+        + ", ".join(f"{label} {ms:.2f}" for label, ms, _ in times)
+        + f"; medians plain {med['plain']:.2f}, guarded "
+        f"{med['guarded']:.2f} ({med['guarded'] / med['plain'] - 1:+.2%}); "
+        f"the same last loss bits")
     return launches
 
 
@@ -833,6 +1112,15 @@ SHAPE_OF = {
     ("expert_ffn", "train_gpt2_moe_s1_pipe2"): "train-gpt2-moe-chunk",
     ("expert_ffn_ragged", "train_qwen3_s1g_fp8"): "train-qwen3-fp8",
 }
+# phase 9's two runs: the ragged path while the wire is fp8, the fused
+# grouped kernel on the bf16 wire after the fallback
+for _path in ("train_gpt2_moe_guarded_s1g_fp8", "train_gpt2_moe_fp8_fallback"):
+    SHAPE_OF.update({
+        ("flash_attention", _path): "gpt2-moe",
+        ("moe_dispatch", _path): "train-gpt2-moe",
+        ("moe_combine", _path): "train-gpt2-moe",
+        ("expert_ffn_ragged", _path): "train-gpt2-moe-fp8",
+        ("expert_ffn_grouped", _path): "train-gpt2-moe-wire-bf16"})
 
 
 def main() -> int:
@@ -1007,8 +1295,10 @@ def main() -> int:
     # the CPU tests see the same against JAX), so it is held to 1e-2
     fp8 = replace(cfg, moe=replace(cfg.moe,
                                    comm=CommConfig(wire_dtype="fp8_e4m3")))
+    fp8_steps = 5
     path_launches["train_qwen3_s1g_fp8"] = train(
-        "qwen3 s1g fp8", fp8, dev, batch=1, seq=2048, steps=5, lr=1e-4,
+        "qwen3 s1g fp8", fp8, dev, batch=1, seq=2048, steps=fp8_steps,
+        lr=1e-4,
         schedule="s1g", grad_rtol=1e-2,
         uses=("moe_dispatch", "expert_ffn_ragged", "moe_combine"),
         per_step={"moe_dispatch": 12, "expert_ffn_ragged": 8,
@@ -1016,8 +1306,9 @@ def main() -> int:
                   "expert_ffn_grouped": 0, "expert_ffn": 0})
     log("phase 8: train gpt2-moe at its full size")
     g2 = get_config("gpt2-moe")
+    g2_steps = 5
     path_launches["train_gpt2_moe"] = train(
-        "gpt2-moe", g2, dev, batch=8, seq=1024, steps=5, lr=1e-3,
+        "gpt2-moe", g2, dev, batch=8, seq=1024, steps=g2_steps, lr=1e-3,
         uses=("flash_attention", "expert_ffn_grouped"),
         per_step={"flash_attention": 24, "expert_ffn_grouped": 12})
     g2s1 = replace(g2, moe=replace(g2.moe, pipeline_chunks=2))
@@ -1029,7 +1320,22 @@ def main() -> int:
                   "flash_attention": 24, "expert_ffn_grouped": 0,
                   "rmsnorm": 0})
 
-    # 9. results.  Each kernel's top-level numbers are those of its main
+    # 9. guarded training; the launch predictions per MoE layer and step
+    # come from phase 7's fp8 run and phase 8's gpt2-moe run
+    log("phase 9: guarded training, gpt2-moe full width, 4 layers")
+
+    def n_moe(c):
+        return sum(n for kind, n in c.runs() if "moe" in kind)
+
+    fp8_per_layer = {
+        k: path_launches["train_qwen3_s1g_fp8"][k] / (fp8_steps * n_moe(fp8))
+        for k in ("moe_dispatch", "expert_ffn_ragged", "moe_combine")}
+    grouped_per_layer = (path_launches["train_gpt2_moe"]["expert_ffn_grouped"]
+                         / (g2_steps * n_moe(g2)))
+    path_launches.update(guarded_training(dev, g2, fp8_per_layer,
+                                          grouped_per_layer))
+
+    # 10. results.  Each kernel's top-level numbers are those of its main
     # path (KERNELS): its launches there, counted from 0 just before the
     # run, and the phase-3 row at the shapes that path gives it.
     # ``by_path`` pairs every path's launches with the phase-3 row at that

@@ -17,8 +17,9 @@ and decodes it, forward and backward.  It is plain PyTorch: the codec is
 jnp in the JAX package, not a TPU kernel.
 
 The fp8 saturation monitor and fault injection of the JAX module
-(``set_fp8_monitor``, ``set_fp8_sat_injection``) come with the port's
-``runtime`` slice.  The layout helpers (``dump``, ``undump_reduce``,
+(``set_fp8_monitor``, ``set_fp8_sat_injection``) hook the fp8 encode at
+the JAX module's points; the guard rails (``runtime/guards.py``) install
+the monitor.  The layout helpers (``dump``, ``undump_reduce``,
 ``to/from_expert_batch`` and the expert-major ``*_em`` twins) are the JAX
 module's reshapes, written for torch tensors.
 """
@@ -63,6 +64,42 @@ _SCALE_TAIL = 4    # fp8 payload rows carry their f32 scale as 4 extra bytes
 _FP8 = torch.float8_e4m3fn
 
 
+# --- fp8 wire overflow monitoring / fault injection --------------------------
+# The guard rails (repro_torch.runtime.guards) install a monitor that
+# accumulates (saturating, total) element counts from every fp8 encode,
+# the backward's re-encodes included; the fault harness
+# (repro_torch.runtime.faults) can shrink the scales so payloads saturate
+# on demand.  With the defaults (None / 0.0) the encode runs no extra op.
+
+_FP8_MONITOR = None      # callable(sat: 0-d int64 tensor, n_elements: int)
+_FP8_SAT_INJECT = 0.0    # scale-shrink factor (0.0 = off)
+
+
+def set_fp8_monitor(cb) -> None:
+    """Install (or clear, with None) the process-wide fp8 saturation
+    monitor.  It is called once per fp8 encode with the count of
+    saturating elements as a tensor on the encode's device (no sync) and
+    the element count."""
+    global _FP8_MONITOR
+    _FP8_MONITOR = cb
+
+
+def set_fp8_sat_injection(factor: float) -> None:
+    """Shrink fp8 wire-encode scales by ``factor`` so payloads saturate
+    (deterministic overflow injection); 0.0 disables."""
+    global _FP8_SAT_INJECT
+    _FP8_SAT_INJECT = float(factor)
+
+
+def _monitor_sat(vals) -> None:
+    """Count the saturating or non-finite elements of a pre-cast fp8
+    payload into the installed monitor (nothing when none is)."""
+    if _FP8_MONITOR is None:
+        return
+    sat = ((~torch.isfinite(vals)) | (vals.abs() > _FP8_MAX)).sum()
+    _FP8_MONITOR(sat, vals.numel())
+
+
 def _active(comm) -> str:
     wd = getattr(comm, "wire_dtype", "f32") if comm is not None else "f32"
     if wd == "auto":
@@ -90,6 +127,7 @@ def wire_encode(x, comm: CommConfig | None):
         return x.to(torch.bfloat16)
     xf = x.float()
     if comm.scaling == "none":
+        _monitor_sat(xf)
         return torch.clamp(xf, -_FP8_MAX, _FP8_MAX).to(_FP8)
     amax = xf.abs().amax(dim=-1, keepdim=True)
     # divide by a tensor, not a Python scalar: PyTorch's CUDA division by a
@@ -97,7 +135,13 @@ def wire_encode(x, comm: CommConfig | None):
     # quotient that JAX (and PyTorch's CPU kernel) computes
     scale = (torch.clamp(amax, min=1e-30)
              / amax.new_full((), _FP8_MAX)).detach()
-    payload = torch.clamp(xf / scale, -_FP8_MAX, _FP8_MAX).to(_FP8)
+    if _FP8_SAT_INJECT:
+        scale = scale / scale.new_full((), _FP8_SAT_INJECT)
+    ratio = xf / scale
+    _monitor_sat(ratio)
+    # clip is the identity for in-range values and turns injected or
+    # overflowed values into saturated but finite payloads
+    payload = torch.clamp(ratio, -_FP8_MAX, _FP8_MAX).to(_FP8)
     sbits = scale.contiguous().view(torch.uint8).view(_FP8)  # (..., 4)
     return torch.cat([payload, sbits], dim=-1)
 

@@ -24,7 +24,7 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.core import executor
+from repro_torch.core import autosched, executor
 from repro_torch.core import plan as planlib
 from repro_torch.core.collectives import CommConfig
 from repro_torch.core.gating import GateConfig, capacity
@@ -155,7 +155,10 @@ def apply_moe(x, params: dict, *, cfg: MoEConfig, schedule=None,
         n_esp=1, n_mp=1, tokens=s_local, cap=cap, gate=gate_cfg,
         act=cfg.act, glu=cfg.glu, saa_chunks=cfg.saa_chunks,
         pipeline_chunks=n_chunks, kernel=cfg.kernel,
-        comm=CommConfig(wire_dtype=comm.wire_dtype, scaling=comm.scaling))
+        # the guard rails' wire ceiling (fp8 overflow fallback), applied
+        # to the resolved wire as the JAX apply_moe applies it
+        comm=CommConfig(wire_dtype=autosched.clamp_wire(comm.wire_dtype),
+                        scaling=comm.scaling))
     body = BODY.get(sched)
     if body is None:
         # a schedule registered via plan.register_plan without a BODY

@@ -20,8 +20,8 @@ parameters and prints:
   (``DETERMINISTIC_SWAPS``: scatters and index adds that use atomics);
   each is deterministic anyway where no two terms land on one element;
 * ``repeat``: whether the step taken twice from the same parameters,
-  AdamW state and batch, flag off, gives ``torch.equal`` parameters and
-  moments (:func:`first_step_twice`).
+  AdamW state and batch, flag off, gives ``torch.equal`` parameters,
+  moments, step counter and loss (:func:`first_step_twice`).
 
 Needs a card; the JSON lines go to standard output.
 """
@@ -74,29 +74,38 @@ def _state(params, opt_state):
     return leaves(params) + leaves(opt_state["mu"]) + leaves(opt_state["nu"])
 
 
-def first_step_twice(trainer, batch, seed=0):
-    """Take the first step twice, each from ``trainer.setup`` of the same
-    seed (the same parameters and zero AdamW state) on ``batch``, and
-    return the indices of the parameter and moment leaves (in
-    ``leaves(params) + leaves(mu) + leaves(nu)`` order) that are not
-    ``torch.equal``.  The first step's state waits on the host, so the
-    card holds one state at a time."""
+def first_steps(trainer, batch, steps, seed=0):
+    """Take the first step once with each of ``steps`` (callables
+    ``(params, opt_state, batch) -> (params, opt_state, metrics)``), each
+    from ``trainer.setup`` of the same seed (the same parameters and zero
+    AdamW state) on ``batch``.  Returns, for each taking after the first,
+    the indices of the tensors that are not ``torch.equal`` to the first
+    taking's, in ``leaves(params) + leaves(mu) + leaves(nu)`` order, then
+    the step counter and the loss.  The first taking's state waits on the
+    host, so the card holds one state at a time."""
     dev = trainer.model.device
-    first = None
-    for _ in range(2):
+    first, bad = None, []
+    for step in steps:
         params, opt_state = trainer.setup(
             torch.Generator(device=dev).manual_seed(seed))
-        params, opt_state, _ = trainer.train_step(params, opt_state, batch)
-        state = [t.detach() for t in _state(params, opt_state)]
+        params, opt_state, m = step(params, opt_state, batch)
+        state = [t.detach() for t in _state(params, opt_state)] + [
+            opt_state["step"], m["loss"]]
         if first is None:
             first = [t.to("cpu") for t in state]
         else:
-            bad = [i for i, (a, b) in enumerate(zip(first, state))
-                   if not torch.equal(a, b.to("cpu"))]
-        del params, opt_state, state
+            bad.append([i for i, (a, b) in enumerate(zip(first, state))
+                        if not torch.equal(a, b.to("cpu"))])
+        del params, opt_state, state, m
         if dev.type == "cuda":
             torch.cuda.empty_cache()
     return bad
+
+
+def first_step_twice(trainer, batch, seed=0):
+    """:func:`first_steps` with the plain step taken twice: the indices
+    of the tensors of the second taking that differ from the first's."""
+    return first_steps(trainer, batch, [trainer.train_step] * 2, seed)[0]
 
 
 def _profiled_ops(run):

@@ -14,15 +14,27 @@ bodies' chunk count and ``--wire-dtype`` f32, bf16 or fp8_e4m3.
 ``--layers N`` cuts the depth and keeps the full width (with
 ``--reduced``, the reduced config's depth).  Weights are random from a
 fixed seed; batches are ``SyntheticLM``'s.  Without a CUDA card the
-launcher stops with an error; ``--device cpu`` asks for the CPU.  Flags of
-the JAX launcher for what later slices bring (``--wire-dtype auto``,
-``--autosched``, guards, faults, placement, checkpoints) are refused with
-an error, never ignored.
+launcher stops with an error; ``--device cpu`` asks for the CPU.
+
+``--guards`` runs the fault-tolerant loop (skip-step, LR backoff,
+rollback to the checkpoints under ``--ckpt``, the fp8 overflow fallback);
+``--faults SPEC`` (implies ``--guards``) injects seeded faults, e.g.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-moe \
+      --reduced --device cpu --steps 12 --faults "nan_grad@step=5-7" \
+      --ckpt /tmp/ck --max-skips 2
+
+and a guarded run ends with the JAX launcher's chaos contract: a finite
+final loss, at least one skipped step under a ``nan_grad`` plan, and
+``CHAOS TRAIN OK``.  Flags of the JAX launcher for what later slices bring
+(``--wire-dtype auto``, ``--autosched``, placement, telemetry) are
+refused with an error, never ignored.
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 import time
 from dataclasses import replace
 
@@ -35,6 +47,7 @@ from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.launch.common import device_profile, resolve_device
 from repro_torch.models import Model
 from repro_torch.optim import AdamWConfig
+from repro_torch.runtime import FaultPlan, GuardConfig
 from repro_torch.train import Trainer
 
 LATER = "comes with a later slice of the port"
@@ -63,17 +76,36 @@ def main(argv=None):
                          "the codec's round trip)")
     ap.add_argument("--placement", default="uniform",
                     choices=["uniform", "auto"])
-    ap.add_argument("--guards", action="store_true")
-    ap.add_argument("--faults", default=None)
     ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="checkpoint period in steps (default: steps/2 "
+                         "when --ckpt is set)")
+    ap.add_argument("--retain", type=int, default=3,
+                    help="retained checkpoints under --guards (last k)")
+    ap.add_argument("--guards", action="store_true",
+                    help="fault-tolerant loop: non-finite skip-step + LR "
+                         "backoff, loss-spike detection, checkpoint "
+                         "rollback (needs --ckpt), fp8 overflow fallback")
+    ap.add_argument("--max-skips", type=int, default=3,
+                    help="consecutive skipped steps before rollback")
+    ap.add_argument("--faults", default=None,
+                    help="fault-injection spec, e.g. 'nan_grad@step=5-8;"
+                         "fp8_sat@factor=64;ckpt_bitflip@save=2' "
+                         "(see repro_torch.runtime.faults; implies "
+                         "--guards)")
+    ap.add_argument("--fault-seed", type=int, default=0)
+    ap.add_argument("--log-json", default=None)
+    ap.add_argument("--metrics-dir", default=None)
+    ap.add_argument("--trace", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--profile", action="store_true",
                     help="after training, run one more step under "
                          "torch.profiler; print device time by kernel and "
                          "the device's busy share (CUDA only)")
     args = ap.parse_args(argv)
-    for flag, used in (("--guards", args.guards), ("--faults", args.faults),
-                       ("--ckpt", args.ckpt),
+    for flag, used in (("--log-json", args.log_json),
+                       ("--metrics-dir", args.metrics_dir),
+                       ("--trace", args.trace),
                        ("--placement auto", args.placement == "auto"),
                        ("--autosched", args.autosched),
                        ("--wire-dtype auto", args.wire_dtype == "auto")):
@@ -104,7 +136,14 @@ def main(argv=None):
     model = Model(cfg, device=dev)
     opt = AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 5),
                       total_steps=args.steps)
-    tr = Trainer(model, opt, schedule=args.schedule)
+    guards = faults = None
+    if args.faults:
+        faults = FaultPlan.parse(args.faults, seed=args.fault_seed)
+        print(f"fault plan: {faults.summary()}", flush=True)
+    if args.guards or faults is not None:
+        guards = GuardConfig(max_skips=args.max_skips)
+    tr = Trainer(model, opt, schedule=args.schedule, ckpt_path=args.ckpt,
+                 guards=guards, faults=faults, ckpt_retain=args.retain)
     params, opt_state = tr.setup(torch.Generator(device=dev).manual_seed(0))
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
                                   seq_len=args.seq, global_batch=args.batch))
@@ -119,7 +158,10 @@ def main(argv=None):
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    params, opt_state, hist = tr.run(params, opt_state, data, args.steps)
+    ckpt_every = args.ckpt_every or (args.steps // 2 if args.ckpt else 0)
+    params, opt_state, hist = tr.run(params, opt_state, data, args.steps,
+                                     ckpt_every=ckpt_every if args.ckpt
+                                     else 0)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
@@ -146,6 +188,19 @@ def main(argv=None):
             for row in prof[key]:
                 print(f"  {row['ms']:9.3f} ms {row['calls']:6d} x  "
                       f"{row['name'][:90]}")
+    if guards is not None:
+        gs = tr.guard_state
+        # the chaos contract: an injected-fault run must still END finite
+        if not math.isfinite(hist[-1]["loss"]):
+            raise SystemExit(f"guarded run ended non-finite: "
+                             f"{hist[-1]['loss']}")
+        if faults is not None and gs.counters["skipped"] == 0 and any(
+                s.kind == "nan_grad" for s in faults.specs):
+            raise SystemExit("nan_grad fault injected but no step was "
+                             "skipped")
+        print(f"CHAOS TRAIN OK  final loss {hist[-1]['loss']:.4f}  "
+              f"({gs.counters['skipped']} skipped, "
+              f"{gs.counters['rollbacks']} rollbacks)", flush=True)
     print(f"final loss {hist[-1]['loss']:.4f} (start {hist[0]['loss']:.4f})")
 
 

@@ -1,6 +1,6 @@
 """AdamW with global-norm clipping and a cosine LR schedule (counterpart of
-``repro/optim/adamw.py``, without ZeRO-1 and without the guarded step's
-``finite`` select, which come with later slices).
+``repro/optim/adamw.py``, with the guard rails' ``lr_scale`` and
+``finite`` skip, without ZeRO-1, which comes with the multi-rank slice).
 
 Parameters and moments are updated IN PLACE under ``torch.no_grad()``,
 where JAX returns new trees: at full width a second copy of the parameters
@@ -73,20 +73,44 @@ def global_norm(grads):
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state, cfg: AdamWConfig, decay_mask=None):
+def adamw_update(params, grads, state, cfg: AdamWConfig, decay_mask=None,
+                 lr_scale=1.0, finite=None):
     """One AdamW step, in place.  ``grads`` is a sequence aligned with
     ``leaves(params)``; ``decay_mask`` a list of bools, by default True for
     leaves with ``dim() >= 2`` -- which, with stacked runs, includes every
     per-layer (n, D) norm scale and bias but not ``final_norm`` (D,),
-    exactly as in JAX.  Returns the metrics ``grad_norm`` and ``lr``."""
+    exactly as in JAX.  Returns the metrics ``grad_norm`` and ``lr``.
+
+    ``lr_scale`` (a float) multiplies the scheduled LR (the guard rails'
+    backoff); 1.0 runs no multiply.  ``finite`` (a bool or a bool tensor,
+    e.g. ``isfinite(loss)``) opts into the guard rails' skip-step: it is
+    AND-ed with ``isfinite(grad_norm)`` and read on the host (one sync);
+    when false the update returns before touching any leaf, so
+    parameters, both moments and the step counter stay bitwise as they
+    were.  JAX selects ``where(finite, new, old)`` per leaf instead; in
+    place that would keep two more leaf-sized copies alive.  The combined
+    flag comes back as ``"finite"``.  With ``finite=None`` and
+    ``lr_scale=1.0`` this is the plain update, op for op."""
     flat_p, flat_g = leaves(params), list(grads)
     flat_mu, flat_nu = leaves(state["mu"]), leaves(state["nu"])
     if decay_mask is None:
         decay_mask = [p.dim() >= 2 for p in flat_p]
+    if finite is not None:
+        gnorm = global_norm(flat_g)
+        ok = torch.isfinite(gnorm) & torch.as_tensor(finite,
+                                                     device=gnorm.device)
+        if not ok.item():
+            lr = cosine_schedule(cfg, state["step"] + 1)
+            if lr_scale != 1.0:
+                lr = lr * lr_scale
+            return {"grad_norm": gnorm, "lr": lr, "finite": ok}
     state["step"] += 1
     step = state["step"]
     lr = cosine_schedule(cfg, step)
-    gnorm = global_norm(flat_g)
+    if lr_scale != 1.0:
+        lr = lr * lr_scale
+    if finite is None:
+        gnorm = global_norm(flat_g)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     b1c = 1 - torch.pow(cfg.beta1, step.to(torch.float32))
@@ -106,4 +130,7 @@ def adamw_update(params, grads, state, cfg: AdamWConfig, decay_mask=None):
             p.sub_(delta.mul_(lr))
         else:
             p.copy_(p.float().sub_(delta.mul_(lr)))
-    return {"grad_norm": gnorm, "lr": lr}
+    om = {"grad_norm": gnorm, "lr": lr}
+    if finite is not None:
+        om["finite"] = ok
+    return om

@@ -15,7 +15,11 @@ per call.  The dense and ragged FFN on all three row-tile instances and
 mixed dtypes: bitwise the grouped kernel's pre-combine rows and each
 other, dead ragged tiles written on dirty memory.  A training step taken
 twice from one state, on each training path of the smoke at reduced
-size: bitwise, with no deterministic flag.  Marked ``cuda``: they skip
+size: bitwise, with no deterministic flag.  The guarded step: clean,
+bitwise the plain step; poisoned, the state bitwise untouched; the fp8
+saturation counts on the card equal to the CPU's; a checkpoint restored
+in place keeps each tensor's storage and ``requires_grad``.  Marked
+``cuda``: they skip
 where there is no card, and run there with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -782,3 +786,102 @@ def test_training_step_repeats_bitwise(dev, arch, schedule, chunks, wire):
     batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=128,
                                    global_batch=4)).tensors(0, dev)
     assert first_step_twice(tr, batch) == []
+
+
+def _gpt2_trainer(dev, wire="fp8_e4m3"):
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.collectives import CommConfig
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer
+    cfg = get_config("gpt2-moe").reduced()
+    cfg = replace(cfg, moe=replace(cfg.moe, comm=CommConfig(wire_dtype=wire)))
+    tr = Trainer(Model(cfg, device=dev), AdamWConfig(lr=1e-3, warmup_steps=2),
+                 schedule="s1g")
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=128,
+                                  global_batch=4))
+    return tr, data
+
+
+def _state(params, opt_state):
+    from repro_torch.optim.adamw import leaves
+    return (leaves(params) + leaves(opt_state["mu"])
+            + leaves(opt_state["nu"]) + [opt_state["step"]])
+
+
+@pytest.mark.parametrize("fault", [0.0, float("nan"), float("inf")])
+def test_guarded_step_on_the_card(dev, fault):
+    """Clean: the guarded step (lr_scale 1.0) is torch.equal to the plain
+    step.  NaN / inf fault: the flag is up and parameters, moments and the
+    step counter are torch.equal to what they were."""
+    from repro_torch.train import make_guarded_train_step
+    tr, data = _gpt2_trainer(dev)
+    batch = data.tensors(0, dev)
+    params, opt_state = tr.setup(torch.Generator(device=dev).manual_seed(0))
+    params, opt_state, _ = tr.train_step(params, opt_state, batch)
+    before = [t.detach().clone() for t in _state(params, opt_state)]
+    step = make_guarded_train_step(tr.model, tr.opt_cfg, "s1g")
+    params, opt_state, m = step(params, opt_state, data.tensors(1, dev), 1.0,
+                                fault)
+    if fault == 0.0:
+        assert not bool(m["nonfinite"])
+        p2, o2, m2 = tr.train_step(*tr.setup(torch.Generator(
+            device=dev).manual_seed(0))[:2], batch)
+        p2, o2, m2 = tr.train_step(p2, o2, data.tensors(1, dev))
+        assert torch.equal(m["loss"], m2["loss"])
+        assert all(torch.equal(a, b) for a, b in
+                   zip(_state(params, opt_state), _state(p2, o2)))
+    else:
+        assert bool(m["nonfinite"]) and int(opt_state["step"]) == 1
+        assert all(torch.equal(a, b) for a, b in
+                   zip(_state(params, opt_state), before))
+
+
+@pytest.mark.parametrize("factor", [0.0, 64.0])
+def test_fp8_saturation_counts_on_the_card_are_the_cpus(dev, factor):
+    from repro_torch.core import collectives as coll
+    from repro_torch.runtime import (disable_fp8_monitor, enable_fp8_monitor,
+                                     fp8_sat_counts, reset_fp8_counter)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((512, 768), generator=g)
+    x[3] *= 1e3
+    x[7, 11] = float("inf")
+    comm = coll.CommConfig(wire_dtype="fp8_e4m3")
+    counts = []
+    enable_fp8_monitor()
+    coll.set_fp8_sat_injection(factor)
+    try:
+        for t in (x, x.to(dev)):
+            reset_fp8_counter()
+            coll.wire_encode(t, comm)
+            counts.append(fp8_sat_counts())
+    finally:
+        coll.set_fp8_sat_injection(0.0)
+        disable_fp8_monitor()
+        reset_fp8_counter()
+    assert counts[0] == counts[1] and counts[0][1] == x.numel()
+
+
+def test_restore_in_place_keeps_identity_and_requires_grad(dev, tmp_path):
+    import os
+
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    g = torch.Generator(device=dev).manual_seed(0)
+    live = {"w": torch.randn((64, 32), generator=g, device=dev),
+            "b": torch.randn((32,), generator=g, device=dev).bfloat16(),
+            "step": torch.tensor(3, dtype=torch.int32, device=dev)}
+    live["w"].requires_grad_(True)
+    saved = {k: t.detach().clone() for k, t in live.items()}
+    path = save_checkpoint(os.path.join(tmp_path, "c.npz"), live, 3)
+    ptrs = {k: t.data_ptr() for k, t in live.items()}
+    with torch.no_grad():
+        for t in live.values():
+            t.zero_()
+    tree, step = load_checkpoint(path, into=live)
+    assert tree is live and step == 3 and live["w"].requires_grad
+    assert {k: t.data_ptr() for k, t in live.items()} == ptrs
+    for k, t in live.items():
+        assert t.device.type == "cuda" and torch.equal(t, saved[k]), k
