@@ -70,8 +70,31 @@ to a plain version):
      path (dispatch, ``expert_ffn_ragged``, combine) launches in step 0
      only and ``expert_ffn_grouped`` from step 1 on, each at the per-layer
      counts of phases 7 and 8, every loss finite; (d) ms per step of the
-     plain and the guarded clean loop, three runs each, in turns;
- 10. print the kernels' JSON line (each kernel's launches on its main path
+     plain and the guarded clean loop and the guarded loop with a
+     telemetry sink, three runs each, in turns;
+ 10. serving under faults, deadlines and sheds, and the telemetry; (a)-(e)
+     run right after phase 5 on its model and prompts (prefix cache off,
+     one request per prefill call; phase 5's forward run is the fault-free
+     reference): (a) ``PHASE10_FAULTS`` with a 6-round watchdog: request 1
+     expired by its tick budget, request 2 evicted by the watchdog, the
+     other 14 phase 5's tokens exactly, the pages balanced, its launches
+     the path ``serve_chaos``; (b) a 1e-6 s deadline expires 3 requests;
+     (c) a 2-block arena sheds a request for blocks beside one that
+     finishes, one row with a ~0 queue SLO sheds the waiting request;
+     (d) the fault-free run with the knobs on (watchdog, 60 s deadline and
+     queue SLO, a JSONL sink) against the plain run, three each in turns,
+     tok/s and p50/p99, every run phase 5's tokens; (e) that sink's
+     events: each request's lifecycle in order, one ``decode_round`` per
+     round, the rollup's p50 the quantile of the finished latencies.
+     (f) rides on phase 9 (a): a sink installed, its guard events exactly
+     ``GuardState.events``, ``fp8_sat`` events at step 3 with their step,
+     MoE call, schedule and wire; and 9 (d) times the sink.  (g) follows
+     phase 6: stage traces of its layer under s1 and s1g
+     (``obs.audit.trace_schedule``'s harness, CUDA events): the plan's
+     stages, a Chrome JSON that loads, the output ``torch.equal`` before
+     and after the timer, per-stage ms beside phase 6's forward; their
+     launches the paths ``trace_gpt2_moe_s1`` and ``trace_gpt2_moe_s1g``;
+ 11. print the kernels' JSON line (each kernel's launches on its main path
      and the phase-3 row at that path's shapes, and under ``by_path``
      every path's launches beside the phase-3 row at that path's shapes),
      then ``{"ok": true, ...}`` as the last line.
@@ -613,14 +636,15 @@ def make_requests(vocab, n=16, prefix_len=32, seed=0):
     return reqs
 
 
-def serve(model, params, prompts, *, gen, order=None, **engine_kw):
-    """Serve ``prompts`` (submitted in ``order``) and return
-    (completions by rid, engine, wall seconds)."""
+def serve(model, params, prompts, *, gen, order=None, deadline=0.0,
+          **engine_kw):
+    """Serve ``prompts`` (submitted in ``order``, each with ``deadline``)
+    and return (completions by rid, engine, wall seconds)."""
     import torch
     from repro_torch.serve import Engine
     eng = Engine(model, max_batch=8, max_len=256, block_size=16, **engine_kw)
     for i in (order if order is not None else range(len(prompts))):
-        eng.submit(prompts[i], gen, rid=i)
+        eng.submit(prompts[i], gen, rid=i, deadline=deadline)
     if model.device.type == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -875,11 +899,13 @@ def guarded_training(dev, g2, fp8_per_layer, grouped_per_layer):
     from dataclasses import replace
 
     import torch
+    from repro_torch import obs
     from repro_torch.checkpoint import load_checkpoint, save_checkpoint
     from repro_torch.core import autosched, collectives
     from repro_torch.core.collectives import CommConfig
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.models import Model
+    from repro_torch.obs.sink import read_events
     from repro_torch.optim import AdamWConfig
     from repro_torch.runtime import (FaultPlan, GuardConfig,
                                      disable_fp8_monitor, reset_fp8_counter)
@@ -920,10 +946,16 @@ def guarded_training(dev, g2, fp8_per_layer, grouped_per_layer):
             f"fp8_e4m3, batch 8 x 1024: {p_bytes / 1e9:.3f} GB of "
             f"parameters, {s_bytes / 1e9:.3f} GB per snapshot with both "
             f"moments; faults {PHASE9_FAULTS}")
+        # phase 10 (f): the same run with a telemetry sink installed
+        obs.configure(os.path.join(tmp, "metrics"), meta={"phase": "9 (a)"})
         wrappers = reset_counts()
-        params, opt_state, hist = tr.run(params, opt_state, data, 10,
-                                         log_every=1, ckpt_every=2)
-        torch.cuda.synchronize()
+        try:
+            params, opt_state, hist = tr.run(params, opt_state, data, 10,
+                                             log_every=1, ckpt_every=2)
+            torch.cuda.synchronize()
+            metrics = obs.get_sink().paths
+        finally:
+            obs.close()
         launches["train_gpt2_moe_guarded_s1g_fp8"] = read_counts(wrappers)
         gs, mgr = tr.guard_state, tr.rollback_mgr
         events = [(e["kind"], e.get("step"), e.get("streak"),
@@ -950,6 +982,33 @@ def guarded_training(dev, g2, fp8_per_layer, grouped_per_layer):
             f"skipped the corrupt step-2 snapshot and restored step 0; "
             f"retained {mgr.store.steps()}; launches "
             f"{ {k: v for k, v in read_counts(wrappers).items() if v} }")
+        evs = read_events(metrics)
+        got = []
+        for e in evs:
+            if e["event"] in ("guard_skip", "guard_rollback"):
+                got.append((e["event"], e["step"],
+                            e["streak"] if e["event"] == "guard_skip"
+                            else e["restored_step"])
+                           + ((e["lr_scale"],)
+                              if e["event"] == "guard_skip" else ()))
+            elif e["event"] == "fp8_fallback":
+                got.append((e["event"], e["sat_rate"], e["wire"]))
+        sat3 = [e for e in evs if e["event"] == "fp8_sat"
+                and e["step"] == 3]
+        # moe_call counts the step's MoE calls: each block's recompute in
+        # the backward (remat) is a call of its own
+        if got != sink_guard_events(gs.events) or not sat3 or not all(
+                (0 <= e["moe_call"] < 2 * n_moe and e["schedule"] == "s1g"
+                 and e["wire"] == "fp8_e4m3") for e in sat3):
+            raise AssertionError(f"phase 10 (f): sink events {got}, "
+                                 f"expected {sink_guard_events(gs.events)}; "
+                                 f"step-3 fp8_sat events {sat3}")
+        log(f"  phase 10 (f) the same run with a sink: {len(evs)} events, "
+            f"the guard events exactly GuardState.events' ({got}); "
+            f"{len(sat3)} fp8_sat events at step 3, e.g. "
+            f"{ {k: sat3[0][k] for k in ('step', 'moe_call', 'schedule', 'wire', 'sat', 'total')} }"
+            f"; fp8_sat events by step "
+            f"{ {s: sum(e['step'] == s for e in evs if e['event'] == 'fp8_sat') for s in range(10)} }")
         reset_globals()
 
         # (b) save -> restore in place -> one more step, bitwise
@@ -1030,32 +1089,296 @@ def guarded_training(dev, g2, fp8_per_layer, grouped_per_layer):
     del tr, params, opt_state
     torch.cuda.empty_cache()
 
-    # (d) the guarded clean loop against the plain one, in turns (the
-    # host is shared: step times move between runs, so three pairs, each
-    # side first as often)
+    # (d) the guarded clean loop against the plain one, and (phase 10 (f))
+    # the guarded loop with a telemetry sink, in turns (the host is shared:
+    # step times move between runs, so three of each, each side first as
+    # often)
     times, steps = [], 8
-    for guarded in (False, True, True, False, False, True):
-        tr, params, opt_state = trainer(
-            guards=GuardConfig() if guarded else None)
-        hist = tr.run(params, opt_state, data, steps, log_every=1)[2]
-        torch.cuda.synchronize()
-        ms = (hist[-1]["wall_s"] - hist[0]["wall_s"]) / (steps - 1) * 1e3
-        times.append(("guarded" if guarded else "plain", ms,
-                      hist[-1]["loss"]))
-        reset_globals()
-        del tr, params, opt_state, hist
-        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, side in enumerate(("plain", "guarded", "sink", "sink",
+                                  "guarded", "plain", "plain", "sink",
+                                  "guarded")):
+            tr, params, opt_state = trainer(
+                guards=None if side == "plain" else GuardConfig())
+            if side == "sink":
+                obs.configure(os.path.join(tmp, str(i)))
+            try:
+                hist = tr.run(params, opt_state, data, steps,
+                              log_every=1)[2]
+                torch.cuda.synchronize()
+            finally:
+                obs.close()
+            ms = (hist[-1]["wall_s"] - hist[0]["wall_s"]) / (steps - 1) * 1e3
+            times.append((side, ms, hist[-1]["loss"]))
+            reset_globals()
+            del tr, params, opt_state, hist
+            torch.cuda.empty_cache()
     if len({loss for _, _, loss in times}) != 1:
-        raise AssertionError(f"phase 9 (d): the plain and guarded clean "
-                             f"runs end on different losses: {times}")
+        raise AssertionError(f"phase 9 (d): the plain, guarded and sink "
+                             f"clean runs end on different losses: {times}")
     med = {side: sorted(ms for label, ms, _ in times if label == side)[1]
-           for side in ("plain", "guarded")}
+           for side in ("plain", "guarded", "sink")}
     log(f"  (d) ms/step after the first step ({steps} steps, each step's "
         f"loss read), in turns: "
         + ", ".join(f"{label} {ms:.2f}" for label, ms, _ in times)
         + f"; medians plain {med['plain']:.2f}, guarded "
-        f"{med['guarded']:.2f} ({med['guarded'] / med['plain'] - 1:+.2%}); "
-        f"the same last loss bits")
+        f"{med['guarded']:.2f} ({med['guarded'] / med['plain'] - 1:+.2%}), "
+        f"guarded with a sink {med['sink']:.2f} "
+        f"({med['sink'] / med['guarded'] - 1:+.2%} over guarded); the same "
+        f"last loss bits")
+    return launches
+
+
+# --- phase 10: serving under faults and deadlines, and the telemetry -------
+
+#: phase 10 (a): rid 1 force-expired after 4 ticks, rid 2 stalled into the
+#: watchdog (6 rounds), every free arena block held hostage for 8 ticks
+PHASE10_FAULTS = ("req_timeout@rid=1,ticks=4;req_delay@rid=2,rounds=999;"
+                  "alloc_starve@tick=1,hold=9999,rounds=8")
+LIFECYCLE = ["req_queued", "req_admitted", "req_prefilled", "req_finished"]
+
+
+def _balanced(eng, label):
+    """The allocator's ledger balances and no page is live."""
+    eng.pool.alloc_blocks.check()
+    if eng.pool.n_live:
+        raise AssertionError(f"{label}: {eng.pool.n_live} pages still live")
+
+
+def serve_robustness(model, params, prompts, gen, want):
+    """Phase 10 (a)-(e) (see the module docstring).  ``want`` is phase 5's
+    forward run (prefix cache off, one request per prefill call), the
+    fault-free reference.  Returns (a)'s launches by kernel."""
+    import tempfile
+
+    import torch
+    from repro_torch import obs
+    from repro_torch.obs.registry import quantile
+    from repro_torch.obs.sink import read_events
+    from repro_torch.runtime import FaultPlan
+    from repro_torch.serve import Engine, latency_stats
+    n = len(prompts)
+
+    # (a) the chaos plan: two requests cut, the other 14 bitwise
+    wrappers = reset_counts()
+    done, eng, wall = serve(model, params, prompts, gen=gen,
+                            prefix_cache=False, watchdog_rounds=6,
+                            faults=FaultPlan.parse(PHASE10_FAULTS))
+    torch.cuda.synchronize()
+    launches = read_counts(wrappers)
+    cut = {rid: (c.status, c.reason, len(c.tokens))
+           for rid, c in done.items() if c.status != "ok"}
+    bad = [i for i in range(n) if i not in (1, 2)
+           and (done[i].status, done[i].tokens) != ("ok", want[i].tokens)]
+    if (sorted(done) != list(range(n)) or sorted(cut) != [1, 2]
+            or cut[1][0] != "expired" or "tick" not in cut[1][1]
+            or cut[2][0] != "evicted" or "watchdog" not in cut[2][1]
+            or bad or eng.stats["expired"] != 1
+            or eng.stats["evicted"] != 1):
+        raise AssertionError(f"phase 10 (a): cut {cut}, requests {bad} "
+                             f"differ from the fault-free run, stats "
+                             f"{eng.stats}")
+    for rid in (1, 2):
+        if done[rid].tokens != want[rid].tokens[:len(done[rid].tokens)]:
+            raise AssertionError(f"phase 10 (a): request {rid}'s partial "
+                                 f"stream is not a prefix of its own")
+    _balanced(eng, "phase 10 (a)")
+    if min(launches[k] for k in ("rmsnorm", "expert_ffn_grouped")) <= 0:
+        raise AssertionError(f"phase 10 (a): a kernel of the path was never "
+                             f"launched: {launches}")
+    log(f"  (a) {PHASE10_FAULTS}, watchdog 6 rounds: {cut}; the other "
+        f"{n - 2} requests' tokens equal phase 5's; {eng.stats['expired']} "
+        f"expired, {eng.stats['evicted']} evicted, {eng.stats['decode_calls']}"
+        f" decode rounds in {wall:.3f} s; pages balance; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+
+    # (b) a deadline at its extreme expires every request mid-flight
+    eng = Engine(model, max_batch=8, max_len=256, block_size=16,
+                 prefix_cache=False)
+    for i in range(3):
+        eng.submit(prompts[i], gen, rid=i, deadline=1e-6)
+    got = [(c.status, c.reason) for c in eng.run(params)]
+    if len(got) != 3 or any(st != "expired" or not r.startswith("deadline")
+                            for st, r in got):
+        raise AssertionError(f"phase 10 (b): {got}")
+    _balanced(eng, "phase 10 (b)")
+    log(f"  (b) 3 requests with a 1e-6 s deadline: {got[0][0]} "
+        f"({got[0][1]}) x 3; pages balance")
+
+    # (c) the sheds: a request no arena of 2 blocks can hold, and one that
+    # waits past a ~0 queue SLO behind a pinned-full pool
+    eng = Engine(model, max_batch=2, max_len=64, n_blocks=2, block_size=16)
+    eng.submit(list(range(1, 7)), 40)
+    eng.submit(list(range(1, 7)), 4)
+    c0, c1 = eng.run(params)
+    _balanced(eng, "phase 10 (c)")
+    slo = Engine(model, max_batch=1, max_len=256, block_size=16,
+                 prefix_cache=False, queue_slo=1e-6)
+    slo.submit(prompts[0], 8)
+    slo.submit(prompts[1], 8)
+    q0, q1 = slo.run(params)
+    _balanced(slo, "phase 10 (c)")
+    if ((c0.status, c1.status, len(c1.tokens)) != ("shed", "ok", 4)
+            or not c0.reason.startswith("blocks")
+            or eng.stats["shed_blocks"] != 1
+            or (q0.status, q1.status) != ("ok", "shed")
+            or not q1.reason.startswith("queue")
+            or slo.stats["shed_queue"] != 1):
+        raise AssertionError(f"phase 10 (c): {c0}, {c1}, {q0}, {q1}")
+    log(f"  (c) 2-block arena: shed ({c0.reason}), the small request beside "
+        f"it ok with {len(c1.tokens)} tokens; one row and a 1e-6 s queue "
+        f"SLO: shed ({q1.reason}); pages balance")
+
+    # (d) the knobs' cost: watchdog, a 60 s deadline on every request, a
+    # 60 s queue SLO and a JSONL sink, against the plain run, in turns
+    runs, events, n_bytes = [], None, 0
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, knobs in enumerate((False, True, True, False, False, True)):
+            kw = dict(prefix_cache=False)
+            if knobs:
+                obs.configure(os.path.join(tmp, str(i)), meta={
+                    "kind": "serve", "phase": "10 (d)"})
+                kw.update(watchdog_rounds=6, queue_slo=60.0, deadline=60.0)
+            try:
+                done, eng, wall = serve(model, params, prompts, gen=gen,
+                                        **kw)
+                paths = obs.get_sink().paths if knobs else None
+            finally:
+                obs.close()
+            st = latency_stats(done.values())
+            runs.append(("knobs" if knobs else "plain", st["tok_per_s"],
+                         st["p50_ms"], st["p99_ms"]))
+            bad = [r for r in range(n) if (done[r].status, done[r].tokens)
+                   != ("ok", want[r].tokens)]
+            if bad:
+                raise AssertionError(f"phase 10 (d): requests {bad} differ "
+                                     f"from the fault-free run")
+            if knobs:
+                events = read_events(paths)
+                n_bytes = sum(os.path.getsize(p) for p in paths)
+                stats = dict(eng.stats)
+    med = {side: [sorted(r[j] for r in runs if r[0] == side)[1]
+                  for j in (1, 2, 3)] for side in ("plain", "knobs")}
+    log("  (d) in turns: " + ", ".join(
+        f"{side} {tps:.1f} tok/s p50 {p50:.1f} p99 {p99:.1f} ms"
+        for side, tps, p50, p99 in runs)
+        + f"; medians plain {med['plain'][0]:.1f} tok/s p50 "
+        f"{med['plain'][1]:.1f} p99 {med['plain'][2]:.1f} ms, knobs "
+        f"{med['knobs'][0]:.1f} tok/s p50 {med['knobs'][1]:.1f} p99 "
+        f"{med['knobs'][2]:.1f} ms ({med['knobs'][0] / med['plain'][0] - 1:+.2%}"
+        f" tok/s); all six runs give phase 5's tokens")
+
+    # (e) the last knobs run's event stream
+    per_rid = {}
+    for e in events:
+        if e["event"].startswith("req_"):
+            per_rid.setdefault(e["rid"], []).append(e["event"])
+    rounds = sum(e["event"] == "decode_round" for e in events)
+    lats = sorted(e["latency_s"] for e in events
+                  if e["event"] == "req_finished")
+    roll = [e for e in events if e["event"] == "serve_rollup"]
+    if (sorted(per_rid) != list(range(n))
+            or any(v != LIFECYCLE for v in per_rid.values())
+            or rounds != stats["decode_calls"] or len(roll) != 1
+            or roll[0]["latency_s.p50"] != quantile(lats, 50)):
+        raise AssertionError(f"phase 10 (e): lifecycles {per_rid}, "
+                             f"{rounds} decode_round events for "
+                             f"{stats['decode_calls']} rounds, rollup {roll}")
+    log(f"  (e) {len(events)} events, {n_bytes} bytes: every request "
+        f"{' -> '.join(LIFECYCLE)}; {rounds} decode_round events = decode "
+        f"rounds; serve_rollup latency_s.p50 {roll[0]['latency_s.p50']:.4f} "
+        f"s = quantile of the {len(lats)} finished latencies")
+    # the sink's own host cost: an event into the buffer, and one write of
+    # a full buffer (64 events, the sink's default) to the file
+    from repro_torch.obs.sink import JsonlSink
+    with tempfile.TemporaryDirectory() as tmp:
+        sink = JsonlSink(tmp, buffer_events=1 << 30)
+        t_emit, t_flush = [], []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            for i in range(64):
+                sink.emit("decode_round", tick=i, rows=8, active=8,
+                          block_occupancy=0.25)
+            t1 = time.perf_counter()
+            sink.flush()
+            t_emit.append((t1 - t0) / 64)
+            t_flush.append(time.perf_counter() - t1)
+        sink.close()
+    log(f"  (e) the sink under {tempfile.gettempdir()}: "
+        f"{sorted(t_emit)[10] * 1e6:.1f} us an event (median of 20 x 64), "
+        f"{sorted(t_flush)[10] * 1e3:.3f} ms a write of 64 (median; max "
+        f"{max(t_flush) * 1e3:.3f})")
+    return launches
+
+
+def sink_guard_events(gs_events):
+    """The guard events a sink receives for ``GuardState.events``: a skip
+    that fills the streak is recorded by the rollback it triggers."""
+    out = []
+    for i, e in enumerate(gs_events):
+        nxt = gs_events[i + 1] if i + 1 < len(gs_events) else {}
+        if e["kind"] == "skip" and not (nxt.get("kind") == "rollback"
+                                        and nxt["step"] == e["step"]):
+            out.append(("guard_skip", e["step"], e["streak"],
+                        e["lr_scale"]))
+        elif e["kind"] == "rollback":
+            out.append(("guard_rollback", e["step"], e["restored_step"]))
+        elif e["kind"] == "fp8_fallback":
+            out.append(("fp8_fallback", e["sat_rate"], e["wire"]))
+    return out
+
+
+def stage_traces(dev, forward_ms):
+    """Phase 10 (g): stage traces of phase 6's gpt2-moe MoE layer (8 x 1024
+    tokens) under s1 and s1g through ``trace_schedule``'s harness; the
+    stage names are the plan's validated order, the Chrome JSON loads, and
+    the full plan after the timer is bitwise ``apply_moe`` before and after
+    it.  Returns each trace's launches as a path."""
+    import tempfile
+    from dataclasses import replace
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import executor
+    from repro_torch.core import plan as planlib
+    from repro_torch.core.moe import apply_moe
+    from repro_torch.obs.audit import _LayerHarness
+    from repro_torch.obs.trace import save_chrome_trace
+    cfg = get_config("gpt2-moe").moe
+    h = _LayerHarness(cfg, 8 * 1024, seed=7, device=dev)
+    x = h.x.view(8, 1024, cfg.d_model)
+    launches = {}
+    for sched in ("s1", "s1g"):
+        c = replace(cfg, schedule=sched)
+        plan = planlib.build_plan(sched, h.info())
+        with torch.no_grad():
+            before, _ = apply_moe(x, h.params, cfg=c)
+            wrappers = reset_counts()
+            st = h.trace(sched)
+            torch.cuda.synchronize()
+            launches[f"trace_gpt2_moe_{sched}"] = read_counts(wrappers)
+            full, _ = executor.execute(plan, *h.args, h.info())
+            after, _ = apply_moe(x, h.params, cfg=c)
+        names = [s.name for s in planlib.validate(plan)]
+        with tempfile.TemporaryDirectory() as tmp:
+            doc = json.load(open(save_chrome_trace(
+                st, os.path.join(tmp, "trace.json"))))
+        slices = [e["name"] for e in doc["traceEvents"] if e["ph"] == "X"]
+        if ([s.name for s in st.stages] != names or slices != names
+                or not torch.equal(before.view(-1, cfg.d_model), full)
+                or not torch.equal(before, after)):
+            raise AssertionError(f"phase 10 (g) {sched}: stages "
+                                 f"{[s.name for s in st.stages]}, plan "
+                                 f"{names}, Chrome slices {slices}, or the "
+                                 f"outputs moved")
+        log(f"  (g) {sched}: " + ", ".join(
+            f"{s.name} ({s.kind}) {s.measured_s * 1e3:.3f}"
+            for s in st.stages)
+            + f" ms; prefix 0 {st.overhead_s * 1e3:.3f} ms, full plan "
+            f"{st.total_s * 1e3:.3f} ms (phase 6's forward "
+            f"{forward_ms[sched]:.3f} ms); Chrome JSON loads; the output "
+            f"torch.equal before and after the timer; launches "
+            f"{ {k: v for k, v in launches[f'trace_gpt2_moe_{sched}'].items() if v} }")
     return launches
 
 
@@ -1112,6 +1435,13 @@ SHAPE_OF = {
     ("expert_ffn", "train_gpt2_moe_s1_pipe2"): "train-gpt2-moe-chunk",
     ("expert_ffn_ragged", "train_qwen3_s1g_fp8"): "train-qwen3-fp8",
 }
+SHAPE_OF.update({
+    ("rmsnorm", "serve_chaos"): "decode",
+    ("expert_ffn_grouped", "serve_chaos"): "decode",
+    ("moe_dispatch", "trace_gpt2_moe_s1"): "train-gpt2-moe",
+    ("moe_combine", "trace_gpt2_moe_s1"): "train-gpt2-moe",
+    ("expert_ffn", "trace_gpt2_moe_s1"): "train-gpt2-moe",
+    ("expert_ffn_grouped", "trace_gpt2_moe_s1g"): "train-gpt2-moe"})
 # phase 9's two runs: the ragged path while the wire is fp8, the fused
 # grouped kernel on the bf16 wire after the fallback
 for _path in ("train_gpt2_moe_guarded_s1g_fp8", "train_gpt2_moe_fp8_fallback"):
@@ -1271,12 +1601,23 @@ def main() -> int:
     log(f"phase 5: {len(prompts)} requests, forward vs reversed arrival "
         f"order: identical greedy tokens")
 
+    # 10. serving under faults and deadlines (the same model and prompts;
+    # phase 5's forward run is the fault-free reference)
+    t0 = time.perf_counter()
+    log("phase 10: serving under faults, deadlines and sheds; telemetry")
+    path_launches["serve_chaos"] = serve_robustness(model, params, prompts,
+                                                    gen, fwd)
+    log(f"  (a)-(e) in {time.perf_counter() - t0:.1f} s")
+
     del model, params, runs, fwd, rev, done, eng
     torch.cuda.empty_cache()
 
-    # 6. the schedules on one rank
+    # 6. the schedules on one rank, then (phase 10 (g)) the stage traces of
+    # the same layer
     log("phase 6: one gpt2-moe MoE layer under every one-rank schedule")
-    check_schedules(dev)
+    forward_ms = check_schedules(dev)
+    torch.cuda.empty_cache()
+    path_launches.update(stage_traces(dev, forward_ms))
     torch.cuda.empty_cache()
 
     # 7. and 8. train qwen3 (full width, 4 layers) and gpt2-moe (full
@@ -1335,7 +1676,7 @@ def main() -> int:
     path_launches.update(guarded_training(dev, g2, fp8_per_layer,
                                           grouped_per_layer))
 
-    # 10. results.  Each kernel's top-level numbers are those of its main
+    # 11. results.  Each kernel's top-level numbers are those of its main
     # path (KERNELS): its launches there, counted from 0 just before the
     # run, and the phase-3 row at the shapes that path gives it.
     # ``by_path`` pairs every path's launches with the phase-3 row at that

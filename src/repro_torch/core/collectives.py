@@ -19,16 +19,21 @@ jnp in the JAX package, not a TPU kernel.
 The fp8 saturation monitor and fault injection of the JAX module
 (``set_fp8_monitor``, ``set_fp8_sat_injection``) hook the fp8 encode at
 the JAX module's points; the guard rails (``runtime/guards.py``) install
-the monitor.  The layout helpers (``dump``, ``undump_reduce``,
+the monitor.  The fp8 move's backward re-encodes its cotangent under the
+call context of its forward (``obs.trace_tag``), so a saturation event of
+the backward says which MoE call it belongs to, as the forward's does.  The layout helpers (``dump``, ``undump_reduce``,
 ``to/from_expert_batch`` and the expert-major ``*_em`` twins) are the JAX
 module's reshapes, written for torch tensors.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import torch
+
+from repro_torch import obs
 
 #: the wire formats (``repro/core/perfmodel.py``'s constant, copied)
 WIRE_DTYPES = ("f32", "bf16", "fp8_e4m3")
@@ -166,12 +171,15 @@ class _Fp8Moved(torch.autograd.Function):
     def forward(ctx, x, comm, move, bwd_move, bwd_post):
         ctx.comm, ctx.dtype = comm, x.dtype
         ctx.bwd_move, ctx.bwd_post = bwd_move or move, bwd_post
+        ctx.tags = obs.trace_context() if obs.enabled() else None
         return wire_decode(move(wire_encode(x, comm)), comm, x.dtype)
 
     @staticmethod
     def backward(ctx, g):
-        gd = wire_decode(ctx.bwd_move(wire_encode(g, ctx.comm)), ctx.comm,
-                         ctx.dtype)
+        with (obs.trace_tag(**ctx.tags) if ctx.tags
+              else contextlib.nullcontext()):
+            enc = wire_encode(g, ctx.comm)
+        gd = wire_decode(ctx.bwd_move(enc), ctx.comm, ctx.dtype)
         if ctx.bwd_post is not None:
             gd = ctx.bwd_post(gd)
         return gd, None, None, None, None

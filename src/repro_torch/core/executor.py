@@ -30,8 +30,8 @@ Wire precision: stages with ``wire=True`` get the plan's stamped
 ``CommConfig`` and call the ``wire_*`` collective twins; everything else
 calls the raw collectives.  A plan that carries an expert placement raises
 ``NotImplementedError``: placement comes with a later slice of the port.
-The JAX module's ``execute_prefix`` (the stage-timing harness) comes with
-the ``obs`` slice.
+``execute_prefix`` runs the first k stages for the stage-timing harness
+(``repro_torch.obs.trace``).
 """
 
 from __future__ import annotations
@@ -273,16 +273,21 @@ def _emit_grouped(st, vals, ctx):
     return out.reshape(El, Gc, M)
 
 
-def execute(plan: Plan, x, wg, w1, w3, w2, info):
-    """Run one MoE layer under ``plan`` on one rank.  ``x`` is the (S, M)
-    token slice; returns ``(y, aux)`` with the gate's aux (aux and z
-    losses, load, routed rows, drop fraction)."""
+def _start(plan: Plan, x, wg, w1, w3, w2, info):
+    """(validated stage order, fresh context) for one run of ``plan``."""
     if getattr(plan, "placement", None) is not None:
         raise NotImplementedError(
             f"plan {plan.name!r} carries an expert placement: placement "
             "comes with a later slice of the port")
-    order = validate(plan)
-    ctx = _Ctx(info, wg, w1, w3, w2, getattr(plan, "comm", None), x.dtype)
+    return validate(plan), _Ctx(info, wg, w1, w3, w2,
+                                getattr(plan, "comm", None), x.dtype)
+
+
+def execute(plan: Plan, x, wg, w1, w3, w2, info):
+    """Run one MoE layer under ``plan`` on one rank.  ``x`` is the (S, M)
+    token slice; returns ``(y, aux)`` with the gate's aux (aux and z
+    losses, load, routed rows, drop fraction)."""
+    order, ctx = _start(plan, x, wg, w1, w3, w2, info)
     env = {INPUT: x}
     for st in order:
         env[st.name] = _emit(st, [env[d] for d in st.deps], ctx)
@@ -292,3 +297,31 @@ def execute(plan: Plan, x, wg, w1, w3, w2, info):
     # the JAX executor pmeans the scalar aux over every axis: the identity
     # on one rank, the only layout apply_moe builds
     return env[plan.output], dict(g.aux)
+
+
+def _probe(v):
+    """Scalar fingerprint of one stage value (the gate stage's is the sum
+    of its weights)."""
+    if isinstance(v, tuple):             # gate stage: (GateResult, cap)
+        return v[0].weights.float().sum()
+    return v.float().sum()
+
+
+def execute_prefix(plan: Plan, x, wg, w1, w3, w2, info, n_stages: int):
+    """Run only the first ``n_stages`` stages of ``plan`` (validated topo
+    order) and return a 0-d f32 tensor folding a probe of the input and of
+    every stage output, as the JAX ``execute_prefix`` does (its ``psum``
+    over the layer's axes is the identity on one rank).
+
+    The stage-timing harness (``repro_torch.obs.trace``) times the prefixes
+    k = 0..n and charges stage k the difference of prefixes k and k - 1.
+    The topo order lists every stage after its deps, so any prefix is a
+    closed subgraph, and the gate result is in the context before a
+    consumer runs."""
+    order, ctx = _start(plan, x, wg, w1, w3, w2, info)
+    env = {INPUT: x}
+    acc = x.float().sum()
+    for st in order[:n_stages]:
+        env[st.name] = _emit(st, [env[d] for d in st.deps], ctx)
+        acc = acc + _probe(env[st.name])
+    return acc

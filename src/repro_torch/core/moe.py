@@ -15,6 +15,14 @@ decision at one rank, for every serving and training shape
 ``CommConfig(wire_dtype="auto")`` and ``autosched="measured"`` need the
 cost model and the measured calibration, which come with a later slice:
 they raise.  So does a multi-rank layout.
+
+Telemetry: the layer's body runs under ``obs.trace_tag(moe_call=,
+schedule=, wire=)``, so the fp8 saturation events it records say which
+call, schedule and wire they belong to.  ``moe_call`` is the layer's call
+ordinal within the step (the runtime context's ``step``; with none set it
+counts from the first call).  JAX's counts traces instead
+(``_TRACE_ORDINAL``, which a re-jit advances); PyTorch has no trace, and
+an activation-checkpointed block's recompute is a call of its own.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import autosched, executor
 from repro_torch.core import plan as planlib
 from repro_torch.core.collectives import CommConfig
@@ -35,6 +44,17 @@ from repro_torch.kernels.registry import KernelConfig
 #: the JAX autoscheduler's (schedule, n_chunks) at one rank
 AUTO_AT_ONE_RANK = ("s1g", 1)
 LATER = "comes with a later slice of the port"
+_CALLS = {"step": None, "n": 0}   # moe_call ordinals of the current step
+
+
+def _next_call() -> int:
+    """This call's ordinal within the runtime context's step."""
+    step = obs.event_context().get("step")
+    if step != _CALLS["step"]:
+        _CALLS["step"], _CALLS["n"] = step, 0
+    n = _CALLS["n"]
+    _CALLS["n"] = n + 1
+    return n
 
 
 @dataclass(frozen=True)
@@ -108,6 +128,24 @@ def shard_pool_capacity(tokens_global: int, n_token_shard: int, n_mp: int,
     return s_local, cap
 
 
+def layer_info(cfg: MoEConfig, tokens: int, n_chunks: int = 1,
+               infer: bool = False) -> MoEShardInfo:
+    """The one-rank ``MoEShardInfo`` of a layer over ``tokens`` tokens, as
+    ``apply_moe`` derives it (also the stage-trace harness's layout)."""
+    gate_cfg = cfg.gate_config()
+    s_local, cap = shard_pool_capacity(tokens, 1, 1, gate_cfg, infer=infer)
+    comm = cfg.comm or CommConfig()
+    return MoEShardInfo(
+        ep_axes=("ep",), esp_axes=("esp",), mp_axes=("mp",), n_ep=1,
+        n_esp=1, n_mp=1, tokens=s_local, cap=cap, gate=gate_cfg,
+        act=cfg.act, glu=cfg.glu, saa_chunks=cfg.saa_chunks,
+        pipeline_chunks=n_chunks, kernel=cfg.kernel,
+        # the guard rails' wire ceiling (fp8 overflow fallback), applied
+        # to the resolved wire as the JAX apply_moe applies it
+        comm=CommConfig(wire_dtype=autosched.clamp_wire(comm.wire_dtype),
+                        scaling=comm.scaling))
+
+
 def resolve_schedule(cfg: MoEConfig, schedule=None):
     """(schedule name, n_chunks) that ``apply_moe`` runs on one rank:
     ``"auto"`` -> ``AUTO_AT_ONE_RANK``; a chunk count > 1 routes a base
@@ -147,18 +185,7 @@ def apply_moe(x, params: dict, *, cfg: MoEConfig, schedule=None,
     """
     B, L, M = x.shape
     sched, n_chunks = resolve_schedule(cfg, schedule)
-    gate_cfg = cfg.gate_config()
-    s_local, cap = shard_pool_capacity(B * L, 1, 1, gate_cfg, infer=infer)
-    comm = cfg.comm or CommConfig()
-    info = MoEShardInfo(
-        ep_axes=("ep",), esp_axes=("esp",), mp_axes=("mp",), n_ep=1,
-        n_esp=1, n_mp=1, tokens=s_local, cap=cap, gate=gate_cfg,
-        act=cfg.act, glu=cfg.glu, saa_chunks=cfg.saa_chunks,
-        pipeline_chunks=n_chunks, kernel=cfg.kernel,
-        # the guard rails' wire ceiling (fp8 overflow fallback), applied
-        # to the resolved wire as the JAX apply_moe applies it
-        comm=CommConfig(wire_dtype=autosched.clamp_wire(comm.wire_dtype),
-                        scaling=comm.scaling))
+    info = layer_info(cfg, B * L, n_chunks, infer=infer)
     body = BODY.get(sched)
     if body is None:
         # a schedule registered via plan.register_plan without a BODY
@@ -169,8 +196,11 @@ def apply_moe(x, params: dict, *, cfg: MoEConfig, schedule=None,
             return executor.execute(planlib.build_plan(base, info), xt, wg,
                                     w1, w3_, w2, info)
     xt = x.reshape(B * L, M)
-    y, gaux = body(xt, params["wg"], params["w1"],
-                   params.get("w3") if cfg.glu else None, params["w2"], info)
+    with obs.trace_tag(moe_call=_next_call(), schedule=sched,
+                       wire=info.comm.wire_dtype):
+        y, gaux = body(xt, params["wg"], params["w1"],
+                       params.get("w3") if cfg.glu else None, params["w2"],
+                       info)
     y = y.reshape(B, L, M).to(x.dtype)
     if cfg.n_shared_experts:
         h = torch.einsum("blm,mf->blf", x, params["shared_w1"])

@@ -26,20 +26,32 @@ rollback to the checkpoints under ``--ckpt``, the fp8 overflow fallback);
 
 and a guarded run ends with the JAX launcher's chaos contract: a finite
 final loss, at least one skipped step under a ``nan_grad`` plan, and
-``CHAOS TRAIN OK``.  Flags of the JAX launcher for what later slices bring
-(``--wire-dtype auto``, ``--autosched``, placement, telemetry) are
-refused with an error, never ignored.
+``CHAOS TRAIN OK``.
+
+Telemetry, as in JAX: ``--metrics-dir DIR`` streams the run's events
+(``train_step`` per logged step, the guards' events, ``fp8_sat``) as JSONL
+into DIR; ``--trace`` (needs ``--metrics-dir``) then times the MoE
+layer's plan stages (CUDA events on the card) and writes a Chrome trace
+there; ``--log-json FILE`` writes the history (with ``--guards`` or
+``--metrics-dir``: a record of the history, the guard counters and
+events, the LR scale and the telemetry files).  Flags of the JAX launcher
+for what later slices bring (``--wire-dtype auto``, ``--autosched``,
+``--placement auto``) are refused with an error, never ignored.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import math
+import os
+import sys
 import time
 from dataclasses import replace
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs import get_config
 from repro_torch.core.collectives import CommConfig
 from repro_torch.core.schedules import SCHEDULES
@@ -103,14 +115,13 @@ def main(argv=None):
                          "torch.profiler; print device time by kernel and "
                          "the device's busy share (CUDA only)")
     args = ap.parse_args(argv)
-    for flag, used in (("--log-json", args.log_json),
-                       ("--metrics-dir", args.metrics_dir),
-                       ("--trace", args.trace),
-                       ("--placement auto", args.placement == "auto"),
+    for flag, used in (("--placement auto", args.placement == "auto"),
                        ("--autosched", args.autosched),
                        ("--wire-dtype auto", args.wire_dtype == "auto")):
         if used:
             ap.error(f"{flag} {LATER}")
+    if args.trace and not args.metrics_dir:
+        ap.error("--trace requires --metrics-dir")
     if args.steps < 1:
         ap.error("--steps must be >= 1")
     if args.pipeline_chunks is not None and args.pipeline_chunks < 1:
@@ -133,6 +144,12 @@ def main(argv=None):
     elif args.layers:
         cfg = replace(cfg, n_layers=args.layers)
 
+    if args.metrics_dir:
+        obs.configure(args.metrics_dir, meta={
+            "kind": "train", "arch": args.arch, "steps": args.steps,
+            "seq_len": args.seq, "batch": args.batch,
+            "schedule": args.schedule, "device": str(dev),
+            "argv": sys.argv[1:] if argv is None else list(argv)})
     model = Model(cfg, device=dev)
     opt = AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 5),
                       total_steps=args.steps)
@@ -188,6 +205,47 @@ def main(argv=None):
             for row in prof[key]:
                 print(f"  {row['ms']:9.3f} ms {row['calls']:6d} x  "
                       f"{row['name'][:90]}")
+    trace_file = None
+    if args.trace:
+        if cfg.moe is None:
+            print("--trace: dense arch has no MoE plan stages; skipping",
+                  flush=True)
+        else:
+            from repro_torch.obs.audit import trace_schedule
+            from repro_torch.obs.trace import save_chrome_trace
+            sched = args.schedule
+            if sched in (None, "auto") or sched.endswith("_seqpar"):
+                sched = "s1"   # concrete, trace-compatible default
+            st = trace_schedule(cfg.moe, args.batch * args.seq, sched,
+                                n_chunks=args.pipeline_chunks or 1,
+                                device=dev)
+            trace_file = os.path.join(args.metrics_dir,
+                                      f"trace_{sched}.json")
+            save_chrome_trace(st, trace_file)
+            obs.emit("stage_trace", schedule=sched, path=trace_file,
+                     total_s=st.total_s, n_stages=st.n_stages)
+            print(f"stage trace ({sched}, {st.n_stages} stages, "
+                  f"{st.total_s * 1e3:.3f} ms) -> {trace_file}", flush=True)
+
+    metrics_files = None
+    if args.metrics_dir:
+        metrics_files = list(obs.get_sink().paths)
+        obs.close()
+    if args.log_json:
+        os.makedirs(os.path.dirname(os.path.abspath(args.log_json)),
+                    exist_ok=True)
+        rec = hist if (guards is None and not args.metrics_dir) \
+            else {"history": hist}
+        if args.metrics_dir:
+            rec["obs"] = {"metrics_dir": args.metrics_dir,
+                          "metrics_files": metrics_files,
+                          "trace_file": trace_file}
+        if guards is not None:
+            rec.update({"guards": dict(tr.guard_state.counters),
+                        "guard_events": tr.guard_state.events,
+                        "lr_scale": tr.guard_state.lr_scale})
+        with open(args.log_json, "w") as f:
+            json.dump(rec, f, indent=1)
     if guards is not None:
         gs = tr.guard_state
         # the chaos contract: an injected-fault run must still END finite

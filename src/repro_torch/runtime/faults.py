@@ -1,7 +1,6 @@
 """Deterministic fault injection: one seeded spec drives every failure
 path the runtime layer must survive (a copy of ``repro/runtime/faults.py``,
-which is framework-free; the serve keys wait for the serving-robustness
-slice of the port).
+which is framework-free).
 
 The guard rails / rollback / serve-SLO machinery (``runtime`` +
 ``serve.engine``) would be untestable folklore without a way to *cause*

@@ -25,10 +25,14 @@ Where JAX's encode reports each count to the host through
 ``jax.debug.callback``, the port's adds each encode's count to an int64
 tensor on the encode's device, with no sync; the count reaches the host
 counters only when :func:`fp8_sat_counts` (or ``check_fp8``) reads it,
-once per guarded step.
+once per guarded step.  With a telemetry sink installed each encode's
+count also waits on the card beside its (total, event context), and the
+same read emits one ``fp8_sat`` event per encode that saturated: JAX's
+events, with no sync per encode.
 
 All of it is opt-in: with ``guards=None`` the Trainer runs the plain
-step function and none of this module is consulted.
+step function, and consults this module only with a sink installed, for
+the ``fp8_sat`` events.
 """
 
 from __future__ import annotations
@@ -36,6 +40,9 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass, field
 
+import torch
+
+from repro_torch import obs
 from repro_torch.obs.registry import Histogram
 
 OK = "ok"
@@ -166,10 +173,12 @@ class GuardState:
 # ``collectives.wire_encode`` (fp8 path) hands each encode's saturating
 # count (a 0-d int64 tensor on the encode's device) and its element count
 # (a Python int) to the installed monitor.  The device counts wait in one
-# int64 tensor per device until a reader folds them into ``_SAT``.
+# int64 tensor per device until a reader folds them into ``_SAT``; with a
+# sink installed, each encode's count also waits in ``_SAT_EVENTS``.
 
 _SAT = {"sat": 0, "total": 0}
 _SAT_DEVICE = {}                 # torch.device -> 0-d int64 tensor
+_SAT_EVENTS = []                 # (0-d int64 tensor, total, event context)
 
 
 def _sat_cb(sat, total: int) -> None:
@@ -179,14 +188,25 @@ def _sat_cb(sat, total: int) -> None:
     else:
         acc.add_(sat)
     _SAT["total"] += int(total)
+    if obs.enabled():
+        _SAT_EVENTS.append((sat, int(total), obs.event_context()))
 
 
-def _fold() -> None:
+def fold_fp8() -> None:
     """Move the device-side counts into the host counters (one sync per
-    device)."""
+    device) and emit the pending ``fp8_sat`` events (one more read), in
+    encode order, each with the context its encode ran under.  Nothing
+    pending costs no sync."""
     for acc in _SAT_DEVICE.values():
         _SAT["sat"] += int(acc.item())
     _SAT_DEVICE.clear()
+    if _SAT_EVENTS:
+        pending = list(_SAT_EVENTS)
+        _SAT_EVENTS.clear()
+        sats = torch.stack([s for s, _, _ in pending]).tolist()
+        for n, (_, total, ctx) in zip(sats, pending):
+            if n:
+                obs.emit("fp8_sat", sat=n, total=total, **ctx)
 
 
 def enable_fp8_monitor() -> None:
@@ -203,11 +223,12 @@ def disable_fp8_monitor() -> None:
 
 def reset_fp8_counter() -> None:
     _SAT_DEVICE.clear()
+    _SAT_EVENTS.clear()
     _SAT["sat"] = _SAT["total"] = 0
 
 
 def fp8_sat_counts() -> tuple:
-    _fold()
+    fold_fp8()
     return _SAT["sat"], _SAT["total"]
 
 

@@ -10,6 +10,18 @@ Request lifecycle:
          -> decode rounds (continuous batch over the whole row pool)
          -> finish (EOS / token budget) -> release pages -> detokenize
 
+and, around it, the JAX engine's robustness: a request whose worst case
+(prompt + budget) exceeds the whole arena is shed at admission, a queued
+request that waited past ``queue_slo`` for blocks is shed, a running one
+past its ``deadline`` (or a fault's tick budget) is expired mid-flight,
+and the decode watchdog evicts a row that made no progress for
+``watchdog_rounds`` rounds.  Each comes back as a ``Completion`` with a
+``status`` and a ``reason``, its pages back in the arena.  The serve
+fault keys of ``runtime.faults`` (``req_timeout``, ``req_delay``,
+``alloc_starve``) key on request ids and ticks, never on the clock, and a
+delayed row sits its rounds out with a null page table, so every other
+request's stream is bitwise the fault-free one.
+
 Each ``step()`` either advances prefill for the waiting group (one
 ``Model.paged_step`` over its next chunk) or runs one decode round over all
 ``max_batch`` rows at per-row positions; with ``prefill_chunk > 0`` the two
@@ -21,9 +33,12 @@ must be the same rows the JAX engine pads.  Decode rounds run ``infer=True``
 (drop-free capacity), which keeps a row's output independent of its batch
 mates.
 
-Later slices add what the JAX engine also has: fault injection,
-deadlines and queue-SLO shedding, the decode watchdog, expert-placement
-rebalancing and telemetry.
+Telemetry: the lifecycle events of the JAX engine (``req_queued``,
+``req_admitted``, ``req_prefilled``, ``req_shed``, ``req_cancelled``,
+``decode_round``, ``req_finished`` and the run's ``serve_rollup``) go
+through ``repro_torch.obs`` when a sink is installed, each made of values
+the host already holds.  Expert-placement rebalancing comes with a later
+slice.
 """
 
 from __future__ import annotations
@@ -35,35 +50,54 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch import obs
+from repro_torch.obs.registry import Registry, quantile
+from repro_torch.runtime.faults import StarveState
 from repro_torch.serve.kvcache import KVCachePool
 from repro_torch.serve.sampler import SamplerConfig, sample
 
 
 @dataclass(frozen=True)
 class Request:
-    """One generation request: prompt token ids + budget + sampling."""
+    """One generation request: prompt token ids + budget + sampling.
+
+    ``deadline`` > 0 is a per-request wall-clock budget in seconds
+    (measured from submit/arrival); a request still running past it is
+    cancelled mid-flight, its KV pages go back to the arena and the
+    partial generation comes back with ``status="expired"``.
+    """
 
     rid: int
     prompt: tuple                      # token ids, len >= 1
     max_new_tokens: int = 16
     sampler: SamplerConfig = SamplerConfig()
     arrival: float = 0.0               # seconds after run start
+    deadline: float = 0.0              # seconds; 0 = none
 
 
 @dataclass
 class Completion:
-    """A finished request: generated ids, text, and latency breakdown."""
+    """A finished request: generated ids, text, and latency breakdown.
+
+    ``status``: ``"ok"`` (normal finish), ``"shed"`` (rejected at
+    admission, see ``reason``), ``"expired"`` (deadline blown
+    mid-flight) or ``"evicted"`` (decode watchdog).  Non-ok completions
+    carry whatever tokens were generated before cancellation.
+    """
 
     rid: int
     prompt: tuple
     tokens: list
     text: str
     timing: dict = field(default_factory=dict)   # ttft / latency seconds
+    status: str = "ok"
+    reason: str = ""
 
 
 class _State:
     __slots__ = ("req", "slot", "pos", "fill_pos", "last_tok", "generated",
-                 "t_submit", "t_admit", "t_first", "t_done")
+                 "t_submit", "t_admit", "t_first", "t_done", "t_deadline",
+                 "stall_rounds", "delay_left", "ticks_active")
 
     def __init__(self, req, slot, fill_pos, t_submit, t_admit):
         self.req, self.slot = req, slot
@@ -73,6 +107,10 @@ class _State:
         self.generated = []
         self.t_submit, self.t_admit = t_submit, t_admit
         self.t_first = self.t_done = None
+        self.t_deadline = (t_submit + req.deadline) if req.deadline else None
+        self.stall_rounds = 0          # decode rounds without advancing
+        self.delay_left = 0            # fault: rounds to sit out of decode
+        self.ticks_active = 0          # engine ticks since admission
 
 
 def _pow2(n: int) -> int:
@@ -96,12 +134,20 @@ class Engine:
     ``prefill_batch`` caps how many admissions share one prefill call.
     ``schedule`` forces one MoE schedule (any name of ``SCHEDULES``).
     Tensors live on the model's device.
+
+    Robustness knobs, all off by default: ``queue_slo`` (seconds a queued
+    request may wait for blocks before it is shed), ``watchdog_rounds``
+    (evict a decode row after this many rounds without progress) and
+    ``faults`` (a :class:`repro_torch.runtime.faults.FaultPlan`); per
+    request, ``submit(deadline=)``.
     """
 
     def __init__(self, model, *, max_batch: int = 8, max_len: int = 256,
                  schedule=None, prefill_batch: int = 1, eos_token=None,
                  detokenize=None, block_size: int = 16, n_blocks=None,
-                 prefix_cache: bool = True, prefill_chunk: int = 0):
+                 prefix_cache: bool = True, prefill_chunk: int = 0,
+                 queue_slo: float = 0.0, watchdog_rounds: int = 0,
+                 faults=None):
         cfg = model.cfg
         if cfg.attn_window is not None and cfg.attn_window < max_len:
             raise NotImplementedError(
@@ -129,13 +175,23 @@ class Engine:
                       "prefill_tokens": 0, "decode_tokens": 0,
                       "max_active": 0, "admitted": 0,
                       "prefix_hits": 0, "prefix_tokens": 0,
-                      "peak_blocks": 0}
+                      "peak_blocks": 0, "shed": 0, "shed_blocks": 0,
+                      "shed_queue": 0, "expired": 0, "evicted": 0}
         self._rid = 0
+        # request-latency rollup instruments (the one quantile codepath)
+        self.registry = Registry()
+        self.queue_slo = float(queue_slo)        # max queue wait, seconds
+        self.watchdog_rounds = int(watchdog_rounds)
+        self.faults = faults                     # runtime.faults.FaultPlan
+        sv = faults.alloc_starve() if faults is not None else None
+        self._starve = StarveState(*sv) if sv is not None else None
+        self._tick = 0                           # engine ticks (step calls)
+        self._cancelled: list = []               # Completions pending return
 
     # --- request intake -----------------------------------------------------
     def submit(self, prompt, max_new_tokens: int = 16,
                sampler: SamplerConfig = SamplerConfig(),
-               arrival: float = 0.0, rid=None) -> int:
+               arrival: float = 0.0, rid=None, deadline: float = 0.0) -> int:
         """Queue one request (prompt + budget must fit ``max_len``).
         Returns the request id."""
         prompt = tuple(int(t) for t in prompt)
@@ -147,23 +203,114 @@ class Engine:
                 f"({max_new_tokens}) exceeds max_len {self.max_len}")
         if rid is None:
             rid, self._rid = self._rid, self._rid + 1
-        self.queue.append((Request(rid=rid, prompt=prompt,
-                                   max_new_tokens=int(max_new_tokens),
-                                   sampler=sampler, arrival=float(arrival)),
-                           time.perf_counter()))
+        req = Request(rid=rid, prompt=prompt,
+                      max_new_tokens=int(max_new_tokens), sampler=sampler,
+                      arrival=float(arrival), deadline=float(deadline))
+        self.queue.append((req, time.perf_counter()))
+        obs.emit("req_queued", rid=rid, prompt_len=len(prompt),
+                 max_new_tokens=int(max_new_tokens))
         return rid
+
+    # --- load shedding / cancellation ---------------------------------------
+    def _shed(self, req, t_submit, reason: str) -> None:
+        """Reject a queued request at admission with a reason (counted in
+        ``stats``, returned as a ``status="shed"`` completion)."""
+        self.stats["shed"] += 1
+        self.stats["shed_blocks" if reason.startswith("blocks")
+                   else "shed_queue"] += 1
+        t = time.perf_counter()
+        self._cancelled.append(Completion(
+            rid=req.rid, prompt=req.prompt, tokens=[], text="",
+            timing={"queued": t - t_submit}, status="shed", reason=reason))
+        obs.emit("req_shed", rid=req.rid, reason=reason,
+                 queued_s=t - t_submit)
+
+    def _cancel(self, s, status: str, reason: str = "") -> None:
+        """Cancel an in-flight request mid-prefill or mid-decode: its pages
+        go back to the arena (their ``pos`` maps are reset before the next
+        gather, as for a finished request) and the partial generation is
+        returned with the given status."""
+        self.filling = [f for f in self.filling if f is not s]
+        self.active.pop(s.slot, None)
+        self.pool.release(s.req.rid)
+        s.t_done = time.perf_counter()
+        self.stats[status] += 1
+        timing = {"latency": s.t_done - s.t_submit,
+                  "queued": s.t_admit - s.t_submit}
+        if s.t_first is not None:
+            timing["ttft"] = s.t_first - s.t_submit
+        self._cancelled.append(Completion(
+            rid=s.req.rid, prompt=s.req.prompt, tokens=list(s.generated),
+            text=self.detokenize(s.generated), timing=timing,
+            status=status, reason=reason))
+        obs.emit("req_cancelled", rid=s.req.rid, status=status,
+                 reason=reason, tokens=len(s.generated),
+                 latency_s=timing["latency"])
+
+    def _infeasible_blocks(self, req) -> bool:
+        """True when the request's worst-case page demand exceeds the
+        whole arena: it could never be admitted, even alone (best-case
+        prefix sharing ignored: a shed is deterministic, a maybe-hit is
+        not)."""
+        need = -(-(len(req.prompt) + req.max_new_tokens)
+                 // self.pool.block_size)
+        return need > self.pool.n_blocks
+
+    def _enforce_slos(self) -> None:
+        """Expire blown deadlines (wall-clock and fault-injected tick
+        timeouts) and let the watchdog evict stalled decode rows."""
+        t = time.perf_counter()
+        for s in list(self.active.values()) + list(self.filling):
+            ft = (self.faults.req_timeout_ticks(s.req.rid)
+                  if self.faults is not None else 0)
+            if ft and s.ticks_active >= ft:
+                self._cancel(s, "expired",
+                             f"fault req_timeout after {s.ticks_active} "
+                             f"ticks")
+            elif s.t_deadline is not None and t > s.t_deadline:
+                self._cancel(s, "expired",
+                             f"deadline {s.req.deadline:.3f}s exceeded")
+            elif self.watchdog_rounds and \
+                    s.stall_rounds >= self.watchdog_rounds:
+                self._cancel(s, "evicted",
+                             f"watchdog: no progress in {s.stall_rounds} "
+                             f"decode rounds")
 
     # --- one scheduler tick -------------------------------------------------
     def step(self, params, now=None) -> list:
-        """Admit by block budget, then advance prefill for the waiting
-        group or run one decode round (alternating under chunked
-        prefill).  Returns the requests that finished this tick."""
+        """One tick, in the JAX engine's order: fault bookkeeping, the
+        SLOs, admission by block budget (shedding what can never fit or
+        waited past the queue SLO), then prefill for the waiting group or
+        one decode round (alternating under chunked prefill).  Returns the
+        requests that finished, were shed or were cancelled this tick."""
+        self._tick += 1
+        if self._starve is not None:
+            # fault: hold arena blocks hostage through the reservation
+            # ledger (exactly the accounting a real leak would consume)
+            self._starve.tick(self.pool.alloc_blocks, self._tick)
+        for s in list(self.active.values()) + list(self.filling):
+            s.ticks_active += 1
+        self._enforce_slos()
         while self.queue and len(self.filling) < self.prefill_batch:
             req, t_submit = self.queue[0]
             if now is not None and req.arrival > now:
                 break
+            if self._infeasible_blocks(req):
+                self.queue.popleft()
+                self._shed(req, t_submit, "blocks: worst-case "
+                           "prompt+budget exceeds the whole arena")
+                continue
             if not self.pool.can_admit(len(req.prompt), req.max_new_tokens):
-                break                    # backpressure
+                # backpressure, not rejection, unless the queue SLO says
+                # this request has already waited too long
+                if self.queue_slo and \
+                        time.perf_counter() - t_submit > self.queue_slo:
+                    self.queue.popleft()
+                    self._shed(req, t_submit,
+                               f"queue: waited past SLO {self.queue_slo}s "
+                               f"for blocks")
+                    continue
+                break
             self.queue.popleft()
             row, shared_toks = self.pool.alloc(req.rid, req.prompt,
                                                req.max_new_tokens)
@@ -172,9 +319,14 @@ class Engine:
                 self.stats["prefix_tokens"] += shared_toks
             if self._run_t0 is not None and req.arrival > 0:
                 t_submit = max(t_submit, self._run_t0 + req.arrival)
-            self.filling.append(_State(req, row, shared_toks, t_submit,
-                                       time.perf_counter()))
+            st = _State(req, row, shared_toks, t_submit, time.perf_counter())
+            if self.faults is not None:
+                st.delay_left = self.faults.req_delay_rounds(req.rid)
+            self.filling.append(st)
             self.stats["admitted"] += 1
+            obs.emit("req_admitted", rid=req.rid,
+                     queued_s=st.t_admit - st.t_submit,
+                     prefix_hit_tokens=shared_toks)
         if self.filling and (self._fill_turn or not self.active):
             self._prefill_chunk_round(params)
             self._fill_turn = False
@@ -185,13 +337,18 @@ class Engine:
                                        len(self.active))
         self.stats["peak_blocks"] = max(self.stats["peak_blocks"],
                                         self.pool.alloc_blocks.n_live)
-        return self._collect_finished()
+        done = self._collect_finished()
+        if self._cancelled:
+            done.extend(self._cancelled)
+            self._cancelled = []
+        return done
 
-    def run(self, params, requests=None) -> list:
-        """Drive until every queued request completes.  ``requests`` is an
-        optional iterable of (prompt, max_new_tokens, sampler, arrival)
-        tuples / dicts to submit first; arrivals are honoured against a
-        wall clock started here."""
+    def run(self, params, requests=None, *, progress=False) -> list:
+        """Drive until every queued request completes (finished, shed or
+        cancelled).  ``requests`` is an optional iterable of (prompt,
+        max_new_tokens, sampler, arrival) tuples / dicts to submit first;
+        arrivals are honoured against a wall clock started here.  With a
+        sink installed the run ends with a ``serve_rollup`` event."""
         for r in (requests or ()):
             if isinstance(r, dict):
                 self.submit(**r)
@@ -202,9 +359,14 @@ class Engine:
         while self.queue or self.filling or self.active:
             finished = self.step(params, now=time.perf_counter() - t0)
             done.extend(finished)
+            if progress and finished:
+                print(f"[serve] {len(done)} done, {len(self.active)} "
+                      f"active, {len(self.queue)} queued", flush=True)
             if not finished and not self.active and not self.filling \
                     and self.queue:
                 time.sleep(0.001)       # all arrivals in the future
+        if obs.enabled():
+            self.emit_rollup()
         return sorted(done, key=lambda c: c.rid)
 
     # --- internals ----------------------------------------------------------
@@ -290,6 +452,9 @@ class Engine:
             self.pool.commit_prefix(s.req.rid, s.req.prompt)
             self.active[s.slot] = s
             finished_fill.add(id(s))
+            obs.emit("req_prefilled", rid=s.req.rid,
+                     prompt_len=len(s.req.prompt),
+                     ttft_s=s.t_first - s.t_submit)
         self.filling = [s for s in self.filling
                         if id(s) not in finished_fill]
         self.stats["prefill_calls"] += 1
@@ -302,7 +467,18 @@ class Engine:
         temps = np.zeros((B,), np.float32)      # idle rows: greedy, ignored
         topks = np.zeros((B,), np.int32)
         keys = np.zeros((B, 2), np.uint32)
-        states = sorted(self.active.values(), key=lambda s: s.slot)
+        states = []
+        for s in sorted(self.active.values(), key=lambda s: s.slot):
+            if s.delay_left > 0:
+                # fault: this row sits the round out (its slot rides along
+                # with an all-null table, so its batch mates are bitwise
+                # unaffected); the watchdog counts the stall
+                s.delay_left -= 1
+                s.stall_rounds += 1
+                continue
+            states.append(s)
+        if not states:
+            return
         for s in states:
             tokens[s.slot, 0] = s.last_tok
             steps[s.slot] = s.pos
@@ -318,8 +494,14 @@ class Engine:
             s.last_tok = int(tok[s.slot])
             s.generated.append(s.last_tok)
             s.pos += 1
+            s.stall_rounds = 0
         self.stats["decode_calls"] += 1
         self.stats["decode_tokens"] += len(states)
+        if obs.enabled():
+            obs.emit("decode_round", tick=self._tick, rows=len(states),
+                     active=len(self.active),
+                     block_occupancy=self.pool.alloc_blocks.n_live
+                     / max(self.pool.n_blocks, 1))
 
     def _collect_finished(self) -> list:
         done = []
@@ -336,32 +518,54 @@ class Engine:
             timing = {"ttft": s.t_first - s.t_submit,
                       "latency": s.t_done - s.t_submit,
                       "queued": s.t_admit - s.t_submit}
+            self.registry.histogram("latency_s").add(timing["latency"])
+            self.registry.histogram("ttft_s").add(timing["ttft"])
+            obs.emit("req_finished", rid=s.req.rid,
+                     tokens=len(s.generated), ttft_s=timing["ttft"],
+                     latency_s=timing["latency"])
             done.append(Completion(
                 rid=s.req.rid, prompt=s.req.prompt,
                 tokens=list(s.generated),
                 text=self.detokenize(s.generated), timing=timing))
         return done
 
-
-def quantile(xs, p: float) -> float:
-    """Nearest-rank quantile of an already sorted, non-empty sample (the
-    JAX package's ``obs.registry.quantile``); ``p`` in percent."""
-    n = len(xs)
-    if n == 0:
-        raise ValueError("quantile of empty sample")
-    if p <= 0.0:
-        return float(xs[0])
-    return float(xs[min(int(p / 100.0 * n), n - 1)])
+    def emit_rollup(self) -> dict:
+        """Snapshot the engine's rolling latency instruments and counters
+        into one ``serve_rollup`` event (written when a sink is installed)
+        and return the snapshot."""
+        admitted = max(self.stats["admitted"], 1)
+        snap = self.registry.snapshot()
+        snap.update(self.stats)
+        snap["prefix_hit_rate"] = self.stats["prefix_hits"] / admitted
+        snap["block_occupancy"] = (self.pool.alloc_blocks.n_live
+                                   / max(self.pool.n_blocks, 1))
+        obs.emit("serve_rollup", **snap)
+        return snap
 
 
 def latency_stats(completions) -> dict:
     """Throughput + p50/p95/p99 latency summary for a finished run (the
-    JAX package's function; zeros where there is nothing to measure)."""
-    ok = [c for c in completions if "latency" in c.timing]
+    JAX package's function).
+
+    Total on any input: empty runs, single samples and mixed-status
+    completion lists all produce the full key set (zeros where there is
+    nothing to measure).  Percentiles are computed over the ``status ==
+    "ok"`` completions through ``obs.registry.quantile``; shed, expired
+    and evicted requests are counted (``n_shed`` / ``n_cancelled``) but
+    never enter the latency distribution.
+    """
+    completions = list(completions)
+    ok = [c for c in completions
+          if getattr(c, "status", "ok") == "ok" and "latency" in c.timing]
     out = {
         "n_requests": len(ok), "n_tokens": 0, "tok_per_s": 0.0,
         "p50_ms": 0.0, "p95_ms": 0.0, "p99_ms": 0.0,
         "ttft_p50_ms": 0.0, "ttft_p99_ms": 0.0,
+        "n_shed": sum(1 for c in completions
+                      if getattr(c, "status", "ok") == "shed"),
+        "n_cancelled": sum(1 for c in completions
+                           if getattr(c, "status", "ok")
+                           in ("expired", "evicted")),
     }
     if not ok:
         return out

@@ -5,8 +5,13 @@
 ``Trainer(guards=...)`` runs the fault-tolerant loop: the guarded step
 (skip-step and LR backoff), retained-checkpoint rollback through
 ``ckpt_path``, the fp8 wire-overflow fallback and the ``faults``
-injection hooks.  Not here yet (later slices): load-adaptive
-rebalancing and the telemetry sinks (``obs.emit``).
+injection hooks.  With a telemetry sink installed (``repro_torch.obs``)
+both loops set the runtime context's ``step`` and emit one ``train_step``
+event per history row, the guarded loop its ``guard_skip``,
+``guard_rollback`` and ``fp8_fallback`` events, and both the fp8 encodes'
+``fp8_sat`` events, as the JAX loop does; every field is a value the loop
+already holds on the host.  Not here yet (a later slice): load-adaptive
+rebalancing and its ``expert_load`` events.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.models.model import Model
 from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
                                      leaves)
@@ -125,6 +131,11 @@ class Trainer:
             print(f"expert load (routed rows/expert, all layers): [{vals}]",
                   flush=True)
 
+    def _emit_train_step(self, m):
+        """One ``train_step`` event per history row: the streaming twin of
+        ``history``."""
+        obs.emit("train_step", **m)
+
     def _log(self, m):
         print(f"step {m['step']:5d}  loss {m['loss']:.4f}  "
               f"ce {m['ce']:.4f}  gnorm {m['grad_norm']:.3f}  "
@@ -143,8 +154,15 @@ class Trainer:
                                      log_every, ckpt_every)
         history = []
         dev = self.model.device
+        # with a sink, the fp8 encodes' saturation counts wait on the card
+        # and are read on the logged rows, where the loop reads anyway
+        sat_events = obs.enabled()
+        if sat_events:
+            guardlib.enable_fp8_monitor()
         t0 = time.perf_counter()
         for step in range(n_steps):
+            if obs.enabled():
+                obs.set_context(step=step)
             batch = data.tensors(step, dev)
             params, opt_state, metrics = self.train_step(params, opt_state,
                                                          batch)
@@ -155,12 +173,17 @@ class Trainer:
                 m["step"] = step
                 m["wall_s"] = time.perf_counter() - t0
                 history.append(m)
+                if sat_events:
+                    guardlib.fold_fp8()
+                self._emit_train_step(m)
                 self._log(m)
             if ckpt_every and self.ckpt_path and step and \
                     step % ckpt_every == 0:
                 from repro_torch.checkpoint import save_checkpoint
                 save_checkpoint(self.ckpt_path,
                                 {"params": params, "opt": opt_state}, step)
+        if sat_events:
+            guardlib.disable_fp8_monitor()
         return params, opt_state, history
 
     def _run_guarded(self, params, opt_state, data, n_steps: int,
@@ -186,12 +209,17 @@ class Trainer:
         dev = self.model.device
         t0 = time.perf_counter()
         for step in range(n_steps):
+            if obs.enabled():
+                obs.set_context(step=step)
             batch = data.tensors(step, dev)
             gf = self.faults.grad_fault(step) if self.faults else 0.0
             # a skipped step returns params/opt_state untouched
             params, opt_state, metrics = self.guarded_step(
                 params, opt_state, batch, state.lr_scale, gf)
             loss = float(metrics["loss"])
+            # the step's fp8 counts (and events) while the loss read has
+            # just waited for the device
+            guardlib.fold_fp8()
             action = state.observe(step, loss, bool(metrics["nonfinite"]))
             if step == 0:
                 self._log_step0(metrics)
@@ -201,12 +229,18 @@ class Trainer:
                 if res is None:
                     # nothing restorable: limp on with the backed-off LR
                     state.record_rollback(step, None)
+                    obs.emit("guard_rollback", restored_step=None,
+                             loss=loss)
                 else:
                     params, opt_state, rstep = res
                     state.record_rollback(step, rstep)
+                    obs.emit("guard_rollback", restored_step=rstep,
+                             loss=loss)
                     print(f"step {step:5d}  ROLLBACK -> re-anchored to "
                           f"checkpoint step {rstep}", flush=True)
             elif action == guardlib.SKIP:
+                obs.emit("guard_skip", streak=state.streak,
+                         lr_scale=state.lr_scale)
                 print(f"step {step:5d}  SKIPPED (non-finite, streak "
                       f"{state.streak}, lr_scale {state.lr_scale:.3g})",
                       flush=True)
@@ -216,6 +250,8 @@ class Trainer:
                 # ceiling (params/opt state untouched)
                 autosched.set_wire_ceiling(state.cfg.fp8_fallback)
                 n = autosched.invalidate("fp8 wire overflow fallback")
+                obs.emit("fp8_fallback", sat_rate=guardlib.fp8_sat_rate(),
+                         wire=state.cfg.fp8_fallback, invalidated=n)
                 print(f"fp8 wire overflow (sat rate "
                       f"{guardlib.fp8_sat_rate():.2e}): falling back to "
                       f"{state.cfg.fp8_fallback} wire "
@@ -226,6 +262,7 @@ class Trainer:
                 m["wall_s"] = time.perf_counter() - t0
                 m["lr_scale"] = state.lr_scale
                 history.append(m)
+                self._emit_train_step(m)
                 self._log(m)
             if mgr is not None and ckpt_every and step and \
                     step % ckpt_every == 0 and action == guardlib.OK:

@@ -18,7 +18,10 @@ twice from one state, on each training path of the smoke at reduced
 size: bitwise, with no deterministic flag.  The guarded step: clean,
 bitwise the plain step; poisoned, the state bitwise untouched; the fp8
 saturation counts on the card equal to the CPU's; a checkpoint restored
-in place keeps each tensor's storage and ``requires_grad``.  Marked
+in place keeps each tensor's storage and ``requires_grad``.  Serving's
+chaos plan on the card (the untouched requests bitwise their fault-free
+streams) and a stage trace timed by CUDA events (the output unchanged by
+the timer).  Marked
 ``cuda``: they skip
 where there is no card, and run there with
 
@@ -885,3 +888,66 @@ def test_restore_in_place_keeps_identity_and_requires_grad(dev, tmp_path):
     assert {k: t.data_ptr() for k, t in live.items()} == ptrs
     for k, t in live.items():
         assert t.device.type == "cuda" and torch.equal(t, saved[k]), k
+
+
+def test_serve_chaos_on_the_card(dev):
+    """The CPU tests' chaos plan on reduced qwen3 on the card: request 1
+    expired by its tick budget, request 2 evicted by the watchdog, the
+    others torch-bitwise their fault-free streams (a delayed row rides
+    along with a null page table), the pages balanced."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.runtime import FaultPlan
+    from repro_torch.serve import Engine
+    model = Model(get_config("qwen3-moe-30b-a3b").reduced(), device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.RandomState(11)
+    prompts = [rng.randint(0, model.cfg.vocab_size, 6) for _ in range(4)]
+    kw = dict(max_batch=4, max_len=64, prefix_cache=False,
+              watchdog_rounds=5)
+
+    def run(faults=None):
+        eng = Engine(model, faults=faults, **kw)
+        for p in prompts:
+            eng.submit(p, 6)
+        done = {c.rid: c for c in eng.run(params)}
+        eng.pool.alloc_blocks.check()
+        assert eng.pool.n_live == 0
+        return done
+
+    clean = run()
+    done = run(FaultPlan.parse(
+        "req_timeout@rid=1,ticks=3;req_delay@rid=2,rounds=999;"
+        "alloc_starve@tick=1,hold=9999,rounds=4"))
+    assert done[1].status == "expired" and "tick" in done[1].reason
+    assert done[2].status == "evicted" and "watchdog" in done[2].reason
+    for rid in (0, 3):
+        assert done[rid].status == "ok"
+        assert done[rid].tokens == clean[rid].tokens
+
+
+@pytest.mark.parametrize("sched", ["s1", "s1g"])
+def test_stage_trace_on_the_card(dev, sched):
+    """A stage trace timed by CUDA events: the plan's stages in validated
+    order with non-negative times, and the layer's output torch.equal
+    before and after the timer."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import executor
+    from repro_torch.core import plan as planlib
+    from repro_torch.core.moe import apply_moe
+    from repro_torch.obs.audit import _LayerHarness
+    cfg = replace(get_config("gpt2-moe").reduced().moe, schedule=sched)
+    h = _LayerHarness(cfg, 512, seed=1, device=dev)
+    plan = planlib.build_plan(sched, h.info())
+    with torch.no_grad():
+        before, _ = apply_moe(h.x[None], h.params, cfg=cfg)
+        st = h.trace(sched, iters=3, warmup=1)
+        full, _ = executor.execute(plan, *h.args, h.info())
+    assert [s.name for s in st.stages] == \
+        [s.name for s in planlib.validate(plan)]
+    assert st.total_s > 0 and all(s.measured_s >= 0 for s in st.stages)
+    assert torch.equal(before[0], full)

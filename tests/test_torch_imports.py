@@ -60,6 +60,9 @@ assert not _build._libs, _build._libs
 assert "torch.utils.cpp_extension" not in sys.modules
 assert not any(n == "jax" or n.startswith(("jax.", "repro."))
                for n in sys.modules)
+assert {"repro_torch.obs.sink", "repro_torch.obs.trace",
+        "repro_torch.obs.audit", "repro_torch.serve.engine"} <= set(
+    sys.modules)
 print("OK", len(list(pkgutil.walk_packages(repro_torch.__path__))))
 """
     r = _run(["-c", code])
@@ -90,7 +93,6 @@ def test_entry_points_refuse_to_run_without_a_card():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--log-json", "log.json"], ["--metrics-dir", "metrics"], ["--trace"],
     ["--placement", "auto"], ["--wire-dtype", "auto"],
     ["--autosched", "analytic"], ["--autosched", "measured"]])
 def test_train_launcher_refuses_flags_of_later_slices(flag, capsys):

@@ -547,5 +547,5 @@ def test_launcher_chaos_run_on_the_cpu(tmp_path, capsys):
     assert os.listdir(ck) == ["ckpt.step00000000.npz"]
     with pytest.raises(SystemExit) as exc:
         main(["--arch", "gpt2-moe", "--reduced", "--device", "cpu",
-              "--guards", "--log-json", os.path.join(tmp_path, "l.json")])
+              "--guards", "--placement", "auto"])
     assert exc.value.code == 2
