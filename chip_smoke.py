@@ -20,7 +20,8 @@ to a plain version):
      plain version, the bound (bytes at 3.35 TB/s or flops at the type's
      peak, whichever is larger) and, as a yardstick the port never calls,
      ``torch.nn.functional.rms_norm`` / ``scaled_dot_product_attention`` /
-     ``torch.index_add``;
+     ``torch.index_add`` / ``torch.nn.functional.embedding_bag`` (held to
+     the plain combine within its tolerance first);
   4. serve full-width qwen3-moe-30b-a3b cut to 4 layers (random weights
      from a seed) through ``Engine``: 16 requests, some sharing a 32-token
      prefix, once one-shot, once with 32-token prefill chunks and once
@@ -94,7 +95,28 @@ to a plain version):
      stages, a Chrome JSON that loads, the output ``torch.equal`` before
      and after the timer, per-stage ms beside phase 6's forward; their
      launches the paths ``trace_gpt2_moe_s1`` and ``trace_gpt2_moe_s1g``;
- 11. print the kernels' JSON line (each kernel's launches on its main path
+ 11. the cost model and the autoscheduler: (a) ``fit_perfmodel``'s two
+     fits on the card (``expert_ffn``'s rate, the one-rank wire stage's
+     startup), each R^2 > 0.8, beside ``h100_model``'s data-sheet figures;
+     (b) analytic decisions under both models at qwen3's decode pool, its
+     prefill buckets and 1 x 2048 training layer and gpt2-moe's 8 x 1024:
+     each ``s1g`` x1 f32; (c) measured decisions at gpt2-moe's layer,
+     qwen3's training layer and its decode pool: every candidate finite,
+     printed sorted beside phase 6's forward times, a second ``decide``
+     the same object with no launch (paths ``autosched_measure_*``); (d)
+     gpt2-moe (12 layers, 8 x 1024) trained 3 steps under
+     ``autosched="measured"`` and an ``auto`` wire with a sink: parameters
+     and moments ``torch.equal`` to the run forced to the pick, the same
+     ``moe_call`` state per step and fp8 counts, one
+     ``autosched_decision`` event (path ``train_gpt2_moe_measured``); (e)
+     (right after phase 10 (a)-(e)) phase 4's model and 16 requests served
+     one-shot under ``autosched="measured"``: phase 4's tokens, the
+     decisions printed (path ``serve_measured``); (f) the schedule audit
+     of gpt2-moe's layer under s1, s2 and s1g with the fitted model:
+     per-stage predicted and measured ms, ``worst``, ``time_scale``; (g)
+     ``suggest_max_batch`` for phase 4's serving under both models, and
+     the serve launcher with ``--max-batch 0``;
+ 12. print the kernels' JSON line (each kernel's launches on its main path
      and the phase-3 row at that path's shapes, and under ``by_path``
      every path's launches beside the phase-3 row at that path's shapes),
      then ``{"ok": true, ...}`` as the last line.
@@ -420,22 +442,35 @@ def check_dispatch_combine(dev):
                       moe_combine_ref(buf, flat, w), tol)
         ms = time_ms(lambda: moe_combine(buf, flat, w))
         plain = time_ms(lambda: moe_combine_ref(buf, flat, w))
+        # the same function in one call: bags of k rows, the indices
+        # clamped to n - 1 and the dropped choices' weights 0, as the
+        # plain version does (its inputs made once, outside the timing)
+        bag = flat.long().clamp(max=n - 1)
+        bag_w = torch.where(flat < n, w, torch.zeros_like(w)).to(dt)
+        err_lib = compare(
+            f"F.embedding_bag[{label}]",
+            torch.nn.functional.embedding_bag(
+                bag, buf, per_sample_weights=bag_w, mode="sum"),
+            moe_combine_ref(buf, flat, w), tol)
+        lib = time_ms(lambda: torch.nn.functional.embedding_bag(
+            bag, buf, per_sample_weights=bag_w, mode="sum"))
         kept = int((flat < n).sum())
         b_ms, b_by = bound(kept * M * es + S * k * 8 + S * M * es,
                            2 * kept * M, dt)
         log(f"  moe_combine[{label}] S={S} k={k} M={M} kept {kept} {dt}: "
             f"max_abs_err {err:.3e} (tol {tol:.0e}) kernel {ms:.4f} ms  "
-            f"plain {plain:.4f} ms  (no single PyTorch call)  bound "
-            f"{b_ms:.4f} ms ({b_by})")
+            f"plain {plain:.4f} ms  F.embedding_bag {lib:.4f} ms "
+            f"(max_abs_err {err_lib:.3e})  bound {b_ms:.4f} ms ({b_by})")
         comb.append(dict(label=label, max_abs_err=err, ms=ms, plain_ms=plain,
-                         bound_ms=b_ms, bound_by=b_by, library_ms=None))
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib))
     return disp, comb
 
 
 def check_expert_ffn(dev):
-    """expert_ffn at the paths' shapes: s1d serving decode (qwen3, SwiGLU)
-    and gpt2-moe's training capacity buffer, whole and as one of two
-    chunks (two-layer silu).  Tolerance 1e-4: f32 sums of up to 3072
+    """expert_ffn at the paths' shapes: s1d serving decode (qwen3, SwiGLU),
+    qwen3's training capacity buffer (the measured calibration's
+    candidates, phase 11) and gpt2-moe's, whole and as one of two chunks
+    (two-layer silu).  Tolerance 1e-4: f32 sums of up to 3072
     products in another order than cuBLAS's."""
     import torch
     from repro_torch.configs import get_config
@@ -446,6 +481,7 @@ def check_expert_ffn(dev):
     rows = []
     for label, arch, S, infer, n_chunks in (
             ("decode", "qwen3-moe-30b-a3b", 8, True, 1),
+            ("train-qwen3", "qwen3-moe-30b-a3b", 2048, False, 1),
             ("train-gpt2-moe", "gpt2-moe", 8192, False, 1),
             ("train-gpt2-moe-chunk", "gpt2-moe", 8192, False, 2)):
         mcfg = get_config(arch).moe
@@ -1382,6 +1418,267 @@ def stage_traces(dev, forward_ms):
     return launches
 
 
+# --- phase 11: the cost model and the autoscheduler -------------------------
+
+def serve_measured(model, params, prompts, gen, want):
+    """Phase 11 (e): phase 4's model and prompts served one-shot under
+    ``autosched="measured"`` (every prefill bucket and the decode pool
+    calibrated on the card once): every request's tokens phase 4's
+    one-shot run's (``want``).  Returns the run's launches by kernel."""
+    from dataclasses import replace
+
+    from repro_torch.core import autosched
+    from repro_torch.models import Model
+    cfg = model.cfg
+    measured = Model(replace(cfg, moe=replace(cfg.moe, autosched="measured")),
+                     device=model.device)
+    autosched.clear_cache()
+    wrappers = reset_counts()
+    done, eng, wall = serve(measured, params, prompts, gen=gen)
+    launches = read_counts(wrappers)
+    bad = [i for i in range(len(prompts)) if done[i].tokens != want[i].tokens]
+    if bad:
+        raise AssertionError(f"phase 11 (e): requests {bad} differ from "
+                             f"phase 4's one-shot run")
+    summary = autosched.cache_summary()
+    if "decode]" not in summary or "autosched[measured]" not in summary:
+        raise AssertionError(f"phase 11 (e): decisions {summary!r}")
+    log(f"  (e) qwen3 served one-shot under autosched=measured: "
+        f"{len(prompts)}/{len(prompts)} requests phase 4's tokens in "
+        f"{wall:.3f} s (calibrations included); launches "
+        f"{ {k: v for k, v in launches.items() if v} }; decisions:")
+    for line in summary.splitlines():
+        log(f"      {line}")
+    autosched.clear_cache()
+    return launches
+
+
+def _measured_decision(cfg, dev, B, L, infer):
+    """Resolve ``cfg`` (measured mode) at a (B, L) pool as ``apply_moe``
+    does and return the decision it cached and its cache key."""
+    from dataclasses import replace
+
+    from repro_torch.core import autosched
+    from repro_torch.core.moe import resolve_schedule
+    before = set(autosched.cache_info())
+    resolve_schedule(replace(cfg, autosched="measured"), B=B, L=L,
+                     infer=infer, device=dev)
+    (key, d), = [(k, v) for k, v in autosched.cache_info().items()
+                 if k not in before]
+    return key, d
+
+
+def autoscheduling(dev, forward_ms, serve_cfg, prompts, gen):
+    """Phase 11 (a)-(d), (f), (g) (see the module docstring).  Returns the
+    measured paths' launches by kernel and the decision of (d)."""
+    import math
+    import tempfile
+    from dataclasses import replace
+
+    import torch
+    from repro_torch import obs
+    from repro_torch import runtime as trt
+    from repro_torch.configs import get_config
+    from repro_torch.core import autosched
+    from repro_torch.core import moe as tmoe
+    from repro_torch.core.collectives import CommConfig
+    from repro_torch.core.moe import resolve_schedule
+    from repro_torch.core.perfmodel import h100_model
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.fit_perfmodel import (measure_card,
+                                                  model_from_fits, report)
+    from repro_torch.models import Model
+    from repro_torch.obs.audit import run_schedule_audit
+    from repro_torch.obs.sink import read_events
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.serve.engine import prefill_bucket
+    from repro_torch.serve import suggest_max_batch
+    from repro_torch.train import Trainer
+    paths = {}
+
+    # (a) the card's fits
+    t0 = time.perf_counter()
+    fits = measure_card(dev)
+    fitted, sheet = model_from_fits(fits), h100_model(1, 1, 1)
+    for line in report(fits, fitted):
+        log(f"  (a) {line}")
+    if not (fits["flops"]["r2"] > 0.8 and fits["alpha"]["r2"] > 0.8):
+        raise AssertionError(f"phase 11 (a): R^2 {fits['flops']['r2']}, "
+                             f"{fits['alpha']['r2']} (want > 0.8)")
+    log(f"  (a) fitted: flops_per_s {fitted.flops_per_s:.6e}, collective "
+        f"alpha {fitted.a2a_ep_esp.alpha:.6e} s; data sheet: "
+        f"{sheet.flops_per_s:.6e}, {sheet.a2a_ep_esp.alpha:.6e} s "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # (b) analytic decisions at every main-path shape, under both models
+    q3, g2 = serve_cfg.moe, get_config("gpt2-moe").moe
+    buckets = sorted({prefill_bucket([len(p)], 256) for p in prompts}
+                     | {prefill_bucket([32], 256)})
+    shapes = ([("qwen3 decode", q3, 8, 1, True)]
+              + [(f"qwen3 prefill {b}", q3, 1, b, False) for b in buckets]
+              + [("qwen3 train", q3, 1, 2048, False),
+                 ("gpt2-moe train", g2, 8, 1024, False)])
+    for name, pm in (("data sheet", sheet), ("fitted", fitted)):
+        got = {label: resolve_schedule(c, B=B, L=L, infer=inf,
+                                       perf_model=pm)
+               for label, c, B, L, inf in shapes}
+        bad = {k: v for k, v in got.items() if v != ("s1g", 1, "f32")}
+        if bad:
+            raise AssertionError(f"phase 11 (b) {name}: {bad}")
+        log(f"  (b) analytic, {name} model: s1g x1 f32 at "
+            + ", ".join(got))
+
+    # (c) measured decisions
+    for path, label, c, B, L, inf in (
+            ("autosched_measure_gpt2_moe", "gpt2-moe 8 x 1024", g2, 8,
+             1024, False),
+            ("autosched_measure_qwen3_train", "qwen3 1 x 2048", q3, 1,
+             2048, False),
+            ("autosched_measure_qwen3_decode", "qwen3 decode 8 rows", q3, 8,
+             1, True)):
+        autosched.clear_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        wrappers = reset_counts()
+        t0 = time.perf_counter()
+        key, d = _measured_decision(c, dev, B, L, inf)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        paths[path] = read_counts(wrappers)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if not all(math.isfinite(t) for _, t in d.times):
+            raise AssertionError(f"phase 11 (c) {label}: {d.times}")
+        wrappers = reset_counts()
+        measure = autosched.measure_candidates(
+            c, tokens=B * L, d_model=c.d_model, device=dev)
+        again = autosched.decide(key[0], perf_model=key[3],
+                                 mode="measured", chunk_candidates=key[2],
+                                 wire_candidates=key[4], measure=measure)
+        resolve_schedule(replace(c, autosched="measured"), B=B, L=L,
+                         infer=inf, device=dev)
+        if again is not d or any(read_counts(wrappers).values()):
+            raise AssertionError(f"phase 11 (c) {label}: the second "
+                                 f"decide calibrated again")
+        fwd = (" (phase 6's forward ms: " + " ".join(
+            f"{k} {v:.3f}" for k, v in forward_ms.items()) + ")"
+            if c is g2 else "")
+        log(f"  (c) measured {label}: {len(d.times)} candidates in "
+            f"{secs:.2f} s, peak device memory {peak:.2f} GB; pick "
+            f"{d.schedule} x{d.n_chunks} {d.wire_dtype}; median ms "
+            + " ".join(f"{'/'.join(map(str, cand))} {t * 1e3:.3f}"
+                       for cand, t in d.times) + fwd)
+    autosched.clear_cache()
+
+    # (d) gpt2-moe trained under measured mode and an auto wire, with a
+    # sink; then from the same seed forced to its pick
+    auto = replace(g2, autosched="measured",
+                   comm=CommConfig(wire_dtype="auto"))
+    full = replace(get_config("gpt2-moe"), moe=auto)
+    data = SyntheticLM(DataConfig(vocab_size=full.vocab_size, seq_len=1024,
+                                  global_batch=8))
+    runs = {}
+
+    def run(cfg, label):
+        model = Model(cfg, device=dev)
+        tr = Trainer(model, AdamWConfig(lr=1e-3, warmup_steps=2,
+                                        total_steps=3))
+        params, opt_state = tr.setup(
+            torch.Generator(device=dev).manual_seed(0))
+        calls, step = [], tr.train_step
+
+        def counted(*a):
+            out = step(*a)
+            calls.append(dict(tmoe._CALLS))
+            return out
+        tr.train_step = counted
+        trt.reset_fp8_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            obs.configure(tmp, meta={"phase": f"11 (d) {label}"})
+            try:
+                wrappers = reset_counts()
+                params, opt_state, hist = tr.run(params, opt_state, data, 3,
+                                                 log_every=1)
+                torch.cuda.synchronize()
+                launches = read_counts(wrappers)
+                obs.flush()
+                events = read_events(obs.get_sink().paths)
+            finally:
+                obs.close()
+        runs[label] = dict(state=_state_tensors(params, opt_state),
+                           calls=calls, sat=trt.fp8_sat_counts(),
+                           events=events, launches=launches,
+                           losses=[h["loss"] for h in hist])
+        del model, tr, params, opt_state
+        torch.cuda.empty_cache()
+
+    autosched.clear_cache()
+    t0 = time.perf_counter()
+    run(full, "measured")
+    (key, d), = autosched.cache_info().items()
+    autosched.clear_cache()
+    forced = replace(full, moe=replace(
+        g2, schedule=d.schedule, pipeline_chunks=d.n_chunks,
+        comm=CommConfig(wire_dtype=d.wire_dtype)))
+    run(forced, "forced")
+    m, f = runs["measured"], runs["forced"]
+    same = [i for i, (a, b) in enumerate(zip(m["state"], f["state"]))
+            if not torch.equal(a, b)]
+    decisions = [e for e in m["events"] if e["event"] == "autosched_decision"]
+    if (same or len(m["state"]) != len(f["state"])
+            or m["calls"] != f["calls"] or m["sat"] != f["sat"]
+            or len(decisions) != 1 or key[1] != "measured"
+            or any(e["event"] == "autosched_decision" for e in f["events"])):
+        raise AssertionError(
+            f"phase 11 (d): tensors {same} differ, ordinals {m['calls']} vs "
+            f"{f['calls']}, fp8 counts {m['sat']} vs {f['sat']}, decision "
+            f"events {decisions}")
+    paths["train_gpt2_moe_measured"] = m["launches"]
+    log(f"  (d) gpt2-moe {full.n_layers} layers, 8 x 1024, 3 steps under "
+        f"autosched=measured, wire auto: pick {d.schedule} x{d.n_chunks} "
+        f"{d.wire_dtype} (from {len(d.times)} candidates); losses "
+        + " ".join(f"{x:.4f}" for x in m["losses"])
+        + f"; all {len(m['state'])} parameter and moment tensors torch.equal"
+        f" to the run forced to the pick; moe_call state per step "
+        f"{m['calls']} and fp8 counts {m['sat']} the forced run's; one "
+        f"autosched_decision event ({decisions[0]['tokens']} tokens); "
+        f"{time.perf_counter() - t0:.1f} s for both runs")
+
+    # (f) the schedule audit at gpt2-moe's layer under the fitted model
+    reports = run_schedule_audit(g2, 8 * 1024, perf_model=fitted,
+                                 device=dev)
+    for rep in reports:
+        log(f"  (f) audit {rep['schedule']}: predicted/measured ms "
+            + ", ".join(f"{s['name']} {s['predicted_s'] * 1e3:.3f}/"
+                        f"{s['measured_s'] * 1e3:.3f}" for s in rep["stages"])
+            + f"; total {rep['total_predicted_s'] * 1e3:.3f}/"
+            f"{rep['total_measured_s'] * 1e3:.3f}; worst {rep['worst']}; "
+            f"time_scale {rep['calibration']['time_scale']:.4f}; priced at "
+            f"zero: " + ", ".join(
+                f"{s['name']} {s['measured_s'] * 1e3:.3f} ms"
+                for s in rep["stages"] if s["predicted_s"] == 0.0))
+
+    # (g) the decode batch from the cost model, phase 4's serving budget
+    mean_len = min((4 + 128) / 2 + gen, 256)
+    picks = {name: suggest_max_batch(serve_cfg, perf_model=pm,
+                                     n_blocks=8 * 256 // 16, block_size=16,
+                                     mean_len=mean_len)
+             for name, pm in (("data sheet", sheet), ("fitted", fitted))}
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "qwen3-moe-30b-a3b", "--reduced", "--smoke", "--max-batch", "0"],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
+    lines = [x for x in out.stdout.splitlines()
+             if x.startswith(("auto max-batch", "autosched[", "SERVE"))]
+    if out.returncode or "SERVE SMOKE OK" not in out.stdout:
+        raise AssertionError(f"phase 11 (g): the launcher failed: "
+                             f"{out.stdout[-2000:]} {out.stderr[-2000:]}")
+    log(f"  (g) suggest_max_batch for phase 4's serving (128 blocks of 16, "
+        f"mean length {mean_len:g}): {picks}; the launcher with "
+        f"--max-batch 0: " + " | ".join(lines))
+    return paths
+
+
 #: kernel -> (source, the TPU kernel it replaces, its main path, the phase-3
 #: row at that path's shapes)
 KERNELS = {
@@ -1442,6 +1739,18 @@ SHAPE_OF.update({
     ("moe_combine", "trace_gpt2_moe_s1"): "train-gpt2-moe",
     ("expert_ffn", "trace_gpt2_moe_s1"): "train-gpt2-moe",
     ("expert_ffn_grouped", "trace_gpt2_moe_s1g"): "train-gpt2-moe"})
+# phase 11: every measured calibration runs s1g (the grouped kernel) and
+# the dispatch -> expert_ffn -> combine schedules; (d) trains with flash,
+# (e) serves with rmsnorm
+for _path, _label in (("autosched_measure_gpt2_moe", "train-gpt2-moe"),
+                      ("autosched_measure_qwen3_train", "train-qwen3"),
+                      ("autosched_measure_qwen3_decode", "decode"),
+                      ("train_gpt2_moe_measured", "train-gpt2-moe"),
+                      ("serve_measured", "decode")):
+    SHAPE_OF.update({(k, _path): _label for k in (
+        "moe_dispatch", "moe_combine", "expert_ffn", "expert_ffn_grouped")})
+SHAPE_OF[("flash_attention", "train_gpt2_moe_measured")] = "gpt2-moe"
+SHAPE_OF[("rmsnorm", "serve_measured")] = "decode"
 # phase 9's two runs: the ragged path while the wire is fp8, the fused
 # grouped kernel on the bf16 wire after the fallback
 for _path in ("train_gpt2_moe_guarded_s1g_fp8", "train_gpt2_moe_fp8_fallback"):
@@ -1609,6 +1918,14 @@ def main() -> int:
                                                     gen, fwd)
     log(f"  (a)-(e) in {time.perf_counter() - t0:.1f} s")
 
+    # 11 (e). serving under the measured autoscheduler (the same model and
+    # prompts; phase 4's one-shot run is the reference)
+    t0 = time.perf_counter()
+    log("phase 11 (e): serving under autosched=measured")
+    path_launches["serve_measured"] = serve_measured(
+        model, params, prompts, gen, runs["one-shot"])
+    log(f"  (e) in {time.perf_counter() - t0:.1f} s")
+
     del model, params, runs, fwd, rev, done, eng
     torch.cuda.empty_cache()
 
@@ -1675,8 +1992,16 @@ def main() -> int:
                          / (g2_steps * n_moe(g2)))
     path_launches.update(guarded_training(dev, g2, fp8_per_layer,
                                           grouped_per_layer))
+    torch.cuda.empty_cache()
 
-    # 11. results.  Each kernel's top-level numbers are those of its main
+    # 11. the cost model and the autoscheduler on the card ((e) ran after
+    # phase 10 (a)-(e), on phase 4's model)
+    t0 = time.perf_counter()
+    log("phase 11: the cost model and the autoscheduler")
+    path_launches.update(autoscheduling(dev, forward_ms, cfg, prompts, gen))
+    log(f"  (a)-(d), (f), (g) in {time.perf_counter() - t0:.1f} s")
+
+    # 12. results.  Each kernel's top-level numbers are those of its main
     # path (KERNELS): its launches there, counted from 0 just before the
     # run, and the phase-3 row at the shapes that path gives it.
     # ``by_path`` pairs every path's launches with the phase-3 row at that

@@ -9,12 +9,14 @@ schedule runs gate -> ``moe_dispatch`` -> (wire) -> ``expert_ffn`` ->
 (wire) -> ``moe_combine``, and ``s1g`` the fused ``expert_ffn_grouped``
 (or, on an fp8 wire, dispatch -> ``expert_ffn_ragged`` -> combine).
 
-``schedule="auto"`` is ``s1g`` with one chunk: the JAX autoscheduler's
-decision at one rank, for every serving and training shape
-(``tests/test_torch_moe.py`` and ``tests/test_torch_train.py`` pin it).
-``CommConfig(wire_dtype="auto")`` and ``autosched="measured"`` need the
-cost model and the measured calibration, which come with a later slice:
-they raise.  So does a multi-rank layout.
+``schedule="auto"`` and ``CommConfig(wire_dtype="auto")`` resolve
+through ``autosched.decide`` as in the JAX ``apply_moe``: analytically
+from the cost model (``core/perfmodel.py``, the card's ``h100_model`` by
+default) or, under ``autosched="measured"``, from a one-shot calibration
+of every candidate on the layer's device.  At one rank the analytic
+decision is ``s1g`` with one chunk on the f32 wire at every serving and
+training shape (``tests/test_torch_moe.py``, ``tests/test_torch_train.py``
+pin it).  A multi-rank layout raises.
 
 Telemetry: the layer's body runs under ``obs.trace_tag(moe_call=,
 schedule=, wire=)``, so the fp8 saturation events it records say which
@@ -29,6 +31,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -37,13 +40,11 @@ from repro_torch.core import autosched, executor
 from repro_torch.core import plan as planlib
 from repro_torch.core.collectives import CommConfig
 from repro_torch.core.gating import GateConfig, capacity
-from repro_torch.core.pipeline import PIPELINE_OF, UNCHUNKED_OF
+from repro_torch.core.perfmodel import MoELayerShape, PerfModel, h100_model
+from repro_torch.core.pipeline import PIPELINE_OF, UNCHUNKED_OF, clamp_chunks
 from repro_torch.core.schedules import BODY, SCHEDULES, MoEShardInfo
 from repro_torch.kernels.registry import KernelConfig
 
-#: the JAX autoscheduler's (schedule, n_chunks) at one rank
-AUTO_AT_ONE_RANK = ("s1g", 1)
-LATER = "comes with a later slice of the port"
 _CALLS = {"step": None, "n": 0}   # moe_call ordinals of the current step
 
 
@@ -73,10 +74,12 @@ class MoEConfig:
     #   schedule registered via plan.register_plan
     saa_chunks: int = 4
     pipeline_chunks: int = 1      # micro-chunks for the *_pipe bodies (1 = off)
-    autosched: str = "analytic"   # "auto" decision mode ("measured" raises)
+    autosched: str = "analytic"   # "auto" decision mode: analytic | measured
     act: str = "silu"             # expert activation ("silu" | "gelu")
     kernel: KernelConfig = KernelConfig()
-    comm: CommConfig = CommConfig()  # wire format: f32 | bf16 | fp8_e4m3
+    comm: CommConfig = CommConfig()  # wire format: f32 | bf16 | fp8_e4m3;
+    #   "auto" lets the autoscheduler pick f32-vs-bf16 jointly with
+    #   (schedule, n_chunks)
 
     def gate_config(self) -> GateConfig:
         return GateConfig(
@@ -129,12 +132,16 @@ def shard_pool_capacity(tokens_global: int, n_token_shard: int, n_mp: int,
 
 
 def layer_info(cfg: MoEConfig, tokens: int, n_chunks: int = 1,
-               infer: bool = False) -> MoEShardInfo:
+               infer: bool = False, wire=None) -> MoEShardInfo:
     """The one-rank ``MoEShardInfo`` of a layer over ``tokens`` tokens, as
-    ``apply_moe`` derives it (also the stage-trace harness's layout)."""
+    ``apply_moe`` derives it (also the stage-trace harness's layout).
+    ``wire`` is the resolved wire dtype (default: the config's, with
+    ``"auto"`` read as f32, as the JAX audit harness reads it)."""
     gate_cfg = cfg.gate_config()
     s_local, cap = shard_pool_capacity(tokens, 1, 1, gate_cfg, infer=infer)
     comm = cfg.comm or CommConfig()
+    if wire is None:
+        wire = "f32" if comm.wire_dtype == "auto" else comm.wire_dtype
     return MoEShardInfo(
         ep_axes=("ep",), esp_axes=("esp",), mp_axes=("mp",), n_ep=1,
         n_esp=1, n_mp=1, tokens=s_local, cap=cap, gate=gate_cfg,
@@ -142,26 +149,64 @@ def layer_info(cfg: MoEConfig, tokens: int, n_chunks: int = 1,
         pipeline_chunks=n_chunks, kernel=cfg.kernel,
         # the guard rails' wire ceiling (fp8 overflow fallback), applied
         # to the resolved wire as the JAX apply_moe applies it
-        comm=CommConfig(wire_dtype=autosched.clamp_wire(comm.wire_dtype),
+        comm=CommConfig(wire_dtype=autosched.clamp_wire(wire),
                         scaling=comm.scaling))
 
 
-def resolve_schedule(cfg: MoEConfig, schedule=None):
-    """(schedule name, n_chunks) that ``apply_moe`` runs on one rank:
-    ``"auto"`` -> ``AUTO_AT_ONE_RANK``; a chunk count > 1 routes a base
-    schedule to its ``*_pipe`` body, as the JAX ``apply_moe`` does."""
+def select_schedule(cfg: MoEConfig, shape: MoELayerShape,
+                    perf_model: Optional[PerfModel] = None) -> str:
+    """Schedule name for one layer shape (no chunk count; see
+    ``autosched.decide`` for the full (schedule, n_chunks) decision)."""
+    if cfg.schedule != "auto":
+        return cfg.schedule
+    pm = perf_model or h100_model(shape.n_ep, shape.n_esp, shape.n_mp)
+    return autosched.decide(shape, perf_model=pm).schedule
+
+
+def resolve_schedule(cfg: MoEConfig, schedule=None, *, B: int = 1,
+                     L: int = 1, infer: bool = False,
+                     perf_model: Optional[PerfModel] = None,
+                     device="cpu"):
+    """(schedule name, n_chunks, wire dtype) that ``apply_moe`` runs on
+    one rank for a (B, L) token pool, as the JAX ``apply_moe`` resolves
+    them: ``"auto"`` (schedule or wire) asks ``autosched.decide`` for the
+    layer's ``MoELayerShape`` — chunk candidates clamped to the capacity
+    (one chunk for a decode pool), a forced schedule with an ``"auto"``
+    wire restricting the grid to itself, a calibration on ``device``
+    under ``autosched="measured"`` — then the wire ceiling applies, and a
+    chunk count > 1 routes a base schedule to its ``*_pipe`` body."""
     sched = schedule or cfg.schedule
     n_chunks = max(cfg.pipeline_chunks, 1)
     wire = (cfg.comm or CommConfig()).wire_dtype
-    if wire == "auto":
-        raise NotImplementedError(
-            f"wire_dtype='auto' needs the autoscheduler's cost model, which "
-            f"{LATER}; pick f32, bf16 or fp8_e4m3")
-    if cfg.autosched != "analytic":
-        raise NotImplementedError(
-            f"autosched={cfg.autosched!r} (the measured calibration) {LATER}")
-    if sched == "auto":
-        sched, n_chunks = AUTO_AT_ONE_RANK
+    if sched == "auto" or wire == "auto":
+        s_local, cap = shard_pool_capacity(B * L, 1, 1, cfg.gate_config(),
+                                           infer=infer)
+        shape = MoELayerShape(
+            B=max(s_local // max(L, 1), 1), L=min(L, s_local),
+            M=cfg.d_model, H=cfg.d_ff, E=cfg.n_experts, k=cfg.top_k,
+            f=cfg.capacity_factor, n_mp=1, n_esp=1, n_ep=1, infer=infer)
+        # only chunk counts the bodies can run (scored == executed); a
+        # decode pool never chunks
+        cands = ((1,) if infer else
+                 tuple(sorted({clamp_chunks(cap, n)
+                               for n in autosched.DEFAULT_CHUNKS})))
+        forced = None
+        if sched != "auto":
+            forced = (UNCHUNKED_OF.get(sched, sched),)
+            cands = (clamp_chunks(cap, n_chunks),)
+        wire_cands = autosched.AUTO_WIRE if wire == "auto" else (wire,)
+        measure = (autosched.measure_candidates(
+            cfg, tokens=B * L, d_model=cfg.d_model, device=device)
+            if cfg.autosched == "measured" else None)
+        decision = autosched.decide(shape, perf_model=perf_model,
+                                    mode=cfg.autosched,
+                                    chunk_candidates=cands,
+                                    wire_candidates=wire_cands,
+                                    schedules=forced, measure=measure)
+        if sched == "auto":
+            sched, n_chunks = decision.schedule, decision.n_chunks
+        wire = decision.wire_dtype if wire == "auto" else wire
+    wire = autosched.clamp_wire(wire)
     if n_chunks > 1 and sched in PIPELINE_OF:
         sched = PIPELINE_OF[sched]
     if sched not in BODY and UNCHUNKED_OF.get(sched, sched) \
@@ -169,11 +214,11 @@ def resolve_schedule(cfg: MoEConfig, schedule=None):
         raise KeyError(f"unknown schedule {sched!r}: not in schedules.BODY "
                        f"nor the plan registry (have "
                        f"{sorted(set(SCHEDULES) | set(planlib.PLANS))})")
-    return sched, n_chunks
+    return sched, n_chunks, wire
 
 
 def apply_moe(x, params: dict, *, cfg: MoEConfig, schedule=None,
-              infer: bool = False):
+              perf_model: Optional[PerfModel] = None, infer: bool = False):
     """One MoE layer on one rank under the configured schedule.
     x: (B, L, M).  Returns ``(y, aux)`` with aux ``aux_loss``, ``z_loss``,
     ``drop_frac`` and ``expert_load`` (the (E,) routed rows), as the JAX
@@ -182,10 +227,13 @@ def apply_moe(x, params: dict, *, cfg: MoEConfig, schedule=None,
     ``infer=True`` marks a decode pool (drop-free capacity); prefill
     pools (``infer=False``) take the training capacity, so padding rows of
     a prefill bucket compete for slots exactly as in the JAX engine.
+    ``perf_model`` prices ``"auto"`` (default: the card's ``h100_model``).
     """
     B, L, M = x.shape
-    sched, n_chunks = resolve_schedule(cfg, schedule)
-    info = layer_info(cfg, B * L, n_chunks, infer=infer)
+    sched, n_chunks, wire = resolve_schedule(
+        cfg, schedule, B=B, L=L, infer=infer, perf_model=perf_model,
+        device=x.device)
+    info = layer_info(cfg, B * L, n_chunks, infer=infer, wire=wire)
     body = BODY.get(sched)
     if body is None:
         # a schedule registered via plan.register_plan without a BODY

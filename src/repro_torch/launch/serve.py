@@ -18,6 +18,11 @@ contract (every request comes back, some finish) and prints
 ``SERVE CHAOS OK``.  Telemetry: ``--metrics-dir DIR`` streams the request
 lifecycle as JSONL into DIR; ``--trace`` (needs ``--metrics-dir``) times
 the decode MoE schedule's plan stages and writes a Chrome trace there.
+``--max-batch 0`` sizes the decode batch from the cost model
+(``suggest_max_batch``: predicted decode throughput under the KV block
+budget); a run ends with the autoscheduler's decisions, one
+``autosched[...]`` line per layer shape (``decode`` marks the decode
+pools' decisions, kept apart from the prefill buckets').
 """
 
 from __future__ import annotations
@@ -34,10 +39,12 @@ import torch
 
 from repro_torch import obs
 from repro_torch.configs import get_config
+from repro_torch.core import autosched
 from repro_torch.core.schedules import SCHEDULES
 from repro_torch.launch.common import device_profile, resolve_device
 from repro_torch.models import Model
-from repro_torch.serve import Engine, SamplerConfig, latency_stats
+from repro_torch.serve import (Engine, SamplerConfig, latency_stats,
+                               suggest_max_batch)
 
 
 def main(argv=None):
@@ -51,7 +58,8 @@ def main(argv=None):
     ap.add_argument("--arrival-rate", type=float, default=0.0,
                     help="requests/s (0 = all arrive at t=0)")
     ap.add_argument("--max-batch", type=int, default=8,
-                    help="decode batch / KV rows")
+                    help="decode batch / KV rows (0 = sized by the cost "
+                         "model)")
     ap.add_argument("--max-len", type=int, default=256)
     ap.add_argument("--prompt-len", type=int, default=16,
                     help="max synthetic prompt length")
@@ -107,8 +115,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.requests < 1:
         ap.error("--requests must be >= 1")
-    if args.max_batch < 1:
-        ap.error("--max-batch must be >= 1")
+    if args.max_batch < 0:
+        ap.error("--max-batch must be >= 0")
     if args.trace and not args.metrics_dir:
         ap.error("--trace requires --metrics-dir")
     if args.smoke:
@@ -129,6 +137,15 @@ def main(argv=None):
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     params = model.init(gen)
+    if args.max_batch == 0:          # cost-model bucket sizing (t_decode)
+        # mean live context per row: half the prompt spread + the budget
+        mean_len = min((4 + args.prompt_len) / 2 + args.gen, args.max_len)
+        args.max_batch = suggest_max_batch(
+            cfg, candidates=(1, 2, 4, 8, 16, 32),
+            n_blocks=args.n_blocks or None, block_size=args.block_size,
+            mean_len=mean_len)
+        print(f"auto max-batch (t_decode, block budget): {args.max_batch}",
+              flush=True)
     faults = None
     if args.faults:
         from repro_torch.runtime import FaultPlan
@@ -200,6 +217,9 @@ def main(argv=None):
         print(f"robustness: {s['shed']} shed "
               f"({s['shed_blocks']} blocks, {s['shed_queue']} queue SLO), "
               f"{s['expired']} expired, {s['evicted']} evicted")
+    summary = autosched.cache_summary()
+    if summary:
+        print(summary)
     if profile is not None:
         print(f"profile: device busy {profile['busy_ms']:.1f} ms "
               f"(profiled run) over {profile['wall_ms']:.1f} ms wall "

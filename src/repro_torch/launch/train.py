@@ -10,7 +10,12 @@
 The flags are the JAX launcher's for what the port runs, plus ``--device``
 and ``--profile``: ``--schedule`` takes every name of the JAX package's
 ``SCHEDULES`` (run on one rank), ``--pipeline-chunks`` the ``*_pipe``
-bodies' chunk count and ``--wire-dtype`` f32, bf16 or fp8_e4m3.
+bodies' chunk count, ``--wire-dtype`` f32, bf16, fp8_e4m3 or auto (the
+autoscheduler picks f32 or bf16 jointly with the schedule) and
+``--autosched analytic|measured`` how ``"auto"`` decides: from the cost
+model, or by timing every candidate on the card once per layer shape.
+After the first step the run prints one ``autosched[...]`` line per
+decision.
 ``--layers N`` cuts the depth and keeps the full width (with
 ``--reduced``, the reduced config's depth).  Weights are random from a
 fixed seed; batches are ``SyntheticLM``'s.  Without a CUDA card the
@@ -34,9 +39,9 @@ into DIR; ``--trace`` (needs ``--metrics-dir``) then times the MoE
 layer's plan stages (CUDA events on the card) and writes a Chrome trace
 there; ``--log-json FILE`` writes the history (with ``--guards`` or
 ``--metrics-dir``: a record of the history, the guard counters and
-events, the LR scale and the telemetry files).  Flags of the JAX launcher
-for what later slices bring (``--wire-dtype auto``, ``--autosched``,
-``--placement auto``) are refused with an error, never ignored.
+events, the LR scale and the telemetry files).  ``--placement auto`` (the
+JAX launcher's expert rebalancing) comes with a later slice of the port:
+it is refused with an error, never ignored.
 """
 
 from __future__ import annotations
@@ -75,13 +80,15 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--schedule", default=None, choices=SCHEDULES,
-                    help="Parm schedule override, run on one rank (auto "
-                         "resolves to s1g there)")
+                    help="Parm schedule override, run on one rank "
+                         "(default auto: the autoscheduler decides)")
     ap.add_argument("--pipeline-chunks", type=int, default=None,
                     help="micro-chunk count for the pipelined bodies "
                          "(1 = unchunked)")
     ap.add_argument("--autosched", default=None,
-                    choices=["analytic", "measured"])
+                    choices=["analytic", "measured"],
+                    help="how schedule/wire 'auto' decides: the cost "
+                         "model, or a one-shot timing of every candidate")
     ap.add_argument("--wire-dtype", default=None,
                     choices=["f32", "bf16", "fp8_e4m3", "auto"],
                     help="wire format of the MoE collectives (on one rank "
@@ -115,11 +122,8 @@ def main(argv=None):
                          "torch.profiler; print device time by kernel and "
                          "the device's busy share (CUDA only)")
     args = ap.parse_args(argv)
-    for flag, used in (("--placement auto", args.placement == "auto"),
-                       ("--autosched", args.autosched),
-                       ("--wire-dtype auto", args.wire_dtype == "auto")):
-        if used:
-            ap.error(f"{flag} {LATER}")
+    if args.placement == "auto":
+        ap.error(f"--placement auto {LATER}")
     if args.trace and not args.metrics_dir:
         ap.error("--trace requires --metrics-dir")
     if args.steps < 1:
@@ -135,6 +139,8 @@ def main(argv=None):
         moe_kw = {}
         if args.pipeline_chunks is not None:
             moe_kw["pipeline_chunks"] = args.pipeline_chunks
+        if args.autosched:
+            moe_kw["autosched"] = args.autosched
         if args.wire_dtype:
             moe_kw["comm"] = replace(cfg.moe.comm or CommConfig(),
                                      wire_dtype=args.wire_dtype)
@@ -171,7 +177,8 @@ def main(argv=None):
     if cfg.moe is not None:
         print(f"moe: schedule {args.schedule or cfg.moe.schedule}, "
               f"{cfg.moe.pipeline_chunks} chunk(s), wire "
-              f"{cfg.moe.comm.wire_dtype}", flush=True)
+              f"{cfg.moe.comm.wire_dtype}, autosched {cfg.moe.autosched}",
+              flush=True)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()

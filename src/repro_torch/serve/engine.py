@@ -585,3 +585,50 @@ def latency_stats(completions) -> dict:
         "ttft_p99_ms": 1e3 * pct(ttft, 99),
     })
     return out
+
+
+def suggest_max_batch(cfg, *, n_ep: int = 1, n_esp: int = 1, n_mp: int = 1,
+                      candidates=(1, 2, 4, 8, 16, 32), perf_model=None,
+                      n_blocks=None, block_size: int = 16,
+                      mean_len=None):
+    """Decode batch-bucket sizing from the perf model (``t_decode``), a
+    copy of the JAX engine's with the card's model as the default.
+
+    Picks the candidate maximizing predicted decode throughput
+    ``B / t_decode(B)``: decode steps are alpha-dominated, so per-token
+    latency falls with batch until the bandwidth/compute terms take
+    over.  The paged-KV budget enters twice: ``t_decode`` charges each
+    row's KV read at HBM bandwidth (``kv_bytes``), and a finite arena
+    (``n_blocks`` pages of ``block_size`` tokens) caps the batch at the
+    rows it can actually hold at ``mean_len`` tokens each — the budget
+    is BLOCKS, not slots.  Dense archs (no MoE layer to model) just
+    take the largest block-feasible candidate.
+    """
+    from repro_torch.core.perfmodel import MoELayerShape, h100_model
+
+    def blocks_ok(b):
+        if n_blocks is None or not mean_len:
+            return True
+        per_row = -(-int(mean_len) // int(block_size))   # ceil
+        return b * per_row <= int(n_blocks)
+
+    feasible = [b for b in candidates if blocks_ok(b)] or [min(candidates)]
+    if cfg.moe is None:
+        return max(feasible)
+    pm = perf_model or h100_model(n_ep, n_esp, n_mp)
+    kv_row_bytes = 0.0
+    if mean_len:
+        # per-row paged-KV read per decode step: every layer's K+V pages
+        # up to the row's length (bf16, as the reference prices it)
+        kv_row_bytes = (2.0 * cfg.n_layers * cfg.n_kv_heads * cfg.hd
+                        * float(mean_len) * 2.0)
+
+    def throughput(b):
+        shape = MoELayerShape(
+            B=b, L=1, M=cfg.moe.d_model, H=cfg.moe.d_ff,
+            E=cfg.moe.n_experts, k=cfg.moe.top_k,
+            f=cfg.moe.capacity_factor, n_mp=n_mp, n_esp=n_esp,
+            n_ep=n_ep, infer=True)
+        return b / pm.t_decode(shape, kv_bytes=b * kv_row_bytes)
+
+    return max(feasible, key=throughput)

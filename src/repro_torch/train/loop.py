@@ -120,11 +120,22 @@ class Trainer:
                 self.model, self.opt_cfg, self.schedule)
 
     def setup(self, generator):
-        """Random parameters from ``generator`` and fresh AdamW state."""
+        """Random parameters from ``generator`` and fresh AdamW state.
+        Also notes the autoscheduler's decisions made before this run, so
+        step 0 reports only this run's."""
+        from repro_torch.core import autosched
         params = self.model.init(generator)
+        self._sched_keys = set(autosched.cache_info())
         return params, adamw_init(params)
 
     def _log_step0(self, metrics):
+        # the first step ran the model: any schedule="auto" MoE layers
+        # have made their (schedule, n_chunks, wire) decisions now
+        from repro_torch.core import autosched
+        summary = autosched.cache_summary(
+            exclude=getattr(self, "_sched_keys", ()))
+        if summary:
+            print(summary, flush=True)
         el = metrics.get("expert_load")
         if el is not None and el.dim() == 1 and el.shape[-1]:
             vals = " ".join(f"{float(c):.0f}" for c in el.cpu())

@@ -21,9 +21,10 @@ saturation counts on the card equal to the CPU's; a checkpoint restored
 in place keeps each tensor's storage and ``requires_grad``.  Serving's
 chaos plan on the card (the untouched requests bitwise their fault-free
 streams) and a stage trace timed by CUDA events (the output unchanged by
-the timer).  Marked
-``cuda``: they skip
-where there is no card, and run there with
+the timer).  The cost model's fits on the card (R^2 > 0.8) and the
+autoscheduler's measured calibration (finite candidates, the caller's
+RNG, ordinals and fp8 monitor untouched, a cached second decision).
+Marked ``cuda``: they skip where there is no card, and run there with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -951,3 +952,63 @@ def test_stage_trace_on_the_card(dev, sched):
         [s.name for s in planlib.validate(plan)]
     assert st.total_s > 0 and all(s.measured_s >= 0 for s in st.stages)
     assert torch.equal(before[0], full)
+
+
+def test_fit_card_model_on_the_card(dev):
+    """The card's fits: both R^2 above the paper's 0.8, a positive
+    startup, a rate under the f32 peak, and a model that keeps the data
+    sheet's link betas."""
+    from repro_torch.core.perfmodel import PEAK_FLOPS_F32, h100_model
+    from repro_torch.launch.fit_perfmodel import (measure_card,
+                                                  model_from_fits)
+    fits = measure_card(dev)
+    assert fits["flops"]["r2"] > 0.8 and fits["alpha"]["r2"] > 0.8, fits
+    m = model_from_fits(fits, n_ep=4, n_esp=2, n_mp=2)
+    sheet = h100_model(4, 2, 2)
+    assert 0 < m.flops_per_s < PEAK_FLOPS_F32
+    assert m.a2a_ep_esp.alpha > 0 and m.a2a_ep.beta == sheet.a2a_ep.beta
+    assert m.ag_mp.alpha / m.ag_esp.alpha == \
+        sheet.ag_mp.alpha / sheet.ag_esp.alpha
+
+
+def test_measure_candidates_on_the_card(dev):
+    """Every candidate timed finite by CUDA events; the global RNG (CPU
+    and card), the step's ordinals and the fp8 monitor untouched; a
+    second ``decide`` returns the cached decision and launches nothing."""
+    from dataclasses import replace
+
+    from repro_torch import runtime as trt
+    from repro_torch.configs import get_config
+    from repro_torch.core import autosched, collectives, moe
+    from repro_torch.core.collectives import CommConfig
+    from repro_torch.core.perfmodel import MoELayerShape
+    cfg = replace(get_config("gpt2-moe").reduced().moe,
+                  comm=CommConfig(wire_dtype="fp8_e4m3"))
+    autosched.clear_cache()
+    trt.enable_fp8_monitor()
+    try:
+        monitor = collectives._FP8_MONITOR
+        calls = dict(moe._CALLS)
+        rng = (torch.get_rng_state(), torch.cuda.get_rng_state(dev))
+        measure = autosched.measure_candidates(cfg, tokens=512,
+                                               d_model=cfg.d_model,
+                                               device=dev)
+        shape = MoELayerShape(B=1, L=512, M=cfg.d_model, H=cfg.d_ff,
+                              E=cfg.n_experts, k=cfg.top_k,
+                              f=cfg.capacity_factor)
+        kw = dict(mode="measured", chunk_candidates=(1, 2),
+                  wire_candidates=("fp8_e4m3", "bf16"), measure=measure)
+        d = autosched.decide(shape, **kw)
+        assert all(0 < t < float("inf") for _, t in d.times), d.times
+        assert torch.equal(torch.get_rng_state(), rng[0])
+        assert torch.equal(torch.cuda.get_rng_state(dev), rng[1])
+        assert dict(moe._CALLS) == calls
+        assert collectives._FP8_MONITOR is monitor
+        assert trt.fp8_sat_counts() == (0, 0)
+        before = expert_ffn_grouped.launches + moe_dispatch.launches
+        assert autosched.decide(shape, **kw) is d
+        assert expert_ffn_grouped.launches + moe_dispatch.launches == before
+    finally:
+        trt.disable_fp8_monitor()
+        trt.reset_fp8_counter()
+        autosched.clear_cache()

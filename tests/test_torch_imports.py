@@ -61,8 +61,9 @@ assert "torch.utils.cpp_extension" not in sys.modules
 assert not any(n == "jax" or n.startswith(("jax.", "repro."))
                for n in sys.modules)
 assert {"repro_torch.obs.sink", "repro_torch.obs.trace",
-        "repro_torch.obs.audit", "repro_torch.serve.engine"} <= set(
-    sys.modules)
+        "repro_torch.obs.audit", "repro_torch.serve.engine",
+        "repro_torch.core.perfmodel", "repro_torch.core.autosched",
+        "repro_torch.launch.fit_perfmodel"} <= set(sys.modules)
 print("OK", len(list(pkgutil.walk_packages(repro_torch.__path__))))
 """
     r = _run(["-c", code])
@@ -88,13 +89,13 @@ def test_entry_points_refuse_to_run_without_a_card():
     r = _run(["-m", "repro_torch.launch.train", "--arch", "gpt2-moe",
               "--reduced", "--steps", "1"])
     assert r.returncode != 0 and "no CUDA device" in r.stderr, r.stderr
+    r = _run(["-m", "repro_torch.launch.fit_perfmodel"])
+    assert r.returncode != 0 and "no CUDA device" in r.stderr, r.stderr
     r = _run([os.path.join(REPO, "chip_smoke.py")])
     assert r.returncode != 0 and '"ok"' not in r.stdout, r.stdout
 
 
-@pytest.mark.parametrize("flag", [
-    ["--placement", "auto"], ["--wire-dtype", "auto"],
-    ["--autosched", "analytic"], ["--autosched", "measured"]])
+@pytest.mark.parametrize("flag", [["--placement", "auto"]])
 def test_train_launcher_refuses_flags_of_later_slices(flag, capsys):
     """A JAX launcher flag the port does not run yet is an error, never a
     silent no-op (checked before any device or model is touched)."""
@@ -104,3 +105,20 @@ def test_train_launcher_refuses_flags_of_later_slices(flag, capsys):
               "--steps", "1", *flag])
     assert exc.value.code == 2
     assert "later slice" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag", [
+    ["--wire-dtype", "auto"], ["--autosched", "analytic"],
+    ["--autosched", "measured"]])
+def test_train_launcher_takes_the_autoscheduler_flags(flag, capsys):
+    """The autoscheduler's flags run (on the CPU when asked for) and the
+    run reports its decision after the first step."""
+    from repro_torch.core import autosched
+    from repro_torch.launch.train import main
+    autosched.clear_cache()
+    main(["--arch", "gpt2-moe", "--reduced", "--device", "cpu", "--steps",
+          "1", "--seq", "32", "--batch", "2", *flag])
+    out = capsys.readouterr().out
+    mode = flag[1] if flag[0] == "--autosched" else "analytic"
+    assert f"autosched[{mode}] BxL=2x32" in out and "final loss" in out
+    autosched.clear_cache()

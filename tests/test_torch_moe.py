@@ -24,8 +24,10 @@ from repro.core.collectives import CommConfig  # noqa: E402
 from repro.core.perfmodel import MoELayerShape  # noqa: E402
 from repro.core.pipeline import clamp_chunks  # noqa: E402
 from repro.parallel.mesh import ParallelDims, make_mesh  # noqa: E402
+from repro_torch.core import autosched as t_autosched  # noqa: E402
 from repro_torch.core import moe as tmoe  # noqa: E402
 from repro_torch.core.collectives import CommConfig as TCommConfig  # noqa
+from repro_torch.core.perfmodel import MoELayerShape as TShape  # noqa
 
 MESH_DIMS = ParallelDims(ep=("data",), esp=("model",), mp=("model",))
 
@@ -33,8 +35,10 @@ MESH_DIMS = ParallelDims(ep=("data",), esp=("model",), mp=("model",))
 @pytest.fixture(autouse=True)
 def fresh_sched_cache():
     autosched.clear_cache()
+    t_autosched.clear_cache()
     yield
     autosched.clear_cache()
+    t_autosched.clear_cache()
 
 
 def _cfgs(*, M=32, F=48, E=8, k=2, cf=1.25, glu=True, act="silu",
@@ -92,9 +96,10 @@ def test_apply_moe_matches_jax_s1g(infer, variant):
 
 
 def test_other_schedules_wait_for_a_later_slice():
-    """Every schedule runs on one rank now; what still needs a later slice
-    (the cost model's wire pick, the measured calibration, a multi-rank
-    group, an expert placement) raises, never runs as something else."""
+    """Every schedule runs on one rank now, and so do the cost model's
+    wire pick and the measured calibration (each deciding once); what
+    still needs a later slice (a multi-rank group, an expert placement)
+    raises, never runs as something else."""
     from repro_torch.core import collectives, executor, plan, schedules
     _, tcfg = _cfgs()
     x = torch.zeros((1, 4, tcfg.d_model))
@@ -103,9 +108,12 @@ def test_other_schedules_wait_for_a_later_slice():
         y, _ = tmoe.apply_moe(x, p, cfg=tcfg, schedule=sched)
         assert y.shape == x.shape
     for kw in (dict(comm=TCommConfig(wire_dtype="auto")),
-               dict(autosched="measured")):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            tmoe.apply_moe(x, p, cfg=dataclasses.replace(tcfg, **kw))
+               dict(autosched="measured", schedule="auto")):
+        t_autosched.clear_cache()
+        y, _ = tmoe.apply_moe(x, p, cfg=dataclasses.replace(tcfg, **kw))
+        assert y.shape == x.shape
+        (key, d), = t_autosched.cache_info().items()
+        assert key[1] == ("measured" if "autosched" in kw else "analytic")
     with pytest.raises(NotImplementedError, match="multi-rank"):
         collectives.ep_esp_all_to_all(x, ("ep",), ("esp",), 2)
     info = schedules.MoEShardInfo(
@@ -142,7 +150,8 @@ SHAPES = [(8, 1, True, 2048, 768, 128, 8), (1, 64, False, 2048, 768, 128, 8),
 def test_autosched_picks_s1g_at_one_rank(B, L, infer, M, H, E, k):
     """``apply_moe`` asks ``autosched.decide`` exactly so at one rank
     (n_ep = n_esp = n_mp = 1); the answer must stay ``s1g``, whose local
-    form is the port's gate -> expert_ffn_grouped."""
+    form is the port's gate -> expert_ffn_grouped.  The port's own
+    ``decide`` (the card's model) and ``resolve_schedule`` give it too."""
     gate = jmoe.MoEConfig(d_model=M, d_ff=H, n_experts=E, top_k=k,
                           capacity_factor=1.25).gate_config()
     s_local, cap = jmoe.shard_pool_capacity(B * L, 1, 1, gate, infer=infer)
@@ -154,3 +163,11 @@ def test_autosched_picks_s1g_at_one_rank(B, L, infer, M, H, E, k):
     d = autosched.decide(shape, chunk_candidates=cands)
     assert d.schedule == "s1g", d
     assert d.wire_dtype == "f32"
+    td = t_autosched.decide(TShape(**dataclasses.asdict(shape)),
+                            chunk_candidates=cands)
+    assert (td.schedule, td.n_chunks, td.wire_dtype) == \
+        (d.schedule, d.n_chunks, d.wire_dtype) == ("s1g", 1, "f32"), td
+    tcfg = tmoe.MoEConfig(d_model=M, d_ff=H, n_experts=E, top_k=k,
+                          capacity_factor=1.25)
+    assert tmoe.resolve_schedule(tcfg, B=B, L=L, infer=infer) == \
+        ("s1g", 1, "f32")

@@ -59,7 +59,7 @@ OPT = dict(lr=1e-3, warmup_steps=2, total_steps=12)
 @pytest.fixture(autouse=True)
 def fp8_clean():
     """Reset both packages' process-wide fp8 monitor, injection, counter
-    and wire ceiling (and JAX's decision cache) around every test."""
+    and wire ceiling (and both decision caches) around every test."""
     def reset():
         for coll, sched, rt in ((j_coll, j_autosched, jrt),
                                 (t_coll, t_autosched, trt)):
@@ -67,7 +67,7 @@ def fp8_clean():
             sched.set_wire_ceiling(None)
             rt.disable_fp8_monitor()
             rt.reset_fp8_counter()
-        j_autosched.clear_cache()
+            sched.clear_cache()
     reset()
     yield
     reset()

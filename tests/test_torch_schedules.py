@@ -166,7 +166,7 @@ def test_one_rank_schedules_are_bitwise_s1g_at_f32():
 
 def test_auto_is_s1g_with_one_chunk():
     _, cfg = _cfgs("auto", "f32", 4, "glu")
-    assert tmoe.resolve_schedule(cfg) == ("s1g", 1)
-    assert tmoe.resolve_schedule(cfg, "s2") == ("s2_pipe", 4)
+    assert tmoe.resolve_schedule(cfg) == ("s1g", 1, "f32")
+    assert tmoe.resolve_schedule(cfg, "s2") == ("s2_pipe", 4, "f32")
     with pytest.raises(KeyError, match="unknown schedule"):
         tmoe.resolve_schedule(cfg, "s9")

@@ -54,6 +54,9 @@ from repro.parallel.mesh import ParallelDims, make_mesh  # noqa: E402
 from repro.train import Trainer as JTrainer  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import opt_state_from_jax  # noqa: E402
+from repro_torch.core import autosched as t_autosched  # noqa: E402
+from repro_torch.core import moe as tmoe  # noqa: E402
+from repro_torch.core.perfmodel import MoELayerShape as TShape  # noqa
 from repro_torch.core.collectives import CommConfig as TCommConfig  # noqa
 from repro_torch.convert import params_from_jax, to_numpy  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
@@ -69,8 +72,10 @@ ARCHS = ("qwen3-moe-30b-a3b", "gpt2-moe", "bert-moe")
 @pytest.fixture(autouse=True)
 def fresh_sched_cache():
     autosched.clear_cache()
+    t_autosched.clear_cache()
     yield
     autosched.clear_cache()
+    t_autosched.clear_cache()
 
 
 def _mesh():
@@ -313,7 +318,9 @@ TRAIN_SHAPES = [(2, 1024, "qwen3-moe-30b-a3b"), (1, 2048, "qwen3-moe-30b-a3b"),
 def test_autosched_picks_s1g_at_training_shapes(B, L, arch):
     """``apply_moe(infer=False)`` asks ``autosched.decide`` exactly so at
     one rank; the answer must stay ``s1g`` with one chunk and an f32 wire,
-    which the port's one-rank MoE layer runs for ``"auto"``."""
+    which the port's one-rank MoE layer runs for ``"auto"``: the port's
+    own ``decide`` (the card's model) and ``resolve_schedule`` give it
+    too."""
     name, reduced = arch.removesuffix("-reduced"), arch.endswith("-reduced")
     mcfg = j_get_config(name)
     mcfg = (mcfg.reduced() if reduced else mcfg).moe
@@ -327,6 +334,12 @@ def test_autosched_picks_s1g_at_training_shapes(B, L, arch):
                           for n in autosched.DEFAULT_CHUNKS}))
     d = autosched.decide(shape, chunk_candidates=cands)
     assert (d.schedule, d.n_chunks, d.wire_dtype) == ("s1g", 1, "f32"), d
+    td = t_autosched.decide(TShape(**dataclasses.asdict(shape)),
+                            chunk_candidates=cands)
+    assert (td.schedule, td.n_chunks, td.wire_dtype) == ("s1g", 1, "f32")
+    tcfg = get_config(name)
+    tcfg = (tcfg.reduced() if reduced else tcfg).moe
+    assert tmoe.resolve_schedule(tcfg, B=B, L=L) == ("s1g", 1, "f32")
 
 
 @pytest.mark.parametrize("arch,schedule,chunks,wire", [
