@@ -116,10 +116,31 @@ to a plain version):
      per-stage predicted and measured ms, ``worst``, ``time_scale``; (g)
      ``suggest_max_batch`` for phase 4's serving under both models, and
      the serve launcher with ``--max-batch 0``;
- 12. print the kernels' JSON line (each kernel's launches on its main path
-     and the phase-3 row at that path's shapes, and under ``by_path``
-     every path's launches beside the phase-3 row at that path's shapes),
-     then ``{"ok": true, ...}`` as the last line.
+ 12. Parm's schedules across ranks: ranks spawned on ``cuda:0`` over
+     gloo (one card; NCCL refuses two ranks on one card), the kernels
+     built once before.  (a) one gpt2-moe MoE layer at full width, 8 x
+     1024 global tokens at the drop-free capacity factor E / k = 4, on the
+     distinct ``(ep=2, esp=2, mp=2)`` mesh (8 ranks) under baseline, s1,
+     s2 and a 4-token decode pool (the ``dense_decode`` fallback), and on
+     the merged ``(data=2, model=2)`` mesh (4 ranks) under baseline, s1,
+     s2, s2h, s1_seqpar, s1g (the pool form: counts AlltoAll, ragged
+     kernel), s1_pipe and s2_pipe (2 chunks), bf16 and fp8 wires under s1
+     and s1g: each rank's output and gradient blocks (of sum(y * r)) held
+     to the one-rank s1g layer's (``P12_WIRE`` on a bf16 / fp8 wire),
+     expert_load to its routed rows exactly (times the schedule's gate
+     multiplicity), each path's kernels launched on every rank, each
+     case's host ms and collective seconds; (b) in the same 4-rank spawn,
+     gpt2-moe (12 layers, 8 x 1024 global, factor 4) trained 3 steps on
+     the merged mesh under s1 and s2 (``P12_TRAIN_SCHEDS``): every step's
+     loss within 1e-4 and gradient norm within 1e-3 of the one-rank run
+     from the same state, the first step taken twice ``torch.equal`` on
+     every rank; (c) ms per step and each collective's host share, per
+     rank (gloo through the host, not NCCL);
+ 13. print the kernels' JSON line (each kernel's launches on its main path
+     and the phase-3 row at that path's shapes, under ``by_path`` every
+     path's launches beside the phase-3 row at that path's shapes, and
+     under ``multirank`` each phase-12 path's launches per rank), then
+     ``{"ok": true, ...}`` as the last line.
 """
 
 from __future__ import annotations
@@ -1679,6 +1700,447 @@ def autoscheduling(dev, forward_ms, serve_cfg, prompts, gen):
     return paths
 
 
+# --- phase 12: Parm's schedules across ranks ----------------------------------
+
+#: (a) the layer's cases: (name, mesh, schedule, pipeline_chunks, wire)
+P12_MERGED = (("2x2", "merged"), (2, 2), ("data", "model"),
+              dict(ep=("data",), esp=("model",), mp=("model",)))
+P12_DISTINCT = (("2x2x2", "distinct"), (2, 2, 2), ("ep", "esp", "mp"),
+                dict(ep=("ep",), esp=("esp",), mp=("mp",)))
+P12_LAYER = {
+    "merged": [("baseline", "baseline", 1, "f32"), ("s1", "s1", 1, "f32"),
+               ("s2", "s2", 1, "f32"), ("s2h", "s2h", 1, "f32"),
+               ("s1_seqpar", "s1_seqpar", 1, "f32"),
+               ("s1g", "s1g", 1, "f32"), ("s1_pipe2", "s1", 2, "f32"),
+               ("s2_pipe2", "s2", 2, "f32"), ("s1-bf16", "s1", 1, "bf16"),
+               ("s1-fp8", "s1", 1, "fp8_e4m3"),
+               ("s1g-bf16", "s1g", 1, "bf16"),
+               ("s1g-fp8", "s1g", 1, "fp8_e4m3")],
+    "distinct": [("baseline", "baseline", 1, "f32"), ("s1", "s1", 1, "f32"),
+                 ("s2", "s2", 1, "f32"), ("decode", "s1", 1, "f32")],
+}
+#: the kernels each path must launch on every rank
+P12_USES = {"s1g": ("moe_dispatch", "expert_ffn_ragged", "moe_combine"),
+            "decode": ("expert_ffn",)}
+P12_DEFAULT_USES = ("moe_dispatch", "expert_ffn", "moe_combine")
+#: y against the one-rank layer: rtol 2e-4 / atol 2e-5 at f32 (the JAX
+#: package's schedule-equivalence tolerance); gradients 2e-4 of their
+#: largest entry (sums over 8192 tokens in other orders, and the ESP
+#: partial sums).  A bf16 / fp8 wire rounds the ESP partial outputs where
+#: the one-rank layer rounds their sum, so most elements move by a
+#: rounding of their own size (57-98% of them beyond 2e-4 of the largest
+#: entry on the CPU at 8 x 32 tokens: the CPU tests' 1% share rule holds
+#: only against JAX, which rounds at the same points).  There y and every
+#: gradient are held to one wire step (2^-7 bf16, 2^-3 e4m3) twice: every
+#: element within that step of max(1, max |want|), and ||got - want|| /
+#: ||want|| within it (read 3.5e-3 bf16 and 4.5e-2 fp8 at most on the
+#: CPU; a wrong ESP reduction, a partial lost or counted twice, moves that
+#: norm by 0.5 or more).
+P12_WIRE = {"bf16": 2.0 ** -7, "fp8_e4m3": 2.0 ** -3}
+P12_STEPS = 3
+#: (b)'s schedules: baseline's layer is held in (a) on both meshes; its
+#: training step moves ~3x s1's bytes through gloo (13.4 s a step against
+#: s1's 4.5 s on the H100) and is left out of (b) to keep the phase short
+P12_TRAIN_SCHEDS = ("s1", "s2")
+
+
+def _p12_cfg(model_cfg, schedule="s1g", n_chunks=1, wire="f32"):
+    """``model_cfg``'s MoE layer at the drop-free capacity factor E / k."""
+    from dataclasses import replace
+
+    from repro_torch.core.collectives import CommConfig
+    m = model_cfg.moe
+    return replace(m, capacity_factor=m.n_experts / m.top_k,
+                   schedule=schedule, pipeline_chunks=n_chunks,
+                   comm=CommConfig(wire_dtype=wire))
+
+
+def _p12_device():
+    import torch
+    return (torch.device("cuda", torch.cuda.current_device())
+            if torch.cuda.is_available() else torch.device("cpu"))
+
+
+def _p12_layer_refs(dev, path, model_cfg, tokens):
+    """(a)'s inputs and one-rank references, saved to ``path``: params,
+    x (8 x 1024 global tokens) and the cotangent r, and per wire the
+    one-rank s1g layer's y, routed rows and gradients of sum(y * r); the
+    4-token decode pool's y."""
+    import torch
+    from repro_torch.core.moe import apply_moe, init_moe_params
+    cfg = _p12_cfg(model_cfg)
+    g = torch.Generator(device=dev).manual_seed(12)
+    params = init_moe_params(g, cfg)
+    x = torch.randn((*tokens, cfg.d_model), generator=g, device=dev)
+    r = torch.randn((*tokens, cfg.d_model), generator=g, device=dev)
+    xd = torch.randn((4, 1, cfg.d_model), generator=g, device=dev)
+    ref = {"params": {k: v.cpu() for k, v in params.items()},
+           "x": x.cpu(), "r": r.cpu(), "xd": xd.cpu()}
+    for wire in ("f32", "bf16", "fp8_e4m3"):
+        xs = x.clone().requires_grad_()
+        ps = {k: v.clone().requires_grad_() for k, v in params.items()}
+        y, aux = apply_moe(xs, ps, cfg=_p12_cfg(model_cfg, wire=wire))
+        grads = torch.autograd.grad((y * r).sum(), [xs, *ps.values()])
+        ref[wire] = {"y": y.detach().cpu(), "load": aux["expert_load"].cpu(),
+                     "g": {k: v.cpu() for k, v in
+                           zip(["x", *ps.keys()], grads)}}
+    with torch.no_grad():
+        ref["yd"] = apply_moe(xd, params, cfg=_p12_cfg(model_cfg),
+                              infer=True)[0].cpu()
+    torch.save(ref, path)
+    del params, x, r, ref
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _p12_err(got, want):
+    """The readings of ``got`` against ``want``: max |d| (``err``), the
+    scale max(1, max |want|), the share of elements with |d| above 2e-4 of
+    the scale, ||d|| / ||want|| (``rel``), and whether every element holds
+    |d| <= 2e-5 + 2e-4 |want| (``elem_ok``)."""
+    w = want.float()
+    d = (got.float() - w).abs()
+    scale = max(1.0, float(w.abs().max()))
+    return {"err": float(d.max()), "scale": scale,
+            "share": float((d > 2e-4 * scale).float().mean()),
+            "rel": float(d.norm() / w.norm().clamp_min(1e-30)),
+            "elem_ok": bool((d <= 2e-5 + 2e-4 * w.abs()).all())}
+
+
+def _p12_ok(r, wire, is_y):
+    """Whether the readings ``r`` of one tensor meet ``P12_WIRE``'s
+    limits (f32: y elementwise, a gradient 2e-4 of its largest entry)."""
+    step = P12_WIRE.get(wire)
+    if step is None:
+        return r["elem_ok"] if is_y else r["err"] <= 2e-4 * r["scale"]
+    return r["err"] <= step * r["scale"] and r["rel"] <= step
+
+
+def _p12_layer_rank(rank, kind, ref_path, model_cfg):
+    """(a) on one rank: every case of ``kind``'s mesh, each rank's output
+    and gradient blocks read here against the one-rank references'
+    blocks (``_p12_err``).  Returns per case the readings, the load check,
+    the launches and the host ms of the forward and backward with each
+    collective's host seconds (after one untimed warm-up case)."""
+    import torch
+    from repro_torch.core.moe import apply_moe, moe_param_specs
+    from repro_torch.parallel import comm
+    from repro_torch.parallel.mesh import ParallelDims, make_mesh
+    from repro_torch.parallel.sharding import P, local_shard
+    from repro_torch.train.loop import sync_grads
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = _p12_device()
+    _, shape, names, dkw = P12_MERGED if kind == "merged" else P12_DISTINCT
+    mesh = make_mesh(shape, names)
+    dims = ParallelDims(**dkw)
+    ref = torch.load(ref_path, weights_only=False)
+    base = _p12_cfg(model_cfg)
+    specs = moe_param_specs(base, mesh, dims)
+    xspec = P(dims.batch_axes, None, None)
+
+    def block(t, spec):
+        return local_shard(t, spec, mesh).to(dev)
+
+    def run(sched, n_chunks, wire, infer):
+        cfg = _p12_cfg(model_cfg, sched, n_chunks, wire)
+        p = {k: block(v, specs[k]).requires_grad_(not infer)
+             for k, v in ref["params"].items()}
+        x = block(ref["xd" if infer else "x"], xspec)
+        if infer:
+            with torch.no_grad():
+                y, aux = apply_moe(x, p, cfg=cfg, mesh=mesh, dims=dims,
+                                   infer=True)
+            return y, aux, {}
+        x.requires_grad_()
+        y, aux = apply_moe(x, p, cfg=cfg, mesh=mesh, dims=dims)
+        r = block(ref["r"], xspec)
+        keys = ["x", *p.keys()]
+        gl = torch.autograd.grad((y * r).sum(), [x, *p.values()])
+        gl = [gl[0]] + sync_grads(list(gl[1:]), [specs[k] for k in
+                                                 keys[1:]], mesh, dims)
+        return y, aux, dict(zip(keys, gl))
+
+    _, sched, n_chunks, wire = P12_LAYER[kind][0]
+    run(sched, n_chunks, wire, False)          # warm-up, not read
+    out = []
+    for name, sched, n_chunks, wire in P12_LAYER[kind]:
+        infer = name == "decode"
+        wrappers = reset_counts()
+        _sync(dev)
+        comm.timing(True)
+        t0 = time.perf_counter()
+        y, aux, grads = run(sched, n_chunks, wire, infer)
+        _sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        coll = comm.times()
+        comm.timing(False)
+        launches = read_counts(wrappers)
+        want = ref["f32" if infer else wire]
+        reads = {"y": _p12_err(y.detach(), block(
+            ref["yd"] if infer else want["y"], xspec))}
+        for k, gk in grads.items():
+            reads[k] = _p12_err(gk, block(want["g"][k],
+                                          xspec if k == "x" else specs[k]))
+        # expert_load is the pmean of the pools' routed rows: each token is
+        # gated by ``mult`` ranks' pools (1 under s1, n_mp under s2, ...),
+        # so load * N = mult * (the one-rank layer's rows), exactly
+        load_ok, mult = True, None
+        if not infer:
+            tot = aux["expert_load"].cpu() * mesh.size
+            mult = float(tot.sum() / want["load"].sum())
+            load_ok = mult == round(mult) and torch.equal(
+                tot, want["load"] * round(mult))
+        out.append({"name": name, "wire": wire, "reads": reads,
+                    "load_ok": load_ok, "mult": mult, "launches": launches,
+                    "ms": ms, "comm": coll})
+        del y, grads
+    return out
+
+
+def _p12_merged_rank(rank, ref_path, model_cfg, scheds, steps, tokens):
+    """One rank of the merged (2, 2) mesh: (a)'s cases, then (b) and (c),
+    in one spawn."""
+    return {"layer": _p12_layer_rank(rank, "merged", ref_path, model_cfg),
+            "train": _p12_train_rank(rank, scheds, steps, model_cfg,
+                                     tokens)}
+
+
+def _p12_train_cfg(model_cfg):
+    from dataclasses import replace
+    return replace(model_cfg, moe=_p12_cfg(model_cfg, "auto"))
+
+
+def _sync(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _p12_train_rank(rank, scheds, steps, model_cfg, tokens):
+    """(b) and (c) on one rank of the merged (2, 2) mesh: gpt2-moe (12
+    layers, 8 x 1024 global) for ``steps`` steps under each schedule, the
+    first step taken twice from one state (``torch.equal`` parameters and
+    moments, checked here); per step the loss, gradient norm, host ms and
+    each collective's host seconds."""
+    import time
+
+    import torch
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.mesh import dims_for
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.parallel import comm
+    from repro_torch.parallel.mesh import make_mesh
+    from repro_torch.train import Trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = _p12_device()
+    cfg = _p12_train_cfg(model_cfg)
+    mesh = make_mesh((2, 2), ("data", "model"))
+    dims = dims_for(cfg)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=tokens[1], global_batch=tokens[0]))
+    out = {}
+    for sched in scheds:
+        model = Model(cfg, device=dev)
+        tr = Trainer(model, AdamWConfig(lr=1e-3, warmup_steps=2,
+                                        total_steps=steps), schedule=sched,
+                     mesh=mesh, dims=dims)
+        params, opt = tr.setup(torch.Generator(device=dev).manual_seed(0))
+        snap = [t.clone() for t in _state_tensors(params, opt)]
+        batch = tr.batch(data, 0)
+        wrappers = reset_counts()
+        params, opt, m0 = tr.train_step(params, opt, batch)
+        first = [t.clone() for t in _state_tensors(params, opt)]
+        for t, v in zip(_state_tensors(params, opt), snap):
+            with torch.no_grad():
+                t.copy_(v)
+        del snap
+        rows = []
+        for step in range(steps):
+            batch = tr.batch(data, step)
+            _sync(dev)
+            comm.timing(True)
+            t0 = time.perf_counter()
+            params, opt, m = tr.train_step(params, opt, batch)
+            _sync(dev)
+            ms = (time.perf_counter() - t0) * 1e3
+            rows.append({"loss": float(m["loss"]),
+                         "grad_norm": float(m["grad_norm"]), "ms": ms,
+                         "comm": comm.times()})
+            comm.timing(False)
+            if step == 0:
+                same = [torch.equal(a, b) for a, b in
+                        zip(first, _state_tensors(params, opt))]
+                if not all(same):
+                    raise AssertionError(
+                        f"phase 12 (b) {sched} rank {rank}: the first step "
+                        f"taken twice differs in {same.count(False)} of "
+                        f"{len(same)} parameter and moment tensors")
+                del first
+        out[sched] = {"rows": rows, "launches": read_counts(wrappers)}
+        del params, opt, tr, model
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _p12_one_rank_train(dev, steps, model_cfg, tokens):
+    """(b)'s reference: the same model, seed and batches on one rank."""
+    import torch
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer
+    cfg = _p12_train_cfg(model_cfg)
+    model = Model(cfg, device=dev)
+    tr = Trainer(model, AdamWConfig(lr=1e-3, warmup_steps=2,
+                                    total_steps=steps))
+    params, opt = tr.setup(torch.Generator(device=dev).manual_seed(0))
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=tokens[1], global_batch=tokens[0]))
+    rows = []
+    for step in range(steps):
+        _sync(dev)
+        t0 = time.perf_counter()
+        params, opt, m = tr.train_step(params, opt, data.tensors(step, dev))
+        _sync(dev)
+        rows.append({"loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]),
+                     "ms": (time.perf_counter() - t0) * 1e3})
+    del params, opt, tr, model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _p12_report(label, n, res, paths):
+    """(a)'s checks and log lines for one mesh's per-rank results ``res``;
+    returns the names of the failed cases (every case is logged first)."""
+    failed = []
+    for i, case in enumerate(res[0]):
+        name = case["name"]
+        cases = [rk[i] for rk in res]
+        uses = P12_USES.get(name.split("-")[0], P12_DEFAULT_USES)
+        per_rank = {k: [c["launches"][k] for c in cases]
+                    for k in case["launches"]
+                    if any(c["launches"][k] for c in cases)}
+        bad = [k for k in uses if min(per_rank.get(k, [0])) < 1]
+        if bad:
+            raise AssertionError(f"phase 12 (a) {label} {name}: {bad} not "
+                                 f"launched on every rank: {per_rank}")
+        ok = all(c["load_ok"] and all(
+            _p12_ok(r, c["wire"], k == "y") for k, r in c["reads"].items())
+            for c in cases)
+        worst = {k: max((c["reads"][k] for c in cases),
+                        key=lambda r: r["err"] / r["scale"])
+                 for k in case["reads"]}
+        wire = case["wire"] != "f32"
+        log(f"  (a) {label} {name}: " + "; ".join(
+            f"{k} max_abs_err {r['err']:.3e}"
+            + (f" ({r['err'] / r['scale']:.3e} of max(1, max|want|), share "
+               f"{r['share']:.4f} above 2e-4 of it, rel {r['rel']:.3e})"
+               if wire else "")
+            for k, r in worst.items())
+            + (f"; expert_load exact (x{case['mult']:g} / {n})"
+               if case["mult"] else "")
+            + f"; launches per rank {per_rank}"
+            + f"; host ms {max(c['ms'] for c in cases):.1f} (collectives "
+            + ", ".join(f"{k} {1e3 * v[2]:.1f}"
+                        for k, v in sorted(case["comm"].items())) + ")"
+            + ("" if ok else " FAILED"))
+        if not ok:
+            failed.append(f"{label} {name}")
+        paths[f"layer_{label}_{name}"] = per_rank
+    return failed
+
+
+def multirank(dev, model_cfg=None, tokens=(8, 1024)):
+    """Phase 12 (see the module docstring) on ``model_cfg`` (default
+    gpt2-moe, full size) with ``tokens`` = (batch, seq) global tokens.
+    Returns {path: per-rank launches} of every multi-rank path."""
+    import tempfile
+
+    from repro_torch.launch.mesh import spawn
+    log("  ranks share cuda:0 over gloo: one card, and NCCL refuses two "
+        "ranks on one card ('Duplicate GPU detected'); gloo stages every "
+        "collective through the host, so the times below are the host's, "
+        "not NVLink's")
+    from repro_torch.configs import get_config
+    model_cfg = model_cfg or get_config("gpt2-moe")
+    paths = {}
+    cpu = dev.type == "cpu"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p12_") as tmp:
+        # the one-rank references: (a)'s layer, (b)'s training
+        t0 = time.perf_counter()
+        ref_path = os.path.join(tmp, "layer_ref.pt")
+        _p12_layer_refs(dev, ref_path, model_cfg, tokens)
+        ref = _p12_one_rank_train(dev, P12_STEPS, model_cfg, tokens)
+        # (a) on the distinct (2, 2, 2) mesh: 8 ranks
+        (label, kind), shape, _, _ = P12_DISTINCT
+        res = spawn(_p12_layer_rank, 8, kind, ref_path, model_cfg,
+                    backend="gloo", device=dev.type, timeout=600,
+                    threads=1 if cpu else None)
+        failed = _p12_report(label, 8, res, paths)
+        log(f"  (a) {label} in {time.perf_counter() - t0:.1f} s (the "
+            "one-rank references included)")
+        # (a), (b) and (c) on the merged (2, 2) mesh: 4 ranks, one spawn
+        t0 = time.perf_counter()
+        scheds = P12_TRAIN_SCHEDS
+        res = spawn(_p12_merged_rank, 4, ref_path, model_cfg, scheds,
+                    P12_STEPS, tokens, backend="gloo", device=dev.type,
+                    timeout=900, threads=2 if cpu else None)
+        (label, _), _, _, _ = P12_MERGED
+        failed += _p12_report(label, 4, [r["layer"] for r in res], paths)
+        if failed:
+            raise AssertionError(f"phase 12 (a): {failed} outside their "
+                                 f"limits (the lines above)")
+    for sched in scheds:
+        per_rank = [r["train"][sched] for r in res]
+        for step in range(P12_STEPS):
+            want = ref[step]
+            for rk, rr in enumerate(per_rank):
+                got = rr["rows"][step]
+                if not (abs(got["loss"] - want["loss"])
+                        <= 1e-4 * abs(want["loss"])
+                        and abs(got["grad_norm"] - want["grad_norm"])
+                        <= 1e-3 * want["grad_norm"]):
+                    raise AssertionError(
+                        f"phase 12 (b) {sched} rank {rk} step {step}: "
+                        f"loss {got['loss']} grad norm "
+                        f"{got['grad_norm']}; one rank {want['loss']} "
+                        f"/ {want['grad_norm']}")
+        r0 = per_rank[0]["rows"]
+        log(f"  (b) {sched}: losses "
+            + " ".join(f"{x['loss']:.6f}" for x in r0) + " (one rank "
+            + " ".join(f"{x['loss']:.6f}" for x in ref) + "); grad "
+            "norms " + " ".join(f"{x['grad_norm']:.6f}" for x in r0)
+            + " (one rank " + " ".join(f"{x['grad_norm']:.6f}"
+                                      for x in ref)
+            + "); the first step taken twice torch.equal on every rank")
+        one_ms = sum(x["ms"] for x in ref[1:]) / len(ref[1:])
+        for rk, rr in enumerate(per_rank):
+            last = rr["rows"][1:]
+            ms = sum(x["ms"] for x in last) / len(last)
+            shares = {}
+            for x in last:
+                for k, (_, nb, sec) in x["comm"].items():
+                    shares[k] = shares.get(k, 0.0) + sec * 1e3
+            log(f"  (c) {sched} rank {rk}: {ms:.1f} ms/step after the "
+                f"first (one rank: {one_ms:.1f}); "
+                "collectives (host, gloo) "
+                + ", ".join(f"{k} {v / len(last):.1f} ms "
+                            f"({100 * v / len(last) / ms:.1f}%)"
+                            for k, v in sorted(shares.items())))
+        paths[f"train_2x2_{sched}"] = {
+            k: [rr["launches"][k] for rr in per_rank]
+            for k in per_rank[0]["launches"]
+            if any(rr["launches"][k] for rr in per_rank)}
+    log(f"  (a) 2x2, (b) and (c) in {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 #: kernel -> (source, the TPU kernel it replaces, its main path, the phase-3
 #: row at that path's shapes)
 KERNELS = {
@@ -2000,8 +2462,16 @@ def main() -> int:
     log("phase 11: the cost model and the autoscheduler")
     path_launches.update(autoscheduling(dev, forward_ms, cfg, prompts, gen))
     log(f"  (a)-(d), (f), (g) in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
 
-    # 12. results.  Each kernel's top-level numbers are those of its main
+    # 12. Parm's schedules across ranks
+    t0 = time.perf_counter()
+    log("phase 12: Parm's schedules across ranks (gpt2-moe, gloo ranks on "
+        "cuda:0)")
+    multi_paths = multirank(dev)
+    log(f"  phase 12 in {time.perf_counter() - t0:.1f} s")
+
+    # 13. results.  Each kernel's top-level numbers are those of its main
     # path (KERNELS): its launches there, counted from 0 just before the
     # run, and the phase-3 row at the shapes that path gives it.
     # ``by_path`` pairs every path's launches with the phase-3 row at that
@@ -2026,7 +2496,10 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "main_path": main_path,
             "launches": path_launches[main_path][name],
-            **{k: main_row[k] for k in keys}, "by_path": by_path})
+            **{k: main_row[k] for k in keys}, "by_path": by_path,
+            "multirank": {path: per_rank[name]
+                          for path, per_rank in multi_paths.items()
+                          if name in per_rank}})
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

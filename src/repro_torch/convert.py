@@ -7,7 +7,9 @@ goes through :func:`params_from_jax`.  The port keeps the JAX layout,
 including the stacked ``run{r}`` layer dimension (the JAX model stacks each
 run of same-kind layers with a leading axis for ``lax.scan``; the port
 indexes the same axis per layer), so conversion is a checked leaf-by-leaf
-copy.
+copy.  With ``mesh`` and ``dims`` it is this rank's shards of that copy
+(``Model.param_specs``): the one way weights reach a rank in the
+multi-rank parity tests.
 """
 
 from __future__ import annotations
@@ -37,12 +39,19 @@ def _convert(tree, device, lead, path):
     return t
 
 
-def params_from_jax(tree_of_numpy: dict, cfg, device="cuda") -> dict:
+def params_from_jax(tree_of_numpy: dict, cfg, device="cuda", mesh=None,
+                    dims=None) -> dict:
     """The port's parameters for ``cfg`` from the JAX ``Model.init`` pytree
     (nested dicts of numpy arrays).  Checks that the tree has exactly the
     top-level entries of ``cfg``'s model and that every ``run{r}`` leaf
-    stacks that run's layer count on its leading axis."""
-    runs = Model(cfg, device=device).runs
+    stacks that run's layer count on its leading axis.  With ``mesh`` and
+    ``dims``: this rank's shards only."""
+    model = Model(cfg, device=device)
+    if mesh is not None:
+        from repro_torch.parallel.sharding import local_tree
+        specs = model.param_specs(tree_of_numpy, mesh, dims)
+        tree_of_numpy = local_tree(tree_of_numpy, specs, mesh)
+    runs = model.runs
     want = {"embed", "final_norm"} | {f"run{r}" for r in range(len(runs))}
     if not cfg.tie_embeddings:
         want.add("lm_head")

@@ -1,29 +1,41 @@
-"""Parm's communication primitives on one rank (counterpart of
-``repro/core/collectives.py``).
+"""Parm's communication primitives on ``torch.distributed`` (counterpart
+of ``repro/core/collectives.py``).
 
 The JAX package issues its collectives as ``jax.lax`` ops inside a
-shard_map body; this slice of the port runs on one rank, where every group
-(EP, ESP, MP and their combinations) has one member.  Every collective here
-is then the identity, as a ``lax`` collective over a size-1 axis is, and on
-a larger group it raises ``NotImplementedError``: the collectives on
-``torch.distributed`` come with the multi-rank slice.  Where the JAX
-function reads its group size from the mesh, the port's takes it as an
-argument.
+shard_map body, over named mesh axes.  The port's run inside
+:func:`bound`, which binds a :class:`~repro_torch.parallel.mesh.Mesh` as
+shard_map binds its axes (``apply_moe(..., mesh=)`` binds one): an axis
+tuple resolves to this rank's process group, and a collective over a
+one-member group is the identity, as a ``lax`` collective over a size-1
+axis is.  Where the JAX function reads its group size from the mesh, the
+port's takes it as an argument and checks it against the mesh.
 
-The wire codec still runs at group size 1, as in JAX: a ``wire_*``
-collective encodes its payload (f32 identity, bf16 cast, fp8_e4m3 with a
-per-row absmax scale bitcast into a 4-byte tail), moves it (the identity)
-and decodes it, forward and backward.  It is plain PyTorch: the codec is
-jnp in the JAX package, not a TPU kernel.
+The data move under every collective is ``repro_torch.parallel.comm``'s
+(one ``all_to_all_single``, sums in a fixed order on the receiving rank).
+Each collective's backward is JAX's transpose, as ``jax.grad`` takes it
+inside a ``shard_map(..., check_vma=False)``: an AlltoAll's is the
+AlltoAll with split and concat swapped, a tiled AllGather's the
+reduce-scatter, ``psum``'s ``psum``, and ``mp_split``'s (a slice) a
+zero pad.  ``apply_moe`` adds the shard_map boundary's two rules
+(cotangents of replicated outputs divided by the replication, input
+cotangents summed over the axes the input is replicated on).
+
+The wire codec runs as in JAX: a ``wire_*`` collective encodes its
+payload (f32 identity, bf16 cast, fp8_e4m3 with a per-row absmax scale
+bitcast into a 4-byte tail), moves it and decodes it, forward and
+backward.  It is plain PyTorch: the codec is jnp in the JAX package, not
+a TPU kernel.  On a one-member group the move is the identity and only
+the codec runs.
 
 The fp8 saturation monitor and fault injection of the JAX module
 (``set_fp8_monitor``, ``set_fp8_sat_injection``) hook the fp8 encode at
-the JAX module's points; the guard rails (``runtime/guards.py``) install
-the monitor.  The fp8 move's backward re-encodes its cotangent under the
-call context of its forward (``obs.trace_tag``), so a saturation event of
-the backward says which MoE call it belongs to, as the forward's does.  The layout helpers (``dump``, ``undump_reduce``,
-``to/from_expert_batch`` and the expert-major ``*_em`` twins) are the JAX
-module's reshapes, written for torch tensors.
+the JAX module's points, and count this rank's own encodes; the guard
+rails (``runtime/guards.py``) install the monitor.  The fp8 move's
+backward re-encodes its cotangent under the call context of its forward
+(``obs.trace_tag``), so a saturation event of the backward says which MoE
+call it belongs to, as the forward's does.  The layout helpers (``dump``,
+``undump_reduce``, ``to/from_expert_batch`` and the expert-major ``*_em``
+twins) are the JAX module's reshapes, written for torch tensors.
 """
 
 from __future__ import annotations
@@ -34,12 +46,10 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch import obs
+from repro_torch.parallel import comm as _comm
 
 #: the wire formats (``repro/core/perfmodel.py``'s constant, copied)
 WIRE_DTYPES = ("f32", "bf16", "fp8_e4m3")
-
-MULTI_RANK = ("comes with the multi-rank slice of the port "
-              "(collectives on torch.distributed); this slice runs one rank")
 
 
 @dataclass(frozen=True)
@@ -113,12 +123,6 @@ def _active(comm) -> str:
     return wd
 
 
-def _single(n: int, what: str) -> None:
-    if n != 1:
-        raise NotImplementedError(f"{what} over a group of {n} ranks "
-                                  f"{MULTI_RANK}")
-
-
 def wire_encode(x, comm: CommConfig | None):
     """Encode ``x`` into its wire format.  f32 is the identity; bf16 a
     cast; fp8_e4m3 a per-row (absmax over the trailing M dim) scale and
@@ -185,14 +189,36 @@ class _Fp8Moved(torch.autograd.Function):
         return gd, None, None, None, None
 
 
-def _wire_moved(x, move, comm, *, bwd_move=None, bwd_post=None):
+class _Moved(torch.autograd.Function):
+    """A bit-moving collective ``move`` whose backward is the collective
+    ``transpose`` (both raw ``parallel.comm`` calls bound to a group)."""
+
+    @staticmethod
+    def forward(ctx, x, move, transpose):
+        ctx.transpose = transpose
+        return move(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.transpose(g.contiguous()), None, None
+
+
+def _wire_moved(x, move, comm, *, transpose=None, bwd_move=None,
+                bwd_post=None):
     """Run a bit-moving collective ``move`` in the wire format, with the
     backward collective in the same wire dtype: f32 runs ``move`` raw,
-    bf16 composes casts (autograd transposes them), fp8 goes through
-    :class:`_Fp8Moved`."""
+    bf16 composes casts around it (autograd transposes them), each with
+    ``transpose`` (default ``move``: the self-transposing AlltoAlls) as
+    the move's backward; fp8 goes through :class:`_Fp8Moved`, whose
+    backward moves the re-encoded cotangent through ``bwd_move`` and then
+    applies ``bwd_post`` (the local sum a gather's transpose needs).
+    ``move is _identity`` (a one-member group) runs the codec alone."""
     wd = _active(comm)
     if wd in ("f32", "bf16"):
-        return wire_decode(move(wire_encode(x, comm)), comm, x.dtype)
+        enc = wire_encode(x, comm)
+        moved = enc if move is _identity else _Moved.apply(
+            enc, move, transpose or move)
+        return wire_decode(moved, comm, x.dtype)
     return _Fp8Moved.apply(x, comm, move, bwd_move, bwd_post)
 
 
@@ -213,25 +239,127 @@ def _identity(v):
     return v
 
 
+# --- the bound mesh ---------------------------------------------------------
+
+_MESH = None   # the Mesh bound by ``bound`` (apply_moe's shard boundary)
+
+
+@contextlib.contextmanager
+def bound(mesh):
+    """Bind ``mesh`` for the collectives called inside, as shard_map binds
+    its mesh axes (``None`` binds nothing: one rank)."""
+    global _MESH
+    prev, _MESH = _MESH, mesh
+    try:
+        yield mesh
+    finally:
+        _MESH = prev
+
+
+def current_mesh():
+    """The mesh bound by :func:`bound`, or None."""
+    return _MESH
+
+
+def _axes(axes):
+    """Normalize an axis spec (name or iterable of names) to a tuple."""
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def _combined(ep_axes, esp_axes):
+    """The combined group's axis tuple, EP-major (JAX's ``names``)."""
+    ep, esp = _axes(ep_axes), _axes(esp_axes)
+    return ep + tuple(a for a in esp if a not in ep)
+
+
+def group(axes, n: int, what: str):
+    """This rank's :class:`~repro_torch.parallel.mesh.AxisGroup` over
+    ``axes`` in the bound mesh, or None for a one-member group (``n ==
+    1``).  A larger group with no mesh bound raises."""
+    if n == 1:
+        return None
+    if _MESH is None:
+        raise RuntimeError(f"{what} over a group of {n} ranks needs a "
+                           "multi-rank mesh bound (collectives.bound, or "
+                           "apply_moe(..., mesh=, dims=))")
+    g = _MESH.group(_axes(axes))
+    if g.size != n:
+        raise ValueError(f"{what}: the mesh's group over {g.axes} has "
+                         f"{g.size} ranks, the caller says {n}")
+    return g
+
+
+def axis_index(axes) -> int:
+    """JAX's ``lax.axis_index(axes)`` in the bound mesh (0 with none)."""
+    axes = _axes(axes)
+    if _MESH is None or not axes:
+        return 0
+    return _MESH.axis_index(axes)
+
+
+def _a2a(grp, split_axis, concat_axis):
+    def move(v):
+        return _comm.all_to_all(v, grp, split_axis, concat_axis)
+    return move
+
+
+def _moved_a2a(x, grp, split_axis, concat_axis):
+    """Differentiable AlltoAll (its backward swaps split and concat)."""
+    return _Moved.apply(x, _a2a(grp, split_axis, concat_axis),
+                        _a2a(grp, concat_axis, split_axis))
+
+
+def _gather(grp, axis, tiled):
+    def move(v):
+        return _comm.all_gather(v, grp, axis, tiled)
+
+    def transpose(g):
+        return _comm.psum_scatter(g, grp, axis, tiled)
+    return move, transpose
+
+
 # --- PauseMP primitives ------------------------------------------------------
 
 def mp_split(x, mp_axes, n_mp: int, axis: int = 0):
     """MP-Split: this rank's 1/N_MP slice along ``axis`` (the identity at
-    ``n_mp == 1``)."""
-    _single(n_mp, f"mp_split over {mp_axes}")
-    return x
+    ``n_mp == 1``).  The forward is a slice; its backward (JAX's
+    transpose of the slice) pads the cotangent with zeros, and the
+    AllGather the paper names happens at the shard boundary
+    (``apply_moe``'s input cotangent sum over MP)."""
+    grp = group(mp_axes, n_mp, f"mp_split over {mp_axes}")
+    if grp is None:
+        return x
+    size = x.shape[axis] // n_mp
+    return x.narrow(axis, grp.index * size, size)
 
 
 def mp_all_gather(x, mp_axes, n_mp: int, axis: int = 0):
-    """MP-AllGather, the transpose of :func:`mp_split`."""
-    _single(n_mp, f"mp_all_gather over {mp_axes}")
-    return x
+    """MP-AllGather, the transpose of :func:`mp_split` (a tiled AllGather;
+    backward the reduce-scatter)."""
+    grp = group(mp_axes, n_mp, f"mp_all_gather over {mp_axes}")
+    if grp is None:
+        return x
+    move, transpose = _gather(grp, axis, True)
+    return _Moved.apply(x, move, transpose)
 
 
 def psum(x, axes, n: int):
-    """The in-network AllReduce (the baseline's ESP partial sums)."""
-    _single(n, f"psum over {axes}")
-    return x
+    """The AllReduce (the baseline's ESP partial sums, the decode
+    fallback's output); its backward is ``psum`` of the cotangent."""
+    grp = group(axes, n, f"psum over {axes}")
+    if grp is None:
+        return x
+
+    def move(v):
+        return _comm.psum(v, grp)
+    return _Moved.apply(x, move, move)
+
+
+def pmean(x, axes, n: int):
+    """``psum(x) / n``, as ``lax.pmean`` computes it."""
+    if n == 1:
+        return x
+    return psum(x, axes, n) / n
 
 
 # --- EP&ESP-AlltoAll ---------------------------------------------------------
@@ -269,26 +397,54 @@ def from_expert_batch(h, G: int):
 def ep_esp_all_to_all(x, ep_axes, esp_axes, n_group: int, *, split_axis=0,
                       concat_axis=0):
     """One fused AlltoAll over the combined (EP, ESP) group of
-    ``n_group`` ranks."""
-    _single(n_group, f"the EP&ESP-AlltoAll over {ep_axes} x {esp_axes}")
-    return x
+    ``n_group`` ranks (JAX's tiled ``lax.all_to_all`` over the tuple)."""
+    grp = group(_combined(ep_axes, esp_axes), n_group,
+                f"the EP&ESP-AlltoAll over {ep_axes} x {esp_axes}")
+    if grp is None:
+        return x
+    return _moved_a2a(x, grp, split_axis, concat_axis)
 
 
 def ep_all_to_all(x, ep_axes, n_ep: int, *, split_axis=0, concat_axis=0):
     """Plain EP-AlltoAll over the EP axes (baseline schedule)."""
-    _single(n_ep, f"the EP-AlltoAll over {ep_axes}")
-    return x
+    grp = group(ep_axes, n_ep, f"the EP-AlltoAll over {ep_axes}")
+    if grp is None:
+        return x
+    return _moved_a2a(x, grp, split_axis, concat_axis)
+
+
+def _hier_groups(ep_axes, esp_axes, n_ep, n_esp, order):
+    if order not in ("esp_first", "ep_first"):
+        raise ValueError(f"unknown hier order {order!r}")
+    return (group(ep_axes, n_ep, f"the hierarchical EP hop over {ep_axes}"),
+            group(esp_axes, n_esp,
+                  f"the hierarchical ESP hop over {esp_axes}"))
+
+
+def _hier_move(x, ge, gs, n_ep, n_esp, axis, order, hop):
+    """The two hops of the hierarchical AlltoAll over the combined dim at
+    ``axis``, viewed as (n_ep, n_esp), over the EP group ``ge`` and the
+    ESP group ``gs``; ``hop(v, grp, dim)`` moves one."""
+    if ge is None and gs is None:
+        return x
+    shp = x.shape
+    x5 = x.reshape(*shp[:axis], n_ep, n_esp, *shp[axis + 1:])
+    hops = [(gs, axis + 1), (ge, axis)]
+    if order == "ep_first":
+        hops.reverse()
+    for grp, dim in hops:
+        if grp is not None:
+            x5 = hop(x5, grp, dim)
+    return x5.reshape(shp)
 
 
 def hier_ep_esp_all_to_all(x, ep_axes, esp_axes, n_ep: int, n_esp: int, *,
                            axis=1, order: str = "esp_first"):
     """Hierarchical EP&ESP-AlltoAll: an ESP hop and an EP hop, in either
     ``order`` (the s2h schedule); bitwise the fused AlltoAll."""
-    if order not in ("esp_first", "ep_first"):
-        raise ValueError(f"unknown hier order {order!r}")
-    _single(n_ep * n_esp, f"the hierarchical AlltoAll over {ep_axes} x "
-            f"{esp_axes}")
-    return x
+    ge, gs = _hier_groups(ep_axes, esp_axes, n_ep, n_esp, order)
+    return _hier_move(x, ge, gs, n_ep, n_esp, axis, order,
+                      lambda v, grp, dim: _moved_a2a(v, grp, dim, dim))
 
 
 # --- wire-format collective entry points -------------------------------------
@@ -298,41 +454,70 @@ def wire_ep_esp_all_to_all(x, ep_axes, esp_axes, n_group: int, comm=None, *,
     """:func:`ep_esp_all_to_all` with the payload in ``comm``'s wire dtype
     (backward AlltoAll in the same dtype)."""
     assert split_axis == concat_axis, "wire a2a must be self-transposing"
-    _single(n_group, f"the EP&ESP-AlltoAll over {ep_axes} x {esp_axes}")
-    return _wire_moved(x, _identity, comm)
+    grp = group(_combined(ep_axes, esp_axes), n_group,
+                f"the EP&ESP-AlltoAll over {ep_axes} x {esp_axes}")
+    move = _identity if grp is None else _a2a(grp, split_axis, concat_axis)
+    return _wire_moved(x, move, comm)
 
 
 def wire_ep_all_to_all(x, ep_axes, n_ep: int, comm=None, *, split_axis=0,
                        concat_axis=0):
     """:func:`ep_all_to_all` in the wire format (baseline schedule)."""
     assert split_axis == concat_axis, "wire a2a must be self-transposing"
-    _single(n_ep, f"the EP-AlltoAll over {ep_axes}")
-    return _wire_moved(x, _identity, comm)
+    grp = group(ep_axes, n_ep, f"the EP-AlltoAll over {ep_axes}")
+    move = _identity if grp is None else _a2a(grp, split_axis, concat_axis)
+    return _wire_moved(x, move, comm)
 
 
 def wire_hier_ep_esp_all_to_all(x, ep_axes, esp_axes, n_ep: int,
                                 n_esp: int, comm=None, *, axis=1,
                                 order: str = "esp_first"):
     """:func:`hier_ep_esp_all_to_all` in the wire format: one encode
-    before the first hop, one decode after the second."""
-    hier_ep_esp_all_to_all(x, ep_axes, esp_axes, n_ep, n_esp, axis=axis,
-                           order=order)
-    return _wire_moved(x, _identity, comm)
+    before the first hop, one decode after the second, so both hops ship
+    the encoded payload; the two-hop move is its own transpose."""
+    ge, gs = _hier_groups(ep_axes, esp_axes, n_ep, n_esp, order)
+
+    def move(w):
+        return _hier_move(w, ge, gs, n_ep, n_esp, axis, order,
+                          lambda v, grp, dim: _comm.all_to_all(v, grp, dim,
+                                                               dim))
+    if ge is None and gs is None:
+        move = _identity
+    return _wire_moved(x, move, comm)
 
 
 def wire_mp_all_gather(x, mp_axes, n_mp: int, comm=None, axis: int = 0):
     """:func:`mp_all_gather` in the wire format; at ``n_mp == 1`` it
-    returns ``x`` untouched, no codec, as the JAX function does."""
-    _single(n_mp, f"mp_all_gather over {mp_axes}")
-    return x
+    returns ``x`` untouched, no codec, as the JAX function does.  Its
+    transpose is the reduce-scatter; the fp8 backward is an AlltoAll over
+    the gathered dim followed by a sum after the decode."""
+    grp = group(mp_axes, n_mp, f"mp_all_gather over {mp_axes}")
+    if grp is None:
+        return x
+    move, transpose = _gather(grp, axis, True)
+
+    def bwd_post(g):
+        s = g.shape
+        return g.reshape(*s[:axis], n_mp, s[axis] // n_mp,
+                         *s[axis + 1:]).sum(dim=axis)
+
+    return _wire_moved(x, move, comm, transpose=transpose,
+                       bwd_move=_a2a(grp, axis, axis), bwd_post=bwd_post)
 
 
 def wire_all_gather_stacked(x, mp_axes, n_mp: int, comm=None,
                             axis: int = 1):
     """Untiled (stacking) AllGather in the wire format: a new group dim
-    at ``axis``.  The codec runs at size 1, as in JAX."""
-    _single(n_mp, f"the stacked AllGather over {mp_axes}")
-    return _wire_moved(x, _identity, comm).unsqueeze(axis)
+    at ``axis`` (the SAA / ``s2_pipe`` per-chunk MP-AllGather).  The codec
+    runs at size 1, as in JAX; the fp8 backward is an AlltoAll over the
+    group dim, the decode and a sum."""
+    grp = group(mp_axes, n_mp, f"the stacked AllGather over {mp_axes}")
+    if grp is None:
+        return _wire_moved(x, _identity, comm).unsqueeze(axis)
+    move, transpose = _gather(grp, axis, False)
+    return _wire_moved(x, move, comm, transpose=transpose,
+                       bwd_move=_a2a(grp, axis, axis),
+                       bwd_post=lambda g: g.sum(dim=axis))
 
 
 # --- expert-major buffer layout ----------------------------------------------

@@ -1,16 +1,17 @@
 """Lower a schedule :class:`~repro_torch.core.plan.Plan` to PyTorch, stage
 by stage (counterpart of ``repro/core/executor.py``).
 
-``execute`` walks the validated plan graph on one rank and emits, for each
-stage kind, the call sequence of the JAX executor: the collectives of
-``repro_torch.core.collectives`` (the identity plus the wire codec on a
-one-member group) and the kernel seam's ops.  All schedule-specific
-knowledge lives in the plans; this module knows only how to emit one stage
-of each kind:
+``execute`` walks the validated plan graph on this rank, inside the mesh
+``apply_moe`` binds (``collectives.bound``), and emits, for each stage
+kind, the call sequence of the JAX executor: the collectives of
+``repro_torch.core.collectives`` (over this rank's process groups; the
+identity plus the wire codec on a one-member group) and the kernel seam's
+ops.  All schedule-specific knowledge lives in the plans; this module
+knows only how to emit one stage of each kind:
 
   gate          topk_gate over the stage input's token pool
   dispatch      ``moe_dispatch`` scatter into (E, cap, M)
-  mp_split      this rank's slice (the identity at one rank)
+  mp_split      this rank's slice along the stage's axis
   dispatch_a2a  EP AlltoAll (baseline layout) or fused EP&ESP AlltoAll
                 (expert-major dump); ``hier=...`` the two-hop form (s2h)
   expert_ffn    ``expert_ffn`` on the local expert batch
@@ -25,13 +26,16 @@ of each kind:
   slice/merge   micro-chunk bookkeeping inserted by ``split_capacity``
   expert_ffn_grouped  the dropless grouped FFN (``plan.fuse_grouped``):
                 local fused op, its fp8 composition, or the pool form
+                (counts AlltoAll + ``expert_ffn_ragged``)
 
-Wire precision: stages with ``wire=True`` get the plan's stamped
-``CommConfig`` and call the ``wire_*`` collective twins; everything else
-calls the raw collectives.  A plan that carries an expert placement raises
-``NotImplementedError``: placement comes with a later slice of the port.
-``execute_prefix`` runs the first k stages for the stage-timing harness
-(``repro_torch.obs.trace``).
+The gate's scalar aux (aux and z losses, drop fraction) come back
+``pmean``-ed over every axis of the layer, as in JAX.  Wire precision:
+stages with ``wire=True`` get the plan's stamped ``CommConfig`` and call
+the ``wire_*`` collective twins; everything else calls the raw
+collectives.  A plan that carries an expert placement raises
+``NotImplementedError``: placement comes with a later slice of the port
+(ROADMAP item 6).  ``execute_prefix`` runs the first k stages for the
+stage-timing harness (``repro_torch.obs.trace``).
 """
 
 from __future__ import annotations
@@ -46,10 +50,33 @@ from repro_torch.kernels.registry import get_op
 
 def expert_ffn(xb, w1, w3, w2, info):
     """Per-expert FFN on this rank's (El, t, M) batch (the kernel seam's
-    ``expert_ffn``).  On more than one ESP rank the output would be a
-    partial sum that the caller reduces."""
+    ``expert_ffn``).  The weights are this rank's ESP shard (hidden dim
+    sliced N_ESP ways), so on more than one ESP rank the output is a
+    partial sum that the schedule reduces (psum in the baseline, the
+    combine AlltoAll's local sum in S1/S2)."""
     op = get_op("expert_ffn", cfg=info.kernel, act=info.act)
     return op(xb.contiguous(), w1, w3 if info.glu else None, w2)
+
+
+def _all_axes(info):
+    """Every axis of the layer, deduplicated in EP, ESP, MP order, and the
+    product of their sizes."""
+    axes = tuple(dict.fromkeys(info.ep_axes + info.esp_axes
+                               + info.mp_axes))
+    mesh = coll.current_mesh()
+    n = 1
+    if mesh is not None:
+        for a in axes:
+            n *= mesh.shape[a]
+    return axes, n
+
+
+def _aux_mean(aux, info):
+    """The gate's scalar aux ``pmean``-ed over every axis of the layer
+    (the identity on one rank); vectors stay this rank's."""
+    axes, n = _all_axes(info)
+    return {k: (coll.pmean(v, axes, n) if v.dim() == 0 else v)
+            for k, v in aux.items()}
 
 
 def _group(info, key):
@@ -278,15 +305,16 @@ def _start(plan: Plan, x, wg, w1, w3, w2, info):
     if getattr(plan, "placement", None) is not None:
         raise NotImplementedError(
             f"plan {plan.name!r} carries an expert placement: placement "
-            "comes with a later slice of the port")
+            "comes with a later slice of the port (ROADMAP item 6)")
     return validate(plan), _Ctx(info, wg, w1, w3, w2,
                                 getattr(plan, "comm", None), x.dtype)
 
 
 def execute(plan: Plan, x, wg, w1, w3, w2, info):
-    """Run one MoE layer under ``plan`` on one rank.  ``x`` is the (S, M)
+    """Run one MoE layer under ``plan`` on this rank.  ``x`` is the (S, M)
     token slice; returns ``(y, aux)`` with the gate's aux (aux and z
-    losses, load, routed rows, drop fraction)."""
+    losses and drop fraction ``pmean``-ed over the layer's axes; this
+    rank's load and routed rows)."""
     order, ctx = _start(plan, x, wg, w1, w3, w2, info)
     env = {INPUT: x}
     for st in order:
@@ -294,9 +322,7 @@ def execute(plan: Plan, x, wg, w1, w3, w2, info):
     if ctx.gate is None:
         raise ValueError(f"plan {plan.name!r} has no gate stage")
     g, _ = ctx.gate
-    # the JAX executor pmeans the scalar aux over every axis: the identity
-    # on one rank, the only layout apply_moe builds
-    return env[plan.output], dict(g.aux)
+    return env[plan.output], _aux_mean(g.aux, info)
 
 
 def _probe(v):
@@ -310,8 +336,8 @@ def _probe(v):
 def execute_prefix(plan: Plan, x, wg, w1, w3, w2, info, n_stages: int):
     """Run only the first ``n_stages`` stages of ``plan`` (validated topo
     order) and return a 0-d f32 tensor folding a probe of the input and of
-    every stage output, as the JAX ``execute_prefix`` does (its ``psum``
-    over the layer's axes is the identity on one rank).
+    every stage output, ``psum``-ed over the layer's axes, as the JAX
+    ``execute_prefix`` returns it.
 
     The stage-timing harness (``repro_torch.obs.trace``) times the prefixes
     k = 0..n and charges stage k the difference of prefixes k and k - 1.
@@ -324,4 +350,5 @@ def execute_prefix(plan: Plan, x, wg, w1, w3, w2, info, n_stages: int):
     for st in order[:n_stages]:
         env[st.name] = _emit(st, [env[d] for d in st.deps], ctx)
         acc = acc + _probe(env[st.name])
-    return acc
+    axes, n = _all_axes(info)
+    return coll.psum(acc, axes, n)

@@ -1,13 +1,28 @@
-"""The MoE layer on one rank (counterpart of ``repro/core/moe.py``).
+"""The MoE layer (counterpart of ``repro/core/moe.py``).
 
 ``apply_moe`` runs every schedule of the JAX package's ``SCHEDULES`` (and
 any schedule registered with ``plan.register_plan``) through the ported
 plan IR: ``schedules.BODY[name]`` or the ``*_pipe`` bodies build the plan
-and ``executor.execute`` lowers it.  On one rank (``n_ep = n_esp = n_mp =
-1``) every collective is the identity plus the wire codec, so every
-schedule runs gate -> ``moe_dispatch`` -> (wire) -> ``expert_ffn`` ->
-(wire) -> ``moe_combine``, and ``s1g`` the fused ``expert_ffn_grouped``
-(or, on an fp8 wire, dispatch -> ``expert_ffn_ragged`` -> combine).
+and ``executor.execute`` lowers it.  With ``mesh=None`` it is the layer on
+one rank (``n_ep = n_esp = n_mp = 1``): every collective is the identity
+plus the wire codec, so every schedule runs gate -> ``moe_dispatch`` ->
+(wire) -> ``expert_ffn`` -> (wire) -> ``moe_combine``, and ``s1g`` the
+fused ``expert_ffn_grouped`` (or, on an fp8 wire, dispatch ->
+``expert_ffn_ragged`` -> combine).
+
+With a :class:`~repro_torch.parallel.mesh.Mesh` and ``ParallelDims`` it
+is the JAX layer's shard_map body on this rank: ``x`` is this rank's block
+of the activations (the batch over ``dims.batch_axes``, replicated over
+the rest), the parameters this rank's shards (``moe_param_specs``), and
+the collectives run over its process groups.  ``s1_seqpar`` takes its MP
+slice of the rows and gathers the output back; a pool too small to split
+(fewer tokens a rank than MP ranks) gathers the pool over the batch axes
+and runs the ``dense_decode`` fallback, ``_replicated_body``.  The
+gradients are JAX's: the boundary divides the cotangent of a replicated
+output by its replication and sums an input's cotangent over the
+non-batch axes it is replicated on; the batch axes' sum is the
+trainer's (``train.loop.sync_grads``), so a layer's gradients summed
+that way equal ``jax.grad`` of the JAX layer's.
 
 ``schedule="auto"`` and ``CommConfig(wire_dtype="auto")`` resolve
 through ``autosched.decide`` as in the JAX ``apply_moe``: analytically
@@ -16,7 +31,9 @@ default) or, under ``autosched="measured"``, from a one-shot calibration
 of every candidate on the layer's device.  At one rank the analytic
 decision is ``s1g`` with one chunk on the f32 wire at every serving and
 training shape (``tests/test_torch_moe.py``, ``tests/test_torch_train.py``
-pin it).  A multi-rank layout raises.
+pin it).  On a mesh the analytic decision is priced with ``h100_model(n_ep,
+n_esp, n_mp)`` and checked equal on every rank at its first call; the
+measured calibration runs on one rank only (ROADMAP item 5.4).
 
 Telemetry: the layer's body runs under ``obs.trace_tag(moe_call=,
 schedule=, wire=)``, so the fp8 saturation events it records say which
@@ -37,6 +54,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core import autosched, executor
+from repro_torch.core import collectives as coll
 from repro_torch.core import plan as planlib
 from repro_torch.core.collectives import CommConfig
 from repro_torch.core.gating import GateConfig, capacity
@@ -44,6 +62,8 @@ from repro_torch.core.perfmodel import MoELayerShape, PerfModel, h100_model
 from repro_torch.core.pipeline import PIPELINE_OF, UNCHUNKED_OF, clamp_chunks
 from repro_torch.core.schedules import BODY, SCHEDULES, MoEShardInfo
 from repro_torch.kernels.registry import KernelConfig
+from repro_torch.parallel.mesh import ParallelDims, axis_size
+from repro_torch.parallel.sharding import P, replicated_axes
 
 _CALLS = {"step": None, "n": 0}   # moe_call ordinals of the current step
 
@@ -116,6 +136,34 @@ def init_moe_params(generator, cfg: MoEConfig, dtype=torch.float32) -> dict:
     return p
 
 
+def moe_param_specs(cfg: MoEConfig, mesh, dims: ParallelDims) -> dict:
+    """PartitionSpecs: experts over EP, hidden over ESP, gate replicated
+    (the JAX function, copied)."""
+    def ep_ok(n):
+        return dims.ep and n % axis_size(mesh, dims.ep) == 0
+
+    def esp_ok(n):
+        return dims.esp and n % axis_size(mesh, dims.esp) == 0
+
+    E, F, M = cfg.n_experts, cfg.d_ff, cfg.d_model
+    e_ax = tuple(dims.ep) if ep_ok(E) else None
+    f_ax = tuple(dims.esp) if esp_ok(F) else None
+    specs = {
+        "wg": P(None, None),
+        "w1": P(e_ax, None, f_ax),
+        "w2": P(e_ax, f_ax, None),
+    }
+    if cfg.glu:
+        specs["w3"] = P(e_ax, None, f_ax)
+    if cfg.n_shared_experts:
+        mp_ax = tuple(dims.mp) if dims.mp and (
+            F * cfg.n_shared_experts) % axis_size(mesh, dims.mp) == 0 else None
+        specs["shared_w1"] = P(None, mp_ax)
+        specs["shared_w3"] = P(None, mp_ax)
+        specs["shared_w2"] = P(mp_ax, None)
+    return specs
+
+
 def shard_pool_capacity(tokens_global: int, n_token_shard: int, n_mp: int,
                         gate_cfg: GateConfig, infer: bool = False):
     """(s_local, cap) for one device's token pool — the JAX package's
@@ -166,35 +214,43 @@ def select_schedule(cfg: MoEConfig, shape: MoELayerShape,
 def resolve_schedule(cfg: MoEConfig, schedule=None, *, B: int = 1,
                      L: int = 1, infer: bool = False,
                      perf_model: Optional[PerfModel] = None,
-                     device="cpu"):
-    """(schedule name, n_chunks, wire dtype) that ``apply_moe`` runs on
-    one rank for a (B, L) token pool, as the JAX ``apply_moe`` resolves
-    them: ``"auto"`` (schedule or wire) asks ``autosched.decide`` for the
-    layer's ``MoELayerShape`` — chunk candidates clamped to the capacity
-    (one chunk for a decode pool), a forced schedule with an ``"auto"``
-    wire restricting the grid to itself, a calibration on ``device``
-    under ``autosched="measured"`` — then the wire ceiling applies, and a
-    chunk count > 1 routes a base schedule to its ``*_pipe`` body."""
+                     device="cpu", n_ep: int = 1, n_esp: int = 1,
+                     n_mp: int = 1, n_token_shard: int = 1):
+    """(schedule name, n_chunks, wire dtype) that ``apply_moe`` runs for a
+    global (B, L) token pool split over ``n_token_shard`` ranks, as the JAX
+    ``apply_moe`` resolves them: ``"auto"`` (schedule or wire) asks
+    ``autosched.decide`` for the layer's ``MoELayerShape`` — chunk
+    candidates clamped to the chunked capacity ``cap // n_mp`` (one chunk
+    for a decode pool), a forced schedule with an ``"auto"`` wire
+    restricting the grid to itself, a calibration on ``device`` under
+    ``autosched="measured"`` (one rank only) — then the wire ceiling
+    applies, and a chunk count > 1 routes a base schedule to its
+    ``*_pipe`` body."""
     sched = schedule or cfg.schedule
     n_chunks = max(cfg.pipeline_chunks, 1)
     wire = (cfg.comm or CommConfig()).wire_dtype
     if sched == "auto" or wire == "auto":
-        s_local, cap = shard_pool_capacity(B * L, 1, 1, cfg.gate_config(),
-                                           infer=infer)
+        s_local, cap = shard_pool_capacity(B * L, n_token_shard, n_mp,
+                                           cfg.gate_config(), infer=infer)
         shape = MoELayerShape(
             B=max(s_local // max(L, 1), 1), L=min(L, s_local),
             M=cfg.d_model, H=cfg.d_ff, E=cfg.n_experts, k=cfg.top_k,
-            f=cfg.capacity_factor, n_mp=1, n_esp=1, n_ep=1, infer=infer)
+            f=cfg.capacity_factor, n_mp=n_mp, n_esp=n_esp, n_ep=n_ep,
+            infer=infer)
         # only chunk counts the bodies can run (scored == executed); a
         # decode pool never chunks
         cands = ((1,) if infer else
-                 tuple(sorted({clamp_chunks(cap, n)
+                 tuple(sorted({clamp_chunks(cap // max(n_mp, 1), n)
                                for n in autosched.DEFAULT_CHUNKS})))
         forced = None
         if sched != "auto":
             forced = (UNCHUNKED_OF.get(sched, sched),)
-            cands = (clamp_chunks(cap, n_chunks),)
+            cands = (clamp_chunks(cap // max(n_mp, 1), n_chunks),)
         wire_cands = autosched.AUTO_WIRE if wire == "auto" else (wire,)
+        if cfg.autosched == "measured" and n_ep * n_esp * n_mp > 1:
+            raise NotImplementedError(
+                "autosched='measured' times candidates on one rank; across "
+                "ranks it comes with ROADMAP item 5.4 (use 'analytic')")
         measure = (autosched.measure_candidates(
             cfg, tokens=B * L, d_model=cfg.d_model, device=device)
             if cfg.autosched == "measured" else None)
@@ -217,38 +273,32 @@ def resolve_schedule(cfg: MoEConfig, schedule=None, *, B: int = 1,
     return sched, n_chunks, wire
 
 
-def apply_moe(x, params: dict, *, cfg: MoEConfig, schedule=None,
+def apply_moe(x, params: dict, *, cfg: MoEConfig, mesh=None,
+              dims: Optional[ParallelDims] = None, schedule=None,
               perf_model: Optional[PerfModel] = None, infer: bool = False):
-    """One MoE layer on one rank under the configured schedule.
-    x: (B, L, M).  Returns ``(y, aux)`` with aux ``aux_loss``, ``z_loss``,
-    ``drop_frac`` and ``expert_load`` (the (E,) routed rows), as the JAX
-    ``apply_moe`` returns them.
+    """One MoE layer under the configured schedule.  x: (B, L, M), the
+    whole pool on one rank (``mesh=None``) or this rank's block of it on a
+    mesh (see the module docstring).  Returns ``(y, aux)`` with aux
+    ``aux_loss``, ``z_loss``, ``drop_frac`` and ``expert_load`` (the (E,)
+    routed rows; on a mesh all four ``pmean``-ed over every axis), as the
+    JAX ``apply_moe`` returns them.
 
     ``infer=True`` marks a decode pool (drop-free capacity); prefill
     pools (``infer=False``) take the training capacity, so padding rows of
     a prefill bucket compete for slots exactly as in the JAX engine.
     ``perf_model`` prices ``"auto"`` (default: the card's ``h100_model``).
     """
+    if mesh is not None:
+        if dims is None:
+            raise ValueError("apply_moe(mesh=...) needs dims=")
+        return _apply_moe_mesh(x, params, cfg, mesh, dims, schedule,
+                               perf_model, infer)
     B, L, M = x.shape
     sched, n_chunks, wire = resolve_schedule(
         cfg, schedule, B=B, L=L, infer=infer, perf_model=perf_model,
         device=x.device)
     info = layer_info(cfg, B * L, n_chunks, infer=infer, wire=wire)
-    body = BODY.get(sched)
-    if body is None:
-        # a schedule registered via plan.register_plan without a BODY
-        # alias: execute its plan directly, chunked per pipeline_chunks
-        base = UNCHUNKED_OF.get(sched, sched)
-
-        def body(xt, wg, w1, w3_, w2, info):
-            return executor.execute(planlib.build_plan(base, info), xt, wg,
-                                    w1, w3_, w2, info)
-    xt = x.reshape(B * L, M)
-    with obs.trace_tag(moe_call=_next_call(), schedule=sched,
-                       wire=info.comm.wire_dtype):
-        y, gaux = body(xt, params["wg"], params["w1"],
-                       params.get("w3") if cfg.glu else None, params["w2"],
-                       info)
+    y, gaux = _run_body(sched, x.reshape(B * L, M), params, cfg, info)
     y = y.reshape(B, L, M).to(x.dtype)
     if cfg.n_shared_experts:
         h = torch.einsum("blm,mf->blf", x, params["shared_w1"])
@@ -257,4 +307,207 @@ def apply_moe(x, params: dict, *, cfg: MoEConfig, schedule=None,
         y = y + torch.einsum("blf,fm->blm", h, params["shared_w2"])
     aux = {k: gaux[k] for k in ("aux_loss", "z_loss", "drop_frac")}
     aux["expert_load"] = gaux["routed"]
+    return y, aux
+
+
+def _run_body(sched, xt, ws, cfg, info):
+    """``sched``'s body on the flat pool ``xt`` with the weights ``ws``,
+    under the layer's trace tag; returns ``(y, gaux)``."""
+    body = _replicated_body if sched == "dense_decode" else BODY.get(sched)
+    if body is None:
+        # a schedule registered via plan.register_plan without a BODY
+        # alias: execute its plan directly, chunked per pipeline_chunks
+        base = UNCHUNKED_OF.get(sched, sched)
+
+        def body(xt, wg, w1, w3_, w2, info):
+            return executor.execute(planlib.build_plan(base, info), xt, wg,
+                                    w1, w3_, w2, info)
+    with obs.trace_tag(moe_call=_next_call(), schedule=sched,
+                       wire=info.comm.wire_dtype):
+        return body(xt, ws["wg"], ws["w1"], ws.get("w3") if cfg.glu else None,
+                    ws["w2"], info)
+
+
+# --- the layer on a mesh ----------------------------------------------------
+
+class _ScaleGrad(torch.autograd.Function):
+    """Identity forward; the cotangent times ``scale`` (the shard
+    boundary's division of a replicated output's cotangent)."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
+class _PsumGrad(torch.autograd.Function):
+    """Identity forward; the cotangent ``psum``-ed over ``axes`` (the shard
+    boundary's sum of an input's cotangent over its replicated axes)."""
+
+    @staticmethod
+    def forward(ctx, x, grp):
+        ctx.grp = grp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.parallel import comm
+        return comm.psum(g.contiguous(), ctx.grp), None
+
+
+def _boundary_in(t, spec, mesh, dims):
+    """``t`` (an input block under ``spec``) with its cotangent summed over
+    the non-batch axes it is replicated on."""
+    batch = set(dims.batch_axes)
+    axes = tuple(a for a in replicated_axes(spec, mesh) if a not in batch)
+    n = axis_size(mesh, axes)
+    if n == 1 or not t.requires_grad:
+        return t
+    return _PsumGrad.apply(t, mesh.group(axes))
+
+
+def _boundary_out(t, n: int):
+    """``t`` (an output replicated ``n`` ways) with its cotangent / n."""
+    if n == 1 or not t.requires_grad:
+        return t
+    return _ScaleGrad.apply(t, 1.0 / n)
+
+
+_AGREED = set()   # resolutions already checked equal on all ranks
+
+
+def _check_agreed(mesh, key, sched, n_chunks, wire, device) -> None:
+    """The first time a mesh resolves a layer, all-gather the decision
+    over every axis and require the same pick on every rank (the analytic
+    decision is deterministic; this holds it to that).  ``key`` holds only
+    what every rank shares (the resolution's inputs, not its pick), so the
+    ranks enter the all-gather together, and a rank that picks otherwise
+    raises instead of leaving the others waiting."""
+    key = (id(mesh),) + key
+    if key in _AGREED:
+        return
+    from repro_torch.parallel import comm
+    names = sorted(set(BODY) | set(planlib.PLANS))
+    pick = torch.tensor([names.index(sched), n_chunks,
+                         autosched.AUTO_WIRE.index(wire)
+                         if wire in autosched.AUTO_WIRE else 99],
+                        dtype=torch.int64, device=device)
+    everyone = comm.all_gather(pick, mesh.group(mesh.axis_names), 0,
+                               tiled=False)
+    if not bool((everyone == pick).all()):
+        raise RuntimeError(f"ranks disagree on the MoE schedule: "
+                           f"{everyone.tolist()} (names {names})")
+    _AGREED.add(key)
+
+
+def _replicated_body(x, wg, w1, w3, w2, info):
+    """All-reduce-based MoE for tiny token counts (decode with fewer tokens
+    a rank than MP ranks): tokens stay replicated, each rank computes its
+    local experts masked by the routing, and a psum over (EP, ESP)
+    assembles the output (the JAX function, ported)."""
+    El = w1.shape[0]
+    gate = info.gate
+    logits = x.float() @ wg.float()
+    probs = torch.softmax(logits, dim=-1)
+    # lax.top_k breaks ties toward the lower index: a stable sort
+    srt = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_w, eidx = srt.values[:, :gate.top_k], srt.indices[:, :gate.top_k]
+    if gate.normalize_topk:
+        gate_w = gate_w / gate_w.sum(dim=-1, keepdim=True)
+    ep_idx = coll.axis_index(info.ep_axes)
+    gids = ep_idx * El + torch.arange(El, device=x.device)     # (El,)
+    sel = (eidx[:, :, None] == gids[None, None, :]).to(x.dtype)
+    wsel = torch.einsum("sk,ske->se", gate_w.to(x.dtype), sel)  # (S, El)
+    xb = x[None].expand(El, *x.shape)                           # (El, S, M)
+    h = executor.expert_ffn(xb, w1, w3, w2, info)               # partial
+    y = torch.einsum("esm,se->sm", h, wsel)
+    red = tuple(dict.fromkeys(info.ep_axes + info.esp_axes))
+    y = coll.psum(y, red, info.n_ep * info.n_esp)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = {"aux_loss": zero, "z_loss": zero, "drop_frac": zero}
+    return y, aux
+
+
+def _apply_moe_mesh(x, params, cfg, mesh, dims, schedule, perf_model,
+                    infer):
+    """``apply_moe`` on ``mesh``: the JAX ``apply_moe``'s resolution and
+    shard_map body on this rank's blocks."""
+    b, L, M = x.shape
+    sizes = dims.sizes(mesh)
+    n_ep, n_esp, n_mp = sizes["ep"], sizes["esp"], sizes["mp"]
+    gate_cfg = cfg.gate_config()
+    if n_ep > 1 and cfg.n_experts % n_ep:
+        raise ValueError(f"E={cfg.n_experts} not divisible by EP={n_ep}")
+    if n_esp > 1 and cfg.d_ff % n_esp:
+        raise ValueError(f"d_ff={cfg.d_ff} not divisible by ESP={n_esp}")
+    batch_ax = tuple(dims.batch_axes)
+    n_batch = axis_size(mesh, batch_ax)
+    nonbatch = tuple(a for a in mesh.axis_names if a not in batch_ax)
+    n_nonbatch = axis_size(mesh, nonbatch)
+    tokens_global = b * L * n_batch
+
+    sched = schedule or cfg.schedule
+    seqpar = sched in ("s1_seqpar", "s1_seqpar_pipe")
+    token_shard = batch_ax + (tuple(dims.mp) if seqpar else ())
+    n_token_shard = axis_size(mesh, token_shard)
+    s_local, cap = shard_pool_capacity(tokens_global, n_token_shard, n_mp,
+                                       gate_cfg, infer=infer)
+    divisible = (tokens_global % max(n_token_shard, 1) == 0
+                 and (seqpar or s_local % max(n_mp, 1) == 0)
+                 and s_local > 0)
+    use_fallback = (not divisible) or s_local < n_mp
+
+    comm = cfg.comm or CommConfig()
+    if use_fallback:
+        sched, n_chunks = "dense_decode", max(cfg.pipeline_chunks, 1)
+        wire = comm.wire_dtype
+        wire = autosched.clamp_wire("f32" if wire == "auto" else wire)
+    else:
+        sched, n_chunks, wire = resolve_schedule(
+            cfg, sched, B=b * n_batch, L=L, infer=infer,
+            perf_model=perf_model, device=x.device, n_ep=n_ep, n_esp=n_esp,
+            n_mp=n_mp, n_token_shard=n_token_shard)
+        if (schedule or cfg.schedule) == "auto" or comm.wire_dtype == "auto":
+            _check_agreed(mesh, (cfg, schedule, b * n_batch, L, infer,
+                                 id(perf_model)),
+                          sched, n_chunks, wire, x.device)
+
+    info = MoEShardInfo(
+        ep_axes=tuple(dims.ep), esp_axes=tuple(dims.esp),
+        mp_axes=tuple(dims.mp), n_ep=n_ep, n_esp=n_esp, n_mp=n_mp,
+        tokens=s_local, cap=cap, gate=gate_cfg, act=cfg.act, glu=cfg.glu,
+        saa_chunks=cfg.saa_chunks, pipeline_chunks=n_chunks,
+        kernel=cfg.kernel,
+        comm=CommConfig(wire_dtype=wire, scaling=comm.scaling))
+    pspecs = moe_param_specs(cfg, mesh, dims)
+    x_block = P(batch_ax or None, None)
+    xt = _boundary_in(x.reshape(b * L, M), x_block, mesh, dims)
+    ws = {k: _boundary_in(params[k], pspecs[k], mesh, dims)
+          for k in ("wg", "w1", "w2", "w3") if params.get(k) is not None}
+    with coll.bound(mesh):
+        if use_fallback:       # the whole pool on every rank
+            xt = coll.mp_all_gather(xt, batch_ax, n_batch, axis=0)
+        elif seqpar:           # this rank's MP slice of the rows
+            xt = coll.mp_split(xt, dims.mp, n_mp, axis=0)
+        y, gaux = _run_body(sched, xt, ws, cfg, info)
+        if use_fallback:
+            y = coll.mp_split(y, batch_ax, n_batch, axis=0)
+        elif seqpar:
+            y = coll.mp_all_gather(y, dims.mp, n_mp, axis=0)
+        routed = gaux.get("routed", torch.zeros(
+            (cfg.n_experts,), dtype=torch.float32, device=x.device))
+        every = tuple(mesh.axis_names)
+        load = coll.pmean(routed, every, mesh.size)
+    y = _boundary_out(y.reshape(b, L, M).to(x.dtype), n_nonbatch)
+    if cfg.n_shared_experts:
+        raise NotImplementedError(
+            "shared experts on a mesh come with the Megatron slice "
+            "(ROADMAP item 5.1)")
+    aux = {k: _boundary_out(gaux[k], mesh.size)
+           for k in ("aux_loss", "z_loss", "drop_frac")}
+    aux["expert_load"] = load
     return y, aux

@@ -7,9 +7,9 @@ gate and dispatch, the capacity buffer is split into
 ``info.pipeline_chunks`` micro-chunks (clamped to the largest divisor of
 the chunked capacity dim), and each chunk runs its own dispatch-AlltoAll
 -> expert FFN -> combine-AlltoAll chain.  Chunking happens after gating,
-so routing, capacity and drops are those of the unchunked schedule.  On
-one rank the chunks run one after the other; the overlap of one chunk's
-AlltoAll with another's FFN comes with the multi-rank slice.
+so routing, capacity and drops are those of the unchunked schedule.  The
+chunks run one after the other on one stream; overlapping one chunk's
+AlltoAll with another's FFN (asynchronous collectives) is not done yet.
 """
 
 from __future__ import annotations

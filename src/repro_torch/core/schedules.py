@@ -20,11 +20,12 @@ is:
   S1G      S1 with the dropless grouped FFN (``plan.fuse_grouped``)
 
 plus ``s1_seqpar`` (S1 under a sequence-parallel activation contract).
-On one rank every collective is the identity plus the wire codec, so every
-schedule computes gate -> dispatch -> (wire) -> expert FFN -> (wire) ->
-combine; ``s1g`` runs the fused grouped op instead.  The chunk-pipelined
-``*_pipe`` family is generated by ``plan.split_capacity``
-(``repro_torch.core.pipeline``).
+The collectives run over this rank's process groups in the mesh
+``apply_moe`` binds; on one rank every collective is the identity plus the
+wire codec, so every schedule computes gate -> dispatch -> (wire) ->
+expert FFN -> (wire) -> combine, and ``s1g`` runs the fused grouped op
+instead.  The chunk-pipelined ``*_pipe`` family is generated by
+``plan.split_capacity`` (``repro_torch.core.pipeline``).
 """
 
 from __future__ import annotations
@@ -47,7 +48,8 @@ SCHEDULES = ("baseline", "s1", "s2", "s1_seqpar", "s2h", "s1d", "s1g",
 @dataclass(frozen=True)
 class MoEShardInfo:
     """Static description of the MoE parallel layout (the JAX package's
-    shard_map-side record; the port builds it with one rank per group)."""
+    shard_map-side record).  The axis names resolve to process groups in
+    the mesh ``apply_moe`` binds (``collectives.bound``)."""
     ep_axes: tuple
     esp_axes: tuple
     mp_axes: tuple

@@ -1,7 +1,8 @@
 """Synthetic LM data (counterpart of ``repro/data/pipeline.py``; the numpy
 body is a copy): a Zipf unigram mixture with induced bigram structure, so
 cross-entropy has real signal while staying offline and reproducible.
-Batch ``step`` is the same array in both packages."""
+Batch ``step`` is the same array in both packages; ``sharded_batch`` is
+one rank's rows of it."""
 
 from __future__ import annotations
 
@@ -53,4 +54,15 @@ class SyntheticLM:
     def tensors(self, step: int, device) -> dict:
         """Batch ``step`` as int64 tensors on ``device``."""
         return {k: torch.from_numpy(np.ascontiguousarray(v)).long().to(device)
+                for k, v in self.batch(step).items()}
+
+    def sharded_batch(self, step: int, mesh, batch_axes, device) -> dict:
+        """This rank's rows of batch ``step`` over ``batch_axes`` (the JAX
+        ``sharded_batch``'s block for this rank): every rank makes the same
+        global batch from the seed and keeps its slice, as int64 tensors
+        on ``device``."""
+        from repro_torch.parallel.sharding import P, local_shard
+        spec = P(tuple(batch_axes) or None, None)
+        return {k: torch.from_numpy(np.ascontiguousarray(
+                    local_shard(v, spec, mesh))).long().to(device)
                 for k, v in self.batch(step).items()}

@@ -24,8 +24,8 @@ leaves the L2 cache cold, as a real stage finds it.
 
 The link betas of groups larger than one cannot be measured on one card:
 they stay ``h100_model``'s data-sheet figures (NVLink 4, NDR InfiniBand)
-until the multi-rank slice fits them over NCCL.  With no card the fit
-raises; it never falls back to the CPU.
+until they are fitted over NCCL on several cards (ROADMAP item 5.3).
+With no card the fit raises; it never falls back to the CPU.
 """
 
 from __future__ import annotations

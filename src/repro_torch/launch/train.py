@@ -1,4 +1,4 @@
-"""Training launcher of the port, on one CUDA card.
+"""Training launcher of the port, on one CUDA card or on several ranks.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-moe-30b-a3b \\
       --layers 4 --seq 2048 --batch 1 --steps 10 --lr 1e-4
@@ -9,9 +9,9 @@
 
 The flags are the JAX launcher's for what the port runs, plus ``--device``
 and ``--profile``: ``--schedule`` takes every name of the JAX package's
-``SCHEDULES`` (run on one rank), ``--pipeline-chunks`` the ``*_pipe``
-bodies' chunk count, ``--wire-dtype`` f32, bf16, fp8_e4m3 or auto (the
-autoscheduler picks f32 or bf16 jointly with the schedule) and
+``SCHEDULES``, ``--pipeline-chunks`` the ``*_pipe`` bodies' chunk count,
+``--wire-dtype`` f32, bf16, fp8_e4m3 or auto (the autoscheduler picks
+f32 or bf16 jointly with the schedule) and
 ``--autosched analytic|measured`` how ``"auto"`` decides: from the cost
 model, or by timing every candidate on the card once per layer shape.
 After the first step the run prints one ``autosched[...]`` line per
@@ -42,6 +42,21 @@ there; ``--log-json FILE`` writes the history (with ``--guards`` or
 events, the LR scale and the telemetry files).  ``--placement auto`` (the
 JAX launcher's expert rebalancing) comes with a later slice of the port:
 it is refused with an error, never ignored.
+
+Across ranks: ``--nproc N`` spawns N ranks (``torch.multiprocessing``,
+``spawn``) unless ``torchrun``'s environment is present, on the
+``--mesh data=D,model=M`` mesh (default ``data=N,model=1``; EP over data,
+ESP == MP over model) over ``--dist-backend nccl`` (one card a rank) or
+``gloo`` (named explicitly: ranks sharing one card, or the CPU), e.g.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-moe \
+      --reduced --device cpu --nproc 4 --mesh data=2,model=2 \
+      --dist-backend gloo --steps 3
+
+Rank 0 prints the step lines and ``final loss``; a rank's failure fails
+the run.  ``--guards``, ``--faults``, ``--ckpt``, ``--metrics-dir``,
+``--trace``, ``--profile`` and ``--autosched measured`` run on one rank
+only (ROADMAP item 5.4 and 5.5): with more than one rank they exit 2.
 """
 
 from __future__ import annotations
@@ -62,6 +77,8 @@ from repro_torch.core.collectives import CommConfig
 from repro_torch.core.schedules import SCHEDULES
 from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.launch.common import device_profile, resolve_device
+from repro_torch.launch.mesh import (check_backend, dims_for, parse_mesh,
+                                     spawn, torchrun_env)
 from repro_torch.models import Model
 from repro_torch.optim import AdamWConfig
 from repro_torch.runtime import FaultPlan, GuardConfig
@@ -80,8 +97,8 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--schedule", default=None, choices=SCHEDULES,
-                    help="Parm schedule override, run on one rank "
-                         "(default auto: the autoscheduler decides)")
+                    help="Parm schedule override (default auto: the "
+                         "autoscheduler decides)")
     ap.add_argument("--pipeline-chunks", type=int, default=None,
                     help="micro-chunk count for the pipelined bodies "
                          "(1 = unchunked)")
@@ -117,6 +134,16 @@ def main(argv=None):
     ap.add_argument("--metrics-dir", default=None)
     ap.add_argument("--trace", action="store_true")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--nproc", type=int, default=1,
+                    help="ranks to spawn (torch.distributed); 1 = this "
+                         "process alone")
+    ap.add_argument("--mesh", default=None,
+                    help="the rank mesh, e.g. data=2,model=2 (default "
+                         "data=NPROC,model=1)")
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="torch.distributed backend (required with more "
+                         "than one rank): nccl needs a card a rank, gloo "
+                         "shares one card or runs on the CPU")
     ap.add_argument("--profile", action="store_true",
                     help="after training, run one more step under "
                          "torch.profiler; print device time by kernel and "
@@ -130,10 +157,84 @@ def main(argv=None):
         ap.error("--steps must be >= 1")
     if args.pipeline_chunks is not None and args.pipeline_chunks < 1:
         ap.error("--pipeline-chunks must be >= 1")
+    multi = args.nproc > 1 or torchrun_env()
+    if args.nproc < 1:
+        ap.error("--nproc must be >= 1")
+    if multi:
+        for flag, on, item in (
+                ("--guards", args.guards, "5.5"),
+                ("--faults", args.faults, "5.5"),
+                ("--ckpt", args.ckpt, "5.5"),
+                ("--metrics-dir", args.metrics_dir, "5.5"),
+                ("--trace", args.trace, "5.5"),
+                ("--profile", args.profile, "5.5"),
+                ("--autosched measured", args.autosched == "measured",
+                 "5.4")):
+            if on:
+                ap.error(f"{flag} runs on one rank; across ranks it comes "
+                         f"with ROADMAP item {item}")
     dev = resolve_device(args.device)
     if args.profile and dev.type != "cuda":
         ap.error("--profile measures the card: it needs --device cuda")
+    if multi:
+        if args.dist_backend is None:
+            ap.error("more than one rank needs --dist-backend nccl|gloo")
+        world = (int(os.environ["WORLD_SIZE"]) if torchrun_env()
+                 else args.nproc)
+        try:
+            shape, names = parse_mesh(args.mesh or f"data={world},model=1",
+                                      world)
+            check_backend(args.dist_backend, world, dev.type)
+        except (ValueError, RuntimeError) as e:
+            ap.error(str(e))
+        if names != ("data", "model"):
+            ap.error(f"--mesh names the launcher's axes: data=D,model=M "
+                     f"(got {names})")
+        if args.batch % shape[0]:
+            ap.error(f"--batch {args.batch} does not split over "
+                     f"data={shape[0]}")
+        if torchrun_env():
+            return _rank(int(os.environ["RANK"]), args, argv)
+        spawn(_rank, args.nproc, args, argv, backend=args.dist_backend,
+              device=dev.type, threads=_threads(args.nproc, dev))
+        return None
+    if args.mesh or args.dist_backend:
+        ap.error("--mesh and --dist-backend need --nproc > 1")
+    return _train(args, argv, dev)
 
+
+def _threads(nproc, dev):
+    """CPU threads a rank: the cores shared out (the CPU rehearsal)."""
+    if dev.type != "cpu":
+        return None
+    return max(1, (os.cpu_count() or 1) // nproc)
+
+
+def _rank(rank, args, argv):
+    """One rank of a multi-rank run (``torch.distributed`` started by
+    ``launch.mesh.spawn`` or ``torchrun``): the mesh, then the run.  Only
+    rank 0 writes to stdout."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_distributed
+    from repro_torch.parallel.mesh import make_mesh
+    if not dist.is_initialized():          # torchrun: start it here
+        init_distributed(args.dist_backend, device=args.device)
+    world = dist.get_world_size()
+    spec = args.mesh or f"data={world},model=1"
+    shape, names = parse_mesh(spec, world)
+    mesh = make_mesh(shape, names)
+    if rank != 0:
+        sys.stdout = open(os.devnull, "w")
+    dev = (torch.device("cpu") if args.device == "cpu" else
+           torch.device("cuda", torch.cuda.current_device()))
+    print(f"ranks: {world} on mesh {mesh.shape} over "
+          f"{dist.get_backend()}", flush=True)
+    return _train(args, argv, dev, mesh=mesh)
+
+
+def _train(args, argv, dev, mesh=None):
+    """The run itself, on one rank (``mesh=None``) or as this rank of
+    ``mesh``."""
     cfg = get_config(args.arch)
     if cfg.moe is not None:
         moe_kw = {}
@@ -165,8 +266,10 @@ def main(argv=None):
         print(f"fault plan: {faults.summary()}", flush=True)
     if args.guards or faults is not None:
         guards = GuardConfig(max_skips=args.max_skips)
+    dims = dims_for(cfg) if mesh is not None else None
     tr = Trainer(model, opt, schedule=args.schedule, ckpt_path=args.ckpt,
-                 guards=guards, faults=faults, ckpt_retain=args.retain)
+                 guards=guards, faults=faults, ckpt_retain=args.retain,
+                 mesh=mesh, dims=dims)
     params, opt_state = tr.setup(torch.Generator(device=dev).manual_seed(0))
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
                                   seq_len=args.seq, global_batch=args.batch))

@@ -58,10 +58,12 @@ def init_block(generator, cfg: ModelConfig, kind: str, dtype) -> dict:
 
 
 def apply_block(p, cfg: ModelConfig, kind: str, x, *, positions=None,
-                schedule=None):
+                schedule=None, mesh=None, dims=None):
     """Full-sequence forward.  Returns ``(x, aux)``: ``aux["loss"]`` the
     scalar router-loss contribution (aux + z loss) and
-    ``aux["expert_load"]`` the (E,) routed rows, (0,) for dense blocks."""
+    ``aux["expert_load"]`` the (E,) routed rows, (0,) for dense blocks.
+    On a mesh (``mesh``, ``dims``) ``x`` is this rank's rows: attention
+    and norms run whole on them, the MoE layer over the mesh."""
     _check_kind(kind)
     acfg = attn_config(cfg, kind)
     eps = cfg.norm_eps
@@ -76,7 +78,8 @@ def apply_block(p, cfg: ModelConfig, kind: str, x, *, positions=None,
     x = x + a
     h2 = apply_norm(p["norm2"], x, eps, cfg.kernel)
     if base_kind(kind) == "moe":
-        y, maux = apply_moe(h2, p["moe"], cfg=cfg.moe, schedule=schedule)
+        y, maux = apply_moe(h2, p["moe"], cfg=cfg.moe, schedule=schedule,
+                            mesh=mesh, dims=dims)
         aux = {"loss": aux["loss"] + maux["aux_loss"] + maux["z_loss"],
                "expert_load": maux["expert_load"]}
     else:

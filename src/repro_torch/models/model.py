@@ -9,6 +9,15 @@ run is a view of those tensors (``layer_view``; ``layer_views`` for all
 layers at once), so the JAX parameters load unchanged
 (``repro_torch.convert``), nothing is copied per step, and a layer's
 gradients land in the stacked tensors.
+
+On a mesh (``mesh=``, ``dims=``, ``repro_torch.parallel``) the batch is
+this rank's rows and the parameters its shards (``param_specs``): the
+dense layers (attention, norms, embeddings, LM head) stay whole on every
+rank, replicated over MP, and only the MoE layers' experts are sharded
+(EP over experts, ESP over the hidden dim), so the MoE layer sees
+activations replicated over MP: the merged setting whose redundancy
+Parm's S1 and S2 remove.  Megatron sharding of the dense layers is not
+ported yet (ROADMAP item 5.1).  The loss is the global batch's.
 """
 
 from __future__ import annotations
@@ -129,11 +138,32 @@ class Model:
             logits = x @ params["lm_head"]["w"]
         return logits * cfg.logit_scale
 
-    def _layer(self, p, kind, x, schedule):
-        y, aux = blk.apply_block(p, self.cfg, kind, x, schedule=schedule)
+    def param_specs(self, params, mesh, dims) -> dict:
+        """Each leaf's ``PartitionSpec`` on ``mesh``, in ``params``'s tree:
+        the MoE blocks' expert weights ``moe_param_specs`` behind the layer
+        dimension, everything else replicated (``P()``)."""
+        from repro_torch.core.moe import moe_param_specs
+        from repro_torch.parallel.sharding import P
+
+        def rep(tree):
+            return {k: rep(v) for k, v in tree.items()} \
+                if isinstance(tree, dict) else P()
+
+        out = rep(params)
+        for r, (kind, _) in enumerate(self.runs):
+            if blk.base_kind(kind) == "moe":
+                moe = moe_param_specs(self.cfg.moe, mesh, dims)
+                out[f"run{r}"]["moe"] = {
+                    k: P(None, *moe[k]) for k in params[f"run{r}"]["moe"]}
+        return out
+
+    def _layer(self, p, kind, x, schedule, mesh=None, dims=None):
+        y, aux = blk.apply_block(p, self.cfg, kind, x, schedule=schedule,
+                                 mesh=mesh, dims=dims)
         return y, aux["loss"], aux["expert_load"]
 
-    def _backbone(self, params, batch, *, schedule=None):
+    def _backbone(self, params, batch, *, schedule=None, mesh=None,
+                  dims=None):
         """Embedding -> blocks -> final norm (no LM head).  With
         ``cfg.remat`` each block runs under activation checkpointing, so
         its forward (kernels included) runs again in the backward."""
@@ -149,9 +179,11 @@ class Model:
             for p in layer_views(params[f"run{r}"], n):
                 if cfg.remat:
                     x, loss, load = checkpoint(self._layer, p, kind, x,
-                                               schedule, use_reentrant=False)
+                                               schedule, mesh, dims,
+                                               use_reentrant=False)
                 else:
-                    x, loss, load = self._layer(p, kind, x, schedule)
+                    x, loss, load = self._layer(p, kind, x, schedule, mesh,
+                                                dims)
                 aux_total = aux_total + loss
                 if load.shape[-1]:
                     expert_load = load if not expert_load.shape[-1] \
@@ -159,10 +191,12 @@ class Model:
         x = apply_norm(params["final_norm"], x, cfg.norm_eps, cfg.kernel)
         return x, {"aux_loss": aux_total, "expert_load": expert_load}
 
-    def forward(self, params, batch, *, schedule=None):
+    def forward(self, params, batch, *, schedule=None, mesh=None,
+                dims=None):
         """Full-sequence forward (train / prefill).  Returns (logits,
         aux)."""
-        x, aux = self._backbone(params, batch, schedule=schedule)
+        x, aux = self._backbone(params, batch, schedule=schedule, mesh=mesh,
+                                dims=dims)
         return self._head(params, x), aux
 
     def _ce_sums(self, params, x, labels):
@@ -172,7 +206,7 @@ class Model:
         m = (labels >= 0).float()
         return torch.sum(-ll[..., 0] * m), torch.sum(m)
 
-    def loss(self, params, batch, *, schedule=None):
+    def loss(self, params, batch, *, schedule=None, mesh=None, dims=None):
         """Mean next-token CE over ``batch["labels"]`` (< 0 = ignored) plus
         the router losses.  Returns ``(total, metrics)`` with ``ce``,
         ``aux``, ``ppl_proxy`` and ``expert_load`` (routed rows per expert,
@@ -180,11 +214,19 @@ class Model:
 
         CE runs in sequence chunks, halved while ``B * chunk * V`` exceeds
         ``CE_CHUNK_ELEMENTS``, each chunk checkpointed, so the (B, L, V) f32
-        logits are never materialized whole."""
+        logits are never materialized whole.
+
+        On a mesh ``batch`` is this rank's rows: the CE sums and label
+        counts are ``psum``-ed over the batch axes for the value (the
+        global mean, JAX's), while the gradient is that of this rank's
+        sum over the global count, so the batch axes' gradient sum
+        (``train.loop.sync_grads``) gives the global gradient.  The chunk
+        length follows this rank's rows, as JAX's follows ``b_local``."""
         cfg = self.cfg
         labels = batch["labels"]
         B, L = labels.shape
-        hidden, aux = self._backbone(params, batch, schedule=schedule)
+        hidden, aux = self._backbone(params, batch, schedule=schedule,
+                                     mesh=mesh, dims=dims)
         chunk = L
         while B * chunk * cfg.vocab_size > CE_CHUNK_ELEMENTS \
                 and chunk % 2 == 0:
@@ -199,7 +241,15 @@ class Model:
                 s, m = checkpoint(self._ce_sums, params, hidden[:, sl],
                                   labels[:, sl], use_reentrant=False)
                 tot, n = tot + s, n + m
-        ce = tot / torch.clamp(n, min=1.0)
+        if mesh is None:
+            ce = tot / torch.clamp(n, min=1.0)
+        else:
+            from repro_torch.parallel import comm
+            grp = mesh.group(dims.batch_axes)
+            n_all = torch.clamp(comm.psum(n.detach(), grp), min=1.0)
+            part = tot / n_all
+            ce = comm.psum(tot.detach(), grp) / n_all \
+                + (part - part.detach())
         total = ce + aux["aux_loss"]
         return total, {"ce": ce, "aux": aux["aux_loss"],
                        "ppl_proxy": torch.exp(torch.clamp(ce, max=20.0)),

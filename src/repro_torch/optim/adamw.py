@@ -1,6 +1,9 @@
 """AdamW with global-norm clipping and a cosine LR schedule (counterpart of
 ``repro/optim/adamw.py``, with the guard rails' ``lr_scale`` and
-``finite`` skip, without ZeRO-1, which comes with the multi-rank slice).
+``finite`` skip).  On a mesh each rank updates its own shards; the norm is
+the global parameters' (``global_norm(..., specs=, mesh=)``), so the clip
+scale is the same on every rank.  ZeRO-1 (sharded moments) is not ported
+yet (ROADMAP item 5.2).
 
 Parameters and moments are updated IN PLACE under ``torch.no_grad()``,
 where JAX returns new trees: at full width a second copy of the parameters
@@ -63,18 +66,37 @@ def adamw_init(params) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def global_norm(grads):
-    """sqrt of the sum of squares of every gradient, in f32."""
-    total = None
-    for g in grads:
+def global_norm(grads, specs=None, mesh=None):
+    """sqrt of the sum of squares of every gradient, in f32.  With
+    ``mesh`` and ``specs`` (each leaf's ``PartitionSpec``, aligned with
+    ``grads``) the gradients are this rank's shards of the global ones: a
+    sharded leaf's squares are summed over the axes that shard it (one
+    ``psum`` per distinct axis set), a replicated leaf's counted once, so
+    every rank gets the global norm's bits."""
+    if mesh is None:
+        total = None
+        for g in grads:
+            s = torch.sum(torch.square(g.float()))
+            total = s if total is None else total + s
+        return torch.sqrt(total)
+    from repro_torch.parallel import comm
+    from repro_torch.parallel.sharding import mentioned
+    parts = {}
+    for g, spec in zip(grads, specs):
+        axes = tuple(a for a in mesh.axis_names if a in mentioned(spec))
         s = torch.sum(torch.square(g.float()))
+        parts[axes] = s if axes not in parts else parts[axes] + s
+    total = None
+    for axes, s in parts.items():
+        if axes:
+            s = comm.psum(s, mesh.group(axes))
         total = s if total is None else total + s
     return torch.sqrt(total)
 
 
 @torch.no_grad()
 def adamw_update(params, grads, state, cfg: AdamWConfig, decay_mask=None,
-                 lr_scale=1.0, finite=None):
+                 lr_scale=1.0, finite=None, specs=None, mesh=None):
     """One AdamW step, in place.  ``grads`` is a sequence aligned with
     ``leaves(params)``; ``decay_mask`` a list of bools, by default True for
     leaves with ``dim() >= 2`` -- which, with stacked runs, includes every
@@ -90,13 +112,15 @@ def adamw_update(params, grads, state, cfg: AdamWConfig, decay_mask=None,
     were.  JAX selects ``where(finite, new, old)`` per leaf instead; in
     place that would keep two more leaf-sized copies alive.  The combined
     flag comes back as ``"finite"``.  With ``finite=None`` and
-    ``lr_scale=1.0`` this is the plain update, op for op."""
+    ``lr_scale=1.0`` this is the plain update, op for op.  ``specs`` and
+    ``mesh`` (a list aligned with the leaves, and the mesh) make the clip
+    norm the global one (:func:`global_norm`)."""
     flat_p, flat_g = leaves(params), list(grads)
     flat_mu, flat_nu = leaves(state["mu"]), leaves(state["nu"])
     if decay_mask is None:
         decay_mask = [p.dim() >= 2 for p in flat_p]
     if finite is not None:
-        gnorm = global_norm(flat_g)
+        gnorm = global_norm(flat_g, specs, mesh)
         ok = torch.isfinite(gnorm) & torch.as_tensor(finite,
                                                      device=gnorm.device)
         if not ok.item():
@@ -110,7 +134,7 @@ def adamw_update(params, grads, state, cfg: AdamWConfig, decay_mask=None,
     if lr_scale != 1.0:
         lr = lr * lr_scale
     if finite is None:
-        gnorm = global_norm(flat_g)
+        gnorm = global_norm(flat_g, specs, mesh)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     b1c = 1 - torch.pow(cfg.beta1, step.to(torch.float32))

@@ -1,0 +1,181 @@
+"""The bit-moving transport under the port's collectives: JAX's tiled
+``lax.all_to_all``, ``lax.all_gather`` and ``lax.psum_scatter`` /
+``lax.psum`` over an :class:`~repro_torch.parallel.mesh.AxisGroup`, with
+no autograd (``repro_torch.core.collectives`` adds the transposes).
+
+Everything is built on one ``torch.distributed`` primitive,
+``all_to_all_single``, for every backend:
+
+  * an AllGather is an AlltoAll of ``n`` copies of the payload;
+  * a reduce-scatter is an AlltoAll followed by a sum over the source
+    ranks, in the JAX index order of the sources, on the receiving rank;
+  * an AllReduce is that reduce-scatter over a flattened payload followed
+    by an AllGather of the reduced pieces, so every member holds the same
+    bits.
+
+So NCCL and gloo move the same bits and sum in the same order, and no
+reduction runs inside the backend.  The payload crosses the backend as a
+``uint8`` view of its bytes (gloo accepts few dtypes, and no fp8): a move
+is bit-preserving by construction, whatever dtypes the backend can
+reduce.  Chunks are permuted by the group's ``order`` so that
+an axis tuple whose order differs from the mesh's moves data as JAX's
+collective over that tuple does (see ``repro_torch.parallel.mesh``).
+"""
+
+from __future__ import annotations
+
+import functools
+import time
+
+import torch
+
+#: host-side timing of the collectives, off by default (``timing(True)``):
+#: name -> [calls, bytes in, seconds]; a call inside another (``psum``'s
+#: reduce-scatter and AllGather) counts to the outermost
+_TIMES = None
+_DEPTH = 0
+
+
+def timing(on: bool) -> None:
+    """Start (clearing) or stop timing the collectives on this rank.  A
+    timed call synchronizes the device before and after it, so the time
+    is the collective's own on the host's clock, staging included."""
+    global _TIMES
+    _TIMES = {} if on else None
+
+
+def times() -> dict:
+    """The timed collectives: name -> (calls, bytes in, seconds)."""
+    return {k: tuple(v) for k, v in (_TIMES or {}).items()}
+
+
+def _sync(t):
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+
+
+def _timed(fn):
+    @functools.wraps(fn)
+    def wrapper(x, grp, *args, **kw):
+        global _DEPTH
+        if _TIMES is None or _DEPTH or grp.size == 1:
+            return fn(x, grp, *args, **kw)
+        _sync(x)
+        t0 = time.perf_counter()
+        _DEPTH += 1
+        try:
+            out = fn(x, grp, *args, **kw)
+        finally:
+            _DEPTH -= 1
+        _sync(out)
+        rec = _TIMES.setdefault(fn.__name__, [0, 0, 0.0])
+        rec[0] += 1
+        rec[1] += x.numel() * x.element_size()
+        rec[2] += time.perf_counter() - t0
+        return out
+    return wrapper
+
+
+def _exchange(send, grp):
+    """(n, ...) chunks in JAX destination order -> (n, ...) received
+    chunks in JAX source order, over ``grp`` (one ``all_to_all_single``)."""
+    import torch.distributed as dist
+    order = grp.order
+    if not grp.identity_order:
+        send = send[list(order)]
+    send = send.contiguous()
+    recv = torch.empty_like(send)
+    # bytes: chunk g of the (n, ...) buffers stays chunk g of the views
+    dist.all_to_all_single(recv.view(torch.uint8), send.view(torch.uint8),
+                           group=grp.pg)
+    if not grp.identity_order:
+        inv = [0] * len(order)
+        for pos, j in enumerate(order):
+            inv[j] = pos
+        recv = recv[inv]
+    return recv
+
+
+@_timed
+def all_to_all(x, grp, split_axis: int, concat_axis: int):
+    """JAX's ``lax.all_to_all(x, axes, split_axis, concat_axis,
+    tiled=True)``: ``x`` cut into ``n`` chunks along ``split_axis``, chunk
+    ``j`` to the member of JAX index ``j``; the chunks received are joined
+    along ``concat_axis`` in source order."""
+    n = grp.size
+    if n == 1:
+        return x
+    split_axis %= x.dim()
+    concat_axis %= x.dim()
+    if x.shape[split_axis] % n:
+        raise ValueError(f"all_to_all: dim {split_axis} of {tuple(x.shape)}"
+                         f" is not divisible by the group's {n} ranks")
+    xs = x.movedim(split_axis, 0)
+    xs = xs.reshape(n, xs.shape[0] // n, *xs.shape[1:])
+    recv = _exchange(xs, grp)
+    if split_axis == concat_axis:
+        out = recv.reshape(-1, *recv.shape[2:])
+        return out.movedim(0, split_axis)
+    return torch.cat([recv[j].movedim(0, split_axis) for j in range(n)],
+                     dim=concat_axis)
+
+
+@_timed
+def all_gather(x, grp, axis: int, tiled: bool = True):
+    """JAX's ``lax.all_gather(x, axes, axis=axis, tiled=tiled)``: every
+    member's ``x`` in JAX index order, joined along ``axis`` (tiled) or
+    stacked on a new dim at ``axis`` (untiled)."""
+    n = grp.size
+    if n == 1:
+        return x if tiled else x.unsqueeze(axis)
+    recv = _exchange(x.unsqueeze(0).expand(n, *x.shape), grp)
+    if not tiled:
+        return recv.movedim(0, axis % (x.dim() + 1))
+    axis %= x.dim()
+    out = recv.movedim(0, axis)
+    return out.reshape(*x.shape[:axis], n * x.shape[axis],
+                       *x.shape[axis + 1:])
+
+
+def ordered_sum(parts):
+    """``parts[0] + parts[1] + ...``, left to right: one fixed order on
+    every device and backend."""
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = acc + p
+    return acc
+
+
+@_timed
+def psum_scatter(x, grp, axis: int, tiled: bool = True):
+    """JAX's ``lax.psum_scatter(x, axes, scatter_dimension=axis,
+    tiled=tiled)``: the sum over the members of their ``x``, of which this
+    rank keeps block ``index`` along ``axis`` (tiled: ``x.shape[axis] /
+    n`` rows; untiled: ``x.shape[axis] == n``, the dim dropped).  Built as
+    an AlltoAll and a sum over the sources in JAX index order."""
+    n = grp.size
+    if n == 1:
+        return x if tiled else x.squeeze(axis)
+    axis %= x.dim()
+    xs = x.movedim(axis, 0)
+    xs = xs.reshape(n, xs.shape[0] // n, *xs.shape[1:])
+    recv = _exchange(xs, grp)                  # (n sources, rows, ...)
+    red = ordered_sum(list(recv.unbind(0)))
+    if not tiled:
+        return red.squeeze(0)
+    return red.movedim(0, axis)
+
+
+@_timed
+def psum(x, grp):
+    """JAX's ``lax.psum(x, axes)``: every member holds the same bits of the
+    sum, taken in JAX index order of the sources."""
+    n = grp.size
+    if n == 1:
+        return x
+    flat = x.reshape(-1)
+    pad = (-flat.numel()) % n
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    red = psum_scatter(flat, grp, 0)
+    return all_gather(red, grp, 0)[:x.numel()].reshape(x.shape)

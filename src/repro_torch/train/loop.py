@@ -1,6 +1,14 @@
 """The train steps and the loop that runs them (counterpart of
 ``make_train_step``, ``make_guarded_train_step`` and ``Trainer`` in
-``repro/train/loop.py``), on one device.
+``repro/train/loop.py``), on one device or on a mesh of ranks.
+
+``Trainer(..., mesh=, dims=)`` trains across ranks as the JAX Trainer does
+on its ``(data, model)`` mesh: every rank initialises the full parameters
+from one seed and keeps its shards, takes its rows of every batch, and
+all-reduces the gradients of the leaves it shares with ranks that hold
+other tokens (:func:`sync_grads`) before AdamW updates its shards in
+place.  The guarded loop, checkpoints, faults and telemetry run on one
+rank only (ROADMAP item 5.5): a mesh with any of them raises.
 
 ``Trainer(guards=...)`` runs the fault-tolerant loop: the guarded step
 (skip-step and LR backoff), retained-checkpoint rollback through
@@ -29,19 +37,60 @@ from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
 from repro_torch.runtime import guards as guardlib
 
 
+def sync_grads(grads, specs, mesh, dims):
+    """Each leaf's gradient summed over the batch axes its spec does not
+    mention (the ranks that hold other tokens and the same block), one
+    ``psum`` per distinct axis set over the leaves' flattened gradients;
+    ``apply_moe``'s boundary has already summed the non-batch axes.  So
+    a replicated leaf (every dense one, the gate) ends with the global
+    gradient on every rank, and an expert leaf sharded over EP and ESP
+    keeps its own.  Returns the list, aligned with ``grads``."""
+    from repro_torch.parallel import comm
+    from repro_torch.parallel.sharding import mentioned
+    batch = set(dims.batch_axes)
+    buckets = {}
+    for i, (g, spec) in enumerate(zip(grads, specs)):
+        used = set(mentioned(spec))
+        axes = tuple(a for a in mesh.axis_names
+                     if a in batch and a not in used)
+        if axes and mesh.group(axes).size > 1:
+            buckets.setdefault((axes, g.dtype), []).append(i)
+    out = list(grads)
+    for (axes, _), idx in buckets.items():
+        flat = torch.cat([grads[i].reshape(-1) for i in idx])
+        red = comm.psum(flat, mesh.group(axes))
+        off = 0
+        for i in idx:
+            n = grads[i].numel()
+            out[i] = red[off:off + n].view_as(grads[i])
+            off += n
+    return out
+
+
 def make_train_step(model: Model, opt_cfg: AdamWConfig,
-                    schedule: Optional[str] = None):
+                    schedule: Optional[str] = None, mesh=None, dims=None):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``: loss, gradients of every parameter, one AdamW update in
     place.  Metrics are the loss's (``ce``, ``aux``, ``ppl_proxy``,
-    ``expert_load``) plus ``grad_norm``, ``lr`` and ``loss``, as tensors."""
+    ``expert_load``) plus ``grad_norm``, ``lr`` and ``loss``, as tensors.
+
+    On a mesh (``mesh``, ``dims``) ``params`` and ``opt_state`` are this
+    rank's shards and ``batch`` its rows (``data.sharded_batch``): the loss
+    is the global one, the gradients go through :func:`sync_grads`, and
+    the clip norm is the global norm."""
     def train_step(params, opt_state, batch):
         flat = leaves(params)
         for t in flat:
             t.requires_grad_(True)
-        loss, metrics = model.loss(params, batch, schedule=schedule)
+        loss, metrics = model.loss(params, batch, schedule=schedule,
+                                   mesh=mesh, dims=dims)
         grads = torch.autograd.grad(loss, flat)
-        om = adamw_update(params, grads, opt_state, opt_cfg)
+        specs = None
+        if mesh is not None:
+            specs = leaves(model.param_specs(params, mesh, dims))
+            grads = sync_grads(grads, specs, mesh, dims)
+        om = adamw_update(params, grads, opt_state, opt_cfg, specs=specs,
+                          mesh=mesh)
         del grads
         metrics = {k: v.detach() for k, v in metrics.items()}
         return params, opt_state, {**metrics, **om, "loss": loss.detach()}
@@ -103,10 +152,21 @@ class Trainer:
     guards: Optional[guardlib.GuardConfig] = None
     faults: Optional[object] = None       # runtime.faults.FaultPlan
     ckpt_retain: int = 3
+    mesh: Optional[object] = None         # parallel.mesh.Mesh
+    dims: Optional[object] = None         # parallel.mesh.ParallelDims
 
     def __post_init__(self):
+        if self.mesh is not None:
+            if self.dims is None:
+                raise ValueError("Trainer(mesh=...) needs dims=")
+            if self.guards is not None or self.faults is not None \
+                    or self.ckpt_path:
+                raise NotImplementedError(
+                    "guarded training, faults and checkpoints run on one "
+                    "rank; across ranks they come with ROADMAP item 5.5")
         self.train_step = make_train_step(self.model, self.opt_cfg,
-                                          self.schedule)
+                                          self.schedule, self.mesh,
+                                          self.dims)
         self.guard_state = None
         if self.guards is not None:
             self.guard_state = guardlib.GuardState(cfg=self.guards)
@@ -120,13 +180,30 @@ class Trainer:
                 self.model, self.opt_cfg, self.schedule)
 
     def setup(self, generator):
-        """Random parameters from ``generator`` and fresh AdamW state.
-        Also notes the autoscheduler's decisions made before this run, so
-        step 0 reports only this run's."""
+        """Random parameters from ``generator`` and fresh AdamW state (on a
+        mesh: the full parameters, the same on every rank, cut to this
+        rank's shards).  Also notes the autoscheduler's decisions made
+        before this run, so step 0 reports only this run's."""
         from repro_torch.core import autosched
         params = self.model.init(generator)
+        if self.mesh is not None:
+            params = self.shard(params)
         self._sched_keys = set(autosched.cache_info())
         return params, adamw_init(params)
+
+    def shard(self, params):
+        """This rank's shards of the full ``params`` (``param_specs``)."""
+        from repro_torch.parallel.sharding import local_tree
+        return local_tree(params, self.model.param_specs(
+            params, self.mesh, self.dims), self.mesh)
+
+    def batch(self, data, step):
+        """Batch ``step`` of ``data``: this rank's rows on a mesh."""
+        dev = self.model.device
+        if self.mesh is None:
+            return data.tensors(step, dev)
+        return data.sharded_batch(step, self.mesh, self.dims.batch_axes,
+                                  dev)
 
     def _log_step0(self, metrics):
         # the first step ran the model: any schedule="auto" MoE layers
@@ -164,7 +241,6 @@ class Trainer:
             return self._run_guarded(params, opt_state, data, n_steps,
                                      log_every, ckpt_every)
         history = []
-        dev = self.model.device
         # with a sink, the fp8 encodes' saturation counts wait on the card
         # and are read on the logged rows, where the loop reads anyway
         sat_events = obs.enabled()
@@ -174,7 +250,7 @@ class Trainer:
         for step in range(n_steps):
             if obs.enabled():
                 obs.set_context(step=step)
-            batch = data.tensors(step, dev)
+            batch = self.batch(data, step)
             params, opt_state, metrics = self.train_step(params, opt_state,
                                                          batch)
             if step == 0:

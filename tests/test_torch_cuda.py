@@ -1012,3 +1012,83 @@ def test_measure_candidates_on_the_card(dev):
         trt.disable_fp8_monitor()
         trt.reset_fp8_counter()
         autosched.clear_cache()
+
+
+def _layer_rank(rank, sched, x, r, params):
+    """One gloo rank on cuda:0 of the merged (2, 2) mesh: its block of the
+    layer's output and gradients, and its kernel launches."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.moe import apply_moe, moe_param_specs
+    from repro_torch.launch.mesh import dims_for
+    from repro_torch.parallel.mesh import make_mesh
+    from repro_torch.parallel.sharding import P, local_shard
+    from repro_torch.train.loop import sync_grads
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    g2 = get_config("gpt2-moe").reduced()
+    cfg = replace(g2.moe, capacity_factor=g2.moe.n_experts / g2.moe.top_k,
+                  schedule=sched)
+    mesh = make_mesh((2, 2), ("data", "model"))
+    dims = dims_for(g2)
+    specs = moe_param_specs(cfg, mesh, dims)
+    xs = P(dims.batch_axes, None, None)
+    xb = local_shard(x, xs, mesh).to(dev).requires_grad_()
+    p = {k: local_shard(v, specs[k], mesh).to(dev).requires_grad_()
+         for k, v in params.items()}
+    counts = (moe_dispatch.launches, expert_ffn_ragged.launches,
+              expert_ffn.launches, moe_combine.launches)
+    y, _ = apply_moe(xb, p, cfg=cfg, mesh=mesh, dims=dims)
+    gl = torch.autograd.grad((y * local_shard(r, xs, mesh).to(dev)).sum(),
+                             [xb, *p.values()])
+    gl = [gl[0]] + sync_grads(list(gl[1:]), [specs[k] for k in p], mesh,
+                              dims)
+    launched = [a - b for a, b in zip(
+        (moe_dispatch.launches, expert_ffn_ragged.launches,
+         expert_ffn.launches, moe_combine.launches), counts)]
+    return {"y": y.detach().cpu(), "g": [t.cpu() for t in gl],
+            "launched": launched}
+
+
+@pytest.mark.multirank
+@pytest.mark.parametrize("sched", ["s1", "s1g"])
+def test_four_gloo_ranks_on_the_card_are_the_one_rank_layer(dev, sched):
+    """Four gloo ranks sharing cuda:0 run the gpt2-moe layer (reduced, at
+    the drop-free capacity factor E / k) under ``sched``: each rank's
+    output and gradient blocks within 2e-4 of the largest entry of the
+    one-rank layer's, every path kernel launched on every rank."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.moe import apply_moe, init_moe_params
+    from repro_torch.launch.mesh import dims_for, spawn
+    from repro_torch.parallel.mesh import Mesh
+    from repro_torch.parallel.sharding import P, local_shard
+    from repro_torch.core.moe import moe_param_specs
+    g2 = get_config("gpt2-moe").reduced()
+    cfg = replace(g2.moe, capacity_factor=g2.moe.n_experts / g2.moe.top_k)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_moe_params(gen, cfg)
+    x = torch.randn((8, 64, cfg.d_model), generator=gen, device=dev)
+    r = torch.randn((8, 64, cfg.d_model), generator=gen, device=dev)
+    xs = x.clone().requires_grad_()
+    ps = {k: v.clone().requires_grad_() for k, v in params.items()}
+    y, _ = apply_moe(xs, ps, cfg=cfg)
+    want = [y.detach().cpu()] + [t.cpu() for t in torch.autograd.grad(
+        (y * r).sum(), [xs, *ps.values()])]
+    cpu = {k: v.cpu() for k, v in params.items()}
+    ranks = spawn(_layer_rank, 4, sched, x.cpu(), r.cpu(), cpu,
+                  backend="gloo", device="cuda", timeout=300)
+    specs = moe_param_specs(cfg, Mesh((2, 2), ("data", "model"),
+                                      groups=False), dims_for(g2))
+    xspec = P(dims_for(g2).batch_axes, None, None)
+    for rank, got in enumerate(ranks):
+        mesh = Mesh((2, 2), ("data", "model"), rank, groups=False)
+        for t, w, spec in zip([got["y"], *got["g"]], want,
+                              [xspec, xspec, *[specs[k] for k in cpu]]):
+            w = local_shard(w, spec, mesh)
+            assert (t - w).abs().max() <= 2e-4 * max(1.0, w.abs().max())
+        dispatch, ragged, dense, combine = got["launched"]
+        assert dispatch > 0 and combine > 0
+        assert (ragged if sched == "s1g" else dense) > 0, got["launched"]

@@ -122,3 +122,29 @@ def test_train_launcher_takes_the_autoscheduler_flags(flag, capsys):
     mode = flag[1] if flag[0] == "--autosched" else "analytic"
     assert f"autosched[{mode}] BxL=2x32" in out and "final loss" in out
     autosched.clear_cache()
+
+
+def test_the_multi_rank_modules_stand_alone():
+    """The multi-rank slice's modules are among the checked sources, and
+    importing them starts no process group and no process."""
+    sources = {os.path.relpath(p, PORT) for p in _sources()}
+    for rel in ("parallel/__init__.py", "parallel/mesh.py",
+                "parallel/sharding.py", "parallel/comm.py",
+                "launch/mesh.py"):
+        assert rel in sources, rel
+    code = """
+import subprocess, sys
+def refuse(*a, **k):
+    raise AssertionError("a subprocess was started while importing")
+subprocess.Popen = refuse
+import torch.distributed as dist
+import repro_torch.parallel, repro_torch.parallel.comm
+import repro_torch.launch.mesh, repro_torch.launch.train
+assert not dist.is_initialized()
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro")
+               for m in sys.modules), "a JAX module was imported"
+"""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]

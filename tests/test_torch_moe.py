@@ -97,9 +97,11 @@ def test_apply_moe_matches_jax_s1g(infer, variant):
 
 def test_other_schedules_wait_for_a_later_slice():
     """Every schedule runs on one rank now, and so do the cost model's
-    wire pick and the measured calibration (each deciding once); what
-    still needs a later slice (a multi-rank group, an expert placement)
-    raises, never runs as something else."""
+    wire pick and the measured calibration (each deciding once); a
+    collective over a group of more than one rank with no mesh bound
+    raises (``apply_moe(..., mesh=, dims=)`` binds one), and what still
+    needs a later slice (an expert placement) raises, never runs as
+    something else."""
     from repro_torch.core import collectives, executor, plan, schedules
     _, tcfg = _cfgs()
     x = torch.zeros((1, 4, tcfg.d_model))
@@ -114,7 +116,7 @@ def test_other_schedules_wait_for_a_later_slice():
         assert y.shape == x.shape
         (key, d), = t_autosched.cache_info().items()
         assert key[1] == ("measured" if "autosched" in kw else "analytic")
-    with pytest.raises(NotImplementedError, match="multi-rank"):
+    with pytest.raises(RuntimeError, match="multi-rank"):
         collectives.ep_esp_all_to_all(x, ("ep",), ("esp",), 2)
     info = schedules.MoEShardInfo(
         ep_axes=("ep",), esp_axes=("esp",), mp_axes=("mp",), n_ep=1,
