@@ -22,7 +22,9 @@ gradients are JAX's: the boundary divides the cotangent of a replicated
 output by its replication and sums an input's cotangent over the
 non-batch axes it is replicated on; the batch axes' sum is the
 trainer's (``train.loop.sync_grads``), so a layer's gradients summed
-that way equal ``jax.grad`` of the JAX layer's.
+that way equal ``jax.grad`` of the JAX layer's.  Shared experts run
+outside the body, on the whole pool, column / row parallel over MP where
+``moe_param_specs`` shards them (JAX's GSPMD layout, written out).
 
 ``schedule="auto"`` and ``CommConfig(wire_dtype="auto")`` resolve
 through ``autosched.decide`` as in the JAX ``apply_moe``: analytically
@@ -64,6 +66,7 @@ from repro_torch.core.schedules import BODY, SCHEDULES, MoEShardInfo
 from repro_torch.kernels.registry import KernelConfig
 from repro_torch.parallel.mesh import ParallelDims, axis_size
 from repro_torch.parallel.sharding import P, replicated_axes
+from repro_torch.parallel.tensor import copy_to_mp, reduce_from_mp
 
 _CALLS = {"step": None, "n": 0}   # moe_call ordinals of the current step
 
@@ -301,13 +304,26 @@ def apply_moe(x, params: dict, *, cfg: MoEConfig, mesh=None,
     y, gaux = _run_body(sched, x.reshape(B * L, M), params, cfg, info)
     y = y.reshape(B, L, M).to(x.dtype)
     if cfg.n_shared_experts:
-        h = torch.einsum("blm,mf->blf", x, params["shared_w1"])
-        h = torch.nn.functional.silu(h) * torch.einsum(
-            "blm,mf->blf", x, params["shared_w3"])
-        y = y + torch.einsum("blf,fm->blm", h, params["shared_w2"])
+        y = y + _shared_experts(x, params)
     aux = {k: gaux[k] for k in ("aux_loss", "z_loss", "drop_frac")}
     aux["expert_load"] = gaux["routed"]
     return y, aux
+
+
+def _shared_experts(x, params, grp=None):
+    """The shared experts' SwiGLU FFN on the whole pool ``x``, outside the
+    routed body (as JAX runs it outside its shard_map).  With ``grp`` (the
+    MP group, where ``moe_param_specs`` shards them) ``params`` holds this
+    rank's columns of ``shared_w1`` / ``shared_w3`` and rows of
+    ``shared_w2``: column / row parallel over MP
+    (``parallel.tensor.copy_to_mp`` / ``reduce_from_mp``)."""
+    if grp is not None:
+        x = copy_to_mp(x, grp)
+    h = torch.einsum("blm,mf->blf", x, params["shared_w1"])
+    h = torch.nn.functional.silu(h) * torch.einsum(
+        "blm,mf->blf", x, params["shared_w3"])
+    y = torch.einsum("blf,fm->blm", h, params["shared_w2"])
+    return y if grp is None else reduce_from_mp(y, grp)
 
 
 def _run_body(sched, xt, ws, cfg, info):
@@ -504,9 +520,9 @@ def _apply_moe_mesh(x, params, cfg, mesh, dims, schedule, perf_model,
         load = coll.pmean(routed, every, mesh.size)
     y = _boundary_out(y.reshape(b, L, M).to(x.dtype), n_nonbatch)
     if cfg.n_shared_experts:
-        raise NotImplementedError(
-            "shared experts on a mesh come with the Megatron slice "
-            "(ROADMAP item 5.1)")
+        sharded = pspecs["shared_w1"][1] is not None
+        y = y + _shared_experts(x, params,
+                                mesh.group(dims.mp) if sharded else None)
     aux = {k: _boundary_out(gaux[k], mesh.size)
            for k in ("aux_loss", "z_loss", "drop_frac")}
     aux["expert_load"] = load

@@ -46,7 +46,11 @@ it is refused with an error, never ignored.
 Across ranks: ``--nproc N`` spawns N ranks (``torch.multiprocessing``,
 ``spawn``) unless ``torchrun``'s environment is present, on the
 ``--mesh data=D,model=M`` mesh (default ``data=N,model=1``; EP over data,
-ESP == MP over model) over ``--dist-backend nccl`` (one card a rank) or
+ESP == MP over model; with M > 1 the dense layers train under Megatron
+tensor parallelism over model: attention by head, the dense FFN column /
+row, the embedding and LM head by vocabulary, as the JAX launcher's
+GSPMD shards them, and Megatron-SP where the config sets
+``seq_parallel``) over ``--dist-backend nccl`` (one card a rank) or
 ``gloo`` (named explicitly: ranks sharing one card, or the CPU), e.g.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-moe \
@@ -139,7 +143,8 @@ def main(argv=None):
                          "process alone")
     ap.add_argument("--mesh", default=None,
                     help="the rank mesh, e.g. data=2,model=2 (default "
-                         "data=NPROC,model=1)")
+                         "data=NPROC,model=1); model > 1 shards the dense "
+                         "layers (Megatron tensor parallelism)")
     ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
                     help="torch.distributed backend (required with more "
                          "than one rank): nccl needs a card a rank, gloo "

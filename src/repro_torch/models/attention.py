@@ -9,6 +9,14 @@ package takes its Pallas kernel; otherwise the full ``sdpa_full`` or, above
 recompute backward.  Those two mask with the finite ``-1e30``
 (``_mask_bias``), as JAX does.
 
+On a mesh whose MP group has more than one rank ``apply_attn`` runs this
+rank's heads (``attn_specs``, JAX's rule: ``wq``/``bq`` and ``wo`` by
+query head, ``wk``/``wv`` by kv head where the kv heads divide over MP,
+else replicated, each rank then reading the one kv head its query heads
+share) and returns its row-parallel part of the output, which the block
+sums over MP.  A query head split across ranks (JAX allows it where
+``H * hd`` but not ``H`` divides over MP) is refused.
+
 ``paged_chunk_attn`` is plain array code in JAX too, no Pallas kernel.  The
 port keeps its layout, op order and mask constants: ``-inf`` score masking
 and VALUE-zeroed invalid K/V writes, without which an idle row's NaN would
@@ -24,6 +32,8 @@ import torch
 
 from repro_torch.kernels.registry import get_op
 from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.parallel.mesh import axis_size
+from repro_torch.parallel.sharding import P
 
 
 @dataclass(frozen=True)
@@ -60,6 +70,44 @@ def init_attn(generator, cfg: AttnConfig, dtype=torch.float32):
         p["bk"] = torch.zeros((K * hd,), dtype=dtype, device=dev)
         p["bv"] = torch.zeros((K * hd,), dtype=dtype, device=dev)
     return p
+
+
+def attn_specs(mesh, mp_axes, cfg: AttnConfig):
+    """The JAX function, copied."""
+    n_mp = axis_size(mesh, mp_axes) if mp_axes else 1
+    q_ax = tuple(mp_axes) if mp_axes and (
+        cfg.n_heads * cfg.head_dim) % n_mp == 0 else None
+    kv_ax = tuple(mp_axes) if mp_axes and cfg.n_kv_heads % n_mp == 0 else None
+    kv_sp = tuple(mp_axes) if kv_ax else None
+    p = {"wq": P(None, q_ax), "wk": P(None, kv_sp), "wv": P(None, kv_sp),
+         "wo": P(q_ax, None)}
+    if cfg.qkv_bias:
+        p["bq"] = P(q_ax)
+        p["bk"] = P(kv_sp)
+        p["bv"] = P(kv_sp)
+    return p
+
+
+def mp_heads(cfg: AttnConfig, n_mp: int, index: int = 0):
+    """``(query heads, kv heads, kv0)`` of MP rank ``index`` of ``n_mp``:
+    ``kv0`` is None where the kv projection is sharded (this rank's block
+    holds its kv heads), else the one kv head of the replicated projection
+    that this rank's query heads share.  Raises where the query heads do
+    not divide over MP, or where a rank's query heads would straddle two
+    kv groups of a replicated projection."""
+    H, K = cfg.n_heads, cfg.n_kv_heads
+    if H % n_mp:
+        raise ValueError(f"{H} query heads do not divide over {n_mp} MP "
+                         f"ranks (JAX would split a head of {cfg.head_dim} "
+                         f"across ranks; the port keeps heads whole)")
+    h_local = H // n_mp
+    if K % n_mp == 0:
+        return h_local, K // n_mp, None
+    group = H // K
+    if group % h_local:
+        raise ValueError(f"{h_local} query heads a rank straddle GQA groups "
+                         f"of {group} over {K} replicated kv heads")
+    return h_local, 1, index * h_local // group
 
 
 # --- training / prefill forward ----------------------------------------------
@@ -166,20 +214,28 @@ def sdpa_flash_scan(q, k, v, cfg: AttnConfig, q_pos, k_pos):
 
 
 def apply_attn(p, cfg: AttnConfig, x, *, positions=None, kv_x=None,
-               kv_positions=None, kernel=None):
+               kv_positions=None, kernel=None, tp=None):
     """Training/prefill forward.  x: (B, L, D); ``kv_x`` != None is cross
-    attention.  Returns (B, L, D)."""
+    attention.  Returns (B, L, D).  With ``tp`` (a ``TensorParallel``)
+    ``p`` holds this rank's shards, ``x`` is replicated over MP and the
+    result is this rank's row-parallel part of the output (the caller sums
+    it over MP)."""
     B, L, D = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    kv = {n: p[n] for n in ("wk", "wv", "bk", "bv") if n in p}
+    if tp is not None:
+        H, K, kv0 = mp_heads(cfg, tp.n, tp.index)
+        if kv0 is not None:      # this rank's kv head of the replicated ones
+            kv = {n: w.narrow(-1, kv0 * hd, hd) for n, w in kv.items()}
     src = kv_x if kv_x is not None else x
     Lk = src.shape[1]
     q = (x @ p["wq"]).reshape(B, L, H, hd)
-    k = (src @ p["wk"]).reshape(B, Lk, K, hd)
-    v = (src @ p["wv"]).reshape(B, Lk, K, hd)
+    k = (src @ kv["wk"]).reshape(B, Lk, K, hd)
+    v = (src @ kv["wv"]).reshape(B, Lk, K, hd)
     if cfg.qkv_bias:
         q = q + p["bq"].reshape(H, hd)
-        k = k + p["bk"].reshape(K, hd)
-        v = v + p["bv"].reshape(K, hd)
+        k = k + kv["bk"].reshape(K, hd)
+        v = v + kv["bv"].reshape(K, hd)
     # the kernel derives positions from tile indices: it covers only the
     # default contiguous-from-zero layout (recorded before the aranges)
     contiguous_pos = positions is None and kv_positions is None

@@ -1,17 +1,18 @@
 """Decoder blocks (counterpart of ``repro/models/blocks.py``): the
 ``dense`` and ``moe`` kinds (and their ``_full`` variants), init, the
-training forward ``apply_block`` and the serving engine's paged forward."""
+partition specs ``block_specs``, the training forward ``apply_block`` and
+the serving engine's paged forward."""
 
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.moe import apply_moe, init_moe_params
+from repro_torch.core.moe import apply_moe, init_moe_params, moe_param_specs
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.attention import AttnConfig
-from repro_torch.models.layers import (apply_ffn, apply_norm, init_ffn,
-                                       init_norm)
+from repro_torch.models.layers import (apply_ffn, apply_norm, ffn_specs,
+                                       init_ffn, init_norm, norm_specs)
 
 #: Block kinds this slice runs.
 KINDS = ("dense", "moe")
@@ -57,13 +58,45 @@ def init_block(generator, cfg: ModelConfig, kind: str, dtype) -> dict:
     return p
 
 
+def block_specs(cfg: ModelConfig, kind: str, mesh, dims) -> dict:
+    """The JAX function for the ``dense`` and ``moe`` kinds."""
+    _check_kind(kind)
+    mp = dims.mp
+    s = {"norm1": norm_specs(cfg.norm_type),
+         "attn": attn_mod.attn_specs(mesh, mp, attn_config(cfg, kind))}
+    if base_kind(kind) == "moe":
+        s["moe"] = moe_param_specs(cfg.moe, mesh, dims)
+        s["norm2"] = norm_specs(cfg.norm_type)
+    elif cfg.d_ff:
+        s["ffn"] = ffn_specs(mesh, mp, cfg.d_ff, glu=cfg.glu,
+                             bias=cfg.ffn_bias)
+        if not cfg.parallel_block:
+            s["norm2"] = norm_specs(cfg.norm_type)
+    return s
+
+
+def _ffn(p, cfg: ModelConfig, h, tp):
+    """The dense FFN on the residual stream ``h``: column / row parallel
+    with ``tp``, or whole on every rank where ``d_ff`` does not divide
+    over MP (``ffn_specs`` replicates it)."""
+    if tp is None or cfg.d_ff % tp.n == 0:
+        return apply_ffn(p, h, cfg.ffn_act, tp)
+    return tp.from_replicated(apply_ffn(p, tp.to_replicated(h), cfg.ffn_act))
+
+
 def apply_block(p, cfg: ModelConfig, kind: str, x, *, positions=None,
-                schedule=None, mesh=None, dims=None):
+                schedule=None, mesh=None, dims=None, tp=None):
     """Full-sequence forward.  Returns ``(x, aux)``: ``aux["loss"]`` the
     scalar router-loss contribution (aux + z loss) and
     ``aux["expert_load"]`` the (E,) routed rows, (0,) for dense blocks.
-    On a mesh (``mesh``, ``dims``) ``x`` is this rank's rows: attention
-    and norms run whole on them, the MoE layer over the mesh."""
+    On a mesh (``mesh``, ``dims``) ``x`` is this rank's rows, the MoE layer
+    runs over the mesh, and with ``tp`` (its MP group has more than one
+    rank, ``parallel.tensor``) the attention and the dense FFN are
+    Megatron-parallel: ``tp.enter`` at each sharded region's entry (so the
+    input's cotangent is summed over MP), ``tp.leave`` after its
+    row-parallel product.  Under Megatron-SP (``tp.seq``) ``x`` is this
+    rank's L / n_mp rows of the stream, the norms run on them, and the MoE
+    layer takes the whole sequence (``tp.to_replicated``)."""
     _check_kind(kind)
     acfg = attn_config(cfg, kind)
     eps = cfg.norm_eps
@@ -71,19 +104,28 @@ def apply_block(p, cfg: ModelConfig, kind: str, x, *, positions=None,
            "expert_load": torch.zeros((0,), dtype=torch.float32,
                                       device=x.device)}
     h = apply_norm(p["norm1"], x, eps, cfg.kernel)
-    a = attn_mod.apply_attn(p["attn"], acfg, h, positions=positions,
-                            kernel=cfg.kernel)
+    if tp is None:
+        a = attn_mod.apply_attn(p["attn"], acfg, h, positions=positions,
+                                kernel=cfg.kernel)
+    else:
+        a = tp.leave(attn_mod.apply_attn(p["attn"], acfg, tp.enter(h),
+                                         positions=positions,
+                                         kernel=cfg.kernel, tp=tp))
     if cfg.parallel_block:
-        return x + (a + apply_ffn(p["ffn"], h, cfg.ffn_act)), aux
+        return x + (a + _ffn(p["ffn"], cfg, h, tp)), aux
     x = x + a
     h2 = apply_norm(p["norm2"], x, eps, cfg.kernel)
     if base_kind(kind) == "moe":
+        if tp is not None:
+            h2 = tp.to_replicated(h2)
         y, maux = apply_moe(h2, p["moe"], cfg=cfg.moe, schedule=schedule,
                             mesh=mesh, dims=dims)
+        if tp is not None:
+            y = tp.from_replicated(y)
         aux = {"loss": aux["loss"] + maux["aux_loss"] + maux["z_loss"],
                "expert_load": maux["expert_load"]}
     else:
-        y = apply_ffn(p["ffn"], h2, cfg.ffn_act)
+        y = _ffn(p["ffn"], cfg, h2, tp)
     return x + y, aux
 
 

@@ -1,6 +1,12 @@
 """Shared layers (counterpart of ``repro/models/layers.py``): functions on
 tensors over the JAX package's parameter-dict layout.  Initializers draw
-from an explicit ``torch.Generator`` on its own device."""
+from an explicit ``torch.Generator`` on its own device; ``*_specs`` are
+the JAX functions, copied (partition specs over the port's mesh).
+
+On a mesh whose MP group has more than one rank the dense FFN is column /
+row parallel and the embedding vocab-parallel (Megatron), through a
+:class:`~repro_torch.parallel.tensor.TensorParallel` ``tp``: the
+parameters are this rank's shards and ``tp`` makes the collectives."""
 
 from __future__ import annotations
 
@@ -11,6 +17,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ref import ACT, scatter_rows_in_order
 from repro_torch.kernels.registry import get_op
+from repro_torch.parallel.mesh import axis_size
+from repro_torch.parallel.sharding import P
 
 
 def dense_init(generator, shape, fan_in=None, dtype=torch.float32):
@@ -26,6 +34,13 @@ def init_norm(d, norm_type="rmsnorm", device="cuda"):
     p = {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
     if norm_type == "layernorm":
         p["bias"] = torch.zeros((d,), dtype=torch.float32, device=device)
+    return p
+
+
+def norm_specs(norm_type="rmsnorm"):
+    p = {"scale": P(None)}
+    if norm_type == "layernorm":
+        p["bias"] = P(None)
     return p
 
 
@@ -88,7 +103,20 @@ def init_ffn(generator, d_model, d_ff, glu=True, bias=False,
     return p
 
 
-def apply_ffn(p, x, act="silu"):
+def ffn_specs(mesh, mp_axes, d_ff, glu=True, bias=False):
+    ff_ax = tuple(mp_axes) if mp_axes and \
+        d_ff % axis_size(mesh, mp_axes) == 0 else None
+    p = {"w_in": P(None, ff_ax), "w_out": P(ff_ax, None)}
+    if glu:
+        p["w_gate"] = P(None, ff_ax)
+    if bias:
+        p["b_in"] = P(ff_ax)
+        p["b_out"] = P(None)
+    return p
+
+
+def _ffn_out(p, x, act):
+    """The FFN up to ``w_out``'s product, before ``b_out``."""
     actf = dict(ACT, relu=F.relu)[act]
     h = x @ p["w_in"]
     if "b_in" in p:
@@ -97,7 +125,19 @@ def apply_ffn(p, x, act="silu"):
         h = actf(x @ p["w_gate"]) * h
     else:
         h = actf(h)
-    out = h @ p["w_out"]
+    return h @ p["w_out"]
+
+
+def apply_ffn(p, x, act="silu", tp=None):
+    """The FFN on ``x``.  With ``tp`` it is column / row parallel: ``p``
+    holds this rank's columns of ``w_in`` / ``w_gate`` (and ``b_in``) and
+    rows of ``w_out``, ``x`` is the residual stream (``tp.enter`` /
+    ``tp.leave`` around the sharded products) and ``b_out`` is added once,
+    after the reduction."""
+    if tp is None:
+        out = _ffn_out(p, x, act)
+    else:
+        out = tp.leave(_ffn_out(p, tp.enter(x), act))
     if "b_out" in p:
         out = out + p["b_out"]
     return out
@@ -111,19 +151,32 @@ def init_embedding(generator, vocab, d_model, dtype=torch.float32):
     return {"table": t.mul_(0.02).to(dtype)}
 
 
+def embedding_specs(mesh, mp_axes, vocab):
+    v_ax = tuple(mp_axes) if mp_axes and \
+        vocab % axis_size(mesh, mp_axes) == 0 else None
+    return {"table": P(v_ax, None)}
+
+
 class _EmbedVJP(torch.autograd.Function):
     """``table[ids]`` whose backward sums a row's cotangents in ids order,
     the same bits every run: on the CPU by ``scatter_rows_in_order``
     (JAX's bits; the CPU's accumulating ``index_put_``, autograd's
     default, adds from several threads in no fixed order), on the card by
     the accumulating ``index_put_``, which there sorts the ids stably and
-    sums each run of them in order."""
+    sums each run of them in order.  With ``masked`` an id equal to the
+    table's row count (a token of another rank's vocabulary block) reads a
+    zero row and adds nothing to the gradient: its cotangent goes to a
+    discarded row, so the other rows keep their summation order."""
 
     @staticmethod
-    def forward(ctx, table, ids):
+    def forward(ctx, table, ids, masked=False):
         ctx.save_for_backward(ids)
-        ctx.n_rows = table.shape[0]
-        return table[ids]
+        ctx.n_rows, ctx.masked = table.shape[0], masked
+        if not masked:
+            return table[ids]
+        own = ids < ctx.n_rows
+        rows = table[torch.clamp(ids, max=ctx.n_rows - 1)]
+        return torch.where(own[..., None], rows, torch.zeros_like(rows))
 
     @staticmethod
     def backward(ctx, g):
@@ -131,13 +184,24 @@ class _EmbedVJP(torch.autograd.Function):
         g = g.reshape(-1, g.shape[-1])
         ids = ids.reshape(-1)
         if g.is_cuda:
-            out = g.new_zeros((ctx.n_rows, g.shape[-1]))
-            return out.index_put_((ids,), g, accumulate=True), None
-        return scatter_rows_in_order(g, ids, ctx.n_rows), None
+            out = g.new_zeros((ctx.n_rows + int(ctx.masked), g.shape[-1]))
+            out.index_put_((ids,), g, accumulate=True)
+            return out[:ctx.n_rows], None, None
+        return scatter_rows_in_order(g, ids, ctx.n_rows), None, None
 
 
-def embed(p, ids):
-    return _EmbedVJP.apply(p["table"], ids)
+def embed(p, ids, tp=None):
+    """``table[ids]``.  With ``tp`` it is vocab-parallel: ``p["table"]``
+    holds this rank's block of rows, ids outside it read zeros, and the
+    partial rows are summed over MP into the residual stream's layout
+    (``tp.leave``)."""
+    if tp is None:
+        return _EmbedVJP.apply(p["table"], ids)
+    n = p["table"].shape[0]
+    local = ids.long() - tp.index * n
+    local = torch.where((local >= 0) & (local < n), local,
+                        torch.full_like(local, n))
+    return tp.leave(_EmbedVJP.apply(p["table"], local, True))
 
 
 def unembed(p, x):

@@ -11,13 +11,18 @@ layers at once), so the JAX parameters load unchanged
 gradients land in the stacked tensors.
 
 On a mesh (``mesh=``, ``dims=``, ``repro_torch.parallel``) the batch is
-this rank's rows and the parameters its shards (``param_specs``): the
-dense layers (attention, norms, embeddings, LM head) stay whole on every
-rank, replicated over MP, and only the MoE layers' experts are sharded
-(EP over experts, ESP over the hidden dim), so the MoE layer sees
-activations replicated over MP: the merged setting whose redundancy
-Parm's S1 and S2 remove.  Megatron sharding of the dense layers is not
-ported yet (ROADMAP item 5.1).  The loss is the global batch's.
+this rank's rows and the parameters its shards (``param_specs``, JAX's
+``Model.specs``): the MoE layers' experts over EP and ESP, and, where the
+MP group has more than one rank, the dense layers Megatron-style over MP
+(``parallel.tensor``): attention by head, the dense FFN column / row,
+the embedding and the LM head by vocabulary row (where the vocabulary
+divides over MP; gpt2-moe's 50257 does not, and JAX replicates it too),
+with a vocab-parallel CE.  The MoE layer sees its input replicated over
+MP, after the attention's row-parallel sum: the merged setting whose
+redundancy Parm's S1 and S2 remove.  Under ``cfg.seq_parallel`` (where L
+divides over MP) the residual stream between the sharded regions is
+sharded along L (Megatron-SP), as JAX's sharding constraint has it.  The
+loss is the global batch's.
 """
 
 from __future__ import annotations
@@ -31,9 +36,14 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks as blk
 from repro_torch.models.attention import init_cache as init_attn_cache
-from repro_torch.models.layers import (apply_norm, embed, init_embedding,
-                                       init_norm, sinusoidal_positions,
-                                       unembed)
+from repro_torch.models.attention import mp_heads
+from repro_torch.models.layers import (apply_norm, embed, embedding_specs,
+                                       init_embedding, init_norm, norm_specs,
+                                       sinusoidal_positions, unembed)
+from repro_torch.parallel import comm
+from repro_torch.parallel.mesh import axis_size
+from repro_torch.parallel.sharding import P, mentioned
+from repro_torch.parallel.tensor import reduce_from_mp, tensor_parallel
 
 
 #: at most this many f32 logits (batch x chunk x vocab) per CE chunk, as
@@ -78,6 +88,15 @@ def _stack(make, n: int) -> dict:
     for i in range(1, n):
         put(out, make(), i)
     return out
+
+
+def _in_order_of(tree: dict, like: dict) -> dict:
+    """``tree`` with ``like``'s keys in ``like``'s order (the same keys)."""
+    if set(tree) != set(like):
+        raise ValueError(f"parameter tree has {sorted(like)}, the config "
+                         f"needs {sorted(tree)}")
+    return {k: _in_order_of(tree[k], like[k]) if isinstance(tree[k], dict)
+            else tree[k] for k in like}
 
 
 class Model:
@@ -139,72 +158,150 @@ class Model:
         return logits * cfg.logit_scale
 
     def param_specs(self, params, mesh, dims) -> dict:
-        """Each leaf's ``PartitionSpec`` on ``mesh``, in ``params``'s tree:
-        the MoE blocks' expert weights ``moe_param_specs`` behind the layer
-        dimension, everything else replicated (``P()``)."""
-        from repro_torch.core.moe import moe_param_specs
-        from repro_torch.parallel.sharding import P
+        """Each leaf's ``PartitionSpec`` on ``mesh``: JAX's ``Model.specs``
+        (``block_specs`` behind the layer dimension), in ``params``'s tree
+        and key order (a JAX tree comes with sorted keys), so that the
+        leaves of the two line up.  Raises, naming the config and the
+        mesh, where the attention heads do not split over MP as the port
+        runs them (``attention.mp_heads``)."""
+        cfg = self.cfg
+        n_mp = axis_size(mesh, dims.mp)
+        try:
+            for kind, _ in self.runs:
+                mp_heads(blk.attn_config(cfg, kind), n_mp)
+        except ValueError as e:
+            raise ValueError(f"{cfg.name} on mesh {dict(mesh.shape)} (MP "
+                             f"axes {dims.mp}): {e}") from None
+        specs = {"embed": embedding_specs(mesh, dims.mp, cfg.vocab_size),
+                 "final_norm": norm_specs(cfg.norm_type)}
+        if not cfg.tie_embeddings:
+            specs["lm_head"] = {"w": P(None, specs["embed"]["table"][0])}
 
-        def rep(tree):
-            return {k: rep(v) for k, v in tree.items()} \
-                if isinstance(tree, dict) else P()
+        def add_layer_dim(tree):
+            return {k: add_layer_dim(v) for k, v in tree.items()} \
+                if isinstance(tree, dict) else P(None, *tree)
 
-        out = rep(params)
         for r, (kind, _) in enumerate(self.runs):
-            if blk.base_kind(kind) == "moe":
-                moe = moe_param_specs(self.cfg.moe, mesh, dims)
-                out[f"run{r}"]["moe"] = {
-                    k: P(None, *moe[k]) for k in params[f"run{r}"]["moe"]}
-        return out
+            specs[f"run{r}"] = add_layer_dim(
+                blk.block_specs(cfg, kind, mesh, dims))
+        return _in_order_of(specs, params)
 
-    def _layer(self, p, kind, x, schedule, mesh=None, dims=None):
+    def mp_partial(self, params, mesh, dims, seq_len: int) -> dict:
+        """Per leaf (``param_specs``'s tree), whether each MP rank's
+        gradient of it is only its part of the whole: a kv projection
+        replicated over MP (each rank reads the kv head its query heads
+        use) and, under Megatron-SP, the norms and a row-parallel FFN's
+        ``b_out`` (they see this rank's L / n_mp rows).
+        ``train.loop.sync_grads`` sums those over MP.  Every other leaf
+        replicated over MP gets its whole gradient on every MP rank."""
+        specs = self.param_specs(params, mesh, dims)
+        tp = tensor_parallel(mesh, dims, seq_len, self.cfg.seq_parallel)
+        mp = set(dims.mp)
+
+        def walk(tree, path):
+            if isinstance(tree, dict):
+                return {k: walk(v, path + (k,)) for k, v in tree.items()}
+            if tp is None or mp & set(mentioned(tree)):
+                return False          # no MP, or sharded over it
+            if path[-2] == "attn":    # wq and wo always shard (mp_heads)
+                return True
+            if not tp.seq:
+                return False
+            if path[-2:] == ("ffn", "b_out"):
+                return self.cfg.d_ff % tp.n == 0      # ffn_specs' rule
+            return path[-2] in ("norm1", "norm2", "final_norm")
+
+        return walk(specs, ())
+
+    def _layer(self, p, kind, x, schedule, mesh=None, dims=None, tp=None):
         y, aux = blk.apply_block(p, self.cfg, kind, x, schedule=schedule,
-                                 mesh=mesh, dims=dims)
+                                 mesh=mesh, dims=dims, tp=tp)
         return y, aux["loss"], aux["expert_load"]
+
+    def _vocab_sharded(self, tp) -> bool:
+        """Whether the embedding and LM head are vocab-parallel over
+        ``tp``'s MP group (``embedding_specs``' rule)."""
+        return tp is not None and self.cfg.vocab_size % tp.n == 0
+
+    def _head_input(self, x, tp):
+        """The final hidden state, in the residual stream's layout, as the
+        LM head takes it: entering a vocab-parallel head, or whole for a
+        replicated one."""
+        if tp is None:
+            return x
+        return tp.enter(x) if self._vocab_sharded(tp) else \
+            tp.to_replicated(x)
 
     def _backbone(self, params, batch, *, schedule=None, mesh=None,
                   dims=None):
         """Embedding -> blocks -> final norm (no LM head).  With
         ``cfg.remat`` each block runs under activation checkpointing, so
-        its forward (kernels included) runs again in the backward."""
+        its forward (kernels included) runs again in the backward.
+        Returns ``(x, aux, tp)``: ``x`` in the residual stream's layout
+        (this rank's L-slice under Megatron-SP) and ``tp`` this rank's
+        ``TensorParallel`` (None off a mesh or on one MP rank)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         B, L = tokens.shape
-        x = embed(params["embed"], tokens)
+        tp = tensor_parallel(mesh, dims, L, cfg.seq_parallel)
+        if tp is None:
+            x = embed(params["embed"], tokens)
+        elif self._vocab_sharded(tp):
+            x = embed(params["embed"], tokens, tp)
+        else:
+            x = tp.from_replicated(embed(params["embed"], tokens))
         if not cfg.use_rope:
-            x = x + sinusoidal_positions(L, cfg.d_model, x.device).to(x.dtype)
+            pe = sinusoidal_positions(L, cfg.d_model, x.device)
+            x = x + (pe if tp is None else tp.rows(pe)).to(x.dtype)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         expert_load = torch.zeros((0,), dtype=torch.float32, device=x.device)
         for r, (kind, n) in enumerate(self.runs):
             for p in layer_views(params[f"run{r}"], n):
                 if cfg.remat:
                     x, loss, load = checkpoint(self._layer, p, kind, x,
-                                               schedule, mesh, dims,
+                                               schedule, mesh, dims, tp,
                                                use_reentrant=False)
                 else:
                     x, loss, load = self._layer(p, kind, x, schedule, mesh,
-                                                dims)
+                                                dims, tp)
                 aux_total = aux_total + loss
                 if load.shape[-1]:
                     expert_load = load if not expert_load.shape[-1] \
                         else expert_load + load
         x = apply_norm(params["final_norm"], x, cfg.norm_eps, cfg.kernel)
-        return x, {"aux_loss": aux_total, "expert_load": expert_load}
+        return x, {"aux_loss": aux_total, "expert_load": expert_load}, tp
 
     def forward(self, params, batch, *, schedule=None, mesh=None,
                 dims=None):
         """Full-sequence forward (train / prefill).  Returns (logits,
-        aux)."""
-        x, aux = self._backbone(params, batch, schedule=schedule, mesh=mesh,
-                                dims=dims)
-        return self._head(params, x), aux
+        aux); on a mesh with a vocab-parallel head, this rank's block of
+        the vocabulary."""
+        x, aux, tp = self._backbone(params, batch, schedule=schedule,
+                                    mesh=mesh, dims=dims)
+        return self._head(params, self._head_input(x, tp)), aux
 
-    def _ce_sums(self, params, x, labels):
-        """(sum of -log p(label), count of labels >= 0) over one chunk."""
-        logp = F.log_softmax(self._head(params, x).float(), dim=-1)
-        ll = torch.gather(logp, -1, labels.clamp(min=0)[..., None].long())
+    def _ce_sums(self, params, x, labels, tp=None):
+        """(sum of -log p(label), count of labels >= 0) over one chunk.
+        With ``tp`` the head is vocab-parallel: the log-sum-exp shifts by
+        the max over MP (detached, ``comm.pmax``), sums its exps over MP,
+        and takes the label's logit from the rank that holds it."""
+        logits = self._head(params, x).float()
         m = (labels >= 0).float()
-        return torch.sum(-ll[..., 0] * m), torch.sum(m)
+        if tp is None:
+            logp = F.log_softmax(logits, dim=-1)
+            ll = torch.gather(logp, -1, labels.clamp(min=0)[..., None].long())
+            return torch.sum(-ll[..., 0] * m), torch.sum(m)
+        v = logits.shape[-1]
+        top = comm.pmax(logits.detach().amax(dim=-1), tp.grp)
+        se = reduce_from_mp(torch.exp(logits - top[..., None]).sum(dim=-1),
+                            tp.grp)
+        local = labels.long() - tp.index * v
+        own = (local >= 0) & (local < v)
+        hit = torch.gather(logits, -1, local.clamp(0, v - 1)[..., None])
+        tgt = reduce_from_mp(torch.where(own, hit[..., 0],
+                                         torch.zeros_like(top)), tp.grp)
+        ll = tgt - (top + torch.log(se))
+        return torch.sum(-ll * m), torch.sum(m)
 
     def loss(self, params, batch, *, schedule=None, mesh=None, dims=None):
         """Mean next-token CE over ``batch["labels"]`` (< 0 = ignored) plus
@@ -221,30 +318,33 @@ class Model:
         global mean, JAX's), while the gradient is that of this rank's
         sum over the global count, so the batch axes' gradient sum
         (``train.loop.sync_grads``) gives the global gradient.  The chunk
-        length follows this rank's rows, as JAX's follows ``b_local``."""
+        length follows this rank's rows, as JAX's follows ``b_local``, and
+        the whole vocabulary, a vocab-parallel head's too.  Every MP rank
+        computes the same loss, and its gradient is that of one copy."""
         cfg = self.cfg
         labels = batch["labels"]
         B, L = labels.shape
-        hidden, aux = self._backbone(params, batch, schedule=schedule,
-                                     mesh=mesh, dims=dims)
+        hidden, aux, tp = self._backbone(params, batch, schedule=schedule,
+                                         mesh=mesh, dims=dims)
+        hidden = self._head_input(hidden, tp)
+        vp = tp if self._vocab_sharded(tp) else None
         chunk = L
         while B * chunk * cfg.vocab_size > CE_CHUNK_ELEMENTS \
                 and chunk % 2 == 0:
             chunk //= 2
         n_chunks = L // chunk if L % chunk == 0 else 1
         if n_chunks <= 1:
-            tot, n = self._ce_sums(params, hidden, labels)
+            tot, n = self._ce_sums(params, hidden, labels, vp)
         else:
             tot = n = 0.0
             for c in range(n_chunks):
                 sl = slice(c * chunk, (c + 1) * chunk)
                 s, m = checkpoint(self._ce_sums, params, hidden[:, sl],
-                                  labels[:, sl], use_reentrant=False)
+                                  labels[:, sl], vp, use_reentrant=False)
                 tot, n = tot + s, n + m
         if mesh is None:
             ce = tot / torch.clamp(n, min=1.0)
         else:
-            from repro_torch.parallel import comm
             grp = mesh.group(dims.batch_axes)
             n_all = torch.clamp(comm.psum(n.detach(), grp), min=1.0)
             part = tot / n_all

@@ -11,7 +11,8 @@ Everything is built on one ``torch.distributed`` primitive,
     ranks, in the JAX index order of the sources, on the receiving rank;
   * an AllReduce is that reduce-scatter over a flattened payload followed
     by an AllGather of the reduced pieces, so every member holds the same
-    bits.
+    bits;
+  * a max all-reduce (``pmax``) is an AllGather and a max on every member.
 
 So NCCL and gloo move the same bits and sum in the same order, and no
 reduction runs inside the backend.  The payload crosses the backend as a
@@ -179,3 +180,14 @@ def psum(x, grp):
         flat = torch.cat([flat, flat.new_zeros(pad)])
     red = psum_scatter(flat, grp, 0)
     return all_gather(red, grp, 0)[:x.numel()].reshape(x.shape)
+
+
+@_timed
+def pmax(x, grp):
+    """JAX's ``lax.pmax(x, axes)``: the elementwise max over the members,
+    the same bits on each (an AllGather, then the max over the members in
+    JAX index order).  No autograd: callers apply it to a detached value
+    (the vocab-parallel log-sum-exp's shift)."""
+    if grp.size == 1:
+        return x
+    return all_gather(x, grp, 0, tiled=False).amax(dim=0)

@@ -4,9 +4,12 @@
 A :class:`PartitionSpec` is JAX's: one entry per array dim, each None
 (replicated) or a tuple of mesh axis names (the dim split over their
 product, row-major in the tuple's order).  ``ShardingRules``, ``maybe``
-and ``divisible`` are the JAX module's; the port keeps dense layers whole
-on every rank (its ``Model`` uses only the expert rules for now), and the
-rules stay for the parity tests and the later Megatron slice.
+and ``divisible`` are the JAX module's.  The model's specs are JAX's
+per-module functions (``attn_specs``, ``ffn_specs``, ``embedding_specs``,
+``norm_specs``, ``moe_param_specs``, ``block_specs``, ``Model.param_specs``):
+the dense layers Megatron-style over MP, the experts over EP and ESP.
+JAX's ``Model.specs`` does not call ``ShardingRules`` either; its copy
+gives the same specs for the same shapes (``tests/test_torch_mesh.py``).
 
 :func:`local_shard` cuts a full array down to one rank's block, as
 ``jax.device_put`` with a ``NamedSharding`` does; :func:`gather_full` is

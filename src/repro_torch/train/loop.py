@@ -4,11 +4,13 @@
 
 ``Trainer(..., mesh=, dims=)`` trains across ranks as the JAX Trainer does
 on its ``(data, model)`` mesh: every rank initialises the full parameters
-from one seed and keeps its shards, takes its rows of every batch, and
-all-reduces the gradients of the leaves it shares with ranks that hold
-other tokens (:func:`sync_grads`) before AdamW updates its shards in
-place.  The guarded loop, checkpoints, faults and telemetry run on one
-rank only (ROADMAP item 5.5): a mesh with any of them raises.
+from one seed and keeps its shards (``Model.param_specs``: the experts
+over EP and ESP, the dense layers Megatron-style over MP), takes its rows
+of every batch, and all-reduces the gradients of the leaves it shares
+with ranks that hold other tokens, and those its MP ranks hold in part
+(:func:`sync_grads`), before AdamW updates its shards in place.  The
+guarded loop, checkpoints, faults and telemetry run on one rank only
+(ROADMAP item 5.5): a mesh with any of them raises.
 
 ``Trainer(guards=...)`` runs the fault-tolerant loop: the guarded step
 (skip-step and LR backoff), retained-checkpoint rollback through
@@ -37,22 +39,27 @@ from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
 from repro_torch.runtime import guards as guardlib
 
 
-def sync_grads(grads, specs, mesh, dims):
+def sync_grads(grads, specs, mesh, dims, mp_partial=None):
     """Each leaf's gradient summed over the batch axes its spec does not
-    mention (the ranks that hold other tokens and the same block), one
+    mention (the ranks that hold other tokens and the same block), and
+    over MP where ``mp_partial`` (aligned with ``grads``;
+    ``Model.mp_partial``) says each MP rank holds only its part, one
     ``psum`` per distinct axis set over the leaves' flattened gradients;
-    ``apply_moe``'s boundary has already summed the non-batch axes.  So
-    a replicated leaf (every dense one, the gate) ends with the global
-    gradient on every rank, and an expert leaf sharded over EP and ESP
-    keeps its own.  Returns the list, aligned with ``grads``."""
+    ``apply_moe``'s boundary and the Megatron operators
+    (``parallel.tensor``) have already summed the other non-batch axes.
+    So a replicated leaf ends with the global gradient on every rank, and
+    a leaf sharded over EP, ESP or MP keeps its own block's.  Returns the
+    list, aligned with ``grads``."""
     from repro_torch.parallel import comm
     from repro_torch.parallel.sharding import mentioned
     batch = set(dims.batch_axes)
     buckets = {}
     for i, (g, spec) in enumerate(zip(grads, specs)):
         used = set(mentioned(spec))
+        sum_over = batch | set(dims.mp) if mp_partial and mp_partial[i] \
+            else batch
         axes = tuple(a for a in mesh.axis_names
-                     if a in batch and a not in used)
+                     if a in sum_over and a not in used)
         if axes and mesh.group(axes).size > 1:
             buckets.setdefault((axes, g.dtype), []).append(i)
     out = list(grads)
@@ -88,7 +95,9 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
         specs = None
         if mesh is not None:
             specs = leaves(model.param_specs(params, mesh, dims))
-            grads = sync_grads(grads, specs, mesh, dims)
+            partial = leaves(model.mp_partial(params, mesh, dims,
+                                              batch["tokens"].shape[1]))
+            grads = sync_grads(grads, specs, mesh, dims, partial)
         om = adamw_update(params, grads, opt_state, opt_cfg, specs=specs,
                           mesh=mesh)
         del grads

@@ -95,6 +95,33 @@ def test_entry_points_refuse_to_run_without_a_card():
     assert r.returncode != 0 and '"ok"' not in r.stdout, r.stdout
 
 
+@pytest.mark.parametrize("arg,want", [
+    (None, set(range(1, 14))), ("1,2,12", {1, 2, 12}), ("12", {1, 2, 12}),
+    ("9", {1, 2, 7, 8, 9}), ("10", {1, 2, 4, 5, 6, 10}),
+    ("11,3", {1, 2, 3, 4, 6, 11}), ("13", set(range(1, 14))),
+    ("0", None), ("14", None), ("2,x", None), ("", None)],
+    ids=["default", "1,2,12", "12", "9", "10", "11,3", "13", "0", "14",
+         "2,x", "empty"])
+def test_chip_smoke_phase_selection(arg, want, capsys):
+    """``chip_smoke.py --phases``: the named phases, those they need, and
+    the card and the build; with no argument every phase (and the kernels
+    line, phase 13, only then).  A bad selection exits 2 before anything
+    runs.  No card needed: only the flag is parsed."""
+    sys.path.insert(0, REPO)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(REPO)
+    argv = [] if arg is None else ["--phases", arg]
+    if want is None:
+        with pytest.raises(SystemExit) as exc:
+            chip_smoke.parse_phases(argv)
+        assert exc.value.code == 2
+        assert "--phases" in capsys.readouterr().err
+    else:
+        assert chip_smoke.parse_phases(argv) == want
+
+
 @pytest.mark.parametrize("flag", [["--placement", "auto"]])
 def test_train_launcher_refuses_flags_of_later_slices(flag, capsys):
     """A JAX launcher flag the port does not run yet is an error, never a

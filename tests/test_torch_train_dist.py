@@ -14,10 +14,12 @@ step's learning rate; so may be 0.01% of a leaf's elements (at least
 one): an element whose gradient is at its rounding noise takes an
 Adam-normalized first step g / (|g| + eps) that the two packages' last
 bits move by a fraction of the learning rate (seen: one element of the
-embedding's 131,072, 4.9e-5, under s2).  The JAX model shards its dense
-layers Megatron-style over ``model`` (GSPMD); the port keeps them whole
-on every rank: the same math.  The capacity factor is the config's (1.2), so each
-rank's pool drops its own rows in both packages.
+embedding's 131,072, 4.9e-5, under s2).  Both packages shard the dense
+layers Megatron-style over ``model`` (JAX through GSPMD, the port through
+``parallel.tensor``'s collectives; ``Model.param_specs`` is JAX's
+``Model.specs``), so each rank holds its shards of attention, FFN and the
+vocab-parallel embedding.  The capacity factor is the config's (1.2), so
+each rank's pool drops its own rows in both packages.
 """
 
 import importlib.util
@@ -175,18 +177,35 @@ def test_four_ranks_train_as_the_jax_trainer(runs, sched):
 
 def test_ranks_hold_their_shards_and_replicas(runs):
     """The experts are split over the ranks (each holds a quarter of w1:
-    half the experts, half the hidden dim), the dense leaves whole, and
-    the replicas of a dense leaf stay bitwise equal after training."""
+    half the experts, half the hidden dim), the embedding table over
+    ``model`` (reduced gpt2-moe's vocabulary of 512 divides), each rank's
+    block its ``local_shard`` of the table before training, and the
+    ``data`` replicas of that block stay bitwise equal after training."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import dims_for
+    from repro_torch.models import Model
+    from repro_torch.parallel.mesh import Mesh
+    from repro_torch.parallel.sharding import P, local_shard
     ref, ranks = runs
     full = ref["init"]
+    cfg = get_config("gpt2-moe").reduced()
+    specs = Model(cfg, device="cpu").param_specs(
+        full, Mesh((2, 2), ("data", "model"), 0, groups=False),
+        dims_for(cfg))
+    assert specs["embed"]["table"] == P(("model",), None)
     for sched in SCHEDS:
         for rank, got in enumerate(ranks):
             for r in [k for k in full if k.startswith("run")]:
                 if "moe" in full[r]:
                     assert got[sched + ":step1"][r]["moe"]["w1"].size * 4 \
                         == full[r]["moe"]["w1"].size
-        for rank in range(1, 4):
-            a = ranks[0][sched + ":step1"]["embed"]["table"]
+            mesh = Mesh((2, 2), ("data", "model"), rank, groups=False)
+            table = local_shard(full["embed"]["table"],
+                                specs["embed"]["table"], mesh)
+            assert got[sched + ":step1"]["embed"]["table"].shape \
+                == table.shape == (cfg.vocab_size // 2, cfg.d_model)
+        for rank in (2, 3):       # data=1 holds data=0's blocks, bitwise
+            a = ranks[rank - 2][sched + ":step1"]["embed"]["table"]
             b = ranks[rank][sched + ":step1"]["embed"]["table"]
             assert np.array_equal(a, b), (sched, rank)
 
