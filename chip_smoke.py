@@ -132,7 +132,8 @@ to a plain version):
      expert_load to its routed rows exactly (times the schedule's gate
      multiplicity), each path's kernels launched on every rank, each
      case's host ms and collective seconds; (b) in the same 4-rank spawn,
-     gpt2-moe (12 layers, 8 x 1024 global, factor 4) trained 3 steps on
+     gpt2-moe (cut to 2 layers, ``P12_TRAIN_LAYERS``; 8 x 1024 global,
+     factor 4) trained 3 steps on
      the merged mesh under s1 and s2 (``P12_TRAIN_SCHEDS``): every step's
      loss within 1e-4 and gradient norm within 1e-3 of the one-rank run
      from the same state, the first step taken twice ``torch.equal`` on
@@ -148,7 +149,24 @@ to a plain version):
      runs over the same pools on the card: loss within 1e-4, the
      backbone's output rtol 2e-4 / atol 2e-5, every gradient within 2e-4
      of its largest entry, the routed rows exact, each rank's
-     ``flash_attention`` and ``rmsnorm`` launches counted;
+     ``flash_attention`` and ``rmsnorm`` launches counted; (e) in the
+     same spawn, phase 9 (a)'s guarded run across the four ranks
+     (``p9_config``: 4 layers, s1g, the fp8 wire, 8 x 1024 global tokens
+     on (data=2, model=2), ``PHASE9_FAULTS``, max_skips 2, a snapshot
+     every 2 steps, 2 retained, 7 steps, rank 0's sink): on every rank
+     exactly ``PHASE9_EVENTS`` and ``PHASE9_COUNTERS`` (7 steps), the
+     store's history (the rollback at 4 onto the step-0 file past the
+     corrupt step-2 file), NaN losses at steps 3-5 and the finite ones
+     within ``P12_GUARD_RTOL`` of phase 9 (a)'s (made on one rank here
+     when phase 9 did not run), rank 0's stream with the guard events and
+     every rank's ``fp8_sat`` at step 3 (their ``sat`` the world
+     counter's), the step-6 file restored into fresh tensors on every
+     rank ``torch.equal`` to the live shards and loaded on one rank in
+     the parent; each rank's launches, the guarded ms/step, the agreement
+     all-gathers' share, each snapshot's gather and write seconds and
+     each rank's restore seconds; (f) the launcher's ``--profile`` there:
+     one clean guarded step profiled on every rank, rank 0's busy share
+     over (e)'s last step (a clean guarded step) as the unprofiled wall;
  13. print the kernels' JSON line (each kernel's launches on its main path
      and the phase-3 row at that path's shapes, under ``by_path`` every
      path's launches beside the phase-3 row at that path's shapes, and
@@ -953,6 +971,38 @@ PHASE9_COUNTERS = {"steps": 10, "skipped": 3, "rollbacks": 1,
                    "rollback_unavailable": 0}
 
 
+def p9_config(g2, tokens=(8, 1024)):
+    """Phase 9's run (and phase 12 (e)'s): ``g2`` (gpt2-moe) cut to 4
+    layers on the fp8 wire, ``tokens`` = (batch, seq) ``SyntheticLM``
+    tokens a step, AdamW at lr 1e-3 over 10 steps."""
+    from dataclasses import replace
+
+    from repro_torch.core.collectives import CommConfig
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.optim import AdamWConfig
+    cfg = replace(g2, n_layers=4, moe=replace(
+        g2.moe, comm=CommConfig(wire_dtype="fp8_e4m3")))
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=tokens[1], global_batch=tokens[0]))
+    return cfg, data, AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+
+
+def stream_guard_events(evs):
+    """The guard events of a read stream, in ``sink_guard_events``'s
+    form."""
+    got = []
+    for e in evs:
+        if e["event"] in ("guard_skip", "guard_rollback"):
+            got.append((e["event"], e["step"],
+                        e["streak"] if e["event"] == "guard_skip"
+                        else e["restored_step"])
+                       + ((e["lr_scale"],)
+                          if e["event"] == "guard_skip" else ()))
+        elif e["event"] == "fp8_fallback":
+            got.append((e["event"], e["sat_rate"], e["wire"]))
+    return got
+
+
 def _state_tensors(params, opt_state):
     return (_leaves(params) + _leaves(opt_state["mu"])
             + _leaves(opt_state["nu"]) + [opt_state["step"]])
@@ -963,31 +1013,24 @@ def guarded_training(dev, g2, fp8_per_layer, grouped_per_layer):
     ragged path's kernels to their launches per MoE layer and step (phase
     7's qwen3 s1g + fp8 run), ``grouped_per_layer`` is
     ``expert_ffn_grouped``'s (phase 8's gpt2-moe run).  Returns the
-    launches of the (a) and (c) runs by kernel, as two paths."""
+    launches of the (a) and (c) runs by kernel, as two paths, and (a)'s
+    losses (phase 12 (e)'s reference)."""
     import math
     import tempfile
-    from dataclasses import replace
 
     import torch
     from repro_torch import obs
     from repro_torch.checkpoint import load_checkpoint, save_checkpoint
     from repro_torch.core import autosched, collectives
-    from repro_torch.core.collectives import CommConfig
-    from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.models import Model
     from repro_torch.obs.sink import read_events
-    from repro_torch.optim import AdamWConfig
     from repro_torch.runtime import (FaultPlan, GuardConfig,
                                      disable_fp8_monitor, reset_fp8_counter)
     from repro_torch.train import Trainer
 
-    cfg = replace(g2, n_layers=4, moe=replace(
-        g2.moe, comm=CommConfig(wire_dtype="fp8_e4m3")))
+    cfg, data, opt = p9_config(g2)
     n_moe = sum(n for kind, n in cfg.runs() if "moe" in kind)
     model = Model(cfg, device=dev)
-    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=1024,
-                                  global_batch=8))
-    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
 
     def trainer(**kw):
         tr = Trainer(model, opt, schedule="s1g", **kw)
@@ -1042,7 +1085,7 @@ def guarded_training(dev, g2, fp8_per_layer, grouped_per_layer):
             raise AssertionError(f"phase 9 (a): the store's history "
                                  f"{mgr.events}, retained "
                                  f"{mgr.store.steps()}")
-        losses = [h["loss"] for h in hist]
+        losses = p9_losses = [h["loss"] for h in hist]
         if not math.isfinite(losses[-1]) or [
                 i for i, x in enumerate(losses) if not math.isfinite(x)] \
                 != [3, 4, 5]:
@@ -1053,16 +1096,7 @@ def guarded_training(dev, g2, fp8_per_layer, grouped_per_layer):
             f"retained {mgr.store.steps()}; launches "
             f"{ {k: v for k, v in read_counts(wrappers).items() if v} }")
         evs = read_events(metrics)
-        got = []
-        for e in evs:
-            if e["event"] in ("guard_skip", "guard_rollback"):
-                got.append((e["event"], e["step"],
-                            e["streak"] if e["event"] == "guard_skip"
-                            else e["restored_step"])
-                           + ((e["lr_scale"],)
-                              if e["event"] == "guard_skip" else ()))
-            elif e["event"] == "fp8_fallback":
-                got.append((e["event"], e["sat_rate"], e["wire"]))
+        got = stream_guard_events(evs)
         sat3 = [e for e in evs if e["event"] == "fp8_sat"
                 and e["step"] == 3]
         # moe_call counts the step's MoE calls: each block's recompute in
@@ -1196,7 +1230,7 @@ def guarded_training(dev, g2, fp8_per_layer, grouped_per_layer):
         f"guarded with a sink {med['sink']:.2f} "
         f"({med['sink'] / med['guarded'] - 1:+.2%} over guarded); the same "
         f"last loss bits")
-    return launches
+    return launches, p9_losses
 
 
 # --- phase 10: serving under faults and deadlines, and the telemetry -------
@@ -1755,6 +1789,10 @@ P12_STEPS = 3
 #: training step moves ~3x s1's bytes through gloo (13.4 s a step against
 #: s1's 4.5 s on the H100) and is left out of (b) to keep the phase short
 P12_TRAIN_SCHEDS = ("s1", "s2")
+#: (b)'s depth: gpt2-moe cut from 12 layers to 2 (one dense block, one
+#: MoE block), so that (e) and (f) fit the phase's time; the 10 layers
+#: left out repeat the same two blocks' shapes and collectives
+P12_TRAIN_LAYERS = 2
 
 
 def _p12_cfg(model_cfg, schedule="s1g", n_chunks=1, wire="f32"):
@@ -1912,13 +1950,295 @@ def _p12_layer_rank(rank, kind, ref_path, model_cfg):
 
 
 def _p12_merged_rank(rank, ref_path, model_cfg, scheds, steps, tokens,
-                     block_cfg, block_tokens):
+                     block_cfg, block_tokens, guard_dir):
     """One rank of the merged (2, 2) mesh: (a)'s cases, then (b) and (c),
-    then (d) on both of its meshes, in one spawn."""
+    then (d) on both of its meshes, then (e) and (f), in one spawn."""
     return {"layer": _p12_layer_rank(rank, "merged", ref_path, model_cfg),
             "train": _p12_train_rank(rank, scheds, steps, model_cfg,
                                      tokens),
-            "block": _p12_block_rank(rank, block_cfg, block_tokens)}
+            "block": _p12_block_rank(rank, block_cfg, block_tokens),
+            "guarded": _p12_guarded_rank(rank, model_cfg, tokens,
+                                         guard_dir)}
+
+
+#: (e): phase 9 (a)'s run on the (2, 2) mesh, 7 steps (0-6): the skips at
+#: 3-5, the rollback at 4 past the bit-flipped step-2 file, the snapshot
+#: at 6; the kernels it must launch on every rank (gpt2-moe's layernorm
+#: launches no rmsnorm)
+P12_GUARD_STEPS = 7
+P12_GUARD_USES = ("moe_dispatch", "expert_ffn_ragged", "moe_combine",
+                  "flash_attention")
+P12_GUARD_HISTORY = [("snapshot", 0), ("snapshot", 2), ("rollback", 4),
+                     ("snapshot", 6)]
+#: (e)'s finite losses against phase 9 (a)'s, relative: the ranks round
+#: the ESP partial outputs on the fp8 wire where one rank rounds their
+#: sum, and each data rank's pool drops its own rows at the config's
+#: capacity factor (1.2); the CPU rehearsal at reduced size (8 x 32
+#: tokens) read 7.3e-4 at most
+P12_GUARD_RTOL = 5e-3
+
+
+def _p12_guarded_rank(rank, model_cfg, tokens, tmp):
+    """(e) and (f) on one rank of the merged (2, 2) mesh: phase 9 (a)'s
+    guarded run (``p9_config``: 4 layers, s1g, the fp8 wire) under
+    ``PHASE9_FAULTS`` for ``P12_GUARD_STEPS`` steps, checkpoints in
+    ``tmp``, rank 0's sink; then the retained step-6 file restored into
+    fresh tensors on every rank and held ``torch.equal`` to the live
+    shards; then (f, on a card) one clean guarded step profiled on every
+    rank.  Returns the run's losses, events, history, launches, the
+    agreement all-gathers' and each snapshot's and restore's seconds, the
+    world's fp8 counts and the profile."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.checkpoint import ckpt as ckptlib
+    from repro_torch.launch.common import device_profile
+    from repro_torch.launch.mesh import dims_for
+    from repro_torch.models import Model
+    from repro_torch.parallel.mesh import make_mesh
+    from repro_torch.runtime import FaultPlan, GuardConfig, fp8_sat_counts
+    from repro_torch.train import Trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_all = time.perf_counter()
+    dev = _p12_device()
+    cfg, data, opt = p9_config(model_cfg, tokens)
+    mesh = make_mesh((2, 2), ("data", "model"))
+    if rank == 0:
+        obs.configure(os.path.join(tmp, "metrics"), meta={
+            "phase": "12 (e)", "n_devices": mesh.size,
+            "mesh": dict(mesh.shape)})
+    tr = Trainer(Model(cfg, device=dev), opt, schedule="s1g",
+                 ckpt_path=os.path.join(tmp, "run.npz"),
+                 guards=GuardConfig(max_skips=2),
+                 faults=FaultPlan.parse(PHASE9_FAULTS), ckpt_retain=2,
+                 mesh=mesh, dims=dims_for(cfg))
+    params, opt_state = tr.setup(torch.Generator(device=dev).manual_seed(0))
+    secs = {"agree": [], "gather": [], "save": [], "restore": []}
+
+    def timed(key, fn):
+        def run(*args, **kw):
+            n = len(secs["gather"])
+            _sync(dev)
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            _sync(dev)
+            t = time.perf_counter() - t0
+            secs[key].append((sum(secs["gather"][n:]), t)
+                             if key == "save" else t)
+            return out
+        return run
+
+    store = ckptlib.CheckpointStore
+    saved = ckptlib.gather_to_first, store.save, store.restore
+    tr._agree = timed("agree", tr._agree)
+    ckptlib.gather_to_first = timed("gather", saved[0])
+    store.save, store.restore = timed("save", saved[1]), timed(
+        "restore", saved[2])
+    wrappers = reset_counts()
+    try:
+        params, opt_state, hist = tr.run(params, opt_state, data,
+                                         P12_GUARD_STEPS, log_every=1,
+                                         ckpt_every=2)
+        _sync(dev)
+    finally:
+        ckptlib.gather_to_first, store.save, store.restore = saved
+    launches = read_counts(wrappers)
+    metrics = None
+    if rank == 0:
+        metrics = list(obs.get_sink().paths)
+        obs.close()
+    mgr = tr.rollback_mgr
+    path6 = mgr.store.path_of(P12_GUARD_STEPS - 1)
+    live = {"params": params, "opt_state": opt_state}
+    fresh = _zeros(live)
+    _sync(dev)
+    t0 = time.perf_counter()
+    _, step6 = ckptlib.load_checkpoint(path6, into=fresh,
+                                       specs=tr.state_specs(params),
+                                       mesh=mesh)
+    _sync(dev)
+    restore6 = time.perf_counter() - t0
+    same = step6 == P12_GUARD_STEPS - 1 and all(
+        torch.equal(a, b) for a, b in zip(_leaves(fresh), _leaves(live)))
+    del fresh
+    out = {"losses": [h["loss"] for h in hist],
+           "wall": [h["wall_s"] for h in hist],
+           "events": tr.guard_state.events,
+           "counters": dict(tr.guard_state.counters),
+           "mgr": [(e["kind"], e["step"], os.path.basename(e.get("path",
+                                                                   "")))
+                   for e in mgr.events],
+           "retained": mgr.store.steps(), "launches": launches,
+           "secs": secs, "restore6": restore6, "same": same, "path6": path6,
+           "bytes6": os.path.getsize(path6), "sat": fp8_sat_counts(),
+           "metrics": metrics, "prof": None}
+    if dev.type == "cuda":
+        # (f) the launcher's --profile: one clean guarded step profiled on
+        # every rank (they run its collectives together); its unprofiled
+        # wall is the run's last step, a clean guarded step of this model
+        wall_ms = (out["wall"][-1] - out["wall"][-2]) * 1e3
+        batch = tr.batch(data, P12_GUARD_STEPS)
+        prof = device_profile(lambda: tr.guarded_step(
+            params, opt_state, batch, 1.0, 0.0), wall_ms, top=5)
+        out["prof"] = {k: prof[k] for k in ("wall_ms", "busy_ms",
+                                            "busy_share", "n_kernels",
+                                            "top_ops")}
+    del params, opt_state, live, tr
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["total_s"] = time.perf_counter() - t_all
+    return out
+
+
+def _zeros(tree):
+    import torch
+    if isinstance(tree, dict):
+        return {k: _zeros(v) for k, v in tree.items()}
+    return torch.zeros_like(tree, requires_grad=False)
+
+
+def p9_reference_losses(dev, g2, tokens, steps):
+    """Phase 9 (a)'s losses when phase 9 did not run: its run, one rank,
+    ``steps`` steps (no sink)."""
+    import tempfile
+
+    import torch
+    from repro_torch.core import autosched, collectives
+    from repro_torch.models import Model
+    from repro_torch.runtime import (FaultPlan, GuardConfig,
+                                     disable_fp8_monitor, reset_fp8_counter)
+    from repro_torch.train import Trainer
+    cfg, data, opt = p9_config(g2, tokens)
+    with tempfile.TemporaryDirectory() as tmp:
+        tr = Trainer(Model(cfg, device=dev), opt, schedule="s1g",
+                     ckpt_path=os.path.join(tmp, "run.npz"),
+                     guards=GuardConfig(max_skips=2),
+                     faults=FaultPlan.parse(PHASE9_FAULTS), ckpt_retain=2)
+        params, opt_state = tr.setup(
+            torch.Generator(device=dev).manual_seed(0))
+        hist = tr.run(params, opt_state, data, steps, log_every=1,
+                      ckpt_every=2)[2]
+    autosched.set_wire_ceiling(None)
+    collectives.set_fp8_sat_injection(0.0)
+    disable_fp8_monitor()
+    reset_fp8_counter()
+    del tr, params, opt_state
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return [h["loss"] for h in hist]
+
+
+def _p12_guarded_report(res, ref_losses, dev, model_cfg, tokens):
+    """(e)'s and (f)'s checks and log lines from each rank's
+    ``_p12_guarded_rank``; ``ref_losses`` are phase 9 (a)'s.  Returns
+    {path: per-rank launches}."""
+    import math
+
+    import torch
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.models import Model
+    from repro_torch.obs.sink import read_events
+    from repro_torch.optim import adamw_init
+    counters = {**PHASE9_COUNTERS, "steps": P12_GUARD_STEPS}
+    r0 = res[0]
+    for rk, r in enumerate(res):
+        events = [(e["kind"], e.get("step"), e.get("streak"),
+                   e.get("restored_step")) for e in r["events"]]
+        if (events != PHASE9_EVENTS or r["counters"] != counters
+                or [m[:2] for m in r["mgr"]] != P12_GUARD_HISTORY
+                or r["mgr"][2][2] != "run.step00000000.npz"
+                or r["retained"] != [2, 6] or not r["same"]):
+            raise AssertionError(
+                f"phase 12 (e) rank {rk}: events {r['events']}, counters "
+                f"{r['counters']}, history {r['mgr']}, retained "
+                f"{r['retained']}, step-6 file equal to the shards "
+                f"{r['same']}")
+        if [x for x in r["losses"] if not math.isnan(x)] != [
+                x for x in r0["losses"] if not math.isnan(x)]:
+            raise AssertionError(f"phase 12 (e): rank {rk}'s losses "
+                                 f"{r['losses']}, rank 0's {r0['losses']}")
+    losses, want = r0["losses"], ref_losses[:P12_GUARD_STEPS]
+    nan = [i for i, x in enumerate(losses) if not math.isfinite(x)]
+    off = max(abs(a - b) / abs(b) for a, b in zip(losses, want)
+              if math.isfinite(a) and math.isfinite(b))
+    if nan != [3, 4, 5] or not off <= P12_GUARD_RTOL:
+        raise AssertionError(f"phase 12 (e): losses {losses}, phase 9 "
+                             f"(a)'s {want} (rtol {P12_GUARD_RTOL})")
+    per_rank = {k: [r["launches"][k] for r in res]
+                for k in r0["launches"] if any(r["launches"][k]
+                                               for r in res)}
+    bad = [k for k in P12_GUARD_USES if min(per_rank.get(k, [0])) < 1]
+    evs = read_events(r0["metrics"])
+    sat = [e for e in evs if e["event"] == "fp8_sat"]
+    if (bad or stream_guard_events(evs) != sink_guard_events(r0["events"])
+            or {e["rank"] for e in sat if e["step"] == 3} != {0, 1, 2, 3}
+            or sum(e["sat"] for e in sat) != r0["sat"][0]):
+        raise AssertionError(
+            f"phase 12 (e): kernels {bad} not launched on every rank "
+            f"({per_rank}), or rank 0's stream: guard events "
+            f"{stream_guard_events(evs)}, step-3 fp8_sat ranks "
+            f"{sorted({e['rank'] for e in sat if e['step'] == 3})}, sat "
+            f"{sum(e['sat'] for e in sat)} of the world's {r0['sat']}")
+    # the same file on one rank: the one-rank model's keys, shapes, dtypes
+    cfg = p9_config(model_cfg, tokens)[0]
+    model = Model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(1))
+    t0 = time.perf_counter()
+    _, step = load_checkpoint(r0["path6"], into={
+        "params": params, "opt_state": adamw_init(params)})
+    _sync(dev)
+    one_rank_s = time.perf_counter() - t0
+    del params, model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    wall = r0["wall"]
+    steps_ms = sorted((b - a) * 1e3 for a, b in zip(wall, wall[1:]))
+    agree = sum(r0["secs"]["agree"])
+    gb = r0["bytes6"] / 1e9
+    log(f"  (e) {cfg.name} {cfg.n_layers} layers, s1g, fp8 wire, "
+        f"{tokens[0]} x {tokens[1]} global tokens on (data=2, model=2), "
+        f"{PHASE9_FAULTS}, {P12_GUARD_STEPS} steps: events on every rank "
+        f"exactly PHASE9_EVENTS, counters {counters}; history "
+        f"{[m[:2] for m in r0['mgr']]}, the rollback onto "
+        f"{r0['mgr'][2][2]} past the corrupt step-2 file, retained "
+        f"{r0['retained']}; losses "
+        + " ".join(f"{x:.4f}" for x in losses) + " (phase 9 (a) "
+        + " ".join(f"{x:.4f}" for x in want)
+        + f"; finite ones within {off:.2e} relative, limit "
+        f"{P12_GUARD_RTOL:g})")
+    log(f"  (e) rank 0's stream: the guard events exactly GuardState's; "
+        f"{len(sat)} fp8_sat events from ranks "
+        f"{sorted({e['rank'] for e in sat})}, at steps "
+        f"{sorted({e['step'] for e in sat})}, sat summing to the world's "
+        f"{r0['sat'][0]} of {r0['sat'][1]}; launches per rank {per_rank}")
+    log(f"  (e) guarded ms/step (rank 0, host clock, snapshots and the "
+        f"rollback included): median {steps_ms[len(steps_ms) // 2]:.1f}, "
+        f"all {' '.join(f'{x:.1f}' for x in steps_ms)}; the agreement "
+        f"all-gathers {1e3 * agree:.2f} ms in {len(r0['secs']['agree'])} "
+        f"calls, {100 * agree / (wall[-1] or 1):.3f}% of the run")
+    snaps = [st for kind, st in P12_GUARD_HISTORY if kind == "snapshot"]
+    for st, (g, t) in zip(snaps, r0["secs"]["save"]):
+        log(f"  (e) snapshot {st} (rank 0, {gb:.3f} GB file): gathers "
+            f"{g:.3f} s, write {t - g:.3f} s, {gb / t:.2f} GB/s")
+    log(f"  (e) restores per rank: the rollback "
+        + ", ".join(f"{sum(r['secs']['restore']):.3f}" for r in res)
+        + " s (two files read: the corrupt one, then step 0); the step-6 "
+        "file into fresh tensors "
+        + ", ".join(f"{r['restore6']:.3f}" for r in res)
+        + f" s ({gb:.3f} GB, torch.equal to the live shards on every "
+        f"rank); on one rank {one_rank_s:.3f} s (the one-rank model's "
+        f"keys, shapes and dtypes, step {step})")
+    prof = r0["prof"]
+    if prof is not None:
+        log(f"  (f) --profile across ranks, rank 0 (one clean guarded step, "
+            f"sharing the card with three ranks): device busy "
+            f"{prof['busy_ms']:.1f} ms (profiled) over {prof['wall_ms']:.1f}"
+            f" ms wall (unprofiled): {100 * prof['busy_share']:.1f}% busy; "
+            f"{prof['n_kernels']} kernel launches; top ops "
+            + ", ".join(f"{o['name']} {o['ms']:.1f} ms"
+                        for o in prof["top_ops"]))
+    log(f"  (e) and (f) in {max(r['total_s'] for r in res):.1f} s")
+    return {"guarded_2x2": per_rank}
 
 
 #: (d)'s meshes over the 4 ranks: the merged (data=2, model=2), where each
@@ -2083,7 +2403,8 @@ def _detach(tree):
 
 def _p12_train_cfg(model_cfg):
     from dataclasses import replace
-    return replace(model_cfg, moe=_p12_cfg(model_cfg, "auto"))
+    return replace(model_cfg, n_layers=P12_TRAIN_LAYERS,
+                   moe=_p12_cfg(model_cfg, "auto"))
 
 
 def _sync(dev):
@@ -2093,8 +2414,9 @@ def _sync(dev):
 
 
 def _p12_train_rank(rank, scheds, steps, model_cfg, tokens):
-    """(b) and (c) on one rank of the merged (2, 2) mesh: gpt2-moe (12
-    layers, 8 x 1024 global) for ``steps`` steps under each schedule, the
+    """(b) and (c) on one rank of the merged (2, 2) mesh: gpt2-moe
+    (``P12_TRAIN_LAYERS`` layers, 8 x 1024 global) for ``steps`` steps
+    under each schedule, the
     first step taken twice from one state (``torch.equal`` parameters and
     moments, checked here); per step the loss, gradient norm, host ms and
     each collective's host seconds."""
@@ -2232,12 +2554,13 @@ def _p12_report(label, n, res, paths):
 
 
 def multirank(dev, model_cfg=None, tokens=(8, 1024), block_cfg=None,
-              block_tokens=(2, 2048)):
+              block_tokens=(2, 2048), p9_losses=None):
     """Phase 12 (see the module docstring) on ``model_cfg`` (default
     gpt2-moe, full size) with ``tokens`` = (batch, seq) global tokens, and
     (d) on ``block_cfg`` (default ``p12_block_cfg`` of qwen3-moe-30b-a3b)
-    with ``block_tokens``.  Returns {path: per-rank launches} of every
-    multi-rank path."""
+    with ``block_tokens``; (e) holds its losses to ``p9_losses`` (phase 9
+    (a)'s; made here, on one rank, when phase 9 did not run).  Returns
+    {path: per-rank launches} of every multi-rank path."""
     import tempfile
 
     from repro_torch.launch.mesh import spawn
@@ -2256,6 +2579,9 @@ def multirank(dev, model_cfg=None, tokens=(8, 1024), block_cfg=None,
         ref_path = os.path.join(tmp, "layer_ref.pt")
         _p12_layer_refs(dev, ref_path, model_cfg, tokens)
         ref = _p12_one_rank_train(dev, P12_STEPS, model_cfg, tokens)
+        if p9_losses is None:
+            p9_losses = p9_reference_losses(dev, model_cfg, tokens,
+                                            P12_GUARD_STEPS)
         # (a) on the distinct (2, 2, 2) mesh: 8 ranks
         (label, kind), shape, _, _ = P12_DISTINCT
         res = spawn(_p12_layer_rank, 8, kind, ref_path, model_cfg,
@@ -2267,8 +2593,9 @@ def multirank(dev, model_cfg=None, tokens=(8, 1024), block_cfg=None,
         # (a), (b) and (c) on the merged (2, 2) mesh: 4 ranks, one spawn
         t0 = time.perf_counter()
         scheds = P12_TRAIN_SCHEDS
+        guard_dir = os.path.join(tmp, "guarded")
         res = spawn(_p12_merged_rank, 4, ref_path, model_cfg, scheds,
-                    P12_STEPS, tokens, block_cfg, block_tokens,
+                    P12_STEPS, tokens, block_cfg, block_tokens, guard_dir,
                     backend="gloo", device=dev.type, timeout=900,
                     threads=2 if cpu else None)
         (label, _), _, _, _ = P12_MERGED
@@ -2276,51 +2603,54 @@ def multirank(dev, model_cfg=None, tokens=(8, 1024), block_cfg=None,
         if failed:
             raise AssertionError(f"phase 12 (a): {failed} outside their "
                                  f"limits (the lines above)")
-    for sched in scheds:
-        per_rank = [r["train"][sched] for r in res]
-        for step in range(P12_STEPS):
-            want = ref[step]
+        for sched in scheds:
+            per_rank = [r["train"][sched] for r in res]
+            for step in range(P12_STEPS):
+                want = ref[step]
+                for rk, rr in enumerate(per_rank):
+                    got = rr["rows"][step]
+                    if not (abs(got["loss"] - want["loss"])
+                            <= 1e-4 * abs(want["loss"])
+                            and abs(got["grad_norm"] - want["grad_norm"])
+                            <= 1e-3 * want["grad_norm"]):
+                        raise AssertionError(
+                            f"phase 12 (b) {sched} rank {rk} step {step}: "
+                            f"loss {got['loss']} grad norm "
+                            f"{got['grad_norm']}; one rank {want['loss']} "
+                            f"/ {want['grad_norm']}")
+            r0 = per_rank[0]["rows"]
+            log(f"  (b) {sched}: losses "
+                + " ".join(f"{x['loss']:.6f}" for x in r0) + " (one rank "
+                + " ".join(f"{x['loss']:.6f}" for x in ref) + "); grad "
+                "norms " + " ".join(f"{x['grad_norm']:.6f}" for x in r0)
+                + " (one rank " + " ".join(f"{x['grad_norm']:.6f}"
+                                          for x in ref)
+                + "); the first step taken twice torch.equal on every rank")
+            one_ms = sum(x["ms"] for x in ref[1:]) / len(ref[1:])
             for rk, rr in enumerate(per_rank):
-                got = rr["rows"][step]
-                if not (abs(got["loss"] - want["loss"])
-                        <= 1e-4 * abs(want["loss"])
-                        and abs(got["grad_norm"] - want["grad_norm"])
-                        <= 1e-3 * want["grad_norm"]):
-                    raise AssertionError(
-                        f"phase 12 (b) {sched} rank {rk} step {step}: "
-                        f"loss {got['loss']} grad norm "
-                        f"{got['grad_norm']}; one rank {want['loss']} "
-                        f"/ {want['grad_norm']}")
-        r0 = per_rank[0]["rows"]
-        log(f"  (b) {sched}: losses "
-            + " ".join(f"{x['loss']:.6f}" for x in r0) + " (one rank "
-            + " ".join(f"{x['loss']:.6f}" for x in ref) + "); grad "
-            "norms " + " ".join(f"{x['grad_norm']:.6f}" for x in r0)
-            + " (one rank " + " ".join(f"{x['grad_norm']:.6f}"
-                                      for x in ref)
-            + "); the first step taken twice torch.equal on every rank")
-        one_ms = sum(x["ms"] for x in ref[1:]) / len(ref[1:])
-        for rk, rr in enumerate(per_rank):
-            last = rr["rows"][1:]
-            ms = sum(x["ms"] for x in last) / len(last)
-            shares = {}
-            for x in last:
-                for k, (_, nb, sec) in x["comm"].items():
-                    shares[k] = shares.get(k, 0.0) + sec * 1e3
-            log(f"  (c) {sched} rank {rk}: {ms:.1f} ms/step after the "
-                f"first (one rank: {one_ms:.1f}); "
-                "collectives (host, gloo) "
-                + ", ".join(f"{k} {v / len(last):.1f} ms "
-                            f"({100 * v / len(last) / ms:.1f}%)"
-                            for k, v in sorted(shares.items())))
-        paths[f"train_2x2_{sched}"] = {
-            k: [rr["launches"][k] for rr in per_rank]
-            for k in per_rank[0]["launches"]
-            if any(rr["launches"][k] for rr in per_rank)}
-    paths.update(_p12_block_report([r["block"] for r in res], block_cfg))
-    log(f"  (d) in {max(r['block']['total_s'] for r in res):.1f} s (the "
-        "one-rank references, one rank at a time, included)")
-    log(f"  (a) 2x2, (b), (c) and (d) in {time.perf_counter() - t0:.1f} s")
+                last = rr["rows"][1:]
+                ms = sum(x["ms"] for x in last) / len(last)
+                shares = {}
+                for x in last:
+                    for k, (_, nb, sec) in x["comm"].items():
+                        shares[k] = shares.get(k, 0.0) + sec * 1e3
+                log(f"  (c) {sched} rank {rk}: {ms:.1f} ms/step after the "
+                    f"first (one rank: {one_ms:.1f}); "
+                    "collectives (host, gloo) "
+                    + ", ".join(f"{k} {v / len(last):.1f} ms "
+                                f"({100 * v / len(last) / ms:.1f}%)"
+                                for k, v in sorted(shares.items())))
+            paths[f"train_2x2_{sched}"] = {
+                k: [rr["launches"][k] for rr in per_rank]
+                for k in per_rank[0]["launches"]
+                if any(rr["launches"][k] for rr in per_rank)}
+        paths.update(_p12_block_report([r["block"] for r in res],
+                                       block_cfg))
+        log(f"  (d) in {max(r['block']['total_s'] for r in res):.1f} s "
+            "(the one-rank references, one rank at a time, included)")
+        paths.update(_p12_guarded_report([r["guarded"] for r in res],
+                                         p9_losses, dev, model_cfg, tokens))
+    log(f"  (a) 2x2, (b)-(f) in {time.perf_counter() - t0:.1f} s")
     return paths
 
 
@@ -2725,6 +3055,7 @@ def main(argv=None) -> int:
                       "flash_attention": 24, "expert_ffn_grouped": 0,
                       "rmsnorm": 0})
 
+    p9_losses = None          # phase 9 (a)'s, phase 12 (e)'s reference
     if 9 in phases:
         # 9. guarded training; the launch predictions per MoE layer and step
         # come from phase 7's fp8 run and phase 8's gpt2-moe run
@@ -2740,8 +3071,9 @@ def main(argv=None) -> int:
         grouped_per_layer = (
             path_launches["train_gpt2_moe"]["expert_ffn_grouped"]
             / (g2_steps * n_moe(g2)))
-        path_launches.update(guarded_training(dev, g2, fp8_per_layer,
-                                              grouped_per_layer))
+        p9, p9_losses = guarded_training(dev, g2, fp8_per_layer,
+                                         grouped_per_layer)
+        path_launches.update(p9)
         torch.cuda.empty_cache()
 
     if 11 in phases:
@@ -2760,7 +3092,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         log("phase 12: Parm's schedules across ranks (gpt2-moe, qwen3's "
             "block, gloo ranks on cuda:0)")
-        multi_paths = multirank(dev)
+        multi_paths = multirank(dev, p9_losses=p9_losses)
         log(f"  phase 12 in {time.perf_counter() - t0:.1f} s")
 
     if phases != set(PHASES):

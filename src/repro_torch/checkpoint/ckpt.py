@@ -11,11 +11,23 @@ an unsigned bit carrier; bfloat16 leaves go as ``u2``), ``__manifest__``
 and, for a list or tuple, ``<path>/__seq__`` = ``[len, is_tuple]``.
 
 Where the JAX package builds the whole flat tree on the host and hands it
-to ``np.savez``, the port writes one leaf at a time into the zip
-(``np.lib.format.write_array``, the member writer ``np.savez`` uses), so
-the host holds one leaf, not the tree.  bfloat16 bits come from torch
+to ``np.savez``, the port writes one leaf at a time into the zip (an npy
+header, then the leaf's buffer as it is), so the host holds one leaf,
+not the tree, and reads each leaf's bytes once: the manifest's crc comes
+out of the zip's own crc of the member.  bfloat16 bits come from torch
 (``view(torch.int16)``), never through a numpy bfloat16, which needs
 ``ml_dtypes``.
+
+On a mesh of ranks (``specs=`` and ``mesh=``: each leaf's
+``PartitionSpec`` and the ``parallel.mesh.Mesh``) the file is the same
+whole-array file the JAX package writes from its sharded arrays: a save
+gathers one leaf at a time onto rank 0 (``sharding.gather_to_first``),
+which alone writes it, every rank waiting at the end until the file is
+in place; a restore checks the file against the live shards' full
+shapes (each rank checking the crc of every R-th leaf, the verdicts
+all-gathered) and copies each rank's ``local_shard`` of each leaf into
+its shard.  So a file written by any number of ranks loads on any mesh
+of the same model, and on one rank.
 
 Reading maps the file into memory and takes each leaf as a view of its
 stored bytes.  Restoring into live tensors (``load_checkpoint(path,
@@ -41,6 +53,10 @@ import zlib
 
 import numpy as np
 import torch
+
+from repro_torch.parallel.mesh import axis_size
+from repro_torch.parallel.sharding import (gather_to_first, local_shard,
+                                          mentioned)
 
 _SPECIAL = ("__step__", "__dtypes__", "__manifest__")
 
@@ -109,18 +125,124 @@ def _crc(a: np.ndarray) -> int:
     return zlib.crc32(a.reshape(-1).view(np.uint8)) & 0xFFFFFFFF
 
 
-def _write(zf: zipfile.ZipFile, key: str, a: np.ndarray) -> None:
+_POLY = 0xEDB88320          # CRC-32, bit-reflected (zlib's)
+
+
+def _mulmodp(a: int, b: int) -> int:
+    """``a * b`` modulo the CRC-32 polynomial (zlib's ``multmodp``)."""
+    m, p = 1 << 31, 0
+    while m:
+        if a & m:
+            p ^= b
+            if not a & (m - 1):
+                break
+        m >>= 1
+        b = (b >> 1) ^ _POLY if b & 1 else b >> 1
+    return p
+
+
+def _x8n(n: int) -> int:
+    """x^(8n) modulo the polynomial: ``n`` bytes' shift (zlib's
+    ``x2nmodp(n, 3)``)."""
+    p, sq = 1 << 31, 1 << 30             # x^0; x^(2^k) from k = 0
+    for _ in range(3):
+        sq = _mulmodp(sq, sq)
+    while n:
+        if n & 1:
+            p = _mulmodp(sq, p)
+        n >>= 1
+        sq = _mulmodp(sq, sq)
+    return p
+
+
+def _write(zf: zipfile.ZipFile, key: str, a: np.ndarray) -> int:
+    """Write the C-contiguous ``a`` as the member ``key.npy`` (an npy
+    header, then ``a``'s buffer as it is) and return the crc32 of ``a``'s
+    bytes: the zip's own crc of the member with the header's taken out
+    (zlib's ``crc32_combine`` solved for the second part), so the bytes
+    are read once, not twice."""
+    head = io.BytesIO()
+    meta = np.lib.format.header_data_from_array_1_0(a)
+    try:
+        np.lib.format.write_array_header_1_0(head, meta)
+    except ValueError:                    # a header over 64 KiB
+        head = io.BytesIO()
+        np.lib.format.write_array_header_2_0(head, meta)
+    header = head.getvalue()
     with zf.open(key + ".npy", "w", force_zip64=True) as f:
-        np.lib.format.write_array(f, a, allow_pickle=False)
+        f.write(header)
+        f.write(a.reshape(-1).view(np.uint8))
+    whole = zf.getinfo(key + ".npy").CRC
+    return whole ^ _mulmodp(_x8n(a.nbytes), zlib.crc32(header))
 
 
 def _json_array(obj) -> np.ndarray:
     return np.frombuffer(json.dumps(obj).encode(), dtype=np.uint8)
 
 
-def save_checkpoint(path: str, tree, step: int = 0) -> str:
+def _spec_table(specs) -> dict:
+    """Each leaf's ``PartitionSpec`` under its checkpoint key (a spec is a
+    tuple: a leaf here, never a sequence to flatten)."""
+    out = {}
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{prefix}{k}/")
+        else:
+            out[prefix.rstrip("/")] = node
+    if specs is not None:
+        walk(specs, "")
+    return out
+
+
+def _device(tree):
+    """The device of the tree's first tensor (the agreement collectives'
+    device: gloo takes either, NCCL the card's)."""
+    for _, leaf in _flatten(tree):
+        if isinstance(leaf, torch.Tensor):
+            return leaf.device
+    return torch.device("cpu")
+
+
+def _agree_all(mesh, values, what: str, device) -> None:
+    """Every rank of ``mesh`` holds the same ``values`` (or all raise),
+    which also holds each rank until every rank has arrived."""
+    from repro_torch.parallel import comm
+    comm.agree(values, mesh.group(mesh.axis_names), what, device)
+
+
+def _whole_leaves(tree, step, specs, mesh):
+    """``(key, leaf)`` in the file's order, each sharded leaf gathered
+    whole on rank 0 (every rank takes part in every gather, in the same
+    order; the others get None)."""
+    table = _spec_table(specs)
+    for key, leaf in [*_flatten(tree), ("__step__", np.asarray(step))]:
+        spec = table.get(key)
+        if mesh is not None and spec is not None and mentioned(spec) and \
+                isinstance(leaf, torch.Tensor):
+            leaf = gather_to_first(leaf.detach(), spec, mesh)
+        yield key, leaf
+
+
+def save_checkpoint(path: str, tree, step: int = 0, specs=None,
+                    mesh=None) -> str:
     """Atomically write ``tree`` (+ step) to ``path`` (.npz), one leaf on
-    the host at a time."""
+    the host at a time.  On ``mesh`` (``tree`` this rank's shards,
+    ``specs`` their specs) each leaf is gathered whole and rank 0 writes
+    the file; every rank returns once it is in place."""
+    leaves = _whole_leaves(tree, step, specs, mesh)
+    if mesh is not None and mesh.rank != 0:
+        for _ in leaves:              # this rank's part of each gather
+            pass
+    else:
+        _write_npz(path, leaves)
+    if mesh is not None:
+        _agree_all(mesh, [step], f"the step saved to {path}", _device(tree))
+    return path
+
+
+def _write_npz(path: str, leaves) -> None:
     d = os.path.dirname(os.path.abspath(path)) or "."
     os.makedirs(d, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
@@ -129,15 +251,14 @@ def save_checkpoint(path: str, tree, step: int = 0) -> str:
         exotic, manifest = {}, {}
         with zipfile.ZipFile(tmp, "w", zipfile.ZIP_STORED,
                              allowZip64=True) as zf:
-            for key, leaf in [*_flatten(tree),
-                              ("__step__", np.asarray(step))]:
+            for key, leaf in leaves:
                 a, name = _to_host(leaf)
+                del leaf
                 if name is not None:
                     exotic[key] = name
                 # crc32 over exactly the bytes that hit disk (the bit
                 # carriers), so a flipped bit is caught with its key named
-                manifest[key] = _crc(a)
-                _write(zf, key, a)
+                manifest[key] = _write(zf, key, a)
                 del a
             _write(zf, "__dtypes__", _json_array(exotic))
             _write(zf, "__manifest__", _json_array(manifest))
@@ -145,7 +266,6 @@ def save_checkpoint(path: str, tree, step: int = 0) -> str:
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    return path
 
 
 class _StoredNpz:
@@ -220,18 +340,23 @@ def _torch_leaf(a: np.ndarray, name) -> torch.Tensor:
     return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
 
 
-def load_checkpoint(path: str, into=None, verify: bool = True):
+def load_checkpoint(path: str, into=None, verify: bool = True, specs=None,
+                    mesh=None):
     """``(tree, step)`` from ``path``.
 
     ``into=None`` returns a new tree of CPU tensors (lists and tuples as
     saved).  ``into`` (a tree of live tensors with the saved layout) is
     restored IN PLACE, under ``no_grad``, and returned: tensor identity,
-    device and ``requires_grad`` stay.
+    device and ``requires_grad`` stay.  With ``mesh`` and ``specs``,
+    ``into`` holds this rank's shards: the file must hold their full
+    shapes, and each takes its ``local_shard`` of the stored leaf.
 
     ``verify=True`` (default) checks every leaf against the embedded
     crc32 manifest when one is present; mismatches — and truncated or
     otherwise unreadable files — raise :class:`CheckpointCorruptError`
-    with the offending keys named, before any live tensor is written."""
+    with the offending keys named, before any live tensor is written.  On
+    a mesh (every rank calls it) each rank checks every R-th leaf and
+    the ranks' verdicts are all-gathered, so all raise together."""
     try:
         z = _StoredNpz(path)
     except Exception as e:  # noqa: BLE001 — zipfile/np errors vary by version
@@ -244,16 +369,25 @@ def load_checkpoint(path: str, into=None, verify: bool = True):
             if "__manifest__" in z.files else None
         dtypes = _json_leaf(z, "__dtypes__", path) \
             if "__dtypes__" in z.files else {}
-        # pass 1: every leaf once, one on the host at a time
+        # pass 1: every leaf once, one on the host at a time; on a mesh
+        # rank r reads the bytes of leaves r, r + R, ... only
+        split = mesh is not None and into is not None and mesh.size > 1
         meta, bad = {}, []
-        for k in keys + [k for k in ("__step__",) if k in z.files]:
+        for i, k in enumerate(keys + [k for k in ("__step__",)
+                                      if k in z.files]):
             a = _read(z, k, path)
             meta[k] = (a.shape, dtypes.get(k, a.dtype))
-            if verify and want is not None and want.get(k) != _crc(a):
+            if verify and want is not None and (
+                    not split or i % mesh.size == mesh.rank) and \
+                    want.get(k) != _crc(a):
                 bad.append(k)
             del a
         if verify and want is not None:
             bad += [k for k in want if k not in meta]
+            # every rank takes part, so all raise or none does
+            if split and _any_rank_bad(mesh, len(bad), _device(into)) \
+                    and not bad:
+                bad = ["(found by another rank)"]
             if bad:
                 raise CheckpointCorruptError(
                     f"checkpoint {path} failed integrity verification; "
@@ -265,18 +399,42 @@ def load_checkpoint(path: str, into=None, verify: bool = True):
                                    dtypes.get(k)) for k in keys}
             return _unflatten(flat), step
         live = dict(_flatten(into))
-        _check_layout(live, meta, path)
+        table = _spec_table(specs) if mesh is not None else {}
+        _check_layout(live, meta, path, table, mesh)
         # pass 2: the file verified and matches ``into``: overwrite
         with torch.no_grad():
             for k, t in live.items():
                 if isinstance(t, torch.Tensor):
-                    t.copy_(_torch_leaf(_read(z, k, path), dtypes.get(k)))
+                    a = _read(z, k, path)
+                    if k in table:
+                        a = local_shard(a, table[k], mesh)
+                    t.copy_(_torch_leaf(a, dtypes.get(k)))
         return into, step
 
 
-def _check_layout(live: dict, meta: dict, path: str) -> None:
+def _any_rank_bad(mesh, n_bad: int, device) -> bool:
+    """Whether any rank of ``mesh`` found a corrupt leaf (one
+    all-gather)."""
+    from repro_torch.parallel import comm
+    counts = comm.all_gather(torch.tensor([n_bad], device=device),
+                             mesh.group(mesh.axis_names), 0)
+    return bool(counts.any())
+
+
+def _full_shape(t, spec, mesh) -> tuple:
+    """The whole array's shape of ``t``, this rank's block under
+    ``spec``."""
+    if spec is None:
+        return tuple(t.shape)
+    entries = list(spec) + [None] * (t.dim() - len(spec))
+    return tuple(n * axis_size(mesh, e) for n, e in zip(t.shape, entries))
+
+
+def _check_layout(live: dict, meta: dict, path: str, table=None,
+                  mesh=None) -> None:
     """Refuse (ValueError) a file whose keys, shapes or dtypes differ from
-    the live tree's, before anything is copied."""
+    the live tree's (on a mesh: the live shards' full shapes), before
+    anything is copied."""
     saved = {k for k in meta if k != "__step__"}
     if saved != set(live):
         raise ValueError(
@@ -289,10 +447,11 @@ def _check_layout(live: dict, meta: dict, path: str) -> None:
         shape, dt = meta[k]
         got = torch.bfloat16 if dt == "bfloat16" else \
             torch.from_numpy(np.zeros(0, dt)).dtype
-        if tuple(shape) != tuple(t.shape) or got != t.dtype:
+        full = _full_shape(t, (table or {}).get(k), mesh)
+        if tuple(shape) != full or got != t.dtype:
             raise ValueError(
                 f"checkpoint {path}: leaf {k!r} is {dt} {tuple(shape)}, "
-                f"the live tensor {t.dtype} {tuple(t.shape)}")
+                f"the live tensor {t.dtype} {full}")
 
 
 class CheckpointStore:
@@ -337,39 +496,56 @@ class CheckpointStore:
         return sorted(s for s in (self._step_of(p) for p in glob.glob(pat))
                       if s is not None)
 
-    def save(self, tree, step: int) -> str:
+    def save(self, tree, step: int, specs=None, mesh=None) -> str:
         """Atomically write ``tree`` at ``step`` and prune beyond
         ``retain``.  The fault hook (``ckpt_bitflip``) corrupts the
         freshly written file in place — exercising exactly the restore
-        fallback a real partial write would need."""
-        path = save_checkpoint(self.path_of(step), tree, step)
+        fallback a real partial write would need.  On ``mesh`` (``tree``
+        this rank's shards under ``specs``) rank 0 alone writes, flips
+        and prunes, and every rank returns once it has."""
+        path = save_checkpoint(self.path_of(step), tree, step, specs=specs,
+                               mesh=mesh)
         self.n_saves += 1
-        if self.faults is not None and self.faults.ckpt_corrupts(
-                self.n_saves):
-            off = self.faults.flip_bit(path)
-            print(f"[faults] ckpt_bitflip: corrupted byte {off} of "
-                  f"{os.path.basename(path)}", flush=True)
-        for s in self.steps()[:-self.retain]:
-            os.unlink(self.path_of(s))
+        if mesh is None or mesh.rank == 0:
+            if self.faults is not None and self.faults.ckpt_corrupts(
+                    self.n_saves):
+                off = self.faults.flip_bit(path)
+                print(f"[faults] ckpt_bitflip: corrupted byte {off} of "
+                      f"{os.path.basename(path)}", flush=True)
+            for s in self.steps()[:-self.retain]:
+                os.unlink(self.path_of(s))
+        if mesh is not None:
+            _agree_all(mesh, [step, self.n_saves],
+                       "the retained checkpoints", _device(tree))
         return path
 
-    def restore(self, into=None):
+    def restore(self, into=None, specs=None, mesh=None):
         """Newest verified checkpoint as ``(tree, step, path)``, restored
         in place into ``into`` when given; corrupt files are reported and
         skipped (they never touch ``into``).  Raises
-        ``FileNotFoundError`` when nothing is restorable."""
-        errors = []
+        ``FileNotFoundError`` when nothing is restorable.  On ``mesh``
+        every rank reads the file into its shards (``load_checkpoint``),
+        and all must restore the same step, or all raise."""
+        errors, found = [], None
         for s in reversed(self.steps()):
             path = self.path_of(s)
             try:
-                tree, step = load_checkpoint(path, into=into)
-                return tree, step, path
+                tree, step = load_checkpoint(path, into=into, specs=specs,
+                                             mesh=mesh)
+                found = tree, step, path
+                break
             except CheckpointCorruptError as e:
                 errors.append(str(e))
                 print(f"[ckpt] {os.path.basename(path)} corrupt, falling "
                       f"back to previous retained checkpoint: {e}",
                       flush=True)
-        raise FileNotFoundError(
-            f"no restorable checkpoint under {self.dir} "
-            f"(prefix {self.prefix!r})"
-            + (f"; {len(errors)} corrupt" if errors else ""))
+        if mesh is not None:
+            _agree_all(mesh, [found[1] if found else -1],
+                       "the restored checkpoint step",
+                       _device(into) if into is not None else "cpu")
+        if found is None:
+            raise FileNotFoundError(
+                f"no restorable checkpoint under {self.dir} "
+                f"(prefix {self.prefix!r})"
+                + (f"; {len(errors)} corrupt" if errors else ""))
+        return found

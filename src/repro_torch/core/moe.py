@@ -408,15 +408,11 @@ def _check_agreed(mesh, key, sched, n_chunks, wire, device) -> None:
         return
     from repro_torch.parallel import comm
     names = sorted(set(BODY) | set(planlib.PLANS))
-    pick = torch.tensor([names.index(sched), n_chunks,
-                         autosched.AUTO_WIRE.index(wire)
-                         if wire in autosched.AUTO_WIRE else 99],
-                        dtype=torch.int64, device=device)
-    everyone = comm.all_gather(pick, mesh.group(mesh.axis_names), 0,
-                               tiled=False)
-    if not bool((everyone == pick).all()):
-        raise RuntimeError(f"ranks disagree on the MoE schedule: "
-                           f"{everyone.tolist()} (names {names})")
+    pick = [names.index(sched), n_chunks,
+            autosched.AUTO_WIRE.index(wire)
+            if wire in autosched.AUTO_WIRE else 99]
+    comm.agree(pick, mesh.group(mesh.axis_names),
+               f"the MoE schedule (names {names})", device)
     _AGREED.add(key)
 
 

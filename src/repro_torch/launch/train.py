@@ -58,9 +58,24 @@ GSPMD shards them, and Megatron-SP where the config sets
       --dist-backend gloo --steps 3
 
 Rank 0 prints the step lines and ``final loss``; a rank's failure fails
-the run.  ``--guards``, ``--faults``, ``--ckpt``, ``--metrics-dir``,
-``--trace``, ``--profile`` and ``--autosched measured`` run on one rank
-only (ROADMAP item 5.4 and 5.5): with more than one rank they exit 2.
+the run.  The guarded loop, its faults and checkpoints run across ranks
+as on one (every rank's guard decision held equal; checkpoints are whole
+arrays, gathered from the shards and written by rank 0), e.g.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-moe \
+      --reduced --device cpu --nproc 4 --mesh data=2,model=2 \
+      --dist-backend gloo --steps 8 --seq 32 --max-skips 2 \
+      --faults "nan_grad@step=3-5;ckpt_bitflip@save=2" --ckpt /tmp/ck \
+      --metrics-dir /tmp/m --trace --log-json /tmp/m/log.json
+
+The run writes one telemetry stream (rank 0's: the global step metrics,
+the guards' events, every rank's ``fp8_sat``; its meta names
+``n_devices`` and the mesh), ``--trace`` times the layer's plan stages
+on the mesh (the slowest rank's time a stage), ``--profile`` profiles
+one step on every rank (rank 0 prints its own), and rank 0 alone writes
+``--log-json`` and checks the chaos contract.  ``--autosched measured``
+runs on one rank only (ROADMAP item 5.4): with more than one rank it
+exits 2.
 """
 
 from __future__ import annotations
@@ -165,19 +180,9 @@ def main(argv=None):
     multi = args.nproc > 1 or torchrun_env()
     if args.nproc < 1:
         ap.error("--nproc must be >= 1")
-    if multi:
-        for flag, on, item in (
-                ("--guards", args.guards, "5.5"),
-                ("--faults", args.faults, "5.5"),
-                ("--ckpt", args.ckpt, "5.5"),
-                ("--metrics-dir", args.metrics_dir, "5.5"),
-                ("--trace", args.trace, "5.5"),
-                ("--profile", args.profile, "5.5"),
-                ("--autosched measured", args.autosched == "measured",
-                 "5.4")):
-            if on:
-                ap.error(f"{flag} runs on one rank; across ranks it comes "
-                         f"with ROADMAP item {item}")
+    if multi and args.autosched == "measured":
+        ap.error("--autosched measured runs on one rank; across ranks it "
+                 "comes with ROADMAP item 5.4")
     dev = resolve_device(args.device)
     if args.profile and dev.type != "cuda":
         ap.error("--profile measures the card: it needs --device cuda")
@@ -256,11 +261,14 @@ def _train(args, argv, dev, mesh=None):
     elif args.layers:
         cfg = replace(cfg, n_layers=args.layers)
 
-    if args.metrics_dir:
+    lead = mesh is None or mesh.rank == 0      # writes the run's files
+    if args.metrics_dir and lead:
         obs.configure(args.metrics_dir, meta={
             "kind": "train", "arch": args.arch, "steps": args.steps,
             "seq_len": args.seq, "batch": args.batch,
             "schedule": args.schedule, "device": str(dev),
+            "n_devices": 1 if mesh is None else mesh.size,
+            "mesh": None if mesh is None else dict(mesh.shape),
             "argv": sys.argv[1:] if argv is None else list(argv)})
     model = Model(cfg, device=dev)
     opt = AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 5),
@@ -304,7 +312,9 @@ def _train(args, argv, dev, mesh=None):
         print(f"peak device memory "
               f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
     if args.profile:
-        batch = data.tensors(args.steps, dev)
+        # every rank profiles its own step (they run its collectives
+        # together); rank 0 prints its table
+        batch = tr.batch(data, args.steps)
         t1 = time.perf_counter()
         tr.train_step(params, opt_state, batch)
         torch.cuda.synchronize(dev)
@@ -333,19 +343,22 @@ def _train(args, argv, dev, mesh=None):
                 sched = "s1"   # concrete, trace-compatible default
             st = trace_schedule(cfg.moe, args.batch * args.seq, sched,
                                 n_chunks=args.pipeline_chunks or 1,
-                                device=dev)
+                                device=dev, mesh=mesh, dims=dims)
             trace_file = os.path.join(args.metrics_dir,
                                       f"trace_{sched}.json")
-            save_chrome_trace(st, trace_file)
+            if lead:
+                save_chrome_trace(st, trace_file)
             obs.emit("stage_trace", schedule=sched, path=trace_file,
                      total_s=st.total_s, n_stages=st.n_stages)
             print(f"stage trace ({sched}, {st.n_stages} stages, "
                   f"{st.total_s * 1e3:.3f} ms) -> {trace_file}", flush=True)
 
     metrics_files = None
-    if args.metrics_dir:
+    if obs.enabled():
         metrics_files = list(obs.get_sink().paths)
         obs.close()
+    if not lead:
+        return
     if args.log_json:
         os.makedirs(os.path.dirname(os.path.abspath(args.log_json)),
                     exist_ok=True)

@@ -7,7 +7,11 @@ charges
 
     measured(s_k) = median_t(prefix_k) - median_t(prefix_{k-1})
 
-clamped at 0: JAX's definition.  On the card each run of a prefix is
+clamped at 0: JAX's definition.  On a mesh (``mesh=``) every rank runs
+each prefix together, collectives included, times its own runs, and the
+prefix's time is the largest of the ranks' medians: JAX times the whole
+program, which ends when its slowest device does.  On the card each run
+of a prefix is
 timed with a pair of CUDA events on the current stream, the counterpart of
 ``jax.block_until_ready`` around a jitted prefix: the device time from the
 first launch of the prefix to its last, with the host's launch cost in it
@@ -87,25 +91,34 @@ def _median_time(fn, iters: int, warmup: int, device) -> float:
 
 
 def time_plan_stages(schedule: str, info, args, iters: int = 5,
-                     warmup: int = 2,
-                     n_chunks: Optional[int] = None) -> StageTrace:
-    """Measure per-stage times of one plan on one rank.
+                     warmup: int = 2, n_chunks: Optional[int] = None,
+                     mesh=None) -> StageTrace:
+    """Measure per-stage times of one plan on one rank, or on every rank
+    of ``mesh`` (each rank calls it with its shards; every rank returns
+    the same trace: each prefix's largest median over the ranks).
 
     ``info`` is the layer's ``MoEShardInfo``; ``args`` are the operands
     ``(xt, wg, w1, w3, w2)`` exactly as ``apply_moe`` feeds its body
     (callers: :func:`repro_torch.obs.audit.trace_schedule`, the launchers'
     ``--trace``, the tests).  Runs without autograd.
     """
+    from repro_torch.core import collectives
     base = UNCHUNKED_OF.get(schedule, schedule)
     plan = planlib.build_plan(base, info, n_chunks=n_chunks)
     order = validate(plan)
     device = args[0].device
     medians = []
-    with torch.no_grad():
+    with torch.no_grad(), collectives.bound(mesh):
         for k in range(len(order) + 1):
             medians.append(_median_time(
                 lambda: executor.execute_prefix(plan, *args, info, k),
                 iters, warmup, device))
+    if mesh is not None and mesh.size > 1:
+        from repro_torch.parallel import comm
+        slowest = comm.pmax(torch.tensor(medians, dtype=torch.float64,
+                                         device=device),
+                            mesh.group(mesh.axis_names))
+        medians = slowest.tolist()
     stages = [StageTime(name=st.name, kind=st.kind,
                         measured_s=max(0.0, medians[i + 1] - medians[i]))
               for i, st in enumerate(order)]

@@ -1,5 +1,6 @@
 from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
-                                     cosine_schedule, global_norm, leaves)
+                                     cosine_schedule, global_norm, leaves,
+                                     opt_state_specs)
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "cosine_schedule",
-           "global_norm", "leaves"]
+           "global_norm", "leaves", "opt_state_specs"]

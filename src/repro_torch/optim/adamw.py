@@ -66,6 +66,13 @@ def adamw_init(params) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+def opt_state_specs(param_specs) -> dict:
+    """The AdamW state's specs on a mesh (JAX's ``opt_state_specs``
+    without ZeRO-1): each moment as its parameter, the step replicated."""
+    from repro_torch.parallel.sharding import P
+    return {"mu": param_specs, "nu": param_specs, "step": P()}
+
+
 def global_norm(grads, specs=None, mesh=None):
     """sqrt of the sum of squares of every gradient, in f32.  With
     ``mesh`` and ``specs`` (each leaf's ``PartitionSpec``, aligned with

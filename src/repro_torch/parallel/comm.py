@@ -191,3 +191,48 @@ def pmax(x, grp):
     if grp.size == 1:
         return x
     return all_gather(x, grp, 0, tiled=False).amax(dim=0)
+
+
+def agree(values, grp, what: str, device="cpu") -> list:
+    """All-gather ``values`` (a few ints) over ``grp`` and raise, on every
+    member alike, unless every member holds the same ones: a decision that
+    every rank makes on its own (a schedule, a guard's action, a
+    checkpoint's step) is held to being one decision.  Every member gets
+    every member's values, so all raise together and none is left waiting
+    in a later collective.  Returns the gathered rows, in JAX index
+    order."""
+    mine = torch.tensor(list(values), dtype=torch.int64, device=device)
+    rows = all_gather(mine, grp, 0, tiled=False).tolist() \
+        if grp.size > 1 else [mine.tolist()]
+    if any(r != rows[0] for r in rows):
+        raise RuntimeError(f"ranks disagree on {what}: {rows}")
+    return rows
+
+
+def gather_first(x, grp, senders) -> list:
+    """The ``x`` of each member whose ``senders`` entry (by JAX index) is
+    true, on the member of JAX index 0, as a list in JAX index order (None
+    for a member that sent nothing); None on every other member.  One
+    ``all_to_all_single`` whose other chunks are empty, so the other
+    members receive nothing.  ``x`` has one shape on every member."""
+    import torch.distributed as dist
+    n = grp.size
+    if n == 1:
+        return [x]
+    flat = x.contiguous().reshape(-1).view(torch.uint8)
+    nb = flat.numel()
+    first = grp.index == 0
+    mine = bool(senders[grp.index])
+    send = [nb if grp.order[p] == 0 and mine else 0 for p in range(n)]
+    recv = [nb if first and senders[grp.order[p]] else 0 for p in range(n)]
+    buf = flat.new_empty(sum(recv))
+    dist.all_to_all_single(buf, flat if mine else flat[:0], recv, send,
+                           group=grp.pg)
+    if not first:
+        return None
+    out, off = [None] * n, 0
+    for p in range(n):
+        if recv[p]:
+            out[grp.order[p]] = buf[off:off + nb].view(x.dtype).view(x.shape)
+            off += nb
+    return out

@@ -14,8 +14,10 @@ gives the same specs for the same shapes (``tests/test_torch_mesh.py``).
 :func:`local_shard` cuts a full array down to one rank's block, as
 ``jax.device_put`` with a ``NamedSharding`` does; :func:`gather_full` is
 its inverse (AllGathers over each sharded dim), for tests and
-checkpoint-free comparisons.  :func:`replicated_axes` names the axes a
-spec does not mention: the axes whose ranks hold the same block.
+checkpoint-free comparisons; :func:`gather_to_first` assembles the full
+tensor on the first rank alone (a checkpoint's save).
+:func:`replicated_axes` names the axes a spec does not mention: the axes
+whose ranks hold the same block.
 """
 
 from __future__ import annotations
@@ -155,3 +157,31 @@ def gather_full(tensor, spec, mesh):
         if axes and axis_size(mesh, axes) > 1:
             out = comm.all_gather(out.contiguous(), mesh.group(axes), d)
     return out
+
+
+def gather_to_first(tensor, spec, mesh):
+    """The full tensor on the mesh's first rank (rank 0), None on the
+    others: each distinct block once, from the rank that holds it at
+    coordinate 0 on every axis ``spec`` does not name, placed where
+    :func:`local_shard` cut it; the other ranks receive and keep
+    nothing."""
+    from repro_torch.parallel import comm
+    from repro_torch.parallel.mesh import Mesh
+    used = set(mentioned(spec))
+    layouts = [Mesh(mesh.devices_shape, mesh.axis_names, r)
+               for r in range(mesh.size)]
+    holds = [all(m.coords[a] == 0 for a in mesh.axis_names if a not in used)
+             for m in layouts]
+    blocks = comm.gather_first(tensor, mesh.group(mesh.axis_names), holds)
+    if blocks is None:
+        return None
+    entries = list(spec) + [None] * (tensor.dim() - len(spec))
+    shape = [n * axis_size(mesh, _entry(e)) for n, e in
+             zip(tensor.shape, entries)]
+    full = tensor.new_empty(shape)
+    for m, block in zip(layouts, blocks):
+        if block is not None:
+            full[tuple(slice(start, start + size) for start, size in
+                       (_block(m, e, n) for e, n in zip(entries, shape)))] \
+                = block
+    return full

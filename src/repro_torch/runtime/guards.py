@@ -30,6 +30,18 @@ count also waits on the card beside its (total, event context), and the
 same read emits one ``fp8_sat`` event per encode that saturated: JAX's
 events, with no sync per encode.
 
+On a mesh of ranks each rank's encodes count its own shards, where
+JAX's callback under ``shard_map`` fires once per device and so counts
+the world's.  The monitor installed with the mesh
+(``enable_fp8_monitor(mesh, device)``) keeps each encode's count on the
+card, and :func:`fold_fp8` all-gathers every rank's vector of them (the
+ranks run the same encodes in the same order, which the fold checks
+first): the host counters hold the world's ``(sat, total)`` on every
+rank, so every rank takes the fp8 fallback at the same step and their
+collectives keep one size; rank 0, which alone holds a sink, emits one
+``fp8_sat`` event per rank and encode that saturated, with its ``rank``
+(and rank 0's event context: the encodes are the same).
+
 All of it is opt-in: with ``guards=None`` the Trainer runs the plain
 step function, and consults this module only with a sink installed, for
 the ``fp8_sat`` events.
@@ -179,9 +191,16 @@ class GuardState:
 _SAT = {"sat": 0, "total": 0}
 _SAT_DEVICE = {}                 # torch.device -> 0-d int64 tensor
 _SAT_EVENTS = []                 # (0-d int64 tensor, total, event context)
+#: on a mesh: the AxisGroup of every rank and the device of its
+#: agreement collective; None and None on one rank
+_WORLD = {"group": None, "device": None}
 
 
 def _sat_cb(sat, total: int) -> None:
+    if _WORLD["group"] is not None:
+        _SAT_EVENTS.append((sat, int(total), obs.event_context()
+                            if obs.enabled() else {}))
+        return
     acc = _SAT_DEVICE.get(sat.device)
     if acc is None:
         _SAT_DEVICE[sat.device] = sat.clone()
@@ -196,7 +215,10 @@ def fold_fp8() -> None:
     """Move the device-side counts into the host counters (one sync per
     device) and emit the pending ``fp8_sat`` events (one more read), in
     encode order, each with the context its encode ran under.  Nothing
-    pending costs no sync."""
+    pending costs no sync.  On a mesh every rank must call it at the same
+    point: it gathers the world's counts (see the module docstring)."""
+    if _WORLD["group"] is not None:
+        return _fold_world(_WORLD["group"], _WORLD["device"])
     for acc in _SAT_DEVICE.values():
         _SAT["sat"] += int(acc.item())
     _SAT_DEVICE.clear()
@@ -209,16 +231,47 @@ def fold_fp8() -> None:
                 obs.emit("fp8_sat", sat=n, total=total, **ctx)
 
 
-def enable_fp8_monitor() -> None:
+def _fold_world(grp, device) -> None:
+    """``fold_fp8`` on a mesh: one all-gather of every rank's (count,
+    total) per encode, after one that holds the ranks to the same number
+    of encodes."""
+    from repro_torch.parallel import comm
+    pending = list(_SAT_EVENTS)
+    _SAT_EVENTS.clear()
+    comm.agree([len(pending)], grp, "the number of fp8 encodes", device)
+    if not pending:
+        return
+    counts = torch.stack([s for s, _, _ in pending]).to(torch.int64)
+    totals = torch.tensor([t for _, t, _ in pending], dtype=torch.int64,
+                          device=counts.device)
+    world = comm.all_gather(torch.stack([counts, totals], dim=1), grp, 0,
+                            tiled=False).cpu()            # (ranks, n, 2)
+    _SAT["sat"] += int(world[..., 0].sum())
+    _SAT["total"] += int(world[..., 1].sum())
+    if obs.enabled():
+        for i, (_, _, ctx) in enumerate(pending):
+            for rank, (n, total) in enumerate(world[:, i].tolist()):
+                if n:
+                    obs.emit("fp8_sat", sat=n, total=total, rank=rank,
+                             **ctx)
+
+
+def enable_fp8_monitor(mesh=None, device=None) -> None:
     """Install the saturation counter into the fp8 wire-encode path; with
-    no monitor installed the encode counts nothing."""
+    no monitor installed the encode counts nothing.  On ``mesh`` (more
+    than one rank; ``device`` this rank's) the counts become the world's
+    when folded."""
     from repro_torch.core import collectives
+    multi = mesh is not None and mesh.size > 1
+    _WORLD["group"] = mesh.group(mesh.axis_names) if multi else None
+    _WORLD["device"] = device if multi else None
     collectives.set_fp8_monitor(_sat_cb)
 
 
 def disable_fp8_monitor() -> None:
     from repro_torch.core import collectives
     collectives.set_fp8_monitor(None)
+    _WORLD["group"] = _WORLD["device"] = None
 
 
 def reset_fp8_counter() -> None:

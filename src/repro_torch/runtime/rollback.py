@@ -17,17 +17,24 @@ from repro_torch.checkpoint.ckpt import CheckpointStore
 
 
 class RollbackManager:
-    """Snapshot/restore policy over a :class:`CheckpointStore`."""
+    """Snapshot/restore policy over a :class:`CheckpointStore`.
 
-    def __init__(self, store: CheckpointStore):
+    ``specs`` and ``mesh`` (the counterpart of JAX's ``shardings``: the
+    parameters' and the AdamW state's ``PartitionSpec`` trees under
+    ``{"params", "opt_state"}``, and the mesh) make every snapshot a
+    whole-array file gathered from the ranks' shards and every restore
+    take each rank's shards of it."""
+
+    def __init__(self, store: CheckpointStore, specs=None, mesh=None):
         self.store = store
+        self.specs, self.mesh = specs, mesh
         self.last_good_step = None
         self.events = []
 
     def snapshot(self, params, opt_state, step: int) -> str:
         """Persist a clean (guard-approved) step."""
         path = self.store.save({"params": params, "opt_state": opt_state},
-                               step)
+                               step, specs=self.specs, mesh=self.mesh)
         self.last_good_step = step
         self.events.append({"kind": "snapshot", "step": step})
         return path
@@ -41,7 +48,8 @@ class RollbackManager:
         abort)."""
         try:
             tree, restored_step, path = self.store.restore(
-                {"params": params, "opt_state": opt_state})
+                {"params": params, "opt_state": opt_state},
+                specs=self.specs, mesh=self.mesh)
         except FileNotFoundError:
             self.events.append({"kind": "rollback_failed", "step": step})
             return None

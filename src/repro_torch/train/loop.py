@@ -9,8 +9,12 @@ over EP and ESP, the dense layers Megatron-style over MP), takes its rows
 of every batch, and all-reduces the gradients of the leaves it shares
 with ranks that hold other tokens, and those its MP ranks hold in part
 (:func:`sync_grads`), before AdamW updates its shards in place.  The
-guarded loop, checkpoints, faults and telemetry run on one rank only
-(ROADMAP item 5.5): a mesh with any of them raises.
+guarded loop, its checkpoints, faults and telemetry run there too: the
+non-finite flag comes from the global loss and norm, every rank's guard
+decision is all-gathered and held equal (a rank that decides otherwise
+makes every rank raise, never hang), snapshots are JAX's whole-array
+files gathered from the shards, and the fp8 saturation counts and the
+telemetry are the world's, written by rank 0.
 
 ``Trainer(guards=...)`` runs the fault-tolerant loop: the guarded step
 (skip-step and LR backoff), retained-checkpoint rollback through
@@ -35,8 +39,10 @@ import torch
 from repro_torch import obs
 from repro_torch.models.model import Model
 from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
-                                     leaves)
+                                     leaves, opt_state_specs)
 from repro_torch.runtime import guards as guardlib
+
+_ACTIONS = (guardlib.OK, guardlib.SKIP, guardlib.ROLLBACK)
 
 
 def sync_grads(grads, specs, mesh, dims, mp_partial=None):
@@ -74,6 +80,30 @@ def sync_grads(grads, specs, mesh, dims, mp_partial=None):
     return out
 
 
+def _loss_and_grads(model, params, batch, schedule, mesh, dims,
+                    grad_fault=None):
+    """``(loss, metrics, grads, specs)`` of one step: on a mesh the
+    gradients through :func:`sync_grads` and ``specs`` the leaves' specs
+    (None on one rank).  ``grad_fault`` seeds the loss as ``loss * (1 +
+    grad_fault)``."""
+    flat = leaves(params)
+    for t in flat:
+        t.requires_grad_(True)
+    loss, metrics = model.loss(params, batch, schedule=schedule, mesh=mesh,
+                               dims=dims)
+    if grad_fault is not None:
+        loss = loss * (1.0 + grad_fault)
+    grads = torch.autograd.grad(loss, flat)
+    specs = None
+    if mesh is not None:
+        specs = leaves(model.param_specs(params, mesh, dims))
+        partial = leaves(model.mp_partial(params, mesh, dims,
+                                          batch["tokens"].shape[1]))
+        grads = sync_grads(grads, specs, mesh, dims, partial)
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return loss.detach(), metrics, grads, specs
+
+
 def make_train_step(model: Model, opt_cfg: AdamWConfig,
                     schedule: Optional[str] = None, mesh=None, dims=None):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
@@ -86,28 +116,18 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
     is the global one, the gradients go through :func:`sync_grads`, and
     the clip norm is the global norm."""
     def train_step(params, opt_state, batch):
-        flat = leaves(params)
-        for t in flat:
-            t.requires_grad_(True)
-        loss, metrics = model.loss(params, batch, schedule=schedule,
-                                   mesh=mesh, dims=dims)
-        grads = torch.autograd.grad(loss, flat)
-        specs = None
-        if mesh is not None:
-            specs = leaves(model.param_specs(params, mesh, dims))
-            partial = leaves(model.mp_partial(params, mesh, dims,
-                                              batch["tokens"].shape[1]))
-            grads = sync_grads(grads, specs, mesh, dims, partial)
+        loss, metrics, grads, specs = _loss_and_grads(
+            model, params, batch, schedule, mesh, dims)
         om = adamw_update(params, grads, opt_state, opt_cfg, specs=specs,
                           mesh=mesh)
         del grads
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        return params, opt_state, {**metrics, **om, "loss": loss.detach()}
+        return params, opt_state, {**metrics, **om, "loss": loss}
     return train_step
 
 
 def make_guarded_train_step(model: Model, opt_cfg: AdamWConfig,
-                            schedule: Optional[str] = None):
+                            schedule: Optional[str] = None, mesh=None,
+                            dims=None):
     """``make_train_step`` wrapped in guard rails: ``step(params,
     opt_state, batch, lr_scale, grad_fault)``.
 
@@ -122,20 +142,17 @@ def make_guarded_train_step(model: Model, opt_cfg: AdamWConfig,
     bitwise as they were; metrics gain a ``nonfinite`` flag that the
     host-side policy (``runtime.guards``) folds into its decision.  On
     the clean path (``lr_scale=1.0, grad_fault=0.0``) every extra op is
-    an IEEE identity, so the step is bitwise the plain one."""
+    an IEEE identity, so the step is bitwise the plain one.  On a mesh as
+    ``make_train_step``: the loss and the norm are global, so the flag is
+    the same bit on every rank."""
     def train_step(params, opt_state, batch, lr_scale, grad_fault):
-        flat = leaves(params)
-        for t in flat:
-            t.requires_grad_(True)
-        loss, metrics = model.loss(params, batch, schedule=schedule)
-        loss = loss * (1.0 + grad_fault)
-        grads = torch.autograd.grad(loss, flat)
-        loss = loss.detach()
+        loss, metrics, grads, specs = _loss_and_grads(
+            model, params, batch, schedule, mesh, dims, grad_fault)
         om = adamw_update(params, grads, opt_state, opt_cfg,
-                          lr_scale=lr_scale, finite=torch.isfinite(loss))
+                          lr_scale=lr_scale, finite=torch.isfinite(loss),
+                          specs=specs, mesh=mesh)
         del grads
         finite = om.pop("finite")
-        metrics = {k: v.detach() for k, v in metrics.items()}
         return params, opt_state, {**metrics, **om, "loss": loss,
                                    "nonfinite": ~finite}
     return train_step
@@ -165,14 +182,8 @@ class Trainer:
     dims: Optional[object] = None         # parallel.mesh.ParallelDims
 
     def __post_init__(self):
-        if self.mesh is not None:
-            if self.dims is None:
-                raise ValueError("Trainer(mesh=...) needs dims=")
-            if self.guards is not None or self.faults is not None \
-                    or self.ckpt_path:
-                raise NotImplementedError(
-                    "guarded training, faults and checkpoints run on one "
-                    "rank; across ranks they come with ROADMAP item 5.5")
+        if self.mesh is not None and self.dims is None:
+            raise ValueError("Trainer(mesh=...) needs dims=")
         self.train_step = make_train_step(self.model, self.opt_cfg,
                                           self.schedule, self.mesh,
                                           self.dims)
@@ -180,13 +191,14 @@ class Trainer:
         if self.guards is not None:
             self.guard_state = guardlib.GuardState(cfg=self.guards)
             guardlib.reset_fp8_counter()
-            guardlib.enable_fp8_monitor()
+            guardlib.enable_fp8_monitor(self.mesh, self.model.device)
             factor = self.faults.fp8_sat_factor() if self.faults else 0.0
             if factor:
                 from repro_torch.core import collectives
                 collectives.set_fp8_sat_injection(factor)
             self.guarded_step = make_guarded_train_step(
-                self.model, self.opt_cfg, self.schedule)
+                self.model, self.opt_cfg, self.schedule, self.mesh,
+                self.dims)
 
     def setup(self, generator):
         """Random parameters from ``generator`` and fresh AdamW state (on a
@@ -205,6 +217,40 @@ class Trainer:
         from repro_torch.parallel.sharding import local_tree
         return local_tree(params, self.model.param_specs(
             params, self.mesh, self.dims), self.mesh)
+
+    def state_specs(self, params, opt_key: str = "opt_state"):
+        """The specs of ``{"params": params, opt_key: <AdamW state>}`` on
+        the mesh (what a checkpoint of them gathers), None on one rank."""
+        if self.mesh is None:
+            return None
+        pspecs = self.model.param_specs(params, self.mesh, self.dims)
+        return {"params": pspecs, opt_key: opt_state_specs(pspecs)}
+
+    def _agree(self, step: int, action: str, restored=None) -> None:
+        """On a mesh, hold every rank to this step's guard decision: one
+        all-gather of ``(step, action, streak, restored step or -1, fp8
+        fallbacks)``; any difference raises on every rank alike."""
+        if self.mesh is None:
+            return
+        from repro_torch.parallel import comm
+        st = self.guard_state
+        comm.agree([step, _ACTIONS.index(action), st.streak,
+                    -1 if restored is None else restored,
+                    st.counters["fp8_fallbacks"]],
+                   self.mesh.group(self.mesh.axis_names),
+                   f"the guard's decision at step {step} (step, action, "
+                   f"streak, restored step, fp8 fallbacks)",
+                   self.model.device)
+
+    def _any_rank(self, flag: bool) -> bool:
+        """Whether ``flag`` holds on any rank (one all-gather on a
+        mesh)."""
+        if self.mesh is None or self.mesh.size == 1:
+            return flag
+        from repro_torch.parallel import comm
+        mine = torch.tensor([int(flag)], device=self.model.device)
+        return bool(comm.all_gather(mine, self.mesh.group(
+            self.mesh.axis_names), 0).any())
 
     def batch(self, data, step):
         """Batch ``step`` of ``data``: this rank's rows on a mesh."""
@@ -251,13 +297,14 @@ class Trainer:
                                      log_every, ckpt_every)
         history = []
         # with a sink, the fp8 encodes' saturation counts wait on the card
-        # and are read on the logged rows, where the loop reads anyway
-        sat_events = obs.enabled()
+        # and are read on the logged rows, where the loop reads anyway (on
+        # a mesh by every rank, if any rank has the sink: rank 0)
+        sat_events = self._any_rank(obs.enabled())
         if sat_events:
-            guardlib.enable_fp8_monitor()
+            guardlib.enable_fp8_monitor(self.mesh, self.model.device)
         t0 = time.perf_counter()
         for step in range(n_steps):
-            if obs.enabled():
+            if obs.enabled() or self.mesh is not None:
                 obs.set_context(step=step)
             batch = self.batch(data, step)
             params, opt_state, metrics = self.train_step(params, opt_state,
@@ -277,7 +324,9 @@ class Trainer:
                     step % ckpt_every == 0:
                 from repro_torch.checkpoint import save_checkpoint
                 save_checkpoint(self.ckpt_path,
-                                {"params": params, "opt": opt_state}, step)
+                                {"params": params, "opt": opt_state}, step,
+                                specs=self.state_specs(params, "opt"),
+                                mesh=self.mesh)
         if sat_events:
             guardlib.disable_fp8_monitor()
         return params, opt_state, history
@@ -287,7 +336,9 @@ class Trainer:
         """The fault-tolerant loop: guarded step -> observe -> (apply |
         skip | rollback), snapshots on clean steps, fp8 fallback swap.
         A rollback restores the retained checkpoint in place into
-        ``params`` and ``opt_state``."""
+        ``params`` and ``opt_state``.  On a mesh each step's decision and
+        each rollback's restored step are held equal on every rank
+        (``_agree``)."""
         from repro_torch.checkpoint.ckpt import CheckpointStore
         from repro_torch.core import autosched
         from repro_torch.runtime.rollback import RollbackManager
@@ -295,19 +346,20 @@ class Trainer:
         state = self.guard_state
         mgr = self.rollback_mgr = None
         if self.ckpt_path:
-            mgr = self.rollback_mgr = RollbackManager(CheckpointStore(
-                self.ckpt_path, retain=self.ckpt_retain, faults=self.faults))
+            mgr = self.rollback_mgr = RollbackManager(
+                CheckpointStore(self.ckpt_path, retain=self.ckpt_retain,
+                                faults=self.faults),
+                specs=self.state_specs(params), mesh=self.mesh)
             # anchor before step 0: a streak in the first interval must
             # have somewhere to roll back to
             mgr.snapshot(params, opt_state, 0)
 
         history = []
-        dev = self.model.device
         t0 = time.perf_counter()
         for step in range(n_steps):
-            if obs.enabled():
+            if obs.enabled() or self.mesh is not None:
                 obs.set_context(step=step)
-            batch = data.tensors(step, dev)
+            batch = self.batch(data, step)
             gf = self.faults.grad_fault(step) if self.faults else 0.0
             # a skipped step returns params/opt_state untouched
             params, opt_state, metrics = self.guarded_step(
@@ -317,6 +369,7 @@ class Trainer:
             # just waited for the device
             guardlib.fold_fp8()
             action = state.observe(step, loss, bool(metrics["nonfinite"]))
+            self._agree(step, action)
             if step == 0:
                 self._log_step0(metrics)
             if action == guardlib.ROLLBACK:
@@ -325,11 +378,13 @@ class Trainer:
                 if res is None:
                     # nothing restorable: limp on with the backed-off LR
                     state.record_rollback(step, None)
+                    self._agree(step, action)
                     obs.emit("guard_rollback", restored_step=None,
                              loss=loss)
                 else:
                     params, opt_state, rstep = res
                     state.record_rollback(step, rstep)
+                    self._agree(step, action, rstep)
                     obs.emit("guard_rollback", restored_step=rstep,
                              loss=loss)
                     print(f"step {step:5d}  ROLLBACK -> re-anchored to "

@@ -104,6 +104,26 @@ def test_port_checkpoint_loads_in_jax(tmp_path, dtype):
                                       err_msg=k)
 
 
+@pytest.mark.parametrize("shape,dtype", [
+    ((), np.int64), ((0,), np.float32), ((1,), np.uint8),
+    ((3, 5), np.uint16), ((7, 129, 33), np.float32)])
+def test_written_leaf_crc_is_zlibs(tmp_path, shape, dtype):
+    """The manifest crc a member's write returns (the zip's crc of the
+    member with the npy header's taken out) is ``zlib.crc32`` of the
+    leaf's bytes, and ``np.load`` reads the member back."""
+    import zipfile
+    import zlib
+
+    from repro_torch.checkpoint import ckpt
+    a = np.random.RandomState(3).randint(0, 250, size=shape).astype(dtype)
+    path = os.path.join(tmp_path, "one.zip")
+    with zipfile.ZipFile(path, "w") as zf:
+        got = ckpt._write(zf, "leaf", a)
+    assert got == zlib.crc32(np.ascontiguousarray(a).tobytes())
+    back = np.load(path)["leaf"]
+    assert back.dtype == a.dtype and np.array_equal(back, a)
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_jax_checkpoint_loads_in_port(tmp_path, dtype):
     rng = np.random.RandomState(0)
