@@ -167,6 +167,22 @@ to a plain version):
      each rank's restore seconds; (f) the launcher's ``--profile`` there:
      one clean guarded step profiled on every rank, rank 0's busy share
      over (e)'s last step (a clean guarded step) as the unprofiled wall;
+     (g) in the same spawn, (d)'s block and weights served on (data=2,
+     model=2) through ``Engine(model, mesh, dims)`` at the drop-free
+     capacity factor (``p12_serve_cfg``): 8 requests of 17-64 tokens,
+     four sharing a 32-token prefix, 8 tokens each, max batch 8, pages of
+     16, under ``auto``, ``s1d`` forced and ``autosched="measured"``:
+     on every rank every request complete, a prefill call per admission,
+     every page back, a decode decision, the plan agreed once a tick,
+     each request's first logits rtol 2e-4 / atol 2e-5 of rank 0's
+     one-rank engine (served in its turn of (d) with the whole model)
+     and its stream that engine's, a difference allowed only at a step
+     whose one-rank top-2 gap is within that tolerance (printed and
+     counted); tok/s, p50 / p99 and each collective's share per rank;
+     (h) on (a)'s merged layer, ``decide`` measured over s1, s2, s1g and
+     s2h on the live mesh, then the pick with an ``"auto"`` wire measured
+     through ``apply_moe``: the same times and picks on every rank, the
+     output ``torch.equal`` to the pick forced;
  13. print the kernels' JSON line (each kernel's launches on its main path
      and the phase-3 row at that path's shapes, under ``by_path`` every
      path's launches beside the phase-3 row at that path's shapes, and
@@ -1867,12 +1883,13 @@ def _p12_ok(r, wire, is_y):
     return r["err"] <= step * r["scale"] and r["rel"] <= step
 
 
-def _p12_layer_rank(rank, kind, ref_path, model_cfg):
+def _p12_layer_rank(rank, kind, ref_path, model_cfg, with_h=False):
     """(a) on one rank: every case of ``kind``'s mesh, each rank's output
     and gradient blocks read here against the one-rank references'
     blocks (``_p12_err``).  Returns per case the readings, the load check,
     the launches and the host ms of the forward and backward with each
-    collective's host seconds (after one untimed warm-up case)."""
+    collective's host seconds (after one untimed warm-up case); with
+    ``with_h`` also (h)'s readings on the same layer (``_p12_measured``)."""
     import torch
     from repro_torch.core.moe import apply_moe, moe_param_specs
     from repro_torch.parallel import comm
@@ -1885,7 +1902,8 @@ def _p12_layer_rank(rank, kind, ref_path, model_cfg):
     _, shape, names, dkw = P12_MERGED if kind == "merged" else P12_DISTINCT
     mesh = make_mesh(shape, names)
     dims = ParallelDims(**dkw)
-    ref = torch.load(ref_path, weights_only=False)
+    # memory-mapped: each rank reads only its blocks of the 1.1 GB file
+    ref = torch.load(ref_path, weights_only=False, mmap=True)
     base = _p12_cfg(model_cfg)
     specs = moe_param_specs(base, mesh, dims)
     xspec = P(dims.batch_axes, None, None)
@@ -1946,19 +1964,87 @@ def _p12_layer_rank(rank, kind, ref_path, model_cfg):
                     "load_ok": load_ok, "mult": mult, "launches": launches,
                     "ms": ms, "comm": coll})
         del y, grads
-    return out
+    if not with_h:
+        return out
+    p = {k: block(v, specs[k]) for k, v in ref["params"].items()}
+    return out, _p12_measured(mesh, dims, p, block(ref["x"], xspec),
+                              model_cfg, dev)
+
+
+#: (h): the measured calibration's grid on (a)'s layer, then the picked
+#: schedule with an ``"auto"`` wire through ``apply_moe`` (2 candidates:
+#: the pick on the f32 and bf16 wires); the kernels it must launch
+P12_MEASURED_GRID = ("s1", "s2", "s1g", "s2h")
+P12_MEASURED_USES = ("moe_dispatch", "moe_combine")
+
+
+def _p12_measured(mesh, dims, p, x, model_cfg, dev):
+    """(h) on one rank: ``autosched.decide`` in measured mode over
+    ``P12_MEASURED_GRID`` on the live mesh (every rank times every
+    candidate once after a warm-up call, each takes the slowest rank's
+    time), then (a)'s layer
+    under the pick with an ``"auto"`` wire, decided by measurement in
+    ``apply_moe``, against the same schedule and wire forced.  Returns the
+    times and picks, whether the two outputs are ``torch.equal``, the
+    launches and the seconds."""
+    from dataclasses import replace
+
+    import torch
+    from repro_torch.core import autosched
+    from repro_torch.core.collectives import CommConfig
+    from repro_torch.core.moe import apply_moe, shard_pool_capacity
+    from repro_torch.core.perfmodel import MoELayerShape
+    t0 = time.perf_counter()
+    wrappers = reset_counts()
+    cfg = _p12_cfg(model_cfg)
+    sizes = dims.sizes(mesh)
+    B, L = x.shape[0] * sizes["ep"], x.shape[1]
+    s_local, _ = shard_pool_capacity(B * L, sizes["ep"], sizes["mp"],
+                                     cfg.gate_config())
+    shape = MoELayerShape(B=max(s_local // L, 1), L=min(L, s_local),
+                          M=cfg.d_model, H=cfg.d_ff, E=cfg.n_experts,
+                          k=cfg.top_k, f=cfg.capacity_factor,
+                          n_mp=sizes["mp"], n_esp=sizes["esp"],
+                          n_ep=sizes["ep"])
+    d = autosched.decide(shape, mode="measured", chunk_candidates=(1,),
+                         schedules=P12_MEASURED_GRID,
+                         measure=autosched.measure_candidates(
+                             cfg, tokens=B * L, d_model=cfg.d_model,
+                             device=dev, mesh=mesh, dims=dims, iters=1))
+    auto = replace(cfg, schedule=d.schedule, autosched="measured",
+                   comm=CommConfig(wire_dtype="auto"))
+    with torch.no_grad():
+        y, _ = apply_moe(x, p, cfg=auto, mesh=mesh, dims=dims)
+        (w,) = [v for k, v in autosched.cache_info().items()
+                if k[1] == "measured" and k[4] == autosched.AUTO_WIRE]
+        forced = replace(cfg, schedule=w.schedule,
+                         comm=CommConfig(wire_dtype=w.wire_dtype))
+        yf, _ = apply_moe(x, p, cfg=forced, mesh=mesh, dims=dims)
+    _sync(dev)
+    return {"times": d.times, "pick": d.schedule, "wire_times": w.times,
+            "wire": (w.schedule, w.wire_dtype),
+            "equal": bool(torch.equal(y, yf)),
+            "launches": read_counts(wrappers),
+            "s": time.perf_counter() - t0}
 
 
 def _p12_merged_rank(rank, ref_path, model_cfg, scheds, steps, tokens,
                      block_cfg, block_tokens, guard_dir):
-    """One rank of the merged (2, 2) mesh: (a)'s cases, then (b) and (c),
-    then (d) on both of its meshes, then (e) and (f), in one spawn."""
-    return {"layer": _p12_layer_rank(rank, "merged", ref_path, model_cfg),
-            "train": _p12_train_rank(rank, scheds, steps, model_cfg,
-                                     tokens),
-            "block": _p12_block_rank(rank, block_cfg, block_tokens),
-            "guarded": _p12_guarded_rank(rank, model_cfg, tokens,
-                                         guard_dir)}
+    """One rank of the merged (2, 2) mesh: (a)'s cases and (h) on the same
+    layer, then (b) and (c), then (d) on both of its meshes and (g) with
+    (d)'s weights, then (e) and (f), in one spawn."""
+    layer, measured = _p12_layer_rank(rank, "merged", ref_path, model_cfg,
+                                      with_h=True)
+    out = {"layer": layer, "measured": measured,
+           "train": _p12_train_rank(rank, scheds, steps, model_cfg,
+                                    tokens)}
+    serve_ref = guard_dir + "_serve_ref.pt"
+    out["block"], params = _p12_block_rank(rank, block_cfg, block_tokens,
+                                           serve_ref)
+    out["serve"] = _p12_serve_rank(rank, block_cfg, params, serve_ref)
+    del params
+    out["guarded"] = _p12_guarded_rank(rank, model_cfg, tokens, guard_dir)
+    return out
 
 
 #: (e): phase 9 (a)'s run on the (2, 2) mesh, 7 steps (0-6): the skips at
@@ -2305,15 +2391,17 @@ def _p12_block_refs(model, full, batch, meshes, dims):
     return want
 
 
-def _p12_block_rank(rank, cfg, tokens):
+def _p12_block_rank(rank, cfg, tokens, serve_ref):
     """(d) on one rank of the 4: the one-rank references
     (``_p12_block_refs``; every rank runs them in turn, the others
     waiting, so the card holds one whole model and its gradients at a
-    time; each rank keeps its blocks), then ``Model.loss`` forward and backward on each of
-    ``P12_BLOCK_MESHES`` with its launches counted.  Returns per mesh the
-    loss, the routed rows, the backbone's output and every gradient read
-    against the references' blocks (``_p12_err``), the launches and the
-    host seconds."""
+    time; each rank keeps its blocks; rank 0 also serves (g)'s requests
+    on one rank with the whole model, into ``serve_ref``), then
+    ``Model.loss`` forward and backward on each of ``P12_BLOCK_MESHES``
+    with its launches counted.  Returns per mesh the loss, the routed
+    rows, the backbone's output and every gradient read against the
+    references' blocks (``_p12_err``), the launches and the host seconds;
+    and this rank's (2, 2) parameters, for (g)."""
     import torch
     import torch.distributed as dist
     from repro_torch.data import DataConfig, SyntheticLM
@@ -2341,6 +2429,8 @@ def _p12_block_rank(rank, cfg, tokens):
             for t in leaves(full):
                 t.requires_grad_(True)
             want = _p12_block_refs(model, full, batch, meshes, dims)
+            if rank == 0:
+                _p12_serve_reference(full, cfg, dev, serve_ref)
             del full
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
@@ -2381,10 +2471,185 @@ def _p12_block_rank(rank, cfg, tokens):
                      "load_ok": torch.equal(
                          tot, w["load"] * mesh.shape["model"]),
                      "reads": reads, "launches": launches, "s": sec}
+        if name == "2x2":
+            kept = _detach(params)
         del params, flat, grads, hidden, loss, m, w
         if dev.type == "cuda":
             torch.cuda.empty_cache()
     out["total_s"] = time.perf_counter() - t_all
+    return out, kept
+
+
+#: (g): (d)'s model and weights (qwen3-moe-30b-a3b at full width, one
+#: block, the 151936-entry head) served on (2, 2) at the drop-free
+#: capacity factor E / k (so a data rank's pool routes as the one-rank
+#: pool does): 8 requests of 17-64 tokens, four sharing a 32-token prefix
+#: (every prefill, a suffix after a prefix hit included, in the 32-token
+#: bucket: one prefill shape for ``measured`` to calibrate, beside the
+#: decode pool), 8 new tokens each, max batch 8 (a decode pool of 4 rows a
+#: data rank, 2 MP ranks: the real decode path), pages of 16; under
+#: ``auto`` (analytic), ``s1d`` forced and ``autosched="measured"``
+P12_SERVE_GEN = 8
+P12_SERVE_KW = dict(max_batch=8, max_len=128, block_size=16)
+P12_SERVE_MODES = (("auto", None, "analytic"), ("s1d", "s1d", "analytic"),
+                   ("measured", None, "measured"))
+#: the kernels each serving run must launch on every rank (qwen3's norms;
+#: every multi-rank MoE body dispatches and combines, s1d's FFN is
+#: ``expert_ffn``)
+P12_SERVE_USES = {"auto": ("rmsnorm", "moe_dispatch", "moe_combine"),
+                  "s1d": ("rmsnorm", "moe_dispatch", "moe_combine",
+                          "expert_ffn"),
+                  "measured": ("rmsnorm", "moe_dispatch", "moe_combine")}
+#: a stream may leave the one-rank one only at a step whose one-rank
+#: top-2 logit gap is within phase 12's output tolerance of its top logit
+P12_SERVE_RTOL, P12_SERVE_ATOL = 2e-4, 2e-5
+
+
+def p12_serve_cfg(block_cfg, autosched="analytic"):
+    """(g)'s model config: (d)'s under ``schedule="auto"`` at the drop-free
+    capacity factor, decided by ``autosched``."""
+    from dataclasses import replace
+    m = block_cfg.moe
+    return replace(block_cfg, moe=replace(
+        m, schedule="auto", capacity_factor=m.n_experts / m.top_k,
+        autosched=autosched))
+
+
+def p12_serve_prompts(vocab, seed=12):
+    """(g)'s 8 prompts: a 32-token prefix alone and with 17-32 more,
+    alternating with prompts of 17-32 tokens."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    prefix = [int(t) for t in rng.randint(0, vocab, 32)]
+    out = []
+    for n_tail, n_own in ((0, 20), (17, 32), (24, 17), (32, 27)):
+        out.append(prefix + [int(t) for t in rng.randint(0, vocab, n_tail)])
+        out.append([int(t) for t in rng.randint(0, vocab, n_own)])
+    return out
+
+
+def _p12_serve(model, params, prompts, mesh=None, dims=None, schedule=None):
+    """Serve ``prompts`` (request i with sampler seed i + 1, greedy), and
+    record from the sampler's input each request's first logits row and,
+    for every sampled token, its row's top-2 gap and top logit (keyed by
+    (rid, position): the sampler's keys name the seed and the position).
+    Returns (completions by rid, engine, wall seconds, record)."""
+    from repro_torch.serve import Engine, SamplerConfig
+    from repro_torch.serve import engine as engine_mod
+    sample = engine_mod.sample
+    lens = [len(p) for p in prompts]
+    rec = {"first": {}, "gap": {}}
+
+    def recording(logits, keys, temps, topks):
+        top = logits.float().topk(2, dim=-1).values.cpu()
+        for i, (seed, pos) in enumerate(keys.tolist()):
+            if seed:                   # 0: an idle row
+                rid = seed - 1
+                rec["gap"][(rid, pos)] = (float(top[i, 0] - top[i, 1]),
+                                          float(top[i, 0]))
+                if pos == lens[rid]:
+                    rec["first"][rid] = logits[i].float().cpu()
+        return sample(logits, keys, temps, topks)
+
+    engine_mod.sample = recording
+    try:
+        eng = Engine(model, mesh, dims, schedule=schedule, **P12_SERVE_KW)
+        for rid, p in enumerate(prompts):
+            eng.submit(p, P12_SERVE_GEN, sampler=SamplerConfig(seed=rid + 1),
+                       rid=rid)
+        _sync(model.device)
+        t0 = time.perf_counter()
+        done = eng.run(params)
+        _sync(model.device)
+        wall = time.perf_counter() - t0
+    finally:
+        engine_mod.sample = sample
+    return {c.rid: c for c in done}, eng, wall, rec
+
+
+def _p12_serve_reference(full, block_cfg, dev, path):
+    """(g)'s one-rank reference, run by rank 0 with the whole model in its
+    turn of (d): the streams, first logits and gaps, saved to ``path``."""
+    import torch
+    from repro_torch.models import Model
+    model = Model(p12_serve_cfg(block_cfg), device=dev)
+    done, _, wall, rec = _p12_serve(
+        model, _detach(full), p12_serve_prompts(block_cfg.vocab_size))
+    torch.save({"tokens": {r: c.tokens for r, c in done.items()},
+                "first": rec["first"], "gap": rec["gap"], "wall": wall},
+               path)
+
+
+def _p12_serve_rank(rank, block_cfg, params, ref_path):
+    """(g) on one rank of the (2, 2) mesh: ``P12_SERVE_MODES``' runs with
+    this rank's shards of (d)'s weights, each read here against rank 0's
+    one-rank run: every request's status and budget, the engine's counts,
+    the plan agreed once a tick, each request's first logits (rtol 2e-4,
+    atol 2e-5), and where a stream leaves the one-rank one, that step's
+    one-rank top-2 gap.  Returns the readings, latencies, launches and
+    each collective's host seconds per run."""
+    import torch
+    from repro_torch.core import autosched
+    from repro_torch.launch.mesh import dims_for
+    from repro_torch.models import Model
+    from repro_torch.parallel import comm
+    from repro_torch.parallel.mesh import make_mesh
+    from repro_torch.serve import latency_stats
+    t_all = time.perf_counter()
+    dev = _p12_device()
+    mesh = make_mesh((2, 2), ("data", "model"))
+    dims = dims_for(block_cfg)
+    prompts = p12_serve_prompts(block_cfg.vocab_size)
+    ref = torch.load(ref_path, weights_only=False)
+    agreed, agree = [], comm.agree
+
+    def counting(values, grp, what, device="cpu"):
+        if what.startswith("the serving plan"):
+            agreed.append(values[0])
+        return agree(values, grp, what, device)
+
+    comm.agree = counting
+    out = {"ref_wall": ref["wall"]}
+    try:
+        for mode, schedule, how in P12_SERVE_MODES:
+            model = Model(p12_serve_cfg(block_cfg, how), device=dev)
+            agreed.clear()
+            wrappers = reset_counts()
+            comm.timing(True)
+            done, eng, wall, rec = _p12_serve(model, params, prompts, mesh,
+                                              dims, schedule)
+            coll = comm.times()
+            comm.timing(False)
+            launches = read_counts(wrappers)
+            s = eng.stats
+            complete = (len(done) == len(prompts) and all(
+                c.status == "ok" and len(c.tokens) == P12_SERVE_GEN
+                for c in done.values()))
+            first = {rid: _p12_err(rec["first"][rid], ref["first"][rid])
+                     for rid in range(len(prompts))}
+            ties, off = [], []
+            for rid, c in done.items():
+                want = ref["tokens"][rid]
+                j = next((j for j, (a, b) in enumerate(zip(c.tokens, want))
+                          if a != b), None)
+                if j is None:
+                    continue
+                gap, top = ref["gap"][(rid, len(prompts[rid]) + j)]
+                tol = P12_SERVE_ATOL + P12_SERVE_RTOL * abs(top)
+                (ties if gap <= tol else off).append((rid, j, gap, tol))
+            out[mode] = {
+                "complete": complete, "stats": dict(s),
+                "live": eng.pool.n_live,
+                "agreed": agreed == list(range(1, eng._tick + 1)),
+                "first_ok": all(r["elem_ok"] for r in first.values()),
+                "first_err": max(r["err"] for r in first.values()),
+                "ties": ties, "off": off, "wall": wall,
+                "latency": latency_stats(done.values()),
+                "launches": launches, "comm": coll}
+    finally:
+        comm.agree = agree
+    out["summary"] = autosched.cache_summary()
+    out["s"] = time.perf_counter() - t_all
     return out
 
 
@@ -2644,13 +2909,97 @@ def multirank(dev, model_cfg=None, tokens=(8, 1024), block_cfg=None,
                 k: [rr["launches"][k] for rr in per_rank]
                 for k in per_rank[0]["launches"]
                 if any(rr["launches"][k] for rr in per_rank)}
+        paths.update(_p12_measured_report([r["measured"] for r in res]))
         paths.update(_p12_block_report([r["block"] for r in res],
                                        block_cfg))
         log(f"  (d) in {max(r['block']['total_s'] for r in res):.1f} s "
             "(the one-rank references, one rank at a time, included)")
+        paths.update(_p12_serve_report([r["serve"] for r in res],
+                                       block_cfg))
         paths.update(_p12_guarded_report([r["guarded"] for r in res],
                                          p9_losses, dev, model_cfg, tokens))
     log(f"  (a) 2x2, (b)-(f) in {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+def _p12_measured_report(res):
+    """(h)'s checks and log lines from each rank's ``_p12_measured``: the
+    same times, picks and wire decision on every rank, at most four
+    candidates, the output under the pick ``torch.equal`` to the forced
+    one on every rank, ``P12_MEASURED_USES`` launched on every rank.
+    Returns {path: per-rank launches}."""
+    r0 = res[0]
+    same = all(r["times"] == r0["times"] and r["pick"] == r0["pick"]
+               and r["wire_times"] == r0["wire_times"]
+               and r["wire"] == r0["wire"] for r in res)
+    per_rank = {k: [r["launches"][k] for r in res] for k in r0["launches"]
+                if any(r["launches"][k] for r in res)}
+    bad = [k for k in P12_MEASURED_USES if min(per_rank.get(k, [0])) < 1]
+    log("  (h) measured on (2, 2), the slowest rank's median ms: "
+        + ", ".join(f"{c[0]} {1e3 * t:.2f}" for c, t in r0["times"])
+        + f" -> {r0['pick']}; under apply_moe with an auto wire: "
+        + ", ".join(f"{c[2]} {1e3 * t:.2f}" for c, t in r0["wire_times"])
+        + f" -> {r0['wire']}; the same on every rank: {same}; the output "
+        f"torch.equal to {r0['wire']} forced on every rank: "
+        f"{all(r['equal'] for r in res)}; launches per rank {per_rank}; "
+        f"{max(r['s'] for r in res):.1f} s")
+    if not same or len(r0["times"]) > 4 or bad or not all(
+            r["equal"] for r in res):
+        raise AssertionError(f"phase 12 (h): same {same}, "
+                             f"{len(r0['times'])} candidates, kernels {bad} "
+                             f"not launched on every rank, equal "
+                             f"{[r['equal'] for r in res]}")
+    return {"autosched_2x2_measured": per_rank}
+
+
+def _p12_serve_report(res, block_cfg):
+    """(g)'s checks and log lines from each rank's ``_p12_serve_rank``;
+    returns {path: per-rank launches}."""
+    n = len(p12_serve_prompts(block_cfg.vocab_size))
+    paths = {}
+    log(f"  (g) {block_cfg.name} one block, vocab {block_cfg.vocab_size}, "
+        f"served on (2, 2): {n} requests x {P12_SERVE_GEN} tokens; rank 0's "
+        f"one-rank run {res[0]['ref_wall']:.2f} s")
+    for mode, _, _ in P12_SERVE_MODES:
+        runs = [r[mode] for r in res]
+        per_rank = {k: [r["launches"][k] for r in runs]
+                    for k in runs[0]["launches"]
+                    if any(r["launches"][k] for r in runs)}
+        bad = [k for k in P12_SERVE_USES[mode]
+               if min(per_rank.get(k, [0])) < 1]
+        st = runs[0]["stats"]
+        for rk, r in enumerate(runs):
+            lat, wall = r["latency"], r["wall"]
+            log(f"  (g) {mode} rank {rk}: {lat['tok_per_s']:.1f} tok/s, p50 "
+                f"{lat['p50_ms']:.1f} ms, p99 {lat['p99_ms']:.1f} ms (host, "
+                f"gloo); collectives "
+                + ", ".join(f"{k} {1e3 * v[2]:.1f} ms "
+                            f"({100 * v[2] / wall:.1f}%)"
+                            for k, v in sorted(r["comm"].items())))
+        ties = runs[0]["ties"]
+        log(f"  (g) {mode}: {st['prefill_calls']} prefill calls for "
+            f"{st['admitted']} admissions, {st['decode_calls']} decode "
+            f"rounds, prefix hits {st['prefix_hits']}; first logits "
+            f"max_abs_err {max(r['first_err'] for r in runs):.3e}; streams "
+            f"off the one-rank run at a top-2 tie: "
+            f"{sum(len(r['ties']) for r in runs)} "
+            + (f"(rank 0: {[(a, b, f'{g:.2e}', f'{t:.2e}') for a, b, g, t in ties]}) "
+               if ties else "")
+            + f"; launches per rank {per_rank}")
+        failed = [rk for rk, r in enumerate(runs) if not (
+            r["complete"] and r["live"] == 0 and r["agreed"]
+            and r["first_ok"] and not r["off"]
+            and r["stats"]["prefill_calls"] == r["stats"]["admitted"] == n)]
+        if failed or bad:
+            raise AssertionError(
+                f"phase 12 (g) {mode}: ranks {failed} failed "
+                f"({[(r['complete'], r['live'], r['agreed'], r['first_ok'], r['off'], r['stats']) for r in runs]}); "
+                f"kernels {bad} not launched on every rank")
+        paths[f"serve_2x2_{mode}"] = per_rank
+    if not all("decode" in r["summary"] for r in res):
+        raise AssertionError(f"phase 12 (g): no decode decision: "
+                             f"{res[0]['summary']}")
+    log(f"  (g) in {max(r['s'] for r in res):.1f} s")
     return paths
 
 

@@ -16,7 +16,10 @@ owns the joint decision:
   * **measured** mode runs a one-shot calibration on the layer's device:
     each candidate runs ``apply_moe`` on synthetic data of the layer's
     shape, timed by CUDA events (:func:`measure_candidates`), and the
-    observed winner is recorded.
+    observed winner is recorded.  On a mesh every rank times the same
+    candidates in lockstep and takes the slowest rank's time (JAX's
+    ``block_until_ready`` waits for every device), so every rank picks
+    the same winner.
 
 Either way the result is a :class:`ScheduleDecision` cached per
 ``(MoELayerShape, mode, candidates, perf model)`` (measured decisions also
@@ -262,6 +265,8 @@ def decide(shape: MoELayerShape, *, perf_model: Optional[PerfModel] = None,
     device.  The decision is cached on every argument (and, in measured
     mode, on ``measure.device``: a CPU calibration never answers for the
     card) — pass the same arguments, get the identical decision back.
+    A ``measure`` built for a mesh carries ``agree``, which holds every
+    rank to the same key, hit or miss, before any rank calibrates.
     """
     if mode not in ("analytic", "measured"):
         raise ValueError(f"unknown autosched mode {mode!r}")
@@ -284,6 +289,12 @@ def decide(shape: MoELayerShape, *, perf_model: Optional[PerfModel] = None,
     if mode == "measured":
         key += (getattr(measure, "device", None),)
     hit = _CACHE.get(key)
+    agree = getattr(measure, "agree", None) if mode == "measured" else None
+    if agree is not None:
+        # a rank that calibrates enters collectives: every rank must make
+        # the same choice, hit or miss, over the same candidates (the key
+        # holds the grid)
+        agree(key, hit is not None)
     if hit is not None:
         return hit
 
@@ -332,8 +343,9 @@ def decide(shape: MoELayerShape, *, perf_model: Optional[PerfModel] = None,
 
 def measure_candidates(cfg, *, tokens: int, d_model: int, iters: int = 3,
                        warmup: int = 1, seed: int = 0,
-                       device="cuda") -> Callable:
-    """Build a ``measure`` callable timing candidates on ``device``.
+                       device="cuda", mesh=None, dims=None) -> Callable:
+    """Build a ``measure`` callable timing candidates on ``device`` (and,
+    with ``mesh`` and ``dims``, on every rank of the mesh together).
 
     Returns ``f(candidates) -> {candidate: seconds}`` — candidates are
     ``(schedule, n_chunks)`` pairs or ``(schedule, n_chunks, wire_dtype)``
@@ -344,6 +356,21 @@ def measure_candidates(cfg, *, tokens: int, d_model: int, iters: int = 3,
     On a card each call is timed by a pair of CUDA events on the current
     stream, one synchronize per candidate; on the CPU by the host clock.
 
+    On a mesh ``tokens`` is the global pool, as in JAX: every rank draws
+    the same pool and experts from ``seed``, keeps its shards of the
+    experts and hands ``apply_moe(..., replicated=True)`` the pool, whose
+    boundary cuts this rank's rows.  Every rank resolves every candidate
+    first and the ranks agree on which resolved everywhere, so none
+    enters a candidate's collectives that another skips; then each times
+    the candidates in one order, and one ``pmax`` over the mesh gives
+    every rank each candidate's slowest median and whether it failed on
+    any rank (a failure there scores ``inf`` everywhere).  A candidate
+    that resolves everywhere but raises on one rank inside its
+    collectives leaves the others waiting in them, as a failing step
+    would.
+    ``f.agree`` holds the ranks to one cache key and one candidate list
+    before :func:`decide` reads its cache (see there).
+
     The calibration is usually reached inside a forward, often inside an
     activation-checkpointed block, so it leaves the caller's state as it
     found it: it runs under ``torch.no_grad()``, draws from its own
@@ -351,10 +378,11 @@ def measure_candidates(cfg, *, tokens: int, d_model: int, iters: int = 3,
     ``moe_call`` ordinals, and suspends the fp8 saturation monitor (a
     synthetic fp8 candidate must never feed the guard's counts).
     Individual failures score ``inf`` and are printed to stderr; if every
-    candidate fails it raises.  ``f.device`` names the device (part of
-    the measured cache key).
+    candidate fails it raises.  ``f.device`` names the device, and on a
+    mesh the mesh too (part of the measured cache key).
     """
     dev = torch.device(device)
+    on_mesh = mesh is not None and mesh.size > 1
 
     def run(candidates):
         import time
@@ -374,6 +402,11 @@ def measure_candidates(cfg, *, tokens: int, d_model: int, iters: int = 3,
                 params = moe.init_moe_params(gen, cfg)
                 x = torch.randn((1, tokens, d_model), generator=gen,
                                 device=dev)
+                if on_mesh:
+                    from repro_torch.parallel.sharding import local_tree
+                    params = local_tree(
+                        params, moe.moe_param_specs(cfg, mesh, dims), mesh)
+                calls_of = {}
                 for cand in candidates:
                     sched, n_chunks, wire = _norm(cand)
                     c = replace(cfg, schedule=sched,
@@ -381,14 +414,45 @@ def measure_candidates(cfg, *, tokens: int, d_model: int, iters: int = 3,
                                 comm=CommConfig(wire_dtype=wire,
                                                 scaling=cfg.comm.scaling))
                     try:
-                        out[cand] = _median_time(
+                        calls_of[cand] = (moe._mesh_call(
+                            x, params, c, mesh, dims, sched, None, False,
+                            True) if on_mesh else
                             lambda c=c, s=sched: moe.apply_moe(
-                                x, params, cfg=c, schedule=s),
-                            max(iters, 1), max(warmup, 1), dev)
+                                x, params, cfg=c, schedule=s))
+                    except Exception as e:  # noqa: BLE001 — scored inf
+                        errors[cand] = repr(e)
+                if on_mesh:
+                    from repro_torch.parallel import comm
+                    world = mesh.group(mesh.axis_names)
+                    ok = comm.pmax(torch.tensor(
+                        [float(c not in calls_of) for c in candidates],
+                        dtype=torch.float64, device=dev), world).tolist()
+                    for cand, bad in zip(candidates, ok):
+                        if bad and cand in calls_of:
+                            del calls_of[cand]
+                            errors[cand] = "failed to resolve on another rank"
+                for cand in candidates:
+                    if cand not in calls_of:
+                        out[cand] = float("inf")
+                        continue
+                    try:
+                        out[cand] = _median_time(
+                            calls_of[cand], max(iters, 1), max(warmup, 1),
+                            dev)
                     except Exception as e:  # noqa: BLE001 — scored inf
                         out[cand] = float("inf")
                         errors[cand] = repr(e)
-                del params, x
+                if on_mesh:
+                    # the slowest rank's median, and any rank's failure
+                    got = comm.pmax(torch.tensor(
+                        [[out[c] for c in candidates],
+                         [float(c in errors) for c in candidates]],
+                        dtype=torch.float64, device=dev), world).tolist()
+                    for cand, t, bad in zip(candidates, *got):
+                        out[cand] = float("inf") if bad else t
+                        if bad and cand not in errors:
+                            errors[cand] = "failed on another rank"
+                del params, x, calls_of
         finally:
             moe._CALLS.clear()
             moe._CALLS.update(calls)
@@ -405,11 +469,31 @@ def measure_candidates(cfg, *, tokens: int, d_model: int, iters: int = 3,
         if dev.type == "cuda":
             peak = (f", device peak "
                     f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+        where = run.device.replace("|", " on ")
         print(f"autosched: measured {len(candidates)} candidates at "
-              f"{tokens} x {d_model} on {dev} in "
+              f"{tokens} x {d_model} on {where} in "
               f"{time.perf_counter() - t_start:.2f} s{peak}",
               file=sys.stderr, flush=True)
         return out
 
     run.device = str(dev)
+    if on_mesh:
+        run.device += "|" + ",".join(f"{a}={n}"
+                                     for a, n in mesh.shape.items())
+
+        def agree(key, hit):
+            """Hold every rank to this cache key (its candidate grid
+            included), hit or miss (``comm.agree``: a difference raises on
+            every rank).  The key's device names the card's index, which
+            differs between ranks on several cards: its type stands in."""
+            import zlib
+
+            from repro_torch.parallel import comm
+            shared = key[:-1] + (dev.type + run.device[len(str(dev)):],)
+            comm.agree([zlib.crc32(repr(shared).encode()), int(hit)],
+                       mesh.group(mesh.axis_names),
+                       "the measured autoscheduler's cache key and "
+                       "candidates (crc) and whether it is cached", dev)
+
+        run.agree = agree
     return run

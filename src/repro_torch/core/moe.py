@@ -35,7 +35,17 @@ decision is ``s1g`` with one chunk on the f32 wire at every serving and
 training shape (``tests/test_torch_moe.py``, ``tests/test_torch_train.py``
 pin it).  On a mesh the analytic decision is priced with ``h100_model(n_ep,
 n_esp, n_mp)`` and checked equal on every rank at its first call; the
-measured calibration runs on one rank only (ROADMAP item 5.4).
+measured calibration times every candidate on the live mesh, every rank
+taking the slowest rank's time (``autosched.measure_candidates``), after
+the ranks agree on the cache key, hit or miss, and the candidates.
+
+``replicated=True`` (on a mesh) takes the whole pool on every rank, as
+the serving engine holds its rows and as JAX's replicated array enters
+its shard_map: the layer cuts this rank's block of the pool's tokens
+(the batch axes, and MP under ``s1_seqpar``), runs the body, and gathers
+the pool's output back onto every rank, bitwise the same on each.  It
+has no backward (the engine's steps and the calibration run without
+autograd).
 
 Telemetry: the layer's body runs under ``obs.trace_tag(moe_call=,
 schedule=, wire=)``, so the fp8 saturation events it records say which
@@ -218,17 +228,18 @@ def resolve_schedule(cfg: MoEConfig, schedule=None, *, B: int = 1,
                      L: int = 1, infer: bool = False,
                      perf_model: Optional[PerfModel] = None,
                      device="cpu", n_ep: int = 1, n_esp: int = 1,
-                     n_mp: int = 1, n_token_shard: int = 1):
+                     n_mp: int = 1, n_token_shard: int = 1, mesh=None,
+                     dims: Optional[ParallelDims] = None):
     """(schedule name, n_chunks, wire dtype) that ``apply_moe`` runs for a
     global (B, L) token pool split over ``n_token_shard`` ranks, as the JAX
     ``apply_moe`` resolves them: ``"auto"`` (schedule or wire) asks
     ``autosched.decide`` for the layer's ``MoELayerShape`` — chunk
     candidates clamped to the chunked capacity ``cap // n_mp`` (one chunk
     for a decode pool), a forced schedule with an ``"auto"`` wire
-    restricting the grid to itself, a calibration on ``device`` under
-    ``autosched="measured"`` (one rank only) — then the wire ceiling
-    applies, and a chunk count > 1 routes a base schedule to its
-    ``*_pipe`` body."""
+    restricting the grid to itself, a calibration on ``device`` (and on
+    ``mesh``, every rank in lockstep) under ``autosched="measured"`` —
+    then the wire ceiling applies, and a chunk count > 1 routes a base
+    schedule to its ``*_pipe`` body."""
     sched = schedule or cfg.schedule
     n_chunks = max(cfg.pipeline_chunks, 1)
     wire = (cfg.comm or CommConfig()).wire_dtype
@@ -250,12 +261,9 @@ def resolve_schedule(cfg: MoEConfig, schedule=None, *, B: int = 1,
             forced = (UNCHUNKED_OF.get(sched, sched),)
             cands = (clamp_chunks(cap // max(n_mp, 1), n_chunks),)
         wire_cands = autosched.AUTO_WIRE if wire == "auto" else (wire,)
-        if cfg.autosched == "measured" and n_ep * n_esp * n_mp > 1:
-            raise NotImplementedError(
-                "autosched='measured' times candidates on one rank; across "
-                "ranks it comes with ROADMAP item 5.4 (use 'analytic')")
         measure = (autosched.measure_candidates(
-            cfg, tokens=B * L, d_model=cfg.d_model, device=device)
+            cfg, tokens=B * L, d_model=cfg.d_model, device=device,
+            mesh=mesh, dims=dims)
             if cfg.autosched == "measured" else None)
         decision = autosched.decide(shape, perf_model=perf_model,
                                     mode=cfg.autosched,
@@ -278,9 +286,11 @@ def resolve_schedule(cfg: MoEConfig, schedule=None, *, B: int = 1,
 
 def apply_moe(x, params: dict, *, cfg: MoEConfig, mesh=None,
               dims: Optional[ParallelDims] = None, schedule=None,
-              perf_model: Optional[PerfModel] = None, infer: bool = False):
+              perf_model: Optional[PerfModel] = None, infer: bool = False,
+              replicated: bool = False):
     """One MoE layer under the configured schedule.  x: (B, L, M), the
     whole pool on one rank (``mesh=None``) or this rank's block of it on a
+    mesh, or with ``replicated=True`` the whole pool on every rank of the
     mesh (see the module docstring).  Returns ``(y, aux)`` with aux
     ``aux_loss``, ``z_loss``, ``drop_frac`` and ``expert_load`` (the (E,)
     routed rows; on a mesh all four ``pmean``-ed over every axis), as the
@@ -294,8 +304,8 @@ def apply_moe(x, params: dict, *, cfg: MoEConfig, mesh=None,
     if mesh is not None:
         if dims is None:
             raise ValueError("apply_moe(mesh=...) needs dims=")
-        return _apply_moe_mesh(x, params, cfg, mesh, dims, schedule,
-                               perf_model, infer)
+        return _mesh_call(x, params, cfg, mesh, dims, schedule,
+                          perf_model, infer, replicated)()
     B, L, M = x.shape
     sched, n_chunks, wire = resolve_schedule(
         cfg, schedule, B=B, L=L, infer=infer, perf_model=perf_model,
@@ -444,10 +454,13 @@ def _replicated_body(x, wg, w1, w3, w2, info):
     return y, aux
 
 
-def _apply_moe_mesh(x, params, cfg, mesh, dims, schedule, perf_model,
-                    infer):
-    """``apply_moe`` on ``mesh``: the JAX ``apply_moe``'s resolution and
-    shard_map body on this rank's blocks."""
+def _mesh_call(x, params, cfg, mesh, dims, schedule, perf_model, infer,
+               replicated=False):
+    """``apply_moe`` on ``mesh``: the JAX ``apply_moe``'s resolution, done
+    here, and its shard_map body on this rank's blocks, returned as a
+    call that runs it (every collective of the layer is in the call; the
+    measured calibration resolves every candidate before any rank runs
+    one).  ``replicated``: ``x`` is the whole pool on every rank."""
     b, L, M = x.shape
     sizes = dims.sizes(mesh)
     n_ep, n_esp, n_mp = sizes["ep"], sizes["esp"], sizes["mp"]
@@ -456,11 +469,14 @@ def _apply_moe_mesh(x, params, cfg, mesh, dims, schedule, perf_model,
         raise ValueError(f"E={cfg.n_experts} not divisible by EP={n_ep}")
     if n_esp > 1 and cfg.d_ff % n_esp:
         raise ValueError(f"d_ff={cfg.d_ff} not divisible by ESP={n_esp}")
+    if replicated and torch.is_grad_enabled() and x.requires_grad:
+        raise ValueError("apply_moe(replicated=True) has no backward")
     batch_ax = tuple(dims.batch_axes)
     n_batch = axis_size(mesh, batch_ax)
     nonbatch = tuple(a for a in mesh.axis_names if a not in batch_ax)
     n_nonbatch = axis_size(mesh, nonbatch)
-    tokens_global = b * L * n_batch
+    B = b if replicated else b * n_batch
+    tokens_global = B * L
 
     sched = schedule or cfg.schedule
     seqpar = sched in ("s1_seqpar", "s1_seqpar_pipe")
@@ -480,11 +496,11 @@ def _apply_moe_mesh(x, params, cfg, mesh, dims, schedule, perf_model,
         wire = autosched.clamp_wire("f32" if wire == "auto" else wire)
     else:
         sched, n_chunks, wire = resolve_schedule(
-            cfg, sched, B=b * n_batch, L=L, infer=infer,
-            perf_model=perf_model, device=x.device, n_ep=n_ep, n_esp=n_esp,
-            n_mp=n_mp, n_token_shard=n_token_shard)
+            cfg, sched, B=B, L=L, infer=infer, perf_model=perf_model,
+            device=x.device, n_ep=n_ep, n_esp=n_esp, n_mp=n_mp,
+            n_token_shard=n_token_shard, mesh=mesh, dims=dims)
         if (schedule or cfg.schedule) == "auto" or comm.wire_dtype == "auto":
-            _check_agreed(mesh, (cfg, schedule, b * n_batch, L, infer,
+            _check_agreed(mesh, (cfg, schedule, B, L, infer,
                                  id(perf_model)),
                           sched, n_chunks, wire, x.device)
 
@@ -496,30 +512,42 @@ def _apply_moe_mesh(x, params, cfg, mesh, dims, schedule, perf_model,
         kernel=cfg.kernel,
         comm=CommConfig(wire_dtype=wire, scaling=comm.scaling))
     pspecs = moe_param_specs(cfg, mesh, dims)
-    x_block = P(batch_ax or None, None)
-    xt = _boundary_in(x.reshape(b * L, M), x_block, mesh, dims)
-    ws = {k: _boundary_in(params[k], pspecs[k], mesh, dims)
-          for k in ("wg", "w1", "w2", "w3") if params.get(k) is not None}
-    with coll.bound(mesh):
-        if use_fallback:       # the whole pool on every rank
-            xt = coll.mp_all_gather(xt, batch_ax, n_batch, axis=0)
-        elif seqpar:           # this rank's MP slice of the rows
-            xt = coll.mp_split(xt, dims.mp, n_mp, axis=0)
-        y, gaux = _run_body(sched, xt, ws, cfg, info)
-        if use_fallback:
-            y = coll.mp_split(y, batch_ax, n_batch, axis=0)
-        elif seqpar:
-            y = coll.mp_all_gather(y, dims.mp, n_mp, axis=0)
-        routed = gaux.get("routed", torch.zeros(
-            (cfg.n_experts,), dtype=torch.float32, device=x.device))
-        every = tuple(mesh.axis_names)
-        load = coll.pmean(routed, every, mesh.size)
-    y = _boundary_out(y.reshape(b, L, M).to(x.dtype), n_nonbatch)
-    if cfg.n_shared_experts:
-        sharded = pspecs["shared_w1"][1] is not None
-        y = y + _shared_experts(x, params,
-                                mesh.group(dims.mp) if sharded else None)
-    aux = {k: _boundary_out(gaux[k], mesh.size)
-           for k in ("aux_loss", "z_loss", "drop_frac")}
-    aux["expert_load"] = load
-    return y, aux
+
+    def run():
+        xt = x.reshape(b * L, M)
+        if not replicated:
+            xt = _boundary_in(xt, P(batch_ax or None, None), mesh, dims)
+        ws = {k: _boundary_in(params[k], pspecs[k], mesh, dims)
+              for k in ("wg", "w1", "w2", "w3") if params.get(k) is not None}
+        with coll.bound(mesh):
+            if replicated:
+                if not use_fallback:   # this rank's block of the pool
+                    xt = coll.mp_split(xt, token_shard, n_token_shard, axis=0)
+            elif use_fallback:     # the whole pool on every rank
+                xt = coll.mp_all_gather(xt, batch_ax, n_batch, axis=0)
+            elif seqpar:           # this rank's MP slice of the rows
+                xt = coll.mp_split(xt, dims.mp, n_mp, axis=0)
+            y, gaux = _run_body(sched, xt, ws, cfg, info)
+            if replicated:
+                if not use_fallback:   # the pool's output on every rank
+                    y = coll.mp_all_gather(y, token_shard, n_token_shard,
+                                           axis=0)
+            elif use_fallback:
+                y = coll.mp_split(y, batch_ax, n_batch, axis=0)
+            elif seqpar:
+                y = coll.mp_all_gather(y, dims.mp, n_mp, axis=0)
+            routed = gaux.get("routed", torch.zeros(
+                (cfg.n_experts,), dtype=torch.float32, device=x.device))
+            every = tuple(mesh.axis_names)
+            load = coll.pmean(routed, every, mesh.size)
+        y = _boundary_out(y.reshape(b, L, M).to(x.dtype), n_nonbatch)
+        if cfg.n_shared_experts:
+            sharded = pspecs["shared_w1"][1] is not None
+            y = y + _shared_experts(x, params,
+                                    mesh.group(dims.mp) if sharded else None)
+        aux = {k: _boundary_out(gaux[k], mesh.size)
+               for k in ("aux_loss", "z_loss", "drop_frac")}
+        aux["expert_load"] = load
+        return y, aux
+
+    return run

@@ -1,5 +1,5 @@
 """Serving launcher of the port: continuous-batching engine over synthetic
-traffic, on one CUDA card.
+traffic, on one CUDA card or across ranks.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b \\
       --layers 4 --requests 16 --max-batch 8 --gen 32
@@ -23,6 +23,22 @@ the decode MoE schedule's plan stages and writes a Chrome trace there.
 budget); a run ends with the autoscheduler's decisions, one
 ``autosched[...]`` line per layer shape (``decode`` marks the decode
 pools' decisions, kept apart from the prefill buckets').
+
+Across ranks, as ``launch/train.py``: ``--nproc N`` spawns N ranks (or
+takes ``torchrun``'s environment) on ``--mesh data=D,model=M`` (default
+the JAX launcher's ``data=N/2,model=2``; EP over data, ESP == MP over
+model for an MoE config, DP over data and MP over model for a dense one)
+over ``--dist-backend nccl`` (a card a rank) or ``gloo`` (ranks sharing
+one card, or the CPU), e.g.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch \
+      qwen3-moe-30b-a3b --reduced --device cpu --nproc 4 \
+      --mesh data=2,model=2 --dist-backend gloo --smoke
+
+Every rank serves the same requests with its shards of the parameters
+(``Model.param_specs``) through ``Engine(model, mesh, dims)``;
+``--max-batch 0`` sizes the batch for the mesh's EP, ESP and MP.  Rank 0
+alone prints, writes the telemetry and ``--log-json``.
 """
 
 from __future__ import annotations
@@ -42,6 +58,8 @@ from repro_torch.configs import get_config
 from repro_torch.core import autosched
 from repro_torch.core.schedules import SCHEDULES
 from repro_torch.launch.common import device_profile, resolve_device
+from repro_torch.launch.mesh import (check_backend, dims_for, parse_mesh,
+                                     spawn, torchrun_env)
 from repro_torch.models import Model
 from repro_torch.serve import (Engine, SamplerConfig, latency_stats,
                                suggest_max_batch)
@@ -75,8 +93,8 @@ def main(argv=None):
     ap.add_argument("--prefill-chunk", type=int, default=0,
                     help="chunked prefill size in tokens (0 = one-shot)")
     ap.add_argument("--schedule", default=None, choices=SCHEDULES,
-                    help="force one MoE schedule, run on one rank "
-                         "(default: auto, which is s1g there)")
+                    help="force one MoE schedule (default: auto, which "
+                         "is s1g on one rank)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)
@@ -112,6 +130,16 @@ def main(argv=None):
                          "the device's busy share (CUDA only)")
     ap.add_argument("--smoke", action="store_true",
                     help="tiny run, assert clean completion")
+    ap.add_argument("--nproc", type=int, default=1,
+                    help="ranks to spawn (torch.distributed); 1 = this "
+                         "process alone")
+    ap.add_argument("--mesh", default=None,
+                    help="the rank mesh, e.g. data=2,model=2 (default "
+                         "data=NPROC/2,model=2, the JAX launcher's)")
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="torch.distributed backend (required with more "
+                         "than one rank): nccl needs a card a rank, gloo "
+                         "shares one card or runs on the CPU")
     args = ap.parse_args(argv)
     if args.requests < 1:
         ap.error("--requests must be >= 1")
@@ -127,7 +155,64 @@ def main(argv=None):
     dev = resolve_device(args.device)
     if args.profile and dev.type != "cuda":
         ap.error("--profile measures the card: it needs --device cuda")
+    if args.nproc < 1:
+        ap.error("--nproc must be >= 1")
+    if args.nproc > 1 or torchrun_env():
+        if args.dist_backend is None:
+            ap.error("more than one rank needs --dist-backend nccl|gloo")
+        world = (int(os.environ["WORLD_SIZE"]) if torchrun_env()
+                 else args.nproc)
+        args.mesh = args.mesh or default_mesh(world)
+        try:
+            _, names = parse_mesh(args.mesh, world)
+            check_backend(args.dist_backend, world, dev.type)
+        except (ValueError, RuntimeError) as e:
+            ap.error(str(e))
+        if names != ("data", "model"):
+            ap.error(f"--mesh names the launcher's axes: data=D,model=M "
+                     f"(got {names})")
+        if torchrun_env():
+            return _rank(int(os.environ["RANK"]), args, argv)
+        threads = (max(1, (os.cpu_count() or 1) // args.nproc)
+                   if dev.type == "cpu" else None)
+        spawn(_rank, args.nproc, args, argv, backend=args.dist_backend,
+              device=dev.type, threads=threads)
+        return None
+    if args.mesh or args.dist_backend:
+        ap.error("--mesh and --dist-backend need --nproc > 1")
+    return _serve(args, argv, dev)
 
+
+def default_mesh(world: int) -> str:
+    """The JAX launcher's mesh for ``world`` ranks: ``(n // 2, 2)`` data x
+    model (``(1, n)`` where n // 2 is 1)."""
+    d = max(1, world // 2)
+    return f"data={d},model={max(world // d, 1)}"
+
+
+def _rank(rank, args, argv):
+    """One rank of a multi-rank run (``launch.mesh.spawn`` or
+    ``torchrun``): the mesh, then the run.  Only rank 0 writes to
+    stdout."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_distributed
+    from repro_torch.parallel.mesh import make_mesh
+    if not dist.is_initialized():          # torchrun: start it here
+        init_distributed(args.dist_backend, device=args.device)
+    world = dist.get_world_size()
+    mesh = make_mesh(*parse_mesh(args.mesh, world))
+    if rank != 0:
+        sys.stdout = open(os.devnull, "w")
+    dev = (torch.device("cpu") if args.device == "cpu" else
+           torch.device("cuda", torch.cuda.current_device()))
+    print(f"ranks: {world} on mesh {mesh.shape} over "
+          f"{dist.get_backend()}", flush=True)
+    return _serve(args, argv, dev, mesh=mesh)
+
+
+def _serve(args, argv, dev, mesh=None):
+    """The run itself, on one rank (``mesh=None``) or as this rank of
+    ``mesh``."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -137,11 +222,19 @@ def main(argv=None):
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     params = model.init(gen)
+    dims, sizes, lead = None, {"ep": 1, "esp": 1, "mp": 1}, True
+    if mesh is not None:
+        from repro_torch.parallel.sharding import local_tree
+        dims = dims_for(cfg)
+        sizes, lead = dims.sizes(mesh), mesh.rank == 0
+        params = local_tree(params, model.param_specs(params, mesh, dims),
+                            mesh)
     if args.max_batch == 0:          # cost-model bucket sizing (t_decode)
         # mean live context per row: half the prompt spread + the budget
         mean_len = min((4 + args.prompt_len) / 2 + args.gen, args.max_len)
         args.max_batch = suggest_max_batch(
-            cfg, candidates=(1, 2, 4, 8, 16, 32),
+            cfg, n_ep=sizes["ep"], n_esp=sizes["esp"], n_mp=sizes["mp"],
+            candidates=(1, 2, 4, 8, 16, 32),
             n_blocks=args.n_blocks or None, block_size=args.block_size,
             mean_len=mean_len)
         print(f"auto max-batch (t_decode, block budget): {args.max_batch}",
@@ -153,7 +246,8 @@ def main(argv=None):
         print(f"fault plan: {faults.summary()}", flush=True)
 
     def make_engine():
-        return Engine(model, max_batch=args.max_batch, max_len=args.max_len,
+        return Engine(model, mesh, dims, max_batch=args.max_batch,
+                      max_len=args.max_len,
                       schedule=args.schedule,
                       prefill_batch=args.prefill_batch,
                       block_size=args.block_size,
@@ -177,12 +271,14 @@ def main(argv=None):
     profile = None
     if args.profile:
         make_engine().run(params, requests)       # warm-up, not measured
-    if args.metrics_dir:
+    if args.metrics_dir and lead:
         obs.configure(args.metrics_dir, meta={
             "kind": "serve", "arch": args.arch,
             "requests": args.requests, "max_batch": args.max_batch,
             "gen": args.gen, "schedule": args.schedule,
             "device": str(dev),
+            "n_devices": 1 if mesh is None else mesh.size,
+            "mesh": None if mesh is None else dict(mesh.shape),
             "argv": sys.argv[1:] if argv is None else list(argv)})
     engine = make_engine()
     t0 = time.perf_counter()
@@ -242,20 +338,22 @@ def main(argv=None):
             if sched in (None, "auto") or sched.endswith("_seqpar"):
                 sched = "s1d"   # the decode-dedicated plan
             st = trace_schedule(cfg.moe, engine.max_batch, sched,
-                                infer=True, device=dev)
+                                infer=True, device=dev, mesh=mesh,
+                                dims=dims)
             trace_file = os.path.join(args.metrics_dir,
                                       f"trace_{sched}.json")
-            save_chrome_trace(st, trace_file)
+            if lead:
+                save_chrome_trace(st, trace_file)
             obs.emit("stage_trace", schedule=sched, path=trace_file,
                      total_s=st.total_s, n_stages=st.n_stages)
             print(f"stage trace ({sched}, {st.n_stages} stages, "
                   f"{st.total_s * 1e3:.3f} ms) -> {trace_file}", flush=True)
 
     metrics_files = None
-    if args.metrics_dir:
+    if args.metrics_dir and lead:
         metrics_files = list(obs.get_sink().paths)
         obs.close()
-    if args.log_json:
+    if args.log_json and lead:
         os.makedirs(os.path.dirname(os.path.abspath(args.log_json)),
                     exist_ok=True)
         rec = {"device": where, "latency": stats, "engine": s,

@@ -74,8 +74,8 @@ the guards' events, every rank's ``fp8_sat``; its meta names
 on the mesh (the slowest rank's time a stage), ``--profile`` profiles
 one step on every rank (rank 0 prints its own), and rank 0 alone writes
 ``--log-json`` and checks the chaos contract.  ``--autosched measured``
-runs on one rank only (ROADMAP item 5.4): with more than one rank it
-exits 2.
+across ranks times every candidate on the live mesh, every rank taking
+the slowest rank's time, so that every rank picks the same schedule.
 """
 
 from __future__ import annotations
@@ -124,7 +124,9 @@ def main(argv=None):
     ap.add_argument("--autosched", default=None,
                     choices=["analytic", "measured"],
                     help="how schedule/wire 'auto' decides: the cost "
-                         "model, or a one-shot timing of every candidate")
+                         "model, or a one-shot timing of every candidate "
+                         "(across ranks on the live mesh, the slowest "
+                         "rank's time)")
     ap.add_argument("--wire-dtype", default=None,
                     choices=["f32", "bf16", "fp8_e4m3", "auto"],
                     help="wire format of the MoE collectives (on one rank "
@@ -180,9 +182,6 @@ def main(argv=None):
     multi = args.nproc > 1 or torchrun_env()
     if args.nproc < 1:
         ap.error("--nproc must be >= 1")
-    if multi and args.autosched == "measured":
-        ap.error("--autosched measured runs on one rank; across ranks it "
-                 "comes with ROADMAP item 5.4")
     dev = resolve_device(args.device)
     if args.profile and dev.type != "cuda":
         ap.error("--profile measures the card: it needs --device cuda")

@@ -20,7 +20,8 @@ sums over MP.  A query head split across ranks (JAX allows it where
 ``paged_chunk_attn`` is plain array code in JAX too, no Pallas kernel.  The
 port keeps its layout, op order and mask constants: ``-inf`` score masking
 and VALUE-zeroed invalid K/V writes, without which an idle row's NaN would
-reach the null page.
+reach the null page.  On a mesh it runs this rank's heads as
+``apply_attn`` does, over an arena that holds this rank's kv heads only.
 """
 
 from __future__ import annotations
@@ -276,7 +277,8 @@ def init_cache(cfg: AttnConfig, batch, max_len, dtype=torch.float32,
                               device=device)}
 
 
-def paged_chunk_attn(p, cfg: AttnConfig, x, arena, table, starts, lens):
+def paged_chunk_attn(p, cfg: AttnConfig, x, arena, table, starts, lens,
+                     tp=None):
     """One paged-attention primitive for decode, one-shot and chunked
     prefill.  ``x`` (B, C, D): row b holds ``lens[b]`` valid tokens at
     absolute positions ``starts[b] ..``.  ``arena`` is this layer's paged
@@ -287,18 +289,29 @@ def paged_chunk_attn(p, cfg: AttnConfig, x, arena, table, starts, lens):
     JAX version returns a new arena; torch updates the engine's one arena
     and saves the copy), then every query attends its row's whole gathered
     ``(nb * bs)`` context, position p at index p.  Returns (B, C, D).
+
+    With ``tp`` (a ``TensorParallel``) ``p`` holds this rank's shards and
+    the arena this rank's kv heads (``mp_heads``: a replicated kv
+    projection is narrowed to the one kv head this rank's query heads
+    share, as in ``apply_attn``); the result is this rank's row-parallel
+    part of the output, which the caller sums over MP.
     """
     B, C, D = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    kv = {n: p[n] for n in ("wk", "wv", "bk", "bv") if n in p}
+    if tp is not None:
+        H, K, kv0 = mp_heads(cfg, tp.n, tp.index)
+        if kv0 is not None:      # this rank's kv head of the replicated ones
+            kv = {n: w.narrow(-1, kv0 * hd, hd) for n, w in kv.items()}
     N, bs = arena["pos"].shape
     nb = table.shape[1]
     q = (x @ p["wq"]).reshape(B, C, H, hd)
-    k = (x @ p["wk"]).reshape(B, C, K, hd)
-    v = (x @ p["wv"]).reshape(B, C, K, hd)
+    k = (x @ kv["wk"]).reshape(B, C, K, hd)
+    v = (x @ kv["wv"]).reshape(B, C, K, hd)
     if cfg.qkv_bias:
         q = q + p["bq"].reshape(H, hd)
-        k = k + p["bk"].reshape(K, hd)
-        v = v + p["bv"].reshape(K, hd)
+        k = k + kv["bk"].reshape(K, hd)
+        v = v + kv["bv"].reshape(K, hd)
     offs = torch.arange(C, device=x.device)
     qpos = starts[:, None] + offs[None, :]                # (B, C) absolute
     valid_q = offs[None, :] < lens[:, None]

@@ -130,23 +130,37 @@ def apply_block(p, cfg: ModelConfig, kind: str, x, *, positions=None,
 
 
 def paged_block(p, cfg: ModelConfig, kind: str, x, cache, table, starts,
-                lens, *, schedule=None, infer=False):
+                lens, *, schedule=None, infer=False, mesh=None, dims=None,
+                tp=None):
     """Block forward over a paged KV arena: decode (C=1, ``infer=True``),
     one-shot and chunked prefill (``infer=False``) all run this one path.
     ``cache`` is this layer's ``{"attn": arena}``, updated in place.
-    Returns the block's output."""
+    Returns the block's output.
+
+    On a mesh ``x`` is the engine's whole pool on every rank: with ``tp``
+    the attention runs this rank's heads over its kv heads' arena and the
+    dense FFN its columns, each summed over MP (``tp.leave``) as in
+    ``apply_block``; the MoE layer takes the pool replicated
+    (``apply_moe(replicated=True)``), runs this rank's tokens and returns
+    the pool's output on every rank."""
     _check_kind(kind)
     acfg = attn_config(cfg, kind)
     eps = cfg.norm_eps
     h = apply_norm(p["norm1"], x, eps, cfg.kernel)
-    a = attn_mod.paged_chunk_attn(p["attn"], acfg, h, cache["attn"], table,
-                                  starts, lens)
+    if tp is None:
+        a = attn_mod.paged_chunk_attn(p["attn"], acfg, h, cache["attn"],
+                                      table, starts, lens)
+    else:
+        a = tp.leave(attn_mod.paged_chunk_attn(
+            p["attn"], acfg, tp.enter(h), cache["attn"], table, starts,
+            lens, tp=tp))
     if cfg.parallel_block:
-        return x + (a + apply_ffn(p["ffn"], h, cfg.ffn_act))
+        return x + (a + _ffn(p["ffn"], cfg, h, tp))
     x = x + a
     h2 = apply_norm(p["norm2"], x, eps, cfg.kernel)
     if base_kind(kind) == "moe":
         y, _ = apply_moe(h2, p["moe"], cfg=cfg.moe, schedule=schedule,
-                         infer=infer)
+                         infer=infer, mesh=mesh, dims=dims,
+                         replicated=mesh is not None)
         return x + y
-    return x + apply_ffn(p["ffn"], h2, cfg.ffn_act)
+    return x + _ffn(p["ffn"], cfg, h2, tp)

@@ -28,6 +28,7 @@ loss is the global batch's.
 from __future__ import annotations
 
 import math
+from dataclasses import replace
 
 import torch
 import torch.nn.functional as F
@@ -134,15 +135,21 @@ class Model:
                 n)
         return params
 
-    def init_cache(self, batch: int, max_len: int, dtype=None) -> dict:
+    def init_cache(self, batch: int, max_len: int, dtype=None, *,
+                   mesh=None, dims=None) -> dict:
         """KV arena: per run ``{"attn": {"k","v": (n, batch, max_len, Kh,
-        hd), "pos": (n, batch, max_len)}}`` (``pos`` -1 = empty)."""
+        hd), "pos": (n, batch, max_len)}}`` (``pos`` -1 = empty).  On a
+        mesh whose MP group has more than one rank, ``Kh`` is this rank's
+        kv heads (``attention.mp_heads``)."""
         cfg = self.cfg
         dtype = dtype or getattr(torch, cfg.dtype)
+        n_mp = axis_size(mesh, dims.mp) if mesh is not None else 1
         cache = {}
         for r, (kind, n) in enumerate(self.runs):
-            one = init_attn_cache(blk.attn_config(cfg, kind), batch, max_len,
-                                  dtype, self.device)
+            acfg = blk.attn_config(cfg, kind)
+            if n_mp > 1:
+                acfg = replace(acfg, n_kv_heads=mp_heads(acfg, n_mp)[1])
+            one = init_attn_cache(acfg, batch, max_len, dtype, self.device)
             cache[f"run{r}"] = {"attn": {
                 k: v[None].repeat(n, *([1] * v.dim()))
                 for k, v in one.items()}}
@@ -356,7 +363,7 @@ class Model:
                        "expert_load": aux["expert_load"]}
 
     def paged_step(self, params, cache, batch, *, schedule=None,
-                   infer: bool = False):
+                   infer: bool = False, mesh=None, dims=None):
         """One step over the paged KV arena (the serving engine's one path).
 
         ``batch`` holds ``tokens`` (B, C), ``starts`` (B,) absolute position
@@ -366,12 +373,24 @@ class Model:
         C a prefill chunk (``infer=False``: prefill capacity).  The arena
         ``cache`` is updated in place.  Returns ``(last_logits, cache)``,
         ``last_logits[b]`` at row b's last valid position.
+
+        On a mesh (``mesh``, ``dims``) the batch is the whole pool on every
+        rank, the parameters and the arena this rank's shards
+        (``param_specs``, ``init_cache(mesh=)``): the dense layers run
+        Megatron-parallel over MP, the MoE layers under Parm's schedules
+        on this rank's tokens (``paged_block``).  A vocab-parallel head's
+        blocks of logits are all-gathered over MP, so every rank returns
+        the whole rows, the same bits on each: sampling draws from whole
+        rows, with the sampler's own tie rule, and a (B, V) gather of the
+        last positions costs one collective a step.
         """
         cfg = self.cfg
         tokens = batch["tokens"]
         starts, lens, tables = batch["starts"], batch["lens"], batch["tables"]
         B, C = tokens.shape
-        x = embed(params["embed"], tokens)
+        tp = tensor_parallel(mesh, dims, C)
+        vp = self._vocab_sharded(tp)
+        x = embed(params["embed"], tokens, tp if vp else None)
         if not cfg.use_rope:
             pe = sinusoidal_positions(2048, cfg.d_model, x.device)
             qpos = torch.clamp(starts[:, None] + torch.arange(
@@ -382,9 +401,13 @@ class Model:
             for i in range(n):
                 x = blk.paged_block(
                     layer_view(run_p, i), cfg, kind, x, layer_view(run_c, i),
-                    tables, starts, lens, schedule=schedule, infer=infer)
+                    tables, starts, lens, schedule=schedule, infer=infer,
+                    mesh=mesh, dims=dims, tp=tp)
         x = apply_norm(params["final_norm"], x, cfg.norm_eps, cfg.kernel)
         idx = torch.clamp(lens.long() - 1, 0, C - 1)
         h_last = x[torch.arange(B, device=x.device), idx]   # (B, D)
-        logits = self._head(params, h_last[:, None, :])[:, 0]
+        logits = self._head(params, self._head_input(
+            h_last[:, None, :], tp))[:, 0]
+        if vp:
+            logits = comm.all_gather(logits.contiguous(), tp.grp, -1)
         return logits, cache

@@ -209,6 +209,17 @@ def agree(values, grp, what: str, device="cpu") -> list:
     return rows
 
 
+def broadcast_first(values, grp, device="cpu") -> list:
+    """The ``values`` (a few host floats, one count on every member) of the
+    member of JAX index 0, on every member: one AllGather of float64s,
+    of which every member keeps the first row.  A decision that reads a
+    clock reads the first member's on every rank."""
+    mine = torch.tensor(list(values), dtype=torch.float64, device=device)
+    if grp.size == 1:
+        return mine.tolist()
+    return all_gather(mine, grp, 0, tiled=False)[0].tolist()
+
+
 def gather_first(x, grp, senders) -> list:
     """The ``x`` of each member whose ``senders`` entry (by JAX index) is
     true, on the member of JAX index 0, as a list in JAX index order (None

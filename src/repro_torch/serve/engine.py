@@ -39,11 +39,29 @@ Telemetry: the lifecycle events of the JAX engine (``req_queued``,
 through ``repro_torch.obs`` when a sink is installed, each made of values
 the host already holds.  Expert-placement rebalancing comes with a later
 slice.
+
+On a mesh (``Engine(model, mesh, dims)``, the JAX signature) every rank
+runs the same scheduler over the whole row pool, its parameters and KV
+arena its shards (``Model.paged_step(mesh=)``), and the engine holds the
+ranks to one decision a tick.  One clock: each tick starts with rank 0's
+``time.perf_counter()`` broadcast (``comm.broadcast_first``), and every
+read that feeds a decision (the arrival gate, the queue SLO, deadlines,
+the run's origin, a request's submit stamp) takes it; the stamps that
+only report latency (admission, first token, finish) stay the rank's
+own, and only rank 0 reports them.  A request submitted between ticks is
+stamped with the last tick's agreed time.  One plan: ``comm.agree``
+gathers a digest of the tick's plan (admissions with their rows and
+shared prefixes, sheds, cancellations, the round's rows, chunk lengths,
+page tables and keys) before the round's collectives, so a rank that
+decides otherwise raises on every rank instead of leaving the others
+waiting.  Tokens are equal by construction: every rank samples the same
+whole logits rows with the same keys.  Only rank 0 emits telemetry.
 """
 
 from __future__ import annotations
 
 import time
+import zlib
 from collections import deque
 from dataclasses import dataclass, field
 
@@ -52,6 +70,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.obs.registry import Registry, quantile
+from repro_torch.parallel import comm
 from repro_torch.runtime.faults import StarveState
 from repro_torch.serve.kvcache import KVCachePool
 from repro_torch.serve.sampler import SamplerConfig, sample
@@ -140,9 +159,15 @@ class Engine:
     (evict a decode row after this many rounds without progress) and
     ``faults`` (a :class:`repro_torch.runtime.faults.FaultPlan`); per
     request, ``submit(deadline=)``.
+
+    ``mesh`` and ``dims`` (``repro_torch.parallel``) serve on every rank
+    of the mesh together (the module docstring): each rank constructs
+    the engine, submits the same requests in the same order and steps it
+    with its shards of the parameters (``Model.param_specs``).
     """
 
-    def __init__(self, model, *, max_batch: int = 8, max_len: int = 256,
+    def __init__(self, model, mesh=None, dims=None, *, max_batch: int = 8,
+                 max_len: int = 256,
                  schedule=None, prefill_batch: int = 1, eos_token=None,
                  detokenize=None, block_size: int = 16, n_blocks=None,
                  prefix_cache: bool = True, prefill_chunk: int = 0,
@@ -153,8 +178,14 @@ class Engine:
             raise NotImplementedError(
                 "Engine needs full-length KV rows (attn_window "
                 f"{cfg.attn_window} < max_len {max_len})")
-        self.model = model
+        self.model, self.mesh, self.dims = model, mesh, dims
         self.device = model.device
+        if mesh is not None and dims is None:
+            raise ValueError("Engine(mesh=...) needs dims=")
+        # the group every tick's clock and plan go through (None: one rank)
+        self._world = (mesh.group(mesh.axis_names)
+                       if mesh is not None and mesh.size > 1 else None)
+        self._lead = mesh is None or mesh.rank == 0   # reports, emits
         self.max_batch, self.max_len = int(max_batch), int(max_len)
         self.prefill_batch = max(int(prefill_batch), 1)
         self.prefill_chunk = max(int(prefill_chunk), 0)
@@ -163,7 +194,8 @@ class Engine:
             lambda ids: " ".join(str(t) for t in ids))
         self.pool = KVCachePool(model, self.max_batch, self.max_len,
                                 block_size=block_size, n_blocks=n_blocks,
-                                prefix_cache=prefix_cache)
+                                prefix_cache=prefix_cache, mesh=mesh,
+                                dims=dims)
         self.block_size = self.pool.block_size
         self._schedule = schedule
         self.queue: deque = deque()
@@ -187,6 +219,48 @@ class Engine:
         self._starve = StarveState(*sv) if sv is not None else None
         self._tick = 0                           # engine ticks (step calls)
         self._cancelled: list = []               # Completions pending return
+        self._plan = None           # the tick's decisions (mesh: agreed)
+        self._t_tick = None         # the tick's agreed clock (mesh)
+        self._now_arg = None        # the tick's agreed ``now`` (mesh)
+        if self._world is not None:
+            self._sync_clock()
+
+    # --- one clock and one plan across ranks ---------------------------------
+    def _sync_clock(self, now=None) -> None:
+        """Broadcast rank 0's clock (and its ``now``, if any) to every
+        rank: the tick's decisions read these (mesh only)."""
+        t, n = comm.broadcast_first(
+            [time.perf_counter(), float("nan") if now is None else now],
+            self._world, self.device)
+        self._t_tick, self._now_arg = t, (None if now is None else n)
+
+    def _now(self) -> float:
+        """The clock a decision reads: this process's on one rank, the
+        tick's agreed clock on a mesh."""
+        return time.perf_counter() if self._world is None else self._t_tick
+
+    def _note(self, *event) -> None:
+        """Record one decision of this tick for the ranks' agreement."""
+        if self._plan is not None:
+            self._plan.append(event)
+
+    def _agree_plan(self, *arrays) -> None:
+        """Hold every rank to this tick's plan (mesh only): one
+        ``comm.agree`` of (tick, decisions, crc of the decisions and of
+        the round's host arrays), before the round's collectives."""
+        if self._plan is None:
+            return
+        crc = zlib.crc32(repr(self._plan).encode())
+        for a in arrays:
+            crc = zlib.crc32(np.ascontiguousarray(a).tobytes(), crc)
+        n, self._plan = len(self._plan), None
+        comm.agree([self._tick, n, crc], self._world,
+                   f"the serving plan of tick {self._tick} (tick, "
+                   f"decisions, crc)", self.device)
+
+    def _emit(self, kind, **fields) -> None:
+        if self._lead:
+            obs.emit(kind, **fields)
 
     # --- request intake -----------------------------------------------------
     def submit(self, prompt, max_new_tokens: int = 16,
@@ -206,9 +280,9 @@ class Engine:
         req = Request(rid=rid, prompt=prompt,
                       max_new_tokens=int(max_new_tokens), sampler=sampler,
                       arrival=float(arrival), deadline=float(deadline))
-        self.queue.append((req, time.perf_counter()))
-        obs.emit("req_queued", rid=rid, prompt_len=len(prompt),
-                 max_new_tokens=int(max_new_tokens))
+        self.queue.append((req, self._now()))
+        self._emit("req_queued", rid=rid, prompt_len=len(prompt),
+                   max_new_tokens=int(max_new_tokens))
         return rid
 
     # --- load shedding / cancellation ---------------------------------------
@@ -218,18 +292,20 @@ class Engine:
         self.stats["shed"] += 1
         self.stats["shed_blocks" if reason.startswith("blocks")
                    else "shed_queue"] += 1
+        self._note("shed", req.rid, reason)
         t = time.perf_counter()
         self._cancelled.append(Completion(
             rid=req.rid, prompt=req.prompt, tokens=[], text="",
             timing={"queued": t - t_submit}, status="shed", reason=reason))
-        obs.emit("req_shed", rid=req.rid, reason=reason,
-                 queued_s=t - t_submit)
+        self._emit("req_shed", rid=req.rid, reason=reason,
+                   queued_s=t - t_submit)
 
     def _cancel(self, s, status: str, reason: str = "") -> None:
         """Cancel an in-flight request mid-prefill or mid-decode: its pages
         go back to the arena (their ``pos`` maps are reset before the next
         gather, as for a finished request) and the partial generation is
         returned with the given status."""
+        self._note("cancel", s.req.rid, status, reason)
         self.filling = [f for f in self.filling if f is not s]
         self.active.pop(s.slot, None)
         self.pool.release(s.req.rid)
@@ -243,9 +319,9 @@ class Engine:
             rid=s.req.rid, prompt=s.req.prompt, tokens=list(s.generated),
             text=self.detokenize(s.generated), timing=timing,
             status=status, reason=reason))
-        obs.emit("req_cancelled", rid=s.req.rid, status=status,
-                 reason=reason, tokens=len(s.generated),
-                 latency_s=timing["latency"])
+        self._emit("req_cancelled", rid=s.req.rid, status=status,
+                   reason=reason, tokens=len(s.generated),
+                   latency_s=timing["latency"])
 
     def _infeasible_blocks(self, req) -> bool:
         """True when the request's worst-case page demand exceeds the
@@ -259,7 +335,7 @@ class Engine:
     def _enforce_slos(self) -> None:
         """Expire blown deadlines (wall-clock and fault-injected tick
         timeouts) and let the watchdog evict stalled decode rows."""
-        t = time.perf_counter()
+        t = self._now()
         for s in list(self.active.values()) + list(self.filling):
             ft = (self.faults.req_timeout_ticks(s.req.rid)
                   if self.faults is not None else 0)
@@ -282,8 +358,15 @@ class Engine:
         SLOs, admission by block budget (shedding what can never fit or
         waited past the queue SLO), then prefill for the waiting group or
         one decode round (alternating under chunked prefill).  Returns the
-        requests that finished, were shed or were cancelled this tick."""
+        requests that finished, were shed or were cancelled this tick.
+        On a mesh every rank calls it together: it starts with the
+        broadcast of rank 0's clock and ``now``, and holds the ranks to
+        one plan (the module docstring)."""
         self._tick += 1
+        if self._world is not None:
+            self._sync_clock(now)
+            now = self._now_arg
+            self._plan = []
         if self._starve is not None:
             # fault: hold arena blocks hostage through the reservation
             # ledger (exactly the accounting a real leak would consume)
@@ -304,7 +387,7 @@ class Engine:
                 # backpressure, not rejection, unless the queue SLO says
                 # this request has already waited too long
                 if self.queue_slo and \
-                        time.perf_counter() - t_submit > self.queue_slo:
+                        self._now() - t_submit > self.queue_slo:
                     self.queue.popleft()
                     self._shed(req, t_submit,
                                f"queue: waited past SLO {self.queue_slo}s "
@@ -314,6 +397,7 @@ class Engine:
             self.queue.popleft()
             row, shared_toks = self.pool.alloc(req.rid, req.prompt,
                                                req.max_new_tokens)
+            self._note("admit", req.rid, row, shared_toks)
             if shared_toks:
                 self.stats["prefix_hits"] += 1
                 self.stats["prefix_tokens"] += shared_toks
@@ -324,15 +408,16 @@ class Engine:
                 st.delay_left = self.faults.req_delay_rounds(req.rid)
             self.filling.append(st)
             self.stats["admitted"] += 1
-            obs.emit("req_admitted", rid=req.rid,
-                     queued_s=st.t_admit - st.t_submit,
-                     prefix_hit_tokens=shared_toks)
+            self._emit("req_admitted", rid=req.rid,
+                       queued_s=st.t_admit - st.t_submit,
+                       prefix_hit_tokens=shared_toks)
         if self.filling and (self._fill_turn or not self.active):
             self._prefill_chunk_round(params)
             self._fill_turn = False
         elif self.active:
             self._decode_round(params)
             self._fill_turn = True
+        self._agree_plan()           # a tick without a round: its events
         self.stats["max_active"] = max(self.stats["max_active"],
                                        len(self.active))
         self.stats["peak_blocks"] = max(self.stats["peak_blocks"],
@@ -348,24 +433,29 @@ class Engine:
         cancelled).  ``requests`` is an optional iterable of (prompt,
         max_new_tokens, sampler, arrival) tuples / dicts to submit first;
         arrivals are honoured against a wall clock started here.  With a
-        sink installed the run ends with a ``serve_rollup`` event."""
+        sink installed the run ends with a ``serve_rollup`` event.  On a
+        mesh the run's origin, and the submit stamps of ``requests``, are
+        rank 0's clock at the start."""
+        if self._world is not None:
+            self._sync_clock()
         for r in (requests or ()):
             if isinstance(r, dict):
                 self.submit(**r)
             else:
                 self.submit(*r)
         done = []
-        t0 = self._run_t0 = time.perf_counter()
+        t0 = self._run_t0 = (time.perf_counter() if self._world is None
+                             else self._t_tick)
         while self.queue or self.filling or self.active:
             finished = self.step(params, now=time.perf_counter() - t0)
             done.extend(finished)
-            if progress and finished:
+            if progress and finished and self._lead:
                 print(f"[serve] {len(done)} done, {len(self.active)} "
                       f"active, {len(self.queue)} queued", flush=True)
             if not finished and not self.active and not self.filling \
                     and self.queue:
                 time.sleep(0.001)       # all arrivals in the future
-        if obs.enabled():
+        if self._lead and obs.enabled():
             self.emit_rollup()
         return sorted(done, key=lambda c: c.rid)
 
@@ -411,7 +501,8 @@ class Engine:
         with torch.no_grad():
             logits, _ = self.model.paged_step(
                 params, self.pool.cache, batch,
-                schedule=self._schedule, infer=infer)
+                schedule=self._schedule, infer=infer, mesh=self.mesh,
+                dims=self.dims)
             tok = sample(logits, keys, temps, topks)
         return tok.cpu().numpy()
 
@@ -438,8 +529,11 @@ class Engine:
                          np.float32)
         topks = np.array([s.req.sampler.top_k for s in group], np.int32)
         self._flush_freed()
-        tok = self._step(params, tokens, starts, lens, tables,
-                         self._keys(group), temps, topks, infer=False)
+        keys = self._keys(group)
+        self._note("prefill", [s.req.rid for s in group])
+        self._agree_plan(tokens, starts, lens, tables, keys, temps, topks)
+        tok = self._step(params, tokens, starts, lens, tables, keys, temps,
+                         topks, infer=False)
         t = time.perf_counter()
         finished_fill = set()
         for i, s in enumerate(group):
@@ -452,9 +546,9 @@ class Engine:
             self.pool.commit_prefix(s.req.rid, s.req.prompt)
             self.active[s.slot] = s
             finished_fill.add(id(s))
-            obs.emit("req_prefilled", rid=s.req.rid,
-                     prompt_len=len(s.req.prompt),
-                     ttft_s=s.t_first - s.t_submit)
+            self._emit("req_prefilled", rid=s.req.rid,
+                       prompt_len=len(s.req.prompt),
+                       ttft_s=s.t_first - s.t_submit)
         self.filling = [s for s in self.filling
                         if id(s) not in finished_fill]
         self.stats["prefill_calls"] += 1
@@ -488,8 +582,11 @@ class Engine:
         keys[[s.slot for s in states]] = self._keys(states)
         tables = self._tables(states, B)
         self._flush_freed()
-        tok = self._step(params, tokens, steps, np.ones((B,), np.int32),
-                         tables, keys, temps, topks, infer=True)
+        lens = np.ones((B,), np.int32)
+        self._note("decode", [s.req.rid for s in states])
+        self._agree_plan(tokens, steps, lens, tables, keys, temps, topks)
+        tok = self._step(params, tokens, steps, lens, tables, keys, temps,
+                         topks, infer=True)
         for s in states:
             s.last_tok = int(tok[s.slot])
             s.generated.append(s.last_tok)
@@ -498,10 +595,10 @@ class Engine:
         self.stats["decode_calls"] += 1
         self.stats["decode_tokens"] += len(states)
         if obs.enabled():
-            obs.emit("decode_round", tick=self._tick, rows=len(states),
-                     active=len(self.active),
-                     block_occupancy=self.pool.alloc_blocks.n_live
-                     / max(self.pool.n_blocks, 1))
+            self._emit("decode_round", tick=self._tick, rows=len(states),
+                       active=len(self.active),
+                       block_occupancy=self.pool.alloc_blocks.n_live
+                       / max(self.pool.n_blocks, 1))
 
     def _collect_finished(self) -> list:
         done = []
@@ -520,9 +617,9 @@ class Engine:
                       "queued": s.t_admit - s.t_submit}
             self.registry.histogram("latency_s").add(timing["latency"])
             self.registry.histogram("ttft_s").add(timing["ttft"])
-            obs.emit("req_finished", rid=s.req.rid,
-                     tokens=len(s.generated), ttft_s=timing["ttft"],
-                     latency_s=timing["latency"])
+            self._emit("req_finished", rid=s.req.rid,
+                       tokens=len(s.generated), ttft_s=timing["ttft"],
+                       latency_s=timing["latency"])
             done.append(Completion(
                 rid=s.req.rid, prompt=s.req.prompt,
                 tokens=list(s.generated),
@@ -539,7 +636,7 @@ class Engine:
         snap["prefix_hit_rate"] = self.stats["prefix_hits"] / admitted
         snap["block_occupancy"] = (self.pool.alloc_blocks.n_live
                                    / max(self.pool.n_blocks, 1))
-        obs.emit("serve_rollup", **snap)
+        self._emit("serve_rollup", **snap)
         return snap
 
 

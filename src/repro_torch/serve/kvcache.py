@@ -307,12 +307,15 @@ class KVCachePool:
     construction — not on first alloc).  The default arena
     (``n_blocks = max_batch * max_len / block_size``) has exactly the
     slab pool's capacity; pass a smaller ``n_blocks`` to overcommit
-    (admission then reasons about free *blocks*, not free rows).
+    (admission then reasons about free *blocks*, not free rows).  On a
+    mesh (``mesh``, ``dims``) the arena holds this rank's kv heads
+    (``Model.init_cache``); every rank keeps the same page tables, so the
+    block accounting is the one-rank pool's.
     """
 
     def __init__(self, model, max_batch: int, max_len: int, dtype=None, *,
                  block_size: int = 32, n_blocks=None,
-                 prefix_cache: bool = True):
+                 prefix_cache: bool = True, mesh=None, dims=None):
         self.max_batch = int(max_batch)
         self.max_len = int(max_len)
         self.block_size = int(min(block_size, self.max_len))
@@ -326,7 +329,7 @@ class KVCachePool:
         self.n_blocks = int(n_blocks)
         # +1: physical slot 0 is the never-allocated null block
         self.cache = model.init_cache(self.n_blocks + 1, self.block_size,
-                                      dtype)
+                                      dtype, mesh=mesh, dims=dims)
         self._validate_leaves()
         self.alloc_blocks = BlockAllocator(self.n_blocks, self.block_size)
         self.prefix = PrefixCache(self.alloc_blocks) if prefix_cache else None
