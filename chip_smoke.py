@@ -182,18 +182,38 @@ to a plain version):
      (h) on (a)'s merged layer, ``decide`` measured over s1, s2, s1g and
      s2h on the live mesh, then the pick with an ``"auto"`` wire measured
      through ``apply_moe``: the same times and picks on every rank, the
-     output ``torch.equal`` to the pick forced;
+     output ``torch.equal`` to the pick forced; (i) expert placement in
+     the same spawn: (a)'s merged layer under s1 and s1g (f32, forward
+     and backward) with ``p12_placements`` (identity: output, aux and
+     every gradient ``torch.equal`` to (a)'s unplaced run of the
+     schedule; rep2, every expert twice at half capacity, and hot, expert
+     0 on every spare slot: (a)'s tolerances, the drop mask,
+     ``expert_load`` and ``drop_frac`` exact), the weights' exchange
+     bytes and host ms; (b)'s gpt2-moe under ``auto`` with
+     ``placement="auto"``, ``rebalance_every=1``, 4 steps, the gate
+     skewed toward expert 0 (``P12_PLACED_SKEW``): a ``train_rebalance``
+     event with one placement on every rank, ``h100_model``'s modeled
+     times, finite losses, those before the swap equal to an unplaced
+     run's, the placed kernels launched after the swap; (g)'s requests
+     under ``auto`` with the two experts rank 0's one-rank prefill routed
+     most replicated (R = 130, installed by ``autosched.set_placement``):
+     (g)'s checks, and which pools ran the placement; each sub-phase's
+     seconds;
  13. print the kernels' JSON line (each kernel's launches on its main path
      and the phase-3 row at that path's shapes, under ``by_path`` every
      path's launches beside the phase-3 row at that path's shapes, and
-     under ``multirank`` each phase-12 path's launches per rank), then
+     under ``multirank`` each phase-12 path's launches per rank, (i)'s
+     as ``placement_2x2_*``), then
      ``{"ok": true, ...}`` as the last line.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
+import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -1889,7 +1909,8 @@ def _p12_layer_rank(rank, kind, ref_path, model_cfg, with_h=False):
     blocks (``_p12_err``).  Returns per case the readings, the load check,
     the launches and the host ms of the forward and backward with each
     collective's host seconds (after one untimed warm-up case); with
-    ``with_h`` also (h)'s readings on the same layer (``_p12_measured``)."""
+    ``with_h`` also (h)'s readings on the same layer (``_p12_measured``)
+    and (i)'s placed runs of it (``_p12_placed_layer``)."""
     import torch
     from repro_torch.core.moe import apply_moe, moe_param_specs
     from repro_torch.parallel import comm
@@ -1911,8 +1932,10 @@ def _p12_layer_rank(rank, kind, ref_path, model_cfg, with_h=False):
     def block(t, spec):
         return local_shard(t, spec, mesh).to(dev)
 
-    def run(sched, n_chunks, wire, infer):
-        cfg = _p12_cfg(model_cfg, sched, n_chunks, wire)
+    def run(sched, n_chunks, wire, infer, placement=None):
+        from dataclasses import replace
+        cfg = replace(_p12_cfg(model_cfg, sched, n_chunks, wire),
+                      placement=placement)
         p = {k: block(v, specs[k]).requires_grad_(not infer)
              for k, v in ref["params"].items()}
         x = block(ref["xd" if infer else "x"], xspec)
@@ -1932,7 +1955,7 @@ def _p12_layer_rank(rank, kind, ref_path, model_cfg, with_h=False):
 
     _, sched, n_chunks, wire = P12_LAYER[kind][0]
     run(sched, n_chunks, wire, False)          # warm-up, not read
-    out = []
+    out, kept = [], {}
     for name, sched, n_chunks, wire in P12_LAYER[kind]:
         infer = name == "decode"
         wrappers = reset_counts()
@@ -1963,12 +1986,17 @@ def _p12_layer_rank(rank, kind, ref_path, model_cfg, with_h=False):
         out.append({"name": name, "wire": wire, "reads": reads,
                     "load_ok": load_ok, "mult": mult, "launches": launches,
                     "ms": ms, "comm": coll})
+        if with_h and name in P12_PLACED_SCHEDS:
+            kept[name] = (y.detach(), {k: v.detach() for k, v in
+                                       aux.items()}, grads)
         del y, grads
     if not with_h:
         return out
+    placed = _p12_placed_layer(run, kept, mesh, dims, model_cfg, dev)
+    del kept
     p = {k: block(v, specs[k]) for k, v in ref["params"].items()}
     return out, _p12_measured(mesh, dims, p, block(ref["x"], xspec),
-                              model_cfg, dev)
+                              model_cfg, dev), placed
 
 
 #: (h): the measured calibration's grid on (a)'s layer, then the picked
@@ -2028,13 +2056,367 @@ def _p12_measured(mesh, dims, p, x, model_cfg, dev):
             "s": time.perf_counter() - t0}
 
 
+#: (i): expert placement on the mesh.  The layer: (a)'s merged layer under
+#: these schedules with ``p12_placements``' three placements, each against
+#: (a)'s unplaced run of the same schedule (identity ``torch.equal``; rep2
+#: and hot (a)'s f32 tolerances, the drop mask, ``expert_load`` and
+#: ``drop_frac`` exact), each schedule's kernels (``P12_USES``) launched on
+#: every rank
+P12_PLACED_SCHEDS = ("s1", "s1g")
+#: (i)'s training: (b)'s gpt2-moe (2 layers, factor E / k) under
+#: ``schedule="auto"`` and ``placement="auto"``, ``rebalance_every=1``,
+#: these steps (the swap after step 1), the gate skewed toward expert 0
+#: through the sinusoidal positions' cosine features: ``wg[1::2, 0] +=
+#: P12_PLACED_SKEW`` (the position code is the part of a gpt2 token's
+#: normalised input that every token shares; a constant added to the whole
+#: column would be cancelled by the layernorm's centring)
+P12_PLACED_STEPS = 4
+P12_PLACED_SKEW = 0.3
+
+
+def p12_placements(n_experts, n_ep):
+    """(i)'s placements (``tests/helpers/run_placement_parity.py``'s):
+    identity; rep2, every expert twice on distinct EP ranks at half
+    capacity (the effective capacities the unplaced ones); hot, expert 0
+    on every spare slot at full capacity."""
+    from repro_torch.core.placement import ExpertPlacement, identity_placement
+    E = n_experts
+    per = 2 * E // n_ep
+    R = -(-(E + n_ep - 1) // n_ep) * n_ep + n_ep
+    return {"identity": identity_placement(E, n_ep),
+            "rep2": ExpertPlacement(E, n_ep, tuple(
+                (r * (E // n_ep) + i) % E for r in range(n_ep)
+                for i in range(per)), cap_frac=0.5),
+            "hot": ExpertPlacement(E, n_ep, tuple(
+                sorted([0] * (R - E + 1) + list(range(1, E)))),
+                cap_frac=1.0)}
+
+
+def _p12_exchange_bytes(pl, mesh, dims, blocks):
+    """Bytes this rank's placed weights' exchange sends to the other EP
+    ranks, each way (``blocks``: this rank's expert weight blocks)."""
+    from repro_torch.core.moe import _SlotExchange
+    grp = mesh.group(dims.ep)
+    x = _SlotExchange(pl, grp)
+    rows = sum(len(v) for j, v in enumerate(x.send_idx) if j != grp.index)
+    return sum(rows * w[0].numel() * w.element_size() for w in blocks)
+
+
+def _p12_placed_layer(run, base, mesh, dims, model_cfg, dev):
+    """(i)'s layer on one rank of the merged mesh: ``run``
+    (``_p12_layer_rank``'s) under each of ``P12_PLACED_SCHEDS`` and
+    ``p12_placements``, read against (a)'s unplaced run of the schedule
+    (``base``: y, aux, gradients).  Returns per case the check, readings,
+    launches, host ms, the exchange's bytes off the rank each way and
+    each collective's host seconds."""
+    import torch
+    from repro_torch.parallel import comm
+    n_ep = dims.sizes(mesh)["ep"]
+    out = []
+    for sched in P12_PLACED_SCHEDS:
+        yb, auxb, gb = base[sched]
+        for name, pl in p12_placements(model_cfg.moe.n_experts,
+                                       n_ep).items():
+            wrappers = reset_counts()
+            _sync(dev)
+            comm.timing(True)
+            t0 = time.perf_counter()
+            y, aux, grads = run(sched, 1, "f32", False, placement=pl)
+            _sync(dev)
+            ms = (time.perf_counter() - t0) * 1e3
+            coll = comm.times()
+            comm.timing(False)
+            launches = read_counts(wrappers)
+            y = y.detach()
+            if name == "identity":
+                reads = {}
+                ok = (torch.equal(y, yb)
+                      and all(torch.equal(aux[k], auxb[k]) for k in auxb)
+                      and all(torch.equal(grads[k], gb[k]) for k in gb))
+            else:
+                reads = {"y": _p12_err(y, yb)}
+                reads.update({k: _p12_err(g, gb[k])
+                              for k, g in grads.items()})
+                ok = (torch.equal((y == 0).all(-1), (yb == 0).all(-1))
+                      and torch.equal(aux["expert_load"],
+                                      auxb["expert_load"])
+                      and torch.equal(aux["drop_frac"], auxb["drop_frac"])
+                      and all(_p12_ok(r, "f32", k == "y")
+                              for k, r in reads.items()))
+            out.append({"sched": sched, "name": name, "ok": ok,
+                        "reads": reads, "launches": launches, "ms": ms,
+                        "R": pl.n_phys, "cap_frac": pl.cap_frac,
+                        "bytes": _p12_exchange_bytes(
+                            pl, mesh, dims, [gb[k] for k in ("w1", "w2",
+                                                             "w3")
+                                             if k in gb]),
+                        "comm": coll})
+            del y, aux, grads
+    return {"layer": out}
+
+
+def _p12_placed_train(rank, model_cfg, tokens, tmp):
+    """(i)'s training on one rank of the merged mesh: the skewed gpt2-moe
+    (``P12_PLACED_SKEW``) first unplaced for the steps before the swap,
+    then under ``placement="auto"`` with ``rebalance_every=1`` (this
+    rank's events in a sink of its own under ``tmp``).  Returns both runs'
+    losses and step ms, the ``train_rebalance`` events, the modeled times
+    of the swap (``autosched.last_rebalance_times``) and the launches
+    after it."""
+    from dataclasses import replace
+
+    import torch
+    from repro_torch import obs
+    from repro_torch.core import autosched
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.mesh import dims_for
+    from repro_torch.models import Model
+    from repro_torch.obs.sink import read_events
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.parallel.mesh import make_mesh
+    from repro_torch.train import Trainer
+    dev = _p12_device()
+    cfg = _p12_train_cfg(model_cfg)
+    cfg = replace(cfg, moe=replace(cfg.moe, placement="auto"))
+    mesh = make_mesh((2, 2), ("data", "model"))
+    dims = dims_for(cfg)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=tokens[1], global_batch=tokens[0]))
+
+    def run(placement, steps):
+        autosched.clear_cache()
+        tr = Trainer(Model(cfg, device=dev), AdamWConfig(
+            lr=1e-3, warmup_steps=2, total_steps=P12_PLACED_STEPS),
+            mesh=mesh, dims=dims, placement=placement, rebalance_every=1)
+        params, opt = tr.setup(torch.Generator(device=dev).manual_seed(0))
+        with torch.no_grad():
+            for r in params.values():
+                if isinstance(r, dict) and "moe" in r:
+                    r["moe"]["wg"][..., 1::2, 0] += P12_PLACED_SKEW
+        _sync(dev)
+        with contextlib.redirect_stdout(io.StringIO()):   # step lines
+            _, _, hist = tr.run(params, opt, data, steps, log_every=1)
+        _sync(dev)
+        walls = [h["wall_s"] for h in hist]
+        return ([h["loss"] for h in hist],
+                [1e3 * (b - a) for a, b in zip([0.0] + walls, walls)])
+
+    out = {}
+    out["plain_loss"], out["plain_ms"] = run(None, 2)
+    swaps = []
+    set_placement = autosched.set_placement
+
+    def swapping(pl):
+        # the kernels' launches from the first swap on
+        if not swaps:
+            reset_counts()
+        swaps.append(autosched.last_rebalance_times())
+        return set_placement(pl)
+
+    autosched.set_placement = swapping
+    obs.configure(os.path.join(tmp, str(rank)), meta={"kind": "train"})
+    try:
+        out["loss"], out["ms"] = run("auto", P12_PLACED_STEPS)
+        paths = list(obs.get_sink().paths)
+    finally:
+        autosched.set_placement = set_placement
+        obs.close()
+    out["launches"] = read_counts(kernel_wrappers())
+    out["events"] = [{k: e[k] for k in ("step", "epoch", "placement")}
+                     for e in read_events(paths)
+                     if e["event"] == "train_rebalance"]
+    out["priced"] = [[(s, n, tp, tu) for _, s, n, tp, tu in p]
+                     for p in swaps]
+    autosched.clear_cache()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def p12_serve_placement(load, n_ep):
+    """(i)'s serving placement: the two experts that ``load`` (rank 0's
+    one-rank prefill's routed rows) names most, each replicated onto an EP
+    rank other than its own, ranks evened out by moving a cold expert; R =
+    E + 2 slots at full capacity."""
+    import numpy as np
+    from repro_torch.core.placement import ExpertPlacement
+    E = len(load)
+    El = E // n_ep
+    hot = [int(e) for e in np.argsort(-np.asarray(load), kind="stable")[:2]]
+    ranks = [list(range(r * El, (r + 1) * El)) for r in range(n_ep)]
+    for i, h in enumerate(hot):
+        to = (h // El + 1 + i) % n_ep
+        ranks[(to + 1) % n_ep if to == h // El else to].append(h)
+    per = (E + 2) // n_ep
+    for r in range(n_ep):
+        while len(ranks[r]) > per:
+            cold = max(e for e in ranks[r] if e not in hot)
+            ranks[r].remove(cold)
+            min(ranks, key=len).append(cold)
+    return hot, ExpertPlacement(E, n_ep, tuple(
+        e for r in ranks for e in sorted(r)))
+
+
+def _p12_placed_serve(rank, block_cfg, params, ref_path):
+    """(i)'s serving on one rank of the (2, 2) mesh: (g)'s requests under
+    ``auto`` with ``p12_serve_placement`` installed by
+    ``autosched.set_placement``, read against rank 0's one-rank engine by
+    (g)'s rule.  Returns the readings, the placement, which pools ran it
+    (``moe.resolve_placement``'s results by pool kind), the launches and
+    the host seconds."""
+    from dataclasses import replace
+
+    import torch
+    from repro_torch.core import autosched
+    from repro_torch.core import moe as moe_mod
+    from repro_torch.launch.mesh import dims_for
+    from repro_torch.models import Model
+    from repro_torch.parallel.mesh import make_mesh
+    dev = _p12_device()
+    mesh = make_mesh((2, 2), ("data", "model"))
+    dims = dims_for(block_cfg)
+    prompts = p12_serve_prompts(block_cfg.vocab_size)
+    ref = torch.load(ref_path, weights_only=False)
+    hot, pl = p12_serve_placement(ref["prefill_load"].tolist(),
+                                  dims.sizes(mesh)["ep"])
+    cfg = p12_serve_cfg(block_cfg)
+    model = Model(replace(cfg, moe=replace(cfg.moe, placement="auto")),
+                  device=dev)
+    pools = {}
+    resolve = moe_mod.resolve_placement
+
+    def recording(cfg, n_ep, use_fallback, infer):
+        got = resolve(cfg, n_ep, use_fallback, infer)
+        key = ("decode" if infer else "prefill",
+               "dense_decode" if use_fallback else
+               "placed" if got is not None else "uniform")
+        pools[key] = pools.get(key, 0) + 1
+        return got
+
+    autosched.clear_cache()
+    autosched.set_placement(pl)
+    moe_mod.resolve_placement = recording
+    try:
+        wrappers = reset_counts()
+        done, eng, wall, rec = _p12_serve(model, params, prompts, mesh, dims)
+        launches = read_counts(wrappers)
+    finally:
+        moe_mod.resolve_placement = resolve
+        autosched.clear_cache()
+    out = _p12_read_serve(done, eng, rec, ref, prompts)
+    out.update(hot=hot, R=pl.n_phys, assignments=list(pl.assignments),
+               pools={f"{a} {b}": n for (a, b), n in sorted(pools.items())},
+               launches=launches, wall=wall)
+    return out
+
+
+def _p12_placed_report(res):
+    """(i)'s checks and log lines from each rank's runs; returns {path:
+    per-rank launches}."""
+    paths, failed = {}, []
+    for i, case in enumerate(res[0]["layer"]):
+        cases = [r["layer"][i] for r in res]
+        per_rank = {k: [c["launches"][k] for c in cases]
+                    for k in case["launches"]
+                    if any(c["launches"][k] for c in cases)}
+        uses = P12_USES.get(case["sched"], P12_DEFAULT_USES)
+        bad = [k for k in uses if min(per_rank.get(k, [0])) < 1]
+        ok = all(c["ok"] for c in cases) and not bad
+        worst = {k: max((c["reads"][k] for c in cases),
+                        key=lambda r: r["err"] / r["scale"])
+                 for k in case["reads"]}
+        xchg = [(c["bytes"], c["comm"].get("all_to_all_rows"))
+                for c in cases]
+        log(f"  (i) layer {case['sched']} {case['name']} (R={case['R']}, "
+            f"cap_frac {case['cap_frac']:g}): "
+            + ("torch.equal to (a)'s unplaced run (y, aux, gradients)"
+               if case["name"] == "identity" else
+               "; ".join(f"{k} max_abs_err {r['err']:.3e}"
+                         for k, r in worst.items())
+               + "; drop mask, expert_load and drop_frac exact")
+            + f"; launches per rank {per_rank}; host ms "
+            + ", ".join(f"{c['ms']:.1f}" for c in cases)
+            + "; the weights' exchange per rank "
+            + ", ".join(f"{b / 1e6:.1f} MB each way"
+                        + (f" ({t[0]} calls, {1e3 * t[2]:.1f} ms)" if t
+                           else " (no call)") for b, t in xchg)
+            + ("" if ok else f" FAILED (kernels {bad} not on every rank)"))
+        if not ok:
+            failed.append(f"layer {case['sched']} {case['name']}")
+        paths[f"placement_2x2_{case['sched']}_{case['name']}"] = per_rank
+    # training: the swap, the same placement on every rank
+    tr = [r["train"] for r in res]
+    t0 = tr[0]
+    same = all(t["events"] == t0["events"] for t in tr)
+    first = t0["events"][0] if t0["events"] else None
+    # a swap with placed steps after it; the steps up to it are unplaced
+    swapped = first is not None and first["step"] < P12_PLACED_STEPS - 1
+    before = min(len(t0["plain_loss"]), first["step"] + 1 if first else 0)
+    plain_ok = before > 0 and all(
+        t["loss"][:before] == t["plain_loss"][:before] for t in tr)
+    finite = all(math.isfinite(x) for t in tr for x in t["loss"])
+    per_rank = {k: [t["launches"][k] for t in tr] for k in t0["launches"]
+                if any(t["launches"][k] for t in tr)}
+    bad = [k for k in P12_USES["s1g"] if min(per_rank.get(k, [0])) < 1]
+    priced = t0["priced"][0] if t0["priced"] else []
+    log(f"  (i) training, gpt2-moe {P12_TRAIN_LAYERS} layers under auto, "
+        f"wg[1::2, 0] += {P12_PLACED_SKEW}: train_rebalance "
+        + (f"at step {first['step']} -> epoch {first['epoch']}, "
+           f"{first['placement']}" if first else "none")
+        + f" ({len(t0['events'])} in {P12_PLACED_STEPS} steps, the same on "
+        f"every rank: {same}); h100_model "
+        + ", ".join(f"{s} x{n}: t_placed {1e3 * tp:.4f} ms, t_uniform "
+                    f"{1e3 * tu:.4f} ms" for s, n, tp, tu in priced)
+        + "; losses " + " ".join(f"{x:.6f}" for x in t0["loss"])
+        + f" (unplaced {' '.join(f'{x:.6f}' for x in t0['plain_loss'])}, "
+        f"the first {before} equal on every rank: {plain_ok}); step ms per "
+        f"rank " + "; ".join(" ".join(f"{m:.1f}" for m in t["ms"])
+                              for t in tr)
+        + f"; launches after the first swap per rank {per_rank}; "
+        f"{max(r['train_s'] for r in res):.1f} s")
+    if not (same and swapped and plain_ok and finite) or bad:
+        failed.append(f"training (same {same}, swap at step "
+                      f"{first and first['step']}, before the swap "
+                      f"{plain_ok}, finite {finite}, kernels {bad})")
+    paths["placement_2x2_train"] = per_rank
+    # serving under the installed placement
+    sv = [r["serve"] for r in res]
+    s0 = sv[0]
+    per_rank = {k: [s["launches"][k] for s in sv] for k in s0["launches"]
+                if any(s["launches"][k] for s in sv)}
+    bad = [k for k in P12_SERVE_USES["auto"]
+           if min(per_rank.get(k, [0])) < 1]
+    log(f"  (i) serving (g)'s requests under auto with experts {s0['hot']} "
+        f"(rank 0's one-rank prefill's two most routed) replicated, R = "
+        f"{s0['R']}: pools {s0['pools']}; first logits max_abs_err "
+        f"{max(s['first_err'] for s in sv):.3e}; streams off the one-rank "
+        f"run at a top-2 tie: {sum(len(s['ties']) for s in sv)}; "
+        + ", ".join(f"rank {rk} {s['latency']['tok_per_s']:.1f} tok/s"
+                    for rk, s in enumerate(sv))
+        + f"; launches per rank {per_rank}; "
+        f"{max(r['serve_s'] for r in res):.1f} s")
+    n = len(p12_serve_prompts(10))
+    bad_rk = [rk for rk, s in enumerate(sv) if not (
+        s["complete"] and s["live"] == 0 and s["first_ok"] and not s["off"]
+        and s["pools"] == s0["pools"]
+        and any(k.endswith(" placed") for k in s["pools"])
+        and s["stats"]["prefill_calls"] == s["stats"]["admitted"] == n)]
+    if bad_rk or bad:
+        failed.append(f"serving (ranks {bad_rk}, kernels {bad})")
+    paths["placement_2x2_serve"] = per_rank
+    if failed:
+        raise AssertionError(f"phase 12 (i): {failed} (the lines above)")
+    return paths
+
+
 def _p12_merged_rank(rank, ref_path, model_cfg, scheds, steps, tokens,
                      block_cfg, block_tokens, guard_dir):
-    """One rank of the merged (2, 2) mesh: (a)'s cases and (h) on the same
-    layer, then (b) and (c), then (d) on both of its meshes and (g) with
-    (d)'s weights, then (e) and (f), in one spawn."""
-    layer, measured = _p12_layer_rank(rank, "merged", ref_path, model_cfg,
-                                      with_h=True)
+    """One rank of the merged (2, 2) mesh: (a)'s cases, (i)'s placed layer
+    and (h) on the same layer, then (b) and (c), then (d) on both of its
+    meshes, (g) and (i)'s serving with (d)'s weights, (i)'s training, then
+    (e) and (f), in one spawn."""
+    layer, measured, placed = _p12_layer_rank(rank, "merged", ref_path,
+                                              model_cfg, with_h=True)
     out = {"layer": layer, "measured": measured,
            "train": _p12_train_rank(rank, scheds, steps, model_cfg,
                                     tokens)}
@@ -2042,7 +2424,15 @@ def _p12_merged_rank(rank, ref_path, model_cfg, scheds, steps, tokens,
     out["block"], params = _p12_block_rank(rank, block_cfg, block_tokens,
                                            serve_ref)
     out["serve"] = _p12_serve_rank(rank, block_cfg, params, serve_ref)
+    t0 = time.perf_counter()
+    placed["serve"] = _p12_placed_serve(rank, block_cfg, params, serve_ref)
     del params
+    placed["serve_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    placed["train"] = _p12_placed_train(rank, model_cfg, tokens,
+                                        guard_dir + "_placed")
+    placed["train_s"] = time.perf_counter() - t0
+    out["placed"] = placed
     out["guarded"] = _p12_guarded_rank(rank, model_cfg, tokens, guard_dir)
     return out
 
@@ -2569,15 +2959,60 @@ def _p12_serve(model, params, prompts, mesh=None, dims=None, schedule=None):
 
 def _p12_serve_reference(full, block_cfg, dev, path):
     """(g)'s one-rank reference, run by rank 0 with the whole model in its
-    turn of (d): the streams, first logits and gaps, saved to ``path``."""
+    turn of (d): the streams, first logits and gaps, and the prefill
+    pools' routed rows per expert ((i) replicates the two most routed),
+    saved to ``path``."""
     import torch
     from repro_torch.models import Model
+    from repro_torch.models import blocks
     model = Model(p12_serve_cfg(block_cfg), device=dev)
-    done, _, wall, rec = _p12_serve(
-        model, _detach(full), p12_serve_prompts(block_cfg.vocab_size))
+    apply_moe, prefill = blocks.apply_moe, []
+
+    def recording(x, params, **kw):
+        y, aux = apply_moe(x, params, **kw)
+        if not kw.get("infer"):
+            prefill.append(aux["expert_load"].cpu())
+        return y, aux
+
+    blocks.apply_moe = recording
+    try:
+        done, _, wall, rec = _p12_serve(
+            model, _detach(full), p12_serve_prompts(block_cfg.vocab_size))
+    finally:
+        blocks.apply_moe = apply_moe
     torch.save({"tokens": {r: c.tokens for r, c in done.items()},
-                "first": rec["first"], "gap": rec["gap"], "wall": wall},
-               path)
+                "first": rec["first"], "gap": rec["gap"], "wall": wall,
+                "prefill_load": sum(prefill)}, path)
+
+
+def _p12_read_serve(done, eng, rec, ref, prompts):
+    """One mesh serving run read against rank 0's one-rank run ``ref``:
+    every request complete, every page back, each request's first logits
+    (rtol 2e-4, atol 2e-5), and where a stream leaves the one-rank one,
+    whether that step's one-rank top-2 gap is within the tolerance (a
+    tie) or not (off); the engine's counts and latencies."""
+    from repro_torch.serve import latency_stats
+    complete = (len(done) == len(prompts) and all(
+        c.status == "ok" and len(c.tokens) == P12_SERVE_GEN
+        for c in done.values()))
+    first = {rid: _p12_err(rec["first"][rid], ref["first"][rid])
+             for rid in range(len(prompts))}
+    ties, off = [], []
+    for rid, c in done.items():
+        want = ref["tokens"][rid]
+        j = next((j for j, (a, b) in enumerate(zip(c.tokens, want))
+                  if a != b), None)
+        if j is None:
+            continue
+        gap, top = ref["gap"][(rid, len(prompts[rid]) + j)]
+        tol = P12_SERVE_ATOL + P12_SERVE_RTOL * abs(top)
+        (ties if gap <= tol else off).append((rid, j, gap, tol))
+    return {"complete": complete, "stats": dict(eng.stats),
+            "live": eng.pool.n_live,
+            "first_ok": all(r["elem_ok"] for r in first.values()),
+            "first_err": max(r["err"] for r in first.values()),
+            "ties": ties, "off": off,
+            "latency": latency_stats(done.values())}
 
 
 def _p12_serve_rank(rank, block_cfg, params, ref_path):
@@ -2594,7 +3029,6 @@ def _p12_serve_rank(rank, block_cfg, params, ref_path):
     from repro_torch.models import Model
     from repro_torch.parallel import comm
     from repro_torch.parallel.mesh import make_mesh
-    from repro_torch.serve import latency_stats
     t_all = time.perf_counter()
     dev = _p12_device()
     mesh = make_mesh((2, 2), ("data", "model"))
@@ -2602,6 +3036,7 @@ def _p12_serve_rank(rank, block_cfg, params, ref_path):
     prompts = p12_serve_prompts(block_cfg.vocab_size)
     ref = torch.load(ref_path, weights_only=False)
     agreed, agree = [], comm.agree
+    measure = autosched.measure_candidates
 
     def counting(values, grp, what, device="cpu"):
         if what.startswith("the serving plan"):
@@ -2609,6 +3044,9 @@ def _p12_serve_rank(rank, block_cfg, params, ref_path):
         return agree(values, grp, what, device)
 
     comm.agree = counting
+    # ``measured`` times each candidate once after its warm-up call, as (h)
+    # does: the checks read the pick's tokens, not the medians' spread
+    autosched.measure_candidates = functools.partial(measure, iters=1)
     out = {"ref_wall": ref["wall"]}
     try:
         for mode, schedule, how in P12_SERVE_MODES:
@@ -2621,33 +3059,13 @@ def _p12_serve_rank(rank, block_cfg, params, ref_path):
             coll = comm.times()
             comm.timing(False)
             launches = read_counts(wrappers)
-            s = eng.stats
-            complete = (len(done) == len(prompts) and all(
-                c.status == "ok" and len(c.tokens) == P12_SERVE_GEN
-                for c in done.values()))
-            first = {rid: _p12_err(rec["first"][rid], ref["first"][rid])
-                     for rid in range(len(prompts))}
-            ties, off = [], []
-            for rid, c in done.items():
-                want = ref["tokens"][rid]
-                j = next((j for j, (a, b) in enumerate(zip(c.tokens, want))
-                          if a != b), None)
-                if j is None:
-                    continue
-                gap, top = ref["gap"][(rid, len(prompts[rid]) + j)]
-                tol = P12_SERVE_ATOL + P12_SERVE_RTOL * abs(top)
-                (ties if gap <= tol else off).append((rid, j, gap, tol))
-            out[mode] = {
-                "complete": complete, "stats": dict(s),
-                "live": eng.pool.n_live,
-                "agreed": agreed == list(range(1, eng._tick + 1)),
-                "first_ok": all(r["elem_ok"] for r in first.values()),
-                "first_err": max(r["err"] for r in first.values()),
-                "ties": ties, "off": off, "wall": wall,
-                "latency": latency_stats(done.values()),
-                "launches": launches, "comm": coll}
+            out[mode] = _p12_read_serve(done, eng, rec, ref, prompts)
+            out[mode].update(
+                agreed=agreed == list(range(1, eng._tick + 1)), wall=wall,
+                launches=launches, comm=coll)
     finally:
         comm.agree = agree
+        autosched.measure_candidates = measure
     out["summary"] = autosched.cache_summary()
     out["s"] = time.perf_counter() - t_all
     return out
@@ -2916,6 +3334,14 @@ def multirank(dev, model_cfg=None, tokens=(8, 1024), block_cfg=None,
             "(the one-rank references, one rank at a time, included)")
         paths.update(_p12_serve_report([r["serve"] for r in res],
                                        block_cfg))
+        paths.update(_p12_placed_report([r["placed"] for r in res]))
+        layer_s = max(sum(c["ms"] for c in r["placed"]["layer"])
+                      for r in res) / 1e3
+        train_s = max(r["placed"]["train_s"] for r in res)
+        serve_s = max(r["placed"]["serve_s"] for r in res)
+        log(f"  (i) in {layer_s + train_s + serve_s:.1f} s (layer "
+            f"{layer_s:.1f}, training {train_s:.1f}, serving "
+            f"{serve_s:.1f})")
         paths.update(_p12_guarded_report([r["guarded"] for r in res],
                                          p9_losses, dev, model_cfg, tokens))
     log(f"  (a) 2x2, (b)-(f) in {time.perf_counter() - t0:.1f} s")

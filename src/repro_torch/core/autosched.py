@@ -32,9 +32,16 @@ model make identical picks.
 ``"auto"`` or its wire dtype is ``"auto"``; ``launch/train.py --autosched
 measured`` switches modes from the command line.  The process-wide wire
 ceiling (:func:`set_wire_ceiling`) is the guard rails' fp8 overflow
-fallback.  The placement registry keys decisions by placement epoch as in
-JAX; placements themselves (``decide_placement``, ``maybe_rebalance``)
-come with the port of ``core/placement.py``.
+fallback.
+
+The placement registry (:func:`set_placement`, :func:`current_placement`)
+holds the expert placement that ``MoEConfig(placement="auto")`` layers
+run, and keys decisions by placement epoch as in JAX.
+:func:`decide_placement` prices a load-derived placement against uniform
+with the skew-aware cost model, and :func:`maybe_rebalance` (the
+``Trainer``'s and the ``Engine``'s trigger) installs one that wins on
+every layer shape decided so far; on a mesh every rank is held to the
+same outcome before any rank installs it.
 """
 
 from __future__ import annotations
@@ -339,6 +346,159 @@ def decide(shape: MoELayerShape, *, perf_model: Optional[PerfModel] = None,
              tokens=shape.B * shape.L, d_model=shape.M, E=shape.E,
              placement_epoch=_PLACEMENT_EPOCH)
     return decision
+
+
+def decide_placement(shape, loads, *, schedule, n_chunks: int = 1,
+                     candidate=None, perf_model: Optional[PerfModel] = None,
+                     capacity_factor: float = 1.0, top_k: int = 1,
+                     margin: float = 1.05, max_replicas=None):
+    """Score a load-derived expert placement against uniform for one
+    layer shape (the JAX function, with the card's ``h100_model`` as the
+    default cost model).
+
+    Builds ``candidate`` (default: ``placement_from_loads`` over the
+    observed per-expert ``loads``), prices the layer's plan both ways
+    with the skew-aware cost model (``PerfModel.t_plan(..., loads=...)``
+    — uniform pays the max-rank load inflation, the placed plan pays its
+    shrunk pool at its own residual imbalance), and returns
+    ``(placement_or_None, t_placed, t_uniform)`` where the placement is
+    ``None`` unless it beats uniform by at least ``margin``.
+    """
+    from repro_torch.core.placement import placement_from_loads
+
+    pm = perf_model or h100_model(shape.n_ep, shape.n_esp, shape.n_mp)
+    if candidate is None:
+        candidate = placement_from_loads(
+            loads, shape.n_ep, n_experts=shape.E,
+            capacity_factor=capacity_factor, top_k=top_k,
+            max_replicas=max_replicas, epoch=_PLACEMENT_EPOCH + 1)
+    t_uni = pm.t_plan(planlib.plan_for_shape(schedule, shape, n_chunks),
+                      shape, loads=loads)
+    if candidate is None or candidate.is_identity:
+        return None, t_uni, t_uni
+    t_cand = pm.t_plan(
+        planlib.plan_for_shape(schedule, shape, n_chunks,
+                               placement=candidate), shape, loads=loads)
+    win = t_cand * margin < t_uni
+    return (candidate if win else None), t_cand, t_uni
+
+
+#: ``maybe_rebalance``'s outcome without a change (the JAX function's None)
+_KEEP = object()
+
+
+def _rebalance_outcome(loads, *, margin, capacity_factor, top_k,
+                       perf_model, max_replicas, infer):
+    """What ``maybe_rebalance`` would install (a placement, or None for
+    uniform), ``_KEEP`` for no change, and the modeled times of the
+    candidate and of uniform on each shape it scored."""
+    import numpy as np
+
+    from repro_torch.core.placement import identity_placement
+    from repro_torch.core.placement import placement_from_loads
+
+    loads = np.asarray(loads, dtype=np.float64)
+    seen, todo = set(), []
+    for key, d in _CACHE.items():
+        shape = key[0]
+        if bool(getattr(shape, "infer", False)) != infer:
+            continue
+        if shape.n_ep <= 1 or shape.E != loads.size:
+            continue
+        sk = (shape, d.schedule, d.n_chunks)
+        if sk in seen:
+            continue
+        seen.add(sk)
+        todo.append(sk)
+    if not todo:
+        return _KEEP, []
+    n_ep = todo[0][0].n_ep
+    cand = placement_from_loads(
+        loads, n_ep, n_experts=int(loads.size),
+        capacity_factor=capacity_factor, top_k=top_k,
+        max_replicas=max_replicas, epoch=_PLACEMENT_EPOCH + 1)
+    if infer and cand.cap_frac < 1.0:
+        # decode layers run drop-free (apply_moe forces cap_frac=1.0), so
+        # score the candidate the way decode will run it; a capacity-
+        # shrink-only candidate (no replication) is a bare permutation at
+        # full capacity: uniform
+        cand = identity_placement(cand.n_experts, n_ep) \
+            if cand.n_phys == cand.n_experts \
+            else replace(cand, cap_frac=1.0)
+    if cand.is_identity:
+        # loads evened out: back to uniform, if a placement is installed
+        return (None if _PLACEMENT is not None else _KEEP), []
+    cur = _PLACEMENT
+    if cur is not None and cur.assignments == cand.assignments \
+            and abs(cur.cap_frac - cand.cap_frac) < 0.05:
+        return _KEEP, []     # already running (close enough to) this one
+    priced = []
+    for shape, sched, nc in todo:
+        if shape.n_ep != n_ep:
+            continue  # placement is per EP degree; skip foreign meshes
+        got, t_cand, t_uni = decide_placement(
+            shape, loads, schedule=sched, n_chunks=nc, candidate=cand,
+            perf_model=perf_model, margin=margin)
+        priced.append((shape, sched, nc, t_cand, t_uni))
+        if got is None:
+            return _KEEP, priced
+    return cand, priced
+
+
+def maybe_rebalance(loads, *, margin: float = 1.05,
+                    capacity_factor: float = 1.0, top_k: int = 1,
+                    perf_model: Optional[PerfModel] = None,
+                    max_replicas=None, infer: bool = False, mesh=None,
+                    device="cpu"):
+    """The rebalance trigger (the JAX function): derive a placement from
+    the live load EMA, score it against uniform over every compatible
+    cached decision, and install it on a win.
+
+    ``loads`` is the smoothed per-expert load vector (``LoadEMA.value``).
+    Candidate shapes come from the decision cache — the layers this
+    process has decided for (``infer`` selects the decode class), so a
+    layer under a forced schedule never rebalances.  The candidate must
+    beat uniform by ``margin`` on *every* compatible shape (the placement
+    is process-wide, so a loss anywhere vetoes).  On a win
+    :func:`set_placement` installs it and the new epoch is returned; if
+    the loads have evened out (identity candidate) while a placement is
+    installed, the placement is cleared (also a new epoch).  Returns None
+    when nothing changes.
+
+    On a ``mesh`` every rank is held to one outcome first: one
+    ``comm.agree`` of a digest of the placement it would install (its
+    assignments and ``cap_frac``, "none" for uniform, "keep" for no
+    change), on every call, so a rank that would install another
+    placement raises on every rank and none is left waiting.  The
+    modeled times of the last call (candidate and uniform per shape)
+    stay in ``last_rebalance_times()``."""
+    global _LAST_PRICED
+    out, _LAST_PRICED = _rebalance_outcome(
+        loads, margin=margin, capacity_factor=capacity_factor,
+        top_k=top_k, perf_model=perf_model, max_replicas=max_replicas,
+        infer=infer)
+    if mesh is not None and mesh.size > 1:
+        import zlib
+
+        from repro_torch.parallel import comm
+        what = ("keep" if out is _KEEP else "none" if out is None else
+                (tuple(out.assignments), repr(out.cap_frac)))
+        comm.agree([zlib.crc32(repr(what).encode())],
+                   mesh.group(mesh.axis_names),
+                   f"the expert placement to install (crc of {what!r})",
+                   device)
+    if out is _KEEP:
+        return None
+    return set_placement(out)
+
+
+_LAST_PRICED: list = []
+
+
+def last_rebalance_times() -> list:
+    """``(shape, schedule, n_chunks, t_placed, t_uniform)`` for each shape
+    the last :func:`maybe_rebalance` call priced (modeled seconds)."""
+    return list(_LAST_PRICED)
 
 
 def measure_candidates(cfg, *, tokens: int, d_model: int, iters: int = 3,

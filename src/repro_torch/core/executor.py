@@ -32,10 +32,17 @@ The gate's scalar aux (aux and z losses, drop fraction) come back
 ``pmean``-ed over every axis of the layer, as in JAX.  Wire precision:
 stages with ``wire=True`` get the plan's stamped ``CommConfig`` and call
 the ``wire_*`` collective twins; everything else calls the raw
-collectives.  A plan that carries an expert placement raises
-``NotImplementedError``: placement comes with a later slice of the port
-(ROADMAP item 6).  ``execute_prefix`` runs the first k stages for the
-stage-timing harness (``repro_torch.obs.trace``).
+collectives.  A plan that carries an expert placement
+(``plan.apply_placement``) runs its stages over the placement's ``R``
+physical slots, as the JAX executor does: the gate keeps ``r_e *
+placed_cap`` slots for a logical expert with ``r_e`` replicas (a capacity
+vector), slot ``s`` of expert ``e`` goes to replica ``s % r_e`` at
+physical slot ``s // r_e`` (``gating.flat_slots(placed=)``), dispatch and
+combine run over ``R * cap`` rows, and the pool-form grouped stage counts
+``ceil((routed_e - j) / r_e)`` rows in replica ``j``.  The expert weights
+must already be the placed ones, this rank's ``R / n_ep`` physical slots
+(``apply_moe`` exchanges them).  ``execute_prefix`` runs the first k
+stages for the stage-timing harness (``repro_torch.obs.trace``).
 """
 
 from __future__ import annotations
@@ -97,14 +104,35 @@ def _gate_cap(info, spec: str) -> int:
     raise ValueError(f"unknown gate cap spec {spec!r}")
 
 
-class _Ctx:
-    __slots__ = ("info", "wg", "w1", "w3", "w2", "comm", "gate", "dtype")
+class _PlacedTables:
+    """An ``ExpertPlacement``'s lookup tables on the layer's device (tiny
+    int32 tensors; the placement itself stays on the host)."""
 
-    def __init__(self, info, wg, w1, w3, w2, comm, dtype):
+    __slots__ = ("n_phys", "assign", "rep_count", "rep_index", "rep_table")
+
+    def __init__(self, pl, device):
+        def t(a):
+            return torch.as_tensor(a, dtype=torch.int32, device=device)
+        self.n_phys = pl.n_phys
+        self.assign = t(pl.assignments)                          # (R,)
+        self.rep_count = t(pl.rep_count)                         # (E,)
+        self.rep_index = t(pl.replica_index)                     # (R,)
+        self.rep_table = t(pl.rep_table)                         # (E, r*)
+
+
+class _Ctx:
+    __slots__ = ("info", "wg", "w1", "w3", "w2", "comm", "gate", "dtype",
+                 "placement", "placed")
+
+    def __init__(self, info, wg, w1, w3, w2, comm, dtype, placement=None,
+                 device=None):
         self.info, self.comm = info, comm
         self.wg, self.w1, self.w3, self.w2 = wg, w1, w3, w2
         self.gate = None     # (GateResult, cap) once the gate stage ran
         self.dtype = dtype   # layer-input dtype (raw-wire decode target)
+        self.placement = placement
+        self.placed = _PlacedTables(placement, device) \
+            if placement is not None else None
 
 
 def _emit(st, vals, ctx):
@@ -118,12 +146,24 @@ def _emit(st, vals, ctx):
 
     if kind == "gate":
         cap = _gate_cap(info, st.p("cap", "pool"))
-        g = topk_gate(vals[0], ctx.wg, info.gate, cap)
+        if ctx.placed is not None:
+            # placed: cap becomes the per-physical-slot capacity; the gate
+            # keeps r_e * cap slots per logical expert (a capacity vector),
+            # so a replicated hot expert drops less
+            cap = st.p("placed_cap") or ctx.placement.scaled_cap(cap)
+            g = topk_gate(vals[0], ctx.wg, info.gate,
+                          ctx.placed.rep_count * cap)
+        else:
+            g = topk_gate(vals[0], ctx.wg, info.gate, cap)
         ctx.gate = (g, cap)
         return ctx.gate
 
     if kind == "dispatch":
         tokens, (g, cap) = vals
+        if ctx.placed is not None:
+            return dispatch(tokens, g.expert_idx, g.slot_idx, cap,
+                            ctx.placed.n_phys, info.kernel,
+                            flat=g.flat(cap, E, ctx.placed))
         return dispatch(tokens, g.expert_idx, g.slot_idx, cap, E,
                         info.kernel, flat=g.flat(cap, E))
 
@@ -143,6 +183,7 @@ def _emit(st, vals, ctx):
         d = vals[0]
         if not st.p("fused"):
             # baseline layout: (E, c, M) -> (Ne, El, c, M) EP blocks
+            # (the first dim is R physical slots under a placement)
             sb = d.reshape(Ne, d.shape[0] // Ne, d.shape[1], -1)
             rb = coll.wire_ep_all_to_all(sb, info.ep_axes, Ne, comm)
             return coll.to_expert_batch(rb)
@@ -180,7 +221,7 @@ def _emit(st, vals, ctx):
             back = coll.wire_ep_all_to_all(
                 coll.from_expert_batch(h, Ne), info.ep_axes, Ne, comm)
             return back.reshape(back.shape[0] * back.shape[1],
-                                back.shape[2], -1)      # (E, c, M)
+                                back.shape[2], -1)      # (E|R, c, M)
         y4 = coll.from_expert_batch_em(h, G)
         if st.p("saa"):
             return coll.saa_combine_allgather(
@@ -204,7 +245,7 @@ def _emit(st, vals, ctx):
             back = coll.wire_ep_esp_all_to_all(
                 y4, info.ep_axes, info.esp_axes, G, comm, split_axis=1,
                 concat_axis=1)
-        mine = coll.undump_reduce_em(back, Ne, Ns)      # (E, c, M)
+        mine = coll.undump_reduce_em(back, Ne, Ns)      # (E|R, c, M)
         if not st.p("stack_ag"):
             return mine
         if Nm == 1:
@@ -217,7 +258,7 @@ def _emit(st, vals, ctx):
     if kind == "combine":
         buf, (g, cap) = vals
         return combine(buf, g.expert_idx, g.slot_idx, g.weights, cap,
-                       info.kernel, flat=g.flat(cap, E))
+                       info.kernel, flat=g.flat(cap, E, ctx.placed))
 
     if kind == "slice":
         i, n = st.p("index"), st.p("n")
@@ -230,7 +271,7 @@ def _emit(st, vals, ctx):
         if st.p("mode", "concat") == "concat":
             return (vals[0] if len(vals) == 1
                     else torch.cat(vals, dim=axis))
-        # stack_mp: parts are (E, Nm*cs, M); restore the (mp_rank, chunk,
+        # stack_mp: parts are (E|R, Nm*cs, M); restore the (mp_rank, chunk,
         # slot) capacity order of the pre-split buffer
         parts = [p.reshape(p.shape[0], Nm, -1, p.shape[-1]) for p in vals]
         stacked = torch.stack(parts, dim=2)             # (E, Nm, n, cs, M)
@@ -287,9 +328,23 @@ def _emit_grouped(st, vals, ctx):
     # slots are contiguous from 0, so its routed rows per expert are
     # clip(routed - ci*c, 0, c)
     ci = st.p("chunk_index", 0)
-    routed = torch.clamp(g.aux["load"], max=float(cap)).to(torch.int32)
-    cnt = torch.clamp(routed - ci * c, 0, c)                     # (E,)
-    nl = E // Ne
+    if ctx.placed is not None:
+        # placed: rows of logical expert e land round-robin on its
+        # replicas, so physical slot p (replica j of expert a_p) holds
+        # ceil((routed_a - j) / r_a) rows, contiguous from 0
+        t = ctx.placed
+        routed = torch.minimum(g.aux["load"],
+                               (t.rep_count * cap).float()).to(torch.int32)
+        r = t.rep_count[t.assign.long()]
+        cnt_p = torch.clamp(torch.div(routed[t.assign.long()] - t.rep_index
+                                      + r - 1, r, rounding_mode="floor"),
+                            0, cap)                                # (R,)
+        cnt = torch.clamp(cnt_p - ci * c, 0, c)
+        nl = t.n_phys // Ne                  # this rank's physical slots
+    else:
+        routed = torch.clamp(g.aux["load"], max=float(cap)).to(torch.int32)
+        cnt = torch.clamp(routed - ci * c, 0, c)                 # (E,)
+        nl = E // Ne
     snd = cnt.reshape(Ne, nl).T[:, :, None].expand(nl, Ne, Ns).reshape(
         nl, G)
     rcv = coll.ep_esp_all_to_all(snd, info.ep_axes, info.esp_axes, G,
@@ -302,19 +357,17 @@ def _emit_grouped(st, vals, ctx):
 
 def _start(plan: Plan, x, wg, w1, w3, w2, info):
     """(validated stage order, fresh context) for one run of ``plan``."""
-    if getattr(plan, "placement", None) is not None:
-        raise NotImplementedError(
-            f"plan {plan.name!r} carries an expert placement: placement "
-            "comes with a later slice of the port (ROADMAP item 6)")
     return validate(plan), _Ctx(info, wg, w1, w3, w2,
-                                getattr(plan, "comm", None), x.dtype)
+                                getattr(plan, "comm", None), x.dtype,
+                                getattr(plan, "placement", None), x.device)
 
 
 def execute(plan: Plan, x, wg, w1, w3, w2, info):
     """Run one MoE layer under ``plan`` on this rank.  ``x`` is the (S, M)
     token slice; returns ``(y, aux)`` with the gate's aux (aux and z
     losses and drop fraction ``pmean``-ed over the layer's axes; this
-    rank's load and routed rows)."""
+    rank's load and routed rows).  Under a placed plan the expert weights
+    are this rank's physical slots (the module docstring)."""
     order, ctx = _start(plan, x, wg, w1, w3, w2, info)
     env = {INPUT: x}
     for st in order:

@@ -47,7 +47,8 @@ def capacity(tokens: int, cfg: GateConfig, align: int = 8) -> int:
 
 class GateResult:
     """One token pool's routing decision; memoizes :func:`flat_slots` per
-    ``(cap, n_experts)``."""
+    ``(cap, n_experts)`` (and the executor's placed flat indices under
+    ``("placed", cap)``)."""
 
     __slots__ = ("expert_idx", "slot_idx", "weights", "aux", "_flat")
 
@@ -58,28 +59,30 @@ class GateResult:
         self.aux = aux
         self._flat = {}
 
-    def flat(self, cap: int, n_experts: int):
-        """Cached :func:`flat_slots` for this routing decision."""
-        key = (cap, n_experts)
+    def flat(self, cap: int, n_experts: int, placed=None):
+        """Cached :func:`flat_slots` for this routing decision (under
+        ``("placed", cap)`` with a placement's ``placed`` tables)."""
+        key = (cap, n_experts) if placed is None else ("placed", cap)
         if key not in self._flat:
             self._flat[key] = flat_slots(self.expert_idx, self.slot_idx,
-                                         cap, n_experts)
+                                         cap, n_experts, placed)
         return self._flat[key]
 
 
-def topk_gate(x, wg, cfg: GateConfig, cap: int) -> GateResult:
+def topk_gate(x, wg, cfg: GateConfig, cap) -> GateResult:
     """Route tokens to experts.
 
     x: (S, M) tokens; wg: (M, E) gate weights; cap: per-expert capacity of
-    this pool (an int: per-expert capacity vectors come with expert
-    placement, in a later slice).
+    this pool, a python int, or an (E,) int tensor of per-expert
+    *effective* capacities (an expert replicated r times under an
+    ``ExpertPlacement`` keeps ``r * placed_cap`` slots; the int path is
+    bitwise unchanged).
 
     Returns a :class:`GateResult`: expert_idx (S, k) int32, slot_idx (S, k)
-    int32 (>= cap means dropped), weights (S, k) f32 (0 for dropped) and
-    aux (load-balance loss, z-loss, per-expert load and routed rows).
+    int32 (at or past the expert's capacity means dropped), weights (S, k)
+    f32 (0 for dropped) and aux (load-balance loss, z-loss, per-expert load
+    and routed rows).
     """
-    if not isinstance(cap, int):
-        raise TypeError("topk_gate: cap must be an int in this slice")
     S, _ = x.shape
     E, k = cfg.n_experts, cfg.top_k
     dev = x.device
@@ -111,7 +114,11 @@ def topk_gate(x, wg, cfg: GateConfig, cap: int) -> GateResult:
     else:
         raise ValueError(f"unknown gate impl {cfg.impl!r}")
     slot_idx = slot_flat.reshape(k, S).T.to(torch.int32).contiguous()
-    kept = slot_idx < cap
+    if isinstance(cap, int):
+        kept = slot_idx < cap
+    else:                       # (E,) per-expert effective capacities
+        cap_e = torch.as_tensor(cap, dtype=torch.int32, device=dev)
+        kept = slot_idx < cap_e[expert_idx.long()]
     weights = torch.where(kept, gate_w,
                           torch.zeros((), device=dev)).float().contiguous()
 
@@ -122,14 +129,31 @@ def topk_gate(x, wg, cfg: GateConfig, cap: int) -> GateResult:
     z_loss = cfg.z_loss_weight * torch.mean(
         torch.square(torch.logsumexp(logits, dim=-1)))
     aux = {"aux_loss": aux_loss, "z_loss": z_loss, "load": load,
-           "routed": torch.clamp(load, max=float(cap)),
+           "routed": (torch.clamp(load, max=float(cap))
+                      if isinstance(cap, int)
+                      else torch.minimum(load, cap_e.float())),
            "drop_frac": 1.0 - kept.float().mean()}
     return GateResult(expert_idx, slot_idx, weights, aux)
 
 
-def flat_slots(expert_idx, slot_idx, cap: int, n_experts: int):
+def flat_slots(expert_idx, slot_idx, cap: int, n_experts: int,
+               placed=None):
     """Flat capacity-buffer index per (token, choice); ``n_experts * cap``
-    marks a dropped choice (the kernels' drop sentinel)."""
+    marks a dropped choice (the kernels' drop sentinel).
+
+    With ``placed`` (an ``ExpertPlacement``'s lookup tables on the
+    tokens' device: ``n_phys``, ``rep_count`` (E,), ``rep_table`` (E,
+    max_r)) the index is into the physical buffer: logical slot ``s`` of
+    expert ``e`` maps round-robin to replica ``s % r_e`` at physical slot
+    ``s // r_e`` (the replica-fractional dispatch split), and ``n_phys *
+    cap`` is the drop sentinel (the JAX executor's ``_placed_flat``)."""
+    if placed is not None:
+        e = expert_idx.long()
+        r = placed.rep_count[e]                                  # (S, k)
+        phys = placed.rep_table[e, (slot_idx % r).long()]
+        pslot = slot_idx // r
+        return torch.where(pslot < cap, phys * cap + pslot,
+                           placed.n_phys * cap).to(torch.int32)
     return torch.where(slot_idx < cap, expert_idx * cap + slot_idx,
                        n_experts * cap).to(torch.int32)
 

@@ -39,6 +39,21 @@ measured calibration times every candidate on the live mesh, every rank
 taking the slowest rank's time (``autosched.measure_candidates``), after
 the ranks agree on the cache key, hit or miss, and the candidates.
 
+Expert placement (``MoEConfig.placement``: None, ``"auto"`` or an
+``ExpertPlacement``) resolves as in JAX: ``"auto"`` reads
+``autosched.current_placement()`` at each call (the rebalance loop's swap
+point: the next call after ``autosched.set_placement`` runs the new one),
+and a placement is dropped under the ``dense_decode`` fallback, on fewer
+than two EP ranks and when its ``n_experts`` or ``n_ep`` is not the
+layer's; a decode pool keeps its replication at full capacity.  The plan
+then runs over the placement's ``R`` physical slots (``executor``), and
+each rank computes its ``R / n_ep`` of them: ``_PlacedWeights`` sends
+each rank exactly the logical experts its slots compute, over the EP
+group (``comm.all_to_all_rows``), and its backward sends every replica's
+gradient home, summed there in slot order (JAX's take-VJP of the placed
+weights).  An identity placement moves nothing and leaves the layer
+bitwise as it is unplaced.
+
 ``replicated=True`` (on a mesh) takes the whole pool on every rank, as
 the serving engine holds its rows and as JAX's replicated array enters
 its shard_map: the layer cuts this rank's block of the pool's tokens
@@ -59,7 +74,7 @@ an activation-checkpointed block's recompute is a call of its own.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional
 
 import torch
@@ -113,6 +128,9 @@ class MoEConfig:
     comm: CommConfig = CommConfig()  # wire format: f32 | bf16 | fp8_e4m3;
     #   "auto" lets the autoscheduler pick f32-vs-bf16 jointly with
     #   (schedule, n_chunks)
+    placement: object = None      # expert placement: None (uniform) |
+    #   "auto" (the live placement of autosched's registry, read at each
+    #   call: the rebalance loop's swap point) | an ExpertPlacement
 
     def gate_config(self) -> GateConfig:
         return GateConfig(
@@ -426,6 +444,139 @@ def _check_agreed(mesh, key, sched, n_chunks, wire, device) -> None:
     _AGREED.add(key)
 
 
+def resolve_placement(cfg, n_ep: int, use_fallback: bool, infer: bool):
+    """The placement a layer runs (None: uniform), as the JAX ``apply_moe``
+    resolves it: ``"auto"`` reads autosched's live placement; a placement
+    is dropped under the decode fallback, on fewer than two EP ranks and
+    when its ``n_experts`` or ``n_ep`` is not the layer's; a decode pool
+    (``infer``) keeps the replication at full capacity (its capacity
+    covers the pool, so ``r_e * cap`` does too)."""
+    pl = cfg.placement
+    if pl == "auto":
+        pl = autosched.current_placement()
+    if pl is not None and (use_fallback or n_ep <= 1
+                           or pl.n_experts != cfg.n_experts
+                           or pl.n_ep != n_ep):
+        return None
+    if pl is not None and infer and pl.cap_frac < 1.0:
+        pl = replace(pl, cap_frac=1.0)
+    return pl
+
+
+class _SlotExchange:
+    """The placed expert weights' exchange over the EP group ``grp``, from
+    the host-side placement ``pl``: rank ``i`` holds logical experts ``[i
+    El, (i + 1) El)`` (``moe_param_specs``) and computes physical slots
+    ``[i Rl, (i + 1) Rl)``.  Calling it on this rank's block of a weight
+    returns its (Rl, ...) physical slots (``_PlacedWeights``).  Every rank
+    derives the same tables, so every rank makes the same choice: no
+    exchange at all where no slot's expert lives on another rank (an
+    identity placement returns the block itself), else one
+    ``comm.all_to_all_rows`` moving exactly the slots' experts that live
+    on other ranks (this rank's own rows never leave the device)."""
+
+    def __init__(self, pl, grp):
+        n, me = grp.size, grp.index
+        E, R = pl.n_experts, pl.n_phys
+        El, Rl = E // n, R // n
+        a = pl.assignments
+        self.grp = grp
+        # rows this rank sends member j: its local experts of j's slots,
+        # in slot order; rows it receives from member j: the slot
+        # positions of its own slots whose expert lives on j
+        self.send_idx = [[a[p] - me * El for p in range(j * Rl, (j + 1) * Rl)
+                          if a[p] // El == me] for j in range(n)]
+        self.recv_pos = [[p - me * Rl for p in range(me * Rl, (me + 1) * Rl)
+                          if a[p] // El == j] for j in range(n)]
+        self.cross = any(a[p] // El != p // Rl for p in range(R))
+        self.identity = (not self.cross and [a[p] - me * El for p in range(
+            me * Rl, (me + 1) * Rl)] == list(range(El)))
+        pos = [q for j in range(n) for q in self.recv_pos[j]]
+        inv = [0] * Rl
+        for k, q in enumerate(pos):
+            inv[q] = k
+        self.inv, self.pos = inv, pos
+        self.send = [e for j in range(n) for e in self.send_idx[j]]
+
+    def __call__(self, w):
+        if self.identity:
+            return w
+        return _PlacedWeights.apply(w, self)
+
+    def _move(self, x, send_rows, recv_rows):
+        """``x`` holds ``send_rows[j]`` rows for the member of JAX index
+        ``j``, in that order; returns the rows received, ``recv_rows[j]``
+        from member ``j``, in that order.  This rank's own rows stay on
+        the device; the others' go through ``comm.all_to_all_rows``."""
+        from repro_torch.parallel import comm
+        me = self.grp.index
+        off, n_own = sum(send_rows[:me]), send_rows[me]
+        own = x.narrow(0, off, n_own)
+        if not self.cross:
+            return own
+        others = torch.cat([x.narrow(0, 0, off), x.narrow(
+            0, off + n_own, x.shape[0] - off - n_own)])
+        got = comm.all_to_all_rows(
+            others, self.grp, [0 if j == me else c
+                               for j, c in enumerate(send_rows)],
+            [0 if j == me else c for j, c in enumerate(recv_rows)])
+        at = sum(recv_rows[:me])
+        return torch.cat([got.narrow(0, 0, at), own,
+                          got.narrow(0, at, got.shape[0] - at)])
+
+    def forward(self, w):
+        """(El, ...) logical block -> (Rl, ...) physical slots."""
+        send = w.index_select(0, _longs(self.send, w.device))
+        got = self._move(send, [len(v) for v in self.send_idx],
+                         [len(v) for v in self.recv_pos])
+        return got.index_select(0, _longs(self.inv, w.device))
+
+    def backward(self, g, n_local: int):
+        """(Rl, ...) slot gradients -> the (El, ...) logical block's, each
+        expert's replicas summed in slot order."""
+        rows = self._move(g.index_select(0, _longs(self.pos, g.device)),
+                          [len(v) for v in self.recv_pos],
+                          [len(v) for v in self.send_idx])
+        # rows arrive in slot order; a replica's row adds to the earlier
+        # ones of its expert (the first is copied, so one replica is the
+        # slot's gradient bit for bit)
+        seen, rounds = {}, []
+        for k, e in enumerate(self.send):
+            r = seen.get(e, 0)
+            seen[e] = r + 1
+            if r == len(rounds):
+                rounds.append(([], []))
+            rounds[r][0].append(k)
+            rounds[r][1].append(e)
+        out = rows.new_empty((n_local, *rows.shape[1:]))
+        for r, (ks, es) in enumerate(rounds):
+            es = _longs(es, g.device)
+            part = rows.index_select(0, _longs(ks, g.device))
+            if r == 0:
+                out.index_copy_(0, es, part)
+            else:
+                out.index_copy_(0, es, out.index_select(0, es) + part)
+        return out
+
+
+def _longs(values, device):
+    return torch.tensor(values, dtype=torch.long, device=device)
+
+
+class _PlacedWeights(torch.autograd.Function):
+    """This rank's physical slots of an expert weight (``_SlotExchange``);
+    the backward sends each slot's gradient home and sums replicas."""
+
+    @staticmethod
+    def forward(ctx, w, xchg):
+        ctx.xchg, ctx.n = xchg, w.shape[0]
+        return xchg.forward(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.xchg.backward(g.contiguous(), ctx.n), None
+
+
 def _replicated_body(x, wg, w1, w3, w2, info):
     """All-reduce-based MoE for tiny token counts (decode with fewer tokens
     a rank than MP ranks): tokens stay replicated, each rank computes its
@@ -504,14 +655,17 @@ def _mesh_call(x, params, cfg, mesh, dims, schedule, perf_model, infer,
                                  id(perf_model)),
                           sched, n_chunks, wire, x.device)
 
+    pl = resolve_placement(cfg, n_ep, use_fallback, infer)
     info = MoEShardInfo(
         ep_axes=tuple(dims.ep), esp_axes=tuple(dims.esp),
         mp_axes=tuple(dims.mp), n_ep=n_ep, n_esp=n_esp, n_mp=n_mp,
         tokens=s_local, cap=cap, gate=gate_cfg, act=cfg.act, glu=cfg.glu,
         saa_chunks=cfg.saa_chunks, pipeline_chunks=n_chunks,
         kernel=cfg.kernel,
-        comm=CommConfig(wire_dtype=wire, scaling=comm.scaling))
+        comm=CommConfig(wire_dtype=wire, scaling=comm.scaling),
+        placement=pl)
     pspecs = moe_param_specs(cfg, mesh, dims)
+    xchg = None if pl is None else _SlotExchange(pl, mesh.group(dims.ep))
 
     def run():
         xt = x.reshape(b * L, M)
@@ -519,6 +673,13 @@ def _mesh_call(x, params, cfg, mesh, dims, schedule, perf_model, infer,
             xt = _boundary_in(xt, P(batch_ax or None, None), mesh, dims)
         ws = {k: _boundary_in(params[k], pspecs[k], mesh, dims)
               for k in ("wg", "w1", "w2", "w3") if params.get(k) is not None}
+        if xchg is not None:
+            # this rank's physical slots' experts (after the boundary: the
+            # slots' gradients come home summed, then the boundary sums
+            # over the replicated axes, as JAX's take precedes its
+            # shard_map)
+            ws.update({k: xchg(ws[k]) for k in ("w1", "w2", "w3")
+                       if k in ws})
         with coll.bound(mesh):
             if replicated:
                 if not use_fallback:   # this rank's block of the pool

@@ -65,7 +65,7 @@ class MoEShardInfo:
     pipeline_chunks: int = 1  # micro-chunk count for the *_pipe bodies
     kernel: KernelConfig = KernelConfig()
     comm: CommConfig = CommConfig()  # wire dtype for the collectives
-    placement: object = None  # ExpertPlacement (a later slice)
+    placement: object = None  # ExpertPlacement (build_plan applies it)
 
     @property
     def combined_group(self):

@@ -18,7 +18,13 @@ contract (every request comes back, some finish) and prints
 ``SERVE CHAOS OK``.  Telemetry: ``--metrics-dir DIR`` streams the request
 lifecycle as JSONL into DIR; ``--trace`` (needs ``--metrics-dir``) times
 the decode MoE schedule's plan stages and writes a Chrome trace there.
-``--max-batch 0`` sizes the decode batch from the cost model
+``--placement auto`` runs the JAX launcher's load-adaptive expert
+placement: the MoE layers run the autoscheduler's live placement, and
+every ``--rebalance-every`` decode rounds (default 64) the engine scores
+a replication of the hot experts, derived from the decode rounds' load
+EMA, against uniform and installs it on a win (a ``REBALANCE`` line); on
+one rank, or where every decode pool takes ``dense_decode``, it changes
+nothing.  ``--max-batch 0`` sizes the decode batch from the cost model
 (``suggest_max_batch``: predicted decode throughput under the KV block
 budget); a run ends with the autoscheduler's decisions, one
 ``autosched[...]`` line per layer shape (``decode`` marks the decode
@@ -128,6 +134,14 @@ def main(argv=None):
                     help="warm up, serve, then serve again under "
                          "torch.profiler; print device time by kernel and "
                          "the device's busy share (CUDA only)")
+    ap.add_argument("--placement", default="uniform",
+                    choices=["uniform", "auto"],
+                    help="expert placement: uniform (default) or auto "
+                         "(load-adaptive replication from the decode load "
+                         "EMA, rebalanced every --rebalance-every rounds)")
+    ap.add_argument("--rebalance-every", type=int, default=64,
+                    help="decode rounds between placement rebalance "
+                         "checks (--placement auto; 0 disables)")
     ap.add_argument("--smoke", action="store_true",
                     help="tiny run, assert clean completion")
     ap.add_argument("--nproc", type=int, default=1,
@@ -145,6 +159,8 @@ def main(argv=None):
         ap.error("--requests must be >= 1")
     if args.max_batch < 0:
         ap.error("--max-batch must be >= 0")
+    if args.rebalance_every < 0:
+        ap.error("--rebalance-every must be >= 0")
     if args.trace and not args.metrics_dir:
         ap.error("--trace requires --metrics-dir")
     if args.smoke:
@@ -218,6 +234,11 @@ def _serve(args, argv, dev, mesh=None):
         cfg = cfg.reduced()
     if args.layers:
         cfg = replace(cfg, n_layers=args.layers)
+    placement = args.placement if cfg.moe is not None else "uniform"
+    if placement == "auto":
+        # the MoE layers read the live placement from the autoscheduler's
+        # registry; the engine drives the rebalances
+        cfg = replace(cfg, moe=replace(cfg.moe, placement="auto"))
     model = Model(cfg, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
@@ -255,7 +276,9 @@ def _serve(args, argv, dev, mesh=None):
                       prefix_cache=args.prefix_cache,
                       prefill_chunk=args.prefill_chunk,
                       queue_slo=args.queue_slo,
-                      watchdog_rounds=args.watchdog_rounds, faults=faults)
+                      watchdog_rounds=args.watchdog_rounds, faults=faults,
+                      placement="auto" if placement == "auto" else None,
+                      rebalance_every=args.rebalance_every)
 
     rng = np.random.RandomState(args.seed)
     sampler = SamplerConfig(temperature=args.temperature, top_k=args.top_k,
@@ -363,6 +386,14 @@ def _serve(args, argv, dev, mesh=None):
             rec["obs"] = {"metrics_dir": args.metrics_dir,
                           "metrics_files": metrics_files,
                           "trace_file": trace_file}
+        if placement == "auto":
+            pl = autosched.current_placement()
+            rec["placement"] = {
+                "mode": "auto",
+                "rebalance_every": args.rebalance_every,
+                "epoch": autosched.placement_epoch(),
+                "current": pl.summary() if pl is not None else None,
+                "per_expert_load": s.get("per_expert_load")}
         with open(args.log_json, "w") as f:
             json.dump(rec, f, indent=1)
     ok = [c for c in done if c.status == "ok"]

@@ -37,11 +37,22 @@ Telemetry, as in JAX: ``--metrics-dir DIR`` streams the run's events
 (``train_step`` per logged step, the guards' events, ``fp8_sat``) as JSONL
 into DIR; ``--trace`` (needs ``--metrics-dir``) then times the MoE
 layer's plan stages (CUDA events on the card) and writes a Chrome trace
-there; ``--log-json FILE`` writes the history (with ``--guards`` or
-``--metrics-dir``: a record of the history, the guard counters and
-events, the LR scale and the telemetry files).  ``--placement auto`` (the
-JAX launcher's expert rebalancing) comes with a later slice of the port:
-it is refused with an error, never ignored.
+there; ``--log-json FILE`` writes the history (with ``--guards``,
+``--metrics-dir`` or ``--placement auto``: a record of the history, the
+guard counters and events, the LR scale, the telemetry files and the
+placement).
+
+``--placement auto`` runs the JAX launcher's load-adaptive expert
+placement: the MoE layers run the autoscheduler's live placement, and
+every ``--rebalance-every`` steps (default 50) the ``Trainer`` scores a
+replication of the hot experts, derived from the load EMA, against
+uniform with the cost model and installs it on a win (a ``REBALANCE``
+line).  A placement needs more than one EP rank: on one rank the flag is
+taken and changes nothing, as in JAX.  E.g. on the card
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-moe \
+      --layers 2 --nproc 4 --mesh data=2,model=2 --dist-backend gloo \
+      --steps 20 --placement auto --rebalance-every 5
 
 Across ranks: ``--nproc N`` spawns N ranks (``torch.multiprocessing``,
 ``spawn``) unless ``torchrun``'s environment is present, on the
@@ -103,9 +114,6 @@ from repro_torch.optim import AdamWConfig
 from repro_torch.runtime import FaultPlan, GuardConfig
 from repro_torch.train import Trainer
 
-LATER = "comes with a later slice of the port"
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -132,7 +140,14 @@ def main(argv=None):
                     help="wire format of the MoE collectives (on one rank "
                          "the codec's round trip)")
     ap.add_argument("--placement", default="uniform",
-                    choices=["uniform", "auto"])
+                    choices=["uniform", "auto"],
+                    help="expert placement: uniform (one expert per slot, "
+                         "the default) or auto (load-adaptive replication "
+                         "of hot experts, rebalanced from the live load "
+                         "EMA every --rebalance-every steps)")
+    ap.add_argument("--rebalance-every", type=int, default=50,
+                    help="steps between placement rebalance checks "
+                         "(--placement auto; 0 disables rebalancing)")
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--ckpt-every", type=int, default=0,
                     help="checkpoint period in steps (default: steps/2 "
@@ -171,8 +186,8 @@ def main(argv=None):
                          "torch.profiler; print device time by kernel and "
                          "the device's busy share (CUDA only)")
     args = ap.parse_args(argv)
-    if args.placement == "auto":
-        ap.error(f"--placement auto {LATER}")
+    if args.rebalance_every < 0:
+        ap.error("--rebalance-every must be >= 0")
     if args.trace and not args.metrics_dir:
         ap.error("--trace requires --metrics-dir")
     if args.steps < 1:
@@ -254,6 +269,10 @@ def _train(args, argv, dev, mesh=None):
         if args.wire_dtype:
             moe_kw["comm"] = replace(cfg.moe.comm or CommConfig(),
                                      wire_dtype=args.wire_dtype)
+        if args.placement == "auto":
+            # the MoE layers read the live placement from the
+            # autoscheduler's registry; the Trainer drives the rebalances
+            moe_kw["placement"] = "auto"
         cfg = replace(cfg, moe=replace(cfg.moe, **moe_kw))
     if args.reduced:
         cfg = cfg.reduced(n_layers=args.layers or 2)
@@ -279,9 +298,12 @@ def _train(args, argv, dev, mesh=None):
     if args.guards or faults is not None:
         guards = GuardConfig(max_skips=args.max_skips)
     dims = dims_for(cfg) if mesh is not None else None
+    placement = args.placement if cfg.moe is not None else "uniform"
     tr = Trainer(model, opt, schedule=args.schedule, ckpt_path=args.ckpt,
                  guards=guards, faults=faults, ckpt_retain=args.retain,
-                 mesh=mesh, dims=dims)
+                 mesh=mesh, dims=dims,
+                 placement="auto" if placement == "auto" else None,
+                 rebalance_every=args.rebalance_every)
     params, opt_state = tr.setup(torch.Generator(device=dev).manual_seed(0))
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
                                   seq_len=args.seq, global_batch=args.batch))
@@ -292,8 +314,8 @@ def _train(args, argv, dev, mesh=None):
     if cfg.moe is not None:
         print(f"moe: schedule {args.schedule or cfg.moe.schedule}, "
               f"{cfg.moe.pipeline_chunks} chunk(s), wire "
-              f"{cfg.moe.comm.wire_dtype}, autosched {cfg.moe.autosched}",
-              flush=True)
+              f"{cfg.moe.comm.wire_dtype}, autosched {cfg.moe.autosched}, "
+              f"placement {placement}", flush=True)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -361,8 +383,8 @@ def _train(args, argv, dev, mesh=None):
     if args.log_json:
         os.makedirs(os.path.dirname(os.path.abspath(args.log_json)),
                     exist_ok=True)
-        rec = hist if (guards is None and not args.metrics_dir) \
-            else {"history": hist}
+        rec = hist if (guards is None and placement != "auto"
+                       and not args.metrics_dir) else {"history": hist}
         if args.metrics_dir:
             rec["obs"] = {"metrics_dir": args.metrics_dir,
                           "metrics_files": metrics_files,
@@ -371,6 +393,16 @@ def _train(args, argv, dev, mesh=None):
             rec.update({"guards": dict(tr.guard_state.counters),
                         "guard_events": tr.guard_state.events,
                         "lr_scale": tr.guard_state.lr_scale})
+        if placement == "auto":
+            from repro_torch.core import autosched
+            pl = autosched.current_placement()
+            rec["placement"] = {
+                "mode": "auto",
+                "rebalance_every": args.rebalance_every,
+                "epoch": autosched.placement_epoch(),
+                "current": pl.summary() if pl is not None else None,
+                "load_ema": [round(float(v), 3)
+                             for v in tr.load_ema.value()]}
         with open(args.log_json, "w") as f:
             json.dump(rec, f, indent=1)
     if guards is not None:

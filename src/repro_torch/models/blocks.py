@@ -131,11 +131,13 @@ def apply_block(p, cfg: ModelConfig, kind: str, x, *, positions=None,
 
 def paged_block(p, cfg: ModelConfig, kind: str, x, cache, table, starts,
                 lens, *, schedule=None, infer=False, mesh=None, dims=None,
-                tp=None):
+                tp=None, with_aux=False):
     """Block forward over a paged KV arena: decode (C=1, ``infer=True``),
     one-shot and chunked prefill (``infer=False``) all run this one path.
     ``cache`` is this layer's ``{"attn": arena}``, updated in place.
-    Returns the block's output.
+    Returns the block's output, or with ``with_aux`` ``(output,
+    expert_load)``: the MoE layer's (E,) routed rows ((0,) for a dense
+    block), the serving engine's load-EMA feed.
 
     On a mesh ``x`` is the engine's whole pool on every rank: with ``tp``
     the attention runs this rank's heads over its kv heads' arena and the
@@ -154,13 +156,16 @@ def paged_block(p, cfg: ModelConfig, kind: str, x, cache, table, starts,
         a = tp.leave(attn_mod.paged_chunk_attn(
             p["attn"], acfg, tp.enter(h), cache["attn"], table, starts,
             lens, tp=tp))
+    no_load = torch.zeros((0,), dtype=torch.float32, device=x.device)
     if cfg.parallel_block:
-        return x + (a + _ffn(p["ffn"], cfg, h, tp))
+        out = x + (a + _ffn(p["ffn"], cfg, h, tp))
+        return (out, no_load) if with_aux else out
     x = x + a
     h2 = apply_norm(p["norm2"], x, eps, cfg.kernel)
     if base_kind(kind) == "moe":
-        y, _ = apply_moe(h2, p["moe"], cfg=cfg.moe, schedule=schedule,
-                         infer=infer, mesh=mesh, dims=dims,
-                         replicated=mesh is not None)
-        return x + y
-    return x + _ffn(p["ffn"], cfg, h2, tp)
+        y, maux = apply_moe(h2, p["moe"], cfg=cfg.moe, schedule=schedule,
+                            infer=infer, mesh=mesh, dims=dims,
+                            replicated=mesh is not None)
+        return (x + y, maux["expert_load"]) if with_aux else x + y
+    out = x + _ffn(p["ffn"], cfg, h2, tp)
+    return (out, no_load) if with_aux else out

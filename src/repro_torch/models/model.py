@@ -363,7 +363,8 @@ class Model:
                        "expert_load": aux["expert_load"]}
 
     def paged_step(self, params, cache, batch, *, schedule=None,
-                   infer: bool = False, mesh=None, dims=None):
+                   infer: bool = False, mesh=None, dims=None,
+                   with_aux: bool = False):
         """One step over the paged KV arena (the serving engine's one path).
 
         ``batch`` holds ``tokens`` (B, C), ``starts`` (B,) absolute position
@@ -383,6 +384,10 @@ class Model:
         the whole rows, the same bits on each: sampling draws from whole
         rows, with the sampler's own tie rule, and a (B, V) gather of the
         last positions costs one collective a step.
+
+        ``with_aux=True`` returns ``(last_logits, cache, aux)`` with
+        ``aux["expert_load"]`` the (E,) routed rows summed over the layers
+        ((0,) for a dense stack): the serving engine's load-EMA feed.
         """
         cfg = self.cfg
         tokens = batch["tokens"]
@@ -396,13 +401,20 @@ class Model:
             qpos = torch.clamp(starts[:, None] + torch.arange(
                 C, device=x.device), max=2047)
             x = x + pe[qpos].to(x.dtype)
+        load = None
         for r, (kind, n) in enumerate(self.runs):
             run_p, run_c = params[f"run{r}"], cache[f"run{r}"]
             for i in range(n):
-                x = blk.paged_block(
+                out = blk.paged_block(
                     layer_view(run_p, i), cfg, kind, x, layer_view(run_c, i),
                     tables, starts, lens, schedule=schedule, infer=infer,
-                    mesh=mesh, dims=dims, tp=tp)
+                    mesh=mesh, dims=dims, tp=tp, with_aux=with_aux)
+                if not with_aux:
+                    x = out
+                    continue
+                x, lay = out
+                if lay.shape[-1]:
+                    load = lay if load is None else load + lay
         x = apply_norm(params["final_norm"], x, cfg.norm_eps, cfg.kernel)
         idx = torch.clamp(lens.long() - 1, 0, C - 1)
         h_last = x[torch.arange(B, device=x.device), idx]   # (B, D)
@@ -410,4 +422,9 @@ class Model:
             h_last[:, None, :], tp))[:, 0]
         if vp:
             logits = comm.all_gather(logits.contiguous(), tp.grp, -1)
+        if with_aux:
+            if load is None:
+                load = torch.zeros((0,), dtype=torch.float32,
+                                   device=x.device)
+            return logits, cache, {"expert_load": load}
         return logits, cache

@@ -4,7 +4,8 @@
 no autograd (``repro_torch.core.collectives`` adds the transposes).
 
 Everything is built on one ``torch.distributed`` primitive,
-``all_to_all_single``, for every backend:
+``all_to_all_single``, for every backend (``all_to_all_rows``, the
+placed expert weights' exchange, is that primitive with split sizes):
 
   * an AllGather is an AlltoAll of ``n`` copies of the payload;
   * a reduce-scatter is an AlltoAll followed by a sum over the source
@@ -119,6 +120,46 @@ def all_to_all(x, grp, split_axis: int, concat_axis: int):
         return out.movedim(0, split_axis)
     return torch.cat([recv[j].movedim(0, split_axis) for j in range(n)],
                      dim=concat_axis)
+
+
+@_timed
+def all_to_all_rows(x, grp, send_rows, recv_rows):
+    """A ragged AlltoAll of rows: ``x`` holds ``send_rows[j]`` rows for
+    the member of JAX index ``j``, in that order; returns the rows
+    received, ``recv_rows[j]`` of them from the member of JAX index
+    ``j``, in that order.  Both count lists are known on both sides (the
+    callers derive them from one host-side table), so one
+    ``all_to_all_single`` with split sizes moves exactly those rows, a
+    zero-row chunk moving nothing."""
+    import torch.distributed as dist
+    n = grp.size
+    if n == 1:
+        return x
+    tail = x.shape[1:]
+    row = x.element_size()
+    for d in tail:
+        row *= d
+    off = [0]
+    for c in send_rows:
+        off.append(off[-1] + c)
+    # the backend's position p is the member of JAX index order[p]
+    chunks = [x.narrow(0, off[grp.order[p]], send_rows[grp.order[p]])
+              for p in range(n)]
+    send = torch.cat(chunks).contiguous()
+    n_recv = [recv_rows[grp.order[p]] for p in range(n)]
+    buf = x.new_empty((sum(n_recv), *tail))
+    dist.all_to_all_single(buf.reshape(-1).view(torch.uint8),
+                           send.reshape(-1).view(torch.uint8),
+                           [c * row for c in n_recv],
+                           [send_rows[grp.order[p]] * row for p in range(n)],
+                           group=grp.pg)
+    if grp.identity_order:
+        return buf
+    at, pos = {}, 0
+    for p in range(n):
+        at[grp.order[p]] = (pos, n_recv[p])
+        pos += n_recv[p]
+    return torch.cat([buf.narrow(0, *at[j]) for j in range(n)])
 
 
 @_timed

@@ -37,8 +37,19 @@ Telemetry: the lifecycle events of the JAX engine (``req_queued``,
 ``req_admitted``, ``req_prefilled``, ``req_shed``, ``req_cancelled``,
 ``decode_round``, ``req_finished`` and the run's ``serve_rollup``) go
 through ``repro_torch.obs`` when a sink is installed, each made of values
-the host already holds.  Expert-placement rebalancing comes with a later
-slice.
+the host already holds.
+
+Expert placement, as in JAX: with ``placement="auto"`` (or
+``rebalance_every`` > 0) each decode round also returns its routed rows
+per expert (``Model.paged_step(with_aux=True)``), folded into a load EMA
+(``stats["per_expert_load"]``), and every ``rebalance_every`` rounds
+``autosched.maybe_rebalance(infer=True)`` scores a placement derived from
+it against uniform over the decode decisions; on a win it is installed (a
+``serve_rebalance`` event) and the next call's MoE layers run it (the
+model's MoE config says ``placement="auto"``, as ``launch/serve.py
+--placement auto`` arranges).  Decode pools too small to split over the
+MP ranks take ``dense_decode``, which ignores any placement and reports
+no routed rows.
 
 On a mesh (``Engine(model, mesh, dims)``, the JAX signature) every rank
 runs the same scheduler over the whole row pool, its parameters and KV
@@ -55,7 +66,10 @@ shared prefixes, sheds, cancellations, the round's rows, chunk lengths,
 page tables and keys) before the round's collectives, so a rank that
 decides otherwise raises on every rank instead of leaving the others
 waiting.  Tokens are equal by construction: every rank samples the same
-whole logits rows with the same keys.  Only rank 0 emits telemetry.
+whole logits rows with the same keys.  Only rank 0 emits telemetry.  The
+routed rows of a round are the world's mean on every rank, so every rank
+folds the same EMA and reaches the same rebalance decision, and
+``maybe_rebalance`` holds them to it.
 """
 
 from __future__ import annotations
@@ -164,6 +178,10 @@ class Engine:
     of the mesh together (the module docstring): each rank constructs
     the engine, submits the same requests in the same order and steps it
     with its shards of the parameters (``Model.param_specs``).
+
+    ``placement="auto"`` with ``rebalance_every=N`` rebalances the expert
+    placement every N decode rounds from the load EMA (the module
+    docstring); ``rebalance_margin`` is the modeled win a swap needs.
     """
 
     def __init__(self, model, mesh=None, dims=None, *, max_batch: int = 8,
@@ -172,7 +190,8 @@ class Engine:
                  detokenize=None, block_size: int = 16, n_blocks=None,
                  prefix_cache: bool = True, prefill_chunk: int = 0,
                  queue_slo: float = 0.0, watchdog_rounds: int = 0,
-                 faults=None):
+                 faults=None, placement=None, rebalance_every: int = 0,
+                 rebalance_margin: float = 1.05):
         cfg = model.cfg
         if cfg.attn_window is not None and cfg.attn_window < max_len:
             raise NotImplementedError(
@@ -197,6 +216,12 @@ class Engine:
                                 prefix_cache=prefix_cache, mesh=mesh,
                                 dims=dims)
         self.block_size = self.pool.block_size
+        self.placement = placement            # None (uniform) | "auto"
+        self.rebalance_every = int(rebalance_every)
+        self.rebalance_margin = float(rebalance_margin)
+        self._track_load = placement == "auto" or self.rebalance_every > 0
+        from repro_torch.core.placement import LoadEMA
+        self.load_ema = LoadEMA()
         self._schedule = schedule
         self.queue: deque = deque()
         self._run_t0 = None             # run() wall-clock origin
@@ -493,18 +518,49 @@ class Engine:
         return torch.from_numpy(a).to(self.device)
 
     def _step(self, params, tokens, starts, lens, tables, keys, temps,
-              topks, infer):
+              topks, infer, with_aux=False):
         """One ``paged_step`` + sampling; returns the sampled ids on the
-        host (the copy waits for the device)."""
+        host (the copy waits for the device), and with ``with_aux`` the
+        step's (E,) routed rows on the host too."""
         batch = {"tokens": self._to_dev(tokens), "starts": self._to_dev(starts),
                  "lens": self._to_dev(lens), "tables": self._to_dev(tables)}
         with torch.no_grad():
-            logits, _ = self.model.paged_step(
+            out = self.model.paged_step(
                 params, self.pool.cache, batch,
                 schedule=self._schedule, infer=infer, mesh=self.mesh,
-                dims=self.dims)
-            tok = sample(logits, keys, temps, topks)
+                dims=self.dims, with_aux=with_aux)
+            tok = sample(out[0], keys, temps, topks)
+        if with_aux:
+            return tok.cpu().numpy(), out[2]["expert_load"].cpu().numpy()
         return tok.cpu().numpy()
+
+    def _maybe_rebalance(self):
+        """Every ``rebalance_every`` decode rounds, score a placement
+        derived from the load EMA against uniform over the decode
+        decisions; on a win it is installed and the next call runs it."""
+        if self.placement != "auto" or not self.rebalance_every:
+            return
+        if self.stats["decode_calls"] % self.rebalance_every:
+            return
+        if not self.load_ema.ready:
+            return
+        mcfg = getattr(self.model.cfg, "moe", None)
+        if mcfg is None:
+            return
+        from repro_torch.core import autosched
+        epoch = autosched.maybe_rebalance(
+            self.load_ema.value(), margin=self.rebalance_margin,
+            capacity_factor=mcfg.capacity_factor, top_k=mcfg.top_k,
+            infer=True, mesh=self.mesh, device=self.device)
+        if epoch is None:
+            return
+        pl = autosched.current_placement()
+        desc = pl.summary() if pl is not None else "uniform"
+        self._emit("serve_rebalance", epoch=epoch, placement=desc,
+                   tick=self._tick)
+        if self._lead:
+            print(f"serve REBALANCE -> placement epoch {epoch}: {desc}",
+                  flush=True)
 
     def _prefill_chunk_round(self, params):
         """One prefill call over the filling group's next spans: the whole
@@ -586,7 +642,15 @@ class Engine:
         self._note("decode", [s.req.rid for s in states])
         self._agree_plan(tokens, steps, lens, tables, keys, temps, topks)
         tok = self._step(params, tokens, steps, lens, tables, keys, temps,
-                         topks, infer=True)
+                         topks, infer=True, with_aux=self._track_load)
+        if self._track_load:
+            tok, load = tok
+            # the dense decode fallback reports no routed rows: no routing
+            # signal, so it must not pull the EMA toward balance
+            if load.shape[-1] and float(load.sum()) > 0:
+                self.load_ema.update(load)
+                self.stats["per_expert_load"] = [
+                    round(float(v), 3) for v in self.load_ema.value()]
         for s in states:
             s.last_tok = int(tok[s.slot])
             s.generated.append(s.last_tok)
@@ -599,6 +663,7 @@ class Engine:
                        active=len(self.active),
                        block_occupancy=self.pool.alloc_blocks.n_live
                        / max(self.pool.n_blocks, 1))
+        self._maybe_rebalance()
 
     def _collect_finished(self) -> list:
         done = []
@@ -636,6 +701,7 @@ class Engine:
         snap["prefix_hit_rate"] = self.stats["prefix_hits"] / admitted
         snap["block_occupancy"] = (self.pool.alloc_blocks.n_live
                                    / max(self.pool.n_blocks, 1))
+        snap.pop("per_expert_load", None)   # a vector: too wide for a rollup
         self._emit("serve_rollup", **snap)
         return snap
 

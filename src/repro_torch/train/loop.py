@@ -24,8 +24,18 @@ both loops set the runtime context's ``step`` and emit one ``train_step``
 event per history row, the guarded loop its ``guard_skip``,
 ``guard_rollback`` and ``fp8_fallback`` events, and both the fp8 encodes'
 ``fp8_sat`` events, as the JAX loop does; every field is a value the loop
-already holds on the host.  Not here yet (a later slice): load-adaptive
-rebalancing and its ``expert_load`` events.
+already holds on the host.
+
+Load-adaptive expert placement, as in JAX: each step's per-expert routed
+rows (the ``expert_load`` metric) feed a load EMA (``load_imbalance`` in
+the history), and with ``placement="auto"`` and ``rebalance_every=N``
+(an ``expert_load`` event beside each ``train_step`` event) every N steps
+``autosched.maybe_rebalance`` scores a placement derived from the EMA
+against uniform; on a win it installs it (a ``train_rebalance`` event) and
+the next step's MoE layers (``MoEConfig(placement="auto")``) run it.
+Nothing is retraced; parameters and optimizer state stay logical, so
+checkpoints are unchanged.  On a mesh every rank holds the same EMA (the
+loads are the world's mean) and is held to the same placement.
 """
 
 from __future__ import annotations
@@ -170,6 +180,11 @@ class Trainer:
     injection hooks.  The guard state and the fp8 monitor are made here,
     not in ``setup``, so a caller that brings its own parameters gets
     them too.  With ``guards=None`` (default) the loop is the plain one.
+
+    ``placement="auto"`` and ``rebalance_every=N`` turn on the rebalance
+    loop (the module docstring); the model's MoE config must say
+    ``placement="auto"`` for its layers to run what is installed, as
+    ``launch/train.py --placement auto`` arranges.
     """
     model: Model
     opt_cfg: AdamWConfig
@@ -180,10 +195,15 @@ class Trainer:
     ckpt_retain: int = 3
     mesh: Optional[object] = None         # parallel.mesh.Mesh
     dims: Optional[object] = None         # parallel.mesh.ParallelDims
+    placement: Optional[str] = None       # None (uniform) | "auto"
+    rebalance_every: int = 0              # steps between rebalance checks
+    rebalance_margin: float = 1.05        # modeled win required to swap
 
     def __post_init__(self):
+        from repro_torch.core.placement import LoadEMA
         if self.mesh is not None and self.dims is None:
             raise ValueError("Trainer(mesh=...) needs dims=")
+        self.load_ema = LoadEMA()
         self.train_step = make_train_step(self.model, self.opt_cfg,
                                           self.schedule, self.mesh,
                                           self.dims)
@@ -274,10 +294,56 @@ class Trainer:
             print(f"expert load (routed rows/expert, all layers): [{vals}]",
                   flush=True)
 
+    def _track_load(self, metrics):
+        """Fold this step's per-expert routed rows into the load EMA (a
+        no-op for dense models and for an all-zero vector: no routing
+        signal)."""
+        el = metrics.get("expert_load")
+        if el is not None and el.dim() == 1 and el.shape[-1]:
+            el = el.cpu().numpy()
+            if float(el.sum()) > 0:
+                self.load_ema.update(el)
+
     def _emit_train_step(self, m):
-        """One ``train_step`` event per history row: the streaming twin of
-        ``history``."""
+        """One ``train_step`` event per history row (the streaming twin of
+        ``history``), and, with the rebalance loop on, the load EMA beside
+        it once it is live (the JAX loop streams it for every MoE run; the
+        port's launchers' records keep their events as they were without
+        ``--placement auto``)."""
+        if not obs.enabled():
+            return
         obs.emit("train_step", **m)
+        if self.placement == "auto" and self.load_ema.ready:
+            obs.emit("expert_load", step=m.get("step"),
+                     load=[round(float(v), 3)
+                           for v in self.load_ema.value()])
+
+    def _maybe_rebalance(self, step):
+        """Every ``rebalance_every`` steps, ask the autoscheduler whether a
+        placement derived from the load EMA beats uniform under the
+        skew-aware cost model; on a win it is installed and the next
+        step's MoE layers run it (on a mesh every rank is held to the same
+        outcome)."""
+        if self.placement != "auto" or not self.rebalance_every:
+            return
+        if step == 0 or step % self.rebalance_every or \
+                not self.load_ema.ready:
+            return
+        from repro_torch.core import autosched
+        mcfg = getattr(self.model.cfg, "moe", None)
+        if mcfg is None:
+            return
+        epoch = autosched.maybe_rebalance(
+            self.load_ema.value(), margin=self.rebalance_margin,
+            capacity_factor=mcfg.capacity_factor, top_k=mcfg.top_k,
+            mesh=self.mesh, device=self.model.device)
+        if epoch is None:
+            return
+        pl = autosched.current_placement()
+        desc = pl.summary() if pl is not None else "uniform"
+        obs.emit("train_rebalance", step=step, epoch=epoch, placement=desc)
+        print(f"step {step:5d}  REBALANCE -> placement epoch {epoch}: "
+              f"{desc}", flush=True)
 
     def _log(self, m):
         print(f"step {m['step']:5d}  loss {m['loss']:.4f}  "
@@ -311,10 +377,14 @@ class Trainer:
                                                          batch)
             if step == 0:
                 self._log_step0(metrics)
+            self._track_load(metrics)
+            self._maybe_rebalance(step)
             if step % log_every == 0 or step == n_steps - 1:
                 m = {k: float(v) for k, v in metrics.items() if v.dim() == 0}
                 m["step"] = step
                 m["wall_s"] = time.perf_counter() - t0
+                if self.load_ema.ready:
+                    m["load_imbalance"] = self.load_ema.imbalance()
                 history.append(m)
                 if sat_events:
                     guardlib.fold_fp8()
@@ -372,6 +442,8 @@ class Trainer:
             self._agree(step, action)
             if step == 0:
                 self._log_step0(metrics)
+            self._track_load(metrics)
+            self._maybe_rebalance(step)
             if action == guardlib.ROLLBACK:
                 res = mgr.rollback(step, params, opt_state) \
                     if mgr is not None else None
@@ -412,6 +484,8 @@ class Trainer:
                 m["step"] = step
                 m["wall_s"] = time.perf_counter() - t0
                 m["lr_scale"] = state.lr_scale
+                if self.load_ema.ready:
+                    m["load_imbalance"] = self.load_ema.imbalance()
                 history.append(m)
                 self._emit_train_step(m)
                 self._log(m)

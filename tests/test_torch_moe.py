@@ -99,9 +99,10 @@ def test_other_schedules_wait_for_a_later_slice():
     """Every schedule runs on one rank now, and so do the cost model's
     wire pick and the measured calibration (each deciding once); a
     collective over a group of more than one rank with no mesh bound
-    raises (``apply_moe(..., mesh=, dims=)`` binds one), and what still
-    needs a later slice (an expert placement) raises, never runs as
-    something else."""
+    raises (``apply_moe(..., mesh=, dims=)`` binds one), and a plan that
+    carries an expert placement runs now (ROADMAP item 6) where it raised
+    before: the identity placement through the whole placed path gives
+    the unplaced plan's output and aux bitwise."""
     from repro_torch.core import collectives, executor, plan, schedules
     _, tcfg = _cfgs()
     x = torch.zeros((1, 4, tcfg.d_model))
@@ -121,11 +122,16 @@ def test_other_schedules_wait_for_a_later_slice():
     info = schedules.MoEShardInfo(
         ep_axes=("ep",), esp_axes=("esp",), mp_axes=("mp",), n_ep=1,
         n_esp=1, n_mp=1, tokens=4, cap=8, gate=tcfg.gate_config())
-    placed = dataclasses.replace(plan.build_plan("s1", info),
-                                 placement=object())
-    with pytest.raises(NotImplementedError, match="placement"):
-        executor.execute(placed, x[0], p["wg"], p["w1"], p["w3"], p["w2"],
-                         info)
+    from repro_torch.core.placement import identity_placement
+    x = torch.from_numpy(np.random.RandomState(3).randn(
+        4, tcfg.d_model).astype(np.float32))
+    unplaced = plan.build_plan("s1", info)
+    placed = plan.apply_placement(unplaced, identity_placement(
+        tcfg.n_experts, 1), info=info)
+    got, want = (executor.execute(pl, x, p["wg"], p["w1"], p["w3"],
+                                  p["w2"], info) for pl in (placed, unplaced))
+    assert torch.equal(got[0], want[0])
+    assert all(torch.equal(got[1][k], want[1][k]) for k in want[1])
 
 
 def test_shard_pool_capacity_matches_jax():
