@@ -198,12 +198,24 @@ to a plain version):
      under ``auto`` with the two experts rank 0's one-rank prefill routed
      most replicated (R = 130, installed by ``autosched.set_placement``):
      (g)'s checks, and which pools ran the placement; each sub-phase's
-     seconds;
+     seconds; (j) in the same spawn, right after (a), the overlapped issue
+     of the layer's collectives (``executor.execute``'s list scheduler)
+     on (a)'s merged layer under ``P12_OVERLAP`` (s1, s2, s2h and
+     s1g with 2 chunks, s2 with SAA at 4 chunks, f32, and s1 with 2
+     chunks on the fp8 wire), forward and backward, against its serial
+     twin (``executor.serial_issue``): on every rank y, aux and every
+     gradient ``torch.equal``, two or more collectives in flight in the
+     overlapped forward (``comm.set_hook``'s record; one in the serial),
+     and in the backward of s1 with 2 chunks and of s2, each path's
+     kernels launched; per rank the best of 3 runs of each mode (after
+     (a)'s warm-up; (a)'s runs of s1_pipe2, s2_pipe2 and s2 are the
+     overlapped side's first): host ms, the collectives' summed seconds
+     and their in-flight wall seconds (``comm.timing``);
  13. print the kernels' JSON line (each kernel's launches on its main path
      and the phase-3 row at that path's shapes, under ``by_path`` every
      path's launches beside the phase-3 row at that path's shapes, and
      under ``multirank`` each phase-12 path's launches per rank, (i)'s
-     as ``placement_2x2_*``), then
+     as ``placement_2x2_*``, (j)'s as ``overlap_2x2_*``), then
      ``{"ok": true, ...}`` as the last line.
 """
 
@@ -1909,8 +1921,9 @@ def _p12_layer_rank(rank, kind, ref_path, model_cfg, with_h=False):
     blocks (``_p12_err``).  Returns per case the readings, the load check,
     the launches and the host ms of the forward and backward with each
     collective's host seconds (after one untimed warm-up case); with
-    ``with_h`` also (h)'s readings on the same layer (``_p12_measured``)
-    and (i)'s placed runs of it (``_p12_placed_layer``)."""
+    ``with_h`` also (h)'s readings on the same layer (``_p12_measured``),
+    (i)'s placed runs of it (``_p12_placed_layer``) and (j)'s overlapped
+    and serial runs (``_p12_overlap``)."""
     import torch
     from repro_torch.core.moe import apply_moe, moe_param_specs
     from repro_torch.parallel import comm
@@ -1932,7 +1945,20 @@ def _p12_layer_rank(rank, kind, ref_path, model_cfg, with_h=False):
     def block(t, spec):
         return local_shard(t, spec, mesh).to(dev)
 
-    def run(sched, n_chunks, wire, infer, placement=None):
+    def run(sched, n_chunks, wire, infer, placement=None, events=None):
+        """One case forward and backward; ``events`` (a list) records
+        ``comm``'s starts and waits, and ``P12_FWD_END`` between the
+        forward's and the backward's."""
+        if events is None:
+            return one(sched, n_chunks, wire, infer, placement, None)
+        comm.set_hook(lambda *ev: events.append(ev))
+        try:
+            return one(sched, n_chunks, wire, infer, placement,
+                       events.append)
+        finally:
+            comm.set_hook(None)
+
+    def one(sched, n_chunks, wire, infer, placement, mark):
         from dataclasses import replace
         cfg = replace(_p12_cfg(model_cfg, sched, n_chunks, wire),
                       placement=placement)
@@ -1946,6 +1972,8 @@ def _p12_layer_rank(rank, kind, ref_path, model_cfg, with_h=False):
             return y, aux, {}
         x.requires_grad_()
         y, aux = apply_moe(x, p, cfg=cfg, mesh=mesh, dims=dims)
+        if mark is not None:
+            mark(P12_FWD_END)
         r = block(ref["r"], xspec)
         keys = ["x", *p.keys()]
         gl = torch.autograd.grad((y * r).sum(), [x, *p.values()])
@@ -1955,19 +1983,24 @@ def _p12_layer_rank(rank, kind, ref_path, model_cfg, with_h=False):
 
     _, sched, n_chunks, wire = P12_LAYER[kind][0]
     run(sched, n_chunks, wire, False)          # warm-up, not read
-    out, kept = [], {}
+    out, kept, first = [], {}, {}
     for name, sched, n_chunks, wire in P12_LAYER[kind]:
         infer = name == "decode"
+        # (j)'s overlapped side reads its first run here (the same case)
+        events = [] if with_h and name in P12_OVERLAP_FROM_A else None
         wrappers = reset_counts()
         _sync(dev)
         comm.timing(True)
         t0 = time.perf_counter()
-        y, aux, grads = run(sched, n_chunks, wire, infer)
+        y, aux, grads = run(sched, n_chunks, wire, infer, events=events)
         _sync(dev)
         ms = (time.perf_counter() - t0) * 1e3
         coll = comm.times()
         comm.timing(False)
         launches = read_counts(wrappers)
+        if events is not None:
+            first[name] = _p12_overlap_run(y, aux, grads, ms, coll,
+                                           launches, events)
         want = ref["f32" if infer else wire]
         reads = {"y": _p12_err(y.detach(), block(
             ref["yd"] if infer else want["y"], xspec))}
@@ -1992,11 +2025,13 @@ def _p12_layer_rank(rank, kind, ref_path, model_cfg, with_h=False):
         del y, grads
     if not with_h:
         return out
+    overlap = _p12_overlap(run, first, dev)
+    del first
     placed = _p12_placed_layer(run, kept, mesh, dims, model_cfg, dev)
     del kept
     p = {k: block(v, specs[k]) for k, v in ref["params"].items()}
     return out, _p12_measured(mesh, dims, p, block(ref["x"], xspec),
-                              model_cfg, dev), placed
+                              model_cfg, dev), placed, overlap
 
 
 #: (h): the measured calibration's grid on (a)'s layer, then the picked
@@ -2411,13 +2446,14 @@ def _p12_placed_report(res):
 
 def _p12_merged_rank(rank, ref_path, model_cfg, scheds, steps, tokens,
                      block_cfg, block_tokens, guard_dir):
-    """One rank of the merged (2, 2) mesh: (a)'s cases, (i)'s placed layer
-    and (h) on the same layer, then (b) and (c), then (d) on both of its
+    """One rank of the merged (2, 2) mesh: (a)'s cases, (j)'s overlapped
+    and serial runs, (i)'s placed layer and (h) on the same layer, then
+    (b) and (c), then (d) on both of its
     meshes, (g) and (i)'s serving with (d)'s weights, (i)'s training, then
     (e) and (f), in one spawn."""
-    layer, measured, placed = _p12_layer_rank(rank, "merged", ref_path,
-                                              model_cfg, with_h=True)
-    out = {"layer": layer, "measured": measured,
+    layer, measured, placed, overlap = _p12_layer_rank(
+        rank, "merged", ref_path, model_cfg, with_h=True)
+    out = {"layer": layer, "measured": measured, "overlap": overlap,
            "train": _p12_train_rank(rank, scheds, steps, model_cfg,
                                     tokens)}
     serve_ref = guard_dir + "_serve_ref.pt"
@@ -2435,6 +2471,154 @@ def _p12_merged_rank(rank, ref_path, model_cfg, scheds, steps, tokens,
     out["placed"] = placed
     out["guarded"] = _p12_guarded_rank(rank, model_cfg, tokens, guard_dir)
     return out
+
+
+#: (j): the overlapped issue of the layer's collectives (``execute``'s
+#: list scheduler) on (a)'s merged layer, forward and backward, against
+#: its serial twin (``executor.serial_issue``): (name, schedule,
+#: pipeline_chunks, wire); ``s2`` is SAA at 4 chunks
+P12_OVERLAP = (("s1_pipe2", "s1", 2, "f32"), ("s2_pipe2", "s2", 2, "f32"),
+               ("s2h_pipe2", "s2h", 2, "f32"),
+               ("s1g_pipe2", "s1g", 2, "f32"), ("s2", "s2", 1, "f32"),
+               ("s1_pipe2-fp8", "s1", 2, "fp8_e4m3"))
+#: (a)'s runs of these cases are (j)'s overlapped side's first run
+P12_OVERLAP_FROM_A = ("s1_pipe2", "s2_pipe2", "s2")
+#: the cases whose backward must show two collectives in flight at once
+P12_OVERLAP_BACKWARD = ("s1_pipe2", "s2")
+#: each issue mode's runs of a case (the first records the hook; the
+#: fastest is read)
+P12_OVERLAP_RUNS = 3
+#: what a recording run puts between its forward's and backward's events
+P12_FWD_END = ("forward returned",)
+
+
+def _p12_in_flight(events) -> int:
+    """The most collectives in flight at once in ``events`` (``comm``'s
+    hook records: (event, axes, kind, tag))."""
+    n = most = 0
+    for ev in events:
+        n += 1 if ev[0] == "start" else -1
+        most = max(most, n)
+    return most
+
+
+def _p12_overlap_run(y, aux, grads, ms, coll, launches, events=None):
+    """One (j) run: its host ms, the collectives' summed and in-flight
+    seconds and the launches; a recording run (``events``) also keeps y,
+    aux and the gradients and the most in flight in its forward and in
+    its backward."""
+    run = {"ms": ms, "launches": launches,
+           "summed_s": sum(v[2] for k, v in coll.items()
+                           if k != "in_flight"),
+           "in_flight_s": coll.get("in_flight", (0, 0, 0.0))[2]}
+    if events is not None:
+        cut = events.index(P12_FWD_END)
+        run.update(y=y.detach(), grads=grads,
+                   aux={k: v.detach() for k, v in aux.items()},
+                   fwd=_p12_in_flight(events[:cut]),
+                   bwd=_p12_in_flight(events[cut + 1:]))
+    return run
+
+
+def _p12_overlap(run, first, dev):
+    """(j) on one rank of the merged mesh, after (a) (its warm-up
+    included): each ``P12_OVERLAP`` case issued overlapped and serially,
+    ``P12_OVERLAP_RUNS`` runs each, the first recording ``comm``'s hook
+    (the overlapped side's first run is (a)'s where ``first`` holds it).
+    Returns per case whether y, aux and every gradient are
+    ``torch.equal`` across the modes, the most collectives in flight in
+    each mode's forward and backward, the launches, and each mode's runs'
+    host ms and summed and in-flight collective seconds; and (j)'s
+    seconds."""
+    import torch
+    from repro_torch.core import executor
+    from repro_torch.parallel import comm
+    t_all = time.perf_counter()
+    out = []
+    for name, sched, n_chunks, wire in P12_OVERLAP:
+        modes = {}
+        for mode in ("overlap", "serial"):
+            runs = [first[name]] if mode == "overlap" and name in first \
+                else []
+            while len(runs) < P12_OVERLAP_RUNS:
+                events = None if runs else []
+                wrappers = reset_counts()
+                with (executor.serial_issue() if mode == "serial"
+                      else contextlib.nullcontext()):
+                    _sync(dev)
+                    comm.timing(True)
+                    t0 = time.perf_counter()
+                    y, aux, grads = run(sched, n_chunks, wire, False,
+                                        events=events)
+                    _sync(dev)
+                    ms = (time.perf_counter() - t0) * 1e3
+                    coll = comm.times()
+                    comm.timing(False)
+                runs.append(_p12_overlap_run(y, aux, grads, ms, coll,
+                                             read_counts(wrappers), events))
+                del y, aux, grads
+            modes[mode] = runs
+        ov, se = modes["overlap"][0], modes["serial"][0]
+        equal = (torch.equal(ov["y"], se["y"])
+                 and all(torch.equal(ov["aux"][k], se["aux"][k])
+                         for k in ov["aux"])
+                 and all(torch.equal(ov["grads"][k], se["grads"][k])
+                         for k in ov["grads"]))
+        out.append({
+            "name": name, "sched": sched, "equal": equal,
+            "fwd": (ov["fwd"], se["fwd"]), "bwd": (ov["bwd"], se["bwd"]),
+            "launches": {m: r[0]["launches"] for m, r in modes.items()},
+            "runs": {m: [{k: x[k] for k in ("ms", "summed_s",
+                                            "in_flight_s")} for x in r]
+                     for m, r in modes.items()}})
+        del modes, ov, se
+    return {"cases": out, "s": time.perf_counter() - t_all}
+
+
+def _p12_overlap_report(res):
+    """(j)'s checks and log lines from each rank's ``_p12_overlap``: on
+    every rank the overlapped run ``torch.equal`` the serial one (y, aux,
+    every gradient), two or more collectives in flight in the overlapped
+    forward (one in the serial), and in the backward of
+    ``P12_OVERLAP_BACKWARD``, each path's kernels launched in both modes;
+    each rank's best host ms and collective seconds per mode.  Returns
+    {path: per-rank launches}."""
+    paths, failed = {}, []
+    for i, case in enumerate(res[0]["cases"]):
+        name = case["name"]
+        cases = [r["cases"][i] for r in res]
+        per_rank = {k: [c["launches"]["overlap"][k] for c in cases]
+                    for k in case["launches"]["overlap"]
+                    if any(c["launches"]["overlap"][k] for c in cases)}
+        bad = [k for k in P12_USES.get(case["sched"], P12_DEFAULT_USES)
+               if min(c["launches"][m].get(k, 0) for c in cases
+                      for m in ("overlap", "serial")) < 1]
+        ok = (not bad and all(c["equal"] for c in cases)
+              and all(c["fwd"][0] >= 2 and c["fwd"][1] == 1 for c in cases)
+              and (name not in P12_OVERLAP_BACKWARD
+                   or all(c["bwd"][0] >= 2 for c in cases)))
+        log(f"  (j) {name}: overlapped torch.equal serial (y, aux, every "
+            f"gradient): {[c['equal'] for c in cases]}; most in flight, "
+            f"forward {[c['fwd'][0] for c in cases]} (serial "
+            f"{[c['fwd'][1] for c in cases]}), backward "
+            f"{[c['bwd'][0] for c in cases]} (serial "
+            f"{[c['bwd'][1] for c in cases]}); launches per rank "
+            f"{per_rank}" + ("" if ok else f" FAILED (not launched: {bad})"))
+        for rk, c in enumerate(cases):
+            best = {m: min(c["runs"][m], key=lambda x: x["ms"])
+                    for m in ("overlap", "serial")}
+            log(f"  (j) {name} rank {rk} (best of {P12_OVERLAP_RUNS}): "
+                + "; ".join(f"{m} {b['ms']:.1f} ms, collectives summed "
+                            f"{1e3 * b['summed_s']:.1f} ms, in flight "
+                            f"{1e3 * b['in_flight_s']:.1f} ms"
+                            for m, b in best.items()))
+        if not ok:
+            failed.append(name)
+        paths[f"overlap_2x2_{name}"] = per_rank
+    log(f"  (j) in {max(r['s'] for r in res):.1f} s")
+    if failed:
+        raise AssertionError(f"phase 12 (j): {failed} (the lines above)")
+    return paths
 
 
 #: (e): phase 9 (a)'s run on the (2, 2) mesh, 7 steps (0-6): the skips at
@@ -3286,6 +3470,7 @@ def multirank(dev, model_cfg=None, tokens=(8, 1024), block_cfg=None,
         if failed:
             raise AssertionError(f"phase 12 (a): {failed} outside their "
                                  f"limits (the lines above)")
+        paths.update(_p12_overlap_report([r["overlap"] for r in res]))
         for sched in scheds:
             per_rank = [r["train"][sched] for r in res]
             for step in range(P12_STEPS):

@@ -12,6 +12,14 @@ port's takes it as an argument and checks it against the mesh.
 
 The data move under every collective is ``repro_torch.parallel.comm``'s
 (one ``all_to_all_single``, sums in a fixed order on the receiving rank).
+Each bit-moving collective has a start form (``*_start``) that returns a
+:class:`Flight`: the collective posted, its value landed by ``wait()``.
+Its autograd form is a chain of nodes (``_Post`` starts, ``_Relay`` waits
+and starts the next hop, ``_Land`` waits), so several collectives are in
+flight at once forward and, since the backward runs the chain in reverse
+(the transpose started by one node and waited by another), backward too;
+the plain form waits at once.  ``executor.execute`` issues the plan's
+collectives through the start forms.
 Each collective's backward is JAX's transpose, as ``jax.grad`` takes it
 inside a ``shard_map(..., check_vma=False)``: an AlltoAll's is the
 AlltoAll with split and concat swapped, a tiled AllGather's the
@@ -166,60 +174,194 @@ def wire_decode(w, comm: CommConfig | None, out_dtype):
     return (payload.float() * scale).to(out_dtype)
 
 
-class _Fp8Moved(torch.autograd.Function):
-    """fp8 wire move with JAX's ``custom_vjp``: the backward re-encodes
-    the cotangent with its own absmax scales, moves it through
-    ``bwd_move``, decodes it and applies ``bwd_post``."""
+# --- collectives in flight -----------------------------------------------------
+# A collective of this module moves its payload through one or more hops
+# (a hop: one ``parallel.comm`` start form bound to a group, and its
+# transpose's).  Its autograd form is a chain of nodes that share a _Box:
+# _Post encodes the payload and starts hop 0; a _Relay per later hop waits
+# on the one before and starts its own; _Land waits on the last and
+# decodes.  The backward runs the chain in reverse: _Land's backward
+# encodes the cotangent and starts the last hop's transpose, each _Relay's
+# waits on it and starts the transpose of the hop before, and _Post's waits,
+# decodes and applies ``bwd_post``.  So between the node that starts a
+# transpose and the one that waits on it, the autograd engine may run other
+# chunks' backward.  A Flight holds the forward chain as a generator that
+# pauses while a collective is in flight.
+
+class _Box:
+    """What one collective's chain of nodes shares: its hops (pairs of
+    ``start(v, tag)`` and ``transpose(v, tag)`` returning a
+    ``comm.Handle``), the hops its backward moves through (fp8's
+    ``bwd_move``), the codec, and the forward's and backward's handle in
+    flight."""
+
+    __slots__ = ("hops", "bwd_hops", "comm", "fp8", "dtype", "bwd_post",
+                 "tag", "fwd", "bwd", "tok")
+
+    def __init__(self, hops, comm, bwd_hops, bwd_post):
+        self.hops, self.comm = hops, comm
+        self.fp8 = _active(comm) == "fp8_e4m3"
+        self.bwd_hops = bwd_hops if self.fp8 and bwd_hops else hops
+        self.bwd_post = bwd_post if self.fp8 else None
+        self.tag = _comm.current_tag()
+        self.fwd = self.bwd = self.dtype = self.tok = None
+
+    @property
+    def bwd_tag(self):
+        return None if self.tag is None else f"{self.tag}/bwd"
+
+
+class _Post(torch.autograd.Function):
+    """Encode (fp8; the f32 / bf16 casts run outside, as autograd ops)
+    and start hop 0.  The output is an empty token for the next node."""
 
     @staticmethod
-    def forward(ctx, x, comm, move, bwd_move, bwd_post):
-        ctx.comm, ctx.dtype = comm, x.dtype
-        ctx.bwd_move, ctx.bwd_post = bwd_move or move, bwd_post
-        ctx.tags = obs.trace_context() if obs.enabled() else None
-        return wire_decode(move(wire_encode(x, comm)), comm, x.dtype)
+    def forward(ctx, x, box):
+        ctx.box, box.dtype = box, x.dtype
+        box.tok = (x.dtype, x.device)
+        v = wire_encode(x, box.comm) if box.fp8 else x
+        box.fwd = box.hops[0][0](v, box.tag)
+        return x.new_empty(0)
+
+    @staticmethod
+    def backward(ctx, _):
+        box = ctx.box
+        g, box.bwd = box.bwd.wait(), None
+        if box.fp8:
+            g = wire_decode(g, box.comm, box.dtype)
+            if box.bwd_post is not None:
+                g = box.bwd_post(g)
+        return g, None
+
+
+class _Relay(torch.autograd.Function):
+    """Wait on hop ``k - 1`` and start hop ``k``."""
+
+    @staticmethod
+    def forward(ctx, tok, box, k):
+        ctx.box, ctx.k = box, k
+        v = box.fwd.wait()
+        box.fwd = box.hops[k][0](v, box.tag)
+        return tok.new_empty(0)
+
+    @staticmethod
+    def backward(ctx, gt):
+        box = ctx.box
+        v = box.bwd.wait()
+        box.bwd = box.bwd_hops[ctx.k - 1][1](v, box.bwd_tag)
+        return gt, None, None
+
+
+class _Land(torch.autograd.Function):
+    """Wait on the last hop and decode (fp8).  The backward re-encodes
+    the cotangent under the forward's call context (``obs.trace_tag``),
+    so a saturation event of the backward names its MoE call."""
+
+    @staticmethod
+    def forward(ctx, tok, box):
+        ctx.box = box
+        ctx.tags = obs.trace_context() if box.fp8 and obs.enabled() else None
+        v, box.fwd = box.fwd.wait(), None
+        return wire_decode(v, box.comm, box.dtype) if box.fp8 else v
 
     @staticmethod
     def backward(ctx, g):
-        with (obs.trace_tag(**ctx.tags) if ctx.tags
-              else contextlib.nullcontext()):
-            enc = wire_encode(g, ctx.comm)
-        gd = wire_decode(ctx.bwd_move(enc), ctx.comm, ctx.dtype)
-        if ctx.bwd_post is not None:
-            gd = ctx.bwd_post(gd)
-        return gd, None, None, None, None
+        box = ctx.box
+        if box.fp8:
+            with (obs.trace_tag(**ctx.tags) if ctx.tags
+                  else contextlib.nullcontext()):
+                g = wire_encode(g, box.comm)
+        box.bwd = box.bwd_hops[-1][1](g, box.bwd_tag)
+        dtype, device = box.tok
+        return torch.empty(0, dtype=dtype, device=device), None
 
 
-class _Moved(torch.autograd.Function):
-    """A bit-moving collective ``move`` whose backward is the collective
-    ``transpose`` (both raw ``parallel.comm`` calls bound to a group)."""
+class Flight:
+    """A collective's value in flight: ``wait()`` returns it.  Built on a
+    generator that starts collectives and pauses (``yield``) while they
+    are in flight; the constructor runs it to its first pause, each
+    ``wait()`` to its end.  The generator runs under the ``comm.tagged``
+    tag the flight was created under, whoever waits on it."""
 
-    @staticmethod
-    def forward(ctx, x, move, transpose):
-        ctx.transpose = transpose
-        return move(x)
+    __slots__ = ("_gen", "_tag", "value")
 
-    @staticmethod
-    def backward(ctx, g):
-        return ctx.transpose(g.contiguous()), None, None
+    def __init__(self, gen):
+        self._gen, self._tag, self.value = gen, _comm.current_tag(), None
+        self._resume()
+
+    @classmethod
+    def of(cls, value):
+        """A flight that has landed: ``value``."""
+        f = cls.__new__(cls)
+        f._gen, f._tag, f.value = None, None, value
+        return f
+
+    @property
+    def done(self) -> bool:
+        return self._gen is None
+
+    def _resume(self):
+        with _comm.tagged(self._tag):
+            try:
+                next(self._gen)
+            except StopIteration as stop:
+                self._gen, self.value = None, stop.value
+
+    def wait(self):
+        while self._gen is not None:
+            self._resume()
+        return self.value
+
+    def then(self, fn):
+        """The flight of ``fn(value)``, applied at the wait."""
+        if self._gen is None:
+            return Flight.of(fn(self.value))
+        return Flight(_then(self, fn))
 
 
-def _wire_moved(x, move, comm, *, transpose=None, bwd_move=None,
-                bwd_post=None):
-    """Run a bit-moving collective ``move`` in the wire format, with the
-    backward collective in the same wire dtype: f32 runs ``move`` raw,
-    bf16 composes casts around it (autograd transposes them), each with
-    ``transpose`` (default ``move``: the self-transposing AlltoAlls) as
-    the move's backward; fp8 goes through :class:`_Fp8Moved`, whose
-    backward moves the re-encoded cotangent through ``bwd_move`` and then
-    applies ``bwd_post`` (the local sum a gather's transpose needs).
-    ``move is _identity`` (a one-member group) runs the codec alone."""
-    wd = _active(comm)
-    if wd in ("f32", "bf16"):
-        enc = wire_encode(x, comm)
-        moved = enc if move is _identity else _Moved.apply(
-            enc, move, transpose or move)
-        return wire_decode(moved, comm, x.dtype)
-    return _Fp8Moved.apply(x, comm, move, bwd_move, bwd_post)
+def _then(f, fn):
+    yield f
+    return fn(f.wait())
+
+
+def landed(v):
+    """``v``, waited on when it is a :class:`Flight`."""
+    return v.wait() if isinstance(v, Flight) else v
+
+
+def _fly(x, hops, comm, bwd_hops, bwd_post):
+    box = _Box(hops, comm, bwd_hops, bwd_post)
+    tok = _Post.apply(x if box.fp8 else wire_encode(x, comm), box)
+    for k in range(1, len(hops)):
+        yield box.fwd
+        tok = _Relay.apply(tok, box, k)
+    yield box.fwd
+    out = _Land.apply(tok, box)
+    return out if box.fp8 else wire_decode(out, comm, x.dtype)
+
+
+def _flight(x, hops, comm=None, *, bwd_hops=None, bwd_post=None) -> Flight:
+    """Start moving ``x`` through ``hops`` in the wire format, with the
+    backward in the same wire dtype: f32 moves ``x`` raw, bf16 casts
+    around the move (autograd transposes the casts), fp8 encodes in the
+    chain with its own absmax scales, forward and backward.  fp8's
+    backward moves through ``bwd_hops`` when given (an AlltoAll where the
+    transpose is a reduce-scatter) and then applies ``bwd_post`` (the
+    local sum that the reduce-scatter would take).  No hops (a
+    one-member group) runs the codec alone."""
+    if not hops:
+        if _active(comm) != "fp8_e4m3":
+            return Flight.of(wire_decode(wire_encode(x, comm), comm,
+                                         x.dtype))
+        hops = (_IDENTITY_HOP,)
+    return Flight(_fly(x, tuple(hops), comm, bwd_hops, bwd_post))
+
+
+def _completed(v, tag=None):
+    return _comm.Handle.completed(v)
+
+
+_IDENTITY_HOP = (_completed, _completed)
 
 
 def wire_raw_ok(comm) -> bool:
@@ -232,11 +374,7 @@ def wire_raw_ok(comm) -> bool:
 def wire_roundtrip(x, comm=None):
     """Encode then decode with no movement: the stand-in for a wire-format
     collective on a single-member group."""
-    return _wire_moved(x, _identity, comm)
-
-
-def _identity(v):
-    return v
+    return _flight(x, (), comm).wait()
 
 
 # --- the bound mesh ---------------------------------------------------------
@@ -297,25 +435,26 @@ def axis_index(axes) -> int:
     return _MESH.axis_index(axes)
 
 
-def _a2a(grp, split_axis, concat_axis):
-    def move(v):
-        return _comm.all_to_all(v, grp, split_axis, concat_axis)
-    return move
+def _a2a_hop(grp, split_axis, concat_axis):
+    """An AlltoAll hop (its transpose swaps split and concat)."""
+    def start(v, tag=None):
+        return _comm.all_to_all_start(v, grp, split_axis, concat_axis,
+                                      tag=tag)
+
+    def transpose(v, tag=None):
+        return _comm.all_to_all_start(v, grp, concat_axis, split_axis,
+                                      tag=tag)
+    return start, transpose
 
 
-def _moved_a2a(x, grp, split_axis, concat_axis):
-    """Differentiable AlltoAll (its backward swaps split and concat)."""
-    return _Moved.apply(x, _a2a(grp, split_axis, concat_axis),
-                        _a2a(grp, concat_axis, split_axis))
+def _gather_hop(grp, axis, tiled):
+    """An AllGather hop (its transpose the reduce-scatter)."""
+    def start(v, tag=None):
+        return _comm.all_gather_start(v, grp, axis, tiled, tag=tag)
 
-
-def _gather(grp, axis, tiled):
-    def move(v):
-        return _comm.all_gather(v, grp, axis, tiled)
-
-    def transpose(g):
-        return _comm.psum_scatter(g, grp, axis, tiled)
-    return move, transpose
+    def transpose(v, tag=None):
+        return _comm.psum_scatter_start(v, grp, axis, tiled, tag=tag)
+    return start, transpose
 
 
 # --- PauseMP primitives ------------------------------------------------------
@@ -333,26 +472,31 @@ def mp_split(x, mp_axes, n_mp: int, axis: int = 0):
     return x.narrow(axis, grp.index * size, size)
 
 
+def mp_all_gather_start(x, mp_axes, n_mp: int, axis: int = 0) -> Flight:
+    """Start :func:`mp_all_gather`."""
+    grp = group(mp_axes, n_mp, f"mp_all_gather over {mp_axes}")
+    if grp is None:
+        return Flight.of(x)
+    return _flight(x, (_gather_hop(grp, axis, True),))
+
+
 def mp_all_gather(x, mp_axes, n_mp: int, axis: int = 0):
     """MP-AllGather, the transpose of :func:`mp_split` (a tiled AllGather;
     backward the reduce-scatter)."""
-    grp = group(mp_axes, n_mp, f"mp_all_gather over {mp_axes}")
-    if grp is None:
-        return x
-    move, transpose = _gather(grp, axis, True)
-    return _Moved.apply(x, move, transpose)
+    return mp_all_gather_start(x, mp_axes, n_mp, axis).wait()
 
 
 def psum(x, axes, n: int):
     """The AllReduce (the baseline's ESP partial sums, the decode
-    fallback's output); its backward is ``psum`` of the cotangent."""
+    fallback's output); its backward is ``psum`` of the cotangent.
+    Synchronous: ``comm.psum`` runs in the chain's first node."""
     grp = group(axes, n, f"psum over {axes}")
     if grp is None:
         return x
 
-    def move(v):
-        return _comm.psum(v, grp)
-    return _Moved.apply(x, move, move)
+    def move(v, tag=None):
+        return _comm.Handle.completed(_comm.psum(v, grp))
+    return _flight(x, ((move, move),)).wait()
 
 
 def pmean(x, axes, n: int):
@@ -394,79 +538,118 @@ def from_expert_batch(h, G: int):
     return h.reshape(El, G, Gc // G, M).transpose(0, 1)
 
 
+def _a2a_hops(axes, n, what, split_axis, concat_axis):
+    grp = group(axes, n, what)
+    return () if grp is None else (_a2a_hop(grp, split_axis, concat_axis),)
+
+
+def ep_esp_all_to_all_start(x, ep_axes, esp_axes, n_group: int, *,
+                            split_axis=0, concat_axis=0) -> Flight:
+    """Start :func:`ep_esp_all_to_all`."""
+    return _flight(x, _a2a_hops(
+        _combined(ep_axes, esp_axes), n_group,
+        f"the EP&ESP-AlltoAll over {ep_axes} x {esp_axes}", split_axis,
+        concat_axis))
+
+
 def ep_esp_all_to_all(x, ep_axes, esp_axes, n_group: int, *, split_axis=0,
                       concat_axis=0):
     """One fused AlltoAll over the combined (EP, ESP) group of
     ``n_group`` ranks (JAX's tiled ``lax.all_to_all`` over the tuple)."""
-    grp = group(_combined(ep_axes, esp_axes), n_group,
-                f"the EP&ESP-AlltoAll over {ep_axes} x {esp_axes}")
-    if grp is None:
-        return x
-    return _moved_a2a(x, grp, split_axis, concat_axis)
+    return ep_esp_all_to_all_start(x, ep_axes, esp_axes, n_group,
+                                   split_axis=split_axis,
+                                   concat_axis=concat_axis).wait()
 
 
 def ep_all_to_all(x, ep_axes, n_ep: int, *, split_axis=0, concat_axis=0):
     """Plain EP-AlltoAll over the EP axes (baseline schedule)."""
-    grp = group(ep_axes, n_ep, f"the EP-AlltoAll over {ep_axes}")
-    if grp is None:
-        return x
-    return _moved_a2a(x, grp, split_axis, concat_axis)
+    return _flight(x, _a2a_hops(ep_axes, n_ep,
+                                f"the EP-AlltoAll over {ep_axes}",
+                                split_axis, concat_axis)).wait()
 
 
-def _hier_groups(ep_axes, esp_axes, n_ep, n_esp, order):
+def _hier_hops(ep_axes, esp_axes, n_ep, n_esp, axis, order):
+    """The two hops of the hierarchical AlltoAll over the combined dim at
+    ``axis``, viewed as (n_ep, n_esp): the ESP hop over ``axis + 1`` and
+    the EP hop over ``axis``, in ``order`` (a one-member group's hop is
+    left out).  The two act on different dims, so they commute: the
+    backward's reverse order moves the same bits."""
     if order not in ("esp_first", "ep_first"):
         raise ValueError(f"unknown hier order {order!r}")
-    return (group(ep_axes, n_ep, f"the hierarchical EP hop over {ep_axes}"),
-            group(esp_axes, n_esp,
-                  f"the hierarchical ESP hop over {esp_axes}"))
+    ge = group(ep_axes, n_ep, f"the hierarchical EP hop over {ep_axes}")
+    gs = group(esp_axes, n_esp,
+               f"the hierarchical ESP hop over {esp_axes}")
 
+    def hop(grp, dim):
+        def start(v, tag=None):
+            shp = v.shape
+            v5 = v.reshape(*shp[:axis], n_ep, n_esp, *shp[axis + 1:])
+            return _comm.all_to_all_start(v5, grp, dim, dim, tag=tag).then(
+                lambda r: r.reshape(shp))
+        return start, start
 
-def _hier_move(x, ge, gs, n_ep, n_esp, axis, order, hop):
-    """The two hops of the hierarchical AlltoAll over the combined dim at
-    ``axis``, viewed as (n_ep, n_esp), over the EP group ``ge`` and the
-    ESP group ``gs``; ``hop(v, grp, dim)`` moves one."""
-    if ge is None and gs is None:
-        return x
-    shp = x.shape
-    x5 = x.reshape(*shp[:axis], n_ep, n_esp, *shp[axis + 1:])
     hops = [(gs, axis + 1), (ge, axis)]
     if order == "ep_first":
         hops.reverse()
-    for grp, dim in hops:
-        if grp is not None:
-            x5 = hop(x5, grp, dim)
-    return x5.reshape(shp)
+    return tuple(hop(g, d) for g, d in hops if g is not None)
 
 
 def hier_ep_esp_all_to_all(x, ep_axes, esp_axes, n_ep: int, n_esp: int, *,
                            axis=1, order: str = "esp_first"):
     """Hierarchical EP&ESP-AlltoAll: an ESP hop and an EP hop, in either
     ``order`` (the s2h schedule); bitwise the fused AlltoAll."""
-    ge, gs = _hier_groups(ep_axes, esp_axes, n_ep, n_esp, order)
-    return _hier_move(x, ge, gs, n_ep, n_esp, axis, order,
-                      lambda v, grp, dim: _moved_a2a(v, grp, dim, dim))
+    return _flight(x, _hier_hops(ep_axes, esp_axes, n_ep, n_esp, axis,
+                                 order)).wait()
 
 
 # --- wire-format collective entry points -------------------------------------
+# Each ``*_start`` returns the :class:`Flight` of its collective; the plain
+# form waits on it at once.
+
+def wire_ep_esp_all_to_all_start(x, ep_axes, esp_axes, n_group: int,
+                                 comm=None, *, split_axis=0,
+                                 concat_axis=0) -> Flight:
+    """Start :func:`wire_ep_esp_all_to_all`."""
+    assert split_axis == concat_axis, "wire a2a must be self-transposing"
+    return _flight(x, _a2a_hops(
+        _combined(ep_axes, esp_axes), n_group,
+        f"the EP&ESP-AlltoAll over {ep_axes} x {esp_axes}", split_axis,
+        concat_axis), comm)
+
 
 def wire_ep_esp_all_to_all(x, ep_axes, esp_axes, n_group: int, comm=None, *,
                            split_axis=0, concat_axis=0):
     """:func:`ep_esp_all_to_all` with the payload in ``comm``'s wire dtype
     (backward AlltoAll in the same dtype)."""
+    return wire_ep_esp_all_to_all_start(
+        x, ep_axes, esp_axes, n_group, comm, split_axis=split_axis,
+        concat_axis=concat_axis).wait()
+
+
+def wire_ep_all_to_all_start(x, ep_axes, n_ep: int, comm=None, *,
+                             split_axis=0, concat_axis=0) -> Flight:
+    """Start :func:`wire_ep_all_to_all`."""
     assert split_axis == concat_axis, "wire a2a must be self-transposing"
-    grp = group(_combined(ep_axes, esp_axes), n_group,
-                f"the EP&ESP-AlltoAll over {ep_axes} x {esp_axes}")
-    move = _identity if grp is None else _a2a(grp, split_axis, concat_axis)
-    return _wire_moved(x, move, comm)
+    return _flight(x, _a2a_hops(ep_axes, n_ep,
+                                f"the EP-AlltoAll over {ep_axes}",
+                                split_axis, concat_axis), comm)
 
 
 def wire_ep_all_to_all(x, ep_axes, n_ep: int, comm=None, *, split_axis=0,
                        concat_axis=0):
     """:func:`ep_all_to_all` in the wire format (baseline schedule)."""
-    assert split_axis == concat_axis, "wire a2a must be self-transposing"
-    grp = group(ep_axes, n_ep, f"the EP-AlltoAll over {ep_axes}")
-    move = _identity if grp is None else _a2a(grp, split_axis, concat_axis)
-    return _wire_moved(x, move, comm)
+    return wire_ep_all_to_all_start(x, ep_axes, n_ep, comm,
+                                    split_axis=split_axis,
+                                    concat_axis=concat_axis).wait()
+
+
+def wire_hier_ep_esp_all_to_all_start(x, ep_axes, esp_axes, n_ep: int,
+                                      n_esp: int, comm=None, *, axis=1,
+                                      order: str = "esp_first") -> Flight:
+    """Start :func:`wire_hier_ep_esp_all_to_all`: its first hop now, the
+    second once a wait finds the first landed (the flight's two steps)."""
+    return _flight(x, _hier_hops(ep_axes, esp_axes, n_ep, n_esp, axis,
+                                 order), comm)
 
 
 def wire_hier_ep_esp_all_to_all(x, ep_axes, esp_axes, n_ep: int,
@@ -474,16 +657,26 @@ def wire_hier_ep_esp_all_to_all(x, ep_axes, esp_axes, n_ep: int,
                                 order: str = "esp_first"):
     """:func:`hier_ep_esp_all_to_all` in the wire format: one encode
     before the first hop, one decode after the second, so both hops ship
-    the encoded payload; the two-hop move is its own transpose."""
-    ge, gs = _hier_groups(ep_axes, esp_axes, n_ep, n_esp, order)
+    the encoded payload."""
+    return wire_hier_ep_esp_all_to_all_start(
+        x, ep_axes, esp_axes, n_ep, n_esp, comm, axis=axis,
+        order=order).wait()
 
-    def move(w):
-        return _hier_move(w, ge, gs, n_ep, n_esp, axis, order,
-                          lambda v, grp, dim: _comm.all_to_all(v, grp, dim,
-                                                               dim))
-    if ge is None and gs is None:
-        move = _identity
-    return _wire_moved(x, move, comm)
+
+def wire_mp_all_gather_start(x, mp_axes, n_mp: int, comm=None,
+                             axis: int = 0) -> Flight:
+    """Start :func:`wire_mp_all_gather`."""
+    grp = group(mp_axes, n_mp, f"mp_all_gather over {mp_axes}")
+    if grp is None:
+        return Flight.of(x)
+
+    def bwd_post(g):
+        s = g.shape
+        return g.reshape(*s[:axis], n_mp, s[axis] // n_mp,
+                         *s[axis + 1:]).sum(dim=axis)
+
+    return _flight(x, (_gather_hop(grp, axis, True),), comm,
+                   bwd_hops=(_a2a_hop(grp, axis, axis),), bwd_post=bwd_post)
 
 
 def wire_mp_all_gather(x, mp_axes, n_mp: int, comm=None, axis: int = 0):
@@ -491,18 +684,18 @@ def wire_mp_all_gather(x, mp_axes, n_mp: int, comm=None, axis: int = 0):
     returns ``x`` untouched, no codec, as the JAX function does.  Its
     transpose is the reduce-scatter; the fp8 backward is an AlltoAll over
     the gathered dim followed by a sum after the decode."""
-    grp = group(mp_axes, n_mp, f"mp_all_gather over {mp_axes}")
+    return wire_mp_all_gather_start(x, mp_axes, n_mp, comm, axis).wait()
+
+
+def wire_all_gather_stacked_start(x, mp_axes, n_mp: int, comm=None,
+                                  axis: int = 1) -> Flight:
+    """Start :func:`wire_all_gather_stacked`."""
+    grp = group(mp_axes, n_mp, f"the stacked AllGather over {mp_axes}")
     if grp is None:
-        return x
-    move, transpose = _gather(grp, axis, True)
-
-    def bwd_post(g):
-        s = g.shape
-        return g.reshape(*s[:axis], n_mp, s[axis] // n_mp,
-                         *s[axis + 1:]).sum(dim=axis)
-
-    return _wire_moved(x, move, comm, transpose=transpose,
-                       bwd_move=_a2a(grp, axis, axis), bwd_post=bwd_post)
+        return _flight(x, (), comm).then(lambda v: v.unsqueeze(axis))
+    return _flight(x, (_gather_hop(grp, axis, False),), comm,
+                   bwd_hops=(_a2a_hop(grp, axis, axis),),
+                   bwd_post=lambda g: g.sum(dim=axis))
 
 
 def wire_all_gather_stacked(x, mp_axes, n_mp: int, comm=None,
@@ -511,13 +704,8 @@ def wire_all_gather_stacked(x, mp_axes, n_mp: int, comm=None,
     at ``axis`` (the SAA / ``s2_pipe`` per-chunk MP-AllGather).  The codec
     runs at size 1, as in JAX; the fp8 backward is an AlltoAll over the
     group dim, the decode and a sum."""
-    grp = group(mp_axes, n_mp, f"the stacked AllGather over {mp_axes}")
-    if grp is None:
-        return _wire_moved(x, _identity, comm).unsqueeze(axis)
-    move, transpose = _gather(grp, axis, False)
-    return _wire_moved(x, move, comm, transpose=transpose,
-                       bwd_move=_a2a(grp, axis, axis),
-                       bwd_post=lambda g: g.sum(dim=axis))
+    return wire_all_gather_stacked_start(x, mp_axes, n_mp, comm,
+                                         axis).wait()
 
 
 # --- expert-major buffer layout ----------------------------------------------
@@ -552,28 +740,74 @@ def from_expert_batch_em(h, G: int):
 
 # --- SAA: simultaneous AlltoAll + AllGather (S2 combine path) ---------------
 
-def saa_combine_allgather(y, ep_axes, esp_axes, mp_axes, *, n_ep: int,
-                          n_esp: int, n_mp: int, n_chunks: int = 4,
-                          comm: CommConfig | None = None):
-    """Chunked combine EP&ESP-AlltoAll + MP-AllGather.  y: (El, G, c, M)
-    -> (E, c * N_MP, M), slot-ordered (mp_rank, slot).  Each chunk's
-    AlltoAll runs the wire codec, as in JAX."""
+def saa_combine_allgather_start(y, ep_axes, esp_axes, mp_axes, *, n_ep: int,
+                                n_esp: int, n_mp: int, n_chunks: int = 4,
+                                comm: CommConfig | None = None,
+                                overlap: bool = True) -> Flight:
+    """Start :func:`saa_combine_allgather`: chunk 0's and chunk 1's
+    AlltoAlls now; each wait on chunk i's AlltoAll comes after chunk
+    i+1's start, and chunk i's stacked MP-AllGather starts as soon as
+    chunk i has landed and been reduced, so it is in flight beside chunk
+    i+1's AlltoAll (paper Fig. 5).  ``overlap=False`` waits on each
+    collective as soon as it starts (the serial twin: the same bits).
+    The collectives are tagged ``<tag>#<chunk>``."""
+    return Flight(_saa(y, ep_axes, esp_axes, mp_axes, n_ep, n_esp, n_mp,
+                       n_chunks, comm, overlap))
+
+
+def _saa(y, ep_axes, esp_axes, mp_axes, n_ep, n_esp, n_mp, n_chunks, comm,
+         overlap):
     El, G, c, M = y.shape
     n_chunks = max(1, min(n_chunks, c))
     while c % n_chunks:
         n_chunks -= 1
     cs = c // n_chunks
     E = n_ep * El
-    parts = []
-    for i in range(n_chunks):
-        chunk = y.narrow(2, i * cs, cs)
-        back = wire_ep_esp_all_to_all(chunk, ep_axes, esp_axes, n_ep * n_esp,
-                                      comm, split_axis=1, concat_axis=1)
-        comb = undump_reduce_em(back, n_ep, n_esp)            # (E, cs, M)
+    tag = _comm.current_tag()
+
+    def chunk_tag(i):
+        return f"{tag}#{i}" if tag is not None else None
+
+    def a2a(i):
+        with _comm.tagged(chunk_tag(i)):
+            f = wire_ep_esp_all_to_all_start(
+                y.narrow(2, i * cs, cs), ep_axes, esp_axes, n_ep * n_esp,
+                comm, split_axis=1, concat_axis=1)
+        if not overlap:
+            f.wait()
+        return f
+
+    def gather(i, comb):
         if n_mp == 1:
-            parts.append(comb[:, None])                       # (E, 1, cs, M)
-        else:
-            parts.append(wire_all_gather_stacked(comb, mp_axes, n_mp, comm,
-                                                 axis=1))
-    stacked = torch.stack(parts, dim=2)          # (E, N_MP, n_chunks, cs, M)
-    return stacked.reshape(E, n_mp * c, M)
+            return Flight.of(comb[:, None])              # (E, 1, cs, M)
+        with _comm.tagged(chunk_tag(i)):
+            f = wire_all_gather_stacked_start(comb, mp_axes, n_mp, comm,
+                                              axis=1)
+        if not overlap:
+            f.wait()
+        return f
+
+    moving, parts = [a2a(0)], []
+    for i in range(n_chunks):
+        if i + 1 < n_chunks and overlap:
+            moving.append(a2a(i + 1))
+        yield moving[i]
+        comb = undump_reduce_em(moving[i].wait(), n_ep, n_esp)   # (E, cs, M)
+        parts.append(gather(i, comb))
+        if i + 1 < n_chunks and not overlap:
+            moving.append(a2a(i + 1))
+    yield parts[-1]
+    stacked = torch.stack([p.wait() for p in parts], dim=2)
+    return stacked.reshape(E, n_mp * c, M)   # (E, N_MP, n_chunks, cs, M)
+
+
+def saa_combine_allgather(y, ep_axes, esp_axes, mp_axes, *, n_ep: int,
+                          n_esp: int, n_mp: int, n_chunks: int = 4,
+                          comm: CommConfig | None = None):
+    """Chunked combine EP&ESP-AlltoAll + MP-AllGather.  y: (El, G, c, M)
+    -> (E, c * N_MP, M), slot-ordered (mp_rank, slot).  Each chunk's
+    AlltoAll runs the wire codec, as in JAX; the chunks' collectives are
+    in flight together (:func:`saa_combine_allgather_start`)."""
+    return saa_combine_allgather_start(
+        y, ep_axes, esp_axes, mp_axes, n_ep=n_ep, n_esp=n_esp, n_mp=n_mp,
+        n_chunks=n_chunks, comm=comm).wait()

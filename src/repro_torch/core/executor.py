@@ -43,9 +43,31 @@ combine run over ``R * cap`` rows, and the pool-form grouped stage counts
 must already be the placed ones, this rank's ``R / n_ep`` physical slots
 (``apply_moe`` exchanges them).  ``execute_prefix`` runs the first k
 stages for the stage-timing harness (``repro_torch.obs.trace``).
+
+Where the JAX package leaves the overlap of a plan's collectives to XLA's
+async-collective (latency-hiding) scheduler, ``execute`` issues them
+itself: a list scheduler over the validated graph (:func:`issue_order`)
+starts a collective stage (``dispatch_a2a``, ``combine_a2a``, ``ag_mp``,
+``allreduce``) as soon as its deps have been issued, and among the ready
+stages takes collectives first, then the stages that launch nothing
+(slices), then compute.  A collective stage's value is a
+``collectives.Flight``, waited on where its first consumer needs it; so
+is the pool form of ``expert_ffn_grouped``, which posts its counts
+exchange as it is issued and enqueues the ragged FFN at the wait.  So chunk i+1's dispatch AlltoAll is posted
+before chunk i's expert FFN is enqueued (on the card a collective posted
+after a kernel waits for it: gloo's copy and NCCL's stream both wait on
+the current stream at the post), s2h's chunks have an ESP hop and an EP
+hop in flight together, and SAA's AllGather of chunk i travels beside
+chunk i+1's AlltoAll.  The order is a function of the plan alone, the
+same on every rank, as a process group needs.  ``overlap=False`` (the
+tests' and the smoke's serial twin: :func:`serial_issue`) runs the same
+functions in ``validate``'s order, each waited on as soon as it is
+issued; the bits are the same.  ``execute_prefix`` is serial.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -53,6 +75,14 @@ from repro_torch.core import collectives as coll
 from repro_torch.core.gating import combine, dispatch, topk_gate
 from repro_torch.core.plan import INPUT, Plan, validate
 from repro_torch.kernels.registry import get_op
+from repro_torch.parallel import comm as _comm
+
+#: ``execute``'s default issue mode (``serial_issue`` clears it)
+_OVERLAP = True
+#: stages that post a collective
+_POSTS = ("dispatch_a2a", "combine_a2a", "ag_mp", "allreduce")
+#: stages that launch nothing: views of their input
+_VIEWS = ("slice", "mp_split", "rs_mp")
 
 
 def expert_ffn(xb, w1, w3, w2, info):
@@ -122,11 +152,12 @@ class _PlacedTables:
 
 class _Ctx:
     __slots__ = ("info", "wg", "w1", "w3", "w2", "comm", "gate", "dtype",
-                 "placement", "placed")
+                 "placement", "placed", "overlap", "shapes")
 
     def __init__(self, info, wg, w1, w3, w2, comm, dtype, placement=None,
-                 device=None):
-        self.info, self.comm = info, comm
+                 device=None, overlap=False):
+        self.info, self.comm, self.overlap = info, comm, overlap
+        self.shapes = {}     # dispatch_a2a stage -> its value's shape
         self.wg, self.w1, self.w3, self.w2 = wg, w1, w3, w2
         self.gate = None     # (GateResult, cap) once the gate stage ran
         self.dtype = dtype   # layer-input dtype (raw-wire decode target)
@@ -136,7 +167,11 @@ class _Ctx:
 
 
 def _emit(st, vals, ctx):
-    """Lower one stage; ``vals`` are its deps' values in order."""
+    """Lower one stage; ``vals`` are its deps' values (or flights) in
+    order.  A collective stage returns its ``collectives.Flight``."""
+    if st.kind == "expert_ffn_grouped" and not st.p("local"):
+        return coll.Flight(_grouped_pool(st, vals[0], ctx))
+    vals = [coll.landed(v) for v in vals]
     info = ctx.info
     E = info.gate.n_experts
     Ne, Ns, Nm = info.n_ep, info.n_esp, info.n_mp
@@ -175,9 +210,9 @@ def _emit(st, vals, ctx):
         axes, n = _group(info, st.axes[0])
         axis = st.p("axis", 0)
         if st.wire:
-            return coll.wire_mp_all_gather(vals[0], axes, n, comm,
-                                           axis=axis)
-        return coll.mp_all_gather(vals[0], axes, n, axis=axis)
+            return coll.wire_mp_all_gather_start(vals[0], axes, n, comm,
+                                                 axis=axis)
+        return coll.mp_all_gather_start(vals[0], axes, n, axis=axis)
 
     if kind == "dispatch_a2a":
         d = vals[0]
@@ -185,25 +220,27 @@ def _emit(st, vals, ctx):
             # baseline layout: (E, c, M) -> (Ne, El, c, M) EP blocks
             # (the first dim is R physical slots under a placement)
             sb = d.reshape(Ne, d.shape[0] // Ne, d.shape[1], -1)
-            rb = coll.wire_ep_all_to_all(sb, info.ep_axes, Ne, comm)
-            return coll.to_expert_batch(rb)
+            return coll.wire_ep_all_to_all_start(
+                sb, info.ep_axes, Ne, comm).then(coll.to_expert_batch)
         sb = coll.dump_em(d, Ne, Ns)                    # (El, G, c, M)
+        ctx.shapes[st.name] = (sb.shape[0], sb.shape[1] * sb.shape[2],
+                               sb.shape[3])
         hier = st.p("hier")
         if hier:
-            rb = coll.wire_hier_ep_esp_all_to_all(
+            rb = coll.wire_hier_ep_esp_all_to_all_start(
                 sb, info.ep_axes, info.esp_axes, Ne, Ns, comm, axis=1,
                 order=hier)
         elif st.p("raw") and coll.wire_raw_ok(comm):
             # grouped-kernel consumer: the payload stays encoded (f32/bf16
             # are plain casts); the ragged FFN's f32 upcast is the decode
-            rb = coll.ep_esp_all_to_all(
+            rb = coll.ep_esp_all_to_all_start(
                 coll.wire_encode(sb, comm), info.ep_axes, info.esp_axes, G,
                 split_axis=1, concat_axis=1)
         else:
-            rb = coll.wire_ep_esp_all_to_all(
+            rb = coll.wire_ep_esp_all_to_all_start(
                 sb, info.ep_axes, info.esp_axes, G, comm, split_axis=1,
                 concat_axis=1)
-        return coll.to_expert_batch_em(rb)              # (El, G*c, M)
+        return rb.then(coll.to_expert_batch_em)         # (El, G*c, M)
 
     if kind == "expert_ffn":
         return expert_ffn(vals[0], ctx.w1, ctx.w3, ctx.w2, info)
@@ -212,48 +249,12 @@ def _emit(st, vals, ctx):
         return _emit_grouped(st, vals, ctx)
 
     if kind == "allreduce":
+        # comm.psum is synchronous: the stage lands as it is issued
         axes, n = _group(info, st.axes[0])
         return coll.psum(vals[0], axes, n)
 
     if kind == "combine_a2a":
-        h = vals[0]
-        if not st.p("fused"):
-            back = coll.wire_ep_all_to_all(
-                coll.from_expert_batch(h, Ne), info.ep_axes, Ne, comm)
-            return back.reshape(back.shape[0] * back.shape[1],
-                                back.shape[2], -1)      # (E|R, c, M)
-        y4 = coll.from_expert_batch_em(h, G)
-        if st.p("saa"):
-            return coll.saa_combine_allgather(
-                y4, info.ep_axes, info.esp_axes, info.mp_axes, n_ep=Ne,
-                n_esp=Ns, n_mp=Nm,
-                n_chunks=st.p("saa_chunks", info.saa_chunks),
-                comm=comm)                              # (E, c*Nm, M)
-        hier = st.p("hier")
-        if hier:
-            back = coll.wire_hier_ep_esp_all_to_all(
-                y4, info.ep_axes, info.esp_axes, Ne, Ns, comm, axis=1,
-                order=hier)
-        elif st.p("raw") and coll.wire_raw_ok(comm):
-            # grouped-kernel producer: its output is already in the wire
-            # dtype; move it raw, decode once, then reduce in f32
-            back = coll.wire_decode(
-                coll.ep_esp_all_to_all(y4, info.ep_axes, info.esp_axes, G,
-                                       split_axis=1, concat_axis=1),
-                comm, ctx.dtype)
-        else:
-            back = coll.wire_ep_esp_all_to_all(
-                y4, info.ep_axes, info.esp_axes, G, comm, split_axis=1,
-                concat_axis=1)
-        mine = coll.undump_reduce_em(back, Ne, Ns)      # (E|R, c, M)
-        if not st.p("stack_ag"):
-            return mine
-        if Nm == 1:
-            part = mine[:, None]                        # (E, 1, c, M)
-        else:
-            part = coll.wire_all_gather_stacked(
-                mine, tuple(info.mp_axes), Nm, comm, axis=1)
-        return part.reshape(mine.shape[0], -1, part.shape[-1])
+        return coll.Flight(_combine_back(st, vals[0], ctx))
 
     if kind == "combine":
         buf, (g, cap) = vals
@@ -280,6 +281,58 @@ def _emit(st, vals, ctx):
     raise ValueError(f"executor: unknown stage kind {kind!r}")
 
 
+def _combine_back(st, h, ctx):
+    """The ``combine_a2a`` stage's flight: the return AlltoAll, then the
+    local ESP sum and, under ``stack_ag``, the stacked MP-AllGather,
+    started once the AlltoAll has landed (SAA: its own flight)."""
+    info, comm = ctx.info, (ctx.comm if st.wire else None)
+    Ne, Ns, Nm = info.n_ep, info.n_esp, info.n_mp
+    G = info.combined_group
+    if not st.p("fused"):
+        f = coll.wire_ep_all_to_all_start(
+            coll.from_expert_batch(h, Ne), info.ep_axes, Ne, comm)
+        yield f
+        back = f.wait()
+        return back.reshape(back.shape[0] * back.shape[1], back.shape[2],
+                            -1)                         # (E|R, c, M)
+    y4 = coll.from_expert_batch_em(h, G)
+    if st.p("saa"):
+        f = coll.saa_combine_allgather_start(
+            y4, info.ep_axes, info.esp_axes, info.mp_axes, n_ep=Ne,
+            n_esp=Ns, n_mp=Nm, n_chunks=st.p("saa_chunks", info.saa_chunks),
+            comm=comm, overlap=ctx.overlap)
+        yield f
+        return f.wait()                                 # (E, c*Nm, M)
+    hier = st.p("hier")
+    if hier:
+        f = coll.wire_hier_ep_esp_all_to_all_start(
+            y4, info.ep_axes, info.esp_axes, Ne, Ns, comm, axis=1,
+            order=hier)
+    elif st.p("raw") and coll.wire_raw_ok(comm):
+        # grouped-kernel producer: its output is already in the wire
+        # dtype; move it raw, decode once, then reduce in f32
+        f = coll.ep_esp_all_to_all_start(
+            y4, info.ep_axes, info.esp_axes, G, split_axis=1,
+            concat_axis=1).then(
+                lambda b: coll.wire_decode(b, comm, ctx.dtype))
+    else:
+        f = coll.wire_ep_esp_all_to_all_start(
+            y4, info.ep_axes, info.esp_axes, G, comm, split_axis=1,
+            concat_axis=1)
+    yield f
+    mine = coll.undump_reduce_em(f.wait(), Ne, Ns)      # (E|R, c, M)
+    if not st.p("stack_ag"):
+        return mine
+    if Nm == 1:
+        part = mine[:, None]                            # (E, 1, c, M)
+    else:
+        g = coll.wire_all_gather_stacked_start(
+            mine, tuple(info.mp_axes), Nm, comm, axis=1)
+        yield g
+        part = g.wait()
+    return part.reshape(mine.shape[0], -1, part.shape[-1])
+
+
 def _emit_grouped(st, vals, ctx):
     """Lower an ``expert_ffn_grouped`` stage (``plan.fuse_grouped``).
 
@@ -289,40 +342,46 @@ def _emit_grouped(st, vals, ctx):
     dispatch -> :func:`collectives.wire_roundtrip` -> ``expert_ffn_ragged``
     (one group, counts ``min(load, cap)``) -> wire round trip -> combine.
 
-    Pool form (deps: the dispatch-AlltoAll receive buffer): exchange the
-    per-(expert, sender) routed-row counts over the combined group and run
-    ``expert_ffn_ragged`` on the buffer.
+    Pool form (:func:`_grouped_pool`): exchange the per-(expert, sender)
+    routed-row counts over the combined group and run
+    ``expert_ffn_ragged`` on the dispatch-AlltoAll receive buffer.
     """
+    info = ctx.info
+    E = info.gate.n_experts
+    comm = ctx.comm if st.wire else None
+    tokens, (g, cap) = vals
+    wd = getattr(comm, "wire_dtype", "f32") if comm is not None \
+        else "f32"
+    if coll.wire_raw_ok(comm):
+        op = get_op("expert_ffn_grouped", cfg=info.kernel, act=info.act,
+                    cap=cap, wire=wd)
+        return op(tokens.contiguous(), g.flat(cap, E), g.weights,
+                  ctx.w1, ctx.w3 if info.glu else None, ctx.w2)
+    d = dispatch(tokens, g.expert_idx, g.slot_idx, cap, E, info.kernel,
+                 flat=g.flat(cap, E))                # (E, cap, M)
+    d = coll.wire_roundtrip(d, comm)
+    cnt = torch.clamp(g.aux["load"], max=float(cap)).to(
+        torch.int32)[:, None].contiguous()
+    op = get_op("expert_ffn_ragged", cfg=info.kernel, act=info.act)
+    h = op(d.reshape(E, 1, cap, -1).contiguous(), cnt, ctx.w1,
+           ctx.w3 if info.glu else None, ctx.w2)
+    h = coll.wire_roundtrip(h.reshape(E, cap, -1), comm)
+    return combine(h, g.expert_idx, g.slot_idx, g.weights, cap,
+                   info.kernel, flat=g.flat(cap, E))
+
+
+def _grouped_pool(st, hv, ctx):
+    """The pool form's flight.  The counts exchange starts as the stage
+    is issued (it needs only the gate and the receive buffer's shape);
+    the wait lands ``hv``, the dispatch AlltoAll's (El, G*c, M) receive
+    buffer (maybe raw), and the counts, and enqueues
+    ``expert_ffn_ragged``."""
     info = ctx.info
     E = info.gate.n_experts
     Ne, Ns = info.n_ep, info.n_esp
     G = info.combined_group
-    comm = ctx.comm if st.wire else None
-
-    if st.p("local"):
-        tokens, (g, cap) = vals
-        wd = getattr(comm, "wire_dtype", "f32") if comm is not None \
-            else "f32"
-        if coll.wire_raw_ok(comm):
-            op = get_op("expert_ffn_grouped", cfg=info.kernel, act=info.act,
-                        cap=cap, wire=wd)
-            return op(tokens.contiguous(), g.flat(cap, E), g.weights,
-                      ctx.w1, ctx.w3 if info.glu else None, ctx.w2)
-        d = dispatch(tokens, g.expert_idx, g.slot_idx, cap, E, info.kernel,
-                     flat=g.flat(cap, E))                # (E, cap, M)
-        d = coll.wire_roundtrip(d, comm)
-        cnt = torch.clamp(g.aux["load"], max=float(cap)).to(
-            torch.int32)[:, None].contiguous()
-        op = get_op("expert_ffn_ragged", cfg=info.kernel, act=info.act)
-        h = op(d.reshape(E, 1, cap, -1).contiguous(), cnt, ctx.w1,
-               ctx.w3 if info.glu else None, ctx.w2)
-        h = coll.wire_roundtrip(h.reshape(E, cap, -1), comm)
-        return combine(h, g.expert_idx, g.slot_idx, g.weights, cap,
-                       info.kernel, flat=g.flat(cap, E))
-
-    h = vals[0]                                  # (El, G*c, M), maybe raw
     g, cap = ctx.gate
-    El, Gc, M = h.shape
+    El, Gc, M = ctx.shapes[st.deps[0]]
     c = Gc // G
     # this chunk covers capacity slots [ci*c, (ci+1)*c) of every expert;
     # slots are contiguous from 0, so its routed rows per expert are
@@ -347,35 +406,107 @@ def _emit_grouped(st, vals, ctx):
         nl = E // Ne
     snd = cnt.reshape(Ne, nl).T[:, :, None].expand(nl, Ne, Ns).reshape(
         nl, G)
-    rcv = coll.ep_esp_all_to_all(snd, info.ep_axes, info.esp_axes, G,
-                                 split_axis=1, concat_axis=1)   # (El, G)
+    counts = coll.ep_esp_all_to_all_start(snd, info.ep_axes, info.esp_axes,
+                                          G, split_axis=1, concat_axis=1)
+    yield counts
+    h = coll.landed(hv)
+    rcv = counts.wait()                                          # (El, G)
     op = get_op("expert_ffn_ragged", cfg=info.kernel, act=info.act)
     out = op(h.reshape(El, G, c, M).contiguous(), rcv.contiguous(), ctx.w1,
              ctx.w3 if info.glu else None, ctx.w2)
     return out.reshape(El, Gc, M)
 
 
-def _start(plan: Plan, x, wg, w1, w3, w2, info):
+def _start(plan: Plan, x, wg, w1, w3, w2, info, overlap=False):
     """(validated stage order, fresh context) for one run of ``plan``."""
     return validate(plan), _Ctx(info, wg, w1, w3, w2,
                                 getattr(plan, "comm", None), x.dtype,
-                                getattr(plan, "placement", None), x.device)
+                                getattr(plan, "placement", None), x.device,
+                                overlap)
 
 
-def execute(plan: Plan, x, wg, w1, w3, w2, info):
+def _rank(st) -> int:
+    """The list scheduler's preference: collectives, then stages that
+    launch nothing, then compute (the pool form of ``expert_ffn_grouped``
+    among them: it posts its counts exchange as it is issued, and its
+    flight enqueues the FFN when a consumer waits on it)."""
+    if st.kind in _POSTS:
+        return 0
+    return 1 if st.kind in _VIEWS else 2
+
+
+def issue_order(order) -> tuple:
+    """The order ``execute`` issues the stages of ``order`` (``validate``'s)
+    in: repeatedly the ready stage (every dep issued) of the lowest
+    :func:`_rank`, the first in ``order`` among equals.  A function of
+    the plan alone, so every rank posts its collectives in one order.
+
+    For a 2-chunk ``s1_pipe`` the dispatch AlltoAlls of both chunks come
+    before the first expert FFN:
+
+    >>> from repro_torch.core.plan import build_plan
+    >>> from repro_torch.core.schedules import MoEShardInfo
+    >>> from repro_torch.core.gating import GateConfig
+    >>> info = MoEShardInfo(("ep",), ("esp",), ("mp",), 2, 2, 2, 64, 16,
+    ...                     GateConfig(n_experts=8, top_k=2),
+    ...                     pipeline_chunks=2)
+    >>> [s.name for s in issue_order(validate(build_plan("s1", info)))]
+    ... # doctest: +NORMALIZE_WHITESPACE
+    ['split', 'gate', 'disp', 'chunk0/slice', 'a2a_d@0', 'chunk1/slice',
+     'a2a_d@1', 'ffn@0', 'a2a_c@0', 'ffn@1', 'a2a_c@1', 'merge', 'comb',
+     'ag_out']
+    """
+    left, issued, out = list(order), {INPUT}, []
+    while left:
+        st = min((s for s in left if all(d in issued for d in s.deps)),
+                 key=_rank)
+        left.remove(st)
+        issued.add(st.name)
+        out.append(st)
+    return tuple(out)
+
+
+@contextlib.contextmanager
+def serial_issue():
+    """Run every :func:`execute` inside as ``overlap=False`` (the serial
+    twin that the tests and the smoke hold the overlapped issue to)."""
+    global _OVERLAP
+    prev, _OVERLAP = _OVERLAP, False
+    try:
+        yield
+    finally:
+        _OVERLAP = prev
+
+
+def execute(plan: Plan, x, wg, w1, w3, w2, info, *, overlap=None):
     """Run one MoE layer under ``plan`` on this rank.  ``x`` is the (S, M)
     token slice; returns ``(y, aux)`` with the gate's aux (aux and z
     losses and drop fraction ``pmean``-ed over the layer's axes; this
     rank's load and routed rows).  Under a placed plan the expert weights
-    are this rank's physical slots (the module docstring)."""
-    order, ctx = _start(plan, x, wg, w1, w3, w2, info)
+    are this rank's physical slots (the module docstring).
+
+    The stages are issued in :func:`issue_order`, each collective's value
+    waited on where a consumer needs it; ``overlap=False`` (default: as
+    :func:`serial_issue` says, else True) issues them in ``validate``'s
+    order, each waited on at once.  Raises if a collective it posted is
+    still in flight when it returns."""
+    overlap = _OVERLAP if overlap is None else overlap
+    order, ctx = _start(plan, x, wg, w1, w3, w2, info, overlap)
     env = {INPUT: x}
-    for st in order:
-        env[st.name] = _emit(st, [env[d] for d in st.deps], ctx)
+    with _comm.collecting() as posted:
+        for st in (issue_order(order) if overlap else order):
+            with _comm.tagged(st.name):
+                v = _emit(st, [env[d] for d in st.deps], ctx)
+            env[st.name] = v if overlap else coll.landed(v)
+        y = coll.landed(env[plan.output])
+    left = [h.tag for h in posted if not h.done]
+    if left:
+        raise RuntimeError(f"plan {plan.name!r}: execute returns with "
+                           f"{len(left)} collectives in flight: {left}")
     if ctx.gate is None:
         raise ValueError(f"plan {plan.name!r} has no gate stage")
     g, _ = ctx.gate
-    return env[plan.output], _aux_mean(g.aux, info)
+    return y, _aux_mean(g.aux, info)
 
 
 def _probe(v):
@@ -401,7 +532,7 @@ def execute_prefix(plan: Plan, x, wg, w1, w3, w2, info, n_stages: int):
     env = {INPUT: x}
     acc = x.float().sum()
     for st in order[:n_stages]:
-        env[st.name] = _emit(st, [env[d] for d in st.deps], ctx)
+        env[st.name] = coll.landed(_emit(st, [env[d] for d in st.deps], ctx))
         acc = acc + _probe(env[st.name])
     axes, n = _all_axes(info)
     return coll.psum(acc, axes, n)

@@ -7,9 +7,14 @@ gate and dispatch, the capacity buffer is split into
 ``info.pipeline_chunks`` micro-chunks (clamped to the largest divisor of
 the chunked capacity dim), and each chunk runs its own dispatch-AlltoAll
 -> expert FFN -> combine-AlltoAll chain.  Chunking happens after gating,
-so routing, capacity and drops are those of the unchunked schedule.  The
-chunks run one after the other on one stream; overlapping one chunk's
-AlltoAll with another's FFN (asynchronous collectives) is not done yet.
+so routing, capacity and drops are those of the unchunked schedule.
+Where the JAX package leaves the overlap of the chunks to XLA's
+async-collective scheduler, the port's ``executor.execute`` issues it:
+chunk i+1's dispatch AlltoAll is posted (``async_op=True``) before chunk
+i's expert FFN is enqueued, each chunk's combine as soon as its FFN is,
+and every collective is waited on where its first consumer needs it;
+under ``s2h`` one chunk's ESP hop and the other's EP hop are in flight
+together.  The backward overlaps likewise (``core/collectives.py``).
 """
 
 from __future__ import annotations

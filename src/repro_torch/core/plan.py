@@ -263,10 +263,11 @@ def split_capacity(plan: Plan, n_chunks: int, *, clamp: bool = True) -> Plan:
     ``n_chunks`` times over capacity-dim micro-chunks.
 
     Each clone gets its own ``slice`` entry node and a remapped dep set,
-    so the chunks are independent subgraphs in HLO — XLA's async
-    collective scheduler overlaps chunk i+1's communication with chunk
-    i's FFN, which is exactly what the hand-written ``*_pipe`` bodies
-    used to spell out.  A ``merge`` node reassembles the parts
+    so the chunks are independent subgraphs: in the JAX package XLA's
+    async collective scheduler overlaps chunk i+1's communication with
+    chunk i's FFN; in the port ``executor.execute``'s list scheduler
+    posts chunk i+1's AlltoAll before it enqueues chunk i's FFN and
+    waits on each collective where its first consumer needs it.  A ``merge`` node reassembles the parts
     (``plan.merge`` mode).  Stages may declare chunk-dependent params:
 
       * ``alt=(v0, v1, ...)`` alternates the stage's ``hier`` hop order

@@ -22,32 +22,65 @@ is bit-preserving by construction, whatever dtypes the backend can
 reduce.  Chunks are permuted by the group's ``order`` so that
 an axis tuple whose order differs from the mesh's moves data as JAX's
 collective over that tuple does (see ``repro_torch.parallel.mesh``).
+
+``all_to_all``, ``all_gather`` and ``psum_scatter`` have start forms
+(``*_start``): the start posts ``all_to_all_single(..., async_op=True)``
+and returns a :class:`Handle`, whose ``wait()`` waits and only then runs
+the post-processing (the inverse ``order`` permutation, the sum over the
+sources, the reshapes).  Each synchronous form is its start followed by
+the wait, so several collectives can be in flight at once and a caller
+that waits at once gets the same bits.  A one-member group posts nothing
+and returns a completed handle.  ``all_to_all_rows``, ``agree``,
+``broadcast_first``, ``gather_first``, ``psum`` and ``pmax`` stay
+synchronous.  A hook (:func:`set_hook`) sees every start and wait with
+its group, kind and tag (:func:`tagged`): how the tests read how many
+collectives were in flight.  Collectives posted to one group must start
+in one order on every member; the callers issue them in an order fixed
+by the plan, never by which one finished first.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import threading
 import time
 
 import torch
 
 #: host-side timing of the collectives, off by default (``timing(True)``):
 #: name -> [calls, bytes in, seconds]; a call inside another (``psum``'s
-#: reduce-scatter and AllGather) counts to the outermost
+#: reduce-scatter and AllGather) counts to the outermost; ``in_flight`` ->
+#: [spans, 0, wall seconds during which one or more was in flight]
 _TIMES = None
 _DEPTH = 0
+#: timed collectives in flight, and when the first of them started
+_OPEN = [0, 0.0]
+#: per thread: the tag of the stage being issued (``tagged``) and the
+#: handles posted inside ``collecting``
+_LOCAL = threading.local()
+_HOOK = None
 
 
 def timing(on: bool) -> None:
     """Start (clearing) or stop timing the collectives on this rank.  A
-    timed call synchronizes the device before and after it, so the time
-    is the collective's own on the host's clock, staging included."""
+    collective is timed from its start to the end of its wait on the
+    host's clock, staging included: the device is synchronized before a
+    start when no other timed collective is in flight, and after each
+    wait, so the collectives of an overlapped issue stay in flight
+    together (a start posted behind queued kernels counts their time).
+    Beside each kind's summed seconds, ``in_flight`` holds the wall
+    seconds during which at least one timed collective was in flight:
+    the summed seconds less those are what overlap hid."""
     global _TIMES
     _TIMES = {} if on else None
+    _OPEN[0] = 0
 
 
 def times() -> dict:
-    """The timed collectives: name -> (calls, bytes in, seconds)."""
+    """The timed collectives: name -> (calls, bytes in, seconds), and
+    ``in_flight`` -> (spans, 0, wall seconds with one or more in
+    flight)."""
     return {k: tuple(v) for k, v in (_TIMES or {}).items()}
 
 
@@ -56,57 +89,179 @@ def _sync(t):
         torch.cuda.synchronize(t.device)
 
 
+def _open(x) -> float:
+    """A timed collective starts (synchronizing when none is in flight);
+    returns its start time."""
+    if not _OPEN[0]:
+        _sync(x)
+    t0 = time.perf_counter()
+    if not _OPEN[0]:
+        _OPEN[1] = t0
+    _OPEN[0] += 1
+    return t0
+
+
+def _close(name, x, out, t0) -> None:
+    """A timed collective ends: add it to ``name``, and close the span
+    when it was the last in flight."""
+    _sync(out)
+    now = time.perf_counter()
+    rec = _TIMES.setdefault(name, [0, 0, 0.0])
+    rec[0] += 1
+    rec[1] += x.numel() * x.element_size()
+    rec[2] += now - t0
+    _OPEN[0] -= 1
+    if not _OPEN[0]:
+        span = _TIMES.setdefault("in_flight", [0, 0, 0.0])
+        span[0] += 1
+        span[2] += now - _OPEN[1]
+
+
 def _timed(fn):
     @functools.wraps(fn)
     def wrapper(x, grp, *args, **kw):
         global _DEPTH
         if _TIMES is None or _DEPTH or grp.size == 1:
             return fn(x, grp, *args, **kw)
-        _sync(x)
-        t0 = time.perf_counter()
+        t0 = _open(x)
         _DEPTH += 1
         try:
             out = fn(x, grp, *args, **kw)
         finally:
             _DEPTH -= 1
-        _sync(out)
-        rec = _TIMES.setdefault(fn.__name__, [0, 0, 0.0])
-        rec[0] += 1
-        rec[1] += x.numel() * x.element_size()
-        rec[2] += time.perf_counter() - t0
+        _close(fn.__name__, x, out, t0)
         return out
     return wrapper
 
 
-def _exchange(send, grp):
-    """(n, ...) chunks in JAX destination order -> (n, ...) received
-    chunks in JAX source order, over ``grp`` (one ``all_to_all_single``)."""
+def set_hook(cb) -> None:
+    """Install (or clear, with None) ``cb(event, axes, kind, tag)``,
+    called at every start (``event == "start"``) and at the end of every
+    wait (``"wait"``) of a collective posted to more than one member:
+    ``axes`` the group's axis tuple, ``kind`` ``all_to_all``,
+    ``all_gather`` or ``psum_scatter``, ``tag`` the :func:`tagged` tag
+    at the start (or the one the start form was given)."""
+    global _HOOK
+    _HOOK = cb
+
+
+@contextlib.contextmanager
+def tagged(tag):
+    """Tag the collectives this thread starts inside with ``tag``."""
+    prev = getattr(_LOCAL, "tag", None)
+    _LOCAL.tag = tag
+    try:
+        yield tag
+    finally:
+        _LOCAL.tag = prev
+
+
+def current_tag():
+    """The innermost :func:`tagged` tag on this thread, or None."""
+    return getattr(_LOCAL, "tag", None)
+
+
+@contextlib.contextmanager
+def collecting():
+    """Collect every :class:`Handle` this thread posts inside into the
+    yielded list (``executor.execute`` checks it waited on each)."""
+    prev = getattr(_LOCAL, "posted", None)
+    _LOCAL.posted = posted = []
+    try:
+        yield posted
+    finally:
+        _LOCAL.posted = prev
+
+
+class Handle:
+    """One collective in flight, or a completed value.  ``wait()`` waits
+    on the backend's ``Work`` (on NCCL a stream wait, on gloo a host wait
+    and a stream sync), then runs the post-processing in order and
+    returns the value; a later ``wait()`` returns it again.  Until then
+    the handle holds the send and receive buffers."""
+
+    __slots__ = ("_work", "_bufs", "_post", "value", "axes", "kind", "tag",
+                 "_t0", "_x")
+
+    def __init__(self, work, bufs, post, grp, kind, tag, t0, x):
+        self._work, self._bufs, self._post = work, bufs, post
+        self.value, self.axes, self.kind, self.tag = None, grp.axes, kind, tag
+        self._t0, self._x = t0, x
+        if _HOOK is not None:
+            _HOOK("start", self.axes, kind, tag)
+        posted = getattr(_LOCAL, "posted", None)
+        if posted is not None:
+            posted.append(self)
+
+    @classmethod
+    def completed(cls, value):
+        """A handle that posted nothing (a one-member group)."""
+        h = cls.__new__(cls)
+        h._work, h._bufs, h._post, h.value = None, None, None, value
+        h.axes, h.kind, h.tag, h._t0, h._x = (), None, None, None, None
+        return h
+
+    @property
+    def done(self) -> bool:
+        return self._work is None
+
+    def then(self, fn):
+        """Apply ``fn`` to the value after the wait; returns ``self``."""
+        if self._work is None:
+            self.value = fn(self.value)
+        else:
+            self._post.append(fn)
+        return self
+
+    def wait(self):
+        if self._work is not None:
+            self._work.wait()
+            v = self._bufs[1]
+            for fn in self._post:
+                v = fn(v)
+            self._work = self._bufs = self._post = None
+            self.value = v
+            if self._t0 is not None and _TIMES is not None:
+                _close(self.kind, self._x, v, self._t0)
+            self._x = None
+            if _HOOK is not None:
+                _HOOK("wait", self.axes, self.kind, self.tag)
+        return self.value
+
+
+def _exchange_start(send, grp, kind, post, x, tag) -> Handle:
+    """Post the exchange of (n, ...) chunks in JAX destination order over
+    ``grp`` (one ``all_to_all_single(..., async_op=True)``); the handle's
+    wait gives ``post`` of the (n, ...) chunks received, in JAX source
+    order.  ``x`` is the caller's payload (timing counts its bytes)."""
     import torch.distributed as dist
     order = grp.order
     if not grp.identity_order:
         send = send[list(order)]
     send = send.contiguous()
     recv = torch.empty_like(send)
-    # bytes: chunk g of the (n, ...) buffers stays chunk g of the views
-    dist.all_to_all_single(recv.view(torch.uint8), send.view(torch.uint8),
-                           group=grp.pg)
+    steps = []
     if not grp.identity_order:
         inv = [0] * len(order)
         for pos, j in enumerate(order):
             inv[j] = pos
-        recv = recv[inv]
-    return recv
+        steps.append(lambda r: r[inv])
+    steps.append(post)
+    t0 = _open(x) if _TIMES is not None and not _DEPTH else None
+    # bytes: chunk g of the (n, ...) buffers stays chunk g of the views
+    work = dist.all_to_all_single(recv.view(torch.uint8),
+                                  send.view(torch.uint8), group=grp.pg,
+                                  async_op=True)
+    return Handle(work, (send, recv), steps, grp, kind,
+                  current_tag() if tag is None else tag, t0, x)
 
 
-@_timed
-def all_to_all(x, grp, split_axis: int, concat_axis: int):
-    """JAX's ``lax.all_to_all(x, axes, split_axis, concat_axis,
-    tiled=True)``: ``x`` cut into ``n`` chunks along ``split_axis``, chunk
-    ``j`` to the member of JAX index ``j``; the chunks received are joined
-    along ``concat_axis`` in source order."""
+def all_to_all_start(x, grp, split_axis: int, concat_axis: int, *,
+                     tag=None) -> Handle:
+    """Start :func:`all_to_all`; the handle's wait gives its value."""
     n = grp.size
     if n == 1:
-        return x
+        return Handle.completed(x)
     split_axis %= x.dim()
     concat_axis %= x.dim()
     if x.shape[split_axis] % n:
@@ -114,12 +269,22 @@ def all_to_all(x, grp, split_axis: int, concat_axis: int):
                          f" is not divisible by the group's {n} ranks")
     xs = x.movedim(split_axis, 0)
     xs = xs.reshape(n, xs.shape[0] // n, *xs.shape[1:])
-    recv = _exchange(xs, grp)
-    if split_axis == concat_axis:
-        out = recv.reshape(-1, *recv.shape[2:])
-        return out.movedim(0, split_axis)
-    return torch.cat([recv[j].movedim(0, split_axis) for j in range(n)],
-                     dim=concat_axis)
+
+    def post(recv):
+        if split_axis == concat_axis:
+            out = recv.reshape(-1, *recv.shape[2:])
+            return out.movedim(0, split_axis)
+        return torch.cat([recv[j].movedim(0, split_axis) for j in range(n)],
+                         dim=concat_axis)
+    return _exchange_start(xs, grp, "all_to_all", post, x, tag)
+
+
+def all_to_all(x, grp, split_axis: int, concat_axis: int):
+    """JAX's ``lax.all_to_all(x, axes, split_axis, concat_axis,
+    tiled=True)``: ``x`` cut into ``n`` chunks along ``split_axis``, chunk
+    ``j`` to the member of JAX index ``j``; the chunks received are joined
+    along ``concat_axis`` in source order."""
+    return all_to_all_start(x, grp, split_axis, concat_axis).wait()
 
 
 @_timed
@@ -162,21 +327,28 @@ def all_to_all_rows(x, grp, send_rows, recv_rows):
     return torch.cat([buf.narrow(0, *at[j]) for j in range(n)])
 
 
-@_timed
+def all_gather_start(x, grp, axis: int, tiled: bool = True, *,
+                     tag=None) -> Handle:
+    """Start :func:`all_gather`; the handle's wait gives its value."""
+    n = grp.size
+    if n == 1:
+        return Handle.completed(x if tiled else x.unsqueeze(axis))
+
+    def post(recv):
+        if not tiled:
+            return recv.movedim(0, axis % (x.dim() + 1))
+        ax = axis % x.dim()
+        out = recv.movedim(0, ax)
+        return out.reshape(*x.shape[:ax], n * x.shape[ax], *x.shape[ax + 1:])
+    return _exchange_start(x.unsqueeze(0).expand(n, *x.shape), grp,
+                           "all_gather", post, x, tag)
+
+
 def all_gather(x, grp, axis: int, tiled: bool = True):
     """JAX's ``lax.all_gather(x, axes, axis=axis, tiled=tiled)``: every
     member's ``x`` in JAX index order, joined along ``axis`` (tiled) or
     stacked on a new dim at ``axis`` (untiled)."""
-    n = grp.size
-    if n == 1:
-        return x if tiled else x.unsqueeze(axis)
-    recv = _exchange(x.unsqueeze(0).expand(n, *x.shape), grp)
-    if not tiled:
-        return recv.movedim(0, axis % (x.dim() + 1))
-    axis %= x.dim()
-    out = recv.movedim(0, axis)
-    return out.reshape(*x.shape[:axis], n * x.shape[axis],
-                       *x.shape[axis + 1:])
+    return all_gather_start(x, grp, axis, tiled).wait()
 
 
 def ordered_sum(parts):
@@ -188,24 +360,29 @@ def ordered_sum(parts):
     return acc
 
 
-@_timed
+def psum_scatter_start(x, grp, axis: int, tiled: bool = True, *,
+                       tag=None) -> Handle:
+    """Start :func:`psum_scatter`; the wait sums the sources."""
+    n = grp.size
+    if n == 1:
+        return Handle.completed(x if tiled else x.squeeze(axis))
+    axis %= x.dim()
+    xs = x.movedim(axis, 0)
+    xs = xs.reshape(n, xs.shape[0] // n, *xs.shape[1:])
+
+    def post(recv):                            # (n sources, rows, ...)
+        red = ordered_sum(list(recv.unbind(0)))
+        return red.squeeze(0) if not tiled else red.movedim(0, axis)
+    return _exchange_start(xs, grp, "psum_scatter", post, x, tag)
+
+
 def psum_scatter(x, grp, axis: int, tiled: bool = True):
     """JAX's ``lax.psum_scatter(x, axes, scatter_dimension=axis,
     tiled=tiled)``: the sum over the members of their ``x``, of which this
     rank keeps block ``index`` along ``axis`` (tiled: ``x.shape[axis] /
     n`` rows; untiled: ``x.shape[axis] == n``, the dim dropped).  Built as
     an AlltoAll and a sum over the sources in JAX index order."""
-    n = grp.size
-    if n == 1:
-        return x if tiled else x.squeeze(axis)
-    axis %= x.dim()
-    xs = x.movedim(axis, 0)
-    xs = xs.reshape(n, xs.shape[0] // n, *xs.shape[1:])
-    recv = _exchange(xs, grp)                  # (n sources, rows, ...)
-    red = ordered_sum(list(recv.unbind(0)))
-    if not tiled:
-        return red.squeeze(0)
-    return red.movedim(0, axis)
+    return psum_scatter_start(x, grp, axis, tiled).wait()
 
 
 @_timed

@@ -7,7 +7,8 @@ Meshes: the merged ``("data", "model")`` (2, 2) mesh of the launcher
 ``("ep", "esp", "mp")`` (2, 2, 2) mesh (8 ranks).  Each schedule JAX's
 ``tests/helpers/run_schedule_equiv.py`` runs there, plus ``s1g`` (the pool
 form: counts AlltoAll and ``expert_ffn_ragged``), ``s2h`` and the
-``*_pipe`` bodies with 2 chunks, at the config's own capacity factor
+``*_pipe`` bodies with 2 chunks (their collectives in flight together:
+``executor.execute``'s overlapped issue), at the config's own capacity factor
 (1.25: pools drop rows, so the routing is held exactly), the bf16 and fp8
 wires under ``s1`` and ``s1g``, and the ``dense_decode`` fallback (4
 decode tokens on the distinct mesh: one a rank, fewer than its MP ranks).
@@ -64,6 +65,8 @@ CASES = [
     ("m-s1g", "merged", "s1g", 1, "f32", False, 8, 8),
     ("m-s1_pipe", "merged", "s1", 2, "f32", False, 8, 8),
     ("m-s2_pipe", "merged", "s2", 2, "f32", False, 8, 8),
+    ("m-s2h_pipe", "merged", "s2h", 2, "f32", False, 8, 8),
+    ("m-s1g_pipe", "merged", "s1g", 2, "f32", False, 8, 8),
     ("m-s1-bf16", "merged", "s1", 1, "bf16", False, 8, 8),
     ("m-s1g-bf16", "merged", "s1g", 1, "bf16", False, 8, 8),
     ("m-s1-fp8", "merged", "s1", 1, "fp8_e4m3", False, 8, 8),
