@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--phases 1,2,12]
 
 ``--phases`` runs the named phases, the ones they need and 1 and 2 (the
-kernels line, phase 13, only on a full run); by default every phase runs
+kernels line, phase 14, only on a full run); by default every phase runs
 once.  Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 repository's ``src/`` next to this file; imports nothing of JAX.  Phases,
 each fatal on error (nothing is caught, nothing falls back to the CPU or
@@ -211,7 +211,31 @@ to a plain version):
      (a)'s warm-up; (a)'s runs of s1_pipe2, s2_pipe2 and s2 are the
      overlapped side's first): host ms, the collectives' summed seconds
      and their in-flight wall seconds (``comm.timing``);
- 13. print the kernels' JSON line (each kernel's launches on its main path
+ 13. the five configs whose block kinds the port runs, each at full width
+     with random weights from a seed, freed before the next, its peak
+     device memory logged: (a) llama4-scout-17b-a16e cut to 4 layers (3
+     chunked local ``moe`` layers, 1 NoPE ``moe_full``) serving phase 4's
+     16 requests one-shot and with 32-token chunks under ``auto`` (the
+     log names auto's pick for the decode pool: ``s1g``, the grouped
+     kernel) and one-shot under ``s1d``, each path's kernels launched,
+     one request's logits through ``reference_check``; (b) one 8256-token
+     request (8192 + 64: across the 8192-token chunk) at the drop-free
+     capacity factor 16, prefilled through ``paged_step`` in 512-token
+     chunks: its last logits within 1e-3 of the logits' scale of
+     ``Model.forward`` over the same tokens (the training path's chunk
+     mask, ``sdpa_flash_scan``) with the same greedy token, the forward
+     with the chunk widened past the request more than that apart, and
+     the engine (512-token chunks) serving that greedy token first;
+     command-r-35b (4 layers: layernorm, the parallel block, the tied
+     256000-row head times ``logit_scale``; no kernel launches, as in
+     JAX), yi-9b and mistral-nemo-12b (4 layers each) serving the 16
+     requests one-shot under ``reference_check``; qwen1.5-0.5b at its
+     full size (24 layers, MHA with the qkv bias, tied embedding) served
+     so, then trained 5 steps at 1 x 2048 ``SyntheticLM`` tokens as phase
+     7 trains (the first step kernels vs plain versions, twice bitwise
+     and once guarded; finite losses, the last three below the first,
+     ``rmsnorm`` and ``flash_attention`` launches per step as predicted);
+ 14. print the kernels' JSON line (each kernel's launches on its main path
      and the phase-3 row at that path's shapes, under ``by_path`` every
      path's launches beside the phase-3 row at that path's shapes, and
      under ``multirank`` each phase-12 path's launches per rank, (i)'s
@@ -236,6 +260,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM
 PEAK_FLOPS = {"torch.float32": 67e12, "torch.bfloat16": 989e12}
 N_LAYERS = 4
+L4 = "llama4-scout-17b-a16e"
 #: sources whose every kernel instance must spill 0 bytes (ptxas -v)
 NO_SPILL = ("flash_attention", "expert_ffn_grouped", "rmsnorm",
             "moe_dispatch", "expert_ffn")
@@ -287,13 +312,20 @@ def check_rmsnorm(dev):
     from repro_torch.kernels.rmsnorm import rmsnorm
     g = torch.Generator(device=dev).manual_seed(1)
     rows = []
-    # (label, rows, dtype, tol): f32 differs by rounding and rsqrt ulps;
-    # bf16 output may differ by one bf16 ulp (2^-8 relative).
-    for label, R, dt, tol in (("decode", 8, torch.float32, 1e-5),
-                              ("prefill128", 128, torch.float32, 1e-5),
-                              ("prefill128-bf16", 128, torch.bfloat16, 1e-2),
-                              ("train-qwen3", 2048, torch.float32, 1e-5)):
-        D = 2048
+    # (label, rows, width, dtype, tol): f32 differs by rounding and rsqrt
+    # ulps; bf16 output may differ by one bf16 ulp (2^-8 relative).  Then
+    # phase 13's widths: decode at 5120 (llama4, mistral-nemo), 4096 (yi)
+    # and 1024 (qwen1.5), and qwen1.5's training step.
+    f32 = torch.float32
+    for label, R, D, dt, tol in (("decode", 8, 2048, f32, 1e-5),
+                                 ("prefill128", 128, 2048, f32, 1e-5),
+                                 ("prefill128-bf16", 128, 2048,
+                                  torch.bfloat16, 1e-2),
+                                 ("train-qwen3", 2048, 2048, f32, 1e-5),
+                                 ("decode-5120", 8, 5120, f32, 1e-5),
+                                 ("decode-4096", 8, 4096, f32, 1e-5),
+                                 ("decode-1024", 8, 1024, f32, 1e-5),
+                                 ("train-qwen1.5", 2048, 1024, f32, 1e-5)):
         x = torch.randn((R, D), generator=g, device=dev).to(dt)
         scale = 1.0 + 0.1 * torch.randn((D,), generator=g, device=dev)
         err = compare(f"rmsnorm[{label}]", rmsnorm(x, scale, eps=1e-6),
@@ -340,13 +372,15 @@ def check_grouped(dev):
 
     rows = []
     # (label, arch, tokens, infer, x dtype, bf16 weights, glu, act, wire,
-    # tol): f32 sums of up to 3072 products in another order than cuBLAS's;
+    # tol): f32 sums of up to 8192 products in another order than cuBLAS's;
     # a bf16 output or bf16 wire rounding may differ by one bf16 ulp.  The
     # serving shapes first, then the two training steps' (phases 6 and 7:
     # all tokens of a step, the training capacity, each model's experts).
     q3, g2 = "qwen3-moe-30b-a3b", "gpt2-moe"
     f32, bf16 = torch.float32, torch.bfloat16
     cases = (("decode", q3, 8, True, f32, False, True, "silu", "f32", 1e-4),
+             ("decode-llama4", L4, 8, True, f32, False, True, "silu", "f32",
+              1e-4),
              ("prefill128", q3, 128, False, f32, False, True, "silu", "f32",
               1e-4),
              ("decode-bf16", q3, 8, True, bf16, True, True, "silu", "f32",
@@ -362,6 +396,8 @@ def check_grouped(dev):
              ("train-gpt2-moe-wire-bf16", g2, 8192, False, f32, False, False,
               "silu", "bf16", 1e-2))
     for label, arch, S, infer, dt, wbf, glu, act, wire, tol in cases:
+        if arch != L4:
+            weights_of.pop(L4, None)       # llama4's 8 GB, once used
         mcfg, w, wg = arch_weights(arch)
         if label.startswith("train-") and (glu, act) != (mcfg.glu, mcfg.act):
             raise AssertionError(f"{label}: not {arch}'s expert FFN")
@@ -415,7 +451,9 @@ def check_flash(dev):
     g = torch.Generator(device=dev).manual_seed(3)
     rows = []
     # (label, B, L, H, K, hd, dtype, causal, window, tol): the two training
-    # shapes, a window narrower than L, non-causal, bf16.  f32: sums of up
+    # shapes, a window narrower than L, non-causal, bf16, qwen1.5's training
+    # step (MHA 16 x 64) and llama4's heads (40 / 8 x 128; no path trains
+    # llama4 at full width on one card).  f32: sums of up
     # to 2048 terms in another order, and the online softmax's per-tile
     # rescaling; bf16 output: one bf16 ulp.
     cases = (("qwen3", 1, 2048, 32, 4, 128, torch.float32, True, None, 5e-5),
@@ -426,7 +464,11 @@ def check_flash(dev):
              ("non-causal", 2, 512, 12, 12, 64, torch.float32, False, None,
               5e-5),
              ("qwen3-bf16", 1, 2048, 32, 4, 128, torch.bfloat16, True, None,
-              2e-2))
+              2e-2),
+             ("qwen1.5", 1, 2048, 16, 16, 64, torch.float32, True, None,
+              5e-5),
+             ("llama4", 1, 2048, 40, 8, 128, torch.float32, True, None,
+              5e-5))
     for label, B, L, H, K, hd, dt, causal, window, tol in cases:
         q = torch.randn((B, L, H, hd), generator=g, device=dev).to(dt)
         k = torch.randn((B, L, K, hd), generator=g, device=dev).to(dt)
@@ -485,7 +527,8 @@ def _gate_case(g, dev, arch, S, infer):
 
 def check_dispatch_combine(dev):
     """moe_dispatch and moe_combine at the paths' shapes: serving decode
-    (s1d), the qwen3 and gpt2-moe training steps, bf16, and a dispatch
+    (s1d; qwen3's and llama4's), the qwen3 and gpt2-moe training steps,
+    bf16, and a dispatch
     whose every odd token shares its even neighbour's first slot."""
     import torch
     from repro_torch.kernels.moe_dispatch import moe_combine, moe_dispatch
@@ -502,6 +545,7 @@ def check_dispatch_combine(dev):
     # one ulp (2e-2).
     for label, arch, S, infer, dt, dup in (
             ("decode", q3, 8, True, f32, False),
+            ("decode-llama4", L4, 8, True, f32, False),
             ("train-qwen3", q3, 2048, False, f32, False),
             ("train-gpt2-moe", g2, 8192, False, f32, False),
             ("train-gpt2-moe-bf16", g2, 8192, False, bf16, False),
@@ -567,11 +611,11 @@ def check_dispatch_combine(dev):
 
 
 def check_expert_ffn(dev):
-    """expert_ffn at the paths' shapes: s1d serving decode (qwen3, SwiGLU),
-    qwen3's training capacity buffer (the measured calibration's
-    candidates, phase 11) and gpt2-moe's, whole and as one of two chunks
-    (two-layer silu).  Tolerance 1e-4: f32 sums of up to 3072
-    products in another order than cuBLAS's."""
+    """expert_ffn at the paths' shapes: s1d serving decode (qwen3 and
+    llama4, SwiGLU), qwen3's training capacity buffer (the measured
+    calibration's candidates, phase 11) and gpt2-moe's, whole and as one
+    of two chunks (two-layer silu).  Tolerance 1e-4: f32 sums of up to
+    8192 products in another order than cuBLAS's."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.moe import shard_pool_capacity
@@ -581,6 +625,7 @@ def check_expert_ffn(dev):
     rows = []
     for label, arch, S, infer, n_chunks in (
             ("decode", "qwen3-moe-30b-a3b", 8, True, 1),
+            ("decode-llama4", L4, 8, True, 1),
             ("train-qwen3", "qwen3-moe-30b-a3b", 2048, False, 1),
             ("train-gpt2-moe", "gpt2-moe", 8192, False, 1),
             ("train-gpt2-moe-chunk", "gpt2-moe", 8192, False, 2)):
@@ -959,10 +1004,12 @@ def train(label, cfg, dev, *, batch, seq, steps, lr, uses, schedule=None,
     params, opt_state = tr.setup(torch.Generator(device=dev).manual_seed(0))
     n_leaves = len(_leaves(params))
     n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    moe = "dense" if cfg.moe is None else (
+        f"schedule {schedule or cfg.moe.schedule}, "
+        f"{cfg.moe.pipeline_chunks} chunk(s), wire {cfg.moe.comm.wire_dtype}")
     log(f"  {label}: {cfg.name}, {cfg.n_layers} layers, {n_bytes / 1e9:.2f} "
         f"GB of parameters, batch {batch} x {seq} tokens, remat "
-        f"{cfg.remat}, schedule {schedule or cfg.moe.schedule}, "
-        f"{cfg.moe.pipeline_chunks} chunk(s), wire {cfg.moe.comm.wire_dtype}")
+        f"{cfg.remat}, {moe}")
     (lk, gk), (lp, gp) = reference_step(model, params, data.tensors(0, dev),
                                         schedule, grad_rtol)
     log(f"  {label}: one step from the same parameters: loss {lk:.6f} "
@@ -3663,11 +3710,205 @@ def _p12_block_report(res, cfg):
     return paths
 
 
+# --- phase 13: the five configs whose block kinds the port runs -------------
+
+#: (arch, layers kept at full width (None: all)); command-r runs none of the
+#: seven kernels: its layernorm is inline, paged attention plain code and its
+#: dense FFN ``torch.matmul``, all as in JAX
+ZOO = ((L4, N_LAYERS), ("command-r-35b", N_LAYERS), ("yi-9b", N_LAYERS),
+       ("mistral-nemo-12b", N_LAYERS), ("qwen1.5-0.5b", None))
+#: each arch's path name in the kernels line
+ZOO_PATH = {L4: "llama4", "command-r-35b": "command_r", "yi-9b": "yi_9b",
+            "mistral-nemo-12b": "mistral_nemo", "qwen1.5-0.5b": "qwen1_5"}
+#: (b): llama4's long request, one chunk of 8192 and 64 tokens past it,
+#: prefilled in chunks of ``ZOO_CHUNK``
+ZOO_LONG = 8192 + 64
+ZOO_CHUNK = 512
+#: (b): the chunk widened past the request: the mask lifted, the layer kinds
+#: (and so the parameters and the NoPE fourth layer) unchanged, where
+#: ``attn_chunk=None`` would also turn the fourth layer into a RoPE layer
+ZOO_NO_CHUNK = 16384
+
+
+def zoo_long_request(model, params, dev):
+    """Phase 13 (b): one 8256-token request at the drop-free capacity
+    factor, prefilled through ``paged_step`` in 512-token chunks (the
+    engine's buckets) and served through ``Engine``; its last-position
+    logits against ``Model.forward`` over the same tokens (the training
+    path: ``sdpa_flash_scan``'s chunk mask) within 1e-3 of the logits'
+    scale, the same greedy token, and the engine's first token that one;
+    the forward with the chunk widened past the request must differ by
+    more than the tolerance."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+    from repro_torch.models import Model
+    from repro_torch.serve import Engine
+    from repro_torch.serve.engine import prefill_bucket
+    cfg = model.cfg
+    moe = cfg.moe
+    free = Model(replace(cfg, moe=replace(
+        moe, capacity_factor=moe.n_experts / moe.top_k)), device=dev)
+    prompt = np.random.RandomState(13).randint(0, cfg.vocab_size, ZOO_LONG)
+    bs, max_len = 16, ZOO_LONG + 64
+    nb = max_len // bs
+    cache = free.init_cache(nb + 1, bs)
+    table = torch.arange(1, nb + 1, dtype=torch.int32, device=dev)[None]
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for c0 in range(0, ZOO_LONG, ZOO_CHUNK):
+            n = min(ZOO_CHUNK, ZOO_LONG - c0)
+            toks = np.zeros((1, prefill_bucket([n], max_len)), np.int32)
+            toks[0, :n] = prompt[c0:c0 + n]
+            batch = {"tokens": torch.from_numpy(toks).to(dev),
+                     "starts": torch.tensor([c0], dtype=torch.int32,
+                                            device=dev),
+                     "lens": torch.tensor([n], dtype=torch.int32,
+                                          device=dev),
+                     "tables": table}
+            paged, _ = free.paged_step(params, cache, batch, infer=False)
+        torch.cuda.synchronize()
+        t_paged = time.perf_counter() - t0
+        del cache
+        tokens = {"tokens": torch.from_numpy(prompt[None]).to(dev)}
+        last = {}
+        for label, c in (("chunked", cfg.attn_chunk),
+                         ("widened", ZOO_NO_CHUNK)):
+            m = Model(replace(free.cfg, attn_chunk=c), device=dev)
+            if m.runs != free.runs:
+                raise AssertionError(f"phase 13 (b): runs {m.runs}")
+            t0 = time.perf_counter()
+            logits, _ = m.forward(params, tokens)
+            last[label] = logits[:, -1].clone()
+            del logits
+            torch.cuda.synchronize()
+            last[label + "_s"] = time.perf_counter() - t0
+    want = last["chunked"]
+    err = compare("phase 13 (b): paged chunks vs Model.forward", paged, want,
+                  1e-3)
+    greedy = int(want.argmax(-1))
+    if int(paged.argmax(-1)) != greedy:
+        raise AssertionError("phase 13 (b): greedy token differs between the "
+                             "paged chunks and Model.forward")
+    scale = max(1.0, want.abs().max().item())
+    gap = (last["widened"] - want).abs().max().item()
+    if not gap > 1e-3 * scale:
+        raise AssertionError(f"phase 13 (b): the widened chunk moves the "
+                             f"last logits by {gap:.3e}, within 1e-3 * "
+                             f"{scale:.3g}: the mask does not bite")
+    eng = Engine(free, max_batch=1, max_len=max_len, block_size=bs,
+                 prefill_chunk=ZOO_CHUNK)
+    eng.submit(list(prompt), 4, rid=0)
+    t0 = time.perf_counter()
+    (done,) = eng.run(params)
+    wall = time.perf_counter() - t0
+    if done.tokens[0] != greedy or len(done.tokens) != 4:
+        raise AssertionError(f"phase 13 (b): the engine served "
+                             f"{done.tokens}, Model.forward's greedy token "
+                             f"is {greedy}")
+    log(f"  (b) {ZOO_LONG} tokens, chunk {cfg.attn_chunk}, capacity factor "
+        f"{free.cfg.moe.capacity_factor:g}: {-(-ZOO_LONG // ZOO_CHUNK)} "
+        f"paged chunks of {ZOO_CHUNK} in {t_paged:.2f} s vs Model.forward "
+        f"({last['chunked_s']:.2f} s): last logits max_abs_err {err:.3e} "
+        f"(tol 1e-3 * {scale:.3g}), greedy token {greedy} both; chunk "
+        f"widened to {ZOO_NO_CHUNK}: max |d| {gap:.3e}; the engine "
+        f"({eng.stats['prefill_calls']} prefill calls) served "
+        f"{done.tokens} in {wall:.2f} s")
+
+
+def zoo(dev):
+    """Phase 13 (see the module docstring).  Returns the launches of each
+    serving and training path by kernel."""
+    from dataclasses import replace
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.moe import resolve_schedule
+    from repro_torch.models import Model
+    paths = {}
+    gen = 32
+    for arch, layers in ZOO:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        if layers:
+            cfg = replace(cfg, n_layers=layers)
+        torch.cuda.reset_peak_memory_stats()
+        model = Model(cfg, device=dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+        log(f"  {arch}: full width, {cfg.n_layers} layers {model.runs}: "
+            f"{n_bytes / 1e9:.2f} GB of parameters made in "
+            f"{time.perf_counter() - t0:.2f} s")
+        prompts = make_requests(cfg.vocab_size)
+        serve(model, params, prompts[:2], gen=4)      # warm-up (not counted)
+        err = reference_check(model, params, prompts[0])
+        log(f"    reference check: paged_step logits, kernels vs plain "
+            f"versions: max_abs_err {err:.3e}")
+        tag = ZOO_PATH[arch]
+        runs = [("one-shot", f"serve_{tag}", {})]
+        if cfg.moe is not None:
+            pick = resolve_schedule(cfg.moe, None, B=8, L=1, infer=True,
+                                    device=dev)[0]
+            moe_uses = ("expert_ffn_grouped",) if pick == "s1g" else (
+                "moe_dispatch", "expert_ffn", "moe_combine")
+            log(f"    auto picks {pick} for the decode pool of 8: "
+                f"{', '.join(moe_uses)}")
+            runs = [("one-shot", f"serve_{tag}_one_shot", {}),
+                    ("chunked-32", f"serve_{tag}_chunked_32",
+                     {"prefill_chunk": 32}),
+                    ("one-shot-s1d", f"serve_{tag}_one_shot_s1d",
+                     {"schedule": "s1d"})]
+        done_of = {}
+        for label, path, kw in runs:
+            wrappers = reset_counts()
+            done, eng, wall = serve(model, params, prompts, gen=gen, **kw)
+            launches = read_counts(wrappers)
+            serve_report(f"  {label}", done, eng, wall, len(prompts), gen)
+            log(f"    launches {({k: v for k, v in launches.items() if v})}")
+            if cfg.moe is None:
+                uses = ("rmsnorm",) if cfg.norm_type == "rmsnorm" else ()
+            elif kw.get("schedule") == "s1d":
+                uses = ("rmsnorm", "moe_dispatch", "expert_ffn",
+                        "moe_combine")
+            else:
+                uses = ("rmsnorm",) + moe_uses
+            if any(launches[k] <= 0 for k in uses) or (
+                    not uses and any(launches.values())):
+                raise AssertionError(f"phase 13 {arch} {label}: launches "
+                                     f"{launches}, the path uses {uses}")
+            done_of[label] = done
+            paths[path] = launches
+        if len(runs) > 1:
+            same = sum(done_of["one-shot"][i].tokens
+                       == done_of["one-shot-s1d"][i].tokens
+                       for i in range(len(prompts)))
+            log(f"    one-shot under auto vs s1d: {same}/{len(prompts)} "
+                f"requests with identical tokens")
+        if arch == L4:
+            zoo_long_request(model, params, dev)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del model, params, done_of, done, eng
+        torch.cuda.empty_cache()
+        if arch == "qwen1.5-0.5b":
+            paths[f"train_{tag}"] = train(
+                "qwen1.5", cfg, dev, batch=1, seq=2048, steps=5, lr=1e-4,
+                uses=("rmsnorm", "flash_attention"),
+                per_step={"rmsnorm": 4 * cfg.n_layers + 1,
+                          "flash_attention": 2 * cfg.n_layers,
+                          "expert_ffn_grouped": 0, "moe_dispatch": 0})
+            peak = max(peak, torch.cuda.max_memory_allocated() / 1e9)
+        log(f"    {arch} in {time.perf_counter() - t0:.1f} s, peak device "
+            f"memory {peak:.2f} GB")
+    return paths
+
+
 #: the phases, and the ones each needs to have run before it (their model,
 #: prompts, reference runs or launch counts); 1 and 2 (the card, the
-#: build) always run, and 13 (the kernels line) only when every phase did
-PHASES = tuple(range(1, 14))
-PHASE_NEEDS = {5: (4,), 9: (7, 8), 10: (4, 5, 6), 11: (4, 6), 13: PHASES[:12]}
+#: build) always run, and 14 (the kernels line) only when every phase did
+PHASES = tuple(range(1, 15))
+PHASE_NEEDS = {5: (4,), 9: (7, 8), 10: (4, 5, 6), 11: (4, 6), 14: PHASES[:13]}
 
 
 def parse_phases(argv=None) -> set:
@@ -3769,6 +4010,20 @@ for _path, _label in (("autosched_measure_gpt2_moe", "train-gpt2-moe"),
     SHAPE_OF.update({(k, _path): _label for k in (
         "moe_dispatch", "moe_combine", "expert_ffn", "expert_ffn_grouped")})
 SHAPE_OF[("flash_attention", "train_gpt2_moe_measured")] = "gpt2-moe"
+# phase 13: decode rows at each config's width (llama4's serving under
+# auto and chunked runs s1g, the grouped kernel; under s1d dispatch ->
+# expert_ffn -> combine), qwen1.5's training step; command-r launches none
+for _path in ("serve_llama4_one_shot", "serve_llama4_chunked_32",
+              "serve_llama4_one_shot_s1d", "serve_mistral_nemo"):
+    SHAPE_OF[("rmsnorm", _path)] = "decode-5120"
+for _path in ("serve_llama4_one_shot", "serve_llama4_chunked_32"):
+    SHAPE_OF[("expert_ffn_grouped", _path)] = "decode-llama4"
+SHAPE_OF.update({(k, "serve_llama4_one_shot_s1d"): "decode-llama4" for k in (
+    "moe_dispatch", "moe_combine", "expert_ffn")})
+SHAPE_OF.update({("rmsnorm", "serve_yi_9b"): "decode-4096",
+                 ("rmsnorm", "serve_qwen1_5"): "decode-1024",
+                 ("rmsnorm", "train_qwen1_5"): "train-qwen1.5",
+                 ("flash_attention", "train_qwen1_5"): "qwen1.5"})
 SHAPE_OF[("rmsnorm", "serve_measured")] = "decode"
 # phase 9's two runs: the ragged path while the wire is fp8, the fused
 # grouped kernel on the bf16 wire after the fallback
@@ -4055,6 +4310,15 @@ def main(argv=None) -> int:
         multi_paths = multirank(dev, p9_losses=p9_losses)
         log(f"  phase 12 in {time.perf_counter() - t0:.1f} s")
 
+    if 13 in phases:
+        # 13. the five configs whose block kinds the port runs
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        log("phase 13: yi-9b, mistral-nemo-12b, qwen1.5-0.5b, command-r-35b "
+            "and llama4-scout-17b-a16e at full width")
+        path_launches.update(zoo(dev))
+        log(f"  phase 13 in {time.perf_counter() - t0:.1f} s")
+
     if phases != set(PHASES):
         log(f"chip_smoke: phases {sorted(phases)} passed in "
             f"{time.perf_counter() - t_start:.1f} s (a selection: no "
@@ -4063,7 +4327,7 @@ def main(argv=None) -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
-    # 13. results.  Each kernel's top-level numbers are those of its main
+    # 14. results.  Each kernel's top-level numbers are those of its main
     # path (KERNELS): its launches there, counted from 0 just before the
     # run, and the phase-3 row at the shapes that path gives it.
     # ``by_path`` pairs every path's launches with the phase-3 row at that

@@ -1,12 +1,19 @@
 """Architecture registry: ``--arch <id>`` resolution for the port's
-launchers.  Only the architectures the port runs are listed; the JAX
-package's other configs come with the slices that run them."""
+launchers, in the JAX registry's order.  Only the architectures whose
+block kinds the port runs are listed; the JAX package's others (hymba,
+llama-3.2-vision, whisper, xlstm) come with the slices that run them."""
 from importlib import import_module
 
 _MODULES = {
+    "yi-9b": "repro_torch.configs.yi_9b",
+    "mistral-nemo-12b": "repro_torch.configs.mistral_nemo_12b",
+    "llama4-scout-17b-a16e": "repro_torch.configs.llama4_scout_17b_a16e",
+    "command-r-35b": "repro_torch.configs.command_r_35b",
     "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
-    "gpt2-moe": "repro_torch.configs.gpt2_moe",
+    "qwen1.5-0.5b": "repro_torch.configs.qwen1_5_0p5b",
+    # paper §VI-D real-world models
     "bert-moe": "repro_torch.configs.bert_moe",
+    "gpt2-moe": "repro_torch.configs.gpt2_moe",
 }
 
 

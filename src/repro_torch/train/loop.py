@@ -28,8 +28,9 @@ already holds on the host.
 
 Load-adaptive expert placement, as in JAX: each step's per-expert routed
 rows (the ``expert_load`` metric) feed a load EMA (``load_imbalance`` in
-the history), and with ``placement="auto"`` and ``rebalance_every=N``
-(an ``expert_load`` event beside each ``train_step`` event) every N steps
+the history; an ``expert_load`` event beside each ``train_step`` event
+once it is live), and with ``placement="auto"`` and ``rebalance_every=N``
+every N steps
 ``autosched.maybe_rebalance`` scores a placement derived from the EMA
 against uniform; on a win it installs it (a ``train_rebalance`` event) and
 the next step's MoE layers (``MoEConfig(placement="auto")``) run it.
@@ -306,14 +307,12 @@ class Trainer:
 
     def _emit_train_step(self, m):
         """One ``train_step`` event per history row (the streaming twin of
-        ``history``), and, with the rebalance loop on, the load EMA beside
-        it once it is live (the JAX loop streams it for every MoE run; the
-        port's launchers' records keep their events as they were without
-        ``--placement auto``)."""
+        ``history``), and beside it the per-expert load EMA once it is live
+        (every MoE run, as in the JAX loop; a dense model never feeds it)."""
         if not obs.enabled():
             return
         obs.emit("train_step", **m)
-        if self.placement == "auto" and self.load_ema.ready:
+        if self.load_ema.ready:
             obs.emit("expert_load", step=m.get("step"),
                      load=[round(float(v), 3)
                            for v in self.load_ema.value()])

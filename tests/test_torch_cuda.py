@@ -101,6 +101,7 @@ RMS_PATHS = [(64, torch.float32, (32, 1)), (256, torch.float32, (32, 2)),
              (4096, torch.float32, (256, 4)),
              (8192, torch.float32, (256, 8)), (130, torch.float32, None),
              (12288, torch.float32, None), (2048, torch.bfloat16, (64, 4)),
+             (5120, torch.float32, (256, 8)), (1024, torch.float32, (64, 4)),
              (2056, torch.bfloat16, (128, 4)), (2052, torch.bfloat16, None)]
 
 
@@ -326,6 +327,10 @@ def test_kernels_reject_misaligned_rows(dev):
 # aligned at the top), a window narrower than L (rows whose first visited
 # tile is fully masked), non-causal, and bf16.
 FLASH_CASES = [
+    # qwen1.5-0.5b's training step (MHA 16 x 64) and llama4's heads (40 / 8
+    # x 128)
+    (1, 2048, 2048, 16, 16, 64, torch.float32, True, None, 2e-5),
+    (1, 2048, 2048, 40, 8, 128, torch.float32, True, None, 2e-5),
     (2, 128, 128, 8, 2, 128, torch.float32, True, None, 2e-5),
     (2, 96, 96, 4, 4, 64, torch.float32, True, None, 2e-5),
     (1, 200, 200, 4, 1, 64, torch.float32, True, 48, 2e-5),
@@ -734,6 +739,51 @@ def test_expert_ffn_ragged_vs_plain(dev, dtype, tol):
             assert (got[e, gi, n:] == 0).all(), (e, gi)
 
 
+#: llama4-scout-17b-a16e's serving decode: 8 tokens, top-1 of 16 experts,
+#: 5120 -> 8192 SwiGLU (the phase-13 smoke's ``decode-llama4`` rows)
+LLAMA4_DECODE = dict(S=8, M=5120, F=8192, E=16, k=1)
+
+
+@pytest.mark.parametrize("kernel", ["expert_ffn_grouped", "moe_dispatch",
+                                    "moe_combine", "expert_ffn"])
+def test_kernels_at_llama4_decode_vs_plain(dev, kernel):
+    """Each MoE kernel of llama4's decode paths (s1g: the grouped kernel;
+    s1d: dispatch -> expert_ffn -> combine) at its full widths and the
+    decode pool's capacity, against its plain version: f32 1e-5 relative
+    (sums of up to 8192 products), dispatch bitwise."""
+    from repro_torch.core.moe import shard_pool_capacity
+    c = LLAMA4_DECODE
+    gate = GateConfig(n_experts=c["E"], top_k=c["k"])
+    _, cap = shard_pool_capacity(c["S"], 1, 1, gate, infer=True)
+    x, flat, w, ws, cap = _moe(dev, S=c["S"], M=c["M"], F=c["F"],
+                               E=c["E"], k=c["k"], cap=cap)
+    n = c["E"] * cap
+    fn = {"expert_ffn_grouped": expert_ffn_grouped,
+          "moe_dispatch": moe_dispatch, "moe_combine": moe_combine,
+          "expert_ffn": expert_ffn}[kernel]
+    if kernel == "expert_ffn_grouped":
+        args, kw = (x, flat, w, *ws), dict(cap=cap)
+        want = expert_ffn_grouped_ref(*args, **kw)
+    elif kernel == "moe_dispatch":
+        args, kw = (x, flat, n), {}
+        want = moe_dispatch_ref(*args)
+    elif kernel == "moe_combine":
+        args, kw = (torch.randn((n, c["M"]), device=dev), flat, w), {}
+        want = moe_combine_ref(*args)
+    else:
+        args, kw = (moe_dispatch_ref(x, flat, n).reshape(c["E"], cap,
+                                                         c["M"]), *ws), {}
+        want = expert_ffn_ref(*args)
+    n0 = fn.launches
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    if kernel == "moe_dispatch":
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
 def test_new_kernels_raise_instead_of_falling_back(dev):
     """A CUDA tensor the kernel cannot take (float16, or operands on two
     devices) raises; no wrapper computes it with the plain version."""
@@ -765,7 +815,8 @@ def test_new_kernels_raise_instead_of_falling_back(dev):
     ("qwen3-moe-30b-a3b", None, 1, "f32"),
     ("qwen3-moe-30b-a3b", "s1g", 1, "fp8_e4m3"),
     ("gpt2-moe", None, 1, "f32"),
-    ("gpt2-moe", "s1", 2, "f32")])
+    ("gpt2-moe", "s1", 2, "f32"),
+    ("qwen1.5-0.5b", None, 1, None)])
 def test_training_step_repeats_bitwise(dev, arch, schedule, chunks, wire):
     """The first step taken twice from the same parameters, AdamW state
     and batch gives torch.equal parameters and moments: the backward sums
@@ -782,8 +833,9 @@ def test_training_step_repeats_bitwise(dev, arch, schedule, chunks, wire):
     from repro_torch.train import Trainer
     assert not torch.are_deterministic_algorithms_enabled()
     cfg = get_config(arch).reduced()
-    cfg = replace(cfg, moe=replace(cfg.moe, pipeline_chunks=chunks,
-                                   comm=CommConfig(wire_dtype=wire)))
+    if cfg.moe is not None:
+        cfg = replace(cfg, moe=replace(cfg.moe, pipeline_chunks=chunks,
+                                       comm=CommConfig(wire_dtype=wire)))
     tr = Trainer(Model(cfg, device=dev), AdamWConfig(lr=1e-3,
                                                      warmup_steps=2),
                  schedule=schedule)

@@ -523,7 +523,8 @@ def test_train_launcher_writes_jaxs_record(tmp_path, capsys):
     assert rec["obs"]["trace_file"].endswith("trace_s1.json")
     evs = read_events(rec["obs"]["metrics_files"])
     assert [e["event"] for e in evs] == ["meta", "autosched_decision",
-                                         "train_step", "train_step",
+                                         "train_step", "expert_load",
+                                         "train_step", "expert_load",
                                          "stage_trace"]
     doc = json.load(open(rec["obs"]["trace_file"]))
     assert any(e["ph"] == "X" for e in doc["traceEvents"])

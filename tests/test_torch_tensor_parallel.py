@@ -10,9 +10,12 @@ with 2 kv heads and one shared expert (GQA: the kv heads shard on
 its query heads share; a vocab-parallel embedding, LM head and CE; the
 shared expert column / row parallel), and reduced gpt2-moe with
 ``seq_parallel=True`` (Megatron-SP; layernorm, the qkv and FFN biases, a
-tied vocab-parallel embedding).  Cases: each config on the merged
-``(data=2, model=2)`` and on ``(data=1, model=4)`` meshes, one under
-``s1`` and one under ``s2`` each.
+tied vocab-parallel embedding), and reduced command-r-35b with 2 kv
+heads (dense: the parallel block, whose row-parallel attention and
+row-parallel FFN sum into one residual; layernorm; the tied
+vocab-parallel head times ``logit_scale``).  Cases: qwen3 and gpt2sp on
+the merged ``(data=2, model=2)`` and on ``(data=1, model=4)`` meshes, one
+under ``s1`` and one under ``s2`` each; command-r on ``(2, 2)``.
 
 Tolerances (``test_torch_train_dist.py``'s): per step, loss within 1e-4
 and gradient norm within 1e-3 relative; the parameters after the first
@@ -58,6 +61,8 @@ def _config(get_config, key):
         return replace(c, moe=replace(c.moe, n_shared_experts=1))
     if key == "gpt2":
         return get_config("gpt2-moe").reduced()
+    if key == "commandr":
+        return replace(get_config("command-r-35b").reduced(), n_kv_heads=2)
     return get_config("bert-moe").reduced()
 
 
@@ -65,7 +70,8 @@ def _config(get_config, key):
 CASES = [("qwen3-2x2-s1", "qwen3", (2, 2), "s1"),
          ("qwen3-1x4-s2", "qwen3", (1, 4), "s2"),
          ("gpt2sp-2x2-s2", "gpt2sp", (2, 2), "s2"),
-         ("gpt2sp-1x4-s1", "gpt2sp", (1, 4), "s1")]
+         ("gpt2sp-1x4-s1", "gpt2sp", (1, 4), "s1"),
+         ("commandr-2x2", "commandr", (2, 2), None)]
 STEPS = 2
 DATA = dict(seq_len=32, global_batch=8)
 OPT = dict(lr=1e-3, warmup_steps=2, total_steps=STEPS)
@@ -259,7 +265,8 @@ def _canon_tree(tree):
 
 @pytest.mark.parametrize("shape", [(2, 2), (1, 4), (4, 2)],
                          ids=["2x2", "1x4", "4x2"])
-@pytest.mark.parametrize("key", ["gpt2", "qwen3", "qwen3shared", "bert"])
+@pytest.mark.parametrize("key", ["gpt2", "qwen3", "qwen3shared", "bert",
+                                 "commandr"])
 def test_param_specs_are_jaxs(key, shape):
     """``Model.param_specs`` is JAX's ``Model.specs`` leaf by leaf (the
     JAX function reads only ``mesh.shape``, so both take the port's
@@ -280,7 +287,7 @@ def test_param_specs_are_jaxs(key, shape):
     attn = got["run0"]["attn"]
     assert attn["wq"] == (None, None, ("model",))
     assert attn["wo"] == (None, ("model",), None)
-    kv_sharded = not (key == "qwen3" and shape[1] == 4)
+    kv_sharded = not (key in ("qwen3", "commandr") and shape[1] == 4)
     assert attn["wk"] == (None, None, ("model",) if kv_sharded else None)
 
 
