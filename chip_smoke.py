@@ -210,7 +210,24 @@ to a plain version):
      kernels launched; per rank the best of 3 runs of each mode (after
      (a)'s warm-up; (a)'s runs of s1_pipe2, s2_pipe2 and s2 are the
      overlapped side's first): host ms, the collectives' summed seconds
-     and their in-flight wall seconds (``comm.timing``);
+     and their in-flight wall seconds (``comm.timing``); (k) last in the
+     same spawn, the KV-cache serve path: mistral-nemo-12b at full width
+     cut to 4 layers (``p12_kv_cfg``), each rank's Megatron shards made
+     in turn, ``prefill_step`` and greedy ``make_serve_step`` steps through
+     the cache on (data=2, model=2) for ``P12_KV_CASES`` (B=1 with a
+     16384-token prompt and 64 tokens; B=2, the batch over data, 16
+     tokens), each with ``cache_specs(seq_shard=False)`` (the kv heads
+     over model, W whole) and ``True`` (W over data x model, or over
+     model): on every rank the tokens of a one-rank reference made before
+     the spawn, logits as near an f64 witness of the teacher-forced
+     logits (``logits_f64``) as the one-rank run's (``P12_KV_EXACT_RATIO``;
+     2e-5 + 2e-4 |w| of the one-rank logits logged), the split-W logits
+     within that of the whole-W run's, the W-sharded K/V 1/nw of every
+     head and slot of its rows, a decode
+     step's collectives per kind (calls, bytes) the same on a cache of 2W
+     (no K or V crosses ranks), flash once a layer of the prefill and
+     rmsnorm 2 a layer + 1 a call; each layout's seconds, tok/s, K/V MB
+     and per rank the bytes and host ms a decode step of each collective;
  13. the five configs whose block kinds the port runs, each at full width
      with random weights from a seed, freed before the next, its peak
      device memory logged: (a) llama4-scout-17b-a16e cut to 4 layers (3
@@ -235,11 +252,22 @@ to a plain version):
      7 trains (the first step kernels vs plain versions, twice bitwise
      and once guarded; finite losses, the last three below the first,
      ``rmsnorm`` and ``flash_attention`` launches per step as predicted);
+     (c) after mistral-nemo's serving, the KV-cache serve path on it
+     (``zoo_kv_cache``): ``prefill_step`` over 4 right-padded prompts of
+     1024-2048 tokens (``ZOO_KV_LENS``) and 32 greedy ``make_serve_step``
+     steps, each row at its own position (flash once a layer, rmsnorm 2 a
+     layer + 1 a call, path ``serve_mistral_nemo_cache``); every step's
+     logits within ``ZOO_KV_TOL`` of the scale of ``Model.forward``'s over
+     the same tokens, the greedy tokens equal; the
+     paged engine on the same prompts, its streams counted against these
+     and both tok/s logged;
  14. print the kernels' JSON line (each kernel's launches on its main path
      and the phase-3 row at that path's shapes, under ``by_path`` every
      path's launches beside the phase-3 row at that path's shapes, and
      under ``multirank`` each phase-12 path's launches per rank, (i)'s
-     as ``placement_2x2_*``, (j)'s as ``overlap_2x2_*``), then
+     as ``placement_2x2_*``, (j)'s as ``overlap_2x2_*``, (k)'s as
+     ``kvcache_2x2_*``, and under ``multirank_shape`` (k)'s paths beside
+     the phase-3 row at one rank's shapes, ``MULTI_SHAPE_OF``), then
      ``{"ok": true, ...}`` as the last line.
 """
 
@@ -315,7 +343,8 @@ def check_rmsnorm(dev):
     # (label, rows, width, dtype, tol): f32 differs by rounding and rsqrt
     # ulps; bf16 output may differ by one bf16 ulp (2^-8 relative).  Then
     # phase 13's widths: decode at 5120 (llama4, mistral-nemo), 4096 (yi)
-    # and 1024 (qwen1.5), and qwen1.5's training step.
+    # and 1024 (qwen1.5), qwen1.5's training step, and 13 (c)'s prefill
+    # of 4 x 2048 rows at 5120.
     f32 = torch.float32
     for label, R, D, dt, tol in (("decode", 8, 2048, f32, 1e-5),
                                  ("prefill128", 128, 2048, f32, 1e-5),
@@ -325,7 +354,8 @@ def check_rmsnorm(dev):
                                  ("decode-5120", 8, 5120, f32, 1e-5),
                                  ("decode-4096", 8, 4096, f32, 1e-5),
                                  ("decode-1024", 8, 1024, f32, 1e-5),
-                                 ("train-qwen1.5", 2048, 1024, f32, 1e-5)):
+                                 ("train-qwen1.5", 2048, 1024, f32, 1e-5),
+                                 ("prefill-5120", 8192, 5120, f32, 1e-5)):
         x = torch.randn((R, D), generator=g, device=dev).to(dt)
         scale = 1.0 + 0.1 * torch.randn((D,), generator=g, device=dev)
         err = compare(f"rmsnorm[{label}]", rmsnorm(x, scale, eps=1e-6),
@@ -443,6 +473,30 @@ def check_grouped(dev):
     return rows
 
 
+def _flash_plain_rows(q, k, v, *, causal=True, window=None, scale=None,
+                      rows=2048):
+    """``flash_attention_plain``'s causal rows one block of ``rows``
+    queries at a time (the same f32 scores, ``-inf`` mask and softmax per
+    row; queries [i, i + rows) over keys [0, i + rows)), so that a long
+    sequence's (L, L) scores never stand whole on the card."""
+    import torch
+    if not causal or window is not None or q.shape[1] != k.shape[1]:
+        raise ValueError("_flash_plain_rows: causal self-attention only")
+    H, K, L = q.shape[2], k.shape[2], q.shape[1]
+    k = torch.repeat_interleave(k, H // K, dim=2).float()
+    v = torch.repeat_interleave(v, H // K, dim=2).float()
+    out = torch.empty_like(q)
+    for i in range(0, L, rows):
+        j = min(L, i + rows)
+        s = torch.einsum("bqhd,bkhd->bhqk", q[:, i:j].float(), k[:, :j])
+        qp = torch.arange(i, j, device=q.device)[:, None]
+        kp = torch.arange(j, device=q.device)[None, :]
+        s = torch.where((kp <= qp)[None, None], s * scale, -torch.inf)
+        out[:, i:j] = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(
+            s, dim=-1), v[:, :j]).to(q.dtype)
+    return out
+
+
 def check_flash(dev):
     import torch
     import torch.nn.functional as F
@@ -452,10 +506,12 @@ def check_flash(dev):
     rows = []
     # (label, B, L, H, K, hd, dtype, causal, window, tol): the two training
     # shapes, a window narrower than L, non-causal, bf16, qwen1.5's training
-    # step (MHA 16 x 64) and llama4's heads (40 / 8 x 128; no path trains
-    # llama4 at full width on one card).  f32: sums of up
-    # to 2048 terms in another order, and the online softmax's per-tile
-    # rescaling; bf16 output: one bf16 ulp.
+    # step (MHA 16 x 64), llama4's heads (40 / 8 x 128; no path trains
+    # llama4 at full width on one card), phase 13 (c)'s KV-cache
+    # prefill of mistral-nemo (4 x 2048, 32 / 8 x 128) and phase 12 (k)'s
+    # on one rank of (2, 2) (16 / 4 heads a rank: B=1 at 1 x 16384, B=2
+    # at 1 x 2048).  f32: sums of up to L terms in another order, and the
+    # online softmax's per-tile rescaling; bf16 output: one bf16 ulp.
     cases = (("qwen3", 1, 2048, 32, 4, 128, torch.float32, True, None, 5e-5),
              ("gpt2-moe", 8, 1024, 12, 12, 64, torch.float32, True, None,
               5e-5),
@@ -468,18 +524,24 @@ def check_flash(dev):
              ("qwen1.5", 1, 2048, 16, 16, 64, torch.float32, True, None,
               5e-5),
              ("llama4", 1, 2048, 40, 8, 128, torch.float32, True, None,
-              5e-5))
+              5e-5),
+             ("mistral-nemo-prefill", 4, 2048, 32, 8, 128, torch.float32,
+              True, None, 5e-5),
+             ("mistral-nemo-16k-rank", 1, 16384, 16, 4, 128, torch.float32,
+              True, None, 5e-5),
+             ("mistral-nemo-2k-rank", 1, 2048, 16, 4, 128, torch.float32,
+              True, None, 5e-5))
     for label, B, L, H, K, hd, dt, causal, window, tol in cases:
         q = torch.randn((B, L, H, hd), generator=g, device=dev).to(dt)
         k = torch.randn((B, L, K, hd), generator=g, device=dev).to(dt)
         v = torch.randn((B, L, K, hd), generator=g, device=dev).to(dt)
         kw = dict(causal=causal, window=window, scale=hd ** -0.5)
+        plain_fn = flash_attention_plain if L <= 4096 else _flash_plain_rows
         err = compare(f"flash_attention[{label}]",
                       flash_attention(q, k, v, **kw),
-                      flash_attention_plain(q, k, v, **kw), tol)
+                      plain_fn(q, k, v, **kw), tol)
         ms = time_ms(lambda: flash_attention(q, k, v, **kw))
-        plain = time_ms(lambda: flash_attention_plain(q, k, v, **kw),
-                        iters=5)
+        plain = time_ms(lambda: plain_fn(q, k, v, **kw), iters=5)
         # the yardstick, on (B, H, L, hd) copies made outside the timing
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         pos = torch.arange(L, device=dev)
@@ -1942,7 +2004,7 @@ def _p12_layer_refs(dev, path, model_cfg, tokens):
 def _p12_err(got, want):
     """The readings of ``got`` against ``want``: max |d| (``err``), the
     scale max(1, max |want|), the share of elements with |d| above 2e-4 of
-    the scale, ||d|| / ||want|| (``rel``), and whether every element holds
+    the scale, ||d|| / ||want|| (``rel``), whether every element holds
     |d| <= 2e-5 + 2e-4 |want| (``elem_ok``)."""
     w = want.float()
     d = (got.float() - w).abs()
@@ -2492,12 +2554,12 @@ def _p12_placed_report(res):
 
 
 def _p12_merged_rank(rank, ref_path, model_cfg, scheds, steps, tokens,
-                     block_cfg, block_tokens, guard_dir):
+                     block_cfg, block_tokens, guard_dir, kv_cfg, kv_ref):
     """One rank of the merged (2, 2) mesh: (a)'s cases, (j)'s overlapped
     and serial runs, (i)'s placed layer and (h) on the same layer, then
     (b) and (c), then (d) on both of its
     meshes, (g) and (i)'s serving with (d)'s weights, (i)'s training, then
-    (e) and (f), in one spawn."""
+    (e) and (f), then (k), in one spawn."""
     layer, measured, placed, overlap = _p12_layer_rank(
         rank, "merged", ref_path, model_cfg, with_h=True)
     out = {"layer": layer, "measured": measured, "overlap": overlap,
@@ -2517,6 +2579,7 @@ def _p12_merged_rank(rank, ref_path, model_cfg, scheds, steps, tokens,
     placed["train_s"] = time.perf_counter() - t0
     out["placed"] = placed
     out["guarded"] = _p12_guarded_rank(rank, model_cfg, tokens, guard_dir)
+    out["kv"] = _p12_kv_rank(rank, kv_cfg, kv_ref)
     return out
 
 
@@ -3467,8 +3530,387 @@ def _p12_report(label, n, res, paths):
     return failed
 
 
+#: (k): the KV-cache serve path on (2, 2), mistral-nemo-12b at full width
+#: cut to 4 layers (``p12_kv_cfg``), Megatron-sharded over model: (name,
+#: prompt lengths, tokens generated after the prefill); W is the longest
+#: prompt plus those, and with ``seq_shard`` B=1 splits W over data x
+#: model (the batch axes idle), B=2 over model (the batch over data)
+#: (16 tokens: gloo's host path takes ~150 ms a W-sharded decode step)
+P12_KV_CASES = (("b1", (16384,), 64), ("b2", (2048, 1536), 16))
+#: (k)'s logits against the f64 witness (``logits_f64``; stated before its
+#: first run): the one-rank run's ||d|| / ||witness|| at most
+#: ``P12_KV_WITNESS_REL`` (else the witness is wrong), and each rank's
+#: logits on each layout no further from the witness than
+#: ``P12_KV_EXACT_RATIO`` = (rel, max |d|) times the one-rank run's on the
+#: same rows: the sharded runs are as exact as one rank is, whatever f32's
+#: own rounding at 5120 wide
+P12_KV_WITNESS_REL = 2e-5
+P12_KV_EXACT_RATIO = (2.0, 3.0)
+
+
+def p12_kv_cfg():
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    return replace(get_config("mistral-nemo-12b"), n_layers=N_LAYERS)
+
+
+def _p12_kv_prompts(vocab, lens):
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(12)
+    toks = np.zeros((len(lens), max(lens)), np.int64)
+    for i, n in enumerate(lens):
+        toks[i, :n] = rng.randint(0, vocab, n)
+    return torch.from_numpy(toks), torch.tensor(lens)
+
+
+class _LogitsTap:
+    """``model`` with each ``decode_step``'s logits kept (``seen``): the
+    greedy loop of ``make_serve_step`` over it is read against a
+    reference without a second loop."""
+
+    def __init__(self, model):
+        self.model, self.seen = model, []
+
+    def decode_step(self, *args, **kw):
+        logits, cache = self.model.decode_step(*args, **kw)
+        self.seen.append(logits[:, 0])
+        return logits, cache
+
+
+def kv_run(model, params, toks, lens, gen, W, batch, **mesh_kw):
+    """``prefill_step`` then ``gen`` greedy ``make_serve_step`` steps
+    (each row at its own position) on a fresh cache of ``batch`` rows (on
+    a mesh ``toks`` and ``lens`` are this rank's) and W slots; returns the
+    cache, the tokens (B, gen + 1), every step's logits (B, gen + 1, V) on
+    the host, the prefill's and the decode loop's seconds, and on a mesh
+    the decode loop's collectives (``comm.timing``)."""
+    import torch
+    from repro_torch.parallel import comm
+    from repro_torch.train import make_serve_step
+    dev = model.device
+    tap = _LogitsTap(model)
+    serve_step = make_serve_step(tap, **mesh_kw)
+    cache = model.init_cache(batch, W, **mesh_kw)
+    toks, lens = toks.to(dev), lens.to(dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache = model.prefill_step(params, cache, {"tokens": toks},
+                                           lengths=lens, **mesh_kw)
+        _sync(dev)
+        t_prefill = time.perf_counter() - t0
+        tok = logits.argmax(-1).to(torch.int32)[:, None]
+        stream = [tok]
+        comm.timing(bool(mesh_kw))
+        t0 = time.perf_counter()
+        for t in range(gen):
+            tok, cache = serve_step(params, cache, {"tokens": tok,
+                                                    "step": lens + t})
+            stream.append(tok)
+        _sync(dev)
+    t_decode = time.perf_counter() - t0
+    coll = comm.times()
+    comm.timing(False)
+    return (cache, torch.cat(stream, 1).long().cpu(),
+            torch.stack([logits, *tap.seen], 1).cpu(), t_prefill, t_decode,
+            coll)
+
+
+def teacher_forced(toks, lens, stream):
+    """(tokens, positions): each row's prompt and then its ``stream``'s
+    tokens but the last, (B, max(lens) + gen), and the (B, gen + 1)
+    positions whose logits predict the stream's tokens."""
+    import torch
+    B, L = toks.shape
+    gen = stream.shape[1] - 1
+    full = torch.zeros((B, L + gen), dtype=torch.long)
+    full[:, :L] = toks
+    rows = torch.arange(B)
+    for t in range(gen):
+        full[rows, lens + t] = stream[:, t]
+    return full, lens[:, None] + torch.arange(gen + 1)[None] - 1
+
+
+def logits_f64(model, params, tokens, pos):
+    """The f64 witness of a dense rope model's logits at ``pos`` (B, n)
+    of ``tokens`` (B, L), both on the card: every product, norm, softmax
+    and sum in f64 from the f32 parameters; only the rope table is the
+    port's (f32 angles, as ``apply_rope`` makes them).  Attention one
+    block of 1024 queries at a time."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models.layers import rope_freqs
+    from repro_torch.models.model import layer_views
+    cfg = model.cfg
+    if (not cfg.use_rope or cfg.norm_type != "rmsnorm" or cfg.qkv_bias
+            or cfg.parallel_block or cfg.attn_window or cfg.attn_chunk
+            or cfg.ffn_act != "silu" or cfg.tie_embeddings
+            or any(kind != "dense" for kind, _ in model.runs)):
+        raise ValueError(f"logits_f64: {cfg.name} is not a dense, untied, "
+                         "rope + rmsnorm + SwiGLU model")
+    f8, dev = torch.float64, tokens.device
+    B, L = tokens.shape
+    H, K, hd, eps = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.norm_eps
+    ang = torch.arange(L, device=dev).float()[:, None] * rope_freqs(
+        hd, cfg.rope_theta, dev)
+    cos, sin = (f(ang).to(f8)[:, None, :] for f in (torch.cos, torch.sin))
+
+    def rope(x):
+        x1, x2 = torch.chunk(x, 2, dim=-1)
+        return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+
+    def norm(x, p):
+        return x * torch.rsqrt(x.square().mean(-1, keepdim=True) + eps) \
+            * p["scale"].to(f8)
+
+    x = params["embed"]["table"][tokens].to(f8)
+    for r, (_, n) in enumerate(model.runs):
+        for p in layer_views(params[f"run{r}"], n):
+            a, f = ({k: t.to(f8) for k, t in p[m].items()}
+                    for m in ("attn", "ffn"))
+            h = norm(x, p["norm1"])
+            q = rope((h @ a["wq"]).reshape(B, L, H, hd))
+            k = rope((h @ a["wk"]).reshape(B, L, K, hd))
+            k = k.repeat_interleave(H // K, 2)
+            v = (h @ a["wv"]).reshape(B, L, K, hd).repeat_interleave(
+                H // K, 2)
+            o = torch.empty_like(q)
+            for i in range(0, L, 1024):
+                j = min(L, i + 1024)
+                sc = torch.einsum("bqhd,bkhd->bhqk", q[:, i:j], k[:, :j])
+                qp = torch.arange(i, j, device=dev)[:, None]
+                sc = sc.masked_fill(torch.arange(j, device=dev)[None] > qp,
+                                    -torch.inf) * hd ** -0.5
+                o[:, i:j] = torch.einsum("bhqk,bkhd->bqhd",
+                                         sc.softmax(-1), v[:, :j])
+            x = x + o.reshape(B, L, H * hd) @ a["wo"]
+            h = norm(x, p["norm2"])
+            x = x + (F.silu(h @ f["w_gate"]) * (h @ f["w_in"])) @ f["w_out"]
+            del a, f, h, q, k, v, o
+    x = norm(x, params["final_norm"])
+    x = x[torch.arange(B, device=dev)[:, None], pos]          # (B, n, D)
+    return (x @ params["lm_head"]["w"].to(f8)) * cfg.logit_scale
+
+
+def _p12_kv_reference(dev, cfg, path):
+    """(k)'s one-rank reference, made before the spawn with the whole
+    model: ``P12_KV_CASES`` and each case's tokens and logits, and the
+    f64 witness of those logits (``logits_f64`` over the teacher-forced
+    tokens), saved to ``path``.  Fails unless the one-rank logits are
+    within ``P12_KV_WITNESS_REL`` of the witness (||d|| / ||witness||):
+    a witness that disagrees more holds nothing."""
+    import torch
+    from repro_torch.models import Model
+    model = Model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    ref = {"cases": P12_KV_CASES}
+    for name, lens, gen in P12_KV_CASES:
+        toks, lens_t = _p12_kv_prompts(cfg.vocab_size, lens)
+        cache, stream, logits, tp, td, _ = kv_run(
+            model, params, toks, lens_t, gen, max(lens) + gen, len(lens))
+        del cache
+        full, pos = teacher_forced(toks, lens_t, stream)
+        with torch.no_grad():
+            exact = logits_f64(model, params, full.to(dev),
+                               pos.to(dev)).float().cpu()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        one = _p12_err(logits, exact)
+        if not one["rel"] <= P12_KV_WITNESS_REL:
+            raise AssertionError(f"phase 12 (k) {name}: one rank vs the "
+                                 f"f64 witness {one}")
+        log(f"  (k) {name}: one rank's logits vs the f64 witness max |d| "
+            f"{one['err']:.3e} (scale {one['scale']:.3g}), rel "
+            f"{one['rel']:.3e}; 2e-5 + 2e-4 |w| "
+            f"{'held' if one['elem_ok'] else 'not held'}")
+        ref[name] = {"tokens": stream, "logits": logits, "exact": exact,
+                     "prefill_s": tp, "decode_s": td}
+    torch.save(ref, path)
+    del params, model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _p12_kv_rank(rank, cfg, ref_path):
+    """(k) on one rank of the (2, 2) mesh: its Megatron shards of the
+    model (the whole model made in turn, one rank at a time, as (d)
+    does), then each case of the reference with ``seq_shard`` False and
+    True: the tokens
+    and logits read against the one-rank reference and the f64 witness
+    (``_p12_err``), the
+    cache's K/V bytes, the decode loop's collectives per kind
+    (``comm.timing``) beside one step's on a fresh cache of 2W, launches
+    and seconds."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import dims_for
+    from repro_torch.models import Model
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.parallel import comm
+    from repro_torch.parallel.mesh import make_mesh
+    from repro_torch.parallel.sharding import P, local_shard, local_tree
+    from repro_torch.train import cache_specs
+    t_all = time.perf_counter()
+    dev = _p12_device()
+    mesh = make_mesh((2, 2), ("data", "model"))
+    dims = dims_for(cfg)
+    model = Model(cfg, device=dev)
+    params = None
+    for turn in range(dist.get_world_size()):
+        if turn == rank:
+            full = model.init(torch.Generator(device=dev).manual_seed(0))
+            params = local_tree(full, model.param_specs(full, mesh, dims),
+                                mesh)
+            del full
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        dist.barrier()
+    ref = torch.load(ref_path, weights_only=False)
+    out = {"init_s": time.perf_counter() - t_all, "cases": ref["cases"]}
+    for name, lens, gen in ref["cases"]:
+        toks, lens_t = _p12_kv_prompts(cfg.vocab_size, lens)
+        B, W = len(lens), max(lens) + gen
+        want = ref[name]
+        for seq_shard in (False, True):
+            kw = dict(mesh=mesh, dims=dims, specs=cache_specs(
+                model, mesh, dims, B, W, seq_shard=seq_shard))
+            rows = P(kw["specs"]["run0"]["attn"]["pos"][1])
+            wrappers = reset_counts()
+            cache, stream, logits, tp, td, coll = kv_run(
+                model, params, local_shard(toks, rows, mesh),
+                local_shard(lens_t, rows, mesh), gen, W, B, **kw)
+            launches = read_counts(wrappers)
+            kv = [t for t in leaves(cache) if t.dim() == 5]
+            kv_bytes = sum(t.numel() * t.element_size() for t in kv)
+            del cache
+            # one decode step at 2W: the same collectives, the same bytes
+            kw2 = dict(kw, specs=cache_specs(model, mesh, dims, B, 2 * W,
+                                             seq_shard=seq_shard))
+            cache = model.init_cache(B, 2 * W, **kw2)
+            comm.timing(True)
+            with torch.no_grad():
+                model.decode_step(params, cache, {
+                    "tokens": stream[:, :1].to(dev), "step": 0}, **kw2)
+            coll2 = comm.times()
+            comm.timing(False)
+            del cache
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            if not seq_shard:
+                heads = logits
+            mine, exact = (local_shard(want[k], rows, mesh)
+                           for k in ("logits", "exact"))
+            out[(name, seq_shard)] = {
+                "spec": tuple(kw["specs"]["run0"]["attn"]["k"]),
+                "tokens_ok": torch.equal(stream, local_shard(
+                    want["tokens"], rows, mesh)),
+                "logits": _p12_err(logits, mine),
+                "vs_exact": _p12_err(logits, exact),
+                "one_vs_exact": _p12_err(mine, exact),
+                "vs_heads": _p12_err(logits, heads),
+                "kv_bytes": kv_bytes, "comm": coll, "comm_2w": coll2,
+                "launches": launches, "on_card": dev.type == "cuda",
+                "prefill_s": tp, "decode_s": td,
+                "gen": gen, "ref_s": (want["prefill_s"], want["decode_s"])}
+    out["s"] = time.perf_counter() - t_all
+    return out
+
+
+def _p12_kv_report(res, cfg):
+    """(k)'s checks and log lines from each rank's ``_p12_kv_rank``:
+    tokens equal to the one-rank reference on every rank and layout,
+    logits as close to the f64 witness as the one-rank run's
+    (``P12_KV_EXACT_RATIO``; phase 12's output tolerance against the
+    one-rank run is logged), the split-W logits within that tolerance of
+    the same rank's whole-W run, the W-sharded K/V bytes
+    1/nw of the whole cache's, a decode step's bytes per collective kind
+    the same at W and 2W.  Returns each run's per-rank launches."""
+    acfg_bytes = 4 * cfg.n_kv_heads * cfg.hd * 2 * cfg.n_layers
+    paths, failed = {}, []
+    for name, lens, gen in res[0]["cases"]:
+        B, W = len(lens), max(lens) + gen
+        for seq_shard in (False, True):
+            rs = [r[(name, seq_shard)] for r in res]
+            label = f"{name} {'W-sharded' if seq_shard else 'heads'}"
+            spec = rs[0]["spec"]
+            nw = 2 ** len(spec[2] or ())           # each axis of (2, 2)
+            # every kv head of all W for this rank's rows (JAX's spec)
+            whole = acfg_bytes * W * (B // 2 if spec[1] else B)
+            per_step = {}
+            for rk, r in enumerate(rs):
+                steps = {k: (c // r["gen"], b // r["gen"])
+                         for k, (c, b, _) in r["comm"].items()
+                         if k != "in_flight"}
+                at_2w = {k: (c, b) for k, (c, b, _) in r["comm_2w"].items()
+                         if k != "in_flight"}
+                bad = []
+                if not r["tokens_ok"]:
+                    bad.append("tokens")
+                ex, one = r["vs_exact"], r["one_vs_exact"]
+                if not (ex["rel"] <= P12_KV_EXACT_RATIO[0] * one["rel"]
+                        and ex["err"] <= P12_KV_EXACT_RATIO[1] * one["err"]):
+                    bad.append(f"logits vs the f64 witness {ex}, one rank's "
+                               f"{one}")
+                if not r["vs_heads"]["elem_ok"]:
+                    bad.append(f"logits vs W whole {r['vs_heads']}")
+                if steps != at_2w:
+                    bad.append(f"bytes a step {steps} at W, {at_2w} at 2W")
+                if seq_shard and spec[2] and r["kv_bytes"] * nw != whole:
+                    bad.append(f"K/V {r['kv_bytes']} bytes, whole {whole}")
+                if r["on_card"] and (
+                        r["launches"]["flash_attention"] != cfg.n_layers
+                        or r["launches"]["rmsnorm"] != (gen + 1) * (
+                            2 * cfg.n_layers + 1)):
+                    bad.append(f"launches {r['launches']}")
+                if bad:
+                    failed.append(f"{label} rank {rk}: {'; '.join(bad)}")
+                per_step[rk] = {k: (b, r["comm"][k][2] / r["gen"] * 1e3)
+                                for k, (_, b) in steps.items()}
+            r0 = rs[0]
+            log(f"  (k) {label} (B={B}, W={W}, spec {spec}): prefill "
+                f"{max(r['prefill_s'] for r in rs):.2f} s, {gen} steps "
+                f"{max(r['decode_s'] for r in rs):.2f} s ("
+                f"{B * gen / max(r['decode_s'] for r in rs):.1f} tok/s; one "
+                f"rank {r0['ref_s'][0]:.2f} s / {B * gen / r0['ref_s'][1]:.1f}"
+                f" tok/s); tokens = one rank's on "
+                f"{sum(r['tokens_ok'] for r in rs)}/4 ranks; logits vs the "
+                f"f64 witness max |d| "
+                f"{max(r['vs_exact']['err'] for r in rs):.3e}, rel "
+                f"{max(r['vs_exact']['rel'] for r in rs):.3e} (one rank on "
+                f"the same rows: max |d| "
+                f"{max(r['one_vs_exact']['err'] for r in rs):.3e}, rel "
+                f"{max(r['one_vs_exact']['rel'] for r in rs):.3e}); vs one "
+                f"rank max |d| {max(r['logits']['err'] for r in rs):.3e} "
+                f"(scale {r0['logits']['scale']:.3g}, rel "
+                f"{max(r['logits']['rel'] for r in rs):.2e}; 2e-5 + 2e-4 |w| "
+                f"on {sum(r['logits']['elem_ok'] for r in rs)}/4); vs W whole "
+                f"max |d| {max(r['vs_heads']['err'] for r in rs):.3e} "
+                f"(2e-5 + 2e-4 |w| on "
+                f"{sum(r['vs_heads']['elem_ok'] for r in rs)}/4); K/V "
+                f"bytes a rank {r0['kv_bytes'] / 1e6:.1f} MB; every head and "
+                f"slot of its rows {whole / 1e6:.1f} MB")
+            for rk in range(len(rs)):
+                log(f"    rank {rk} a decode step: " + ", ".join(
+                    f"{k} {b} B {ms:.2f} ms"
+                    for k, (b, ms) in sorted(per_step[rk].items()))
+                    + f" (2W: the same bytes); launches "
+                    f"{({k: v for k, v in rs[rk]['launches'].items() if v})}")
+            tag = "seq" if seq_shard else "heads"
+            paths[f"kvcache_2x2_{name}_{tag}"] = {
+                k: [r["launches"][k] for r in rs]
+                for k in rs[0]["launches"]
+                if any(r["launches"][k] for r in rs)}
+    if failed:
+        raise AssertionError("phase 12 (k): " + " | ".join(failed))
+    log(f"  (k) in {max(r['s'] for r in res):.1f} s a rank (their shards "
+        f"made in turn: {max(r['init_s'] for r in res):.1f} s)")
+    return paths
+
+
 def multirank(dev, model_cfg=None, tokens=(8, 1024), block_cfg=None,
-              block_tokens=(2, 2048), p9_losses=None):
+              block_tokens=(2, 2048), p9_losses=None, kv_cfg=None):
     """Phase 12 (see the module docstring) on ``model_cfg`` (default
     gpt2-moe, full size) with ``tokens`` = (batch, seq) global tokens, and
     (d) on ``block_cfg`` (default ``p12_block_cfg`` of qwen3-moe-30b-a3b)
@@ -3485,6 +3927,7 @@ def multirank(dev, model_cfg=None, tokens=(8, 1024), block_cfg=None,
     from repro_torch.configs import get_config
     model_cfg = model_cfg or get_config("gpt2-moe")
     block_cfg = block_cfg or p12_block_cfg(get_config("qwen3-moe-30b-a3b"))
+    kv_cfg = kv_cfg or p12_kv_cfg()
     paths = {}
     cpu = dev.type == "cpu"
     with tempfile.TemporaryDirectory(prefix="chip_smoke_p12_") as tmp:
@@ -3504,14 +3947,20 @@ def multirank(dev, model_cfg=None, tokens=(8, 1024), block_cfg=None,
         failed = _p12_report(label, 8, res, paths)
         log(f"  (a) {label} in {time.perf_counter() - t0:.1f} s (the "
             "one-rank references included)")
-        # (a), (b) and (c) on the merged (2, 2) mesh: 4 ranks, one spawn
+        # (a), (b) and (c) on the merged (2, 2) mesh: 4 ranks, one spawn;
+        # (k)'s one-rank reference first, its model freed before the spawn
+        t0 = time.perf_counter()
+        kv_ref = os.path.join(tmp, "kv_ref.pt")
+        _p12_kv_reference(dev, kv_cfg, kv_ref)
+        log(f"  (k) the one-rank reference in {time.perf_counter() - t0:.1f}"
+            " s")
         t0 = time.perf_counter()
         scheds = P12_TRAIN_SCHEDS
         guard_dir = os.path.join(tmp, "guarded")
         res = spawn(_p12_merged_rank, 4, ref_path, model_cfg, scheds,
                     P12_STEPS, tokens, block_cfg, block_tokens, guard_dir,
-                    backend="gloo", device=dev.type, timeout=900,
-                    threads=2 if cpu else None)
+                    kv_cfg, kv_ref, backend="gloo", device=dev.type,
+                    timeout=900, threads=2 if cpu else None)
         (label, _), _, _, _ = P12_MERGED
         failed += _p12_report(label, 4, [r["layer"] for r in res], paths)
         if failed:
@@ -3576,7 +4025,8 @@ def multirank(dev, model_cfg=None, tokens=(8, 1024), block_cfg=None,
             f"{serve_s:.1f})")
         paths.update(_p12_guarded_report([r["guarded"] for r in res],
                                          p9_losses, dev, model_cfg, tokens))
-    log(f"  (a) 2x2, (b)-(f) in {time.perf_counter() - t0:.1f} s")
+        paths.update(_p12_kv_report([r["kv"] for r in res], kv_cfg))
+    log(f"  (a) 2x2, (b)-(k) in {time.perf_counter() - t0:.1f} s")
     return paths
 
 
@@ -3817,6 +4267,87 @@ def zoo_long_request(model, params, dev):
         f"{done.tokens} in {wall:.2f} s")
 
 
+#: (c): the KV-cache serve path on mistral-nemo-12b: 4 right-padded prompts
+#: of ``ZOO_KV_LENS`` tokens, ``ZOO_KV_GEN`` greedy serve steps after the
+#: prefill; every step's logits held to ``Model.forward`` within
+#: ``ZOO_KV_TOL`` of their scale (stated before the first run: 4 layers of
+#: f32 sums in another order, as (b)'s 1e-3)
+ZOO_KV_LENS = (2048, 1536, 1024, 1800)
+ZOO_KV_GEN = 32
+ZOO_KV_TOL = 1e-3
+
+
+def zoo_kv_cache(model, params, dev):
+    """Phase 13 (c): ``prefill_step`` over ``ZOO_KV_LENS``' prompts (right-
+    padded to the longest, the flash kernel's serving launch), then
+    ``ZOO_KV_GEN`` greedy ``make_serve_step`` steps with each row at its
+    own position (``kv_run``); launches counted over that run.  Every
+    step's logits within ``ZOO_KV_TOL`` of the logits' scale of
+    ``Model.forward`` over prompt + tokens, with the same greedy tokens;
+    the paged ``Engine`` serving the same prompts, its streams counted
+    against these.  Returns the path's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import Engine
+    t_all = time.perf_counter()
+    cfg = model.cfg
+    rng = np.random.RandomState(131)
+    L, n_tok = max(ZOO_KV_LENS), ZOO_KV_GEN + 1
+    B, max_len = len(ZOO_KV_LENS), L + n_tok
+    prompts = [list(rng.randint(0, cfg.vocab_size, n)) for n in ZOO_KV_LENS]
+    tokens = torch.zeros((B, L), dtype=torch.long)
+    for i, p in enumerate(prompts):
+        tokens[i, :len(p)] = torch.tensor(p)
+    lengths = torch.tensor(ZOO_KV_LENS)
+    wrappers = reset_counts()
+    cache, stream, got, t_prefill, t_decode, _ = kv_run(
+        model, params, tokens, lengths, ZOO_KV_GEN, max_len, B)
+    launches = read_counts(wrappers)
+    del cache
+    want_launch = {"flash_attention": cfg.n_layers,
+                   "rmsnorm": (ZOO_KV_GEN + 1) * (2 * cfg.n_layers + 1)}
+    if any(launches[k] != v for k, v in want_launch.items()):
+        raise AssertionError(f"phase 13 (c): launches {launches}, want "
+                             f"{want_launch}")
+    full, pos = teacher_forced(tokens, lengths, stream)
+    with torch.no_grad():
+        want_logits, _ = model.forward(params, {"tokens": full.to(dev)})
+        want = want_logits[torch.arange(B, device=dev)[:, None],
+                           pos.to(dev)].cpu()            # (B, n_tok, V)
+        del want_logits
+    err = compare("phase 13 (c): KV-cache logits vs Model.forward", got,
+                  want, ZOO_KV_TOL)
+    scale = max(1.0, want.abs().max().item())
+    if not torch.equal(got.argmax(-1), want.argmax(-1)) or not torch.equal(
+            got.argmax(-1), stream):
+        raise AssertionError("phase 13 (c): greedy tokens differ between "
+                             "the serve steps, their logits and "
+                             "Model.forward")
+    del got, want
+    eng = Engine(model, max_batch=B, max_len=-(-max_len // 16) * 16,
+                 block_size=16)
+    for i, p in enumerate(prompts):
+        eng.submit(p, n_tok, rid=i)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = {c.rid: c for c in eng.run(params)}
+    wall = time.perf_counter() - t0
+    st = serve_report("  (c) the paged engine, the same prompts", done, eng,
+                      wall, B, n_tok)
+    same = sum(done[i].tokens == stream[i].tolist() for i in range(B))
+    log(f"  (c) KV cache: {B} prompts of {list(ZOO_KV_LENS)} tokens, "
+        f"prefill_step {t_prefill * 1e3:.1f} ms, {ZOO_KV_GEN} serve steps "
+        f"in {t_decode:.3f} s: {B * ZOO_KV_GEN / t_decode:.1f} tok/s, "
+        f"{B * n_tok / (t_prefill + t_decode):.1f} with the prefill (the "
+        f"paged engine {st['tok_per_s']:.1f} tok/s over its whole run, "
+        f"prefills included); the serve steps' logits vs Model.forward "
+        f"max_abs_err {err:.3e} (tol {ZOO_KV_TOL:g} * {scale:.3g}), greedy "
+        f"tokens equal; {same}/{B} streams identical to the engine's; "
+        f"launches {({k: v for k, v in launches.items() if v})}; (c) in "
+        f"{time.perf_counter() - t_all:.1f} s")
+    return launches
+
+
 def zoo(dev):
     """Phase 13 (see the module docstring).  Returns the launches of each
     serving and training path by kernel."""
@@ -3888,6 +4419,8 @@ def zoo(dev):
                 f"requests with identical tokens")
         if arch == L4:
             zoo_long_request(model, params, dev)
+        if arch == "mistral-nemo-12b":
+            paths[f"serve_{tag}_cache"] = zoo_kv_cache(model, params, dev)
         peak = torch.cuda.max_memory_allocated() / 1e9
         del model, params, done_of, done, eng
         torch.cuda.empty_cache()
@@ -4025,6 +4558,22 @@ SHAPE_OF.update({("rmsnorm", "serve_yi_9b"): "decode-4096",
                  ("rmsnorm", "train_qwen1_5"): "train-qwen1.5",
                  ("flash_attention", "train_qwen1_5"): "qwen1.5"})
 SHAPE_OF[("rmsnorm", "serve_measured")] = "decode"
+# phase 13 (c): the KV-cache path's one prefill_step at 4 x 2048 (flash's
+# serving launches) and its 33 calls of rmsnorm, 32 of them decode rows
+SHAPE_OF.update({("flash_attention", "serve_mistral_nemo_cache"):
+                 "mistral-nemo-prefill",
+                 ("rmsnorm", "serve_mistral_nemo_cache"): "decode-5120"})
+#: (kernel, multi-rank path) -> the phase-3 row at the shapes one rank's
+#: launches take there: phase 12 (k)'s prefill on one rank of (2, 2) (16 /
+#: 4 heads; B=1 one row of 16384, B=2 one row of 2048 a data rank) and its
+#: rmsnorm, mostly decode rows at 5120 wide
+MULTI_SHAPE_OF = {}
+for _name, _L in (("b1", "16k"), ("b2", "2k")):
+    for _tag in ("heads", "seq"):
+        MULTI_SHAPE_OF.update({
+            ("flash_attention", f"kvcache_2x2_{_name}_{_tag}"):
+                f"mistral-nemo-{_L}-rank",
+            ("rmsnorm", f"kvcache_2x2_{_name}_{_tag}"): "decode-5120"})
 # phase 9's two runs: the ragged path while the wire is fp8, the fused
 # grouped kernel on the bf16 wire after the fallback
 for _path in ("train_gpt2_moe_guarded_s1g_fp8", "train_gpt2_moe_fp8_fallback"):
@@ -4355,7 +4904,12 @@ def main(argv=None) -> int:
             **{k: main_row[k] for k in keys}, "by_path": by_path,
             "multirank": {path: per_rank[name]
                           for path, per_rank in multi_paths.items()
-                          if name in per_rank}})
+                          if name in per_rank},
+            "multirank_shape": {
+                path: {"shape": label, **{k: by_label[name][label][k]
+                                          for k in keys}}
+                for (kname, path), label in MULTI_SHAPE_OF.items()
+                if kname == name and path in multi_paths}})
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

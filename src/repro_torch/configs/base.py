@@ -61,8 +61,13 @@ class ModelConfig:
     remat: bool = True
     use_pallas: bool = False              # no effect in the port
     kernel: KernelConfig = KernelConfig()
+    # no effect in the port: decode writes its cache slot in place, where
+    # JAX's three writes (one-hot, masked, dynamic update) store the same
     cache_masked_update: bool = False
     seq_parallel: bool = False
+    # no effect in the port: JAX's GSPMD hint; the port's decode combines
+    # the softmax across ranks wherever ``train.loop.cache_specs`` splits
+    # the cache's W (``seq_shard``)
     context_parallel_decode: bool = False
     source: str = ""                      # citation
 

@@ -1,5 +1,6 @@
 """Attention (counterpart of ``repro/models/attention.py``): the training
-forward ``apply_attn`` and the serving engine's ``paged_chunk_attn``.
+forward ``apply_attn``, the serving engine's ``paged_chunk_attn``, and the
+KV-cache serve path's ``prefill_attn`` and ``decode_attn``.
 
 ``apply_attn`` takes the ``flash_attention`` op (the CUDA kernel for a
 tensor on the card, its plain version on the CPU) for self-attention over
@@ -22,6 +23,16 @@ port keeps its layout, op order and mask constants: ``-inf`` score masking
 and VALUE-zeroed invalid K/V writes, without which an idle row's NaN would
 reach the null page.  On a mesh it runs this rank's heads as
 ``apply_attn`` does, over an arena that holds this rank's kv heads only.
+
+``prefill_attn`` fills a per-row KV cache with the prompt's K/V and takes
+the ``flash_attention`` op for the prompt's attention (its one serving
+launch; chunked layers take the plain path, as in JAX); ``decode_attn``
+is plain code with JAX's ``-inf`` masks, as JAX's is.  Both write the
+cache in place.  Where ``train.loop.cache_specs`` splits the cache's W
+over a group of ranks (JAX's context-parallel decode, a GSPMD sharding
+hint there), the port writes the exchange out: the queries and the new
+token's K/V are gathered, each rank scores its own slots, and the softmax
+is combined across the group; the cache never moves.
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ import torch
 
 from repro_torch.kernels.registry import get_op
 from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.parallel import comm
 from repro_torch.parallel.mesh import axis_size
 from repro_torch.parallel.sharding import P
 
@@ -109,6 +121,44 @@ def mp_heads(cfg: AttnConfig, n_mp: int, index: int = 0):
         raise ValueError(f"{h_local} query heads a rank straddle GQA groups "
                          f"of {group} over {K} replicated kv heads")
     return h_local, 1, index * h_local // group
+
+
+def _rank_heads(p, cfg: AttnConfig, tp):
+    """``(H, K, kv)``: the query and kv heads this rank runs, and the k/v
+    projections (``wk``, ``wv`` and their biases) that give its kv heads:
+    all of them off a mesh, this rank's block where they are sharded over
+    MP, or the one kv head of a replicated projection that its query
+    heads share (``mp_heads``)."""
+    kv = {n: p[n] for n in ("wk", "wv", "bk", "bv") if n in p}
+    if tp is None:
+        return cfg.n_heads, cfg.n_kv_heads, kv
+    H, K, kv0 = mp_heads(cfg, tp.n, tp.index)
+    if kv0 is not None:          # this rank's kv head of the replicated ones
+        hd = cfg.head_dim
+        kv = {n: w.narrow(-1, kv0 * hd, hd) for n, w in kv.items()}
+    return H, K, kv
+
+
+def _project_kv(kv, cfg: AttnConfig, src, K):
+    """k, v (B, Lk, K, hd) from ``src`` through the projections ``kv``."""
+    B, Lk, _ = src.shape
+    hd = cfg.head_dim
+    k = (src @ kv["wk"]).reshape(B, Lk, K, hd)
+    v = (src @ kv["wv"]).reshape(B, Lk, K, hd)
+    if cfg.qkv_bias:
+        k = k + kv["bk"].reshape(K, hd)
+        v = v + kv["bv"].reshape(K, hd)
+    return k, v
+
+
+def _project(p, kv, cfg: AttnConfig, x, src, H, K):
+    """q (B, L, H, hd) from ``x``; k, v (B, Lk, K, hd) from ``src``."""
+    B, L, _ = x.shape
+    hd = cfg.head_dim
+    q = (x @ p["wq"]).reshape(B, L, H, hd)
+    if cfg.qkv_bias:
+        q = q + p["bq"].reshape(H, hd)
+    return (q, *_project_kv(kv, cfg, src, K))
 
 
 # --- training / prefill forward ----------------------------------------------
@@ -222,21 +272,11 @@ def apply_attn(p, cfg: AttnConfig, x, *, positions=None, kv_x=None,
     result is this rank's row-parallel part of the output (the caller sums
     it over MP)."""
     B, L, D = x.shape
-    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    kv = {n: p[n] for n in ("wk", "wv", "bk", "bv") if n in p}
-    if tp is not None:
-        H, K, kv0 = mp_heads(cfg, tp.n, tp.index)
-        if kv0 is not None:      # this rank's kv head of the replicated ones
-            kv = {n: w.narrow(-1, kv0 * hd, hd) for n, w in kv.items()}
+    hd = cfg.head_dim
+    H, K, kv = _rank_heads(p, cfg, tp)
     src = kv_x if kv_x is not None else x
     Lk = src.shape[1]
-    q = (x @ p["wq"]).reshape(B, L, H, hd)
-    k = (src @ kv["wk"]).reshape(B, Lk, K, hd)
-    v = (src @ kv["wv"]).reshape(B, Lk, K, hd)
-    if cfg.qkv_bias:
-        q = q + p["bq"].reshape(H, hd)
-        k = k + kv["bk"].reshape(K, hd)
-        v = v + kv["bv"].reshape(K, hd)
+    q, k, v = _project(p, kv, cfg, x, src, H, K)
     # the kernel derives positions from tile indices: it covers only the
     # default contiguous-from-zero layout (recorded before the aranges)
     contiguous_pos = positions is None and kv_positions is None
@@ -266,15 +306,224 @@ def apply_attn(p, cfg: AttnConfig, x, *, positions=None, kv_x=None,
     return out.reshape(B, L, H * hd) @ p["wo"]
 
 
+def cache_len(cfg: AttnConfig, max_len: int) -> int:
+    """W, a cache's slots: ``max_len``, or a sliding window's ring."""
+    return min(cfg.window if cfg.window is not None else max_len, max_len)
+
+
 def init_cache(cfg: AttnConfig, batch, max_len, dtype=torch.float32,
-               device="cuda"):
-    W = cfg.window if cfg.window is not None else max_len
-    W = min(W, max_len)
-    shape = (batch, W, cfg.n_kv_heads, cfg.head_dim)
+               device="cuda", *, kv_heads=None, w_shards: int = 1):
+    """``{"k", "v": (batch, W / w_shards, kv_heads, hd), "pos": (batch,
+    W)}`` (``pos`` -1 = empty), W = :func:`cache_len`: ``kv_heads``
+    (default all) and ``w_shards`` cut K/V to one rank's block of a cache
+    sharded by kv head or along W; ``pos`` stays whole along W, as
+    ``cache_specs`` leaves it."""
+    W = cache_len(cfg, max_len)
+    K = cfg.n_kv_heads if kv_heads is None else kv_heads
+    shape = (batch, W // w_shards, K, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
             "pos": torch.full((batch, W), -1, dtype=torch.int32,
                               device=device)}
+
+
+def _cache_kv(p, cfg: AttnConfig, x, k, v, tp, positions):
+    """Every kv head's k, v (B, L, K, hd), rope-rotated, where ``k``, ``v``
+    are this rank's (:func:`_rank_heads`) and the kv projection is not
+    sharded over MP: as they are off a mesh, else all of them computed
+    here from the replicated projection."""
+    if tp is None:
+        return k, v
+    kv = {n: p[n] for n in ("wk", "wv", "bk", "bv") if n in p}
+    k, v = _project_kv(kv, cfg, x, cfg.n_kv_heads)
+    if cfg.use_rope:
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return k, v
+
+
+def _fill_sharded(p, cfg: AttnConfig, x, k, v, cache, tp, wgrp, positions):
+    """Prefill's K/V write into a cache whose W is split over ``wgrp``,
+    rank ``i`` of it holding slots ``[i * Wl, (i + 1) * Wl)`` of every kv
+    head.  ``wgrp`` runs over (batch axes..., MP...) in that order (or MP
+    alone), so the ranks of one MP group hold ``n_mp`` consecutive slices.
+    Where the kv heads are sharded over MP each of those ranks holds its
+    kv heads for all L positions: one AlltoAll over MP (W split, heads
+    joined in MP order) turns the group's span into each rank's slice of
+    every head.  Elsewhere every rank has every head and keeps its slice.
+    Only positions below L are written, as JAX's update of ``0 .. L-1``."""
+    B, L = x.shape[:2]
+    Wl = cache["k"].shape[1]
+    n_mp = tp.n if tp is not None and cfg.n_kv_heads % tp.n == 0 else 1
+    if n_mp == 1:
+        k, v = _cache_kv(p, cfg, x, k, v, tp, positions)
+    span = n_mp * Wl
+    lo = wgrp.index // n_mp * span
+    n = max(0, min(L - lo, span))
+    out = []
+    for t in (k, v):
+        buf = t.new_zeros((B, span, *t.shape[2:]))
+        buf[:, :n] = t[:, lo:lo + n]
+        out.append(comm.all_to_all(buf, tp.grp, 1, 2) if n_mp > 1 else buf)
+    n = max(0, min(L - wgrp.index * Wl, Wl))
+    cache["k"][:, :n] = out[0][:, :n].to(cache["k"].dtype)
+    cache["v"][:, :n] = out[1][:, :n].to(cache["v"].dtype)
+
+
+def prefill_attn(p, cfg: AttnConfig, x, cache, lengths, *, kernel=None,
+                 tp=None, wgrp=None):
+    """Batched one-shot prefill: the causal attention over the (B, L, D)
+    right-padded prompts ``x`` (``lengths`` (B,) valid tokens each), and
+    their rope-rotated K/V written IN PLACE into ``cache`` at positions
+    ``0 .. L-1``, ``pos`` marking only slots below each row's length
+    valid (JAX returns a new cache: the same values).  Needs W >= L.
+    Outside chunked layers the attention is the ``flash_attention`` op
+    (K/V in their GQA layout); a chunked layer takes the plain path, as
+    in JAX.  Returns (B, L, D).
+
+    With ``tp`` it runs this rank's heads, returns its row-parallel part
+    (the caller sums it over MP), and the cache holds this rank's kv heads
+    of all W; with ``wgrp`` (W split over it, ``train.loop.cache_specs``'
+    ``seq_shard``) every kv head of this rank's W slice
+    (:func:`_fill_sharded`)."""
+    B, L, D = x.shape
+    hd = cfg.head_dim
+    W = cache["pos"].shape[1]
+    if W < L:
+        raise ValueError(f"prefill_attn needs cache W={W} >= prompt L={L}")
+    H, K, kv = _rank_heads(p, cfg, tp)
+    q, k, v = _project(p, kv, cfg, x, x, H, K)
+    positions = torch.arange(L, device=x.device)
+    if cfg.use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    if wgrp is None or wgrp.size == 1:
+        cache["k"][:, :L] = k.to(cache["k"].dtype)
+        cache["v"][:, :L] = v.to(cache["v"].dtype)
+    else:
+        _fill_sharded(p, cfg, x, k, v, cache, tp, wgrp, positions)
+    widx = torch.arange(W, device=x.device)
+    valid = (widx[None, :] < lengths[:, None]) & (widx < L)[None]
+    cache["pos"].copy_(torch.where(valid, widx[None, :], -1))
+    if cfg.chunk is None:
+        op = get_op("flash_attention", cfg=kernel, causal=cfg.causal,
+                    window=cfg.window, scale=cfg.scale)
+        out = op(q.contiguous(), k.contiguous(), v.contiguous())
+    else:
+        kk = _repeat_kv(k, H // K)
+        vv = _repeat_kv(v, H // K)
+        if L > cfg.flash_threshold:
+            out = sdpa_flash_scan(q, kk, vv, cfg, positions, positions)
+        else:
+            out = sdpa_full(q, kk, vv, _mask_bias(cfg, positions, positions),
+                            cfg.scale)
+    return out.reshape(B, L, H * hd) @ p["wo"]
+
+
+def _valid(cfg: AttnConfig, pos, at):
+    """Whether a query at absolute position ``at`` attends the slot holding
+    position ``pos`` (broadcast against each other): written, not in its
+    future, inside its window and its chunk."""
+    valid = (pos >= 0) & (pos <= at)
+    if cfg.window is not None:
+        valid &= pos > at - cfg.window
+    if cfg.chunk is not None:
+        valid &= (pos // cfg.chunk) == (at // cfg.chunk)
+    return valid
+
+
+def _grouped(q, K):
+    """(B, 1, H, hd) queries as (B, K, H / K, hd): query head ``h`` reads
+    kv head ``h // (H / K)``, as ``_repeat_kv`` pairs them, with no
+    repeat of the cache."""
+    B, _, H, hd = q.shape
+    return q.reshape(B, K, H // K, hd)
+
+
+def decode_attn(p, cfg: AttnConfig, x, cache, step, *, tp=None, wgrp=None):
+    """One-token decode, self-attention.  x: (B, 1, D); ``step`` the
+    absolute position, a scalar (every row at one position) or a (B,)
+    tensor (each row at its own).  The token's K/V land IN PLACE at slot
+    ``step % W`` (a sliding window's cache is a ring), then the query
+    attends every valid slot (``-inf`` masks, as in JAX).  JAX's three
+    cache writes (one-hot for a vector step, masked, dynamic update) store
+    the same values, so ``cache_masked_update`` has no effect here.
+    Returns (B, 1, D).
+
+    With ``tp`` this rank's heads over its kv heads' cache, its
+    row-parallel part returned (the caller sums it over MP).  With
+    ``wgrp`` (the cache's W split over it): the MP group's queries and
+    the token's K/V all-gathered (query-sized), the rank that owns the
+    slot writes it, each rank scores every head over its own slots, and
+    the softmax is combined over ``wgrp`` (the max, then the sums and the
+    weighted values): K and V never leave their rank."""
+    B = x.shape[0]
+    hd = cfg.head_dim
+    H, K, kv = _rank_heads(p, cfg, tp)
+    q, k, v = _project(p, kv, cfg, x, x, H, K)
+    steps = torch.as_tensor(step, device=x.device).long()
+    steps = steps.expand(B) if steps.dim() == 0 else steps
+    if cfg.use_rope:
+        q = apply_rope(q, steps[:, None], cfg.rope_theta)
+        k = apply_rope(k, steps[:, None], cfg.rope_theta)
+    rows = torch.arange(B, device=x.device)
+    W = cache["pos"].shape[1]
+    slot = steps % W
+    cache["pos"][rows, slot] = steps.to(torch.int32)
+    if wgrp is not None and wgrp.size > 1:
+        out = _decode_sharded(p, cfg, x, q, k, v, cache, steps, slot, tp,
+                              wgrp)
+        return out.reshape(B, 1, H * hd) @ p["wo"]
+    cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
+    s = torch.einsum("bkgd,bwkd->bkgw", _grouped(q, K),
+                     cache["k"]).float() * cfg.scale
+    valid = _valid(cfg, cache["pos"], steps[:, None])
+    s = torch.where(valid[:, None, None], s, -torch.inf)
+    pr = torch.softmax(s, dim=-1).to(x.dtype)
+    out = torch.einsum("bkgw,bwkd->bkgd", pr, cache["v"])
+    return out.reshape(B, 1, H * hd) @ p["wo"]
+
+
+def _decode_sharded(p, cfg: AttnConfig, x, q, k, v, cache, steps, slot, tp,
+                    wgrp):
+    """:func:`decode_attn` over a cache whose W is split over ``wgrp``:
+    returns this rank's heads' attention output (B, H_local * hd)."""
+    B = x.shape[0]
+    hd, K = cfg.head_dim, cfg.n_kv_heads
+    if tp is not None and K % tp.n == 0:
+        # one AllGather over MP of this rank's query, key and value heads
+        h, kl = q.shape[2], k.shape[2]
+        g = comm.all_gather(torch.cat([q, k, v], dim=2).contiguous(),
+                            tp.grp, 2, tiled=False)   # (B, 1, n, h+2kl, hd)
+        qa, ka, va = (t.reshape(B, 1, -1, hd) for t in
+                      g.split([h, kl, kl], dim=3))
+    else:
+        qa = comm.all_gather(q.contiguous(), tp.grp, 2) \
+            if tp is not None else q
+        ka, va = _cache_kv(p, cfg, x, k, v, tp, steps[:, None])
+    rows = torch.arange(B, device=x.device)
+    Wl = cache["k"].shape[1]
+    off = wgrp.index * Wl
+    own = ((slot >= off) & (slot < off + Wl))[:, None, None]
+    li = torch.clamp(slot - off, 0, Wl - 1)
+    for name, t in (("k", ka), ("v", va)):
+        c = cache[name]
+        c[rows, li] = torch.where(own, t[:, 0].to(c.dtype), c[rows, li])
+    s = torch.einsum("bkgd,bwkd->bkgw", _grouped(qa, K),
+                     cache["k"]).float() * cfg.scale
+    valid = _valid(cfg, cache["pos"][:, off:off + Wl], steps[:, None])
+    s = torch.where(valid[:, None, None], s, -torch.inf)
+    # the global max first: a shard whose slots are all masked then adds
+    # exact zeros (the token's own slot is valid, so the max is finite)
+    m = comm.pmax(s.amax(dim=-1), wgrp)
+    e = torch.exp(s - m[..., None])
+    o = torch.einsum("bkgw,bwkd->bkgd", e, cache["v"].float())
+    tot = comm.psum(torch.cat([e.sum(dim=-1)[..., None], o], dim=-1), wgrp)
+    out = (tot[..., 1:] / tot[..., :1]).to(x.dtype).reshape(B, -1, hd)
+    if tp is not None:
+        h = out.shape[1] // tp.n
+        out = out[:, tp.index * h:(tp.index + 1) * h]
+    return out.reshape(B, -1)
 
 
 def paged_chunk_attn(p, cfg: AttnConfig, x, arena, table, starts, lens,
@@ -297,21 +546,11 @@ def paged_chunk_attn(p, cfg: AttnConfig, x, arena, table, starts, lens,
     part of the output, which the caller sums over MP.
     """
     B, C, D = x.shape
-    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    kv = {n: p[n] for n in ("wk", "wv", "bk", "bv") if n in p}
-    if tp is not None:
-        H, K, kv0 = mp_heads(cfg, tp.n, tp.index)
-        if kv0 is not None:      # this rank's kv head of the replicated ones
-            kv = {n: w.narrow(-1, kv0 * hd, hd) for n, w in kv.items()}
+    hd = cfg.head_dim
+    H, K, kv = _rank_heads(p, cfg, tp)
     N, bs = arena["pos"].shape
     nb = table.shape[1]
-    q = (x @ p["wq"]).reshape(B, C, H, hd)
-    k = (x @ kv["wk"]).reshape(B, C, K, hd)
-    v = (x @ kv["wv"]).reshape(B, C, K, hd)
-    if cfg.qkv_bias:
-        q = q + p["bq"].reshape(H, hd)
-        k = k + kv["bk"].reshape(K, hd)
-        v = v + kv["bv"].reshape(K, hd)
+    q, k, v = _project(p, kv, cfg, x, x, H, K)
     offs = torch.arange(C, device=x.device)
     qpos = starts[:, None] + offs[None, :]                # (B, C) absolute
     valid_q = offs[None, :] < lens[:, None]
@@ -343,13 +582,7 @@ def paged_chunk_attn(p, cfg: AttnConfig, x, arena, table, starts, lens,
     kk = torch.repeat_interleave(gk, H // K, dim=2)
     vv = torch.repeat_interleave(gv, H // K, dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", q, kk).float() * cfg.scale
-    gp = gpos[:, None, :]                                 # (B, 1, W)
-    qp = qpos[:, :, None]                                 # (B, C, 1)
-    valid = (gp >= 0) & (gp <= qp)                        # (B, C, W)
-    if cfg.window is not None:
-        valid &= gp > qp - cfg.window
-    if cfg.chunk is not None:
-        valid &= (gp // cfg.chunk) == (qp // cfg.chunk)
+    valid = _valid(cfg, gpos[:, None, :], qpos[:, :, None])   # (B, C, W)
     s = torch.where(valid[:, None], s, -torch.inf)
     pr = torch.softmax(s, dim=-1).to(x.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", pr, vv)

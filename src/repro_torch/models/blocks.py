@@ -1,7 +1,8 @@
 """Decoder blocks (counterpart of ``repro/models/blocks.py``): the
 ``dense`` and ``moe`` kinds (and their ``_full`` variants), init, the
-partition specs ``block_specs``, the training forward ``apply_block`` and
-the serving engine's paged forward."""
+partition specs ``block_specs``, the training forward ``apply_block``,
+the serving engine's paged forward and the KV-cache serve path's
+``init_block_cache``, ``prefill_block`` and ``decode_block``."""
 
 from __future__ import annotations
 
@@ -129,6 +130,36 @@ def apply_block(p, cfg: ModelConfig, kind: str, x, *, positions=None,
     return x + y, aux
 
 
+def _cached_block(p, cfg: ModelConfig, kind: str, x, attend, *, schedule,
+                  infer, mesh, dims, tp, replicated):
+    """The serving forward of one block around ``attend(p_attn, acfg, h,
+    tp)``, the attention over its cache: norm, attention (this rank's
+    part, summed over MP with ``tp``), residual, then the dense FFN or the
+    MoE layer (``infer`` its shape class, ``replicated`` whether ``x`` is
+    the whole pool on every rank of the mesh).  Returns ``(output,
+    expert_load)``: the MoE layer's (E,) routed rows, (0,) for a dense
+    block."""
+    _check_kind(kind)
+    acfg = attn_config(cfg, kind)
+    eps = cfg.norm_eps
+    h = apply_norm(p["norm1"], x, eps, cfg.kernel)
+    if tp is None:
+        a = attend(p["attn"], acfg, h, None)
+    else:
+        a = tp.leave(attend(p["attn"], acfg, tp.enter(h), tp))
+    no_load = torch.zeros((0,), dtype=torch.float32, device=x.device)
+    if cfg.parallel_block:
+        return x + (a + _ffn(p["ffn"], cfg, h, tp)), no_load
+    x = x + a
+    h2 = apply_norm(p["norm2"], x, eps, cfg.kernel)
+    if base_kind(kind) == "moe":
+        y, maux = apply_moe(h2, p["moe"], cfg=cfg.moe, schedule=schedule,
+                            infer=infer, mesh=mesh, dims=dims,
+                            replicated=replicated)
+        return x + y, maux["expert_load"]
+    return x + _ffn(p["ffn"], cfg, h2, tp), no_load
+
+
 def paged_block(p, cfg: ModelConfig, kind: str, x, cache, table, starts,
                 lens, *, schedule=None, infer=False, mesh=None, dims=None,
                 tp=None, with_aux=False):
@@ -145,27 +176,54 @@ def paged_block(p, cfg: ModelConfig, kind: str, x, cache, table, starts,
     ``apply_block``; the MoE layer takes the pool replicated
     (``apply_moe(replicated=True)``), runs this rank's tokens and returns
     the pool's output on every rank."""
+    out, load = _cached_block(
+        p, cfg, kind, x,
+        lambda pa, acfg, h, tp: attn_mod.paged_chunk_attn(
+            pa, acfg, h, cache["attn"], table, starts, lens, tp=tp),
+        schedule=schedule, infer=infer, mesh=mesh, dims=dims, tp=tp,
+        replicated=mesh is not None)
+    return (out, load) if with_aux else out
+
+
+def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                     dtype, device, **shard) -> dict:
+    """This layer's decode cache ``{"attn": {"k", "v", "pos"}}``
+    (``attention.init_cache``; ``shard``: its ``kv_heads`` and
+    ``w_shards``)."""
     _check_kind(kind)
-    acfg = attn_config(cfg, kind)
-    eps = cfg.norm_eps
-    h = apply_norm(p["norm1"], x, eps, cfg.kernel)
-    if tp is None:
-        a = attn_mod.paged_chunk_attn(p["attn"], acfg, h, cache["attn"],
-                                      table, starts, lens)
-    else:
-        a = tp.leave(attn_mod.paged_chunk_attn(
-            p["attn"], acfg, tp.enter(h), cache["attn"], table, starts,
-            lens, tp=tp))
-    no_load = torch.zeros((0,), dtype=torch.float32, device=x.device)
-    if cfg.parallel_block:
-        out = x + (a + _ffn(p["ffn"], cfg, h, tp))
-        return (out, no_load) if with_aux else out
-    x = x + a
-    h2 = apply_norm(p["norm2"], x, eps, cfg.kernel)
-    if base_kind(kind) == "moe":
-        y, maux = apply_moe(h2, p["moe"], cfg=cfg.moe, schedule=schedule,
-                            infer=infer, mesh=mesh, dims=dims,
-                            replicated=mesh is not None)
-        return (x + y, maux["expert_load"]) if with_aux else x + y
-    out = x + _ffn(p["ffn"], cfg, h2, tp)
-    return (out, no_load) if with_aux else out
+    return {"attn": attn_mod.init_cache(attn_config(cfg, kind), batch,
+                                        max_len, dtype, device, **shard)}
+
+
+def prefill_block(p, cfg: ModelConfig, kind: str, x, cache, lengths, *,
+                  schedule=None, mesh=None, dims=None, tp=None, wgrp=None,
+                  replicated=False):
+    """Whole-prompt block forward that also fills this layer's decode
+    cache in place (``attention.prefill_attn``).  The MoE layer takes the
+    prefill shape class (``infer=False``: training capacity).  On a mesh
+    ``x`` is this rank's rows of the batch (the whole batch on every rank
+    with ``replicated``), ``tp`` and ``wgrp`` as ``prefill_attn`` takes
+    them.  Returns the block's output."""
+    return _cached_block(
+        p, cfg, kind, x,
+        lambda pa, acfg, h, tp: attn_mod.prefill_attn(
+            pa, acfg, h, cache["attn"], lengths, kernel=cfg.kernel, tp=tp,
+            wgrp=wgrp),
+        schedule=schedule, infer=False, mesh=mesh, dims=dims, tp=tp,
+        replicated=replicated)[0]
+
+
+def decode_block(p, cfg: ModelConfig, kind: str, x, cache, step, *,
+                 schedule=None, mesh=None, dims=None, tp=None, wgrp=None,
+                 replicated=False):
+    """One-token decode through this layer's cache, written in place
+    (``attention.decode_attn``).  The MoE layer takes the decode shape
+    class (``infer=True``: its own decision, drop-free capacity; a pool
+    smaller than its MP group falls back to ``dense_decode``).  Mesh
+    arguments as :func:`prefill_block`.  Returns the block's output."""
+    return _cached_block(
+        p, cfg, kind, x,
+        lambda pa, acfg, h, tp: attn_mod.decode_attn(
+            pa, acfg, h, cache["attn"], step, tp=tp, wgrp=wgrp),
+        schedule=schedule, infer=True, mesh=mesh, dims=dims, tp=tp,
+        replicated=replicated)[0]

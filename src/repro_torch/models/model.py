@@ -1,6 +1,9 @@
 """Model assembly (counterpart of ``repro/models/model.py``): embedding ->
-blocks -> final norm -> LM head, for training (``forward``, ``loss``) and
-for the serving engine's steps over a paged KV arena (``paged_step``).
+blocks -> final norm -> LM head, for training (``forward``, ``loss``),
+for the serving engine's steps over a paged KV arena (``paged_step``) and
+for the KV-cache serve path over per-row caches (``init_cache``,
+``prefill_step``, ``decode_step``; on a mesh in the layout
+``train.loop.cache_specs`` gives).
 
 Parameters keep the JAX package's pytree layout: ``embed``,
 ``final_norm``, ``lm_head`` and one ``run{r}`` dict per run of same-kind
@@ -28,7 +31,6 @@ loss is the global batch's.
 from __future__ import annotations
 
 import math
-from dataclasses import replace
 
 import torch
 import torch.nn.functional as F
@@ -36,7 +38,6 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks as blk
-from repro_torch.models.attention import init_cache as init_attn_cache
 from repro_torch.models.attention import mp_heads
 from repro_torch.models.layers import (apply_norm, embed, embedding_specs,
                                        init_embedding, init_norm, norm_specs,
@@ -136,20 +137,32 @@ class Model:
         return params
 
     def init_cache(self, batch: int, max_len: int, dtype=None, *,
-                   mesh=None, dims=None) -> dict:
-        """KV arena: per run ``{"attn": {"k","v": (n, batch, max_len, Kh,
-        hd), "pos": (n, batch, max_len)}}`` (``pos`` -1 = empty).  On a
-        mesh whose MP group has more than one rank, ``Kh`` is this rank's
-        kv heads (``attention.mp_heads``)."""
+                   mesh=None, dims=None, specs=None) -> dict:
+        """A KV cache of ``batch`` rows and ``max_len`` positions: per run
+        ``{"attn": {"k","v": (n, batch, W, Kh, hd), "pos": (n, batch,
+        W)}}`` (``pos`` -1 = empty; W is ``max_len`` or a sliding window's
+        ring).  The paged arena takes it as (pages, block size).
+
+        On a mesh (``mesh``, ``dims``) it is this rank's shard: ``Kh`` this
+        rank's kv heads (``attention.mp_heads``) where its MP group has
+        more than one rank; with ``specs`` (``train.loop.cache_specs``)
+        the layout they give, this rank's rows where the batch is sharded
+        and its slice of W with every kv head where W is (``pos`` stays
+        whole along W, as the specs leave it)."""
         cfg = self.cfg
         dtype = dtype or getattr(torch, cfg.dtype)
         n_mp = axis_size(mesh, dims.mp) if mesh is not None else 1
         cache = {}
         for r, (kind, n) in enumerate(self.runs):
             acfg = blk.attn_config(cfg, kind)
-            if n_mp > 1:
-                acfg = replace(acfg, n_kv_heads=mp_heads(acfg, n_mp)[1])
-            one = init_attn_cache(acfg, batch, max_len, dtype, self.device)
+            rows, shard = batch, {"kv_heads": mp_heads(acfg, n_mp)[1]}
+            if specs is not None:
+                spec = specs[f"run{r}"]["attn"]["k"]
+                rows //= axis_size(mesh, spec[1] or ())
+                if spec[2]:
+                    shard = {"w_shards": axis_size(mesh, spec[2])}
+            one = blk.init_block_cache(cfg, kind, rows, max_len, dtype,
+                                       self.device, **shard)["attn"]
             cache[f"run{r}"] = {"attn": {
                 k: v[None].repeat(n, *([1] * v.dim()))
                 for k, v in one.items()}}
@@ -418,13 +431,99 @@ class Model:
         x = apply_norm(params["final_norm"], x, cfg.norm_eps, cfg.kernel)
         idx = torch.clamp(lens.long() - 1, 0, C - 1)
         h_last = x[torch.arange(B, device=x.device), idx]   # (B, D)
-        logits = self._head(params, self._head_input(
-            h_last[:, None, :], tp))[:, 0]
-        if vp:
-            logits = comm.all_gather(logits.contiguous(), tp.grp, -1)
+        logits = self._serve_head(params, h_last[:, None, :], tp)[:, 0]
         if with_aux:
             if load is None:
                 load = torch.zeros((0,), dtype=torch.float32,
                                    device=x.device)
             return logits, cache, {"expert_load": load}
         return logits, cache
+
+    # --- the KV-cache serve path --------------------------------------------
+    def _cache_layout(self, r, mesh, specs):
+        """``(wgrp, replicated)`` of run ``r``'s cache, read from the specs
+        ``train.loop.cache_specs`` gave it (the one place the layout is
+        decided): the group W is split over (None: whole), and whether the
+        batch is whole on every rank (not sharded over the batch axes)."""
+        if mesh is None:
+            return None, False
+        if specs is None:
+            raise ValueError("on a mesh the KV cache's layout comes from "
+                             "specs= (train.loop.cache_specs)")
+        spec = specs[f"run{r}"]["attn"]["k"]
+        return (mesh.group(spec[2]) if spec[2] else None), spec[1] is None
+
+    def _serve_head(self, params, x, tp):
+        """Logits of the (B, C, D) final hidden states: every rank the whole
+        vocabulary (a vocab-parallel head's blocks all-gathered over MP, as
+        ``paged_step`` does)."""
+        logits = self._head(params, self._head_input(x, tp))
+        if self._vocab_sharded(tp):
+            logits = comm.all_gather(logits.contiguous(), tp.grp, -1)
+        return logits
+
+    def prefill_step(self, params, cache, batch, *, lengths, schedule=None,
+                     mesh=None, dims=None, specs=None):
+        """Batched one-shot prefill of the KV cache: ONE forward over the
+        right-padded prompts ``batch["tokens"]`` (B, L), ``lengths`` (B,)
+        valid tokens each, that fills every layer's cache in place.
+        Returns ``(last_logits, cache)``, ``last_logits[b]`` (V,) at row
+        b's own last prompt position.
+
+        On a mesh ``params`` are this rank's shards (``param_specs``),
+        ``cache`` its shard of the layout ``specs`` gives
+        (``init_cache(specs=)``) and the batch its rows of it (the whole
+        batch where the specs leave it unsharded): the dense layers run
+        Megatron-parallel over MP, and each rank returns whole rows of
+        logits."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        B, L = tokens.shape
+        tp = tensor_parallel(mesh, dims, L)
+        x = embed(params["embed"], tokens,
+                  tp if self._vocab_sharded(tp) else None)
+        if not cfg.use_rope:
+            x = x + sinusoidal_positions(L, cfg.d_model, x.device).to(x.dtype)
+        for r, (kind, n) in enumerate(self.runs):
+            wgrp, replicated = self._cache_layout(r, mesh, specs)
+            run_p, run_c = params[f"run{r}"], cache[f"run{r}"]
+            for i in range(n):
+                x = blk.prefill_block(
+                    layer_view(run_p, i), cfg, kind, x, layer_view(run_c, i),
+                    lengths, schedule=schedule, mesh=mesh, dims=dims, tp=tp,
+                    wgrp=wgrp, replicated=replicated)
+        x = apply_norm(params["final_norm"], x, cfg.norm_eps, cfg.kernel)
+        idx = torch.clamp(lengths.long() - 1, 0, L - 1)
+        h_last = x[torch.arange(B, device=x.device), idx]   # (B, D)
+        return self._serve_head(params, h_last[:, None, :], tp)[:, 0], cache
+
+    def decode_step(self, params, cache, batch, *, schedule=None, mesh=None,
+                    dims=None, specs=None):
+        """One serve step through the KV cache, written in place: (B, 1)
+        ``batch["tokens"]`` at absolute position ``batch["step"]`` (a
+        scalar, or a (B,) tensor with each row at its own) -> ``(logits
+        (B, 1, V), cache)``.  A config without rope adds the sinusoidal
+        position, clamped at 2047 as in JAX.  Mesh arguments as
+        :meth:`prefill_step`."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        step = batch["step"]
+        tp = tensor_parallel(mesh, dims, 1)
+        x = embed(params["embed"], tokens,
+                  tp if self._vocab_sharded(tp) else None)
+        if not cfg.use_rope:
+            pe = sinusoidal_positions(2048, cfg.d_model, x.device)
+            idx = torch.clamp(torch.as_tensor(step, device=x.device).long(),
+                              max=2047)
+            row = pe[idx]
+            x = x + (row[:, None] if row.dim() == 2 else row).to(x.dtype)
+        for r, (kind, n) in enumerate(self.runs):
+            wgrp, replicated = self._cache_layout(r, mesh, specs)
+            run_p, run_c = params[f"run{r}"], cache[f"run{r}"]
+            for i in range(n):
+                x = blk.decode_block(
+                    layer_view(run_p, i), cfg, kind, x, layer_view(run_c, i),
+                    step, schedule=schedule, mesh=mesh, dims=dims, tp=tp,
+                    wgrp=wgrp, replicated=replicated)
+        x = apply_norm(params["final_norm"], x, cfg.norm_eps, cfg.kernel)
+        return self._serve_head(params, x, tp), cache

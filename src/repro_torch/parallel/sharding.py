@@ -35,6 +35,9 @@ class PartitionSpec(tuple):
     def __new__(cls, *entries):
         return super().__new__(cls, entries)
 
+    def __getnewargs__(self):           # pickle rebuilds it entry by entry
+        return tuple(self)
+
     def __repr__(self):
         return f"P{tuple.__repr__(self)}"
 

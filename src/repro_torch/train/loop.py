@@ -169,6 +169,80 @@ def make_guarded_train_step(model: Model, opt_cfg: AdamWConfig,
     return train_step
 
 
+def cache_specs(model: Model, mesh, dims, batch: int, max_len: int, *,
+                seq_shard: bool = False) -> dict:
+    """The KV cache's layout on ``mesh`` (``Model.init_cache``'s tree):
+    JAX's rule (``repro/train/loop.py::cache_specs``), the one place the
+    layout is decided; ``init_cache(specs=)``, ``prefill_step`` and
+    ``decode_step`` read it.
+
+      * the batch dim over the batch axes where they divide ``batch``
+        (and ``batch`` is at least their size);
+      * with ``seq_shard`` the K/V caches' W over MP, or over the batch
+        axes and MP where the batch axes are idle (JAX's context-parallel
+        decode), where ``W % nw == 0`` and ``W >= 16 * nw``;
+      * ``pos`` whole along W, as JAX leaves it.
+
+    One difference, settled: where W stays whole the port's K/V keep the
+    Megatron layout, this rank's kv heads over MP (dim 3), as the paged
+    arena does (``init_cache(mesh=)``), where JAX's spec leaves them
+    replicated.  Where the kv heads do not divide over MP the spec leaves
+    them whole and each rank keeps the one its query heads read
+    (``attention.mp_heads``)."""
+    from repro_torch.models.attention import cache_len
+    from repro_torch.models.blocks import attn_config
+    from repro_torch.parallel.mesh import axis_size
+    from repro_torch.parallel.sharding import P
+    axes = tuple(dims.batch_axes)
+    n = axis_size(mesh, axes) if axes else 1
+    mp = tuple(dims.mp)
+    n_mp = axis_size(mesh, mp) if mp else 1
+    rows = axes if axes and batch % n == 0 and batch >= n else None
+    out = {}
+    for r, (kind, _) in enumerate(model.runs):
+        acfg = attn_config(model.cfg, kind)
+        W = cache_len(acfg, max_len)
+        kv = [None, rows, None, None, None]
+        if seq_shard and mp:
+            waxes = mp if rows else axes + mp
+            nw = axis_size(mesh, waxes)
+            if W % nw == 0 and W >= 16 * nw:
+                kv[2] = waxes
+        if kv[2] is None and n_mp > 1 and acfg.n_kv_heads % n_mp == 0:
+            kv[3] = mp
+        out[f"run{r}"] = {"attn": {"k": P(*kv), "v": P(*kv),
+                                   "pos": P(None, rows, None)}}
+    return out
+
+
+def make_prefill_fn(model: Model, mesh=None, dims=None,
+                    schedule: Optional[str] = None):
+    """``prefill(params, batch) -> logits``: the full-sequence forward
+    (``Model.forward``), as JAX's ``make_prefill_fn``."""
+    def prefill(params, batch):
+        with torch.no_grad():
+            logits, _ = model.forward(params, batch, schedule=schedule,
+                                      mesh=mesh, dims=dims)
+        return logits
+    return prefill
+
+
+def make_serve_step(model: Model, mesh=None, dims=None,
+                    schedule: Optional[str] = None, specs=None):
+    """``serve_step(params, cache, batch) -> (next_tokens (B, 1) int32,
+    cache)``: one ``Model.decode_step`` through the KV cache (in place)
+    and the greedy ``argmax`` of its last position, as JAX's
+    ``make_serve_step``.  On a mesh ``specs`` is the cache's layout
+    (:func:`cache_specs`)."""
+    def serve_step(params, cache, batch):
+        with torch.no_grad():
+            logits, cache = model.decode_step(
+                params, cache, batch, schedule=schedule, mesh=mesh,
+                dims=dims, specs=specs)
+        return logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None], cache
+    return serve_step
+
+
 @dataclass
 class Trainer:
     """End-to-end training loop (used by ``launch/train.py``).

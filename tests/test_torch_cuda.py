@@ -1144,3 +1144,51 @@ def test_four_gloo_ranks_on_the_card_are_the_one_rank_layer(dev, sched):
         dispatch, ragged, dense, combine = got["launched"]
         assert dispatch > 0 and combine > 0
         assert (ragged if sched == "s1g" else dense) > 0, got["launched"]
+
+
+def test_kv_cache_serve_path_vs_plain(dev):
+    """``prefill_step`` (the flash kernel's serving launch) and 8 greedy
+    ``decode_step`` calls of reduced mistral-nemo on the card,
+    kernels against the plain versions (``registry.PLAIN`` behind
+    ``get_op``): every step's logits within 1e-4 of their scale, the same
+    greedy tokens, flash launched once a layer of the prefill and rmsnorm
+    2 a layer + 1 a call."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import registry
+    from repro_torch.models import Model
+    cfg = get_config("mistral-nemo-12b").reduced()
+    model = Model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (3, 40), generator=gen,
+                           device=dev)
+    lengths = torch.tensor([40, 33, 17], device=dev)
+    runs = []
+    for plain in (False, True):
+        saved = dict(registry._OPS)
+        if plain:
+            registry._OPS.update(registry.PLAIN)
+        n0 = (flash_attention.launches, rmsnorm.launches)
+        try:
+            cache = model.init_cache(3, 64)
+            with torch.no_grad():
+                logits, cache = model.prefill_step(
+                    params, cache, {"tokens": tokens}, lengths=lengths)
+                out = [logits]
+                tok = logits.argmax(-1).to(torch.int32)[:, None]
+                for t in range(8):
+                    lg, cache = model.decode_step(
+                        params, cache, {"tokens": tok, "step": lengths + t})
+                    out.append(lg[:, 0])
+                    tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+        finally:
+            registry._OPS.clear()
+            registry._OPS.update(saved)
+        runs.append((out, flash_attention.launches - n0[0],
+                     rmsnorm.launches - n0[1]))
+    (got, n_flash, n_rms), (want, p_flash, p_rms) = runs
+    assert (n_flash, n_rms) == (cfg.n_layers, 9 * (2 * cfg.n_layers + 1))
+    assert (p_flash, p_rms) == (0, 0)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max() <= 1e-4 * max(1.0, w.abs().max())
+        assert torch.equal(g.argmax(-1), w.argmax(-1))
