@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--phases 1,2,12]
 
 ``--phases`` runs the named phases, the ones they need and 1 and 2 (the
-kernels line, phase 14, only on a full run); by default every phase runs
+kernels line, phase 15, only on a full run); by default every phase runs
 once.  Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 repository's ``src/`` next to this file; imports nothing of JAX.  Phases,
 each fatal on error (nothing is caught, nothing falls back to the CPU or
@@ -261,12 +261,33 @@ to a plain version):
      the same tokens, the greedy tokens equal; the
      paged engine on the same prompts, its streams counted against these
      and both tok/s logged;
- 14. print the kernels' JSON line (each kernel's launches on its main path
+ 14. the dry run (``repro_torch.launch.dryrun``): (a) ``dry_one``
+     (the CLI's ``--arch qwen3-moe-30b-a3b --shape train_4k``) traced as
+     rank 0 of the 16x16 production mesh on the meta device (the fake
+     ``torch.distributed`` backend), and (b) ``--shape decode_32k
+     --cache-seq-shard``, on a thread of this process (with (c)'s
+     one-rank reference and qwen1.5's meta record) while (c)'s ranks
+     run: per rank the parameters, moments, batch / cache,
+     temporaries and total GB, ``fits_80gb``, the roofline's three terms
+     (modeled from the H100 SXM's data sheet, not measured), the
+     collective bytes by kind and ``trace_s``; the records' keys and sums
+     checked; (c) the dry run's real runs, 8 gloo ranks on the 4x2 test
+     mesh sharing the card at float32 (``dryrun.run_rank``, the ranks
+     built once before): gpt2-moe ``--run-step --guards`` (reduced, 8 x
+     64 tokens, the drop-free capacity factor) within 1e-4 of one rank's
+     ``make_train_step`` on the card with ``nonfinite`` 0, and reduced
+     qwen1.5-0.5b's ZeRO-1 step (moments over ``data``) ``torch.equal``
+     to the whole-moment step on every rank, each rank's moment bytes the
+     meta record's; each kernel's launches per rank (paths
+     ``dryrun_4x2_gpt2_moe`` and ``dryrun_4x2_qwen1.5_zero1``); the
+     phase's seconds beside ``P14_LIMIT_S``;
+ 15. print the kernels' JSON line (each kernel's launches on its main path
      and the phase-3 row at that path's shapes, under ``by_path`` every
      path's launches beside the phase-3 row at that path's shapes, and
      under ``multirank`` each phase-12 path's launches per rank, (i)'s
      as ``placement_2x2_*``, (j)'s as ``overlap_2x2_*``, (k)'s as
-     ``kvcache_2x2_*``, and under ``multirank_shape`` (k)'s paths beside
+     ``kvcache_2x2_*``, phase 14 (c)'s as ``dryrun_4x2_*``, and under
+     ``multirank_shape`` (k)'s paths beside
      the phase-3 row at one rank's shapes, ``MULTI_SHAPE_OF``), then
      ``{"ok": true, ...}`` as the last line.
 """
@@ -282,6 +303,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -4437,11 +4459,203 @@ def zoo(dev):
     return paths
 
 
+# --- phase 14: the dry run --------------------------------------------------
+
+#: (a) and (b): ``dryrun.dry_one``'s arguments (arch, shape, multi_pod,
+#: schedule, dtype, save_hlo, cache_seq_shard), traced on the meta device
+P14_TRACES = (("a", ("qwen3-moe-30b-a3b", "train_4k", False)),
+              ("b", ("qwen3-moe-30b-a3b", "decode_32k", False, None,
+                     "bfloat16", False, True)))
+#: the phase's stated limit, seconds (logged beside its time)
+P14_LIMIT_S = 45.0
+#: (c): the real runs' combos (reduced, float32, 8 x 64 tokens)
+P14_GPT2 = ("gpt2-moe", "train_4k")
+P14_QWEN = ("qwen1.5-0.5b", "train_4k")
+
+
+def p14_combo(arch, shape_name):
+    """A (c) combo's config and shape; a MoE arch at the drop-free
+    capacity factor E / k, so that each rank's pool keeps every token and
+    the 8 ranks compute what one rank does."""
+    from dataclasses import replace
+
+    from repro_torch.launch.dryrun import build_config
+    cfg, shape, _ = build_config(arch, shape_name, dtype="float32",
+                                 reduced=True, seq=64, batch_size=8)
+    if cfg.moe is not None:
+        cfg = replace(cfg, moe=replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    return cfg, shape
+
+
+def _p14_rank(rank, job):
+    """One rank of (c): gpt2-moe's guarded step (``dryrun.run_rank``),
+    then qwen1.5-0.5b's step with whole and with ZeRO-1 moments from one
+    state, compared here; each step's kernel launches."""
+    import torch
+
+    from repro_torch.kernels import registry
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import dims_for, make_test_mesh
+    from repro_torch.optim.adamw import AdamWConfig, leaves
+    from repro_torch.train.loop import make_train_step
+    t_in = time.time()
+    out = {"gpt2": dryrun.run_rank(rank, job)}
+    t_gpt2 = time.time()
+    cfg, shape = p14_combo(*P14_QWEN)
+    mesh = make_test_mesh()
+    dims = dims_for(cfg)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    stepped = {}
+    for zero in ((), ("data",)):
+        model, params, opt, batch = dryrun.rank_state(cfg, shape, mesh, dims,
+                                                      dev, zero)
+        registry.launches(reset=True)
+        make_train_step(model, AdamWConfig(), None, mesh, dims,
+                        zero)(params, opt, batch)
+        torch.cuda.synchronize()
+        stepped[zero] = (leaves(params), opt, registry.launches())
+    out["zero_equal"] = all(torch.equal(a, b) for a, b in zip(
+        stepped[()][0], stepped[("data",)][0]))
+    opt_z = stepped[("data",)][1]
+    out["moment_bytes"] = sum(t.numel() * t.element_size() for t in
+                              leaves(opt_z["mu"]) + leaves(opt_z["nu"]))
+    out["launches"] = stepped[("data",)][2]
+    out["clock"] = (t_in, t_gpt2, time.time())
+    return out
+
+
+def _p14_report(label, rec):
+    """Log one meta record and check what it must hold."""
+    m = rec["memory_analysis"]
+    gb = {k: m[k] / 1e9 for k in ("params_bytes", "moments_bytes",
+                                  "batch_bytes", "cache_bytes",
+                                  "temp_size_in_bytes",
+                                  "argument_size_in_bytes")}
+    total = gb["argument_size_in_bytes"] + gb["temp_size_in_bytes"]
+    rl = rec["roofline"]
+    log(f"  ({label}) {rec['arch']} {rec['shape']} on {rec['chips']} ranks "
+        f"(rank 0 traced on meta, sched {rec['schedule']}): per rank "
+        f"params {gb['params_bytes']:.3f} GB, moments "
+        f"{gb['moments_bytes']:.3f} GB, batch {gb['batch_bytes']:.4f} GB, "
+        f"cache {gb['cache_bytes']:.3f} GB, temp "
+        f"{gb['temp_size_in_bytes']:.3f} GB, total {total:.3f} GB, "
+        f"fits_80gb {rec['fits_80gb']}; trace {rec['trace_s']:.2f} s")
+    log(f"      roofline (modeled from the H100 SXM data sheet, not "
+        f"measured): compute {rl['t_compute_s'] * 1e3:.3f} ms, memory "
+        f"{rl['t_memory_s'] * 1e3:.3f} ms, collective "
+        f"{rl['t_collective_s'] * 1e3:.3f} ms -> {rl['bottleneck']}; "
+        f"collective bytes a rank by kind {rec['collectives']['bytes']}")
+    parts = (m["params_bytes"] + m["opt_state_bytes"] + m["batch_bytes"]
+             + m["cache_bytes"])
+    if rec["chips"] != 256 or m["argument_size_in_bytes"] != parts \
+            or not m["temp_size_in_bytes"] > 0 \
+            or not all(math.isfinite(rl[k]) and rl[k] > 0 for k in (
+                "t_compute_s", "t_memory_s", "t_collective_s")) \
+            or rec["fits_80gb"] != (
+                m["argument_size_in_bytes"] + m["temp_size_in_bytes"]
+                <= 80e9):
+        raise AssertionError(f"phase 14 ({label}): record {m}, roofline "
+                             f"{rl}, fits {rec['fits_80gb']}")
+    return {"trace_s": rec["trace_s"], "total_gb": total,
+            "fits_80gb": rec["fits_80gb"]}
+
+
+def dry_run(dev):
+    """Phase 14; returns the (c) paths' launches per rank.  (a), (b), the
+    one-rank reference and qwen1.5's meta record are made on a thread of
+    this process while it waits for (c)'s ranks."""
+    import torch
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.dryrun import TEST_RANKS, zero_axes_for
+    from repro_torch.launch.mesh import dims_for, spawn
+    from repro_torch.models import Model
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.train.loop import make_train_step
+    t0 = time.perf_counter()
+    cfg, shape = p14_combo(*P14_GPT2)
+    job = {"cfg": cfg, "shape": shape, "multi_pod": False,
+           "schedule": None, "guards": True, "run_step": True,
+           "audit": False, "device": "cuda",
+           "zero_axes": zero_axes_for(cfg, dims_for(cfg), False)}
+    host = {}
+
+    def host_work():
+        try:
+            model = Model(cfg, device=dev)
+            params = model.init(torch.Generator(device=dev).manual_seed(0))
+            batch = {k: torch.zeros((shape.global_batch, shape.seq_len),
+                                    dtype=torch.int32, device=dev)
+                     for k in ("tokens", "labels")}
+            _, _, m = make_train_step(model, AdamWConfig())(
+                params, adamw_init(params), batch)
+            host["want"] = float(m["loss"])
+            del model, params, m
+            host["qrec"] = dryrun.dry_one(*P14_QWEN, False, dtype="float32",
+                                          reduced=True, seq=64, batch_size=8,
+                                          test_mesh=True)
+            for label, kw in P14_TRACES:
+                host[label] = dryrun.dry_one(*kw)
+            host["done"] = time.perf_counter()
+        except BaseException as e:     # re-raised on the main thread
+            host["error"] = e
+    thread = threading.Thread(target=host_work)
+    t_spawn = time.time()
+    thread.start()
+    try:
+        ranks = spawn(_p14_rank, TEST_RANKS, job, backend="gloo",
+                      device="cuda", timeout=300)
+        t_back = time.time()
+        t_c = time.perf_counter()
+    finally:
+        thread.join()
+    if "error" in host:
+        raise host["error"]
+    want, qrec = host["want"], host["qrec"]
+    losses = [r["gpt2"]["step_metrics"]["loss"] for r in ranks]
+    bad = [i for i, r in enumerate(ranks)
+           if abs(r["gpt2"]["step_metrics"]["loss"] - want) > 1e-4
+           or r["gpt2"]["step_metrics"]["nonfinite"] != 0.0
+           or not r["zero_equal"]
+           or r["moment_bytes"] != qrec["memory_analysis"]["moments_bytes"]
+           or r["gpt2"]["launches"]["flash_attention"] <= 0
+           or r["launches"]["rmsnorm"] <= 0
+           or r["launches"]["flash_attention"] <= 0
+           or sum(r["gpt2"]["launches"][k] for k in (
+               "expert_ffn_grouped", "expert_ffn", "expert_ffn_ragged")) <= 0]
+    if bad:
+        raise AssertionError(f"phase 14 (c): ranks {bad}: losses {losses} "
+                             f"vs one rank {want}, {ranks}")
+    log(f"  (c) 8 gloo ranks on the card (4x2): gpt2-moe guarded --run-step "
+        f"loss {losses[0]:.6f} (one rank {want:.6f}, nonfinite 0), "
+        f"qwen1.5-0.5b ZeRO-1 over data torch.equal the whole-moment step on "
+        f"every rank, moments {ranks[0]['moment_bytes']} bytes a rank (meta "
+        f"record {qrec['memory_analysis']['moments_bytes']}) in "
+        f"{t_c - t0:.1f} s: the ranks entered "
+        f"{min(r['clock'][0] for r in ranks) - t_spawn:.1f}-"
+        f"{max(r['clock'][0] for r in ranks) - t_spawn:.1f} s after the "
+        f"spawn, gpt2-moe took "
+        f"{max(r['clock'][1] - r['clock'][0] for r in ranks):.1f} s, "
+        f"qwen1.5's two steps "
+        f"{max(r['clock'][2] - r['clock'][1] for r in ranks):.1f} s, the "
+        f"spawn returned {t_back - max(r['clock'][2] for r in ranks):.1f} s "
+        f"after the last rank; the host work ended "
+        f"{host['done'] - t_c:+.1f} s from (c)'s end")
+    for label, _ in P14_TRACES:
+        _p14_report(label, host[label])
+    names = sorted(ranks[0]["launches"])
+    return {"dryrun_4x2_gpt2_moe": {
+                k: [r["gpt2"]["launches"][k] for r in ranks] for k in names},
+            "dryrun_4x2_qwen1.5_zero1": {
+                k: [r["launches"][k] for r in ranks] for k in names}}
+
+
 #: the phases, and the ones each needs to have run before it (their model,
 #: prompts, reference runs or launch counts); 1 and 2 (the card, the
-#: build) always run, and 14 (the kernels line) only when every phase did
-PHASES = tuple(range(1, 15))
-PHASE_NEEDS = {5: (4,), 9: (7, 8), 10: (4, 5, 6), 11: (4, 6), 14: PHASES[:13]}
+#: build) always run, and 15 (the kernels line) only when every phase did
+PHASES = tuple(range(1, 16))
+PHASE_NEEDS = {5: (4,), 9: (7, 8), 10: (4, 5, 6), 11: (4, 6), 15: PHASES[:14]}
 
 
 def parse_phases(argv=None) -> set:
@@ -4868,6 +5082,16 @@ def main(argv=None) -> int:
         path_launches.update(zoo(dev))
         log(f"  phase 13 in {time.perf_counter() - t0:.1f} s")
 
+    if 14 in phases:
+        # 14. the dry run
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        log(f"phase 14: the dry run (predicted ~25 s, limit "
+            f"{P14_LIMIT_S:.0f} s)")
+        multi_paths.update(dry_run(dev))
+        log(f"  phase 14 in {time.perf_counter() - t0:.1f} s (limit "
+            f"{P14_LIMIT_S:.0f} s)")
+
     if phases != set(PHASES):
         log(f"chip_smoke: phases {sorted(phases)} passed in "
             f"{time.perf_counter() - t_start:.1f} s (a selection: no "
@@ -4876,7 +5100,7 @@ def main(argv=None) -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
-    # 14. results.  Each kernel's top-level numbers are those of its main
+    # 15. results.  Each kernel's top-level numbers are those of its main
     # path (KERNELS): its launches there, counted from 0 just before the
     # run, and the phase-3 row at the shapes that path gives it.
     # ``by_path`` pairs every path's launches with the phase-3 row at that

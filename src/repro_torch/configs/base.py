@@ -5,6 +5,17 @@ module carries over unchanged; ``layer_kinds``, ``runs`` and ``reduced``
 are copies.  Fields of kinds this slice cannot run (SSM, cross attention,
 encoders) are kept for that parity and rejected by the model.
 ``use_pallas`` has no effect in the port: the backend follows the device.
+
+``InputShape`` / ``INPUT_SHAPES`` are JAX's four dry-run shapes, values
+as they are; ``input_specs`` gives each model input as an empty tensor on
+the meta device (JAX: ``ShapeDtypeStruct``), same keys, shapes and
+dtypes, and ``variant_config`` the sliding-window variant ``long_500k``
+runs (JAX's ``launch/dryrun.py::variant_config``):
+
+  train_4k     seq 4,096    global_batch 256   -> train_step
+  prefill_32k  seq 32,768   global_batch 32    -> prefill (forward)
+  decode_32k   seq 32,768   global_batch 128   -> serve_step (1 token + cache)
+  long_500k    seq 524,288  global_batch 1     -> serve_step, sub-quadratic only
 """
 
 from __future__ import annotations
@@ -12,8 +23,26 @@ from __future__ import annotations
 from dataclasses import dataclass, replace
 from typing import Optional
 
+import torch
+
 from repro_torch.core.moe import MoEConfig
 from repro_torch.kernels.registry import KernelConfig
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str            # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclass(frozen=True)
@@ -75,6 +104,13 @@ class ModelConfig:
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """Eligible for long_500k (SSM/hybrid or windowed/chunked attention)."""
+        if self.arch_type in ("ssm", "hybrid"):
+            return True
+        return self.attn_window is not None or self.attn_chunk is not None
+
     def layer_kinds(self) -> list:
         """Per-layer block kind."""
         kinds = []
@@ -134,3 +170,40 @@ class ModelConfig:
             cross_every=min(self.cross_every, 2) if self.cross_every else 0,
             slstm_every=min(self.slstm_every, 2) if self.slstm_every else 0,
             remat=False)
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape,
+                device="meta") -> dict:
+    """Every model input of ``shape`` as an empty int32 tensor on
+    ``device`` (the meta device: nothing allocated): ``tokens`` and
+    ``labels`` (B, L) to train, ``tokens`` (B, L) to prefill, ``tokens``
+    (B, 1) and a scalar ``step`` to decode, as JAX's ``input_specs``.
+    The image and audio context embeddings of JAX's ``vlm`` and ``audio``
+    archs belong to block kinds the port does not run yet (ROADMAP 7d)."""
+    if cfg.arch_type in ("vlm", "audio"):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.arch_type} arch's ctx_embeds input comes "
+            "with its block kinds (ROADMAP 7d)")
+    B, L = shape.global_batch, shape.seq_len
+
+    def empty(*dims):
+        return torch.empty(dims, dtype=torch.int32, device=device)
+
+    if shape.kind == "train":
+        return {"tokens": empty(B, L), "labels": empty(B, L)}
+    if shape.kind == "prefill":
+        return {"tokens": empty(B, L)}
+    return {"tokens": empty(B, 1), "step": empty()}
+
+
+def variant_config(cfg: ModelConfig, shape_name: str):
+    """``(cfg, variant)`` for ``shape_name``: ``long_500k`` on a
+    full-attention arch runs JAX's sliding-window variant (window 8192,
+    ``"swa"``); every other pairing is the config as it is (``""``).  An
+    audio arch gives ``(None, reason)``: JAX skips it."""
+    shape = INPUT_SHAPES[shape_name]
+    if shape.name != "long_500k" or cfg.sub_quadratic:
+        return cfg, ""
+    if cfg.arch_type == "audio":
+        return None, "skip: enc-dec audio arch, 500k decode not meaningful"
+    return replace(cfg, attn_window=8192), "swa"

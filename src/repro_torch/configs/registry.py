@@ -1,7 +1,9 @@
 """Architecture registry: ``--arch <id>`` resolution for the port's
 launchers, in the JAX registry's order.  Only the architectures whose
 block kinds the port runs are listed; the JAX package's others (hymba,
-llama-3.2-vision, whisper, xlstm) come with the slices that run them."""
+llama-3.2-vision, whisper, xlstm) come with the slices that run them.
+``ASSIGNED`` is JAX's ``ASSIGNED`` (its first ten) in its order, cut to
+the archs listed here: what the dry run's ``--all`` covers."""
 from importlib import import_module
 
 _MODULES = {
@@ -15,6 +17,13 @@ _MODULES = {
     "bert-moe": "repro_torch.configs.bert_moe",
     "gpt2-moe": "repro_torch.configs.gpt2_moe",
 }
+
+#: JAX's ``ASSIGNED`` order, cut to the archs above
+_JAX_ASSIGNED = ("yi-9b", "mistral-nemo-12b", "llama4-scout-17b-a16e",
+                 "hymba-1.5b", "llama-3.2-vision-11b", "whisper-tiny",
+                 "xlstm-350m", "command-r-35b", "qwen3-moe-30b-a3b",
+                 "qwen1.5-0.5b")
+ASSIGNED = tuple(a for a in _JAX_ASSIGNED if a in _MODULES)
 
 
 def get_config(name: str):

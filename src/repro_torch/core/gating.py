@@ -69,6 +69,15 @@ class GateResult:
         return self._flat[key]
 
 
+def _bincount(ids, n: int):
+    """``torch.bincount(ids, minlength=n)`` for ids below ``n``.  Its
+    shape follows the data, so it has no meta kernel; on the meta device
+    (the dry run) the shape is known: (n,)."""
+    if ids.is_meta:
+        return ids.new_empty((n,))
+    return torch.bincount(ids, minlength=n)
+
+
 def topk_gate(x, wg, cfg: GateConfig, cap) -> GateResult:
     """Route tokens to experts.
 
@@ -105,7 +114,7 @@ def topk_gate(x, wg, cfg: GateConfig, cap) -> GateResult:
         slot_sorted = torch.arange(k * S, device=dev) - first[sorted_e]
         slot_flat = torch.empty_like(slot_sorted)
         slot_flat[order] = slot_sorted
-        load = torch.bincount(flat_e, minlength=E).float()
+        load = _bincount(flat_e, E).float()
     elif cfg.impl == "cumsum":
         onehot = F.one_hot(flat_e, E)                            # (k*S, E)
         pos = torch.cumsum(onehot, dim=0) - 1

@@ -432,8 +432,8 @@ def _check_agreed(mesh, key, sched, n_chunks, wire, device) -> None:
     ranks enter the all-gather together, and a rank that picks otherwise
     raises instead of leaving the others waiting."""
     key = (id(mesh),) + key
-    if key in _AGREED:
-        return
+    if key in _AGREED or torch.device(device).type == "meta":
+        return      # a meta trace (the dry run) is one rank's: no values
     from repro_torch.parallel import comm
     names = sorted(set(BODY) | set(planlib.PLANS))
     pick = [names.index(sched), n_chunks,

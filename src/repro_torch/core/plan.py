@@ -29,7 +29,8 @@ execution), and wire annotations.  Three consumers walk the same graph:
     against the golden legacy bodies in ``tests/helpers/legacy_bodies.py``);
   * ``PerfModel.t_plan`` walks it to predict the layer time (one cost
     model source of truth — no per-schedule closed form to keep in sync);
-  * ``launch/dryrun.py --dump-plan`` serializes it for debugging.
+  * ``python -m repro_torch.launch.dryrun --dump-plan`` serializes it
+    for debugging.
 
 Axes of the schedule space are *graph transforms*, not new bodies:
 :func:`split_capacity` turns any plan into its chunk-pipelined variant
@@ -584,7 +585,7 @@ def plan_for_shape(name: str, shape, n_chunks: int = 1,
 
 def plan_summary(plan: Plan) -> dict:
     """JSON-ready description of a plan's stage graph (the
-    ``launch/dryrun.py --dump-plan`` artifact payload)."""
+    ``repro_torch.launch.dryrun --dump-plan`` artifact payload)."""
     wd = getattr(plan.comm, "wire_dtype", "f32") if plan.comm else "f32"
     pl = plan.placement
     return {

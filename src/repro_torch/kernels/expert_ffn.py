@@ -16,7 +16,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, meta
 from repro_torch.kernels.ref import expert_ffn_ref
 
 ACT_CODE = {"silu": 0, "gelu": 1}
@@ -102,6 +102,8 @@ def expert_ffn(x, w1, w3, w2, *, act="silu"):
     (E, M, F); w2: (E, F, M) (w3 None for two-layer experts), float32 or
     bfloat16.  Returns (E, T, M) in the promoted dtype of x and the
     weights, computed in f32."""
+    if x.is_meta:
+        return meta.expert_ffn(x, w1, w3, w2)
     if not _build.on_card(x, "expert_ffn"):
         return expert_ffn_ref(x, w1, w3, w2, act=act)
     if x.dim() != 3 or x.shape[0] != w1.shape[0]:

@@ -25,7 +25,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, meta
 from repro_torch.kernels.expert_ffn import (ACT_CODE, check_weights,
                                             launch_ffn)
 from repro_torch.kernels.ref import (expert_ffn_grouped_ref,
@@ -108,6 +108,8 @@ def expert_ffn_grouped(x, flat_idx, weights, w1, w3, w2, *, cap,
     bfloat16; flat_idx (S, k) int32 flat slots (``E * cap`` = dropped);
     weights (S, k) float32; w1/w3 (E, M, F), w2 (E, F, M) of one dtype (w3
     None for 2-layer experts).  Returns (S, M) in x's dtype."""
+    if x.is_meta:
+        return meta.expert_ffn_grouped(x, flat_idx, weights, w1, w3, w2)
     if not _build.on_card(x, "expert_ffn_grouped"):
         return expert_ffn_grouped_ref(x, flat_idx, weights, w1, w3, w2,
                                       cap=cap, act=act, wire=wire)
@@ -141,6 +143,8 @@ def expert_ffn_ragged(xb, counts, w1, w3, w2, *, act="silu"):
     (E, G) int32 routed rows per group; w1/w3 (E, M, F), w2 (E, F, M) of
     one dtype (w3 None for two-layer experts).  Returns (E, G, c, M) in
     xb's dtype, computed in f32, rows >= counts[e, g] exactly 0."""
+    if xb.is_meta:
+        return meta.expert_ffn_ragged(xb, counts, w1, w3, w2)
     if not _build.on_card(xb, "expert_ffn_ragged"):
         return expert_ffn_ragged_ref(xb, counts, w1, w3, w2, act=act)
     if xb.dim() != 4 or xb.shape[0] != w1.shape[0]:

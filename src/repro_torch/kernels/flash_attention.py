@@ -14,7 +14,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, meta
 from repro_torch.kernels.ref import flash_attention_ref
 
 #: head dims the kernel is compiled for (qwen3: 128, gpt2-moe: 64)
@@ -79,6 +79,8 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
     (float32 or bfloat16), hd 64 or 128.  Returns (B, Lq, H, hd) in q's
     dtype.  CPU tensors take the plain version; CUDA tensors take the
     kernel, or raise if it cannot take them."""
+    if q.is_meta:
+        return meta.flash_attention(q, k, v, causal, window)
     if not _build.on_card(q, "flash_attention"):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale)

@@ -15,7 +15,7 @@ import struct
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, meta
 from repro_torch.kernels.ref import moe_combine_ref, moe_dispatch_ref
 
 #: the C entry points' one argument each (``DispatchArgs``, ``CombineArgs``
@@ -50,6 +50,8 @@ def moe_dispatch(x, flat_idx, n_slots):
     choices name holds their sum, taken from 0 in token order, then choice
     order, rounded to x's dtype after each addition (the Pallas kernel's
     order); a slot no choice names is 0."""
+    if x.is_meta:
+        return meta.moe_dispatch(x, flat_idx, n_slots)
     if not _build.on_card(x, "moe_dispatch"):
         return moe_dispatch_ref(x, flat_idx, n_slots)
     if x.dim() != 2:
@@ -80,6 +82,8 @@ def moe_combine(buf, flat_idx, weights):
     bfloat16; flat_idx: (S, k) int32; weights: (S, k) float32.  Returns
     (S, M) in buf's dtype: sum_j weights[s, j] * buf[flat_idx[s, j]] in f32,
     dropped choices adding nothing."""
+    if buf.is_meta:
+        return meta.moe_combine(buf, flat_idx, weights)
     if not _build.on_card(buf, "moe_combine"):
         return moe_combine_ref(buf, flat_idx, weights)
     if buf.dim() != 2:

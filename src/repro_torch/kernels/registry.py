@@ -36,7 +36,7 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import meta, ref
 from repro_torch.kernels.expert_ffn import expert_ffn
 from repro_torch.kernels.expert_ffn_grouped import (expert_ffn_grouped,
                                                     expert_ffn_ragged)
@@ -80,6 +80,7 @@ PLAIN = {"rmsnorm": ref.rmsnorm_ref,
          "expert_ffn_ragged": ref.expert_ffn_ragged_ref,
          "moe_dispatch": ref.moe_dispatch_ref,
          "moe_combine": ref.moe_combine_ref}
+_NAME_OF = {fn: name for name, fn in PLAIN.items()}
 
 
 class _RecomputeVJP(torch.autograd.Function):
@@ -96,6 +97,12 @@ class _RecomputeVJP(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         args = ctx.saved_tensors
+        if g.is_meta:
+            # shapes and costs only (kernels/meta.py)
+            p = ctx.plain
+            return (None, None, *meta.backward(
+                _NAME_OF[p.func], args, p.keywords,
+                ctx.needs_input_grad[2:]))
         want = [i for i in range(len(args)) if ctx.needs_input_grad[i + 2]]
         with torch.enable_grad():
             inputs = [a.detach().requires_grad_(True) if i in want else a
@@ -212,6 +219,15 @@ _CLOSED_FORM = {"moe_dispatch": _DispatchVJP, "moe_combine": _CombineVJP,
 
 def list_ops() -> tuple:
     return tuple(sorted(_OPS))
+
+
+def launches(reset: bool = False) -> dict:
+    """Each op's CUDA launches so far (its wrapper's ``launches``); with
+    ``reset`` every count is set to 0 first."""
+    if reset:
+        for fn in _OPS.values():
+            fn.launches = 0
+    return {name: fn.launches for name, fn in _OPS.items()}
 
 
 def _call(name: str, static: dict, *args):

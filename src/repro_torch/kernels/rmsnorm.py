@@ -13,7 +13,7 @@ import struct
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, meta
 from repro_torch.kernels.ref import rmsnorm_ref
 
 #: the C entry point's one argument, ``RmsnormArgs`` in ``csrc/rmsnorm.cu``:
@@ -36,6 +36,8 @@ def rmsnorm(x, scale, *, eps=1e-5):
     """x: (R, D) rows, float32 or bfloat16; scale: (D,) float32.  Returns
     (R, D) in x's dtype.  CPU tensors take the plain version; CUDA tensors
     take the kernel, or raise if it cannot take them."""
+    if x.is_meta:
+        return meta.rmsnorm(x, scale)
     if not _build.on_card(x, "rmsnorm"):
         return rmsnorm_ref(x, scale, eps)
     if x.dim() != 2:

@@ -15,6 +15,11 @@ ranks on one card, "Duplicate GPU detected"); ``gloo`` runs any number of
 ranks, on CPU tensors or sharing one card's tensors (its collectives
 stage CUDA tensors through the host, so it times the host, not a link).
 Nothing picks gloo silently.
+
+``make_production_mesh`` / ``make_test_mesh`` are JAX's meshes (16x16 or
+2x16x16; 4x2 or 2x2x2) with its axis names, as port meshes; the dry run
+traces one of their ranks under ``fake_world``, the fake backend that
+only it starts.
 """
 
 from __future__ import annotations
@@ -26,6 +31,58 @@ import torch
 from repro_torch.parallel.mesh import ParallelDims, production_dims
 
 BACKENDS = ("nccl", "gloo")
+
+#: JAX's meshes (``repro/launch/mesh.py``): multi_pod -> (shape, axes)
+PRODUCTION_SHAPE = {False: ((16, 16), ("data", "model")),
+                    True: ((2, 16, 16), ("pod", "data", "model"))}
+TEST_SHAPE = {False: ((4, 2), ("data", "model")),
+              True: ((2, 2, 2), ("pod", "data", "model"))}
+
+
+def _named_mesh(shape, names):
+    """The port :class:`~repro_torch.parallel.mesh.Mesh` of ``shape``: over
+    the initialised default group (its process groups made) when its
+    world is the mesh's size, else for layout arithmetic at rank 0."""
+    import torch.distributed as dist
+
+    from repro_torch.parallel.mesh import Mesh, make_mesh
+    n = 1
+    for s in shape:
+        n *= s
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() == n:
+        return make_mesh(shape, names)
+    return Mesh(shape, names, 0)
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """16x16 single-pod (256 ranks) or 2x16x16 multi-pod (512 ranks), JAX's
+    axis names; see :func:`_named_mesh` for the ranks."""
+    return _named_mesh(*PRODUCTION_SHAPE[multi_pod])
+
+
+def make_test_mesh(*, multi_pod: bool = False):
+    """The scaled-down mesh with the same axis names (8 ranks: 4x2, or
+    2x2x2 multi-pod)."""
+    return _named_mesh(*TEST_SHAPE[multi_pod])
+
+
+def fake_world(world: int, rank: int = 0) -> None:
+    """Start ``torch.distributed`` on its ``fake`` backend as ``rank`` of
+    ``world``: every collective returns at once and moves nothing (a
+    receive keeps what its buffer held), so one process can trace one
+    rank of a production mesh on the meta device.  Only the dry run
+    (``launch/dryrun.py``) starts it; :data:`BACKENDS` never offers it."""
+    import torch.distributed as dist
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as e:
+        raise RuntimeError(
+            "the dry run needs torch.distributed's fake backend "
+            "(torch.testing._internal.distributed.fake_pg), which this "
+            f"torch {torch.__version__} lacks") from e
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world)
 
 
 def dims_for(cfg, multi_pod: bool = False) -> ParallelDims:

@@ -17,7 +17,8 @@ model, or by timing every candidate on the card once per layer shape.
 After the first step the run prints one ``autosched[...]`` line per
 decision.
 ``--layers N`` cuts the depth and keeps the full width (with
-``--reduced``, the reduced config's depth).  Weights are random from a
+``--reduced``, the reduced config's depth); ``--d-model D`` cuts the
+width as JAX's flag does (with ``--reduced``, the reduced config's).  Weights are random from a
 fixed seed; batches are ``SyntheticLM``'s.  Without a CUDA card the
 launcher stops with an error; ``--device cpu`` asks for the CPU.
 
@@ -68,6 +69,10 @@ GSPMD shards them, and Megatron-SP where the config sets
       --reduced --device cpu --nproc 4 --mesh data=2,model=2 \
       --dist-backend gloo --steps 3
 
+``--multi-pod`` lays the ranks out as JAX's multi-pod mesh does,
+``(pod, data, model)`` with pod pure data parallel
+(``production_dims(multi_pod=True)``; ``--mesh pod=P,data=D,model=M``,
+default ``pod=2,data=N/4,model=2``).
 Rank 0 prints the step lines and ``final loss``; a rank's failure fails
 the run.  The guarded loop, its faults and checkpoints run across ranks
 as on one (every rank's guard decision held equal; checkpoints are whole
@@ -119,6 +124,9 @@ def main(argv=None):
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--layers", type=int, default=None)
+    ap.add_argument("--d-model", type=int, default=None,
+                    help="cut the width (with --reduced: the reduced "
+                         "config's d_model, default 256)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--batch", type=int, default=8)
@@ -177,6 +185,11 @@ def main(argv=None):
                     help="the rank mesh, e.g. data=2,model=2 (default "
                          "data=NPROC,model=1); model > 1 shards the dense "
                          "layers (Megatron tensor parallelism)")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="lay the ranks out as (pod, data, model) with the "
+                         "multi-pod dims (pod pure data parallel); --mesh "
+                         "then names pod=P,data=D,model=M (default "
+                         "pod=2,data=NPROC/4,model=2)")
     ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
                     help="torch.distributed backend (required with more "
                          "than one rank): nccl needs a card a rank, gloo "
@@ -206,25 +219,40 @@ def main(argv=None):
         world = (int(os.environ["WORLD_SIZE"]) if torchrun_env()
                  else args.nproc)
         try:
-            shape, names = parse_mesh(args.mesh or f"data={world},model=1",
-                                      world)
+            shape, names = parse_mesh(_mesh_spec(args, world), world)
             check_backend(args.dist_backend, world, dev.type)
         except (ValueError, RuntimeError) as e:
             ap.error(str(e))
-        if names != ("data", "model"):
-            ap.error(f"--mesh names the launcher's axes: data=D,model=M "
-                     f"(got {names})")
-        if args.batch % shape[0]:
+        want = _AXES[args.multi_pod]
+        if names != want:
+            ap.error(f"--mesh names the launcher's axes: "
+                     f"{'=N,'.join(want)}=N (got {names})")
+        rows = math.prod(shape[:-1])
+        if args.batch % rows:
             ap.error(f"--batch {args.batch} does not split over "
-                     f"data={shape[0]}")
+                     f"{dict(zip(names[:-1], shape[:-1]))}")
         if torchrun_env():
             return _rank(int(os.environ["RANK"]), args, argv)
         spawn(_rank, args.nproc, args, argv, backend=args.dist_backend,
               device=dev.type, threads=_threads(args.nproc, dev))
         return None
-    if args.mesh or args.dist_backend:
-        ap.error("--mesh and --dist-backend need --nproc > 1")
+    if args.mesh or args.dist_backend or args.multi_pod:
+        ap.error("--mesh, --multi-pod and --dist-backend need --nproc > 1")
     return _train(args, argv, dev)
+
+
+#: the launcher's mesh axes, by --multi-pod
+_AXES = {False: ("data", "model"), True: ("pod", "data", "model")}
+
+
+def _mesh_spec(args, world: int) -> str:
+    """``--mesh``, or its default: ``data=N,model=1``, or with
+    ``--multi-pod`` ``pod=2,data=N/4,model=2``."""
+    if args.mesh:
+        return args.mesh
+    if args.multi_pod:
+        return f"pod=2,data={max(world // 4, 1)},model=2"
+    return f"data={world},model=1"
 
 
 def _threads(nproc, dev):
@@ -244,8 +272,7 @@ def _rank(rank, args, argv):
     if not dist.is_initialized():          # torchrun: start it here
         init_distributed(args.dist_backend, device=args.device)
     world = dist.get_world_size()
-    spec = args.mesh or f"data={world},model=1"
-    shape, names = parse_mesh(spec, world)
+    shape, names = parse_mesh(_mesh_spec(args, world), world)
     mesh = make_mesh(shape, names)
     if rank != 0:
         sys.stdout = open(os.devnull, "w")
@@ -275,9 +302,11 @@ def _train(args, argv, dev, mesh=None):
             moe_kw["placement"] = "auto"
         cfg = replace(cfg, moe=replace(cfg.moe, **moe_kw))
     if args.reduced:
-        cfg = cfg.reduced(n_layers=args.layers or 2)
-    elif args.layers:
-        cfg = replace(cfg, n_layers=args.layers)
+        cfg = cfg.reduced(n_layers=args.layers or 2,
+                          d_model=args.d_model or 256)
+    elif args.layers or args.d_model:
+        cfg = replace(cfg, n_layers=args.layers or cfg.n_layers,
+                      d_model=args.d_model or cfg.d_model)
 
     lead = mesh is None or mesh.rank == 0      # writes the run's files
     if args.metrics_dir and lead:
@@ -297,7 +326,7 @@ def _train(args, argv, dev, mesh=None):
         print(f"fault plan: {faults.summary()}", flush=True)
     if args.guards or faults is not None:
         guards = GuardConfig(max_skips=args.max_skips)
-    dims = dims_for(cfg) if mesh is not None else None
+    dims = dims_for(cfg, args.multi_pod) if mesh is not None else None
     placement = args.placement if cfg.moe is not None else "uniform"
     tr = Trainer(model, opt, schedule=args.schedule, ckpt_path=args.ckpt,
                  guards=guards, faults=faults, ckpt_retain=args.retain,

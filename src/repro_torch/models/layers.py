@@ -163,7 +163,8 @@ class _EmbedVJP(torch.autograd.Function):
     (JAX's bits; the CPU's accumulating ``index_put_``, autograd's
     default, adds from several threads in no fixed order), on the card by
     the accumulating ``index_put_``, which there sorts the ids stably and
-    sums each run of them in order.  With ``masked`` an id equal to the
+    sums each run of them in order; on the meta device (the dry run) the
+    same ``index_put_``, for its shape.  With ``masked`` an id equal to the
     table's row count (a token of another rank's vocabulary block) reads a
     zero row and adds nothing to the gradient: its cotangent goes to a
     discarded row, so the other rows keep their summation order."""
@@ -183,7 +184,7 @@ class _EmbedVJP(torch.autograd.Function):
         (ids,) = ctx.saved_tensors
         g = g.reshape(-1, g.shape[-1])
         ids = ids.reshape(-1)
-        if g.is_cuda:
+        if g.is_cuda or g.is_meta:
             out = g.new_zeros((ctx.n_rows + int(ctx.masked), g.shape[-1]))
             out.index_put_((ids,), g, accumulate=True)
             return out[:ctx.n_rows], None, None

@@ -49,9 +49,10 @@ import time
 import torch
 
 #: host-side timing of the collectives, off by default (``timing(True)``):
-#: name -> [calls, bytes in, seconds]; a call inside another (``psum``'s
-#: reduce-scatter and AllGather) counts to the outermost; ``in_flight`` ->
-#: [spans, 0, wall seconds during which one or more was in flight]
+#: name -> [calls, bytes in, seconds, {group axes: bytes out}]; a call
+#: inside another (``psum``'s reduce-scatter and AllGather) counts to the
+#: outermost; ``in_flight`` -> [spans, 0, wall seconds during which one or
+#: more was in flight, {}]
 _TIMES = None
 _DEPTH = 0
 #: timed collectives in flight, and when the first of them started
@@ -81,7 +82,15 @@ def times() -> dict:
     """The timed collectives: name -> (calls, bytes in, seconds), and
     ``in_flight`` -> (spans, 0, wall seconds with one or more in
     flight)."""
-    return {k: tuple(v) for k, v in (_TIMES or {}).items()}
+    return {k: tuple(v[:3]) for k, v in (_TIMES or {}).items()}
+
+
+def bytes_out() -> dict:
+    """The timed collectives' result bytes: name -> {group axes: bytes
+    this rank received} (an AllGather's whole result, a reduce-scatter's
+    block: the size XLA's HLO gives a collective)."""
+    return {k: dict(v[3]) for k, v in (_TIMES or {}).items()
+            if k != "in_flight"}
 
 
 def _sync(t):
@@ -101,18 +110,19 @@ def _open(x) -> float:
     return t0
 
 
-def _close(name, x, out, t0) -> None:
+def _close(name, x, out, t0, axes=()) -> None:
     """A timed collective ends: add it to ``name``, and close the span
     when it was the last in flight."""
     _sync(out)
     now = time.perf_counter()
-    rec = _TIMES.setdefault(name, [0, 0, 0.0])
+    rec = _TIMES.setdefault(name, [0, 0, 0.0, {}])
     rec[0] += 1
     rec[1] += x.numel() * x.element_size()
     rec[2] += now - t0
+    rec[3][axes] = rec[3].get(axes, 0) + out.numel() * out.element_size()
     _OPEN[0] -= 1
     if not _OPEN[0]:
-        span = _TIMES.setdefault("in_flight", [0, 0, 0.0])
+        span = _TIMES.setdefault("in_flight", [0, 0, 0.0, {}])
         span[0] += 1
         span[2] += now - _OPEN[1]
 
@@ -129,7 +139,7 @@ def _timed(fn):
             out = fn(x, grp, *args, **kw)
         finally:
             _DEPTH -= 1
-        _close(fn.__name__, x, out, t0)
+        _close(fn.__name__, x, out, t0, grp.axes)
         return out
     return wrapper
 
@@ -222,7 +232,7 @@ class Handle:
             self._work = self._bufs = self._post = None
             self.value = v
             if self._t0 is not None and _TIMES is not None:
-                _close(self.kind, self._x, v, self._t0)
+                _close(self.kind, self._x, v, self._t0, self.axes)
             self._x = None
             if _HOOK is not None:
                 _HOOK("wait", self.axes, self.kind, self.tag)
@@ -248,10 +258,12 @@ def _exchange_start(send, grp, kind, post, x, tag) -> Handle:
         steps.append(lambda r: r[inv])
     steps.append(post)
     t0 = _open(x) if _TIMES is not None and not _DEPTH else None
-    # bytes: chunk g of the (n, ...) buffers stays chunk g of the views
-    work = dist.all_to_all_single(recv.view(torch.uint8),
-                                  send.view(torch.uint8), group=grp.pg,
-                                  async_op=True)
+    # bytes: chunk g of the (n, ...) buffers stays chunk g of the flat
+    # views (flat first: a contiguous tensor whose last dim has one
+    # element may carry any stride there, which a dtype view refuses)
+    work = dist.all_to_all_single(recv.reshape(-1).view(torch.uint8),
+                                  send.reshape(-1).view(torch.uint8),
+                                  group=grp.pg, async_op=True)
     return Handle(work, (send, recv), steps, grp, kind,
                   current_tag() if tag is None else tag, t0, x)
 
@@ -371,7 +383,9 @@ def psum_scatter_start(x, grp, axis: int, tiled: bool = True, *,
     xs = xs.reshape(n, xs.shape[0] // n, *xs.shape[1:])
 
     def post(recv):                            # (n sources, rows, ...)
-        red = ordered_sum(list(recv.unbind(0)))
+        # a meta tensor (the dry run) has no values to order: one sum
+        red = recv.sum(0) if recv.is_meta else \
+            ordered_sum(list(recv.unbind(0)))
         return red.squeeze(0) if not tiled else red.movedim(0, axis)
     return _exchange_start(xs, grp, "psum_scatter", post, x, tag)
 

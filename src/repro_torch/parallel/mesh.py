@@ -228,6 +228,12 @@ class Mesh:
         self._groups[axes] = g
         return g
 
+    def members(self, axes) -> list:
+        """The global ranks of this rank's group over ``axes``, sorted."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        return self._members(tuple(a for a in self.axis_names if a in axes),
+                             self.rank)
+
     def axis_index(self, axes) -> int:
         """JAX's ``lax.axis_index(axes)`` for this rank."""
         return self.group(axes).index if axes else 0

@@ -126,6 +126,16 @@ def _block(mesh, entry, n_dim):
     return idx * (n_dim // n), n_dim // n
 
 
+def local_shape(shape, spec, mesh) -> tuple:
+    """The shape of this rank's block of an array of ``shape`` under
+    ``spec`` (what :func:`local_shard` cuts, without the array)."""
+    out = list(shape)
+    for d, entry in enumerate(spec):
+        if entry is not None:
+            out[d] = _block(mesh, entry, shape[d])[1]
+    return tuple(out)
+
+
 def local_shard(array, spec, mesh):
     """This rank's block of the full ``array`` (numpy or tensor) under
     ``spec``: a view (numpy) or a contiguous copy (tensor)."""

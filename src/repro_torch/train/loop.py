@@ -50,7 +50,7 @@ import torch
 from repro_torch import obs
 from repro_torch.models.model import Model
 from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
-                                     leaves, opt_state_specs)
+                                     leaves, opt_state_specs, zero1_dims)
 from repro_torch.runtime import guards as guardlib
 
 _ACTIONS = (guardlib.OK, guardlib.SKIP, guardlib.ROLLBACK)
@@ -115,8 +115,21 @@ def _loss_and_grads(model, params, batch, schedule, mesh, dims,
     return loss.detach(), metrics, grads, specs
 
 
+def zero1_layout(model: Model, params, mesh, dims, zero_axes=()):
+    """:func:`~repro_torch.optim.adamw.zero1_dims` of the ZeRO-1 moments
+    over ``zero_axes`` (``opt_state_specs(..., zero1=True)``) for this
+    rank's ``params``, aligned with their leaves; None without axes or
+    mesh."""
+    if not zero_axes or mesh is None:
+        return None
+    pspecs = model.param_specs(params, mesh, dims)
+    mom = opt_state_specs(pspecs, mesh, tuple(zero_axes), True, params)
+    return zero1_dims(leaves(pspecs), leaves(mom["mu"]))
+
+
 def make_train_step(model: Model, opt_cfg: AdamWConfig,
-                    schedule: Optional[str] = None, mesh=None, dims=None):
+                    schedule: Optional[str] = None, mesh=None, dims=None,
+                    zero_axes=()):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``: loss, gradients of every parameter, one AdamW update in
     place.  Metrics are the loss's (``ce``, ``aux``, ``ppl_proxy``,
@@ -125,12 +138,16 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
     On a mesh (``mesh``, ``dims``) ``params`` and ``opt_state`` are this
     rank's shards and ``batch`` its rows (``data.sharded_batch``): the loss
     is the global one, the gradients go through :func:`sync_grads`, and
-    the clip norm is the global norm."""
+    the clip norm is the global norm.  With ``zero_axes`` the moments are
+    ZeRO-1's over those axes (:func:`zero1_layout`, ``adamw_init(zero=)``)
+    and each rank updates its slice of every parameter, then all-gathers
+    it: the same parameters as the unsharded-moment step."""
     def train_step(params, opt_state, batch):
         loss, metrics, grads, specs = _loss_and_grads(
             model, params, batch, schedule, mesh, dims)
         om = adamw_update(params, grads, opt_state, opt_cfg, specs=specs,
-                          mesh=mesh)
+                          mesh=mesh, zero=zero1_layout(
+                              model, params, mesh, dims, zero_axes))
         del grads
         return params, opt_state, {**metrics, **om, "loss": loss}
     return train_step
@@ -138,7 +155,7 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
 
 def make_guarded_train_step(model: Model, opt_cfg: AdamWConfig,
                             schedule: Optional[str] = None, mesh=None,
-                            dims=None):
+                            dims=None, zero_axes=()):
     """``make_train_step`` wrapped in guard rails: ``step(params,
     opt_state, batch, lr_scale, grad_fault)``.
 
@@ -155,13 +172,14 @@ def make_guarded_train_step(model: Model, opt_cfg: AdamWConfig,
     the clean path (``lr_scale=1.0, grad_fault=0.0``) every extra op is
     an IEEE identity, so the step is bitwise the plain one.  On a mesh as
     ``make_train_step``: the loss and the norm are global, so the flag is
-    the same bit on every rank."""
+    the same bit on every rank; ``zero_axes`` as there."""
     def train_step(params, opt_state, batch, lr_scale, grad_fault):
         loss, metrics, grads, specs = _loss_and_grads(
             model, params, batch, schedule, mesh, dims, grad_fault)
         om = adamw_update(params, grads, opt_state, opt_cfg,
                           lr_scale=lr_scale, finite=torch.isfinite(loss),
-                          specs=specs, mesh=mesh)
+                          specs=specs, mesh=mesh, zero=zero1_layout(
+                              model, params, mesh, dims, zero_axes))
         del grads
         finite = om.pop("finite")
         return params, opt_state, {**metrics, **om, "loss": loss,

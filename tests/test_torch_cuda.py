@@ -1192,3 +1192,36 @@ def test_kv_cache_serve_path_vs_plain(dev):
     for g, w in zip(got, want):
         assert (g - w).abs().max() <= 1e-4 * max(1.0, w.abs().max())
         assert torch.equal(g.argmax(-1), w.argmax(-1))
+
+
+@pytest.mark.multirank
+def test_dryrun_run_step_on_the_card(dev):
+    """``python -m repro_torch.launch.dryrun --run-step --guards`` on the
+    card: the meta trace of reduced gpt2-moe on the 4x2 test mesh, then
+    one guarded step on its 8 ranks (gloo, sharing the card): rank 0's
+    loss finite, ``nonfinite`` 0, the flash kernel launched on every
+    rank."""
+    import json
+    import math
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"),
+               REPRO_DRYRUN_DEVICES="8")
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "gpt2-moe", "--shape", "train_4k", "--reduced", "--seq", "64",
+         "--batch", "8", "--dtype", "float32", "--run-step", "--guards",
+         "--tag", "cuda_test"], cwd=root, env=env, capture_output=True,
+        text=True, timeout=600)
+    assert r.returncode == 0, (r.stdout + r.stderr)[-3000:]
+    assert "[step] gpt2-moe x train_4k" in r.stdout
+    with open(os.path.join(root, "artifacts", "dryrun_torch",
+                           "gpt2-moe__train_4k__single__cuda_test.json")) \
+            as f:
+        rec = json.load(f)
+    assert math.isfinite(rec["step_metrics"]["loss"])
+    assert rec["robustness"]["nonfinite"] == 0.0
+    assert len(rec["rank_launches"]) == 8
+    assert all(lr["flash_attention"] > 0 for lr in rec["rank_launches"])

@@ -444,35 +444,59 @@ class TestSeam:
 
     def test_no_fallback_off_the_cpu(self):
         # a tensor that is neither on the CPU nor on a card gets no kernel
-        # and no plain version: the wrapper raises
+        # and no plain version: the device rule raises.  A meta tensor
+        # (the dry run) gets the op's meta rule instead: empty outputs of
+        # the kernel's shapes, its FLOPs and bytes charged, no launch
+        from repro_torch.kernels import _build, meta
         x = torch.empty((2, 8), device="meta")
         with pytest.raises(RuntimeError, match="no kernel"):
-            rmsnorm(x, torch.empty((8,), device="meta"))
-        with pytest.raises(RuntimeError, match="no kernel"):
-            expert_ffn_grouped(
+            _build.on_card(x, "rmsnorm")
+        before = (rmsnorm.launches, expert_ffn_grouped.launches)
+        with meta.counting() as acc:
+            y = rmsnorm(x, torch.empty((8,), device="meta"))
+            z = expert_ffn_grouped(
                 x, torch.empty((2, 1), dtype=torch.int32, device="meta"),
                 torch.empty((2, 1), device="meta"),
                 torch.empty((1, 8, 4), device="meta"), None,
                 torch.empty((1, 4, 8), device="meta"), cap=8)
+        assert y.is_meta and y.shape == x.shape and z.is_meta \
+            and z.shape == x.shape
+        assert acc["by_op"]["rmsnorm"] == [1, 4 * 2 * 8, 2 * 2 * 8 * 4 + 32]
+        assert acc["by_op"]["expert_ffn_grouped"][1] == 2 * 2 * 2 * 8 * 4
+        assert (rmsnorm.launches, expert_ffn_grouped.launches) == before
 
     def test_no_fallback_off_the_cpu_for_the_moe_ops(self):
+        # as above: the device rule raises for every op's device check,
+        # and a meta call answers through the meta rule, no launch
+        from repro_torch.kernels import _build, meta
         flat = torch.empty((2, 1), dtype=torch.int32, device="meta")
         w1 = torch.empty((1, 8, 4), device="meta")
         w2 = torch.empty((1, 4, 8), device="meta")
-        calls = [
-            lambda: moe_dispatch(torch.empty((2, 8), device="meta"), flat,
-                                 4),
-            lambda: moe_combine(torch.empty((4, 8), device="meta"), flat,
-                                torch.empty((2, 1), device="meta")),
-            lambda: expert_ffn(torch.empty((1, 3, 8), device="meta"), w1,
-                               None, w2),
-            lambda: expert_ffn_ragged(
+        calls = {
+            "moe_dispatch": (lambda: moe_dispatch(
+                torch.empty((2, 8), device="meta"), flat, 4), (4, 8)),
+            "moe_combine": (lambda: moe_combine(
+                torch.empty((4, 8), device="meta"), flat,
+                torch.empty((2, 1), device="meta")), (2, 8)),
+            "expert_ffn": (lambda: expert_ffn(
+                torch.empty((1, 3, 8), device="meta"), w1, None, w2),
+                (1, 3, 8)),
+            "expert_ffn_ragged": (lambda: expert_ffn_ragged(
                 torch.empty((1, 1, 3, 8), device="meta"),
                 torch.empty((1, 1), dtype=torch.int32, device="meta"), w1,
-                None, w2)]
-        for call in calls:
+                None, w2), (1, 1, 3, 8))}
+        fns = {"moe_dispatch": moe_dispatch, "moe_combine": moe_combine,
+               "expert_ffn": expert_ffn,
+               "expert_ffn_ragged": expert_ffn_ragged}
+        for name, (call, shape) in calls.items():
             with pytest.raises(RuntimeError, match="no kernel"):
-                call()
+                _build.on_card(flat, name)
+            before = fns[name].launches
+            with meta.counting() as acc:
+                out = call()
+            assert out.is_meta and tuple(out.shape) == shape, name
+            assert acc["by_op"][name][0] == 1 and acc["flops"] > 0, name
+            assert fns[name].launches == before, name
 
 
 def _shifted(shape, dtype=torch.float32):

@@ -19,7 +19,8 @@ layers Megatron-style over ``model`` (JAX through GSPMD, the port through
 ``parallel.tensor``'s collectives; ``Model.param_specs`` is JAX's
 ``Model.specs``), so each rank holds its shards of attention, FFN and the
 vocab-parallel embedding.  The capacity factor is the config's (1.2), so
-each rank's pool drops its own rows in both packages.
+each rank's pool drops its own rows in both packages.  The launcher's
+``--multi-pod`` and ``--d-model`` (JAX's flags) last.
 """
 
 import importlib.util
@@ -222,6 +223,50 @@ def test_the_launcher_trains_on_four_ranks():
     assert "ranks: 4 on mesh {'data': 2, 'model': 2} over gloo" in r.stdout
     assert "final loss" in r.stdout
     assert r.stdout.count("final loss") == 1      # rank 0 alone prints
+
+
+def test_the_launcher_trains_on_the_multi_pod_mesh():
+    """``--multi-pod --nproc 8``: eight ranks laid out as (pod, data,
+    model) = (2, 2, 2), pod pure data parallel (``production_dims(
+    multi_pod=True)``), one step."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "gpt2-moe", "--reduced", "--device", "cpu", "--nproc", "8",
+         "--multi-pod", "--dist-backend", "gloo", "--steps", "1", "--seq",
+         "32", "--batch", "8"], env=env, capture_output=True, text=True,
+        timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert ("ranks: 8 on mesh {'pod': 2, 'data': 2, 'model': 2} over gloo"
+            in r.stdout), r.stdout
+    assert r.stdout.count("final loss") == 1
+
+
+def test_the_launchers_d_model_is_jaxs(monkeypatch, capsys):
+    """``--reduced --d-model 128`` builds JAX's ``reduced(n_layers=2,
+    d_model=128)`` (the widths, heads and experts compared)."""
+    from repro.configs import get_config as j_get_config
+    from repro_torch.launch import train as launch_train
+    seen = []
+
+    class Spy(launch_train.Model):
+        def __init__(self, cfg, *a, **kw):
+            seen.append(cfg)
+            super().__init__(cfg, *a, **kw)
+    monkeypatch.setattr(launch_train, "Model", Spy)
+    launch_train.main(["--arch", "qwen3-moe-30b-a3b", "--reduced",
+                       "--d-model", "128", "--device", "cpu", "--steps",
+                       "1", "--seq", "16", "--batch", "2"])
+    assert "final loss" in capsys.readouterr().out
+    want = j_get_config("qwen3-moe-30b-a3b").reduced(n_layers=2,
+                                                     d_model=128)
+    (got,) = seen
+    for f in ("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim",
+              "d_ff", "vocab_size"):
+        assert getattr(got, f) == getattr(want, f), f
+    for f in ("d_model", "d_ff", "n_experts", "top_k"):
+        assert getattr(got.moe, f) == getattr(want.moe, f), f
+    assert got.d_model == 128
 
 
 @pytest.mark.parametrize("flags", [
