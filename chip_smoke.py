@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--phases 1,2,12]
 
 ``--phases`` runs the named phases, the ones they need and 1 and 2 (the
-kernels line, phase 15, only on a full run); by default every phase runs
+kernels line, phase 16, only on a full run); by default every phase runs
 once.  Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 repository's ``src/`` next to this file; imports nothing of JAX.  Phases,
 each fatal on error (nothing is caught, nothing falls back to the CPU or
@@ -281,7 +281,27 @@ to a plain version):
      meta record's; each kernel's launches per rank (paths
      ``dryrun_4x2_gpt2_moe`` and ``dryrun_4x2_qwen1.5_zero1``); the
      phase's seconds beside ``P14_LIMIT_S``;
- 15. print the kernels' JSON line (each kernel's launches on its main path
+ 15. the recurrent zoo: hymba-1.5b (32 hymba layers: attention with a
+     1024-token window and 25 / 5 heads beside a Mamba head) and
+     xlstm-350m (24 layers, an sLSTM every 8th among mLSTMs) at full
+     size, random weights from a seed, each freed before the next: (a)
+     ``RZOO_ROWS`` rows, ``RZOO_PROMPT`` prompt tokens through
+     ``decode_step`` and ``RZOO_GEN`` greedy ``make_serve_step`` steps
+     (the recurrent states written in place), every step's logits within
+     ``RZOO_TOL`` of the scale of ``Model.forward``'s over the same tokens
+     with the same greedy tokens, rmsnorm's launches per decode step as
+     predicted and flash's none (decode attention is plain code, as in
+     JAX; paths ``serve_hymba`` / ``serve_xlstm``); (b) ``RZOO``'s
+     training steps at 1 x 2048 through ``train`` (kernels vs plain
+     versions, then hymba 3 steps and xlstm 2 on one batch with a finite,
+     falling loss; paths ``train_hymba`` / ``train_xlstm``), rmsnorm and
+     flash launches per step as ``rzoo_launches`` predicts (hymba 8 a
+     layer + 1 and 2 a layer; xlstm 2 a layer + 1 and none); (c) xlstm's
+     sLSTM layers' share of its step (one layer's forward and backward
+     timed, ``slstm_share``); each config's parameter GB, ms/step,
+     tokens/s, decode tok/s and peak memory, and the phase's seconds
+     beside ``P15_LIMIT_S``;
+ 16. print the kernels' JSON line (each kernel's launches on its main path
      and the phase-3 row at that path's shapes, under ``by_path`` every
      path's launches beside the phase-3 row at that path's shapes, and
      under ``multirank`` each phase-12 path's launches per rank, (i)'s
@@ -365,8 +385,9 @@ def check_rmsnorm(dev):
     # (label, rows, width, dtype, tol): f32 differs by rounding and rsqrt
     # ulps; bf16 output may differ by one bf16 ulp (2^-8 relative).  Then
     # phase 13's widths: decode at 5120 (llama4, mistral-nemo), 4096 (yi)
-    # and 1024 (qwen1.5), qwen1.5's training step, and 13 (c)'s prefill
-    # of 4 x 2048 rows at 5120.
+    # and 1024 (qwen1.5; xlstm's in phase 15), qwen1.5's training step
+    # (xlstm's shape too), 13 (c)'s prefill of 4 x 2048 rows at 5120, and
+    # phase 15's hymba at 1600: its training step and its decode rows.
     f32 = torch.float32
     for label, R, D, dt, tol in (("decode", 8, 2048, f32, 1e-5),
                                  ("prefill128", 128, 2048, f32, 1e-5),
@@ -377,7 +398,9 @@ def check_rmsnorm(dev):
                                  ("decode-4096", 8, 4096, f32, 1e-5),
                                  ("decode-1024", 8, 1024, f32, 1e-5),
                                  ("train-qwen1.5", 2048, 1024, f32, 1e-5),
-                                 ("prefill-5120", 8192, 5120, f32, 1e-5)):
+                                 ("prefill-5120", 8192, 5120, f32, 1e-5),
+                                 ("train-hymba", 2048, 1600, f32, 1e-5),
+                                 ("decode-1600", 8, 1600, f32, 1e-5)):
         x = torch.randn((R, D), generator=g, device=dev).to(dt)
         scale = 1.0 + 0.1 * torch.randn((D,), generator=g, device=dev)
         err = compare(f"rmsnorm[{label}]", rmsnorm(x, scale, eps=1e-6),
@@ -532,8 +555,11 @@ def check_flash(dev):
     # llama4 at full width on one card), phase 13 (c)'s KV-cache
     # prefill of mistral-nemo (4 x 2048, 32 / 8 x 128) and phase 12 (k)'s
     # on one rank of (2, 2) (16 / 4 heads a rank: B=1 at 1 x 16384, B=2
-    # at 1 x 2048).  f32: sums of up to L terms in another order, and the
-    # online softmax's per-tile rescaling; bf16 output: one bf16 ulp.
+    # at 1 x 2048), and phase 15's hymba training step (25 / 5 x 64: a GQA
+    # group of 5, a 1024-token window; the bound counts in-window pairs,
+    # SDPA takes the same mask).  f32: sums of up to L terms in another
+    # order, and the online softmax's per-tile rescaling; bf16 output: one
+    # bf16 ulp.
     cases = (("qwen3", 1, 2048, 32, 4, 128, torch.float32, True, None, 5e-5),
              ("gpt2-moe", 8, 1024, 12, 12, 64, torch.float32, True, None,
               5e-5),
@@ -552,7 +578,9 @@ def check_flash(dev):
              ("mistral-nemo-16k-rank", 1, 16384, 16, 4, 128, torch.float32,
               True, None, 5e-5),
              ("mistral-nemo-2k-rank", 1, 2048, 16, 4, 128, torch.float32,
-              True, None, 5e-5))
+              True, None, 5e-5),
+             ("hymba", 1, 2048, 25, 5, 64, torch.float32, True, 1024,
+              5e-5))
     for label, B, L, H, K, hd, dt, causal, window, tol in cases:
         q = torch.randn((B, L, H, hd), generator=g, device=dev).to(dt)
         k = torch.randn((B, L, K, hd), generator=g, device=dev).to(dt)
@@ -1038,13 +1066,28 @@ def reference_step(model, params, batch, schedule=None, grad_rtol=1e-3):
     return out
 
 
+class _OneBatch:
+    """``data`` (a ``SyntheticLM``) with batch 0 at every step."""
+
+    def __init__(self, data):
+        self.data = data
+
+    def tensors(self, step, device):
+        return self.data.tensors(0, device)
+
+
 def train(label, cfg, dev, *, batch, seq, steps, lr, uses, schedule=None,
-          per_step=None, grad_rtol=1e-3):
-    """Phases 7 and 8: ``reference_step``, then ``steps`` AdamW steps
-    through ``Trainer`` under ``schedule`` with the kernels' counts set to 0
-    just before.  Every kernel in ``uses`` must launch; ``per_step`` maps
-    kernels to their predicted launches per step, which must hold exactly.
-    Returns the launches of the run by kernel."""
+          per_step=None, grad_rtol=1e-3, with_ms=False, repeat=True,
+          one_batch=False):
+    """Phases 7 and 8: the first step taken twice and once guarded from one
+    state, all bitwise (``repeat``), ``reference_step``, then ``steps``
+    AdamW steps through ``Trainer`` under ``schedule`` with the kernels'
+    counts set to 0 just before (``one_batch``: every step on batch 0, so
+    that the falling loss reads the optimizer, not the batches' spread).
+    Every kernel in ``uses`` must launch; ``per_step`` maps kernels to
+    their predicted launches per step, which must hold exactly.  Returns
+    the launches of the run by kernel (``with_ms``: and the ms a step
+    after the first)."""
     import math
 
     import torch
@@ -1074,7 +1117,7 @@ def train(label, cfg, dev, *, batch, seq, steps, lr, uses, schedule=None,
             reset_fp8_counter()
 
     bad, bad_guarded = first_steps(tr, data.tensors(0, dev), [
-        tr.train_step, tr.train_step, guarded_clean])
+        tr.train_step, tr.train_step, guarded_clean]) if repeat else ([], [])
     if bad:
         raise AssertionError(f"{label}: the first step taken twice from "
                              f"the same state differs in tensors {bad} of "
@@ -1097,15 +1140,17 @@ def train(label, cfg, dev, *, batch, seq, steps, lr, uses, schedule=None,
     (lk, gk), (lp, gp) = reference_step(model, params, data.tensors(0, dev),
                                         schedule, grad_rtol)
     log(f"  {label}: one step from the same parameters: loss {lk:.6f} "
-        f"(kernels) vs {lp:.6f} (plain), grad norm {gk:.6f} vs {gp:.6f}; "
-        f"the first step taken twice, and once guarded (lr_scale 1.0, "
-        f"grad_fault 0.0, fp8 monitor on): all {3 * n_leaves} parameter "
-        f"and moment tensors, the step counter and the loss torch.equal")
+        f"(kernels) vs {lp:.6f} (plain), grad norm {gk:.6f} vs {gp:.6f}"
+        + ("; the first step taken twice, and once guarded (lr_scale 1.0, "
+           f"grad_fault 0.0, fp8 monitor on): all {3 * n_leaves} parameter "
+           "and moment tensors, the step counter and the loss torch.equal"
+           if repeat else ""))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     wrappers = reset_counts()
-    params, opt_state, hist = tr.run(params, opt_state, data, steps,
-                                     log_every=1)
+    params, opt_state, hist = tr.run(
+        params, opt_state, _OneBatch(data) if one_batch else data, steps,
+        log_every=1)
     torch.cuda.synchronize()
     launches = read_counts(wrappers)
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -1118,7 +1163,7 @@ def train(label, cfg, dev, *, batch, seq, steps, lr, uses, schedule=None,
         f"{ {k: v / steps for k, v in launches.items()} }")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{label}: non-finite loss in {losses}")
-    if not sum(losses[-3:]) / 3 < losses[0]:
+    if not sum(losses[-3:]) / len(losses[-3:]) < losses[0]:
         raise AssertionError(f"{label}: loss did not fall: {losses}")
     if any(launches[name] <= 0 for name in uses):
         raise AssertionError(f"{label}: a kernel of the path was never "
@@ -1130,7 +1175,7 @@ def train(label, cfg, dev, *, batch, seq, steps, lr, uses, schedule=None,
                                  f"{n} per step")
     del params, opt_state, tr, model
     torch.cuda.empty_cache()
-    return launches
+    return (launches, step_ms) if with_ms else launches
 
 
 # --- phase 9: guarded training -----------------------------------------------
@@ -4650,12 +4695,183 @@ def dry_run(dev):
             "dryrun_4x2_qwen1.5_zero1": {
                 k: [r["launches"][k] for r in ranks] for k in names}}
 
+# --- phase 15: the recurrent zoo -------------------------------------------
+
+#: the two recurrent configs, each at its full size: each path's tag, and
+#: its training steps and their learning rate, every step on one batch
+#: (``train``'s ``one_batch``: at 2048 tokens the batches' losses spread
+#: by ~0.03 nats, as much as xlstm's first steps move it).  The first step
+#: is not taken twice here (``repeat``): xlstm's step is bound by the
+#: host, ~15 s, and the phase's limit holds ~5 of them
+RZOO = (("hymba-1.5b", "hymba", 3, 1e-4), ("xlstm-350m", "xlstm", 2, 1e-3))
+#: serving: rows, prompt tokens fed through ``decode_step``, greedy tokens
+#: through ``make_serve_step``
+RZOO_ROWS, RZOO_PROMPT, RZOO_GEN = 8, 64, 32
+#: every decode step's logits against ``Model.forward`` over the same
+#: tokens, of the logits' scale: f32 sums in other orders over 24-32
+#: layers, the recurrences stepped where the forward scans by chunk
+RZOO_TOL = 1e-3
+P15_LIMIT_S = 75.0
+
+
+def rzoo_launches(cfg, decode=False):
+    """Each kernel's predicted launches in one training step (the forward
+    and remat's second forward run the kernels; their backward is the plain
+    recompute) or in one decode step: ``rmsnorm`` for every norm of a
+    layer (hymba 4, an mLSTM 1, an sLSTM 1 without FFN) and the final one,
+    ``flash_attention`` once a hymba layer's forward (decode attention is
+    plain code, as in JAX)."""
+    from repro_torch.models.blocks import base_kind
+    norms = {"hymba": 4, "mlstm": 1, "slstm": 1 if not cfg.d_ff else 2}
+    per = 1 if decode else 2
+    n_norm = sum(norms[base_kind(k)] * n for k, n in cfg.runs())
+    n_attn = sum(n for k, n in cfg.runs() if base_kind(k) == "hymba")
+    return {"rmsnorm": per * n_norm + 1,
+            "flash_attention": 0 if decode else 2 * n_attn,
+            "expert_ffn_grouped": 0, "moe_dispatch": 0}
+
+
+def rzoo_serve(model, params, dev):
+    """``RZOO_ROWS`` rows: ``RZOO_PROMPT`` prompt tokens through
+    ``decode_step``, then ``RZOO_GEN`` greedy ``make_serve_step`` steps, the
+    launches counted over both; every step's logits against
+    ``Model.forward`` over the prompt and the greedy tokens (``RZOO_TOL``),
+    the same greedy tokens.  Returns the launches."""
+    import numpy as np
+    import torch
+    from repro_torch.train import make_serve_step
+    cfg = model.cfg
+    B, P, G = RZOO_ROWS, RZOO_PROMPT, RZOO_GEN
+    toks = torch.from_numpy(np.random.RandomState(151).randint(
+        0, cfg.vocab_size, (B, P))).to(dev)
+    tap = _LogitsTap(model)
+    serve_step = make_serve_step(tap)
+    cache = model.init_cache(B, P + G)
+    wrappers = reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for t in range(P):
+            tap.decode_step(params, cache, {"tokens": toks[:, t:t + 1],
+                                            "step": t})
+        torch.cuda.synchronize()
+        t_prompt = time.perf_counter() - t0
+        tok = tap.seen[-1].argmax(-1).to(torch.int32)[:, None]
+        stream = [tok]
+        t0 = time.perf_counter()
+        for t in range(P, P + G):
+            tok, cache = serve_step(params, cache, {"tokens": tok,
+                                                    "step": t})
+            stream.append(tok)
+        torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    launches = read_counts(wrappers)
+    n_steps = P + G
+    want_launch = {k: v * n_steps for k, v in rzoo_launches(
+        cfg, decode=True).items()}
+    if any(launches[k] != v for k, v in want_launch.items()) or \
+            launches["flash_attention"]:
+        raise AssertionError(f"phase 15 {cfg.name} serving: launches "
+                             f"{launches}, predicted {want_launch}")
+    stream = torch.cat(stream, 1).long()
+    got = torch.stack(tap.seen, 1)                       # (B, P + G, V)
+    full = torch.cat([toks, stream[:, :-1]], 1)
+    with torch.no_grad():
+        want, _ = model.forward(params, {"tokens": full})
+    err = compare(f"phase 15 {cfg.name}: decode logits vs Model.forward",
+                  got, want, RZOO_TOL)
+    scale = max(1.0, want.abs().max().item())
+    if not torch.equal(want[:, P - 1:].argmax(-1), stream):
+        raise AssertionError(f"phase 15 {cfg.name}: greedy tokens differ "
+                             "between the serve steps and Model.forward")
+    del got, want, cache
+    log(f"    serving {B} rows: {P} prompt tokens through decode_step in "
+        f"{t_prompt:.3f} s ({B * P / t_prompt:.1f} tok/s), {G} greedy "
+        f"make_serve_step steps in {t_gen:.3f} s ({B * G / t_gen:.1f} "
+        f"tok/s, {t_gen / G * 1e3:.2f} ms a step); every step's "
+        f"logits vs Model.forward max_abs_err {err:.3e} (tol {RZOO_TOL:g} "
+        f"* {scale:.3g}), greedy tokens equal; launches "
+        f"{({k: v for k, v in launches.items() if v})} "
+        f"({ {k: v // n_steps for k, v in launches.items() if v} } a step)")
+    return launches
+
+
+def slstm_share(cfg, dev, step_ms):
+    """The share of one training step (``step_ms``) spent in the sLSTM
+    layers: one sLSTM layer's forward under remat and its backward (the
+    recompute, then the plain backward) at 1 x 2048, timed once on the
+    host clock after the training steps (nothing left to warm up), times
+    the sLSTM layers.  Returns (layer ms, share)."""
+    import torch
+    from torch.utils.checkpoint import checkpoint
+    from repro_torch.models import Model
+    from repro_torch.models.model import layer_view
+    model = Model(cfg, device=dev)
+    r = next(i for i, (k, _) in enumerate(model.runs) if k == "slstm")
+    n_slstm = sum(n for k, n in model.runs if k == "slstm")
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    p = layer_view(params[f"run{r}"], 0)
+    for t in p["slstm"].values():
+        t.requires_grad_(True)
+    x = torch.randn((1, 2048, cfg.d_model), device=dev, requires_grad=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y, _, _ = checkpoint(model._layer, p, "slstm", x, None,
+                         use_reentrant=False)
+    y.sum().backward()
+    torch.cuda.synchronize()
+    layer_ms = (time.perf_counter() - t0) * 1e3
+    del model, params, p, x, y
+    torch.cuda.empty_cache()
+    return layer_ms, n_slstm * layer_ms / step_ms
+
+
+def recurrent_zoo(dev):
+    """Phase 15 (see the module docstring).  Returns the launches of each
+    serving and training path by kernel."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    paths = {}
+    for arch, tag, steps, lr in RZOO:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        torch.cuda.reset_peak_memory_stats()
+        model = Model(cfg, device=dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+        log(f"  {arch}: full size, {cfg.n_layers} layers {model.runs}: "
+            f"{n_bytes / 1e9:.2f} GB of parameters made in "
+            f"{time.perf_counter() - t0:.2f} s")
+        paths[f"serve_{tag}"] = rzoo_serve(model, params, dev)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del model, params
+        torch.cuda.empty_cache()
+        per_step = rzoo_launches(cfg)
+        uses = tuple(k for k in ("rmsnorm", "flash_attention")
+                     if per_step[k])
+        launches, step_ms = train(tag, cfg, dev, batch=1, seq=2048,
+                                  steps=steps, lr=lr, uses=uses,
+                                  per_step=per_step, with_ms=True,
+                                  repeat=False, one_batch=True)
+        paths[f"train_{tag}"] = launches
+        peak = max(peak, torch.cuda.max_memory_allocated() / 1e9)
+        if any(k == "slstm" for k, _ in cfg.runs()):
+            layer_ms, share = slstm_share(cfg, dev, step_ms)
+            log(f"    one sLSTM layer's forward and backward at 1 x 2048: "
+                f"{layer_ms:.1f} ms (host clock); the sLSTM layers' share "
+                f"of the step: {share:.3f}")
+        log(f"    {arch} in {time.perf_counter() - t0:.1f} s, peak device "
+            f"memory {peak:.2f} GB")
+    return paths
+
 
 #: the phases, and the ones each needs to have run before it (their model,
 #: prompts, reference runs or launch counts); 1 and 2 (the card, the
-#: build) always run, and 15 (the kernels line) only when every phase did
-PHASES = tuple(range(1, 16))
-PHASE_NEEDS = {5: (4,), 9: (7, 8), 10: (4, 5, 6), 11: (4, 6), 15: PHASES[:14]}
+#: build) always run, and 16 (the kernels line) only when every phase did
+PHASES = tuple(range(1, 17))
+PHASE_NEEDS = {5: (4,), 9: (7, 8), 10: (4, 5, 6), 11: (4, 6), 16: PHASES[:15]}
 
 
 def parse_phases(argv=None) -> set:
@@ -4777,6 +4993,13 @@ SHAPE_OF[("rmsnorm", "serve_measured")] = "decode"
 SHAPE_OF.update({("flash_attention", "serve_mistral_nemo_cache"):
                  "mistral-nemo-prefill",
                  ("rmsnorm", "serve_mistral_nemo_cache"): "decode-5120"})
+# phase 15: hymba's training step (flash with its window and group of 5,
+# rmsnorm at 1600) and decode rows; xlstm's at 1024 (qwen1.5's shapes)
+SHAPE_OF.update({("rmsnorm", "train_hymba"): "train-hymba",
+                 ("flash_attention", "train_hymba"): "hymba",
+                 ("rmsnorm", "serve_hymba"): "decode-1600",
+                 ("rmsnorm", "train_xlstm"): "train-qwen1.5",
+                 ("rmsnorm", "serve_xlstm"): "decode-1024"})
 #: (kernel, multi-rank path) -> the phase-3 row at the shapes one rank's
 #: launches take there: phase 12 (k)'s prefill on one rank of (2, 2) (16 /
 #: 4 heads; B=1 one row of 16384, B=2 one row of 2048 a data rank) and its
@@ -5092,6 +5315,16 @@ def main(argv=None) -> int:
         log(f"  phase 14 in {time.perf_counter() - t0:.1f} s (limit "
             f"{P14_LIMIT_S:.0f} s)")
 
+    if 15 in phases:
+        # 15. the recurrent zoo: hymba-1.5b and xlstm-350m at full size
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        log(f"phase 15: the recurrent zoo, hymba-1.5b and xlstm-350m at full "
+            f"size (predicted ~95 s, limit {P15_LIMIT_S:.0f} s)")
+        path_launches.update(recurrent_zoo(dev))
+        log(f"  phase 15 in {time.perf_counter() - t0:.1f} s (limit "
+            f"{P15_LIMIT_S:.0f} s)")
+
     if phases != set(PHASES):
         log(f"chip_smoke: phases {sorted(phases)} passed in "
             f"{time.perf_counter() - t_start:.1f} s (a selection: no "
@@ -5100,7 +5333,7 @@ def main(argv=None) -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
-    # 15. results.  Each kernel's top-level numbers are those of its main
+    # 16. results.  Each kernel's top-level numbers are those of its main
     # path (KERNELS): its launches there, counted from 0 just before the
     # run, and the phase-3 row at the shapes that path gives it.
     # ``by_path`` pairs every path's launches with the phase-3 row at that

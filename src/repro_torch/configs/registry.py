@@ -1,7 +1,7 @@
 """Architecture registry: ``--arch <id>`` resolution for the port's
 launchers, in the JAX registry's order.  Only the architectures whose
-block kinds the port runs are listed; the JAX package's others (hymba,
-llama-3.2-vision, whisper, xlstm) come with the slices that run them.
+block kinds the port runs are listed; the JAX package's others
+(llama-3.2-vision, whisper) come with the slice that runs them.
 ``ASSIGNED`` is JAX's ``ASSIGNED`` (its first ten) in its order, cut to
 the archs listed here: what the dry run's ``--all`` covers."""
 from importlib import import_module
@@ -10,6 +10,8 @@ _MODULES = {
     "yi-9b": "repro_torch.configs.yi_9b",
     "mistral-nemo-12b": "repro_torch.configs.mistral_nemo_12b",
     "llama4-scout-17b-a16e": "repro_torch.configs.llama4_scout_17b_a16e",
+    "hymba-1.5b": "repro_torch.configs.hymba_1p5b",
+    "xlstm-350m": "repro_torch.configs.xlstm_350m",
     "command-r-35b": "repro_torch.configs.command_r_35b",
     "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
     "qwen1.5-0.5b": "repro_torch.configs.qwen1_5_0p5b",

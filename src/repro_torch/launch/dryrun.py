@@ -355,6 +355,7 @@ def dry_one(arch: str, shape_name: str, multi_pod: bool,
     from repro_torch.launch.mesh import (dims_for, fake_world,
                                          make_production_mesh,
                                          make_test_mesh)
+    from repro_torch.models.blocks import refuse_mesh
     from repro_torch.models.model import Model
     if save_hlo:
         raise ValueError("--save-hlo: the port traces eager PyTorch on "
@@ -368,6 +369,7 @@ def dry_one(arch: str, shape_name: str, multi_pod: bool,
     if cfg is None:
         return {"arch": arch, "shape": shape_name, "mesh": mesh_name,
                 "skipped": variant}
+    refuse_mesh(cfg.name, cfg.layer_kinds())
     if dist.is_initialized():
         raise RuntimeError("the dry run starts its own fake "
                            "torch.distributed world; one is running")

@@ -1,8 +1,16 @@
 """Decoder blocks (counterpart of ``repro/models/blocks.py``): the
-``dense`` and ``moe`` kinds (and their ``_full`` variants), init, the
-partition specs ``block_specs``, the training forward ``apply_block``,
-the serving engine's paged forward and the KV-cache serve path's
-``init_block_cache``, ``prefill_block`` and ``decode_block``."""
+``dense`` and ``moe`` kinds (and their ``_full`` variants) and the
+recurrent kinds ``hymba`` (attention beside a Mamba head), ``mlstm`` and
+``slstm`` (``models/ssm.py``); init, the partition specs
+``block_specs``, the training forward ``apply_block``, the serving
+engine's paged forward and the KV-cache serve path's
+``init_block_cache``, ``prefill_block`` and ``decode_block``.
+
+The recurrent kinds run on one rank, through ``apply_block``,
+``init_block_cache`` and ``decode_block``; ``prefill_block`` and
+``paged_block`` refuse them, as JAX's do.  On a mesh they raise
+(:func:`refuse_mesh`, ROADMAP 7d-mesh), while ``block_specs`` gives
+JAX's specs for them."""
 
 from __future__ import annotations
 
@@ -11,12 +19,17 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.moe import apply_moe, init_moe_params, moe_param_specs
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import AttnConfig
 from repro_torch.models.layers import (apply_ffn, apply_norm, ffn_specs,
                                        init_ffn, init_norm, norm_specs)
 
-#: Block kinds this slice runs.
-KINDS = ("dense", "moe")
+#: Block kinds the port runs.
+KINDS = ("dense", "moe", "hymba", "mlstm", "slstm")
+#: the kinds with a recurrent state, which run on one rank only
+RECURRENT = ("hymba", "mlstm", "slstm")
+#: the kinds JAX's cache-filling prefill, paged step and engine take
+ATTENTION_ONLY = ("dense", "moe")
 
 
 def base_kind(kind: str) -> str:
@@ -39,37 +52,99 @@ def _check_kind(kind: str) -> None:
     if base_kind(kind) not in KINDS:
         raise NotImplementedError(
             f"block kind {kind!r} comes with a later slice of the port "
-            f"(this slice runs {KINDS})")
+            f"(the port runs {KINDS})")
+
+
+def refuse_mesh(name: str, kinds) -> None:
+    """Raise where ``kinds`` (a model's layer kinds) hold a recurrent one:
+    on a mesh the port runs none of them yet."""
+    bad = sorted({base_kind(k) for k in kinds} & set(RECURRENT))
+    if bad:
+        raise NotImplementedError(
+            f"{name}: the recurrent block kinds {bad} run on one rank; on "
+            "a mesh they come with ROADMAP 7d-mesh (the Megatron split of "
+            "d_inner, cache_specs for the states, the dry run)")
+
+
+def _has_attn(base: str) -> bool:
+    return base in ("dense", "moe", "hymba")
+
+
+def _has_ffn(base: str) -> bool:
+    return base != "mlstm"
+
+
+def _ffn_width(cfg: ModelConfig, base: str) -> int:
+    if base == "slstm" and not cfg.d_ff:
+        return int(cfg.d_model * 4 / 3)
+    return cfg.d_ff
+
+
+def _mamba_cfg(cfg: ModelConfig) -> ssm_mod.MambaConfig:
+    return ssm_mod.MambaConfig(
+        d_model=cfg.d_model, d_inner=int(cfg.d_model * cfg.ssm_expand),
+        d_state=cfg.ssm_state, d_conv=cfg.ssm_conv)
+
+
+def _mlstm_cfg(cfg: ModelConfig) -> ssm_mod.MLSTMConfig:
+    return ssm_mod.MLSTMConfig(d_model=cfg.d_model, n_heads=cfg.n_kv_heads)
+
+
+def _slstm_cfg(cfg: ModelConfig) -> ssm_mod.SLSTMConfig:
+    return ssm_mod.SLSTMConfig(d_model=cfg.d_model, n_heads=cfg.n_kv_heads)
 
 
 def init_block(generator, cfg: ModelConfig, kind: str, dtype) -> dict:
+    """One layer's parameters, in JAX's key order: ``norm1``, ``attn``,
+    ``mamba``, ``norm_a``, ``norm_s``, ``mlstm``, ``slstm``, then ``moe``
+    or ``ffn``, and ``norm2``."""
     _check_kind(kind)
     dev = generator.device
-    p = {"norm1": init_norm(cfg.d_model, cfg.norm_type, dev),
-         "attn": attn_mod.init_attn(generator, attn_config(cfg, kind),
-                                    dtype)}
-    if base_kind(kind) == "moe":
+    base = base_kind(kind)
+    p = {"norm1": init_norm(cfg.d_model, cfg.norm_type, dev)}
+    if _has_attn(base):
+        p["attn"] = attn_mod.init_attn(generator, attn_config(cfg, kind),
+                                       dtype)
+    if base == "hymba":
+        p["mamba"] = ssm_mod.init_mamba(generator, _mamba_cfg(cfg), dtype)
+        p["norm_a"] = init_norm(cfg.d_model, cfg.norm_type, dev)
+        p["norm_s"] = init_norm(cfg.d_model, cfg.norm_type, dev)
+    if base == "mlstm":
+        p["mlstm"] = ssm_mod.init_mlstm(generator, _mlstm_cfg(cfg), dtype)
+    if base == "slstm":
+        p["slstm"] = ssm_mod.init_slstm(generator, _slstm_cfg(cfg), dtype)
+    if base == "moe":
         p["moe"] = init_moe_params(generator, cfg.moe, dtype)
         p["norm2"] = init_norm(cfg.d_model, cfg.norm_type, dev)
-    elif cfg.d_ff:
-        p["ffn"] = init_ffn(generator, cfg.d_model, cfg.d_ff, glu=cfg.glu,
-                            bias=cfg.ffn_bias, dtype=dtype)
+    elif _has_ffn(base) and cfg.d_ff:
+        p["ffn"] = init_ffn(generator, cfg.d_model, _ffn_width(cfg, base),
+                            glu=cfg.glu, bias=cfg.ffn_bias, dtype=dtype)
         if not cfg.parallel_block:
             p["norm2"] = init_norm(cfg.d_model, cfg.norm_type, dev)
     return p
 
 
 def block_specs(cfg: ModelConfig, kind: str, mesh, dims) -> dict:
-    """The JAX function for the ``dense`` and ``moe`` kinds."""
+    """The JAX function for the kinds the port runs."""
     _check_kind(kind)
     mp = dims.mp
-    s = {"norm1": norm_specs(cfg.norm_type),
-         "attn": attn_mod.attn_specs(mesh, mp, attn_config(cfg, kind))}
-    if base_kind(kind) == "moe":
+    base = base_kind(kind)
+    s = {"norm1": norm_specs(cfg.norm_type)}
+    if _has_attn(base):
+        s["attn"] = attn_mod.attn_specs(mesh, mp, attn_config(cfg, kind))
+    if base == "hymba":
+        s["mamba"] = ssm_mod.mamba_specs(mesh, mp, _mamba_cfg(cfg))
+        s["norm_a"] = norm_specs(cfg.norm_type)
+        s["norm_s"] = norm_specs(cfg.norm_type)
+    if base == "mlstm":
+        s["mlstm"] = ssm_mod.mlstm_specs(mesh, mp, _mlstm_cfg(cfg))
+    if base == "slstm":
+        s["slstm"] = ssm_mod.slstm_specs(mesh, mp, _slstm_cfg(cfg))
+    if base == "moe":
         s["moe"] = moe_param_specs(cfg.moe, mesh, dims)
         s["norm2"] = norm_specs(cfg.norm_type)
-    elif cfg.d_ff:
-        s["ffn"] = ffn_specs(mesh, mp, cfg.d_ff, glu=cfg.glu,
+    elif _has_ffn(base) and cfg.d_ff:
+        s["ffn"] = ffn_specs(mesh, mp, _ffn_width(cfg, base), glu=cfg.glu,
                              bias=cfg.ffn_bias)
         if not cfg.parallel_block:
             s["norm2"] = norm_specs(cfg.norm_type)
@@ -104,6 +179,10 @@ def apply_block(p, cfg: ModelConfig, kind: str, x, *, positions=None,
     aux = {"loss": torch.zeros((), dtype=torch.float32, device=x.device),
            "expert_load": torch.zeros((0,), dtype=torch.float32,
                                       device=x.device)}
+    if base_kind(kind) in RECURRENT:
+        if mesh is not None or tp is not None:
+            refuse_mesh(cfg.name, [kind])
+        return _recurrent(p, cfg, kind, x, positions=positions), aux
     h = apply_norm(p["norm1"], x, eps, cfg.kernel)
     if tp is None:
         a = attn_mod.apply_attn(p["attn"], acfg, h, positions=positions,
@@ -128,6 +207,45 @@ def apply_block(p, cfg: ModelConfig, kind: str, x, *, positions=None,
     else:
         y = _ffn(p["ffn"], cfg, h2, tp)
     return x + y, aux
+
+
+def _recurrent(p, cfg: ModelConfig, kind: str, x, cache=None, step=None, *,
+               positions=None):
+    """A recurrent block (JAX's ``apply_block`` / ``decode_block`` for
+    ``hymba``, ``mlstm`` and ``slstm``).  With ``cache`` it is one decode
+    token: the attention's K/V and the recurrent state are written into
+    ``cache`` in place.  Returns the block's output."""
+    base = base_kind(kind)
+    eps = cfg.norm_eps
+
+    def norm(pn, h):
+        return apply_norm(pn, h, eps, cfg.kernel)
+
+    def cell(name, fn, ssm_cfg, h):
+        if cache is None:
+            return fn(p[name], ssm_cfg, h)
+        y, st = fn(p[name], ssm_cfg, h, state=cache[name])
+        for dst, src in zip(cache[name], st):
+            dst.copy_(src)
+        return y
+
+    h = norm(p["norm1"], x)
+    if base == "hymba":
+        acfg = attn_config(cfg, kind)
+        if cache is None:
+            a = attn_mod.apply_attn(p["attn"], acfg, h, positions=positions,
+                                    kernel=cfg.kernel)
+        else:
+            a = attn_mod.decode_attn(p["attn"], acfg, h, cache["attn"], step)
+        s = cell("mamba", ssm_mod.apply_mamba, _mamba_cfg(cfg), h)
+        x = x + 0.5 * (norm(p["norm_a"], a) + norm(p["norm_s"], s))
+        return x + apply_ffn(p["ffn"], norm(p["norm2"], x), cfg.ffn_act)
+    if base == "mlstm":
+        return x + cell("mlstm", ssm_mod.apply_mlstm, _mlstm_cfg(cfg), h)
+    x = x + cell("slstm", ssm_mod.apply_slstm, _slstm_cfg(cfg), h)
+    if "ffn" in p:
+        x = x + apply_ffn(p["ffn"], norm(p["norm2"], x), cfg.ffn_act)
+    return x
 
 
 def _cached_block(p, cfg: ModelConfig, kind: str, x, attend, *, schedule,
@@ -176,6 +294,10 @@ def paged_block(p, cfg: ModelConfig, kind: str, x, cache, table, starts,
     ``apply_block``; the MoE layer takes the pool replicated
     (``apply_moe(replicated=True)``), runs this rank's tokens and returns
     the pool's output on every rank."""
+    if base_kind(kind) not in ATTENTION_ONLY:
+        raise NotImplementedError(
+            f"paged_block: kind {kind!r} has no paged-cache path "
+            "(serving engine supports dense/moe decoder stacks)")
     out, load = _cached_block(
         p, cfg, kind, x,
         lambda pa, acfg, h, tp: attn_mod.paged_chunk_attn(
@@ -187,12 +309,25 @@ def paged_block(p, cfg: ModelConfig, kind: str, x, cache, table, starts,
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      dtype, device, **shard) -> dict:
-    """This layer's decode cache ``{"attn": {"k", "v", "pos"}}``
+    """This layer's decode cache: ``{"attn": {"k", "v", "pos"}}``
     (``attention.init_cache``; ``shard``: its ``kv_heads`` and
-    ``w_shards``)."""
+    ``w_shards``) where it attends, and JAX's recurrent state tuples
+    beside or instead of it: ``"mamba"`` ``(conv_buf, h)``, ``"mlstm"``
+    ``(C, n, m)``, ``"slstm"`` ``(c, n, h, m)``."""
     _check_kind(kind)
-    return {"attn": attn_mod.init_cache(attn_config(cfg, kind), batch,
-                                        max_len, dtype, device, **shard)}
+    base = base_kind(kind)
+    c = {}
+    if _has_attn(base):
+        c["attn"] = attn_mod.init_cache(attn_config(cfg, kind), batch,
+                                        max_len, dtype, device, **shard)
+    if base == "hymba":
+        c["mamba"] = ssm_mod.init_mamba_state(_mamba_cfg(cfg), batch, dtype,
+                                              device)
+    if base == "mlstm":
+        c["mlstm"] = ssm_mod.init_mlstm_state(_mlstm_cfg(cfg), batch, device)
+    if base == "slstm":
+        c["slstm"] = ssm_mod.init_slstm_state(_slstm_cfg(cfg), batch, device)
+    return c
 
 
 def prefill_block(p, cfg: ModelConfig, kind: str, x, cache, lengths, *,
@@ -204,6 +339,10 @@ def prefill_block(p, cfg: ModelConfig, kind: str, x, cache, lengths, *,
     ``x`` is this rank's rows of the batch (the whole batch on every rank
     with ``replicated``), ``tp`` and ``wgrp`` as ``prefill_attn`` takes
     them.  Returns the block's output."""
+    if base_kind(kind) not in ATTENTION_ONLY:
+        raise NotImplementedError(
+            f"prefill_block: kind {kind!r} has no cache-filling prefill "
+            "(serving engine supports dense/moe decoder stacks)")
     return _cached_block(
         p, cfg, kind, x,
         lambda pa, acfg, h, tp: attn_mod.prefill_attn(
@@ -220,7 +359,13 @@ def decode_block(p, cfg: ModelConfig, kind: str, x, cache, step, *,
     (``attention.decode_attn``).  The MoE layer takes the decode shape
     class (``infer=True``: its own decision, drop-free capacity; a pool
     smaller than its MP group falls back to ``dense_decode``).  Mesh
-    arguments as :func:`prefill_block`.  Returns the block's output."""
+    arguments as :func:`prefill_block`.  A recurrent kind also carries
+    its state one token on, in place (one rank only).  Returns the block's
+    output."""
+    if base_kind(kind) in RECURRENT:
+        if mesh is not None or tp is not None or wgrp is not None:
+            refuse_mesh(cfg.name, [kind])
+        return _recurrent(p, cfg, kind, x, cache, step)
     return _cached_block(
         p, cfg, kind, x,
         lambda pa, acfg, h, tp: attn_mod.decode_attn(

@@ -3,7 +3,10 @@ blocks -> final norm -> LM head, for training (``forward``, ``loss``),
 for the serving engine's steps over a paged KV arena (``paged_step``) and
 for the KV-cache serve path over per-row caches (``init_cache``,
 ``prefill_step``, ``decode_step``; on a mesh in the layout
-``train.loop.cache_specs`` gives).
+``train.loop.cache_specs`` gives).  The recurrent stacks (hymba, xlstm)
+train and decode on one rank; ``prefill_step`` and ``paged_step`` refuse
+them, as JAX's do, and on a mesh every path refuses them (ROADMAP
+7d-mesh) but ``param_specs``.
 
 Parameters keep the JAX package's pytree layout: ``embed``,
 ``final_norm``, ``lm_head`` and one ``run{r}`` dict per run of same-kind
@@ -53,10 +56,14 @@ from repro_torch.parallel.tensor import reduce_from_mp, tensor_parallel
 CE_CHUNK_ELEMENTS = 1 << 28
 
 
-def layer_view(tree: dict, i: int) -> dict:
-    """Layer ``i`` of a run's stacked parameter (or cache) dict: views."""
-    return {k: layer_view(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
+def layer_view(tree, i: int):
+    """Layer ``i`` of a run's stacked parameter (or cache) tree: views.
+    A cache's recurrent state is a tuple of stacked tensors (JAX's)."""
+    if isinstance(tree, dict):
+        return {k: layer_view(v, i) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(layer_view(v, i) for v in tree)
+    return tree[i]
 
 
 def layer_views(tree: dict, n: int) -> list:
@@ -110,7 +117,20 @@ class Model:
         if bad:
             raise NotImplementedError(
                 f"{cfg.name}: block kinds {bad} come with a later slice of "
-                f"the port (this slice runs {blk.KINDS} decoder stacks)")
+                f"the port (it runs {blk.KINDS} stacks)")
+
+    def _refuse_mesh(self, mesh):
+        if mesh is not None:
+            blk.refuse_mesh(self.cfg.name, [k for k, _ in self.runs])
+
+    def _refuse_recurrent(self, what: str, tail: str):
+        """JAX's refusal of a non-dense/moe stack in ``prefill_step`` and
+        ``paged_step``."""
+        bad = [k for k, _ in self.runs
+               if blk.base_kind(k) not in blk.ATTENTION_ONLY]
+        if bad:
+            raise NotImplementedError(
+                f"{what}: unsupported block kinds {bad} ({tail})")
 
     # --- params -----------------------------------------------------------
     def init(self, generator) -> dict:
@@ -141,7 +161,10 @@ class Model:
         """A KV cache of ``batch`` rows and ``max_len`` positions: per run
         ``{"attn": {"k","v": (n, batch, W, Kh, hd), "pos": (n, batch,
         W)}}`` (``pos`` -1 = empty; W is ``max_len`` or a sliding window's
-        ring).  The paged arena takes it as (pages, block size).
+        ring), and beside or instead of it a recurrent run's state tuple
+        (``blocks.init_block_cache``), each leaf with the run's layer
+        dimension in front, as JAX's tree.  The paged arena takes it as
+        (pages, block size).
 
         On a mesh (``mesh``, ``dims``) it is this rank's shard: ``Kh`` this
         rank's kv heads (``attention.mp_heads``) where its MP group has
@@ -150,8 +173,17 @@ class Model:
         and its slice of W with every kv head where W is (``pos`` stays
         whole along W, as the specs leave it)."""
         cfg = self.cfg
+        self._refuse_mesh(mesh)
         dtype = dtype or getattr(torch, cfg.dtype)
         n_mp = axis_size(mesh, dims.mp) if mesh is not None else 1
+
+        def stack(t, n):
+            if isinstance(t, dict):
+                return {k: stack(v, n) for k, v in t.items()}
+            if isinstance(t, tuple):
+                return tuple(stack(v, n) for v in t)
+            return t[None].repeat(n, *([1] * t.dim()))
+
         cache = {}
         for r, (kind, n) in enumerate(self.runs):
             acfg = blk.attn_config(cfg, kind)
@@ -161,11 +193,8 @@ class Model:
                 rows //= axis_size(mesh, spec[1] or ())
                 if spec[2]:
                     shard = {"w_shards": axis_size(mesh, spec[2])}
-            one = blk.init_block_cache(cfg, kind, rows, max_len, dtype,
-                                       self.device, **shard)["attn"]
-            cache[f"run{r}"] = {"attn": {
-                k: v[None].repeat(n, *([1] * v.dim()))
-                for k, v in one.items()}}
+            cache[f"run{r}"] = stack(blk.init_block_cache(
+                cfg, kind, rows, max_len, dtype, self.device, **shard), n)
         return cache
 
     # --- forward ------------------------------------------------------------
@@ -183,12 +212,15 @@ class Model:
         and key order (a JAX tree comes with sorted keys), so that the
         leaves of the two line up.  Raises, naming the config and the
         mesh, where the attention heads do not split over MP as the port
-        runs them (``attention.mp_heads``)."""
+        runs them (``attention.mp_heads``); a recurrent stack, which the
+        port does not run on a mesh yet (ROADMAP 7d-mesh), gets JAX's
+        specs unchecked."""
         cfg = self.cfg
         n_mp = axis_size(mesh, dims.mp)
         try:
             for kind, _ in self.runs:
-                mp_heads(blk.attn_config(cfg, kind), n_mp)
+                if blk.base_kind(kind) not in blk.RECURRENT:
+                    mp_heads(blk.attn_config(cfg, kind), n_mp)
         except ValueError as e:
             raise ValueError(f"{cfg.name} on mesh {dict(mesh.shape)} (MP "
                              f"axes {dims.mp}): {e}") from None
@@ -254,13 +286,16 @@ class Model:
 
     def _backbone(self, params, batch, *, schedule=None, mesh=None,
                   dims=None):
-        """Embedding -> blocks -> final norm (no LM head).  With
-        ``cfg.remat`` each block runs under activation checkpointing, so
-        its forward (kernels included) runs again in the backward.
+        """Embedding -> blocks -> final norm (no LM head).  A config
+        without rope adds sinusoidal positions, unless it is an ``ssm``
+        arch (JAX's rule).  With ``cfg.remat`` each block runs under
+        activation checkpointing, so its forward (kernels included) runs
+        again in the backward.
         Returns ``(x, aux, tp)``: ``x`` in the residual stream's layout
         (this rank's L-slice under Megatron-SP) and ``tp`` this rank's
         ``TensorParallel`` (None off a mesh or on one MP rank)."""
         cfg = self.cfg
+        self._refuse_mesh(mesh)
         tokens = batch["tokens"]
         B, L = tokens.shape
         tp = tensor_parallel(mesh, dims, L, cfg.seq_parallel)
@@ -270,7 +305,7 @@ class Model:
             x = embed(params["embed"], tokens, tp)
         else:
             x = tp.from_replicated(embed(params["embed"], tokens))
-        if not cfg.use_rope:
+        if not cfg.use_rope and cfg.arch_type != "ssm":
             pe = sinusoidal_positions(L, cfg.d_model, x.device)
             x = x + (pe if tp is None else tp.rows(pe)).to(x.dtype)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -403,6 +438,8 @@ class Model:
         ((0,) for a dense stack): the serving engine's load-EMA feed.
         """
         cfg = self.cfg
+        self._refuse_recurrent("paged_step", "paged serving covers dense/moe "
+                               "decoder stacks")
         tokens = batch["tokens"]
         starts, lens, tables = batch["starts"], batch["lens"], batch["tables"]
         B, C = tokens.shape
@@ -477,6 +514,8 @@ class Model:
         Megatron-parallel over MP, and each rank returns whole rows of
         logits."""
         cfg = self.cfg
+        self._refuse_recurrent("prefill_step", "cache-filling prefill covers "
+                               "dense/moe decoder stacks")
         tokens = batch["tokens"]
         B, L = tokens.shape
         tp = tensor_parallel(mesh, dims, L)
@@ -503,15 +542,18 @@ class Model:
         ``batch["tokens"]`` at absolute position ``batch["step"]`` (a
         scalar, or a (B,) tensor with each row at its own) -> ``(logits
         (B, 1, V), cache)``.  A config without rope adds the sinusoidal
-        position, clamped at 2047 as in JAX.  Mesh arguments as
-        :meth:`prefill_step`."""
+        position, clamped at 2047 as in JAX (an ``ssm`` arch adds none, as
+        its training forward adds none).  A recurrent run carries its
+        state one token on, in place.  Mesh arguments as
+        :meth:`prefill_step`; a recurrent stack refuses a mesh."""
         cfg = self.cfg
+        self._refuse_mesh(mesh)
         tokens = batch["tokens"]
         step = batch["step"]
         tp = tensor_parallel(mesh, dims, 1)
         x = embed(params["embed"], tokens,
                   tp if self._vocab_sharded(tp) else None)
-        if not cfg.use_rope:
+        if not cfg.use_rope and cfg.arch_type != "ssm":
             pe = sinusoidal_positions(2048, cfg.d_model, x.device)
             idx = torch.clamp(torch.as_tensor(step, device=x.device).long(),
                               max=2047)

@@ -83,6 +83,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.models import blocks as blk
 from repro_torch.obs.registry import Registry, quantile
 from repro_torch.parallel import comm
 from repro_torch.runtime.faults import StarveState
@@ -193,6 +194,12 @@ class Engine:
                  faults=None, placement=None, rebalance_every: int = 0,
                  rebalance_margin: float = 1.05):
         cfg = model.cfg
+        bad = [k for k, _ in model.runs
+               if blk.base_kind(k) not in blk.ATTENTION_ONLY]
+        if bad:
+            raise NotImplementedError(
+                f"Engine supports dense/moe decoder stacks; {cfg.name} "
+                f"has block kinds {bad}")
         if cfg.attn_window is not None and cfg.attn_window < max_len:
             raise NotImplementedError(
                 "Engine needs full-length KV rows (attn_window "

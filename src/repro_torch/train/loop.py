@@ -208,9 +208,10 @@ def cache_specs(model: Model, mesh, dims, batch: int, max_len: int, *,
     them whole and each rank keeps the one its query heads read
     (``attention.mp_heads``)."""
     from repro_torch.models.attention import cache_len
-    from repro_torch.models.blocks import attn_config
+    from repro_torch.models.blocks import attn_config, refuse_mesh
     from repro_torch.parallel.mesh import axis_size
     from repro_torch.parallel.sharding import P
+    refuse_mesh(model.cfg.name, [k for k, _ in model.runs])
     axes = tuple(dims.batch_axes)
     n = axis_size(mesh, axes) if axes else 1
     mp = tuple(dims.mp)

@@ -318,19 +318,19 @@ def test_assigned_is_jaxs_order_cut_to_the_port():
     from repro_torch.configs import ASSIGNED
     from repro_torch.configs.registry import _MODULES
     assert ASSIGNED == tuple(a for a in J_ASSIGNED if a in _MODULES)
-    assert len(ASSIGNED) == 6
+    assert len(ASSIGNED) == 8
 
 
 def test_refusals(capsys):
     """An arch the port lacks fails with the registry's error (and the CLI
     counts it and exits non-zero); ``--save-hlo`` is refused."""
     from repro_torch.launch import dryrun
-    with pytest.raises(KeyError, match="unknown arch 'hymba-1.5b'"):
-        dryrun.dry_one("hymba-1.5b", "train_4k", False)
+    with pytest.raises(KeyError, match="unknown arch 'llama-3.2-vision-11b'"):
+        dryrun.dry_one("llama-3.2-vision-11b", "train_4k", False)
     with pytest.raises(SystemExit) as e:
-        dryrun.main(["--arch", "xlstm-350m", "--shape", "decode_32k"])
+        dryrun.main(["--arch", "whisper-tiny", "--shape", "decode_32k"])
     assert "1 dry-run failures" in str(e.value.code)
-    assert "unknown arch 'xlstm-350m'" in capsys.readouterr().out
+    assert "unknown arch 'whisper-tiny'" in capsys.readouterr().out
     with pytest.raises(SystemExit) as e:
         dryrun.main(["--arch", "gpt2-moe", "--save-hlo"])
     assert e.value.code == 2

@@ -69,6 +69,17 @@ ENGINE_EVENTS = ("req_queued", "req_admitted", "req_prefilled", "req_shed",
                  "serve_rollup")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's side on one intra-op thread: its tensors here are small,
+    and beside other test processes a thread pool per process only
+    contends for the cores (restored after the module)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def clean():
     """No sink, no context and no fp8 monitor, injection or ceiling in

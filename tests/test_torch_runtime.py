@@ -56,6 +56,17 @@ DIMS = ParallelDims(ep=("data",), esp=("model",), mp=("model",))
 OPT = dict(lr=1e-3, warmup_steps=2, total_steps=12)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's side on one intra-op thread: its tensors here are small,
+    and beside other test processes a thread pool per process only
+    contends for the cores (restored after the module)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def fp8_clean():
     """Reset both packages' process-wide fp8 monitor, injection, counter

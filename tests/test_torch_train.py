@@ -32,6 +32,7 @@ can part them) and the optimizer moments to 1e-1 of their largest entry
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -67,6 +68,17 @@ from repro_torch.train import Trainer  # noqa: E402
 
 DIMS = ParallelDims(ep=("data",), esp=("model",), mp=("model",))
 ARCHS = ("qwen3-moe-30b-a3b", "gpt2-moe", "bert-moe")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's side on one intra-op thread: its tensors here are small,
+    and beside other test processes a thread pool per process only
+    contends for the cores (restored after the module)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)
@@ -105,20 +117,29 @@ def _close_tree(got, want, rel, atol_floor=0.0):
                                    err_msg=path)
 
 
-@pytest.mark.parametrize("arch,remat", [(a, False) for a in ARCHS]
-                         + [("qwen3-moe-30b-a3b", True)])
-def test_loss_and_every_gradient_match_jax(arch, remat):
+@functools.cache
+def _jax_loss_and_grads(arch):
+    """JAX's parameters of reduced ``arch``, the batch, and its loss,
+    metrics and gradients there, made once a module: the port's remat
+    case holds itself to its arch's (JAX's config is the same)."""
     jcfg = j_get_config(arch).reduced()
-    tcfg = dataclasses.replace(get_config(arch).reduced(), remat=remat)
     jmodel = build_model(jcfg)
     jparams = jmodel.init(jax.random.PRNGKey(1))
-    batch = SyntheticLM(DataConfig(vocab_size=tcfg.vocab_size, seq_len=32,
+    batch = SyntheticLM(DataConfig(vocab_size=jcfg.vocab_size, seq_len=32,
                                    global_batch=2, seed=3)).batch(0)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     mesh = _mesh()
     (jloss, jm), jgrads = jax.jit(jax.value_and_grad(
         lambda p: jmodel.loss(p, jbatch, mesh=mesh, dims=DIMS),
         has_aux=True))(jparams)
+    return jparams, batch, jloss, jm, jgrads
+
+
+@pytest.mark.parametrize("arch,remat", [(a, False) for a in ARCHS]
+                         + [("qwen3-moe-30b-a3b", True)])
+def test_loss_and_every_gradient_match_jax(arch, remat):
+    tcfg = dataclasses.replace(get_config(arch).reduced(), remat=remat)
+    jparams, batch, jloss, jm, jgrads = _jax_loss_and_grads(arch)
 
     tparams = params_from_jax(_np_tree(jparams), tcfg, device="cpu")
     flat = leaves(tparams)

@@ -45,6 +45,17 @@ DIMS = ParallelDims(ep=("data",), esp=("model",), mp=("model",))
 GEN = 6
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's side on one intra-op thread: its tensors here are small,
+    and beside other test processes a thread pool per process only
+    contends for the cores (restored after the module)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def fresh_sched_cache():
     autosched.clear_cache()
