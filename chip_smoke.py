@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--phases 1,2,12]
 
 ``--phases`` runs the named phases, the ones they need and 1 and 2 (the
-kernels line, phase 16, only on a full run); by default every phase runs
+kernels line, phase 17, only on a full run); by default every phase runs
 once.  Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 repository's ``src/`` next to this file; imports nothing of JAX.  Phases,
 each fatal on error (nothing is caught, nothing falls back to the CPU or
@@ -292,16 +292,43 @@ to a plain version):
      with the same greedy tokens, rmsnorm's launches per decode step as
      predicted and flash's none (decode attention is plain code, as in
      JAX; paths ``serve_hymba`` / ``serve_xlstm``); (b) ``RZOO``'s
-     training steps at 1 x 2048 through ``train`` (kernels vs plain
-     versions, then hymba 3 steps and xlstm 2 on one batch with a finite,
-     falling loss; paths ``train_hymba`` / ``train_xlstm``), rmsnorm and
-     flash launches per step as ``rzoo_launches`` predicts (hymba 8 a
-     layer + 1 and 2 a layer; xlstm 2 a layer + 1 and none); (c) xlstm's
-     sLSTM layers' share of its step (one layer's forward and backward
-     timed, ``slstm_share``); each config's parameter GB, ms/step,
-     tokens/s, decode tok/s and peak memory, and the phase's seconds
-     beside ``P15_LIMIT_S``;
- 16. print the kernels' JSON line (each kernel's launches on its main path
+     training steps at 1 x 2048 through ``train`` (hymba whole, xlstm cut
+     to 8 layers, one ``[mlstm x 7, slstm]`` group: its steps are bound
+     by the sLSTM loop on the host; kernels vs plain versions, then hymba
+     3 steps and xlstm 2 on one batch with a finite, falling loss; paths
+     ``train_hymba`` / ``train_xlstm``), rmsnorm and flash launches per
+     step as ``rzoo_launches`` predicts (hymba 8 a layer + 1 and 2 a
+     layer; xlstm 2 a layer + 1 and none); (c) xlstm's sLSTM layers'
+     share of its step (one layer's forward and backward timed,
+     ``slstm_share``); each config's parameter GB, ms/step, tokens/s,
+     decode tok/s and peak memory, and the phase's seconds beside
+     ``P15_LIMIT_S``;
+ 16. the cross-attention zoo (``XZOO``), random weights from a seed, the
+     cross layers' gates set to ``XZOO_GATES`` (JAX starts them at 0, the
+     identity), each model freed before the next: (a) llama-3.2-vision-11b
+     at its full 40 layers (a gated ``cross`` layer every 5th over 1601
+     image embeddings; 40.4 GB) serving ``RZOO_ROWS`` rows through
+     ``rzoo_serve`` over random context embeddings: ``Model.ctx_kv`` once,
+     ``RZOO_PROMPT`` prompt tokens through ``decode_step`` and
+     ``RZOO_GEN`` greedy four-argument ``make_serve_step`` steps, every
+     step's logits within ``RZOO_TOL`` of the scale of ``Model.forward``'s
+     over the same tokens and context, the same greedy tokens, rmsnorm 2 a
+     layer + 1 a step and no flash (path ``serve_llama_vision``); (b) it
+     trains at full width cut to ``XZOO_TRAIN_LAYERS`` (4 dense layers and
+     the first cross layer) at 1 x 2048 over 1601 embeddings through
+     ``train`` (kernels vs plain versions, then ``XZOO_STEPS`` steps on one
+     batch, a finite, falling loss, rmsnorm and flash per step as
+     ``xzoo_launches`` predicts; path ``train_llama_vision``); (c)
+     whisper-tiny at its full size (4 ``xdec`` layers, a 4-layer encoder
+     over 1500 frames) served as in (a), its encoder run once by
+     ``ctx_kv`` (4 causal flash launches, path ``serve_whisper``), trained
+     as in (b) at 8 x 448 over 8 x 1500 frames (path ``train_whisper``),
+     and the train launcher for 2 steps (``XZOO_LAUNCHER``: no context,
+     as JAX's; its cross layers attend the text itself, the non-causal
+     flash launches counted, path ``launcher_whisper``); each config's
+     parameter GB, ms/step, tokens/s, decode tok/s and peak memory, and
+     the phase's seconds beside ``P16_LIMIT_S``;
+ 17. print the kernels' JSON line (each kernel's launches on its main path
      and the phase-3 row at that path's shapes, under ``by_path`` every
      path's launches beside the phase-3 row at that path's shapes, and
      under ``multirank`` each phase-12 path's launches per rank, (i)'s
@@ -386,8 +413,10 @@ def check_rmsnorm(dev):
     # ulps; bf16 output may differ by one bf16 ulp (2^-8 relative).  Then
     # phase 13's widths: decode at 5120 (llama4, mistral-nemo), 4096 (yi)
     # and 1024 (qwen1.5; xlstm's in phase 15), qwen1.5's training step
-    # (xlstm's shape too), 13 (c)'s prefill of 4 x 2048 rows at 5120, and
-    # phase 15's hymba at 1600: its training step and its decode rows.
+    # (xlstm's shape too), 13 (c)'s prefill of 4 x 2048 rows at 5120,
+    # phase 15's hymba at 1600: its training step and its decode rows, and
+    # phase 16's llama-3.2-vision training step at 4096 (its decode rows
+    # are yi's ``decode-4096``).
     f32 = torch.float32
     for label, R, D, dt, tol in (("decode", 8, 2048, f32, 1e-5),
                                  ("prefill128", 128, 2048, f32, 1e-5),
@@ -400,7 +429,8 @@ def check_rmsnorm(dev):
                                  ("train-qwen1.5", 2048, 1024, f32, 1e-5),
                                  ("prefill-5120", 8192, 5120, f32, 1e-5),
                                  ("train-hymba", 2048, 1600, f32, 1e-5),
-                                 ("decode-1600", 8, 1600, f32, 1e-5)):
+                                 ("decode-1600", 8, 1600, f32, 1e-5),
+                                 ("train-4096", 2048, 4096, f32, 1e-5)):
         x = torch.randn((R, D), generator=g, device=dev).to(dt)
         scale = 1.0 + 0.1 * torch.randn((D,), generator=g, device=dev)
         err = compare(f"rmsnorm[{label}]", rmsnorm(x, scale, eps=1e-6),
@@ -555,11 +585,15 @@ def check_flash(dev):
     # llama4 at full width on one card), phase 13 (c)'s KV-cache
     # prefill of mistral-nemo (4 x 2048, 32 / 8 x 128) and phase 12 (k)'s
     # on one rank of (2, 2) (16 / 4 heads a rank: B=1 at 1 x 16384, B=2
-    # at 1 x 2048), and phase 15's hymba training step (25 / 5 x 64: a GQA
+    # at 1 x 2048), phase 15's hymba training step (25 / 5 x 64: a GQA
     # group of 5, a 1024-token window; the bound counts in-window pairs,
-    # SDPA takes the same mask).  f32: sums of up to L terms in another
-    # order, and the online softmax's per-tile rescaling; bf16 output: one
-    # bf16 ulp.
+    # SDPA takes the same mask), and phase 16's: whisper-tiny's encoder
+    # over 8 x 1500 frames (causal, as in JAX; a ragged last query tile of
+    # 92 rows) and its decoder's 8 x 448 tokens, the train launcher's
+    # non-causal cross layers over those tokens themselves (``noncausal``),
+    # and llama-3.2-vision's training step (1 x 2048, 32 / 8 x 128).  f32:
+    # sums of up to L terms in another order, and the online softmax's
+    # per-tile rescaling; bf16 output: one bf16 ulp.
     cases = (("qwen3", 1, 2048, 32, 4, 128, torch.float32, True, None, 5e-5),
              ("gpt2-moe", 8, 1024, 12, 12, 64, torch.float32, True, None,
               5e-5),
@@ -580,6 +614,14 @@ def check_flash(dev):
              ("mistral-nemo-2k-rank", 1, 2048, 16, 4, 128, torch.float32,
               True, None, 5e-5),
              ("hymba", 1, 2048, 25, 5, 64, torch.float32, True, 1024,
+              5e-5),
+             ("whisper-enc", 8, 1500, 6, 6, 64, torch.float32, True, None,
+              5e-5),
+             ("whisper-dec", 8, 448, 6, 6, 64, torch.float32, True, None,
+              5e-5),
+             ("noncausal", 8, 448, 6, 6, 64, torch.float32, False, None,
+              5e-5),
+             ("llama-vision", 1, 2048, 32, 8, 128, torch.float32, True, None,
               5e-5))
     for label, B, L, H, K, hd, dt, causal, window, tol in cases:
         q = torch.randn((B, L, H, hd), generator=g, device=dev).to(dt)
@@ -1047,8 +1089,8 @@ def reference_step(model, params, batch, schedule=None, grad_rtol=1e-3):
     relative, gradient norm within ``grad_rtol`` (1e-3): f32 throughout,
     but the kernels' forwards sum in other orders than the plain versions'
     and the routing of a near tie may flip."""
-    import torch
     from repro_torch.optim.adamw import global_norm, leaves
+    from repro_torch.train.loop import grads_of
     flat = leaves(params)
     for t in flat:
         t.requires_grad_(True)
@@ -1056,7 +1098,7 @@ def reference_step(model, params, batch, schedule=None, grad_rtol=1e-3):
     for ctx in (contextlib.nullcontext(), plain_ops()):
         with ctx:
             loss, _ = model.loss(params, batch, schedule=schedule)
-            grads = torch.autograd.grad(loss, flat)
+            grads = grads_of(loss, flat)
             out.append((loss.item(), global_norm(grads).item()))
             del grads, loss
     (lk, gk), (lp, gp) = out
@@ -1076,14 +1118,43 @@ class _OneBatch:
         return self.data.tensors(0, device)
 
 
+class _WithCtx:
+    """``data`` with one ``ctx_embeds`` tensor beside every batch (the
+    modality frontend's output, which the port takes precomputed)."""
+
+    def __init__(self, data, ctx):
+        self.data, self.ctx = data, ctx
+
+    def tensors(self, step, device):
+        return {**self.data.tensors(step, device), "ctx_embeds": self.ctx}
+
+
+#: the gates of every cross layer the smoke runs: JAX starts them at 0,
+#: where a cross layer is the identity and its ``xattn`` and ``ffn`` get
+#: zero gradients (the CPU tests set the same values on both packages)
+XZOO_GATES = {"gate_attn": 0.5, "gate_ffn": -0.3}
+
+
+def set_gates(model, params):
+    """``XZOO_GATES`` into every ``cross`` run of ``params``, in place."""
+    import torch
+    with torch.no_grad():
+        for r, (kind, _) in enumerate(model.runs):
+            for name, value in XZOO_GATES.items():
+                if name in params[f"run{r}"]:
+                    params[f"run{r}"][name].fill_(value)
+
+
 def train(label, cfg, dev, *, batch, seq, steps, lr, uses, schedule=None,
           per_step=None, grad_rtol=1e-3, with_ms=False, repeat=True,
-          one_batch=False):
+          one_batch=False, ctx=None):
     """Phases 7 and 8: the first step taken twice and once guarded from one
     state, all bitwise (``repeat``), ``reference_step``, then ``steps``
     AdamW steps through ``Trainer`` under ``schedule`` with the kernels'
     counts set to 0 just before (``one_batch``: every step on batch 0, so
     that the falling loss reads the optimizer, not the batches' spread).
+    ``ctx``: the ``ctx_embeds`` of every batch (a cross-attention model,
+    its gates set to ``XZOO_GATES``).
     Every kernel in ``uses`` must launch; ``per_step`` maps kernels to
     their predicted launches per step, which must hold exactly.  Returns
     the launches of the run by kernel (``with_ms``: and the ms a step
@@ -1103,6 +1174,8 @@ def train(label, cfg, dev, *, batch, seq, steps, lr, uses, schedule=None,
                                     total_steps=steps), schedule=schedule)
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                   global_batch=batch))
+    if ctx is not None:
+        data = _WithCtx(data, ctx)
     # the first step twice from one state: bitwise, with no deterministic
     # flag and no CUBLAS_WORKSPACE_CONFIG (the backward sums in order); and
     # the guarded step on the clean path: bitwise the plain one
@@ -1129,6 +1202,8 @@ def train(label, cfg, dev, *, batch, seq, steps, lr, uses, schedule=None,
                              f"one in tensors {bad_guarded} of the "
                              f"parameters, AdamW moments, step and loss")
     params, opt_state = tr.setup(torch.Generator(device=dev).manual_seed(0))
+    if model.has_cross:
+        set_gates(model, params)
     n_leaves = len(_leaves(params))
     n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     moe = "dense" if cfg.moe is None else (
@@ -4697,13 +4772,16 @@ def dry_run(dev):
 
 # --- phase 15: the recurrent zoo -------------------------------------------
 
-#: the two recurrent configs, each at its full size: each path's tag, and
-#: its training steps and their learning rate, every step on one batch
+#: the two recurrent configs, each served at its full size: each path's
+#: tag, its training steps and their learning rate, every step on one batch
 #: (``train``'s ``one_batch``: at 2048 tokens the batches' losses spread
-#: by ~0.03 nats, as much as xlstm's first steps move it).  The first step
-#: is not taken twice here (``repeat``): xlstm's step is bound by the
-#: host, ~15 s, and the phase's limit holds ~5 of them
-RZOO = (("hymba-1.5b", "hymba", 3, 1e-4), ("xlstm-350m", "xlstm", 2, 1e-3))
+#: by ~0.03 nats, as much as xlstm's first steps move it), and the depth it
+#: trains at (None: whole).  The first step is not taken twice here
+#: (``repeat``): xlstm's step is bound by the sLSTM loop on the host, ~15 s
+#: at 24 layers, so it trains at 8, one ``[mlstm x 7, slstm]`` group (a
+#: third of the sLSTM steps), paying for phase 16
+RZOO = (("hymba-1.5b", "hymba", 3, 1e-4, None),
+        ("xlstm-350m", "xlstm", 2, 1e-3, 8))
 #: serving: rows, prompt tokens fed through ``decode_step``, greedy tokens
 #: through ``make_serve_step``
 RZOO_ROWS, RZOO_PROMPT, RZOO_GEN = 8, 64, 32
@@ -4731,68 +4809,81 @@ def rzoo_launches(cfg, decode=False):
             "expert_ffn_grouped": 0, "moe_dispatch": 0}
 
 
-def rzoo_serve(model, params, dev):
+def rzoo_serve(model, params, dev, want_launch=None, ctx=None, phase=15):
     """``RZOO_ROWS`` rows: ``RZOO_PROMPT`` prompt tokens through
     ``decode_step``, then ``RZOO_GEN`` greedy ``make_serve_step`` steps, the
     launches counted over both; every step's logits against
     ``Model.forward`` over the prompt and the greedy tokens (``RZOO_TOL``),
-    the same greedy tokens.  Returns the launches."""
+    the same greedy tokens.  The launches must be ``want_launch`` (default:
+    ``rzoo_launches`` a decode step).  With ``ctx`` (the rows' context
+    embeddings) ``Model.ctx_kv`` runs once inside the counted window (the
+    encoder's launches are the path's) and every step takes its K/V.
+    Returns the launches."""
     import numpy as np
     import torch
     from repro_torch.train import make_serve_step
     cfg = model.cfg
     B, P, G = RZOO_ROWS, RZOO_PROMPT, RZOO_GEN
+    n_steps = P + G
+    if want_launch is None:
+        want_launch = {k: v * n_steps for k, v in rzoo_launches(
+            cfg, decode=True).items()}
     toks = torch.from_numpy(np.random.RandomState(151).randint(
         0, cfg.vocab_size, (B, P))).to(dev)
     tap = _LogitsTap(model)
     serve_step = make_serve_step(tap)
     cache = model.init_cache(B, P + G)
+    batch = {} if ctx is None else {"ctx_embeds": ctx}
     wrappers = reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with torch.no_grad():
+        kv = model.ctx_kv(params, batch)
+        torch.cuda.synchronize()
+        t_ctx = time.perf_counter() - t0
         for t in range(P):
             tap.decode_step(params, cache, {"tokens": toks[:, t:t + 1],
-                                            "step": t})
+                                            "step": t}, ctx_kv=kv)
         torch.cuda.synchronize()
-        t_prompt = time.perf_counter() - t0
+        t_prompt = time.perf_counter() - t0 - t_ctx
         tok = tap.seen[-1].argmax(-1).to(torch.int32)[:, None]
         stream = [tok]
         t0 = time.perf_counter()
         for t in range(P, P + G):
             tok, cache = serve_step(params, cache, {"tokens": tok,
-                                                    "step": t})
+                                                    "step": t}, kv)
             stream.append(tok)
         torch.cuda.synchronize()
     t_gen = time.perf_counter() - t0
     launches = read_counts(wrappers)
-    n_steps = P + G
-    want_launch = {k: v * n_steps for k, v in rzoo_launches(
-        cfg, decode=True).items()}
-    if any(launches[k] != v for k, v in want_launch.items()) or \
-            launches["flash_attention"]:
-        raise AssertionError(f"phase 15 {cfg.name} serving: launches "
+    if any(launches[k] != v for k, v in want_launch.items()):
+        raise AssertionError(f"phase {phase} {cfg.name} serving: launches "
                              f"{launches}, predicted {want_launch}")
     stream = torch.cat(stream, 1).long()
     got = torch.stack(tap.seen, 1)                       # (B, P + G, V)
     full = torch.cat([toks, stream[:, :-1]], 1)
     with torch.no_grad():
-        want, _ = model.forward(params, {"tokens": full})
-    err = compare(f"phase 15 {cfg.name}: decode logits vs Model.forward",
-                  got, want, RZOO_TOL)
+        want, _ = model.forward(params, {"tokens": full, **batch})
+    err = compare(f"phase {phase} {cfg.name}: decode logits vs "
+                  f"Model.forward", got, want, RZOO_TOL)
     scale = max(1.0, want.abs().max().item())
     if not torch.equal(want[:, P - 1:].argmax(-1), stream):
-        raise AssertionError(f"phase 15 {cfg.name}: greedy tokens differ "
-                             "between the serve steps and Model.forward")
-    del got, want, cache
-    log(f"    serving {B} rows: {P} prompt tokens through decode_step in "
+        raise AssertionError(f"phase {phase} {cfg.name}: greedy tokens "
+                             "differ between the serve steps and "
+                             "Model.forward")
+    kv_gb = 0.0 if kv is None else sum(
+        t.numel() * t.element_size() for t in _leaves(kv)) / 1e9
+    del got, want, cache, kv
+    log(f"    serving {B} rows: "
+        + ("" if ctx is None else f"ctx_kv over {tuple(ctx.shape)} in "
+           f"{t_ctx:.3f} s ({kv_gb:.3f} GB of K/V), ")
+        + f"{P} prompt tokens through decode_step in "
         f"{t_prompt:.3f} s ({B * P / t_prompt:.1f} tok/s), {G} greedy "
         f"make_serve_step steps in {t_gen:.3f} s ({B * G / t_gen:.1f} "
         f"tok/s, {t_gen / G * 1e3:.2f} ms a step); every step's "
         f"logits vs Model.forward max_abs_err {err:.3e} (tol {RZOO_TOL:g} "
         f"* {scale:.3g}), greedy tokens equal; launches "
-        f"{({k: v for k, v in launches.items() if v})} "
-        f"({ {k: v // n_steps for k, v in launches.items() if v} } a step)")
+        f"{({k: v for k, v in launches.items() if v})}")
     return launches
 
 
@@ -4832,8 +4923,9 @@ def recurrent_zoo(dev):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import Model
+    from dataclasses import replace
     paths = {}
-    for arch, tag, steps, lr in RZOO:
+    for arch, tag, steps, lr, train_layers in RZOO:
         t0 = time.perf_counter()
         cfg = get_config(arch)
         torch.cuda.reset_peak_memory_stats()
@@ -4848,6 +4940,8 @@ def recurrent_zoo(dev):
         peak = torch.cuda.max_memory_allocated() / 1e9
         del model, params
         torch.cuda.empty_cache()
+        if train_layers:
+            cfg = replace(cfg, n_layers=train_layers)
         per_step = rzoo_launches(cfg)
         uses = tuple(k for k in ("rmsnorm", "flash_attention")
                      if per_step[k])
@@ -4867,11 +4961,165 @@ def recurrent_zoo(dev):
     return paths
 
 
+# --- phase 16: the cross-attention zoo --------------------------------------
+
+#: each config, its path tag, its training rows x tokens and learning rate:
+#: llama-3.2-vision at 1 x 2048 at 1e-5 (at qwen3's 1e-4 Adam's first,
+#: sign-like step raised the loss, 12.2229 -> 12.5497, before it fell),
+#: whisper-tiny over Whisper's text context, 8 x 448, at gpt2-moe's 1e-3
+#: (a 36.5M-parameter model)
+XZOO = (("llama-3.2-vision-11b", "llama_vision", (1, 2048), 1e-5),
+        ("whisper-tiny", "whisper", (8, 448), 1e-3))
+#: llama-3.2-vision trains at full width cut to this depth: 4 dense layers
+#: and the first cross layer (16 bytes a parameter with AdamW: 162 GB at 40
+#: layers, 69.9 GB at 10, 34.9 GB at 5); it serves at its 40
+XZOO_TRAIN_LAYERS = 5
+XZOO_STEPS = 3
+#: the train launcher on whisper-tiny: the data pipeline's batches, no
+#: ``ctx_embeds``, as JAX's launcher feeds them
+XZOO_LAUNCHER = ("--arch", "whisper-tiny", "--steps", "2", "--seq", "448",
+                 "--batch", "8")
+P16_LIMIT_S = 75.0
+
+
+def xzoo_launches(cfg, decode=False):
+    """Each kernel's predicted launches in one training step over a context
+    (the forward and remat's second forward run the kernels, their
+    backward is the plain recompute; whisper's encoder runs once, outside
+    remat, as JAX's scan runs it) or in one decode step: ``rmsnorm`` for
+    every norm a layer reads (a dense layer 2, a cross layer 2: its
+    ``norm2`` is never read) and the final one, none under layernorm
+    (whisper); ``flash_attention`` once a self-attention a forward (the
+    dense layers', the ``xdec`` and encoder layers'); cross attention over
+    a context and decode attention are plain code, as in JAX."""
+    from repro_torch.models.blocks import base_kind
+    per = 1 if decode else 2
+    norms = {"dense": 2, "cross": 2, "xdec": 3}
+    n_norm = sum(norms[base_kind(k)] * n for k, n in cfg.runs())
+    n_self = sum(n for k, n in cfg.runs()
+                 if base_kind(k) in ("dense", "xdec"))
+    enc = cfg.encoder_layers if cfg.arch_type == "audio" else 0
+    return {"rmsnorm": per * n_norm + 1 if cfg.norm_type == "rmsnorm"
+            else 0,
+            "flash_attention": 0 if decode else 2 * n_self + enc,
+            "expert_ffn_grouped": 0, "moe_dispatch": 0}
+
+
+def whisper_launcher(dev):
+    """``XZOO_LAUNCHER`` through ``launch.train.main`` in this process: no
+    context, so each ``xdec`` layer's ``xattn`` attends the text itself,
+    unmasked (JAX's ``Trainer`` does the same): per step 2 causal and 2
+    non-causal flash launches a layer (the forward and remat's second
+    one; 8 and 8 over whisper's 4), the non-causal ones counted by a
+    wrapper around the registry's op; layernorm, so no rmsnorm.  Every
+    logged loss finite.  Returns the launches."""
+    import tempfile
+
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import train as launcher
+    noncausal = [0]
+
+    def counted(q, k, v, *, causal=True, window=None, scale=None):
+        n0 = flash_attention.launches
+        out = flash_attention(q, k, v, causal=causal, window=window,
+                              scale=scale)
+        if not causal:
+            noncausal[0] += flash_attention.launches - n0
+        return out
+
+    steps = int(XZOO_LAUNCHER[XZOO_LAUNCHER.index("--steps") + 1])
+    per_kind = 2 * launcher.get_config("whisper-tiny").n_layers * steps
+    saved = registry._OPS["flash_attention"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "log.json")
+        registry._OPS["flash_attention"] = counted
+        wrappers = reset_counts()
+        t0 = time.perf_counter()
+        try:
+            launcher.main([*XZOO_LAUNCHER, "--log-json", path])
+        finally:
+            registry._OPS["flash_attention"] = saved
+        wall = time.perf_counter() - t0
+        launches = read_counts(wrappers)
+        with open(path) as f:
+            hist = json.load(f)
+    want = {"flash_attention": 2 * per_kind, "rmsnorm": 0}
+    if any(launches[k] != v for k, v in want.items()) or \
+            noncausal[0] != per_kind:
+        raise AssertionError(f"phase 16 launcher: launches {launches}, "
+                             f"{noncausal[0]} non-causal; predicted {want}, "
+                             f"{per_kind} non-causal")
+    losses = [h["loss"] for h in hist]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"phase 16 launcher: losses {losses}")
+    log(f"    launcher {' '.join(XZOO_LAUNCHER)}: {wall:.2f} s, losses "
+        f"{' '.join(f'{x:.4f}' for x in losses)}; flash "
+        f"{launches['flash_attention']} launches, {noncausal[0]} of them "
+        f"non-causal (its first main-path launches)")
+    return launches
+
+
+def cross_zoo(dev):
+    """Phase 16 (see the module docstring).  Returns the launches of each
+    serving and training path by kernel."""
+    from dataclasses import replace
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    g = torch.Generator(device=dev).manual_seed(16)
+
+    def context(cfg, rows):
+        n = cfg.n_ctx_tokens if cfg.arch_type == "vlm" else cfg.encoder_seq
+        return torch.randn((rows, n, cfg.d_model), generator=g, device=dev)
+
+    paths = {}
+    for arch, tag, (rows, seq), lr in XZOO:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        torch.cuda.reset_peak_memory_stats()
+        model = Model(cfg, device=dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        set_gates(model, params)
+        torch.cuda.synchronize()
+        n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+        log(f"  {arch}: full size, {cfg.n_layers} layers {model.runs}"
+            + (f", encoder {cfg.encoder_layers} layers" if
+               model.has_encoder else "")
+            + f": {n_bytes / 1e9:.2f} GB of parameters made in "
+            f"{time.perf_counter() - t0:.2f} s, gates {XZOO_GATES}")
+        n_steps = RZOO_PROMPT + RZOO_GEN
+        want = {k: v * n_steps
+                for k, v in xzoo_launches(cfg, decode=True).items()}
+        want["flash_attention"] = cfg.encoder_layers \
+            if model.has_encoder else 0
+        paths[f"serve_{tag}"] = rzoo_serve(
+            model, params, dev, want, context(cfg, RZOO_ROWS), phase=16)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del model, params
+        torch.cuda.empty_cache()
+        if cfg.arch_type == "vlm":
+            cfg = replace(cfg, n_layers=XZOO_TRAIN_LAYERS)
+        per_step = xzoo_launches(cfg)
+        uses = tuple(k for k in ("rmsnorm", "flash_attention")
+                     if per_step[k])
+        paths[f"train_{tag}"] = train(
+            tag, cfg, dev, batch=rows, seq=seq, steps=XZOO_STEPS, lr=lr,
+            uses=uses, per_step=per_step, repeat=False, one_batch=True,
+            ctx=context(cfg, rows))
+        peak = max(peak, torch.cuda.max_memory_allocated() / 1e9)
+        log(f"    {arch} in {time.perf_counter() - t0:.1f} s, peak device "
+            f"memory {peak:.2f} GB")
+    paths["launcher_whisper"] = whisper_launcher(dev)
+    return paths
+
+
 #: the phases, and the ones each needs to have run before it (their model,
 #: prompts, reference runs or launch counts); 1 and 2 (the card, the
-#: build) always run, and 16 (the kernels line) only when every phase did
-PHASES = tuple(range(1, 17))
-PHASE_NEEDS = {5: (4,), 9: (7, 8), 10: (4, 5, 6), 11: (4, 6), 16: PHASES[:15]}
+#: build) always run, and 17 (the kernels line) only when every phase did
+PHASES = tuple(range(1, 18))
+PHASE_NEEDS = {5: (4,), 9: (7, 8), 10: (4, 5, 6), 11: (4, 6), 17: PHASES[:16]}
 
 
 def parse_phases(argv=None) -> set:
@@ -5000,6 +5248,16 @@ SHAPE_OF.update({("rmsnorm", "train_hymba"): "train-hymba",
                  ("rmsnorm", "serve_hymba"): "decode-1600",
                  ("rmsnorm", "train_xlstm"): "train-qwen1.5",
                  ("rmsnorm", "serve_xlstm"): "decode-1024"})
+# phase 16: llama-3.2-vision's decode rows (yi's width) and training step;
+# whisper's encoder in ``ctx_kv`` (its serving's only launches), its
+# training step (most launches the decoder's 8 x 448) and the launcher's
+# (half of them non-causal, the rest at the same shape causal)
+SHAPE_OF.update({("rmsnorm", "serve_llama_vision"): "decode-4096",
+                 ("rmsnorm", "train_llama_vision"): "train-4096",
+                 ("flash_attention", "train_llama_vision"): "llama-vision",
+                 ("flash_attention", "serve_whisper"): "whisper-enc",
+                 ("flash_attention", "train_whisper"): "whisper-dec",
+                 ("flash_attention", "launcher_whisper"): "noncausal"})
 #: (kernel, multi-rank path) -> the phase-3 row at the shapes one rank's
 #: launches take there: phase 12 (k)'s prefill on one rank of (2, 2) (16 /
 #: 4 heads; B=1 one row of 16384, B=2 one row of 2048 a data rank) and its
@@ -5320,10 +5578,21 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         torch.cuda.empty_cache()
         log(f"phase 15: the recurrent zoo, hymba-1.5b and xlstm-350m at full "
-            f"size (predicted ~95 s, limit {P15_LIMIT_S:.0f} s)")
+            f"size, xlstm trained at 8 layers (predicted ~55-90 s, limit "
+            f"{P15_LIMIT_S:.0f} s)")
         path_launches.update(recurrent_zoo(dev))
         log(f"  phase 15 in {time.perf_counter() - t0:.1f} s (limit "
             f"{P15_LIMIT_S:.0f} s)")
+
+    if 16 in phases:
+        # 16. the cross-attention zoo: llama-3.2-vision-11b and whisper-tiny
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        log(f"phase 16: the cross-attention zoo, llama-3.2-vision-11b and "
+            f"whisper-tiny (predicted ~40 s, limit {P16_LIMIT_S:.0f} s)")
+        path_launches.update(cross_zoo(dev))
+        log(f"  phase 16 in {time.perf_counter() - t0:.1f} s (limit "
+            f"{P16_LIMIT_S:.0f} s)")
 
     if phases != set(PHASES):
         log(f"chip_smoke: phases {sorted(phases)} passed in "
@@ -5333,7 +5602,7 @@ def main(argv=None) -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
-    # 16. results.  Each kernel's top-level numbers are those of its main
+    # 17. results.  Each kernel's top-level numbers are those of its main
     # path (KERNELS): its launches there, counted from 0 just before the
     # run, and the phase-3 row at the shapes that path gives it.
     # ``by_path`` pairs every path's launches with the phase-3 row at that

@@ -2,9 +2,8 @@
 
 ``ModelConfig`` keeps the JAX package's fields one for one, so a config
 module carries over unchanged; ``layer_kinds``, ``runs`` and ``reduced``
-are copies.  Fields of kinds this slice cannot run (SSM, cross attention,
-encoders) are kept for that parity and rejected by the model.
-``use_pallas`` has no effect in the port: the backend follows the device.
+are copies.  ``use_pallas`` has no effect in the port: the backend follows
+the device.
 
 ``InputShape`` / ``INPUT_SHAPES`` are JAX's four dry-run shapes, values
 as they are; ``input_specs`` gives each model input as an empty tensor on
@@ -174,26 +173,30 @@ class ModelConfig:
 
 def input_specs(cfg: ModelConfig, shape: InputShape,
                 device="meta") -> dict:
-    """Every model input of ``shape`` as an empty int32 tensor on
-    ``device`` (the meta device: nothing allocated): ``tokens`` and
-    ``labels`` (B, L) to train, ``tokens`` (B, L) to prefill, ``tokens``
-    (B, 1) and a scalar ``step`` to decode, as JAX's ``input_specs``.
-    The image and audio context embeddings of JAX's ``vlm`` and ``audio``
-    archs belong to block kinds the port does not run yet (ROADMAP 7d)."""
-    if cfg.arch_type in ("vlm", "audio"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.arch_type} arch's ctx_embeds input comes "
-            "with its block kinds (ROADMAP 7d)")
+    """Every model input of ``shape`` as an empty tensor on ``device`` (the
+    meta device: nothing allocated), as JAX's ``input_specs``: int32
+    ``tokens`` and ``labels`` (B, L) to train, ``tokens`` (B, L) to
+    prefill, ``tokens`` (B, 1) and a scalar ``step`` to decode.  The
+    modality frontends are stubs: a ``vlm`` arch's image patches and an
+    ``audio`` arch's frames arrive as ``ctx_embeds`` in the config's dtype,
+    (B, ``n_ctx_tokens``, D) and (B, ``encoder_seq``, D)."""
     B, L = shape.global_batch, shape.seq_len
 
-    def empty(*dims):
-        return torch.empty(dims, dtype=torch.int32, device=device)
+    def empty(*dims, dtype=torch.int32):
+        return torch.empty(dims, dtype=dtype, device=device)
 
     if shape.kind == "train":
-        return {"tokens": empty(B, L), "labels": empty(B, L)}
-    if shape.kind == "prefill":
-        return {"tokens": empty(B, L)}
-    return {"tokens": empty(B, 1), "step": empty()}
+        specs = {"tokens": empty(B, L), "labels": empty(B, L)}
+    elif shape.kind == "prefill":
+        specs = {"tokens": empty(B, L)}
+    else:
+        specs = {"tokens": empty(B, 1), "step": empty()}
+    n_ctx = {"vlm": cfg.n_ctx_tokens, "audio": cfg.encoder_seq}.get(
+        cfg.arch_type)
+    if n_ctx is not None:
+        specs["ctx_embeds"] = empty(B, n_ctx, cfg.d_model,
+                                    dtype=getattr(torch, cfg.dtype))
+    return specs
 
 
 def variant_config(cfg: ModelConfig, shape_name: str):

@@ -4,12 +4,12 @@
 packages is checked on the same parameters: the JAX ``Model.init`` pytree,
 brought to the host as numpy arrays (``jax.tree.map(np.asarray, params)``),
 goes through :func:`params_from_jax`.  The port keeps the JAX layout,
-including the stacked ``run{r}`` layer dimension (the JAX model stacks each
-run of same-kind layers with a leading axis for ``lax.scan``; the port
-indexes the same axis per layer), so conversion is a checked leaf-by-leaf
-copy.  With ``mesh`` and ``dims`` it is this rank's shards of that copy
-(``Model.param_specs``): the one way weights reach a rank in the
-multi-rank parity tests.
+including the stacked ``run{r}`` (and an audio arch's ``encoder``) layer
+dimension (the JAX model stacks each run of same-kind layers with a
+leading axis for ``lax.scan``; the port indexes the same axis per layer),
+so conversion is a checked leaf-by-leaf copy.  With ``mesh`` and
+``dims`` it is this rank's shards of that copy (``Model.param_specs``):
+the one way weights reach a rank in the multi-rank parity tests.
 """
 
 from __future__ import annotations
@@ -44,25 +44,27 @@ def params_from_jax(tree_of_numpy: dict, cfg, device="cuda", mesh=None,
     """The port's parameters for ``cfg`` from the JAX ``Model.init`` pytree
     (nested dicts of numpy arrays).  Checks that the tree has exactly the
     top-level entries of ``cfg``'s model and that every ``run{r}`` leaf
-    stacks that run's layer count on its leading axis.  With ``mesh`` and
-    ``dims``: this rank's shards only."""
+    stacks that run's layer count on its leading axis (an ``encoder`` leaf
+    ``encoder_layers``).  With ``mesh`` and ``dims``: this rank's shards
+    only."""
     model = Model(cfg, device=device)
     if mesh is not None:
         from repro_torch.parallel.sharding import local_tree
         specs = model.param_specs(tree_of_numpy, mesh, dims)
         tree_of_numpy = local_tree(tree_of_numpy, specs, mesh)
     runs = model.runs
-    want = {"embed", "final_norm"} | {f"run{r}" for r in range(len(runs))}
+    lead_of = {f"run{r}": n for r, (_, n) in enumerate(runs)}
+    want = {"embed", "final_norm"} | set(lead_of)
     if not cfg.tie_embeddings:
         want.add("lm_head")
+    if model.has_encoder:
+        want |= {"encoder", "enc_norm"}
+        lead_of["encoder"] = cfg.encoder_layers
     if set(tree_of_numpy) != want:
         raise ValueError(f"parameter tree has {sorted(tree_of_numpy)}, "
                          f"{cfg.name} needs {sorted(want)}")
-    out = {}
-    for key, sub in tree_of_numpy.items():
-        lead = runs[int(key[3:])][1] if key.startswith("run") else None
-        out[key] = _convert(sub, device, lead, key)
-    return out
+    return {key: _convert(sub, device, lead_of.get(key), key)
+            for key, sub in tree_of_numpy.items()}
 
 
 def opt_state_from_jax(state_of_numpy: dict, cfg, device="cuda") -> dict:

@@ -28,11 +28,14 @@ reach the null page.  On a mesh it runs this rank's heads as
 the ``flash_attention`` op for the prompt's attention (its one serving
 launch; chunked layers take the plain path, as in JAX); ``decode_attn``
 is plain code with JAX's ``-inf`` masks, as JAX's is.  Both write the
-cache in place.  Where ``train.loop.cache_specs`` splits the cache's W
-over a group of ranks (JAX's context-parallel decode, a GSPMD sharding
-hint there), the port writes the exchange out: the queries and the new
-token's K/V are gathered, each rank scores its own slots, and the softmax
-is combined across the group; the cache never moves.
+cache in place.  Cross attention (``apply_attn(kv_x=)``, and
+``decode_attn(kv_cache_static=)`` over a precomputed context) is plain
+code too, as JAX's kernel path excludes it: no rope, no mask.  Where
+``train.loop.cache_specs`` splits the cache's W over a group of ranks
+(JAX's context-parallel decode, a GSPMD sharding hint there), the port
+writes the exchange out: the queries and the new token's K/V are
+gathered, each rank scores its own slots, and the softmax is combined
+across the group; the cache never moves.
 """
 
 from __future__ import annotations
@@ -439,8 +442,30 @@ def _grouped(q, K):
     return q.reshape(B, K, H // K, hd)
 
 
-def decode_attn(p, cfg: AttnConfig, x, cache, step, *, tp=None, wgrp=None):
-    """One-token decode, self-attention.  x: (B, 1, D); ``step`` the
+def _decode_static(p, cfg: AttnConfig, x, kv):
+    """JAX's static-K/V branch of ``decode_attn``: one query token against
+    a precomputed context ``kv`` (``{"k", "v": (B, Lctx, K, hd)}``,
+    ``Model.ctx_kv``), repeated by H / K, an f32 softmax over every
+    context slot.  Returns (B, 1, D)."""
+    B = x.shape[0]
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(B, 1, H, hd)
+    if cfg.qkv_bias:
+        q = q + p["bq"].reshape(H, hd)
+    k = _repeat_kv(kv["k"], H // K)
+    v = _repeat_kv(kv["v"], H // K)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * cfg.scale
+    pr = torch.softmax(s, dim=-1).to(x.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", pr, v)
+    return out.reshape(B, 1, H * hd) @ p["wo"]
+
+
+def decode_attn(p, cfg: AttnConfig, x, cache, step, *, tp=None, wgrp=None,
+                kv_cache_static=None):
+    """One-token decode.  With ``kv_cache_static`` it is cross attention
+    over a precomputed context (:func:`_decode_static`; ``cache`` and
+    ``step`` unused, nothing written).  Otherwise self-attention: x:
+    (B, 1, D); ``step`` the
     absolute position, a scalar (every row at one position) or a (B,)
     tensor (each row at its own).  The token's K/V land IN PLACE at slot
     ``step % W`` (a sliding window's cache is a ring), then the query
@@ -456,6 +481,8 @@ def decode_attn(p, cfg: AttnConfig, x, cache, step, *, tp=None, wgrp=None):
     slot writes it, each rank scores every head over its own slots, and
     the softmax is combined over ``wgrp`` (the max, then the sums and the
     weighted values): K and V never leave their rank."""
+    if kv_cache_static is not None:
+        return _decode_static(p, cfg, x, kv_cache_static)
     B = x.shape[0]
     hd = cfg.head_dim
     H, K, kv = _rank_heads(p, cfg, tp)

@@ -1,16 +1,20 @@
-"""Decoder blocks (counterpart of ``repro/models/blocks.py``): the
-``dense`` and ``moe`` kinds (and their ``_full`` variants) and the
-recurrent kinds ``hymba`` (attention beside a Mamba head), ``mlstm`` and
-``slstm`` (``models/ssm.py``); init, the partition specs
-``block_specs``, the training forward ``apply_block``, the serving
-engine's paged forward and the KV-cache serve path's
+"""Blocks, one per layer kind (counterpart of ``repro/models/blocks.py``):
+the ``dense`` and ``moe`` kinds (and their ``_full`` variants), the
+cross-attention kinds ``cross`` (llama-3.2-vision's gated
+cross-attention layer), ``xdec`` (whisper's decoder layer: self-attention,
+cross attention, FFN) and ``encoder`` (whisper's encoder layer: the dense
+block, causal as in JAX, whose ``attn_config`` keys the mask on
+``arch_type``), and the recurrent kinds ``hymba`` (attention beside a
+Mamba head), ``mlstm`` and ``slstm`` (``models/ssm.py``); init, the
+partition specs ``block_specs``, the training forward ``apply_block``,
+the serving engine's paged forward and the KV-cache serve path's
 ``init_block_cache``, ``prefill_block`` and ``decode_block``.
 
-The recurrent kinds run on one rank, through ``apply_block``,
-``init_block_cache`` and ``decode_block``; ``prefill_block`` and
-``paged_block`` refuse them, as JAX's do.  On a mesh they raise
-(:func:`refuse_mesh`, ROADMAP 7d-mesh), while ``block_specs`` gives
-JAX's specs for them."""
+The recurrent and cross-attention kinds run on one rank, through
+``apply_block``, ``init_block_cache`` and ``decode_block``;
+``prefill_block`` and ``paged_block`` refuse them, as JAX's do.  On a
+mesh they raise (:func:`refuse_mesh`, ROADMAP 7d-mesh), while
+``block_specs`` gives JAX's specs for them."""
 
 from __future__ import annotations
 
@@ -23,11 +27,15 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import AttnConfig
 from repro_torch.models.layers import (apply_ffn, apply_norm, ffn_specs,
                                        init_ffn, init_norm, norm_specs)
+from repro_torch.parallel.sharding import P
 
 #: Block kinds the port runs.
-KINDS = ("dense", "moe", "hymba", "mlstm", "slstm")
+KINDS = ("dense", "moe", "cross", "xdec", "hymba", "mlstm", "slstm",
+         "encoder")
 #: the kinds with a recurrent state, which run on one rank only
 RECURRENT = ("hymba", "mlstm", "slstm")
+#: the cross-attention and encoder-decoder kinds, one rank only too
+CROSS = ("cross", "xdec", "encoder")
 #: the kinds JAX's cache-filling prefill, paged step and engine take
 ATTENTION_ONLY = ("dense", "moe")
 
@@ -36,16 +44,20 @@ def base_kind(kind: str) -> str:
     return kind[:-5] if kind.endswith("_full") else kind
 
 
-def attn_config(cfg: ModelConfig, kind: str) -> AttnConfig:
+def attn_config(cfg: ModelConfig, kind: str,
+                cross: bool = False) -> AttnConfig:
+    """JAX's: ``cross`` is a cross-attention layer's (no rope, no mask, no
+    bias).  The causal mask follows ``arch_type``, so whisper's encoder
+    (an ``audio`` arch) is causal, as in JAX."""
     full = kind.endswith("_full")
     return AttnConfig(
         d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.hd, rope_theta=cfg.rope_theta,
-        use_rope=cfg.use_rope and not full,
-        causal=cfg.arch_type != "encoder",
-        window=None if full else cfg.attn_window,
-        chunk=None if full else cfg.attn_chunk,
-        qkv_bias=cfg.qkv_bias)
+        use_rope=cfg.use_rope and not full and not cross,
+        causal=not cross and cfg.arch_type != "encoder",
+        window=None if (full or cross) else cfg.attn_window,
+        chunk=None if (full or cross) else cfg.attn_chunk,
+        qkv_bias=cfg.qkv_bias and not cross)
 
 
 def _check_kind(kind: str) -> None:
@@ -56,18 +68,25 @@ def _check_kind(kind: str) -> None:
 
 
 def refuse_mesh(name: str, kinds) -> None:
-    """Raise where ``kinds`` (a model's layer kinds) hold a recurrent one:
-    on a mesh the port runs none of them yet."""
-    bad = sorted({base_kind(k) for k in kinds} & set(RECURRENT))
+    """Raise where ``kinds`` (a model's layer kinds) hold a recurrent or a
+    cross-attention one: on a mesh the port runs none of them yet."""
+    kinds = {base_kind(k) for k in kinds}
+    bad = sorted(kinds & set(RECURRENT))
     if bad:
         raise NotImplementedError(
             f"{name}: the recurrent block kinds {bad} run on one rank; on "
             "a mesh they come with ROADMAP 7d-mesh (the Megatron split of "
             "d_inner, cache_specs for the states, the dry run)")
+    bad = sorted(kinds & set(CROSS))
+    if bad:
+        raise NotImplementedError(
+            f"{name}: the cross-attention block kinds {bad} run on one "
+            "rank; on a mesh they come with ROADMAP 7d-mesh (the Megatron "
+            "split of xattn, ctx_kv's batch sharding, the dry run)")
 
 
 def _has_attn(base: str) -> bool:
-    return base in ("dense", "moe", "hymba")
+    return base in ("dense", "moe", "cross", "xdec", "hymba", "encoder")
 
 
 def _has_ffn(base: str) -> bool:
@@ -96,8 +115,11 @@ def _slstm_cfg(cfg: ModelConfig) -> ssm_mod.SLSTMConfig:
 
 def init_block(generator, cfg: ModelConfig, kind: str, dtype) -> dict:
     """One layer's parameters, in JAX's key order: ``norm1``, ``attn``,
-    ``mamba``, ``norm_a``, ``norm_s``, ``mlstm``, ``slstm``, then ``moe``
-    or ``ffn``, and ``norm2``."""
+    ``xattn``, ``norm_x``, ``gate_attn``, ``gate_ffn``, ``mamba``,
+    ``norm_a``, ``norm_s``, ``mlstm``, ``slstm``, then ``moe`` or ``ffn``,
+    and ``norm2``.  A ``cross`` layer carries an ``attn`` and a ``norm2``
+    its forward never reads, and its gates start at 0 (the identity), as
+    in JAX."""
     _check_kind(kind)
     dev = generator.device
     base = base_kind(kind)
@@ -105,6 +127,13 @@ def init_block(generator, cfg: ModelConfig, kind: str, dtype) -> dict:
     if _has_attn(base):
         p["attn"] = attn_mod.init_attn(generator, attn_config(cfg, kind),
                                        dtype)
+    if base in ("cross", "xdec"):
+        p["xattn"] = attn_mod.init_attn(
+            generator, attn_config(cfg, kind, cross=True), dtype)
+        p["norm_x"] = init_norm(cfg.d_model, cfg.norm_type, dev)
+        if base == "cross":
+            for name in ("gate_attn", "gate_ffn"):
+                p[name] = torch.zeros((), dtype=torch.float32, device=dev)
     if base == "hymba":
         p["mamba"] = ssm_mod.init_mamba(generator, _mamba_cfg(cfg), dtype)
         p["norm_a"] = init_norm(cfg.d_model, cfg.norm_type, dev)
@@ -132,6 +161,12 @@ def block_specs(cfg: ModelConfig, kind: str, mesh, dims) -> dict:
     s = {"norm1": norm_specs(cfg.norm_type)}
     if _has_attn(base):
         s["attn"] = attn_mod.attn_specs(mesh, mp, attn_config(cfg, kind))
+    if base in ("cross", "xdec"):
+        s["xattn"] = attn_mod.attn_specs(
+            mesh, mp, attn_config(cfg, kind, cross=True))
+        s["norm_x"] = norm_specs(cfg.norm_type)
+        if base == "cross":
+            s["gate_attn"] = s["gate_ffn"] = P()
     if base == "hymba":
         s["mamba"] = ssm_mod.mamba_specs(mesh, mp, _mamba_cfg(cfg))
         s["norm_a"] = norm_specs(cfg.norm_type)
@@ -160,8 +195,9 @@ def _ffn(p, cfg: ModelConfig, h, tp):
     return tp.from_replicated(apply_ffn(p, tp.to_replicated(h), cfg.ffn_act))
 
 
-def apply_block(p, cfg: ModelConfig, kind: str, x, *, positions=None,
-                schedule=None, mesh=None, dims=None, tp=None):
+def apply_block(p, cfg: ModelConfig, kind: str, x, *, ctx=None,
+                positions=None, schedule=None, mesh=None, dims=None,
+                tp=None):
     """Full-sequence forward.  Returns ``(x, aux)``: ``aux["loss"]`` the
     scalar router-loss contribution (aux + z loss) and
     ``aux["expert_load"]`` the (E,) routed rows, (0,) for dense blocks.
@@ -172,17 +208,23 @@ def apply_block(p, cfg: ModelConfig, kind: str, x, *, positions=None,
     input's cotangent is summed over MP), ``tp.leave`` after its
     row-parallel product.  Under Megatron-SP (``tp.seq``) ``x`` is this
     rank's L / n_mp rows of the stream, the norms run on them, and the MoE
-    layer takes the whole sequence (``tp.to_replicated``)."""
+    layer takes the whole sequence (``tp.to_replicated``).  ``ctx`` is the
+    context a ``cross`` or ``xdec`` layer attends (B, Lctx, D): None
+    attends the stream itself, unmasked, as JAX's layers do when its
+    ``Trainer`` feeds no ``ctx_embeds``."""
     _check_kind(kind)
     acfg = attn_config(cfg, kind)
     eps = cfg.norm_eps
     aux = {"loss": torch.zeros((), dtype=torch.float32, device=x.device),
            "expert_load": torch.zeros((0,), dtype=torch.float32,
                                       device=x.device)}
-    if base_kind(kind) in RECURRENT:
-        if mesh is not None or tp is not None:
-            refuse_mesh(cfg.name, [kind])
+    base = base_kind(kind)
+    if base in RECURRENT + CROSS and (mesh is not None or tp is not None):
+        refuse_mesh(cfg.name, [kind])
+    if base in RECURRENT:
         return _recurrent(p, cfg, kind, x, positions=positions), aux
+    if base in ("cross", "xdec"):
+        return _cross(p, cfg, kind, x, ctx=ctx, positions=positions), aux
     h = apply_norm(p["norm1"], x, eps, cfg.kernel)
     if tp is None:
         a = attn_mod.apply_attn(p["attn"], acfg, h, positions=positions,
@@ -248,6 +290,49 @@ def _recurrent(p, cfg: ModelConfig, kind: str, x, cache=None, step=None, *,
     return x
 
 
+def _cross(p, cfg: ModelConfig, kind: str, x, *, ctx=None, cache=None,
+           step=None, ctx_kv=None, positions=None):
+    """A ``cross`` or ``xdec`` block (JAX's ``apply_block`` /
+    ``decode_block`` for them).  Without ``cache`` the full sequence,
+    attending ``ctx``; with ``cache`` one decode token, attending
+    ``ctx_kv`` (this layer's ``{"k", "v"}`` from ``Model.ctx_kv``), an
+    ``xdec`` layer's self-attention K/V written into ``cache`` in place.
+    ``cross`` (llama-3.2-vision): ``x + tanh(gate_attn) * xattn(norm1(x))``,
+    then ``+ tanh(gate_ffn) * ffn(norm_x(x))``; ``xdec`` (whisper):
+    self-attention, cross attention and the FFN, each behind its norm.
+    Returns the block's output."""
+    base = base_kind(kind)
+
+    def norm(pn, h):
+        return apply_norm(pn, h, cfg.norm_eps, cfg.kernel)
+
+    def cross_attn(h):
+        xcfg = attn_config(cfg, kind, cross=True)
+        if cache is None:
+            return attn_mod.apply_attn(p["xattn"], xcfg, h, kv_x=ctx)
+        if ctx_kv is None:
+            raise ValueError(f"{cfg.name}: decoding a {base} layer needs "
+                             "its context's K/V (ctx_kv=, Model.ctx_kv)")
+        return attn_mod.decode_attn(p["xattn"], xcfg, h, None, step,
+                                    kv_cache_static=ctx_kv)
+
+    if base == "cross":
+        gate = torch.tanh(p["gate_attn"]).to(x.dtype)
+        x = x + gate * cross_attn(norm(p["norm1"], x))
+        f = apply_ffn(p["ffn"], norm(p["norm_x"], x), cfg.ffn_act)
+        return x + torch.tanh(p["gate_ffn"]).to(x.dtype) * f
+    acfg = attn_config(cfg, kind)
+    h = norm(p["norm1"], x)
+    if cache is None:
+        x = x + attn_mod.apply_attn(p["attn"], acfg, h, positions=positions,
+                                    kernel=cfg.kernel)
+    else:
+        x = x + attn_mod.decode_attn(p["attn"], acfg, h, cache["attn"],
+                                     step)
+    x = x + cross_attn(norm(p["norm_x"], x))
+    return x + apply_ffn(p["ffn"], norm(p["norm2"], x), cfg.ffn_act)
+
+
 def _cached_block(p, cfg: ModelConfig, kind: str, x, attend, *, schedule,
                   infer, mesh, dims, tp, replicated):
     """The serving forward of one block around ``attend(p_attn, acfg, h,
@@ -311,13 +396,17 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      dtype, device, **shard) -> dict:
     """This layer's decode cache: ``{"attn": {"k", "v", "pos"}}``
     (``attention.init_cache``; ``shard``: its ``kv_heads`` and
-    ``w_shards``) where it attends, and JAX's recurrent state tuples
+    ``w_shards``) where it self-attends, and JAX's recurrent state tuples
     beside or instead of it: ``"mamba"`` ``(conv_buf, h)``, ``"mlstm"``
-    ``(C, n, m)``, ``"slstm"`` ``(c, n, h, m)``."""
+    ``(C, n, m)``, ``"slstm"`` ``(c, n, h, m)``; a ``cross`` layer, whose
+    context K/V come per request (``Model.ctx_kv``), JAX's 0-d
+    ``"dummy"``."""
     _check_kind(kind)
     base = base_kind(kind)
     c = {}
-    if _has_attn(base):
+    if base == "cross":
+        c["dummy"] = torch.zeros((), dtype=dtype, device=device)
+    elif _has_attn(base):
         c["attn"] = attn_mod.init_cache(attn_config(cfg, kind), batch,
                                         max_len, dtype, device, **shard)
     if base == "hymba":
@@ -353,19 +442,25 @@ def prefill_block(p, cfg: ModelConfig, kind: str, x, cache, lengths, *,
 
 
 def decode_block(p, cfg: ModelConfig, kind: str, x, cache, step, *,
-                 schedule=None, mesh=None, dims=None, tp=None, wgrp=None,
-                 replicated=False):
+                 ctx_kv=None, schedule=None, mesh=None, dims=None, tp=None,
+                 wgrp=None, replicated=False):
     """One-token decode through this layer's cache, written in place
     (``attention.decode_attn``).  The MoE layer takes the decode shape
     class (``infer=True``: its own decision, drop-free capacity; a pool
     smaller than its MP group falls back to ``dense_decode``).  Mesh
     arguments as :func:`prefill_block`.  A recurrent kind also carries
-    its state one token on, in place (one rank only).  Returns the block's
-    output."""
-    if base_kind(kind) in RECURRENT:
-        if mesh is not None or tp is not None or wgrp is not None:
-            refuse_mesh(cfg.name, [kind])
+    its state one token on, in place, and a ``cross`` or ``xdec`` layer
+    attends its context's precomputed ``ctx_kv`` (one rank only).  Returns
+    the block's output."""
+    base = base_kind(kind)
+    if base in RECURRENT + CROSS and (
+            mesh is not None or tp is not None or wgrp is not None):
+        refuse_mesh(cfg.name, [kind])
+    if base in RECURRENT:
         return _recurrent(p, cfg, kind, x, cache, step)
+    if base in ("cross", "xdec"):
+        return _cross(p, cfg, kind, x, cache=cache, step=step,
+                      ctx_kv=ctx_kv)
     return _cached_block(
         p, cfg, kind, x,
         lambda pa, acfg, h, tp: attn_mod.decode_attn(

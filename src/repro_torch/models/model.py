@@ -4,9 +4,17 @@ for the serving engine's steps over a paged KV arena (``paged_step``) and
 for the KV-cache serve path over per-row caches (``init_cache``,
 ``prefill_step``, ``decode_step``; on a mesh in the layout
 ``train.loop.cache_specs`` gives).  The recurrent stacks (hymba, xlstm)
-train and decode on one rank; ``prefill_step`` and ``paged_step`` refuse
-them, as JAX's do, and on a mesh every path refuses them (ROADMAP
-7d-mesh) but ``param_specs``.
+and the cross-attention ones (llama-3.2-vision's gated cross layers,
+whisper's encoder and decoder) train and decode on one rank;
+``prefill_step`` and ``paged_step`` refuse them, as JAX's do, and on a
+mesh every path refuses them (ROADMAP 7d-mesh) but ``param_specs``.
+
+A cross-attention model reads its context from ``batch["ctx_embeds"]``
+(B, Lctx, D), the modality frontends' output, which the port, as JAX,
+takes precomputed (``_encode_ctx``): llama-3.2-vision's image embeddings
+as they are, whisper's frames through its encoder (``encoder``,
+``enc_norm``).  Serving computes each ``cross`` / ``xdec`` layer's
+context K/V once (``ctx_kv``) and hands them to every ``decode_step``.
 
 Parameters keep the JAX package's pytree layout: ``embed``,
 ``final_norm``, ``lm_head`` and one ``run{r}`` dict per run of same-kind
@@ -113,6 +121,9 @@ class Model:
         self.cfg = cfg
         self.device = torch.device(device)
         self.runs = cfg.runs()
+        self.has_cross = any(blk.base_kind(k) in ("cross", "xdec")
+                             for k, _ in self.runs)
+        self.has_encoder = cfg.arch_type == "audio" and cfg.encoder_layers > 0
         bad = [k for k, _ in self.runs if blk.base_kind(k) not in blk.KINDS]
         if bad:
             raise NotImplementedError(
@@ -123,7 +134,7 @@ class Model:
         if mesh is not None:
             blk.refuse_mesh(self.cfg.name, [k for k, _ in self.runs])
 
-    def _refuse_recurrent(self, what: str, tail: str):
+    def _refuse_kinds(self, what: str, tail: str):
         """JAX's refusal of a non-dense/moe stack in ``prefill_step`` and
         ``paged_step``."""
         bad = [k for k, _ in self.runs
@@ -134,7 +145,9 @@ class Model:
 
     # --- params -----------------------------------------------------------
     def init(self, generator) -> dict:
-        """Random parameters from ``generator`` (on the model's device)."""
+        """Random parameters from ``generator`` (on the model's device); an
+        audio arch's ``encoder`` layers (stacked) and ``enc_norm`` last, as
+        in JAX."""
         cfg = self.cfg
         if generator.device.type != self.device.type:
             raise ValueError(f"generator on {generator.device}, model on "
@@ -154,6 +167,11 @@ class Model:
             params[f"run{r}"] = _stack(
                 lambda kind=kind: blk.init_block(generator, cfg, kind, dtype),
                 n)
+        if self.has_encoder:
+            params["encoder"] = _stack(lambda: blk.init_block(
+                generator, cfg, "encoder", dtype), cfg.encoder_layers)
+            params["enc_norm"] = init_norm(cfg.d_model, cfg.norm_type,
+                                           self.device)
         return params
 
     def init_cache(self, batch: int, max_len: int, dtype=None, *,
@@ -162,9 +180,9 @@ class Model:
         ``{"attn": {"k","v": (n, batch, W, Kh, hd), "pos": (n, batch,
         W)}}`` (``pos`` -1 = empty; W is ``max_len`` or a sliding window's
         ring), and beside or instead of it a recurrent run's state tuple
-        (``blocks.init_block_cache``), each leaf with the run's layer
-        dimension in front, as JAX's tree.  The paged arena takes it as
-        (pages, block size).
+        or a ``cross`` run's ``dummy`` (``blocks.init_block_cache``), each
+        leaf with the run's layer dimension in front, as JAX's tree.  The
+        paged arena takes it as (pages, block size).
 
         On a mesh (``mesh``, ``dims``) it is this rank's shard: ``Kh`` this
         rank's kv heads (``attention.mp_heads``) where its MP group has
@@ -212,14 +230,15 @@ class Model:
         and key order (a JAX tree comes with sorted keys), so that the
         leaves of the two line up.  Raises, naming the config and the
         mesh, where the attention heads do not split over MP as the port
-        runs them (``attention.mp_heads``); a recurrent stack, which the
-        port does not run on a mesh yet (ROADMAP 7d-mesh), gets JAX's
-        specs unchecked."""
+        runs them (``attention.mp_heads``); a recurrent or cross-attention
+        stack, which the port does not run on a mesh yet (ROADMAP
+        7d-mesh), gets JAX's specs unchecked."""
         cfg = self.cfg
         n_mp = axis_size(mesh, dims.mp)
+        one_rank = blk.RECURRENT + blk.CROSS
         try:
             for kind, _ in self.runs:
-                if blk.base_kind(kind) not in blk.RECURRENT:
+                if blk.base_kind(kind) not in one_rank:
                     mp_heads(blk.attn_config(cfg, kind), n_mp)
         except ValueError as e:
             raise ValueError(f"{cfg.name} on mesh {dict(mesh.shape)} (MP "
@@ -236,6 +255,10 @@ class Model:
         for r, (kind, _) in enumerate(self.runs):
             specs[f"run{r}"] = add_layer_dim(
                 blk.block_specs(cfg, kind, mesh, dims))
+        if self.has_encoder:
+            specs["encoder"] = add_layer_dim(
+                blk.block_specs(cfg, "encoder", mesh, dims))
+            specs["enc_norm"] = norm_specs(cfg.norm_type)
         return _in_order_of(specs, params)
 
     def mp_partial(self, params, mesh, dims, seq_len: int) -> dict:
@@ -265,10 +288,29 @@ class Model:
 
         return walk(specs, ())
 
-    def _layer(self, p, kind, x, schedule, mesh=None, dims=None, tp=None):
-        y, aux = blk.apply_block(p, self.cfg, kind, x, schedule=schedule,
-                                 mesh=mesh, dims=dims, tp=tp)
+    def _layer(self, p, kind, x, schedule, mesh=None, dims=None, tp=None,
+               ctx=None):
+        y, aux = blk.apply_block(p, self.cfg, kind, x, ctx=ctx,
+                                 schedule=schedule, mesh=mesh, dims=dims,
+                                 tp=tp)
         return y, aux["loss"], aux["expert_load"]
+
+    def _encode_ctx(self, params, batch):
+        """The context the ``cross`` / ``xdec`` layers attend (JAX's
+        ``_encode_ctx``): None without ``batch["ctx_embeds"]``; an audio
+        arch's frames plus sinusoidal positions through the encoder layers
+        (without remat, as JAX's scan runs them) and ``enc_norm``; any
+        other arch's ``ctx_embeds`` as they are (the image frontend's
+        patch embeddings)."""
+        cfg = self.cfg
+        ctx = batch.get("ctx_embeds")
+        if ctx is None or cfg.arch_type != "audio":
+            return ctx
+        x = ctx + sinusoidal_positions(ctx.shape[1], cfg.d_model,
+                                       ctx.device).to(ctx.dtype)
+        for p in layer_views(params["encoder"], cfg.encoder_layers):
+            x, _ = blk.apply_block(p, cfg, "encoder", x)
+        return apply_norm(params["enc_norm"], x, cfg.norm_eps, cfg.kernel)
 
     def _vocab_sharded(self, tp) -> bool:
         """Whether the embedding and LM head are vocab-parallel over
@@ -290,7 +332,9 @@ class Model:
         without rope adds sinusoidal positions, unless it is an ``ssm``
         arch (JAX's rule).  With ``cfg.remat`` each block runs under
         activation checkpointing, so its forward (kernels included) runs
-        again in the backward.
+        again in the backward; the context (``_encode_ctx``) goes to each
+        block as an argument of the checkpoint, so a whisper encoder's
+        gradient comes back through every ``xdec`` layer's K/V.
         Returns ``(x, aux, tp)``: ``x`` in the residual stream's layout
         (this rank's L-slice under Megatron-SP) and ``tp`` this rank's
         ``TensorParallel`` (None off a mesh or on one MP rank)."""
@@ -308,17 +352,18 @@ class Model:
         if not cfg.use_rope and cfg.arch_type != "ssm":
             pe = sinusoidal_positions(L, cfg.d_model, x.device)
             x = x + (pe if tp is None else tp.rows(pe)).to(x.dtype)
+        ctx = self._encode_ctx(params, batch)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         expert_load = torch.zeros((0,), dtype=torch.float32, device=x.device)
         for r, (kind, n) in enumerate(self.runs):
             for p in layer_views(params[f"run{r}"], n):
                 if cfg.remat:
                     x, loss, load = checkpoint(self._layer, p, kind, x,
-                                               schedule, mesh, dims, tp,
+                                               schedule, mesh, dims, tp, ctx,
                                                use_reentrant=False)
                 else:
                     x, loss, load = self._layer(p, kind, x, schedule, mesh,
-                                                dims, tp)
+                                                dims, tp, ctx)
                 aux_total = aux_total + loss
                 if load.shape[-1]:
                     expert_load = load if not expert_load.shape[-1] \
@@ -438,7 +483,7 @@ class Model:
         ((0,) for a dense stack): the serving engine's load-EMA feed.
         """
         cfg = self.cfg
-        self._refuse_recurrent("paged_step", "paged serving covers dense/moe "
+        self._refuse_kinds("paged_step", "paged serving covers dense/moe "
                                "decoder stacks")
         tokens = batch["tokens"]
         starts, lens, tables = batch["starts"], batch["lens"], batch["tables"]
@@ -477,6 +522,30 @@ class Model:
         return logits, cache
 
     # --- the KV-cache serve path --------------------------------------------
+    def ctx_kv(self, params, batch, *, mesh=None, dims=None):
+        """Each ``cross`` / ``xdec`` run's static context K/V, made once per
+        request batch for its decode steps (JAX's ``ctx_kv``): ``{"run{r}":
+        {"k", "v": (n, B, Lctx, K, hd)}}`` from the context of
+        ``batch["ctx_embeds"]`` (``_encode_ctx``: whisper's encoder runs
+        here).  None without ``ctx_embeds``."""
+        self._refuse_mesh(mesh)
+        ctx = self._encode_ctx(params, batch)
+        if ctx is None:
+            return None
+        B, Lc, _ = ctx.shape
+        out = {}
+        for r, (kind, n) in enumerate(self.runs):
+            if blk.base_kind(kind) not in ("cross", "xdec"):
+                continue
+            acfg = blk.attn_config(self.cfg, kind, cross=True)
+            shape = (B, Lc, acfg.n_kv_heads, acfg.head_dim)
+            views = layer_views(params[f"run{r}"], n)
+            out[f"run{r}"] = {
+                name: torch.stack([(ctx @ p["xattn"][w]).reshape(shape)
+                                   for p in views])
+                for name, w in (("k", "wk"), ("v", "wv"))}
+        return out
+
     def _cache_layout(self, r, mesh, specs):
         """``(wgrp, replicated)`` of run ``r``'s cache, read from the specs
         ``train.loop.cache_specs`` gave it (the one place the layout is
@@ -514,7 +583,7 @@ class Model:
         Megatron-parallel over MP, and each rank returns whole rows of
         logits."""
         cfg = self.cfg
-        self._refuse_recurrent("prefill_step", "cache-filling prefill covers "
+        self._refuse_kinds("prefill_step", "cache-filling prefill covers "
                                "dense/moe decoder stacks")
         tokens = batch["tokens"]
         B, L = tokens.shape
@@ -537,15 +606,17 @@ class Model:
         return self._serve_head(params, h_last[:, None, :], tp)[:, 0], cache
 
     def decode_step(self, params, cache, batch, *, schedule=None, mesh=None,
-                    dims=None, specs=None):
+                    dims=None, specs=None, ctx_kv=None):
         """One serve step through the KV cache, written in place: (B, 1)
         ``batch["tokens"]`` at absolute position ``batch["step"]`` (a
         scalar, or a (B,) tensor with each row at its own) -> ``(logits
         (B, 1, V), cache)``.  A config without rope adds the sinusoidal
         position, clamped at 2047 as in JAX (an ``ssm`` arch adds none, as
         its training forward adds none).  A recurrent run carries its
-        state one token on, in place.  Mesh arguments as
-        :meth:`prefill_step`; a recurrent stack refuses a mesh."""
+        state one token on, in place; a ``cross`` / ``xdec`` run attends
+        its layers' ``ctx_kv`` (:meth:`ctx_kv`).  Mesh arguments as
+        :meth:`prefill_step`; a recurrent or cross-attention stack refuses
+        a mesh."""
         cfg = self.cfg
         self._refuse_mesh(mesh)
         tokens = batch["tokens"]
@@ -562,10 +633,12 @@ class Model:
         for r, (kind, n) in enumerate(self.runs):
             wgrp, replicated = self._cache_layout(r, mesh, specs)
             run_p, run_c = params[f"run{r}"], cache[f"run{r}"]
+            run_kv = (ctx_kv or {}).get(f"run{r}")
             for i in range(n):
                 x = blk.decode_block(
                     layer_view(run_p, i), cfg, kind, x, layer_view(run_c, i),
-                    step, schedule=schedule, mesh=mesh, dims=dims, tp=tp,
-                    wgrp=wgrp, replicated=replicated)
+                    step, ctx_kv=None if run_kv is None else layer_view(
+                        run_kv, i), schedule=schedule, mesh=mesh, dims=dims,
+                    tp=tp, wgrp=wgrp, replicated=replicated)
         x = apply_norm(params["final_norm"], x, cfg.norm_eps, cfg.kernel)
         return self._serve_head(params, x, tp), cache

@@ -91,6 +91,16 @@ def sync_grads(grads, specs, mesh, dims, mp_partial=None):
     return out
 
 
+def grads_of(loss, flat) -> list:
+    """The gradient of ``loss`` for each tensor of ``flat``: zeros for one
+    the loss does not reach, as ``jax.grad`` gives them (a ``cross``
+    layer's ``attn`` and ``norm2``; the cross-attention layers' context
+    side, whisper's encoder, without ``ctx_embeds``)."""
+    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    return [torch.zeros_like(t) if g is None else g
+            for g, t in zip(grads, flat)]
+
+
 def _loss_and_grads(model, params, batch, schedule, mesh, dims,
                     grad_fault=None):
     """``(loss, metrics, grads, specs)`` of one step: on a mesh the
@@ -104,7 +114,7 @@ def _loss_and_grads(model, params, batch, schedule, mesh, dims,
                                dims=dims)
     if grad_fault is not None:
         loss = loss * (1.0 + grad_fault)
-    grads = torch.autograd.grad(loss, flat)
+    grads = grads_of(loss, flat)
     specs = None
     if mesh is not None:
         specs = leaves(model.param_specs(params, mesh, dims))
@@ -251,13 +261,15 @@ def make_serve_step(model: Model, mesh=None, dims=None,
     """``serve_step(params, cache, batch) -> (next_tokens (B, 1) int32,
     cache)``: one ``Model.decode_step`` through the KV cache (in place)
     and the greedy ``argmax`` of its last position, as JAX's
-    ``make_serve_step``.  On a mesh ``specs`` is the cache's layout
-    (:func:`cache_specs`)."""
-    def serve_step(params, cache, batch):
+    ``make_serve_step``.  A cross-attention model's step takes the
+    request batch's context K/V (``Model.ctx_kv``, made once) as a fourth
+    argument, ``ctx_kv``, as JAX's does.  On a mesh ``specs`` is the
+    cache's layout (:func:`cache_specs`)."""
+    def serve_step(params, cache, batch, ctx_kv=None):
         with torch.no_grad():
             logits, cache = model.decode_step(
                 params, cache, batch, schedule=schedule, mesh=mesh,
-                dims=dims, specs=specs)
+                dims=dims, specs=specs, ctx_kv=ctx_kv)
         return logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None], cache
     return serve_step
 

@@ -105,6 +105,21 @@ RMS_PATHS = [(64, torch.float32, (32, 1)), (256, torch.float32, (32, 2)),
              (2056, torch.bfloat16, (128, 4)), (2052, torch.bfloat16, None)]
 
 
+@pytest.mark.parametrize("R,D", [(2048, 4096), (8, 4096)],
+                         ids=["train-4096", "decode-4096"])
+def test_rmsnorm_at_llama_vision_rows_vs_plain(dev, R, D):
+    """The phase-16 smoke's rows: llama-3.2-vision's training step (2048
+    rows of 4096) and its decode rows, one launch each, f32 1e-5."""
+    g = torch.Generator(device=dev).manual_seed(R)
+    x = torch.randn((R, D), generator=g, device=dev)
+    scale = 1.0 + 0.1 * torch.randn((D,), generator=g, device=dev)
+    n0 = rmsnorm.launches
+    got = rmsnorm(x, scale, eps=1e-5)
+    assert rmsnorm.launches == n0 + 1
+    torch.testing.assert_close(got, rmsnorm_ref(x, scale, 1e-5), rtol=1e-5,
+                               atol=1e-5)
+
+
 @pytest.mark.parametrize("D,dtype,path", RMS_PATHS)
 def test_rmsnorm_paths_vs_plain(dev, D, dtype, path):
     """Each path the wrapper picks by shape, against the plain version
@@ -351,6 +366,14 @@ FLASH_CASES = [
     (1, 700, 700, 4, 2, 128, torch.float32, True, 200, 2e-5),
     (2, 333, 333, 4, 2, 128, torch.bfloat16, True, None, 2e-2),
     (1, 190, 190, 6, 3, 64, torch.bfloat16, True, 50, 2e-2),
+    # the phase-16 smoke's rows: whisper-tiny's encoder (causal as in JAX,
+    # 1500 = 11 x 128 + 92 rows: a ragged last query tile) and decoder,
+    # the train launcher's non-causal cross layers over the text itself,
+    # and llama-3.2-vision's training step (32 / 8 x 128)
+    (8, 1500, 1500, 6, 6, 64, torch.float32, True, None, 2e-5),
+    (8, 448, 448, 6, 6, 64, torch.float32, True, None, 2e-5),
+    (8, 448, 448, 6, 6, 64, torch.float32, False, None, 2e-5),
+    (1, 2048, 2048, 32, 8, 128, torch.float32, True, None, 2e-5),
 ]
 
 

@@ -44,6 +44,8 @@ COMBOS = [("qwen1.5-0.5b", "train_4k", "single", None, 64),
 #: ZeRO-1 cases: (arch, multi_pod) -> JAX's rule's axes
 ZERO = {("qwen1.5-0.5b", False): ("data",),
         ("qwen3-moe-30b-a3b", True): ("pod",)}
+#: the archs whose inputs carry ``ctx_embeds`` (vlm, audio)
+CTX_ARCHS = ("llama-3.2-vision-11b", "whisper-tiny")
 INT_FIELDS = ("n_params", "n_active_params", "tokens_per_step", "schedule",
               "pipeline_chunks", "wire_dtype", "plan", "chips", "variant")
 
@@ -118,10 +120,11 @@ def _jax_main(path):
     for arch in ("qwen3-moe-30b-a3b", "llama4-scout-17b-a16e"):
         cfg, variant = jdry.variant_config(get_config(arch), "long_500k")
         out["variant"][arch] = [variant, cfg.attn_window]
-    for name, shape in INPUT_SHAPES.items():
-        specs = input_specs(get_config("qwen3-moe-30b-a3b"), shape)
-        out["inputs"][name] = {k: [list(v.shape), str(v.dtype)]
-                               for k, v in specs.items()}
+    for arch in ("qwen3-moe-30b-a3b",) + CTX_ARCHS:
+        for name, shape in INPUT_SHAPES.items():
+            specs = input_specs(get_config(arch), shape)
+            out["inputs"][f"{arch}|{name}"] = {
+                k: [list(v.shape), str(v.dtype)] for k, v in specs.items()}
     with open(path, "w") as f:
         json.dump(out, f)
 
@@ -281,21 +284,21 @@ def test_variant_and_inputs_are_jaxs(jax_run):
     """``variant_config``: long_500k on a full-attention arch runs the
     8192-token window; llama4's chunked attention is sub-quadratic as it
     is.  ``input_specs``: JAX's keys, shapes and dtypes, on the meta
-    device."""
+    device, the vlm and audio archs' ``ctx_embeds`` among them."""
     from repro_torch.configs import (INPUT_SHAPES, get_config, input_specs,
                                      variant_config)
     want = jax_run()
     for arch, (variant, window) in want["variant"].items():
         cfg, got = variant_config(get_config(arch), "long_500k")
         assert (got, cfg.attn_window) == (variant, window)
-    for name, shape in INPUT_SHAPES.items():
-        specs = input_specs(get_config("qwen3-moe-30b-a3b"), shape)
-        assert all(t.is_meta for t in specs.values())
-        assert {k: [list(v.shape), str(v.dtype).replace("torch.", "")]
-                for k, v in specs.items()} == want["inputs"][name]
-    vision = replace(get_config("qwen1.5-0.5b"), arch_type="vlm")
-    with pytest.raises(NotImplementedError, match="7d"):
-        input_specs(vision, INPUT_SHAPES["train_4k"])
+    for arch in ("qwen3-moe-30b-a3b",) + CTX_ARCHS:
+        for name, shape in INPUT_SHAPES.items():
+            specs = input_specs(get_config(arch), shape)
+            assert all(t.is_meta for t in specs.values())
+            assert {k: [list(v.shape), str(v.dtype).replace("torch.", "")]
+                    for k, v in specs.items()} == \
+                want["inputs"][f"{arch}|{name}"]
+            assert ("ctx_embeds" in specs) == (arch in CTX_ARCHS)
 
 
 def test_decode_long_500k_traces_the_swa_variant():
@@ -314,23 +317,32 @@ def test_decode_long_500k_traces_the_swa_variant():
 
 
 def test_assigned_is_jaxs_order_cut_to_the_port():
+    """``ASSIGNED`` is JAX's, and the registry lists every JAX arch in
+    JAX's order."""
     from repro.configs.registry import ASSIGNED as J_ASSIGNED
+    from repro.configs.registry import _MODULES as J_MODULES
     from repro_torch.configs import ASSIGNED
     from repro_torch.configs.registry import _MODULES
-    assert ASSIGNED == tuple(a for a in J_ASSIGNED if a in _MODULES)
-    assert len(ASSIGNED) == 8
+    assert ASSIGNED == J_ASSIGNED
+    assert list(_MODULES) == list(J_MODULES)
+    assert len(ASSIGNED) == 10
 
 
 def test_refusals(capsys):
-    """An arch the port lacks fails with the registry's error (and the CLI
-    counts it and exits non-zero); ``--save-hlo`` is refused."""
+    """An arch whose block kinds the port runs on one rank only (the
+    cross-attention ones here) fails on the production mesh with the mesh
+    refusal, naming ROADMAP 7d-mesh (and the CLI counts it and exits
+    non-zero); an unknown arch with the registry's error; ``--save-hlo``
+    is refused."""
     from repro_torch.launch import dryrun
-    with pytest.raises(KeyError, match="unknown arch 'llama-3.2-vision-11b'"):
+    with pytest.raises(NotImplementedError, match="7d-mesh"):
         dryrun.dry_one("llama-3.2-vision-11b", "train_4k", False)
     with pytest.raises(SystemExit) as e:
         dryrun.main(["--arch", "whisper-tiny", "--shape", "decode_32k"])
     assert "1 dry-run failures" in str(e.value.code)
-    assert "unknown arch 'whisper-tiny'" in capsys.readouterr().out
+    assert "ROADMAP 7d-mesh" in capsys.readouterr().out
+    with pytest.raises(KeyError, match="unknown arch 'llama-5'"):
+        dryrun.dry_one("llama-5", "train_4k", False)
     with pytest.raises(SystemExit) as e:
         dryrun.main(["--arch", "gpt2-moe", "--save-hlo"])
     assert e.value.code == 2
