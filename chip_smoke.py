@@ -215,7 +215,7 @@ to a plain version):
      cut to 4 layers (``p12_kv_cfg``), each rank's Megatron shards made
      in turn, ``prefill_step`` and greedy ``make_serve_step`` steps through
      the cache on (data=2, model=2) for ``P12_KV_CASES`` (B=1 with a
-     16384-token prompt and 64 tokens; B=2, the batch over data, 16
+     16384-token prompt and 16 tokens; B=2, the batch over data, 16
      tokens), each with ``cache_specs(seq_shard=False)`` (the kv heads
      over model, W whole) and ``True`` (W over data x model, or over
      model): on every rank the tokens of a one-rank reference made before
@@ -228,6 +228,24 @@ to a plain version):
      (no K or V crosses ranks), flash once a layer of the prefill and
      rmsnorm 2 a layer + 1 a call; each layout's seconds, tok/s, K/V MB
      and per rank the bytes and host ms a decode step of each collective;
+     (l) last, the recurrent kinds Megatron-split over model (``P12_RZOO``:
+     hymba-1.5b at full width cut to 4 layers, its attention in the
+     gathered-heads layout and its Mamba cell on half of d_inner a rank;
+     xlstm-350m cut to one ``[mlstm x 7, slstm]`` group, the mLSTM cell on
+     2 of 4 heads a rank, the sLSTM whole on every rank), held to one-rank
+     runs on the card made before the spawn (``_p12_rzoo_reference``;
+     each rank makes its parameters from the seed): one
+     ``make_train_step`` step (1 x 2048 and 1 x 512 a data rank), loss
+     within 1e-4, each rank's gradient shard within 2e-4 of its leaf's
+     largest entry, the leaves replicated over model bitwise equal across
+     MP; 16 teacher-forced ``decode_step`` steps of 8 rows a data rank,
+     logits rtol 2e-4 / atol 2e-5 and every state shard
+     (``cache_specs``' layout) within 2e-4 of its leaf's largest entry;
+     rmsnorm and flash launches per rank as ``rzoo_launches`` predicts
+     (paths ``train_hymba_mesh``, ``decode_hymba_mesh``,
+     ``train_xlstm_mesh``, ``decode_xlstm_mesh``, also in ``by_path``
+     with rank 0's launches); each collective's bytes a step per rank,
+     seconds, decode ms a step and peak memory a rank;
  13. the five configs whose block kinds the port runs, each at full width
      with random weights from a seed, freed before the next, its peak
      device memory logged: (a) llama4-scout-17b-a16e cut to 4 layers (3
@@ -265,7 +283,10 @@ to a plain version):
      (the CLI's ``--arch qwen3-moe-30b-a3b --shape train_4k``) traced as
      rank 0 of the 16x16 production mesh on the meta device (the fake
      ``torch.distributed`` backend), and (b) ``--shape decode_32k
-     --cache-seq-shard``, on a thread of this process (with (c)'s
+     --cache-seq-shard``, then (a) hymba-1.5b ``long_500k`` and
+     xlstm-350m ``decode_32k`` (the shapes of JAX's records of them; the
+     Mamba cell split, the mLSTM cell in the gathered-heads layout over
+     MP 16, the sLSTM replicated), on a thread of this process (with (c)'s
      one-rank reference and qwen1.5's meta record) while (c)'s ranks
      run: per rank the parameters, moments, batch / cache,
      temporaries and total GB, ``fits_80gb``, the roofline's three terms
@@ -416,7 +437,8 @@ def check_rmsnorm(dev):
     # (xlstm's shape too), 13 (c)'s prefill of 4 x 2048 rows at 5120,
     # phase 15's hymba at 1600: its training step and its decode rows, and
     # phase 16's llama-3.2-vision training step at 4096 (its decode rows
-    # are yi's ``decode-4096``).
+    # are yi's ``decode-4096``), and phase 12 (l)'s xlstm step on a rank
+    # of (2, 2), 1 x 512 at 1024.
     f32 = torch.float32
     for label, R, D, dt, tol in (("decode", 8, 2048, f32, 1e-5),
                                  ("prefill128", 128, 2048, f32, 1e-5),
@@ -430,7 +452,8 @@ def check_rmsnorm(dev):
                                  ("prefill-5120", 8192, 5120, f32, 1e-5),
                                  ("train-hymba", 2048, 1600, f32, 1e-5),
                                  ("decode-1600", 8, 1600, f32, 1e-5),
-                                 ("train-4096", 2048, 4096, f32, 1e-5)):
+                                 ("train-4096", 2048, 4096, f32, 1e-5),
+                                 ("train-512x1024", 512, 1024, f32, 1e-5)):
         x = torch.randn((R, D), generator=g, device=dev).to(dt)
         scale = 1.0 + 0.1 * torch.randn((D,), generator=g, device=dev)
         err = compare(f"rmsnorm[{label}]", rmsnorm(x, scale, eps=1e-6),
@@ -2696,12 +2719,13 @@ def _p12_placed_report(res):
 
 
 def _p12_merged_rank(rank, ref_path, model_cfg, scheds, steps, tokens,
-                     block_cfg, block_tokens, guard_dir, kv_cfg, kv_ref):
+                     block_cfg, block_tokens, guard_dir, kv_cfg, kv_ref,
+                     rzoo_ref):
     """One rank of the merged (2, 2) mesh: (a)'s cases, (j)'s overlapped
     and serial runs, (i)'s placed layer and (h) on the same layer, then
     (b) and (c), then (d) on both of its
     meshes, (g) and (i)'s serving with (d)'s weights, (i)'s training, then
-    (e) and (f), then (k), in one spawn."""
+    (e) and (f), then (k), then (l), in one spawn."""
     layer, measured, placed, overlap = _p12_layer_rank(
         rank, "merged", ref_path, model_cfg, with_h=True)
     out = {"layer": layer, "measured": measured, "overlap": overlap,
@@ -2722,6 +2746,9 @@ def _p12_merged_rank(rank, ref_path, model_cfg, scheds, steps, tokens,
     out["placed"] = placed
     out["guarded"] = _p12_guarded_rank(rank, model_cfg, tokens, guard_dir)
     out["kv"] = _p12_kv_rank(rank, kv_cfg, kv_ref)
+    t0 = time.perf_counter()
+    out["rzoo"] = _p12_rzoo_rank(rank, rzoo_ref)
+    out["rzoo_s"] = time.perf_counter() - t0
     return out
 
 
@@ -3677,8 +3704,9 @@ def _p12_report(label, n, res, paths):
 #: prompt lengths, tokens generated after the prefill); W is the longest
 #: prompt plus those, and with ``seq_shard`` B=1 splits W over data x
 #: model (the batch axes idle), B=2 over model (the batch over data)
-#: (16 tokens: gloo's host path takes ~150 ms a W-sharded decode step)
-P12_KV_CASES = (("b1", (16384,), 64), ("b2", (2048, 1536), 16))
+#: (16 tokens each: gloo's host path takes ~150 ms a W-sharded decode
+#: step, and the spawn's seconds go to (l) too)
+P12_KV_CASES = (("b1", (16384,), 16), ("b2", (2048, 1536), 16))
 #: (k)'s logits against the f64 witness (``logits_f64``; stated before its
 #: first run): the one-rank run's ||d|| / ||witness|| at most
 #: ``P12_KV_WITNESS_REL`` (else the witness is wrong), and each rank's
@@ -4051,6 +4079,327 @@ def _p12_kv_report(res, cfg):
     return paths
 
 
+# --- phase 12 (l): the recurrent kinds across ranks ------------------------
+
+#: (l): (arch, path tag, layers, global (batch, seq) trained, decode rows)
+#: at full width cut in depth, on the merged (2, 2) mesh: hymba's 4
+#: layers (its 25 / 5 heads do not divide over 2: the gathered-heads
+#: layout, every head on every rank; the Mamba cell on half of d_inner),
+#: xlstm's one ``[mlstm x 7, slstm]`` group (the mLSTM cell on 2 of its 4
+#: heads a rank; the sLSTM cell whole on every rank, its host-bound loop on
+#: each).  One row a data rank trains (1 x 2048 and 1 x 512), 8 decode.
+P12_RZOO = (("hymba-1.5b", "hymba", 4, (2, 2048), 16),
+            ("xlstm-350m", "xlstm", 8, (2, 512), 16))
+#: teacher-forced decode steps from an empty cache
+P12_RZOO_STEPS = 16
+
+
+def p12_rzoo_cfg(arch, layers):
+    """(l)'s config: ``arch`` at full width cut to ``layers``."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    return replace(get_config(arch), n_layers=layers)
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.detach().clone()
+
+
+def _tree_leaves(tree):
+    """A cache's (or its specs') leaves: dicts and a state's tuple walked,
+    a ``PartitionSpec`` (a tuple subclass) kept whole."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tree_leaves(v)]
+    if type(tree) is tuple:
+        return [t for v in tree for t in _tree_leaves(v)]
+    return [tree]
+
+
+def _p12_rzoo_inputs(cfg, dec_rows, B, L, dev):
+    """(l)'s batch (``SyntheticLM`` batch 0, B x L) and decode tokens
+    (``dec_rows`` x ``P12_RZOO_STEPS``), the same in the reference and on
+    every rank."""
+    import numpy as np
+    import torch
+    from repro_torch.data import DataConfig, SyntheticLM
+    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=L,
+                                   global_batch=B)).tensors(0, dev)
+    toks = torch.from_numpy(np.random.RandomState(12).randint(
+        0, cfg.vocab_size, (dec_rows, P12_RZOO_STEPS))).to(dev)
+    return batch, toks
+
+
+@contextlib.contextmanager
+def _catching_grads(seen):
+    """``make_train_step``'s gradients, caught in ``seen`` (copies) where
+    the step hands them to AdamW."""
+    from repro_torch.train import loop
+    adamw = loop.adamw_update
+
+    def catching(params, grads, *a, **kw):
+        seen[:] = [g.detach().clone() for g in grads]
+        return adamw(params, grads, *a, **kw)
+    loop.adamw_update = catching
+    try:
+        yield seen
+    finally:
+        loop.adamw_update = adamw
+
+
+def _p12_rzoo_reference(dev, path):
+    """(l)'s one-rank runs on the card, made before the spawn (each model
+    freed before the next): per config the whole model from seed 0,
+    ``P12_RZOO_STEPS`` teacher-forced ``decode_step`` logits and the
+    states after them, then one ``make_train_step`` step's loss and the
+    gradients it hands AdamW, with each leaf's largest entry; saved on the
+    host to ``path`` + ``_<tag>.pt`` (the ranks read their shards of it,
+    memory-mapped, and make their parameters from the seed)."""
+    import torch
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import loop
+    for arch, tag, layers, (B, L), dec_rows in P12_RZOO:
+        t0 = time.perf_counter()
+        cfg = p12_rzoo_cfg(arch, layers)
+        model = Model(cfg, device=dev)
+        batch, toks = _p12_rzoo_inputs(cfg, dec_rows, B, L, dev)
+        full = model.init(torch.Generator(device=dev).manual_seed(0))
+        cache = model.init_cache(dec_rows, P12_RZOO_STEPS)
+        logits = []
+        with torch.no_grad():
+            for t in range(P12_RZOO_STEPS):
+                lg, cache = model.decode_step(full, cache, {
+                    "tokens": toks[:, t:t + 1], "step": t})
+                logits.append(lg)
+        states = [c.cpu() for c in _tree_leaves(cache)]
+        ref = {"logits": torch.stack(logits).cpu(), "cache": states,
+               "cache_scale": [float(c.float().abs().max()) for c in states]}
+        del cache, logits
+        seen = []
+        with _catching_grads(seen):
+            _, _, m = loop.make_train_step(model, AdamWConfig())(
+                full, adamw_init(full), batch)
+        ref["loss"] = float(m["loss"])
+        ref["g_scale"] = [float(g.abs().max()) for g in seen]
+        ref["g"] = [g.cpu() for g in seen]
+        del full, m, seen
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        torch.save(ref, f"{path}_{tag}.pt")
+        log(f"  (l) {arch}'s one-rank reference in "
+            f"{time.perf_counter() - t0:.1f} s (saved for the ranks)")
+        del ref
+
+
+def _p12_rzoo_rank(rank, path):
+    """(l) on one rank of the (2, 2) mesh, for each of ``P12_RZOO``: its
+    shards of the parameters from seed 0 (the whole model made in turn,
+    one rank at a time) and of the one-rank reference (``path``,
+    ``_p12_rzoo_reference``), then the decode steps (the states in
+    ``cache_specs``' layout) and one ``make_train_step`` step, the
+    gradients caught where the step hands them to AdamW.  Returns per
+    config the readings, the launches, host seconds, each collective's
+    bytes a step and the peak memory."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.parallel import comm
+    from repro_torch.parallel.mesh import ParallelDims, make_mesh
+    from repro_torch.parallel.sharding import (P, local_shard, local_tree,
+                                               mentioned)
+    from repro_torch.train import cache_specs, loop
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = _p12_device()
+    mesh = make_mesh((2, 2), ("data", "model"))
+    dims = ParallelDims(dp=("data",), mp=("model",))
+    mp = mesh.group(("model",))
+    rows_of = P(dims.batch_axes, None)
+    out = {}
+    for arch, tag, layers, (B, L), dec_rows in P12_RZOO:
+        t0 = time.perf_counter()
+        cfg = p12_rzoo_cfg(arch, layers)
+        model = Model(cfg, device=dev)
+        batch, toks = _p12_rzoo_inputs(cfg, dec_rows, B, L, dev)
+        params = None
+        for turn in range(dist.get_world_size()):
+            if turn == rank:
+                full = model.init(torch.Generator(device=dev).manual_seed(0))
+                params = _clone(local_tree(full, model.param_specs(
+                    full, mesh, dims), mesh))
+                del full
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+            dist.barrier()
+        want = torch.load(f"{path}_{tag}.pt", mmap=True, weights_only=False)
+        rec = {"shards_s": time.perf_counter() - t0}
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        # decode: this rank's rows, its shard of every state
+        cspecs = cache_specs(model, mesh, dims, dec_rows, P12_RZOO_STEPS)
+        cache = model.init_cache(dec_rows, P12_RZOO_STEPS, mesh=mesh,
+                                 dims=dims, specs=cspecs)
+        mine = local_shard(toks, rows_of, mesh)
+        wrappers = reset_counts()
+        logits = []
+        with torch.no_grad():
+            for t in range(P12_RZOO_STEPS):
+                if t == P12_RZOO_STEPS - 1:
+                    _sync(dev)
+                    rec["decode_ms"] = (time.perf_counter() - t0) * 1e3 / t
+                    comm.timing(True)
+                elif t == 0:
+                    _sync(dev)
+                    t0 = time.perf_counter()
+                lg, cache = model.decode_step(params, cache, {
+                    "tokens": mine[:, t:t + 1], "step": t}, mesh=mesh,
+                    dims=dims, specs=cspecs)
+                logits.append(lg)
+        rec["decode_bytes"] = comm.bytes_out()
+        comm.timing(False)
+        rec["decode_launches"] = read_counts(wrappers)
+        rec["logits"] = _p12_err(torch.stack(logits), local_shard(
+            want["logits"], P(None, dims.batch_axes, None, None),
+            mesh).to(dev))
+        states = []
+        for got, w, s, sp in zip(_tree_leaves(cache), want["cache"],
+                                 want["cache_scale"],
+                                 _tree_leaves(cspecs)):
+            w = local_shard(w, sp, mesh).to(dev)
+            if got.dtype == torch.int32:
+                states.append(torch.equal(got, w))
+            else:
+                states.append(float((got - w).abs().max())
+                              <= 2e-4 * max(s, 1e-30))
+        rec["states_ok"] = all(states)
+        rec["state_bytes"] = sum(t.numel() * t.element_size()
+                                 for t in _tree_leaves(cache))
+        rec["state_shape"] = [tuple(t.shape) for t in
+                              _tree_leaves(cache)][:3]
+        del cache, logits
+        # training: one make_train_step step from the same shards
+        rows = {k: local_shard(v, rows_of, mesh) for k, v in batch.items()}
+        opt = adamw_init(params)
+        specs = leaves(model.param_specs(params, mesh, dims))
+        names = _paths(params)
+        seen = []
+        wrappers = reset_counts()
+        comm.timing(True)
+        _sync(dev)
+        t0 = time.perf_counter()
+        with _catching_grads(seen):
+            _, _, m = loop.make_train_step(model, AdamWConfig(), None, mesh,
+                                           dims)(params, opt, rows)
+        _sync(dev)
+        rec["train_s"] = time.perf_counter() - t0
+        rec["train_bytes"] = comm.bytes_out()
+        comm.timing(False)
+        rec["train_launches"] = read_counts(wrappers)
+        rec["loss"], rec["want_loss"] = float(m["loss"]), want["loss"]
+        worst, digests = (0.0, ""), []
+        for name, g, w, sc, sp in zip(names, seen, want["g"],
+                                      want["g_scale"], specs):
+            w = local_shard(w, sp, mesh).to(dev)
+            worst = max(worst, (float((g - w).abs().max())
+                                / max(sc, 1e-30), name))
+            if "model" not in mentioned(sp):
+                digests.append(int.from_bytes(hashlib.sha256(
+                    g.cpu().numpy().tobytes()).digest()[:7], "little"))
+        rec["grad_worst"] = worst
+        every = comm.all_gather(torch.tensor(digests, dtype=torch.int64),
+                                mp, 0, tiled=False)
+        rec["replicas_equal"] = bool((every == every[0]).all())
+        rec["replicated"] = len(digests)
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 \
+            if dev.type == "cuda" else 0.0
+        del params, opt, rows, m, want, model, batch, seen
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out[tag] = rec
+    return out
+
+
+def _p12_rzoo_report(res, dev):
+    """(l)'s checks and log lines from each rank's ``_p12_rzoo_rank``: the
+    loss within 1e-4 relative of the one-rank step's, every gradient
+    shard within 2e-4 of its whole leaf's largest entry, the leaves
+    replicated over ``model`` bitwise equal across the MP ranks, the
+    decode logits elementwise (rtol 2e-4, atol 2e-5) and every state shard
+    within 2e-4 of its leaf's largest entry (``pos`` exact), and on the
+    card rmsnorm and flash launches per step as ``rzoo_launches``
+    predicts.  Returns {path: per-rank launches}."""
+    paths = {}
+    for arch, tag, layers, (B, L), dec_rows in P12_RZOO:
+        cfg = p12_rzoo_cfg(arch, layers)
+        recs = [r[tag] for r in res]
+        bad = []
+        for rk, r in enumerate(recs):
+            if abs(r["loss"] - r["want_loss"]) > 1e-4 * abs(r["want_loss"]):
+                bad.append(f"rank {rk} loss {r['loss']} vs {r['want_loss']}")
+            if r["grad_worst"][0] > 2e-4:
+                bad.append(f"rank {rk} gradient {r['grad_worst']}")
+            if not (r["replicas_equal"] and r["logits"]["elem_ok"]
+                    and r["states_ok"]):
+                bad.append(f"rank {rk} replicas {r['replicas_equal']} "
+                           f"logits {r['logits']} states {r['states_ok']}")
+        train = {k: [r["train_launches"][k] for r in recs]
+                 for k in recs[0]["train_launches"]
+                 if any(r["train_launches"][k] for r in recs)}
+        decode = {k: [r["decode_launches"][k] for r in recs]
+                  for k in recs[0]["decode_launches"]
+                  if any(r["decode_launches"][k] for r in recs)}
+        if dev.type == "cuda":
+            per_step = rzoo_launches(cfg)
+            per_dec = rzoo_launches(cfg, decode=True)
+            for k in ("rmsnorm", "flash_attention"):
+                if train.get(k, [0] * 4) != [per_step[k]] * 4 \
+                        or decode.get(k, [0] * 4) \
+                        != [P12_RZOO_STEPS * per_dec[k]] * 4:
+                    bad.append(f"{k} launches train {train} decode {decode}")
+        kinds = sorted({k for r in recs for k in r["train_bytes"]})
+        log(f"  (l) {arch}, {layers} layers full width on (2, 2): the "
+            f"shards made in {max(r['shards_s'] for r in recs):.1f} s; "
+            f"a step at {B // 2} x {L} a data rank: loss "
+            f"{recs[0]['loss']:.6f} (one rank {recs[0]['want_loss']:.6f}); "
+            f"worst gradient {max(r['grad_worst'] for r in recs)} of its "
+            f"largest entry; {recs[0]['replicated']} leaves replicated over "
+            f"model bitwise equal across MP: "
+            f"{all(r['replicas_equal'] for r in recs)}; "
+            f"{max(r['train_s'] for r in recs):.2f} s (host clock, the "
+            f"collectives timed), peak {max(r['peak_gb'] for r in recs):.2f}"
+            f" GB a rank; launches per rank {train}")
+        log(f"      collective bytes a training step per rank: "
+            + ", ".join(f"{k} {sum(recs[0]['train_bytes'][k].values())}"
+                        for k in kinds))
+        dk = sorted({k for r in recs for k in r["decode_bytes"]})
+        log(f"      decode {dec_rows // 2} rows a data rank, "
+            f"{P12_RZOO_STEPS} teacher-forced steps: logits max_abs_err "
+            f"{max(r['logits']['err'] for r in recs):.3e} (rtol 2e-4, "
+            f"atol 2e-5 on every element: "
+            f"{all(r['logits']['elem_ok'] for r in recs)}); every state "
+            f"shard within 2e-4 of its leaf: "
+            f"{all(r['states_ok'] for r in recs)} ({recs[0]['state_bytes']}"
+            f" state bytes a rank, first leaves "
+            f"{recs[0]['state_shape']}); "
+            f"{max(r['decode_ms'] for r in recs):.2f} ms a step; bytes a "
+            f"step per rank "
+            + ", ".join(f"{k} {sum(recs[0]['decode_bytes'][k].values())}"
+                        for k in dk)
+            + f"; launches per rank {decode}")
+        if bad:
+            raise AssertionError(f"phase 12 (l) {arch}: " + " | ".join(bad))
+        paths[f"train_{tag}_mesh"] = train
+        paths[f"decode_{tag}_mesh"] = decode
+    return paths
+
+
 def multirank(dev, model_cfg=None, tokens=(8, 1024), block_cfg=None,
               block_tokens=(2, 2048), p9_losses=None, kv_cfg=None):
     """Phase 12 (see the module docstring) on ``model_cfg`` (default
@@ -4096,12 +4445,14 @@ def multirank(dev, model_cfg=None, tokens=(8, 1024), block_cfg=None,
         _p12_kv_reference(dev, kv_cfg, kv_ref)
         log(f"  (k) the one-rank reference in {time.perf_counter() - t0:.1f}"
             " s")
+        rzoo_ref = os.path.join(tmp, "rzoo_ref")
+        _p12_rzoo_reference(dev, rzoo_ref)
         t0 = time.perf_counter()
         scheds = P12_TRAIN_SCHEDS
         guard_dir = os.path.join(tmp, "guarded")
         res = spawn(_p12_merged_rank, 4, ref_path, model_cfg, scheds,
                     P12_STEPS, tokens, block_cfg, block_tokens, guard_dir,
-                    kv_cfg, kv_ref, backend="gloo", device=dev.type,
+                    kv_cfg, kv_ref, rzoo_ref, backend="gloo", device=dev.type,
                     timeout=900, threads=2 if cpu else None)
         (label, _), _, _, _ = P12_MERGED
         failed += _p12_report(label, 4, [r["layer"] for r in res], paths)
@@ -4168,7 +4519,9 @@ def multirank(dev, model_cfg=None, tokens=(8, 1024), block_cfg=None,
         paths.update(_p12_guarded_report([r["guarded"] for r in res],
                                          p9_losses, dev, model_cfg, tokens))
         paths.update(_p12_kv_report([r["kv"] for r in res], kv_cfg))
-    log(f"  (a) 2x2, (b)-(k) in {time.perf_counter() - t0:.1f} s")
+        paths.update(_p12_rzoo_report([r["rzoo"] for r in res], dev))
+        log(f"  (l) in {max(r['rzoo_s'] for r in res):.1f} s a rank")
+    log(f"  (a) 2x2, (b)-(l) in {time.perf_counter() - t0:.1f} s")
     return paths
 
 
@@ -4585,7 +4938,9 @@ def zoo(dev):
 #: schedule, dtype, save_hlo, cache_seq_shard), traced on the meta device
 P14_TRACES = (("a", ("qwen3-moe-30b-a3b", "train_4k", False)),
               ("b", ("qwen3-moe-30b-a3b", "decode_32k", False, None,
-                     "bfloat16", False, True)))
+                     "bfloat16", False, True)),
+              ("a", ("hymba-1.5b", "long_500k", False)),
+              ("a", ("xlstm-350m", "decode_32k", False)))
 #: the phase's stated limit, seconds (logged beside its time)
 P14_LIMIT_S = 45.0
 #: (c): the real runs' combos (reduced, float32, 8 x 64 tokens)
@@ -4715,8 +5070,8 @@ def dry_run(dev):
             host["qrec"] = dryrun.dry_one(*P14_QWEN, False, dtype="float32",
                                           reduced=True, seq=64, batch_size=8,
                                           test_mesh=True)
-            for label, kw in P14_TRACES:
-                host[label] = dryrun.dry_one(*kw)
+            for i, (_, kw) in enumerate(P14_TRACES):
+                host[i] = dryrun.dry_one(*kw)
             host["done"] = time.perf_counter()
         except BaseException as e:     # re-raised on the main thread
             host["error"] = e
@@ -4762,8 +5117,8 @@ def dry_run(dev):
         f"spawn returned {t_back - max(r['clock'][2] for r in ranks):.1f} s "
         f"after the last rank; the host work ended "
         f"{host['done'] - t_c:+.1f} s from (c)'s end")
-    for label, _ in P14_TRACES:
-        _p14_report(label, host[label])
+    for i, (label, _) in enumerate(P14_TRACES):
+        _p14_report(label, host[i])
     names = sorted(ranks[0]["launches"])
     return {"dryrun_4x2_gpt2_moe": {
                 k: [r["gpt2"]["launches"][k] for r in ranks] for k in names},
@@ -5258,6 +5613,18 @@ SHAPE_OF.update({("rmsnorm", "serve_llama_vision"): "decode-4096",
                  ("flash_attention", "serve_whisper"): "whisper-enc",
                  ("flash_attention", "train_whisper"): "whisper-dec",
                  ("flash_attention", "launcher_whisper"): "noncausal"})
+# phase 12 (l): one rank of (2, 2), rank 0's launches (every rank's are
+# checked equal): hymba's 1 x 2048 step at 1600 and every head's flash
+# (the gathered-heads layout) as on one rank; xlstm's 1 x 512 at 1024;
+# decode 8 rows a data rank
+SHAPE_OF.update({("rmsnorm", "train_hymba_mesh"): "train-hymba",
+                 ("flash_attention", "train_hymba_mesh"): "hymba",
+                 ("rmsnorm", "decode_hymba_mesh"): "decode-1600",
+                 ("rmsnorm", "train_xlstm_mesh"): "train-512x1024",
+                 ("rmsnorm", "decode_xlstm_mesh"): "decode-1024"})
+#: phase 12 (l)'s paths, in ``by_path`` with rank 0's launches
+P12_RZOO_PATHS = tuple(f"{what}_{tag}_mesh" for _, tag, _, _, _ in P12_RZOO
+                       for what in ("train", "decode"))
 #: (kernel, multi-rank path) -> the phase-3 row at the shapes one rank's
 #: launches take there: phase 12 (k)'s prefill on one rank of (2, 2) (16 /
 #: 4 heads; B=1 one row of 16384, B=2 one row of 2048 a data rank) and its
@@ -5552,6 +5919,9 @@ def main(argv=None) -> int:
         log("phase 12: Parm's schedules across ranks (gpt2-moe, qwen3's "
             "block, gloo ranks on cuda:0)")
         multi_paths = multirank(dev, p9_losses=p9_losses)
+        for path in P12_RZOO_PATHS:
+            path_launches[path] = {k: multi_paths[path].get(k, [0])[0]
+                                   for k in KERNELS}
         log(f"  phase 12 in {time.perf_counter() - t0:.1f} s")
 
     if 13 in phases:

@@ -35,6 +35,7 @@ from torch.utils._pytree import tree_flatten
 
 #: the port's collectives (``parallel.comm``) -> XLA's HLO op names
 HLO_KIND = {"all_to_all": "all-to-all", "all_to_all_rows": "all-to-all",
+            "permute_rows": "collective-permute",
             "all_gather": "all-gather", "psum_scatter": "reduce-scatter",
             "psum": "all-reduce", "pmax": "all-reduce"}
 #: allocations that move no bytes
@@ -219,10 +220,12 @@ def meta_state(model, mesh, dims, shape, *, zero_axes=(),
 
 
 def tree_bytes(tree) -> int:
-    from repro_torch.optim.adamw import leaves
+    """The bytes of a tree's tensors (dicts, and a recurrent cache's
+    tuples)."""
     if tree is None:
         return 0
-    return sum(t.numel() * t.element_size() for t in leaves(tree))
+    return sum(t.numel() * t.element_size() for t in tree_flatten(tree)[0]
+               if isinstance(t, torch.Tensor))
 
 
 def make_step(model, mesh, dims, shape, state, *, schedule=None,

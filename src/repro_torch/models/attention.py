@@ -16,7 +16,13 @@ query head, ``wk``/``wv`` by kv head where the kv heads divide over MP,
 else replicated, each rank then reading the one kv head its query heads
 share) and returns its row-parallel part of the output, which the block
 sums over MP.  A query head split across ranks (JAX allows it where
-``H * hd`` but not ``H`` divides over MP) is refused.
+``H * hd`` but not ``H`` divides over MP) is refused, except in the
+gathered-heads layout (``gathered=True``, :func:`attn_layout`; hymba's 25
+query heads over 5 kv heads): this rank's columns of ``q`` are gathered
+over MP, every rank runs every head over K/V it computes from the
+replicated kv projection, and feeds its columns of the output to its
+rows of ``wo``.  JAX's specs stay as they are; the attention core runs
+on every MP rank.
 
 ``paged_chunk_attn`` is plain array code in JAX too, no Pallas kernel.  The
 port keeps its layout, op order and mask constants: ``-inf`` score masking
@@ -124,6 +130,41 @@ def mp_heads(cfg: AttnConfig, n_mp: int, index: int = 0):
         raise ValueError(f"{h_local} query heads a rank straddle GQA groups "
                          f"of {group} over {K} replicated kv heads")
     return h_local, 1, index * h_local // group
+
+
+def attn_layout(cfg: AttnConfig, n_mp: int) -> str:
+    """How the attention of a kind that takes the gathered-heads layout
+    (hymba) runs over ``n_mp`` MP ranks under JAX's ``attn_specs``:
+    ``"whole"`` where ``wq``/``wo`` are replicated (one rank, or ``H *
+    hd`` does not divide), ``"heads"`` where :func:`mp_heads` keeps whole
+    heads a rank, else ``"gathered"``."""
+    if n_mp <= 1 or (cfg.n_heads * cfg.head_dim) % n_mp:
+        return "whole"
+    try:
+        mp_heads(cfg, n_mp)
+    except ValueError:
+        return "gathered"
+    return "heads"
+
+
+def _gathered_q(p, cfg: AttnConfig, x, tp):
+    """Every query head (B, L, H, hd): this rank's columns of ``wq`` (and
+    ``bq``), all-gathered over MP along the features (reduce-scattered
+    back)."""
+    from repro_torch.parallel.tensor import gather_features
+    B, L, _ = x.shape
+    q = x @ p["wq"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    return gather_features(q, tp.grp).reshape(B, L, cfg.n_heads,
+                                              cfg.head_dim)
+
+
+def _own_columns(out, tp):
+    """This rank's columns of every head's (..., H * hd) output: the rows
+    of ``wo`` it holds."""
+    cols = out.shape[-1] // tp.n
+    return out.narrow(-1, tp.index * cols, cols)
 
 
 def _rank_heads(p, cfg: AttnConfig, tp):
@@ -268,18 +309,24 @@ def sdpa_flash_scan(q, k, v, cfg: AttnConfig, q_pos, k_pos):
 
 
 def apply_attn(p, cfg: AttnConfig, x, *, positions=None, kv_x=None,
-               kv_positions=None, kernel=None, tp=None):
+               kv_positions=None, kernel=None, tp=None, gathered=False):
     """Training/prefill forward.  x: (B, L, D); ``kv_x`` != None is cross
     attention.  Returns (B, L, D).  With ``tp`` (a ``TensorParallel``)
     ``p`` holds this rank's shards, ``x`` is replicated over MP and the
     result is this rank's row-parallel part of the output (the caller sums
-    it over MP)."""
+    it over MP): this rank's heads, or with ``gathered`` every head and
+    this rank's columns of their output (the module docstring)."""
     B, L, D = x.shape
     hd = cfg.head_dim
-    H, K, kv = _rank_heads(p, cfg, tp)
     src = kv_x if kv_x is not None else x
     Lk = src.shape[1]
-    q, k, v = _project(p, kv, cfg, x, src, H, K)
+    if gathered:
+        H, K = cfg.n_heads, cfg.n_kv_heads
+        q = _gathered_q(p, cfg, x, tp)
+        k, v = _project_kv(p, cfg, src, K)
+    else:
+        H, K, kv = _rank_heads(p, cfg, tp)
+        q, k, v = _project(p, kv, cfg, x, src, H, K)
     # the kernel derives positions from tile indices: it covers only the
     # default contiguous-from-zero layout (recorded before the aranges)
     contiguous_pos = positions is None and kv_positions is None
@@ -306,7 +353,8 @@ def apply_attn(p, cfg: AttnConfig, x, *, positions=None, kv_x=None,
                 cfg.causal or cfg.window or cfg.chunk) else torch.zeros(
                     (L, Lk), dtype=torch.float32, device=x.device)
             out = sdpa_full(q, k, v, bias, cfg.scale)
-    return out.reshape(B, L, H * hd) @ p["wo"]
+    out = out.reshape(B, L, H * hd)
+    return (_own_columns(out, tp) if gathered else out) @ p["wo"]
 
 
 def cache_len(cfg: AttnConfig, max_len: int) -> int:
@@ -461,7 +509,7 @@ def _decode_static(p, cfg: AttnConfig, x, kv):
 
 
 def decode_attn(p, cfg: AttnConfig, x, cache, step, *, tp=None, wgrp=None,
-                kv_cache_static=None):
+                kv_cache_static=None, gathered=False):
     """One-token decode.  With ``kv_cache_static`` it is cross attention
     over a precomputed context (:func:`_decode_static`; ``cache`` and
     ``step`` unused, nothing written).  Otherwise self-attention: x:
@@ -480,13 +528,22 @@ def decode_attn(p, cfg: AttnConfig, x, cache, step, *, tp=None, wgrp=None,
     the token's K/V all-gathered (query-sized), the rank that owns the
     slot writes it, each rank scores every head over its own slots, and
     the softmax is combined over ``wgrp`` (the max, then the sums and the
-    weighted values): K and V never leave their rank."""
+    weighted values): K and V never leave their rank.  With ``gathered``
+    (the gathered-heads layout) the query is gathered over MP, the cache
+    holds every kv head, every head is attended on every rank, and this
+    rank's columns of the output meet its rows of ``wo``."""
     if kv_cache_static is not None:
         return _decode_static(p, cfg, x, kv_cache_static)
     B = x.shape[0]
     hd = cfg.head_dim
-    H, K, kv = _rank_heads(p, cfg, tp)
-    q, k, v = _project(p, kv, cfg, x, x, H, K)
+    if gathered:
+        H, K = cfg.n_heads, cfg.n_kv_heads
+        q = _gathered_q(p, cfg, x, tp)
+        k, v = _project_kv(p, cfg, x, K)
+        rank_tp, tp = tp, None        # from here on, as on one rank
+    else:
+        H, K, kv = _rank_heads(p, cfg, tp)
+        q, k, v = _project(p, kv, cfg, x, x, H, K)
     steps = torch.as_tensor(step, device=x.device).long()
     steps = steps.expand(B) if steps.dim() == 0 else steps
     if cfg.use_rope:
@@ -499,16 +556,17 @@ def decode_attn(p, cfg: AttnConfig, x, cache, step, *, tp=None, wgrp=None,
     if wgrp is not None and wgrp.size > 1:
         out = _decode_sharded(p, cfg, x, q, k, v, cache, steps, slot, tp,
                               wgrp)
-        return out.reshape(B, 1, H * hd) @ p["wo"]
-    cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
-    s = torch.einsum("bkgd,bwkd->bkgw", _grouped(q, K),
-                     cache["k"]).float() * cfg.scale
-    valid = _valid(cfg, cache["pos"], steps[:, None])
-    s = torch.where(valid[:, None, None], s, -torch.inf)
-    pr = torch.softmax(s, dim=-1).to(x.dtype)
-    out = torch.einsum("bkgw,bwkd->bkgd", pr, cache["v"])
-    return out.reshape(B, 1, H * hd) @ p["wo"]
+    else:
+        cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
+        s = torch.einsum("bkgd,bwkd->bkgw", _grouped(q, K),
+                         cache["k"]).float() * cfg.scale
+        valid = _valid(cfg, cache["pos"], steps[:, None])
+        s = torch.where(valid[:, None, None], s, -torch.inf)
+        pr = torch.softmax(s, dim=-1).to(x.dtype)
+        out = torch.einsum("bkgw,bwkd->bkgd", pr, cache["v"])
+    out = out.reshape(B, 1, H * hd)
+    return (_own_columns(out, rank_tp) if gathered else out) @ p["wo"]
 
 
 def _decode_sharded(p, cfg: AttnConfig, x, q, k, v, cache, steps, slot, tp,

@@ -10,11 +10,15 @@ partition specs ``block_specs``, the training forward ``apply_block``,
 the serving engine's paged forward and the KV-cache serve path's
 ``init_block_cache``, ``prefill_block`` and ``decode_block``.
 
-The recurrent and cross-attention kinds run on one rank, through
-``apply_block``, ``init_block_cache`` and ``decode_block``;
-``prefill_block`` and ``paged_block`` refuse them, as JAX's do.  On a
-mesh they raise (:func:`refuse_mesh`, ROADMAP 7d-mesh), while
-``block_specs`` gives JAX's specs for them."""
+The recurrent and cross-attention kinds run through ``apply_block``,
+``init_block_cache`` and ``decode_block``; ``prefill_block`` and
+``paged_block`` refuse them, as JAX's do.  The recurrent kinds run on a
+mesh too, Megatron-split over MP on JAX's specs (``_recurrent``): hymba's
+attention by head or in the gathered-heads layout
+(``attention.attn_layout``) beside its Mamba cell on its channels, the
+mLSTM cell on its heads or gathered heads, the sLSTM cell whole on every
+rank.  The cross-attention kinds raise on a mesh (:func:`refuse_mesh`,
+ROADMAP 7d-mesh), while ``block_specs`` gives JAX's specs for them."""
 
 from __future__ import annotations
 
@@ -32,7 +36,7 @@ from repro_torch.parallel.sharding import P
 #: Block kinds the port runs.
 KINDS = ("dense", "moe", "cross", "xdec", "hymba", "mlstm", "slstm",
          "encoder")
-#: the kinds with a recurrent state, which run on one rank only
+#: the kinds with a recurrent state
 RECURRENT = ("hymba", "mlstm", "slstm")
 #: the cross-attention and encoder-decoder kinds, one rank only too
 CROSS = ("cross", "xdec", "encoder")
@@ -68,21 +72,32 @@ def _check_kind(kind: str) -> None:
 
 
 def refuse_mesh(name: str, kinds) -> None:
-    """Raise where ``kinds`` (a model's layer kinds) hold a recurrent or a
-    cross-attention one: on a mesh the port runs none of them yet."""
-    kinds = {base_kind(k) for k in kinds}
-    bad = sorted(kinds & set(RECURRENT))
-    if bad:
-        raise NotImplementedError(
-            f"{name}: the recurrent block kinds {bad} run on one rank; on "
-            "a mesh they come with ROADMAP 7d-mesh (the Megatron split of "
-            "d_inner, cache_specs for the states, the dry run)")
-    bad = sorted(kinds & set(CROSS))
+    """Raise where ``kinds`` (a model's layer kinds) hold a cross-attention
+    one: on a mesh the port runs none of them yet."""
+    bad = sorted({base_kind(k) for k in kinds} & set(CROSS))
     if bad:
         raise NotImplementedError(
             f"{name}: the cross-attention block kinds {bad} run on one "
             "rank; on a mesh they come with ROADMAP 7d-mesh (the Megatron "
             "split of xattn, ctx_kv's batch sharding, the dry run)")
+
+
+def state_shards(cfg: ModelConfig, kind: str, n_mp: int) -> dict:
+    """The MP shards of a recurrent layer's decode state over ``n_mp``
+    ranks, by cell (1: whole on every rank): Mamba's ``d_inner`` where its
+    cell is split, mLSTM's heads where they divide; sLSTM's never
+    (``train.loop.cache_specs``' rule)."""
+    base = base_kind(kind)
+    out = {}
+    if base == "hymba":
+        out["mamba"] = n_mp if ssm_mod.mamba_split(_mamba_cfg(cfg), n_mp) \
+            else 1
+    if base == "mlstm":
+        out["mlstm"] = n_mp if ssm_mod.mlstm_heads_split(_mlstm_cfg(cfg),
+                                                         n_mp) else 1
+    if base == "slstm":
+        out["slstm"] = 1
+    return out
 
 
 def _has_attn(base: str) -> bool:
@@ -219,10 +234,10 @@ def apply_block(p, cfg: ModelConfig, kind: str, x, *, ctx=None,
            "expert_load": torch.zeros((0,), dtype=torch.float32,
                                       device=x.device)}
     base = base_kind(kind)
-    if base in RECURRENT + CROSS and (mesh is not None or tp is not None):
+    if base in CROSS and (mesh is not None or tp is not None):
         refuse_mesh(cfg.name, [kind])
     if base in RECURRENT:
-        return _recurrent(p, cfg, kind, x, positions=positions), aux
+        return _recurrent(p, cfg, kind, x, positions=positions, tp=tp), aux
     if base in ("cross", "xdec"):
         return _cross(p, cfg, kind, x, ctx=ctx, positions=positions), aux
     h = apply_norm(p["norm1"], x, eps, cfg.kernel)
@@ -252,41 +267,81 @@ def apply_block(p, cfg: ModelConfig, kind: str, x, *, ctx=None,
 
 
 def _recurrent(p, cfg: ModelConfig, kind: str, x, cache=None, step=None, *,
-               positions=None):
+               positions=None, tp=None, wgrp=None):
     """A recurrent block (JAX's ``apply_block`` / ``decode_block`` for
     ``hymba``, ``mlstm`` and ``slstm``).  With ``cache`` it is one decode
     token: the attention's K/V and the recurrent state are written into
-    ``cache`` in place.  Returns the block's output."""
+    ``cache`` in place.  Returns the block's output.
+
+    With ``tp`` each sub-layer whose weights are split over MP runs on its
+    shard between ``tp.enter`` and ``tp.leave`` (entered once for hymba's
+    two heads), one that JAX's specs replicate runs whole on every rank
+    (``tp.to_replicated`` / ``tp.from_replicated``): hymba's attention by
+    ``attention.attn_layout``, its Mamba cell and the mLSTM cell where
+    ``d_inner`` divides, the sLSTM cell always whole.  hymba normalises
+    ``a`` and ``s`` apart (``norm_a``, ``norm_s``), so each is summed over
+    MP whole before its norm.  ``wgrp``: the attention cache's W split,
+    as ``decode_attn`` takes it."""
     base = base_kind(kind)
     eps = cfg.norm_eps
+    n_mp = 1 if tp is None else tp.n
 
     def norm(pn, h):
         return apply_norm(pn, h, eps, cfg.kernel)
 
-    def cell(name, fn, ssm_cfg, h):
-        if cache is None:
-            return fn(p[name], ssm_cfg, h)
-        y, st = fn(p[name], ssm_cfg, h, state=cache[name])
-        for dst, src in zip(cache[name], st):
-            dst.copy_(src)
-        return y
+    entered = []
+
+    def region(h, split, fn):
+        """``fn(h, tp)`` on this rank's shard (``split``) and summed over
+        MP, or ``fn(h, None)`` whole on every rank."""
+        if tp is None:
+            return fn(h, None)
+        if not split:
+            return tp.from_replicated(fn(tp.to_replicated(h), None))
+        if not entered:
+            entered.append(tp.enter(h))
+        return tp.leave(fn(entered[0], tp))
+
+    def cell(name, fn, ssm_cfg, split, h):
+        def run(h, tp):
+            kw = {} if tp is None else {"tp": tp}
+            if cache is None:
+                return fn(p[name], ssm_cfg, h, **kw)
+            y, st = fn(p[name], ssm_cfg, h, state=cache[name], **kw)
+            for dst, src in zip(cache[name], st):
+                dst.copy_(src)
+            return y
+        return region(h, split, run)
 
     h = norm(p["norm1"], x)
     if base == "hymba":
         acfg = attn_config(cfg, kind)
-        if cache is None:
-            a = attn_mod.apply_attn(p["attn"], acfg, h, positions=positions,
-                                    kernel=cfg.kernel)
-        else:
-            a = attn_mod.decode_attn(p["attn"], acfg, h, cache["attn"], step)
-        s = cell("mamba", ssm_mod.apply_mamba, _mamba_cfg(cfg), h)
+        layout = attn_mod.attn_layout(acfg, n_mp)
+
+        def attend(h, tp):
+            gathered = layout == "gathered"
+            if cache is None:
+                return attn_mod.apply_attn(p["attn"], acfg, h,
+                                           positions=positions,
+                                           kernel=cfg.kernel, tp=tp,
+                                           gathered=gathered)
+            return attn_mod.decode_attn(p["attn"], acfg, h, cache["attn"],
+                                        step, tp=tp, wgrp=wgrp,
+                                        gathered=gathered)
+
+        a = region(h, layout != "whole", attend)
+        mcfg = _mamba_cfg(cfg)
+        s = cell("mamba", ssm_mod.apply_mamba, mcfg,
+                 ssm_mod.mamba_split(mcfg, n_mp), h)
         x = x + 0.5 * (norm(p["norm_a"], a) + norm(p["norm_s"], s))
-        return x + apply_ffn(p["ffn"], norm(p["norm2"], x), cfg.ffn_act)
+        return x + _ffn(p["ffn"], cfg, norm(p["norm2"], x), tp)
     if base == "mlstm":
-        return x + cell("mlstm", ssm_mod.apply_mlstm, _mlstm_cfg(cfg), h)
-    x = x + cell("slstm", ssm_mod.apply_slstm, _slstm_cfg(cfg), h)
+        lcfg = _mlstm_cfg(cfg)
+        return x + cell("mlstm", ssm_mod.apply_mlstm, lcfg,
+                        ssm_mod.mlstm_split(lcfg, n_mp), h)
+    x = x + cell("slstm", ssm_mod.apply_slstm, _slstm_cfg(cfg), False, h)
     if "ffn" in p:
-        x = x + apply_ffn(p["ffn"], norm(p["norm2"], x), cfg.ffn_act)
+        x = x + _ffn(p["ffn"], cfg, norm(p["norm2"], x), tp)
     return x
 
 
@@ -393,12 +448,14 @@ def paged_block(p, cfg: ModelConfig, kind: str, x, cache, table, starts,
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
-                     dtype, device, **shard) -> dict:
+                     dtype, device, state_shards=None, **shard) -> dict:
     """This layer's decode cache: ``{"attn": {"k", "v", "pos"}}``
     (``attention.init_cache``; ``shard``: its ``kv_heads`` and
     ``w_shards``) where it self-attends, and JAX's recurrent state tuples
     beside or instead of it: ``"mamba"`` ``(conv_buf, h)``, ``"mlstm"``
-    ``(C, n, m)``, ``"slstm"`` ``(c, n, h, m)``; a ``cross`` layer, whose
+    ``(C, n, m)``, ``"slstm"`` ``(c, n, h, m)``, each cut to this rank's
+    ``1 / state_shards[cell]`` of its channels or heads
+    (:func:`state_shards`; default whole); a ``cross`` layer, whose
     context K/V come per request (``Model.ctx_kv``), JAX's 0-d
     ``"dummy"``."""
     _check_kind(kind)
@@ -409,11 +466,14 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
     elif _has_attn(base):
         c["attn"] = attn_mod.init_cache(attn_config(cfg, kind), batch,
                                         max_len, dtype, device, **shard)
+    n = state_shards or {}
     if base == "hymba":
-        c["mamba"] = ssm_mod.init_mamba_state(_mamba_cfg(cfg), batch, dtype,
-                                              device)
+        c["mamba"] = ssm_mod.init_mamba_state(
+            _mamba_cfg(cfg), batch, dtype, device, shards=n.get("mamba", 1))
     if base == "mlstm":
-        c["mlstm"] = ssm_mod.init_mlstm_state(_mlstm_cfg(cfg), batch, device)
+        lcfg = _mlstm_cfg(cfg)
+        c["mlstm"] = ssm_mod.init_mlstm_state(
+            lcfg, batch, device, heads=lcfg.n_heads // n.get("mlstm", 1))
     if base == "slstm":
         c["slstm"] = ssm_mod.init_slstm_state(_slstm_cfg(cfg), batch, device)
     return c
@@ -449,15 +509,16 @@ def decode_block(p, cfg: ModelConfig, kind: str, x, cache, step, *,
     class (``infer=True``: its own decision, drop-free capacity; a pool
     smaller than its MP group falls back to ``dense_decode``).  Mesh
     arguments as :func:`prefill_block`.  A recurrent kind also carries
-    its state one token on, in place, and a ``cross`` or ``xdec`` layer
-    attends its context's precomputed ``ctx_kv`` (one rank only).  Returns
-    the block's output."""
+    its state one token on, in place (on a mesh its shard of it,
+    ``_recurrent``), and a ``cross`` or ``xdec`` layer attends its
+    context's precomputed ``ctx_kv`` (one rank only).  Returns the block's
+    output."""
     base = base_kind(kind)
-    if base in RECURRENT + CROSS and (
+    if base in CROSS and (
             mesh is not None or tp is not None or wgrp is not None):
         refuse_mesh(cfg.name, [kind])
     if base in RECURRENT:
-        return _recurrent(p, cfg, kind, x, cache, step)
+        return _recurrent(p, cfg, kind, x, cache, step, tp=tp, wgrp=wgrp)
     if base in ("cross", "xdec"):
         return _cross(p, cfg, kind, x, cache=cache, step=step,
                       ctx_kv=ctx_kv)

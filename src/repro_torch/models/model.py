@@ -4,10 +4,11 @@ for the serving engine's steps over a paged KV arena (``paged_step``) and
 for the KV-cache serve path over per-row caches (``init_cache``,
 ``prefill_step``, ``decode_step``; on a mesh in the layout
 ``train.loop.cache_specs`` gives).  The recurrent stacks (hymba, xlstm)
-and the cross-attention ones (llama-3.2-vision's gated cross layers,
-whisper's encoder and decoder) train and decode on one rank;
-``prefill_step`` and ``paged_step`` refuse them, as JAX's do, and on a
-mesh every path refuses them (ROADMAP 7d-mesh) but ``param_specs``.
+train and decode on one rank and on a mesh (``blocks._recurrent``); the
+cross-attention ones (llama-3.2-vision's gated cross layers, whisper's
+encoder and decoder) on one rank, every mesh path but ``param_specs``
+refusing them (ROADMAP 7d-mesh).  ``prefill_step`` and ``paged_step``
+refuse both, as JAX's do.
 
 A cross-attention model reads its context from ``batch["ctx_embeds"]``
 (B, Lctx, D), the modality frontends' output, which the port, as JAX,
@@ -49,10 +50,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks as blk
-from repro_torch.models.attention import mp_heads
+from repro_torch.models.attention import attn_layout, mp_heads
 from repro_torch.models.layers import (apply_norm, embed, embedding_specs,
                                        init_embedding, init_norm, norm_specs,
                                        sinusoidal_positions, unembed)
+from repro_torch.models.ssm import mlstm_split
 from repro_torch.parallel import comm
 from repro_torch.parallel.mesh import axis_size
 from repro_torch.parallel.sharding import P, mentioned
@@ -105,6 +107,29 @@ def _stack(make, n: int) -> dict:
     for i in range(1, n):
         put(out, make(), i)
     return out
+
+
+#: a recurrent state's leaf 0 dim that its MP shard cuts, by cell
+#: (``train.loop.cache_specs``): Mamba's ``conv_buf`` (n, B, C, Di) and
+#: mLSTM's ``C`` (n, B, H, hd, hd)
+STATE_DIM = {"mamba": 3, "mlstm": 2, "slstm": 2}
+
+
+def _cache_kinds(kind: str) -> tuple:
+    """The cache entries of a layer of ``kind`` (``init_block_cache``'s
+    keys)."""
+    base = blk.base_kind(kind)
+    out = ("attn",) if blk._has_attn(base) and base != "cross" else ()
+    return out + tuple(c for c, b in (("mamba", "hymba"), ("mlstm", "mlstm"),
+                                      ("slstm", "slstm")) if base == b)
+
+
+def _first_spec(tree):
+    """The first spec of a run's cache specs (every leaf's dim 1 is the
+    batch's, sharded alike)."""
+    if isinstance(tree, dict):
+        return _first_spec(next(iter(tree.values())))
+    return tree if isinstance(tree, P) else tree[0]
 
 
 def _in_order_of(tree: dict, like: dict) -> dict:
@@ -189,7 +214,9 @@ class Model:
         more than one rank; with ``specs`` (``train.loop.cache_specs``)
         the layout they give, this rank's rows where the batch is sharded
         and its slice of W with every kv head where W is (``pos`` stays
-        whole along W, as the specs leave it)."""
+        whole along W, as the specs leave it).  A recurrent state holds
+        this rank's shard (``blocks.state_shards``; with ``specs``, the
+        MP axes of its leaves): Mamba's channels, mLSTM's heads."""
         cfg = self.cfg
         self._refuse_mesh(mesh)
         dtype = dtype or getattr(torch, cfg.dtype)
@@ -204,16 +231,32 @@ class Model:
 
         cache = {}
         for r, (kind, n) in enumerate(self.runs):
-            acfg = blk.attn_config(cfg, kind)
-            rows, shard = batch, {"kv_heads": mp_heads(acfg, n_mp)[1]}
+            rows, shard = batch, {}
+            states = blk.state_shards(cfg, kind, n_mp)
+            if "attn" in _cache_kinds(kind):
+                shard["kv_heads"] = self._kv_heads(kind, n_mp)
             if specs is not None:
-                spec = specs[f"run{r}"]["attn"]["k"]
-                rows //= axis_size(mesh, spec[1] or ())
-                if spec[2]:
-                    shard = {"w_shards": axis_size(mesh, spec[2])}
+                run = specs[f"run{r}"]
+                rows //= axis_size(mesh, _first_spec(run)[1] or ())
+                if "attn" in run and run["attn"]["k"][2]:
+                    shard = {"w_shards": axis_size(mesh,
+                                                   run["attn"]["k"][2])}
+                states = {c: axis_size(mesh, sp[0][STATE_DIM[c]] or ())
+                          for c, sp in run.items() if c in STATE_DIM}
             cache[f"run{r}"] = stack(blk.init_block_cache(
-                cfg, kind, rows, max_len, dtype, self.device, **shard), n)
+                cfg, kind, rows, max_len, dtype, self.device,
+                state_shards=states, **shard), n)
         return cache
+
+    def _kv_heads(self, kind, n_mp: int) -> int:
+        """The kv heads a rank's attention cache holds over ``n_mp`` MP
+        ranks: ``mp_heads``', or every one in the gathered-heads and
+        whole layouts (hymba's)."""
+        acfg = blk.attn_config(self.cfg, kind)
+        if blk.base_kind(kind) == "hymba" \
+                and attn_layout(acfg, n_mp) != "heads":
+            return acfg.n_kv_heads
+        return mp_heads(acfg, n_mp)[1]
 
     # --- forward ------------------------------------------------------------
     def _head(self, params, x):
@@ -230,16 +273,20 @@ class Model:
         and key order (a JAX tree comes with sorted keys), so that the
         leaves of the two line up.  Raises, naming the config and the
         mesh, where the attention heads do not split over MP as the port
-        runs them (``attention.mp_heads``); a recurrent or cross-attention
-        stack, which the port does not run on a mesh yet (ROADMAP
-        7d-mesh), gets JAX's specs unchecked."""
+        runs them (``attention.mp_heads``; hymba's attention takes the
+        gathered-heads layout where they do not, ``attention.attn_layout``);
+        a cross-attention stack, which the port does not run on a mesh yet
+        (ROADMAP 7d-mesh), gets JAX's specs unchecked."""
         cfg = self.cfg
         n_mp = axis_size(mesh, dims.mp)
-        one_rank = blk.RECURRENT + blk.CROSS
         try:
             for kind, _ in self.runs:
-                if blk.base_kind(kind) not in one_rank:
-                    mp_heads(blk.attn_config(cfg, kind), n_mp)
+                base = blk.base_kind(kind)
+                if base in blk.CROSS or not blk._has_attn(base):
+                    continue
+                acfg = blk.attn_config(cfg, kind)
+                if base != "hymba" or attn_layout(acfg, n_mp) == "heads":
+                    mp_heads(acfg, n_mp)
         except ValueError as e:
             raise ValueError(f"{cfg.name} on mesh {dict(mesh.shape)} (MP "
                              f"axes {dims.mp}): {e}") from None
@@ -264,27 +311,45 @@ class Model:
     def mp_partial(self, params, mesh, dims, seq_len: int) -> dict:
         """Per leaf (``param_specs``'s tree), whether each MP rank's
         gradient of it is only its part of the whole: a kv projection
-        replicated over MP (each rank reads the kv head its query heads
-        use) and, under Megatron-SP, the norms and a row-parallel FFN's
-        ``b_out`` (they see this rank's L / n_mp rows).
+        replicated over MP where the attention runs split (each rank reads
+        the kv head its query heads use, or, in hymba's gathered-heads
+        layout, feeds only its columns of the output), a split mLSTM
+        cell's replicated gates (``w_if``, ``b_i``, ``b_f``: each rank's
+        heads or output columns) and, under Megatron-SP, the norms and a
+        row-parallel FFN's ``b_out`` (they see this rank's L / n_mp rows).
         ``train.loop.sync_grads`` sums those over MP.  Every other leaf
-        replicated over MP gets its whole gradient on every MP rank."""
+        replicated over MP (a sub-layer that runs whole on every rank:
+        sLSTM, a cell JAX does not split) gets its whole gradient on every
+        MP rank."""
         specs = self.param_specs(params, mesh, dims)
         tp = tensor_parallel(mesh, dims, seq_len, self.cfg.seq_parallel)
         mp = set(dims.mp)
+        kinds = {f"run{r}": kind for r, (kind, _) in enumerate(self.runs)}
+        norms = ("norm1", "norm2", "final_norm", "norm_a", "norm_s")
+
+        def split(path):
+            """Whether the sub-layer ``path`` ends in runs split over MP."""
+            kind = kinds.get(path[0], "encoder")
+            if path[-2] == "attn":    # mp_heads splits the dense kinds'
+                return blk.base_kind(kind) != "hymba" or attn_layout(
+                    blk.attn_config(self.cfg, kind), tp.n) != "whole"
+            if path[-2] == "mlstm":
+                return path[-1] in ("w_if", "b_i", "b_f") and \
+                    mlstm_split(blk._mlstm_cfg(self.cfg), tp.n)
+            return False
 
         def walk(tree, path):
             if isinstance(tree, dict):
                 return {k: walk(v, path + (k,)) for k, v in tree.items()}
             if tp is None or mp & set(mentioned(tree)):
                 return False          # no MP, or sharded over it
-            if path[-2] == "attn":    # wq and wo always shard (mp_heads)
+            if split(path):
                 return True
             if not tp.seq:
                 return False
             if path[-2:] == ("ffn", "b_out"):
                 return self.cfg.d_ff % tp.n == 0      # ffn_specs' rule
-            return path[-2] in ("norm1", "norm2", "final_norm")
+            return path[-2] in norms
 
         return walk(specs, ())
 
@@ -549,15 +614,17 @@ class Model:
     def _cache_layout(self, r, mesh, specs):
         """``(wgrp, replicated)`` of run ``r``'s cache, read from the specs
         ``train.loop.cache_specs`` gave it (the one place the layout is
-        decided): the group W is split over (None: whole), and whether the
-        batch is whole on every rank (not sharded over the batch axes)."""
+        decided): the group the attention cache's W is split over (None:
+        whole, or no attention), and whether the batch is whole on every
+        rank (not sharded over the batch axes)."""
         if mesh is None:
             return None, False
         if specs is None:
             raise ValueError("on a mesh the KV cache's layout comes from "
                              "specs= (train.loop.cache_specs)")
-        spec = specs[f"run{r}"]["attn"]["k"]
-        return (mesh.group(spec[2]) if spec[2] else None), spec[1] is None
+        run = specs[f"run{r}"]
+        w = run["attn"]["k"][2] if "attn" in run else None
+        return (mesh.group(w) if w else None), _first_spec(run)[1] is None
 
     def _serve_head(self, params, x, tp):
         """Logits of the (B, C, D) final hidden states: every rank the whole
@@ -615,8 +682,9 @@ class Model:
         its training forward adds none).  A recurrent run carries its
         state one token on, in place; a ``cross`` / ``xdec`` run attends
         its layers' ``ctx_kv`` (:meth:`ctx_kv`).  Mesh arguments as
-        :meth:`prefill_step`; a recurrent or cross-attention stack refuses
-        a mesh."""
+        :meth:`prefill_step`; a recurrent run carries this rank's shard of
+        its state, which never crosses ranks; a cross-attention stack
+        refuses a mesh."""
         cfg = self.cfg
         self._refuse_mesh(mesh)
         tokens = batch["tokens"]

@@ -182,24 +182,54 @@ def _mamba_chunks(h0, xs, chunk):
         h0s.append(h)
         h = last_a * h + last_h
     h = pA * torch.stack(h0s, 1)[:, :, None] + pH           # (B,nc,c,Di,N)
-    return torch.einsum("bkcdn,bkcn->bkcd", h, Cm).reshape(B, L, Di)
+    # an f32 state meets a bf16 model's C: JAX's einsum promotes to f32
+    return torch.einsum("bkcdn,bkcn->bkcd", h, Cm.to(h.dtype)).reshape(
+        B, L, Di)
 
 
-def apply_mamba(p, cfg: MambaConfig, x, state=None):
+def mamba_split(cfg: MambaConfig, n_mp: int) -> bool:
+    """Whether the cell runs on its shard over ``n_mp`` MP ranks:
+    ``mamba_specs`` shards its channels where ``d_inner`` divides, and
+    replicates every leaf otherwise."""
+    return n_mp > 1 and cfg.d_inner % n_mp == 0
+
+
+def apply_mamba(p, cfg: MambaConfig, x, state=None, tp=None):
     """x: (B, L, D).  ``state=None``: training, returns y; ``state=(conv_buf,
-    h)``: one-token decode (L == 1), returns (y, state)."""
+    h)``: one-token decode (L == 1), returns (y, state).
+
+    With ``tp`` (``parallel.tensor``; :func:`mamba_split`) ``p`` holds
+    this rank's shards, ``x`` is replicated over MP, the state holds this
+    rank's channels, and y is this rank's row-parallel part (the caller
+    sums it over MP).  ``in_proj``'s columns are a block of ``[x | z]``,
+    exchanged into this rank's channels of each; ``w_dt`` reads every
+    channel (the conv output gathered over MP); ``w_bc``'s rows give a
+    partial ``B``/``C``, summed over MP both ways (each rank's channels
+    give part of its cotangent); the scan runs this rank's channels."""
+    from repro_torch.parallel.tensor import (all_reduce_mp, exchange_columns,
+                                             gather_features)
     B, L, D = x.shape
-    Di, N, C = cfg.d_inner, cfg.d_state, cfg.d_conv
+    N, C = cfg.d_state, cfg.d_conv
     xz = x @ p["in_proj"]
-    xin, z = torch.chunk(xz, 2, dim=-1)                         # (B, L, Di)
+    if tp is not None:
+        xz = exchange_columns(xz, tp.grp)
+    xin, z = torch.chunk(xz, 2, dim=-1)                   # (B, L, Di[/n])
+    Di = xin.shape[-1]
+
+    def gates(conv):
+        """dt and (B, C) of the conv output: JAX's two products."""
+        dt = F.softplus((conv if tp is None else gather_features(
+            conv, tp.grp)) @ p["w_dt"] + p["b_dt"])
+        bc = conv @ p["w_bc"]
+        if tp is not None:
+            bc = all_reduce_mp(bc, tp.grp)
+        return (dt, *torch.chunk(bc, 2, dim=-1))
 
     if state is None:
         pad = F.pad(xin, (0, 0, C - 1, 0))
         conv = sum(pad[:, i:i + L] * p["conv_w"][i] for i in range(C))
         conv = F.silu(conv + p["conv_b"])
-        dt = F.softplus(conv @ p["w_dt"] + p["b_dt"])
-        bc = conv @ p["w_bc"]
-        Bm, Cm = torch.chunk(bc, 2, dim=-1)                     # (B, L, N)
+        dt, Bm, Cm = gates(conv)                      # Bm, Cm: (B, L, N)
         chunk = min(cfg.chunk, L)
         while L % chunk:
             chunk //= 2
@@ -214,22 +244,23 @@ def apply_mamba(p, cfg: MambaConfig, x, state=None):
     conv_buf = torch.cat([conv_buf[:, 1:], xin], dim=1)
     conv = F.silu(torch.einsum("bcd,cd->bd", conv_buf, p["conv_w"])
                   + p["conv_b"])
-    dt = F.softplus(conv @ p["w_dt"] + p["b_dt"])                # (B, Di)
-    bc = conv @ p["w_bc"]
-    Bm, Cm = torch.chunk(bc, 2, dim=-1)
+    dt, Bm, Cm = gates(conv)                                      # (B, Di)
     a = -torch.exp(p["a_log"])
     dA = torch.exp(dt[..., None] * a)
     h = dA * h + (dt * conv)[..., None] * Bm[:, None, :]
-    y = torch.einsum("bdn,bn->bd", h, Cm) + conv * p["d_skip"]
+    y = torch.einsum("bdn,bn->bd", h, Cm.to(h.dtype)) + conv * p["d_skip"]
     y = (y * F.silu(z[:, 0])).to(x.dtype) @ p["out_proj"]
     return y[:, None], (conv_buf, h)
 
 
 def init_mamba_state(cfg: MambaConfig, batch, dtype=torch.float32,
-                     device="cuda"):
-    return (torch.zeros((batch, cfg.d_conv, cfg.d_inner), dtype=dtype,
+                     device="cuda", shards: int = 1):
+    """``(conv_buf, h)`` of zeros; ``shards``: this rank's ``d_inner /
+    shards`` channels of a split cell."""
+    Di = cfg.d_inner // shards
+    return (torch.zeros((batch, cfg.d_conv, Di), dtype=dtype,
                         device=device),
-            torch.zeros((batch, cfg.d_inner, cfg.d_state),
+            torch.zeros((batch, Di, cfg.d_state),
                         dtype=torch.float32, device=device))
 
 
@@ -337,36 +368,77 @@ def _mlstm_chunks(carry, qkvif, chunk):
     return (C, nrm, m), y.reshape(B, nc * c, H, hd)
 
 
-def apply_mlstm(p, cfg: MLSTMConfig, x, state=None):
+def mlstm_split(cfg: MLSTMConfig, n_mp: int) -> bool:
+    """Whether the cell runs on its shard over ``n_mp`` MP ranks
+    (``mlstm_specs`` shards its projections where ``d_inner`` divides,
+    and replicates every leaf otherwise)."""
+    return n_mp > 1 and cfg.d_inner % n_mp == 0
+
+
+def mlstm_heads_split(cfg: MLSTMConfig, n_mp: int) -> bool:
+    """Whether a split cell's ranks each run whole heads (``n_heads``
+    divides over MP): its state then holds this rank's heads.  Otherwise
+    (the gathered-heads layout) every rank runs every head."""
+    return mlstm_split(cfg, n_mp) and cfg.n_heads % n_mp == 0
+
+
+def apply_mlstm(p, cfg: MLSTMConfig, x, state=None, tp=None):
     """x: (B, L, D) train (``state=None``) or (B, 1, D) decode, which
-    returns (y, state)."""
+    returns (y, state).
+
+    With ``tp`` (:func:`mlstm_split`) ``p`` holds this rank's shards and
+    ``x`` is replicated over MP; y is this rank's row-parallel part (the
+    caller sums it over MP).  ``up_proj``'s block of ``[xi | z]`` is
+    exchanged into this rank's channels of each, and ``xi`` gathered over
+    MP: ``wq``/``wk``/``wv`` (this rank's columns) and the replicated
+    gates read all of it.  Where the heads divide over MP
+    (:func:`mlstm_heads_split`) the rank runs its heads, state and all;
+    otherwise its q/k/v columns are gathered over MP and it runs every
+    head, the state whole, and keeps its columns of the output.  Either
+    way its gates' gradients are its part only (``Model.mp_partial``)."""
+    from repro_torch.parallel.tensor import exchange_columns, gather_features
     B, L, D = x.shape
     H, hd = cfg.n_heads, cfg.head_dim
     up = x @ p["up_proj"]
-    xi, z = torch.chunk(up, 2, dim=-1)                          # (B,L,Di)
-    q = (xi @ p["wq"]).reshape(B, L, H, hd).float()
-    k = (xi @ p["wk"]).reshape(B, L, H, hd).float()
-    v = (xi @ p["wv"]).reshape(B, L, H, hd).float()
-    gif = (xi @ p["w_if"]).reshape(B, L, H, 2).float()
-    logi = gif[..., 0] + p["b_i"]
-    logf = F.logsigmoid(gif[..., 1] + p["b_f"])
+    if tp is not None:
+        up = exchange_columns(up, tp.grp)
+    xi, z = torch.chunk(up, 2, dim=-1)                      # (B,L,Di[/n])
+    xa = xi if tp is None else gather_features(xi, tp.grp)      # (B,L,Di)
+    gif = (xa @ p["w_if"]).reshape(B, L, H, 2).float()
+    qkv = [xa @ p[w] for w in ("wq", "wk", "wv")]
+    h0, cols = 0, None
+    if tp is not None and mlstm_heads_split(cfg, tp.n):
+        H //= tp.n
+        h0 = tp.index * H
+    elif tp is not None:                         # the gathered-heads layout
+        cols = xi.shape[-1]
+        qkv = gather_features(torch.stack(qkv), tp.grp).unbind(0)
+    q, k, v = (t.reshape(B, L, H, hd).float() for t in qkv)
+    gif = gif.narrow(2, h0, H)
+    logi = gif[..., 0] + p["b_i"].narrow(0, h0, H)
+    logf = F.logsigmoid(gif[..., 1] + p["b_f"].narrow(0, h0, H))
+
+    def out(y):
+        y = y.reshape(B, -1, H * hd)
+        if cols is not None:
+            y = y.narrow(-1, tp.index * cols, cols)
+        return (y.to(x.dtype) * F.silu(z)) @ p["down_proj"]
 
     if state is None:
         chunk = min(cfg.chunk, L)
         while L % chunk:
             chunk //= 2
-        _, y = _mlstm_chunks(init_mlstm_state(cfg, B, x.device),
+        _, y = _mlstm_chunks(init_mlstm_state(cfg, B, x.device, heads=H),
                              (q, k, v, logi, logf), chunk)
-        y = y.reshape(B, L, H * hd)
-        return (y.to(x.dtype) * F.silu(z)) @ p["down_proj"]
+        return out(y)
 
     carry, y = _mlstm_chunks(tuple(state), (q, k, v, logi, logf), 1)
-    y = y.reshape(B, 1, H * hd)
-    return (y.to(x.dtype) * F.silu(z)) @ p["down_proj"], carry
+    return out(y), carry
 
 
-def init_mlstm_state(cfg: MLSTMConfig, batch, device="cuda"):
-    H, hd = cfg.n_heads, cfg.head_dim
+def init_mlstm_state(cfg: MLSTMConfig, batch, device="cuda", heads=None):
+    """``(C, n, m)`` of zeros for ``heads`` heads (default all)."""
+    H, hd = cfg.n_heads if heads is None else heads, cfg.head_dim
     f32 = torch.float32
     return (torch.zeros((batch, H, hd, hd), dtype=f32, device=device),
             torch.zeros((batch, H, hd), dtype=f32, device=device),
@@ -410,7 +482,9 @@ def _slstm_step(p, cfg, carry, gx, eps):
     H = cfg.n_heads
     hd = D // H
     # JAX's einsum("bhd,hde->bhe"), as the batched product over heads
-    gr = torch.bmm(h.reshape(B, H, hd).transpose(0, 1), p["r_h"])
+    # (f32 against a bf16 model's r_h: JAX's einsum promotes to f32)
+    gr = torch.bmm(h.reshape(B, H, hd).transpose(0, 1),
+                   p["r_h"].to(h.dtype))
     gr = gr.transpose(0, 1).reshape(B, 4 * D)
     g = (gx + gr + p["bias"]).float()
     gi, gf, gz, go = torch.chunk(g, 4, dim=-1)

@@ -5,7 +5,9 @@ no autograd (``repro_torch.core.collectives`` adds the transposes).
 
 Everything is built on one ``torch.distributed`` primitive,
 ``all_to_all_single``, for every backend (``all_to_all_rows``, the
-placed expert weights' exchange, is that primitive with split sizes):
+placed expert weights' exchange, and ``permute_rows``, the Megatron
+column exchange's collective-permute, are that primitive with split
+sizes):
 
   * an AllGather is an AlltoAll of ``n`` copies of the payload;
   * a reduce-scatter is an AlltoAll followed by a sum over the source
@@ -30,9 +32,9 @@ the post-processing (the inverse ``order`` permutation, the sum over the
 sources, the reshapes).  Each synchronous form is its start followed by
 the wait, so several collectives can be in flight at once and a caller
 that waits at once gets the same bits.  A one-member group posts nothing
-and returns a completed handle.  ``all_to_all_rows``, ``agree``,
-``broadcast_first``, ``gather_first``, ``psum`` and ``pmax`` stay
-synchronous.  A hook (:func:`set_hook`) sees every start and wait with
+and returns a completed handle.  ``all_to_all_rows``, ``permute_rows``,
+``agree``, ``broadcast_first``, ``gather_first``, ``psum`` and ``pmax``
+stay synchronous.  A hook (:func:`set_hook`) sees every start and wait with
 its group, kind and tag (:func:`tagged`): how the tests read how many
 collectives were in flight.  Collectives posted to one group must start
 in one order on every member; the callers issue them in an order fixed
@@ -299,19 +301,13 @@ def all_to_all(x, grp, split_axis: int, concat_axis: int):
     return all_to_all_start(x, grp, split_axis, concat_axis).wait()
 
 
-@_timed
-def all_to_all_rows(x, grp, send_rows, recv_rows):
-    """A ragged AlltoAll of rows: ``x`` holds ``send_rows[j]`` rows for
-    the member of JAX index ``j``, in that order; returns the rows
-    received, ``recv_rows[j]`` of them from the member of JAX index
-    ``j``, in that order.  Both count lists are known on both sides (the
-    callers derive them from one host-side table), so one
-    ``all_to_all_single`` with split sizes moves exactly those rows, a
-    zero-row chunk moving nothing."""
+def _exchange_rows(x, grp, send_rows, recv_rows):
+    """One ``all_to_all_single`` with split sizes: ``x`` holds
+    ``send_rows[j]`` rows for the member of JAX index ``j``, in that
+    order; returns the rows received, ``recv_rows[j]`` of them from the
+    member of JAX index ``j``, in that order."""
     import torch.distributed as dist
     n = grp.size
-    if n == 1:
-        return x
     tail = x.shape[1:]
     row = x.element_size()
     for d in tail:
@@ -337,6 +333,33 @@ def all_to_all_rows(x, grp, send_rows, recv_rows):
         at[grp.order[p]] = (pos, n_recv[p])
         pos += n_recv[p]
     return torch.cat([buf.narrow(0, *at[j]) for j in range(n)])
+
+
+@_timed
+def all_to_all_rows(x, grp, send_rows, recv_rows):
+    """A ragged AlltoAll of rows: ``x`` holds ``send_rows[j]`` rows for
+    the member of JAX index ``j``, in that order; returns the rows
+    received, ``recv_rows[j]`` of them from the member of JAX index
+    ``j``, in that order.  Both count lists are known on both sides (the
+    callers derive them from one host-side table), so one
+    ``all_to_all_single`` with split sizes moves exactly those rows, a
+    zero-row chunk moving nothing."""
+    return x if grp.size == 1 else _exchange_rows(x, grp, send_rows,
+                                                  recv_rows)
+
+
+@_timed
+def permute_rows(x, grp, send_rows, recv_rows):
+    """XLA's collective-permute, for a reshuffle whose every move is known
+    on both sides: :func:`all_to_all_rows` where the rows a member keeps
+    are not sent (``send_rows`` and ``recv_rows`` are 0 at its own
+    index), so only the rows that change owner cross the group.  Counted
+    apart from the AlltoAlls (``analysis.layerwise`` names it
+    ``collective-permute``)."""
+    if send_rows[grp.index] or recv_rows[grp.index]:
+        raise ValueError("permute_rows: a member's own rows stay with it")
+    return x if grp.size == 1 else _exchange_rows(x, grp, send_rows,
+                                                  recv_rows)
 
 
 def all_gather_start(x, grp, axis: int, tiled: bool = True, *,

@@ -21,7 +21,21 @@ row-parallel product, carries the cotangent of the sum.  So:
     replicated consumer that returns whole cotangents (the MoE layer, a
     replicated LM head) and back: AllGather forward and this rank's slice
     of the cotangent backward, this rank's slice forward and AllGather
-    backward.
+    backward;
+  * :func:`gather_features`: a column-parallel product's columns into
+    every column, on every MP rank (the recurrent cells' ``w_dt`` and
+    ``wq``/``wk``/``wv`` read every channel): AllGather along the last
+    dim forward, reduce-scatter backward;
+  * :func:`exchange_columns`: a ``[x | z]`` product whose ``P(None, mp)``
+    columns give rank ``r`` block ``r`` of the concatenation into this
+    rank's slice of ``x`` and of ``z`` (Mamba's ``in_proj``, mLSTM's
+    ``up_proj``), moving only the blocks that change owner (one
+    collective-permute, ``comm.permute_rows``); the inverse exchange
+    backward;
+  * :func:`all_reduce_mp`: ``psum`` both ways, for a partial sum whose
+    consumers on each rank give only part of its cotangent (Mamba's
+    ``B``/``C`` from row-parallel ``w_bc``, read by this rank's channels
+    only).
 
 Every sum runs in JAX's source order (``comm.psum``, ``comm.psum_scatter``),
 so the MP replicas of a value hold the same bits.  :class:`TensorParallel`
@@ -109,6 +123,98 @@ class _SplitToSeq(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return comm.all_gather(g.contiguous(), ctx.grp, SEQ_DIM), None
+
+
+FEATURE_DIM = -1
+
+
+class _GatherFeatures(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, grp):
+        ctx.grp = grp
+        return comm.all_gather(x.contiguous(), grp, FEATURE_DIM)
+
+    @staticmethod
+    def backward(ctx, g):
+        return comm.psum_scatter(g.contiguous(), ctx.grp, FEATURE_DIM), None
+
+
+def _column_moves(n: int, inverse: bool):
+    """Block ``j`` of ``[x | z]`` cut into ``2n`` blocks of ``Di / n``
+    columns is held after the ``P(None, mp)`` product by rank ``j // 2``
+    at slot ``j % 2`` and owned by rank ``j % n`` at slot ``j // n`` (0:
+    its slice of ``x``, 1: of ``z``).  Returns ``(from rank, from slot,
+    to rank, to slot)`` per block, in ``j`` order (backward: owned to
+    held)."""
+    out = []
+    for j in range(2 * n):
+        held, owned = (j // 2, j % 2), (j % n, j // n)
+        out.append((*owned, *held) if inverse else (*held, *owned))
+    return out
+
+
+def _exchange(x, grp, inverse: bool):
+    n, me = grp.size, grp.index
+    c = x.shape[-1] // 2
+    blocks = x.unflatten(-1, (2, c)).movedim(-2, 0)       # (2, ..., c)
+    moves = _column_moves(n, inverse)
+    out, send = [None, None], []
+    n_send, n_recv, recv_slots = [0] * n, [0] * n, []
+    for peer in range(n):                 # rows by peer, then by block
+        for src, sk, dst, dk in moves:
+            if src == me and dst == peer:
+                if peer == me:
+                    out[dk] = blocks[sk]
+                else:
+                    send.append(blocks[sk])
+                    n_send[peer] += 1
+            if dst == me and src == peer != me:
+                recv_slots.append(dk)
+                n_recv[peer] += 1
+    if recv_slots:
+        got = comm.permute_rows(torch.stack(send), grp, n_send, n_recv)
+        for dk, b in zip(recv_slots, got.unbind(0)):
+            out[dk] = b
+    return torch.cat(out, dim=-1)
+
+
+class _ExchangeColumns(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, grp):
+        ctx.grp = grp
+        return _exchange(x, grp, inverse=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.grp, inverse=True), None
+
+
+def gather_features(x, grp: AxisGroup):
+    """AllGather along the last dim forward (every rank's columns in MP
+    order); reduce-scatter along it backward."""
+    return x if grp.size == 1 else _GatherFeatures.apply(x, grp)
+
+
+def exchange_columns(x, grp: AxisGroup):
+    """This rank's ``(..., 2 Di / n)`` block of a ``[x | z]`` product
+    (``P(None, mp)`` columns of a (D, 2 Di) weight) as ``[x_r | z_r]``,
+    its slices of ``x`` and of ``z``; the inverse exchange backward.  At
+    MP 2 rank 0 holds all of ``x`` and keeps half, rank 1 all of ``z``:
+    each sends the other half of its block."""
+    if grp.size == 1:
+        return x
+    if x.shape[-1] % 2:
+        raise ValueError(f"exchange_columns: {x.shape[-1]} columns are not "
+                         "two equal halves")
+    return _ExchangeColumns.apply(x, grp)
+
+
+def all_reduce_mp(x, grp: AxisGroup):
+    """``psum`` over ``grp`` forward and backward: a partial sum (a
+    row-parallel product) whose consumers on each rank give part of its
+    cotangent.  ``reduce_from_mp`` alone would hand each rank only its
+    own part."""
+    return copy_to_mp(reduce_from_mp(x, grp), grp)
 
 
 def copy_to_mp(x, grp: AxisGroup):

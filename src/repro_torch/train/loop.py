@@ -205,20 +205,32 @@ def cache_specs(model: Model, mesh, dims, batch: int, max_len: int, *,
     ``decode_step`` read it.
 
       * the batch dim over the batch axes where they divide ``batch``
-        (and ``batch`` is at least their size);
-      * with ``seq_shard`` the K/V caches' W over MP, or over the batch
-        axes and MP where the batch axes are idle (JAX's context-parallel
-        decode), where ``W % nw == 0`` and ``W >= 16 * nw``;
+        (and ``batch`` is at least their size), on every leaf;
+      * with ``seq_shard`` the attention K/V caches' W over MP, or over
+        the batch axes and MP where the batch axes are idle (JAX's
+        context-parallel decode), where ``W % nw == 0`` and ``W >= 16 *
+        nw``;
       * ``pos`` whole along W, as JAX leaves it.
 
-    One difference, settled: where W stays whole the port's K/V keep the
-    Megatron layout, this rank's kv heads over MP (dim 3), as the paged
-    arena does (``init_cache(mesh=)``), where JAX's spec leaves them
-    replicated.  Where the kv heads do not divide over MP the spec leaves
-    them whole and each rank keeps the one its query heads read
-    (``attention.mp_heads``)."""
+    Two differences, settled.  Where W stays whole the port's K/V keep
+    the Megatron layout, this rank's kv heads over MP (dim 3), as the
+    paged arena does (``init_cache(mesh=)``), where JAX's spec leaves
+    them replicated.  Where the kv heads do not divide over MP the spec
+    leaves them whole and each rank keeps the one its query heads read
+    (``attention.mp_heads``), or all of them (hymba's gathered-heads
+    layout).  And a recurrent state sits where the cell's Megatron split
+    reads it (``blocks.state_shards``), where JAX's shards only its
+    batch dim, so GSPMD gathers the whole state every decode step: Mamba's
+    ``conv_buf`` (n, B, C, Di) and ``h`` (n, B, Di, N) shard Di over MP
+    where the cell is split, mLSTM's ``C`` (n, B, H, hd, hd), ``n`` (n,
+    B, H, hd) and ``m`` (n, B, H) shard H over MP where the heads divide,
+    sLSTM's stay whole.  The state then never crosses ranks.  Each leaf
+    is keyed by its name: JAX's rule for W reads any 5-d leaf as K/V,
+    mLSTM's ``C`` too."""
     from repro_torch.models.attention import cache_len
-    from repro_torch.models.blocks import attn_config, refuse_mesh
+    from repro_torch.models.blocks import (attn_config, refuse_mesh,
+                                           state_shards)
+    from repro_torch.models.model import _cache_kinds
     from repro_torch.parallel.mesh import axis_size
     from repro_torch.parallel.sharding import P
     refuse_mesh(model.cfg.name, [k for k, _ in model.runs])
@@ -229,18 +241,28 @@ def cache_specs(model: Model, mesh, dims, batch: int, max_len: int, *,
     rows = axes if axes and batch % n == 0 and batch >= n else None
     out = {}
     for r, (kind, _) in enumerate(model.runs):
-        acfg = attn_config(model.cfg, kind)
-        W = cache_len(acfg, max_len)
-        kv = [None, rows, None, None, None]
-        if seq_shard and mp:
-            waxes = mp if rows else axes + mp
-            nw = axis_size(mesh, waxes)
-            if W % nw == 0 and W >= 16 * nw:
-                kv[2] = waxes
-        if kv[2] is None and n_mp > 1 and acfg.n_kv_heads % n_mp == 0:
-            kv[3] = mp
-        out[f"run{r}"] = {"attn": {"k": P(*kv), "v": P(*kv),
-                                   "pos": P(None, rows, None)}}
+        run = {}
+        if "attn" in _cache_kinds(kind):
+            acfg = attn_config(model.cfg, kind)
+            W = cache_len(acfg, max_len)
+            kv = [None, rows, None, None, None]
+            if seq_shard and mp:
+                waxes = mp if rows else axes + mp
+                nw = axis_size(mesh, waxes)
+                if W % nw == 0 and W >= 16 * nw:
+                    kv[2] = waxes
+            if kv[2] is None and n_mp > 1 and acfg.n_kv_heads % n_mp == 0:
+                kv[3] = mp
+            run["attn"] = {"k": P(*kv), "v": P(*kv),
+                           "pos": P(None, rows, None)}
+        for cell, shards in state_shards(model.cfg, kind, n_mp).items():
+            sp = mp if shards > 1 else None
+            run[cell] = {
+                "mamba": (P(None, rows, None, sp), P(None, rows, sp, None)),
+                "mlstm": (P(None, rows, sp, None, None),
+                          P(None, rows, sp, None), P(None, rows, sp)),
+                "slstm": (P(None, rows, None),) * 4}[cell]
+        out[f"run{r}"] = run
     return out
 
 

@@ -40,7 +40,14 @@ COMBOS = [("qwen1.5-0.5b", "train_4k", "single", None, 64),
           ("qwen3-moe-30b-a3b", "train_4k", "single", None, 64),
           ("qwen3-moe-30b-a3b", "train_4k", "multi", None, 64),
           ("qwen3-moe-30b-a3b", "prefill_32k", "single", "baseline", 256),
-          ("qwen3-moe-30b-a3b", "prefill_32k", "single", "s1", 256)]
+          ("qwen3-moe-30b-a3b", "prefill_32k", "single", "s1", 256),
+          ("hymba-1.5b", "train_4k", "single", None, 64),
+          ("xlstm-350m", "train_4k", "single", None, 64)]
+#: the recurrent archs' full-size shapes whose JAX records on the 8-device
+#: test mesh (``lower_one``, the records ``repro.launch.dryrun`` saves as
+#: ``artifacts/dryrun/<arch>__<shape>__single.json``) the port's are held
+#: to
+JAX_ARTIFACTS = {"hymba-1.5b": "long_500k", "xlstm-350m": "decode_32k"}
 #: ZeRO-1 cases: (arch, multi_pod) -> JAX's rule's axes
 ZERO = {("qwen1.5-0.5b", False): ("data",),
         ("qwen3-moe-30b-a3b", True): ("pod",)}
@@ -92,7 +99,13 @@ def _jax_main(path):
                                   for f in dataclasses.fields(m)})
     jas.tpu_v5e_model = h100_for_jax
 
-    out = {"records": {}, "zero": {}, "variant": {}, "inputs": {}}
+    out = {"records": {}, "zero": {}, "variant": {}, "inputs": {},
+           "full": {}}
+    for arch, shape in JAX_ARTIFACTS.items():
+        rec = jdry.lower_one(arch, shape, False)
+        out["full"][arch] = {k: rec[k] for k in (
+            "chips", "n_params", "tokens_per_step", "memory_analysis",
+            "collectives")}
     for arch, shape, mesh, sched, seq in COMBOS:
         rec = jdry.lower_one(arch, shape, mesh == "multi", sched,
                              reduced=True, seq=seq, batch_size=8,
@@ -215,6 +228,63 @@ def test_record_is_jaxs(combo, port_records, jax_run):
     assert got["memory_analysis"]["argument_size_in_bytes"] \
         == want["memory_analysis"]["argument_size_in_bytes"]
     assert got["memory_analysis"]["temp_size_in_bytes"] > 0
+
+
+def _state_saving(arch, shape_name):
+    """The bytes of this rank's recurrent state that JAX's record holds
+    and the port's does not: the half of each MP-split state leaf that
+    the other MP rank holds (``train.cache_specs``), from the shapes at
+    B / 4 rows (``data`` 4 of the 4 x 2 test mesh, where B divides)."""
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    cfg, shape = get_config(arch), INPUT_SHAPES[shape_name]
+    B = shape.global_batch // 4 if shape.global_batch % 4 == 0 else \
+        shape.global_batch
+    layers = {k: 0 for k in ("hymba", "mlstm")}
+    for kind, n in cfg.runs():
+        if kind in layers:
+            layers[kind] += n
+    Di, N, C = int(cfg.d_model * cfg.ssm_expand), cfg.ssm_state, cfg.ssm_conv
+    H, hd = cfg.n_kv_heads, 2 * cfg.d_model // cfg.n_kv_heads   # mLSTM
+    bf16, f32 = 2, 4
+    mamba = layers["hymba"] * B * (C * Di * bf16 + Di * N * f32)
+    mlstm = layers["mlstm"] * B * H * (hd * hd + hd + 1) * f32
+    return (mamba + mlstm) // 2
+
+
+@pytest.mark.parametrize("arch", list(JAX_ARTIFACTS))
+def test_full_size_decode_is_jaxs_less_the_split_states(arch, jax_run):
+    """hymba-1.5b ``long_500k`` and xlstm-350m ``decode_32k`` at full size
+    on the 8-rank test mesh against JAX's records of them (made in the
+    subprocess, as ``artifacts/dryrun`` keeps them): ``n_params``
+    and ``tokens_per_step`` equal; the arguments JAX's less the state
+    bytes the port shards over MP (hymba: half of ``conv_buf`` and ``h``,
+    3,686,400 B; xlstm: half of mLSTM's ``C``, ``n``, ``m``, ~1.41 GB),
+    plus the 4 bytes of the ``step`` scalar that JAX's jit drops where no
+    layer reads a position (xlstm).  At xlstm ``decode_32k`` no
+    collective carries a state leaf: all of them move less than one
+    layer's ``C`` shard, and the AllGathers under 1% of JAX's 2.83 GB."""
+    from repro_torch.launch import dryrun
+    shape = JAX_ARTIFACTS[arch]
+    got = dryrun.dry_one(arch, shape, False, test_mesh=True)
+    want = jax_run()["full"][arch]
+    assert got["chips"] == want["chips"] == 8
+    for k in ("n_params", "tokens_per_step"):
+        assert got[k] == want[k], k
+    saving = _state_saving(arch, shape)
+    unused_step = 4 if arch == "xlstm-350m" else 0
+    if arch == "hymba-1.5b":
+        assert saving == 3_686_400
+    else:
+        assert 1.40e9 < saving < 1.42e9
+    assert got["memory_analysis"]["argument_size_in_bytes"] == \
+        want["memory_analysis"]["argument_size_in_bytes"] - saving \
+        + unused_step
+    if arch == "xlstm-350m":
+        c_shard = 32 * 2 * 512 * 512 * 4
+        assert got["collectives"]["total_bytes"] < c_shard
+        assert got["collectives"]["bytes"]["all-gather"] \
+            < 0.01 * want["collectives"]["bytes"]["all-gather"]
+        assert want["collectives"]["bytes"]["all-gather"] == 2_825_661_440
 
 
 def test_baseline_alltoall_over_s1_is_jaxs(port_records, jax_run):

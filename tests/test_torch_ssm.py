@@ -244,3 +244,37 @@ def test_specs_are_jaxs(shape):
         tspec = getattr(ssm, f"{name}_specs")(mesh, ("model",), tcfg)
         assert {k: _canon(v) for k, v in tspec.items()} == \
             {k: _canon(v) for k, v in jspec.items()}, name
+
+
+@pytest.mark.parametrize("name", ["mamba", "mlstm", "slstm"])
+def test_bf16_cells_promote_as_jax(name):
+    """A bf16 model (the dry run's dtype): its f32 states meet bf16
+    products (Mamba's ``C``, sLSTM's ``r_h``), which JAX's einsums promote
+    to f32 and the port's cast so.  The training output and ten decode
+    steps' outputs and states against JAX's in bf16, within 3e-2 of the
+    largest entry (bf16's 8 bits, rounded in other places)."""
+    jcfg, tcfg, (jinit, japply, jstate), (tapply, tstate) = cells()[name]
+    jp = jinit(jax.random.PRNGKey(3), jcfg, jnp.bfloat16)
+    tp = {k: torch.from_numpy(np.array(v, np.float32)).to(
+        torch.bfloat16 if v.dtype == jnp.bfloat16 else torch.float32)
+        for k, v in jp.items()}
+    x = np.random.RandomState(4).randn(B, 16, jcfg.d_model).astype(
+        np.float32)
+    jx = jnp.asarray(x, jnp.bfloat16)
+    tx = torch.from_numpy(x).to(torch.bfloat16)
+    japply = jax.jit(japply, static_argnums=1)
+    close(tapply(tp, tcfg, tx).float(), np.asarray(
+        japply(jp, jcfg, jx), np.float32), 3e-2, f"{name} bf16 forward")
+    if name == "mamba":
+        js, ts = jstate(jcfg, B, jnp.bfloat16), tstate(
+            tcfg, B, torch.bfloat16, "cpu")
+    else:
+        js, ts = jstate(jcfg, B), tstate(tcfg, B, "cpu")
+    for t in range(10):
+        jy, js = japply(jp, jcfg, jx[:, t:t + 1], state=js)
+        ty, ts = tapply(tp, tcfg, tx[:, t:t + 1], state=ts)
+        close(ty.float(), np.asarray(jy, np.float32), 3e-2,
+              f"{name} bf16 decode {t}")
+        for a, b in zip(ts, js):
+            close(a.float(), np.asarray(b, np.float32), 3e-2,
+                  f"{name} bf16 state {t}")

@@ -5,9 +5,10 @@ and every parameter's gradient from the JAX parameters
 (``params_from_jax``), teacher-forced ``decode_step`` logits and every
 cache leaf (the attention's ring and the recurrent states) at each step
 against JAX's ``decode_step``, then ``make_serve_step``'s greedy tokens
-against JAX's, ``param_specs`` against JAX's ``Model.specs``, the
-refusals (the ``Engine``, ``prefill_step``, ``paged_step`` and any mesh),
-and the train launcher's events.
+against JAX's, ``param_specs`` against JAX's ``Model.specs`` and
+``cache_specs`` against JAX's (on the (2, 2), 4 x 2 and 16 x 16 meshes),
+the refusals (the ``Engine``, ``prefill_step``, ``paged_step``), every
+mesh path running on the meta device, and the train launcher's events.
 
 Each config is reduced the same way on both sides, keeping its trait:
 hymba to 2 layers with a 64-token window under an 80-token sequence and
@@ -224,17 +225,27 @@ def _canon(tree):
                                          else tuple(e)) for e in tree)
 
 
+#: (mesh shape, full size): the (2, 2) test mesh reduced and at full size,
+#: JAX's 4 x 2 test mesh and the 16 x 16 production mesh at full size
+SPEC_MESHES = [((2, 2), False), ((2, 2), True), ((4, 2), True),
+               ((16, 16), True)]
+
+
 @pytest.mark.parametrize("arch", ARCHS)
-@pytest.mark.parametrize("full", [False, True], ids=["reduced", "full"])
-def test_param_specs_are_jaxs(arch, full):
-    """``Model.param_specs`` is JAX's ``Model.specs`` on (2, 2), reduced
-    and at full size (hymba's 25 query heads do not divide over 2: the
-    port runs no recurrent stack on a mesh, so it gives JAX's specs
-    unchecked)."""
+@pytest.mark.parametrize("shape,full", SPEC_MESHES,
+                         ids=[f"{a}x{b}-{'full' if f else 'reduced'}"
+                              for (a, b), f in SPEC_MESHES])
+def test_param_specs_are_jaxs(arch, shape, full):
+    """``Model.param_specs`` is JAX's ``Model.specs``, checked: hymba's 25
+    query heads do not divide over 2 or 16 (the gathered-heads layout,
+    ``attention.attn_layout``), xlstm's 4 mLSTM heads not over 16 (its
+    gathered-heads cell)."""
     from repro.parallel.mesh import ParallelDims as JDims
+    from repro_torch.models.attention import attn_layout
+    from repro_torch.models.blocks import attn_config
     from repro_torch.parallel.mesh import Mesh
     from repro_torch.parallel.mesh import ParallelDims as TDims
-    mesh = Mesh((2, 2), ("data", "model"), 0, groups=False)
+    mesh = Mesh(shape, ("data", "model"), 0, groups=False)
     jcfg, tcfg = j_get_config(arch), get_config(arch)
     if not full:
         jcfg, tcfg = reduce(jcfg), reduce(tcfg)
@@ -242,16 +253,82 @@ def test_param_specs_are_jaxs(arch, full):
     want = build_model(jcfg).specs(mesh, JDims(**dims))
     got = Model(tcfg, device="meta").param_specs(want, mesh, TDims(**dims))
     assert _canon(got) == _canon(want)
+    if arch.startswith("hymba") and full:
+        assert attn_layout(attn_config(tcfg, "hymba"), shape[1]) \
+            == "gathered"
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_refusals(arch, capsys):
+@pytest.mark.parametrize("shape,full", SPEC_MESHES,
+                         ids=[f"{a}x{b}-{'full' if f else 'reduced'}"
+                              for (a, b), f in SPEC_MESHES])
+@pytest.mark.parametrize("seq_shard", [False, True], ids=["w", "wshard"])
+def test_cache_specs_are_jaxs_but_for_the_state_dims(arch, shape, full,
+                                                     seq_shard):
+    """``train.cache_specs`` leaf by leaf against JAX's, at a batch that
+    divides over ``data`` and at B=1: every entry JAX's but the settled
+    ones, the kv heads over MP (dim 3 of K/V, where W stays whole and
+    they divide), Mamba's Di (dim 3 of ``conv_buf``, dim 2 of ``h``)
+    where its cell splits, mLSTM's H (dim 2 of ``C``, ``n``, ``m``) where
+    its heads divide; JAX's rule for W would read mLSTM's 5-d ``C`` as
+    K/V, the port's keys it by name (no case here meets JAX's bound)."""
+    from repro.parallel.mesh import ParallelDims as JDims
+    from repro.train import cache_specs as j_cache_specs
+    from repro_torch.parallel.mesh import Mesh
+    from repro_torch.parallel.mesh import ParallelDims as TDims
+    from repro_torch.train import cache_specs
+    mesh = Mesh(shape, ("data", "model"), 0, groups=False)
+    jcfg, tcfg = j_get_config(arch), get_config(arch)
+    if not full:
+        jcfg, tcfg = reduce(jcfg), reduce(tcfg)
+    dims = dict(dp=("data",), mp=("model",))
+    n_mp = shape[1]
+    d_inner = 2 * tcfg.d_model
+    for batch, max_len in ((2 * shape[0], 2048), (1, 4096)):
+        got = _spec_leaves(cache_specs(Model(tcfg, device="meta"), mesh,
+                                       TDims(**dims), batch, max_len,
+                                       seq_shard=seq_shard))
+        want = _spec_leaves(j_cache_specs(
+            build_model(jcfg), mesh, JDims(**dims), batch, max_len,
+            seq_shard=seq_shard))
+        assert set(got) == set(want)
+        settled = {("attn/k", 3), ("attn/v", 3), ("mamba/0", 3),
+                   ("mamba/1", 2), ("mlstm/0", 2), ("mlstm/1", 2),
+                   ("mlstm/2", 2)}
+        for path, g in got.items():
+            cell = path.split("/", 1)[1]
+            for d, (a, b) in enumerate(zip(g, want[path])):
+                if a != b:
+                    assert (cell, d) in settled and a == ("model",) \
+                        and b is None, (path, d, g, want[path])
+            split = {"mamba/0": (3, d_inner % n_mp == 0),
+                     "mlstm/0": (2, tcfg.n_kv_heads % n_mp == 0)}
+            if cell in split:
+                dim, yes = split[cell]
+                assert (g[dim] == ("model",)) == yes, (path, g)
+
+
+def _spec_leaves(tree, pre=""):
+    """A cache specs tree's specs by path (a state tuple's by index),
+    each as :func:`_canon` writes it."""
+    if isinstance(tree, dict):
+        return {k2: v for k in tree
+                for k2, v in _spec_leaves(tree[k], f"{pre}/{k}").items()}
+    if type(tree) is tuple:
+        return {k2: v for i, t in enumerate(tree)
+                for k2, v in _spec_leaves(t, f"{pre}/{i}").items()}
+    return {pre.lstrip("/"): _canon(tree)}
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_refusals(arch):
     """The ``Engine``, ``prefill_step`` and ``paged_step`` refuse with
-    JAX's errors; on a mesh every path refuses, naming ROADMAP 7d-mesh,
-    and the dry run counts the arch as a failure."""
+    JAX's errors.  On a mesh nothing refuses: ``loss``, ``init_cache``,
+    ``decode_step`` and ``cache_specs`` run as rank 0 of (2, 2), and the
+    dry run traces the arch (its Mamba / mLSTM column exchange counted as
+    a collective-permute)."""
     from repro.serve.engine import Engine as JEngine
     from repro_torch.launch import dryrun
-    from repro_torch.parallel.mesh import Mesh
     from repro_torch.parallel.mesh import ParallelDims as TDims
     from repro_torch.serve import Engine
     from repro_torch.train import cache_specs
@@ -284,24 +361,45 @@ def test_refusals(arch, capsys):
             jparams, {}, {k: jnp.asarray(v) for k, v in paged.items()},
             mesh=mesh, dims=DIMS))
 
-    tmesh = Mesh((2, 2), ("data", "model"), 0, groups=False)
+    # on a mesh every path runs: rank 0 of (2, 2) on the meta device under
+    # the fake torch.distributed backend, as the dry run traces it
+    import torch.distributed as dist
+
+    from repro_torch.analysis.layerwise import full_param_shapes
+    from repro_torch.launch.mesh import fake_world
+    from repro_torch.parallel.mesh import make_mesh as t_make_mesh
+    from repro_torch.parallel.sharding import local_shape
     tdims = TDims(dp=("data",), mp=("model",))
-    batch = {"tokens": torch.zeros((B, 8), dtype=torch.long),
-             "labels": torch.zeros((B, 8), dtype=torch.long)}
-    for fn in (lambda: tmodel.loss(tparams, batch, mesh=tmesh, dims=tdims),
-               lambda: tmodel.init_cache(B, 16, mesh=tmesh, dims=tdims),
-               lambda: tmodel.decode_step(
-                   tparams, tmodel.init_cache(B, 16),
-                   {"tokens": batch["tokens"][:, :1], "step": 0},
-                   mesh=tmesh, dims=tdims),
-               lambda: cache_specs(tmodel, tmesh, tdims, B, 16)):
-        assert "ROADMAP 7d-mesh" in message(fn)
-    with pytest.raises(NotImplementedError, match="7d-mesh"):
-        dryrun.dry_one(arch, "train_4k", False)
-    with pytest.raises(SystemExit) as e:
-        dryrun.main(["--arch", arch, "--shape", "decode_32k"])
-    assert "1 dry-run failures" in str(e.value.code)
-    assert "7d-mesh" in capsys.readouterr().out
+    meta = Model(tcfg, device="meta")
+    fake_world(4, 0)
+    try:
+        tmesh = t_make_mesh((2, 2), ("data", "model"))
+        full = full_param_shapes(tcfg)
+        specs = meta.param_specs(full, tmesh, tdims)
+
+        def shard(t, s):
+            if isinstance(t, dict):
+                return {k: shard(t[k], s[k]) for k in t}
+            return torch.empty(local_shape(t.shape, s, tmesh),
+                               dtype=t.dtype, device="meta")
+        mparams = shard(full, specs)
+        rows = {"tokens": torch.zeros((B // 2, 8), dtype=torch.long,
+                                      device="meta")}
+        loss, _ = meta.loss(mparams, {**rows, "labels": rows["tokens"]},
+                            mesh=tmesh, dims=tdims)
+        assert loss.shape == ()
+        cspecs = cache_specs(meta, tmesh, tdims, B, 16)
+        cache = meta.init_cache(B, 16, mesh=tmesh, dims=tdims, specs=cspecs)
+        logits, _ = meta.decode_step(
+            mparams, cache, {"tokens": rows["tokens"][:, :1], "step": 0},
+            mesh=tmesh, dims=tdims, specs=cspecs)
+        assert logits.shape == (B // 2, 1, tcfg.vocab_size)
+    finally:
+        dist.destroy_process_group()
+    rec = dryrun.dry_one(arch, "train_4k", False, reduced=True, seq=64,
+                         batch_size=8, test_mesh=True)
+    assert rec["memory_analysis"]["argument_size_in_bytes"] > 0
+    assert "collective-permute" in rec["collectives"]["counts"]
 
 
 def test_train_launcher_writes_jaxs_events(tmp_path, capsys):
