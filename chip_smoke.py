@@ -245,7 +245,24 @@ to a plain version):
      (paths ``train_hymba_mesh``, ``decode_hymba_mesh``,
      ``train_xlstm_mesh``, ``decode_xlstm_mesh``, also in ``by_path``
      with rank 0's launches); each collective's bytes a step per rank,
-     seconds, decode ms a step and peak memory a rank;
+     seconds, decode ms a step and peak memory a rank; (m) last, the
+     cross-attention kinds Megatron-split over model (``P12_XZOO``:
+     llama-3.2-vision-11b at full width cut to one ``dense`` and one
+     gated ``cross`` layer, 16 / 4 heads a rank; whisper-tiny whole, its
+     encoder and ``xdec`` layers at 3 of 6 heads a rank), the gates at
+     ``XZOO_GATES``, held to one-rank runs on the card made before the
+     spawn (``_p12_xzoo_reference``): one ``make_train_step`` step (1 x
+     2048 over 1601 context embeddings and 8 x 448 over 8 x 1500 frames a
+     data rank), loss within 1e-4, each rank's gradient shard within 2e-4
+     of its leaf's largest entry, the leaves replicated over model bitwise
+     equal across MP; ``Model.ctx_kv`` over 8 rows a data rank (this
+     rank's kv heads) and 16 teacher-forced ``decode_step`` steps through
+     it, logits rtol 2e-4 / atol 2e-5; rmsnorm and flash launches per
+     rank as ``xzoo_launches`` predicts (paths ``train_vision_mesh``,
+     ``decode_vision_mesh``, ``train_whisper_mesh``,
+     ``decode_whisper_mesh``, also in ``by_path``); each collective's
+     bytes a step per rank, seconds, ``ctx_kv``'s MB and seconds, decode
+     ms a step and peak memory a rank;
  13. the five configs whose block kinds the port runs, each at full width
      with random weights from a seed, freed before the next, its peak
      device memory logged: (a) llama4-scout-17b-a16e cut to 4 layers (3
@@ -286,7 +303,10 @@ to a plain version):
      --cache-seq-shard``, then (a) hymba-1.5b ``long_500k`` and
      xlstm-350m ``decode_32k`` (the shapes of JAX's records of them; the
      Mamba cell split, the mLSTM cell in the gathered-heads layout over
-     MP 16, the sLSTM replicated), on a thread of this process (with (c)'s
+     MP 16, the sLSTM replicated) and llama-3.2-vision-11b and
+     whisper-tiny ``decode_32k`` (2 query heads a rank over one
+     replicated kv head; whisper's 6 heads in the gathered-heads layout
+     over MP 16; ``ctx_kv`` an argument, as JAX lowers it), on a thread of this process (with (c)'s
      one-rank reference and qwen1.5's meta record) while (c)'s ranks
      run: per rank the parameters, moments, batch / cache,
      temporaries and total GB, ``fits_80gb``, the roofline's three terms
@@ -614,7 +634,9 @@ def check_flash(dev):
     # over 8 x 1500 frames (causal, as in JAX; a ragged last query tile of
     # 92 rows) and its decoder's 8 x 448 tokens, the train launcher's
     # non-causal cross layers over those tokens themselves (``noncausal``),
-    # and llama-3.2-vision's training step (1 x 2048, 32 / 8 x 128).  f32:
+    # and llama-3.2-vision's training step (1 x 2048, 32 / 8 x 128), and
+    # phase 12 (m)'s on one rank of (2, 2): whisper's encoder at 3 heads a
+    # rank, llama-3.2-vision's step at 16 / 4.  f32:
     # sums of up to L terms in another order, and the online softmax's
     # per-tile rescaling; bf16 output: one bf16 ulp.
     cases = (("qwen3", 1, 2048, 32, 4, 128, torch.float32, True, None, 5e-5),
@@ -645,7 +667,11 @@ def check_flash(dev):
              ("noncausal", 8, 448, 6, 6, 64, torch.float32, False, None,
               5e-5),
              ("llama-vision", 1, 2048, 32, 8, 128, torch.float32, True, None,
-              5e-5))
+              5e-5),
+             ("whisper-enc-mp2", 8, 1500, 3, 3, 64, torch.float32, True,
+              None, 5e-5),
+             ("llama-vision-mp2", 1, 2048, 16, 4, 128, torch.float32, True,
+              None, 5e-5))
     for label, B, L, H, K, hd, dt, causal, window, tol in cases:
         q = torch.randn((B, L, H, hd), generator=g, device=dev).to(dt)
         k = torch.randn((B, L, K, hd), generator=g, device=dev).to(dt)
@@ -2720,12 +2746,12 @@ def _p12_placed_report(res):
 
 def _p12_merged_rank(rank, ref_path, model_cfg, scheds, steps, tokens,
                      block_cfg, block_tokens, guard_dir, kv_cfg, kv_ref,
-                     rzoo_ref):
+                     rzoo_ref, xzoo_ref):
     """One rank of the merged (2, 2) mesh: (a)'s cases, (j)'s overlapped
     and serial runs, (i)'s placed layer and (h) on the same layer, then
     (b) and (c), then (d) on both of its
     meshes, (g) and (i)'s serving with (d)'s weights, (i)'s training, then
-    (e) and (f), then (k), then (l), in one spawn."""
+    (e) and (f), then (k), then (l), then (m), in one spawn."""
     layer, measured, placed, overlap = _p12_layer_rank(
         rank, "merged", ref_path, model_cfg, with_h=True)
     out = {"layer": layer, "measured": measured, "overlap": overlap,
@@ -2749,6 +2775,9 @@ def _p12_merged_rank(rank, ref_path, model_cfg, scheds, steps, tokens,
     t0 = time.perf_counter()
     out["rzoo"] = _p12_rzoo_rank(rank, rzoo_ref)
     out["rzoo_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["xzoo"] = _p12_xzoo_rank(rank, xzoo_ref)
+    out["xzoo_s"] = time.perf_counter() - t0
     return out
 
 
@@ -4134,13 +4163,14 @@ def _p12_rzoo_inputs(cfg, dec_rows, B, L, dev):
 
 @contextlib.contextmanager
 def _catching_grads(seen):
-    """``make_train_step``'s gradients, caught in ``seen`` (copies) where
-    the step hands them to AdamW."""
+    """``make_train_step``'s gradients, caught in ``seen`` where the step
+    hands them to AdamW (the tensors themselves: AdamW reads them and
+    writes none)."""
     from repro_torch.train import loop
     adamw = loop.adamw_update
 
     def catching(params, grads, *a, **kw):
-        seen[:] = [g.detach().clone() for g in grads]
+        seen[:] = [g.detach() for g in grads]
         return adamw(params, grads, *a, **kw)
     loop.adamw_update = catching
     try:
@@ -4149,14 +4179,49 @@ def _catching_grads(seen):
         loop.adamw_update = adamw
 
 
-def _p12_rzoo_reference(dev, path):
+def _save_behind(obj, path, writers):
+    """``torch.save(obj, path)`` on a thread appended to ``writers``
+    (joined by the caller), through ``path + ".part"`` renamed when
+    whole, so that (l)'s and (m)'s references reach the disk while the
+    spawn starts and runs its earlier sub-phases; a failure is kept on
+    the thread (``.error``) for the caller to raise."""
+    import torch
+
+    def write():
+        try:
+            t0 = time.perf_counter()
+            torch.save(obj, path + ".part")
+            os.replace(path + ".part", path)
+            thread.seconds = time.perf_counter() - t0
+        except BaseException as e:      # re-raised by the caller
+            thread.error = e
+    thread = threading.Thread(target=write)
+    thread.error, thread.path = None, path
+    thread.start()
+    writers.append(thread)
+
+
+def _load_when_written(path, timeout=600.0):
+    """``torch.load(path)`` memory-mapped, once ``_save_behind`` has
+    renamed it into place."""
+    import torch
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{path} was never written")
+        time.sleep(0.2)
+    return torch.load(path, mmap=True, weights_only=False)
+
+
+def _p12_rzoo_reference(dev, path, writers):
     """(l)'s one-rank runs on the card, made before the spawn (each model
     freed before the next): per config the whole model from seed 0,
     ``P12_RZOO_STEPS`` teacher-forced ``decode_step`` logits and the
     states after them, then one ``make_train_step`` step's loss and the
-    gradients it hands AdamW, with each leaf's largest entry; saved on the
-    host to ``path`` + ``_<tag>.pt`` (the ranks read their shards of it,
-    memory-mapped, and make their parameters from the seed)."""
+    gradients it hands AdamW, with each leaf's largest entry; written to
+    ``path`` + ``_<tag>.pt`` behind (``_save_behind``: the ranks read
+    their shards of it, memory-mapped, and make their parameters from the
+    seed)."""
     import torch
     from repro_torch.models import Model
     from repro_torch.optim import AdamWConfig, adamw_init
@@ -4188,9 +4253,9 @@ def _p12_rzoo_reference(dev, path):
         del full, m, seen
         if dev.type == "cuda":
             torch.cuda.empty_cache()
-        torch.save(ref, f"{path}_{tag}.pt")
+        _save_behind(ref, f"{path}_{tag}.pt", writers)
         log(f"  (l) {arch}'s one-rank reference in "
-            f"{time.perf_counter() - t0:.1f} s (saved for the ranks)")
+            f"{time.perf_counter() - t0:.1f} s (written behind)")
         del ref
 
 
@@ -4238,7 +4303,7 @@ def _p12_rzoo_rank(rank, path):
                 if dev.type == "cuda":
                     torch.cuda.empty_cache()
             dist.barrier()
-        want = torch.load(f"{path}_{tag}.pt", mmap=True, weights_only=False)
+        want = _load_when_written(f"{path}_{tag}.pt")
         rec = {"shards_s": time.perf_counter() - t0}
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
@@ -4400,6 +4465,308 @@ def _p12_rzoo_report(res, dev):
     return paths
 
 
+# --- phase 12 (m): the cross-attention kinds across ranks -------------------
+
+#: (m): (arch, path tag, layers, global (batch, seq) trained, decode rows)
+#: at full width on the merged (2, 2) mesh: llama-3.2-vision cut to one
+#: ``dense`` and one ``cross`` layer (``cross_every=2``; 6.1 GB in f32, the
+#: embedding and the head 2.1 GB each: ~3.1 GB a rank, ~12 a rank
+#: training), its 32 / 8 heads 16 / 4 a rank; whisper-tiny whole (a
+#: 4-layer encoder over 1500 frames, 4 ``xdec`` layers), its 6 heads 3 a
+#: rank.  One data rank trains 1 x 2048 over 1601 context embeddings and 8
+#: x 448 over 8 x 1500 frames; 8 rows a data rank decode.
+P12_XZOO = (("llama-3.2-vision-11b", "vision", 2, (2, 2048), 16),
+            ("whisper-tiny", "whisper", 4, (16, 448), 16))
+#: teacher-forced decode steps through ``ctx_kv``, from an empty cache
+P12_XZOO_STEPS = 16
+
+
+def p12_xzoo_cfg(arch, layers):
+    """(m)'s config: ``arch`` at full width cut to ``layers`` (a cross
+    layer every 2nd where the arch has them)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return replace(cfg, n_layers=layers,
+                   cross_every=2 if cfg.cross_every else 0)
+
+
+def _p12_xzoo_inputs(cfg, dec_rows, B, L, dev):
+    """(m)'s training batch (``SyntheticLM`` batch 0, B x L, with B
+    context embeddings or frames, ``ctx_embeds``), decode tokens
+    (``dec_rows`` x ``P12_XZOO_STEPS``) and decode context, the same in
+    the reference and on every rank."""
+    import torch
+    batch, toks = _p12_rzoo_inputs(cfg, dec_rows, B, L, dev)
+    n = cfg.n_ctx_tokens if cfg.arch_type == "vlm" else cfg.encoder_seq
+    g = torch.Generator(device=dev).manual_seed(12)
+    batch["ctx_embeds"] = torch.randn((B, n, cfg.d_model), generator=g,
+                                      device=dev)
+    ctx = torch.randn((dec_rows, n, cfg.d_model), generator=g, device=dev)
+    return batch, toks, ctx
+
+
+def _p12_xzoo_reference(dev, path, writers):
+    """(m)'s one-rank runs on the card, made before the spawn (each model
+    freed before the next): per config the whole model from seed 0 with
+    ``XZOO_GATES``, ``Model.ctx_kv`` over the decode context and
+    ``P12_XZOO_STEPS`` teacher-forced ``decode_step`` logits through it,
+    then one ``make_train_step`` step's loss and the gradients it hands
+    AdamW, with each leaf's largest entry; written to ``path`` +
+    ``_<tag>.pt`` behind (``_save_behind``)."""
+    import torch
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import loop
+    for arch, tag, layers, (B, L), dec_rows in P12_XZOO:
+        t0 = time.perf_counter()
+        cfg = p12_xzoo_cfg(arch, layers)
+        model = Model(cfg, device=dev)
+        batch, toks, ctx = _p12_xzoo_inputs(cfg, dec_rows, B, L, dev)
+        full = model.init(torch.Generator(device=dev).manual_seed(0))
+        set_gates(model, full)
+        cache = model.init_cache(dec_rows, P12_XZOO_STEPS)
+        logits = []
+        with torch.no_grad():
+            kv = model.ctx_kv(full, {"ctx_embeds": ctx})
+            for t in range(P12_XZOO_STEPS):
+                lg, cache = model.decode_step(full, cache, {
+                    "tokens": toks[:, t:t + 1], "step": t}, ctx_kv=kv)
+                logits.append(lg)
+        ref = {"logits": torch.stack(logits).cpu()}
+        del cache, logits, kv
+        seen = []
+        with _catching_grads(seen):
+            _, opt, m = loop.make_train_step(model, AdamWConfig())(
+                full, adamw_init(full), batch)
+        ref["loss"] = float(m["loss"])
+        ref["g_scale"] = [float(g.abs().max()) for g in seen]
+        ref["g"] = [g.cpu() for g in seen]
+        del full, opt, m, seen
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        _save_behind(ref, f"{path}_{tag}.pt", writers)
+        log(f"  (m) {arch}'s one-rank reference in "
+            f"{time.perf_counter() - t0:.1f} s (written behind)")
+        del ref
+
+
+def _p12_xzoo_rank(rank, path):
+    """(m) on one rank of the (2, 2) mesh, for each of ``P12_XZOO``: its
+    shards of the parameters from seed 0 with ``XZOO_GATES`` (the whole
+    model made in turn, one rank at a time) and of the one-rank reference
+    (``path``, ``_p12_xzoo_reference``), then ``Model.ctx_kv`` (this
+    rank's rows and kv heads; whisper's encoder Megatron-split) and the
+    decode steps through it, and one ``make_train_step`` step over this
+    rank's rows and their context, the gradients caught where the step
+    hands them to AdamW.  Returns per config the readings, the launches,
+    host seconds, each collective's bytes a step and the peak memory."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.parallel import comm
+    from repro_torch.parallel.mesh import ParallelDims, make_mesh
+    from repro_torch.parallel.sharding import (P, local_shard, local_tree,
+                                               mentioned)
+    from repro_torch.train import cache_specs, loop
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = _p12_device()
+    mesh = make_mesh((2, 2), ("data", "model"))
+    dims = ParallelDims(dp=("data",), mp=("model",))
+    mp = mesh.group(("model",))
+
+    def rows(t):
+        return local_shard(t, P(dims.batch_axes, *([None] * (t.dim() - 1))),
+                           mesh)
+
+    out = {}
+    for arch, tag, layers, (B, L), dec_rows in P12_XZOO:
+        t0 = time.perf_counter()
+        cfg = p12_xzoo_cfg(arch, layers)
+        model = Model(cfg, device=dev)
+        batch, toks, ctx = _p12_xzoo_inputs(cfg, dec_rows, B, L, dev)
+        params = None
+        for turn in range(dist.get_world_size()):
+            if turn == rank:
+                full = model.init(torch.Generator(device=dev).manual_seed(0))
+                set_gates(model, full)
+                params = _clone(local_tree(full, model.param_specs(
+                    full, mesh, dims), mesh))
+                del full
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+            dist.barrier()
+        want = _load_when_written(f"{path}_{tag}.pt")
+        rec = {"shards_s": time.perf_counter() - t0}
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        # decode: ctx_kv over this rank's rows, then the steps through it
+        cspecs = cache_specs(model, mesh, dims, dec_rows, P12_XZOO_STEPS)
+        cache = model.init_cache(dec_rows, P12_XZOO_STEPS, mesh=mesh,
+                                 dims=dims, specs=cspecs)
+        mine = rows(toks)
+        wrappers = reset_counts()
+        logits = []
+        with torch.no_grad():
+            _sync(dev)
+            t0 = time.perf_counter()
+            kv = model.ctx_kv(params, {"ctx_embeds": rows(ctx)}, mesh=mesh,
+                              dims=dims)
+            _sync(dev)
+            rec["ctx_kv_s"] = time.perf_counter() - t0
+            rec["ctx_kv_mb"] = sum(t.numel() * t.element_size()
+                                   for r in kv.values()
+                                   for t in r.values()) / 1e6
+            rec["ctx_kv_shape"] = tuple(next(iter(kv.values()))["k"].shape)
+            for t in range(P12_XZOO_STEPS):
+                if t == P12_XZOO_STEPS - 1:
+                    _sync(dev)
+                    rec["decode_ms"] = (time.perf_counter() - t0) * 1e3 / t
+                    comm.timing(True)
+                elif t == 0:
+                    _sync(dev)
+                    t0 = time.perf_counter()
+                lg, cache = model.decode_step(params, cache, {
+                    "tokens": mine[:, t:t + 1], "step": t}, mesh=mesh,
+                    dims=dims, specs=cspecs, ctx_kv=kv)
+                logits.append(lg)
+        rec["decode_bytes"] = comm.bytes_out()
+        comm.timing(False)
+        rec["decode_launches"] = read_counts(wrappers)
+        rec["logits"] = _p12_err(torch.stack(logits), local_shard(
+            want["logits"], P(None, dims.batch_axes, None, None),
+            mesh).to(dev))
+        del cache, logits, kv
+        # training: one make_train_step step from the same shards
+        mine = {k: rows(v) for k, v in batch.items()}
+        opt = adamw_init(params)
+        specs = leaves(model.param_specs(params, mesh, dims))
+        names = _paths(params)
+        seen = []
+        wrappers = reset_counts()
+        comm.timing(True)
+        _sync(dev)
+        t0 = time.perf_counter()
+        with _catching_grads(seen):
+            _, _, m = loop.make_train_step(model, AdamWConfig(), None, mesh,
+                                           dims)(params, opt, mine)
+        _sync(dev)
+        rec["train_s"] = time.perf_counter() - t0
+        rec["train_bytes"] = comm.bytes_out()
+        comm.timing(False)
+        rec["train_launches"] = read_counts(wrappers)
+        rec["loss"], rec["want_loss"] = float(m["loss"]), want["loss"]
+        worst, digests = (0.0, ""), []
+        scale_of = dict(zip(names, want["g_scale"]))
+        for name, g, w, sc, sp in zip(names, seen, want["g"],
+                                      want["g_scale"], specs):
+            if name.endswith(".bk") and not cfg.use_rope:
+                # whisper's key bias shifts every score of a query by one
+                # constant: its exact gradient is zero and both runs round
+                # to ~1e-10, held to its ``wk``'s scale (the CPU tests')
+                sc = scale_of[name[:-2] + "wk"]
+            w = local_shard(w, sp, mesh).to(dev)
+            worst = max(worst, (float((g - w).abs().max())
+                                / max(sc, 1e-30), name))
+            if "model" not in mentioned(sp):
+                digests.append(int.from_bytes(hashlib.sha256(
+                    g.cpu().numpy().tobytes()).digest()[:7], "little"))
+            del w
+        rec["grad_worst"] = worst
+        every = comm.all_gather(torch.tensor(digests, dtype=torch.int64),
+                                mp, 0, tiled=False)
+        rec["replicas_equal"] = bool((every == every[0]).all())
+        rec["replicated"] = len(digests)
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 \
+            if dev.type == "cuda" else 0.0
+        del params, opt, mine, m, want, model, batch, seen
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out[tag] = rec
+    return out
+
+
+def _p12_xzoo_report(res, dev):
+    """(m)'s checks and log lines from each rank's ``_p12_xzoo_rank``: the
+    loss within 1e-4 relative of the one-rank step's, every gradient
+    shard within 2e-4 of its whole leaf's largest entry (whisper's key
+    biases of their ``wk``'s), the leaves replicated over ``model``
+    bitwise equal across the MP ranks, the decode logits elementwise
+    (rtol 2e-4, atol 2e-5), and on the card rmsnorm and flash launches
+    per rank as ``xzoo_launches`` predicts
+    (the decode path's flash: whisper's encoder in ``ctx_kv``).  Returns
+    {path: per-rank launches}."""
+    paths = {}
+    for arch, tag, layers, (B, L), dec_rows in P12_XZOO:
+        cfg = p12_xzoo_cfg(arch, layers)
+        recs = [r[tag] for r in res]
+        bad = []
+        for rk, r in enumerate(recs):
+            if abs(r["loss"] - r["want_loss"]) > 1e-4 * abs(r["want_loss"]):
+                bad.append(f"rank {rk} loss {r['loss']} vs {r['want_loss']}")
+            if r["grad_worst"][0] > 2e-4:
+                bad.append(f"rank {rk} gradient {r['grad_worst']}")
+            if not (r["replicas_equal"] and r["logits"]["elem_ok"]):
+                bad.append(f"rank {rk} replicas {r['replicas_equal']} "
+                           f"logits {r['logits']}")
+        train = {k: [r["train_launches"][k] for r in recs]
+                 for k in recs[0]["train_launches"]
+                 if any(r["train_launches"][k] for r in recs)}
+        decode = {k: [r["decode_launches"][k] for r in recs]
+                  for k in recs[0]["decode_launches"]
+                  if any(r["decode_launches"][k] for r in recs)}
+        if dev.type == "cuda":
+            per_step = xzoo_launches(cfg)
+            per_dec = {k: P12_XZOO_STEPS * v for k, v in
+                       xzoo_launches(cfg, decode=True).items()}
+            per_dec["flash_attention"] = cfg.encoder_layers \
+                if cfg.arch_type == "audio" else 0
+            for k in ("rmsnorm", "flash_attention"):
+                if train.get(k, [0] * 4) != [per_step[k]] * 4 \
+                        or decode.get(k, [0] * 4) != [per_dec[k]] * 4:
+                    bad.append(f"{k} launches train {train} decode {decode}"
+                               f"; predicted {per_step[k]} and {per_dec[k]}")
+        kinds = sorted({k for r in recs for k in r["train_bytes"]})
+        log(f"  (m) {arch}, {layers} layers {cfg.runs()} full width on "
+            f"(2, 2): the shards made in "
+            f"{max(r['shards_s'] for r in recs):.1f} s; a step at "
+            f"{B // 2} x {L} a data rank: loss {recs[0]['loss']:.6f} (one "
+            f"rank {recs[0]['want_loss']:.6f}); worst gradient "
+            f"{max(r['grad_worst'] for r in recs)} of its largest entry; "
+            f"{recs[0]['replicated']} leaves replicated over model bitwise "
+            f"equal across MP: {all(r['replicas_equal'] for r in recs)}; "
+            f"{max(r['train_s'] for r in recs):.2f} s (host clock, the "
+            f"collectives timed), peak {max(r['peak_gb'] for r in recs):.2f}"
+            f" GB a rank; launches per rank {train}")
+        log(f"      collective bytes a training step per rank: "
+            + ", ".join(f"{k} {sum(recs[0]['train_bytes'][k].values())}"
+                        for k in kinds))
+        dk = sorted({k for r in recs for k in r["decode_bytes"]})
+        log(f"      decode {dec_rows // 2} rows a data rank: ctx_kv "
+            f"{recs[0]['ctx_kv_shape']} a layer ({recs[0]['ctx_kv_mb']:.1f}"
+            f" MB a rank) in {max(r['ctx_kv_s'] for r in recs):.2f} s, "
+            f"{P12_XZOO_STEPS} teacher-forced steps: logits max_abs_err "
+            f"{max(r['logits']['err'] for r in recs):.3e} (rtol 2e-4, "
+            f"atol 2e-5 on every element: "
+            f"{all(r['logits']['elem_ok'] for r in recs)}); "
+            f"{max(r['decode_ms'] for r in recs):.2f} ms a step; bytes a "
+            f"step per rank "
+            + ", ".join(f"{k} {sum(recs[0]['decode_bytes'][k].values())}"
+                        for k in dk)
+            + f"; launches per rank {decode}")
+        if bad:
+            raise AssertionError(f"phase 12 (m) {arch}: " + " | ".join(bad))
+        paths[f"train_{tag}_mesh"] = train
+        paths[f"decode_{tag}_mesh"] = decode
+    return paths
+
+
 def multirank(dev, model_cfg=None, tokens=(8, 1024), block_cfg=None,
               block_tokens=(2, 2048), p9_losses=None, kv_cfg=None):
     """Phase 12 (see the module docstring) on ``model_cfg`` (default
@@ -4445,15 +4812,30 @@ def multirank(dev, model_cfg=None, tokens=(8, 1024), block_cfg=None,
         _p12_kv_reference(dev, kv_cfg, kv_ref)
         log(f"  (k) the one-rank reference in {time.perf_counter() - t0:.1f}"
             " s")
+        # (l)'s and (m)'s references, written to disk behind the spawn
+        # (the ranks read them after (k))
+        writers = []
         rzoo_ref = os.path.join(tmp, "rzoo_ref")
-        _p12_rzoo_reference(dev, rzoo_ref)
+        _p12_rzoo_reference(dev, rzoo_ref, writers)
+        xzoo_ref = os.path.join(tmp, "xzoo_ref")
+        _p12_xzoo_reference(dev, xzoo_ref, writers)
         t0 = time.perf_counter()
         scheds = P12_TRAIN_SCHEDS
         guard_dir = os.path.join(tmp, "guarded")
-        res = spawn(_p12_merged_rank, 4, ref_path, model_cfg, scheds,
-                    P12_STEPS, tokens, block_cfg, block_tokens, guard_dir,
-                    kv_cfg, kv_ref, rzoo_ref, backend="gloo", device=dev.type,
-                    timeout=900, threads=2 if cpu else None)
+        try:
+            res = spawn(_p12_merged_rank, 4, ref_path, model_cfg, scheds,
+                        P12_STEPS, tokens, block_cfg, block_tokens,
+                        guard_dir, kv_cfg, kv_ref, rzoo_ref, xzoo_ref,
+                        backend="gloo", device=dev.type, timeout=900,
+                        threads=2 if cpu else None)
+        finally:
+            for w in writers:
+                w.join()
+        for w in writers:
+            if w.error is not None:
+                raise w.error
+        log("  (l) and (m)'s references written behind the spawn in "
+            + ", ".join(f"{w.seconds:.1f}" for w in writers) + " s")
         (label, _), _, _, _ = P12_MERGED
         failed += _p12_report(label, 4, [r["layer"] for r in res], paths)
         if failed:
@@ -4521,7 +4903,9 @@ def multirank(dev, model_cfg=None, tokens=(8, 1024), block_cfg=None,
         paths.update(_p12_kv_report([r["kv"] for r in res], kv_cfg))
         paths.update(_p12_rzoo_report([r["rzoo"] for r in res], dev))
         log(f"  (l) in {max(r['rzoo_s'] for r in res):.1f} s a rank")
-    log(f"  (a) 2x2, (b)-(l) in {time.perf_counter() - t0:.1f} s")
+        paths.update(_p12_xzoo_report([r["xzoo"] for r in res], dev))
+        log(f"  (m) in {max(r['xzoo_s'] for r in res):.1f} s a rank")
+    log(f"  (a) 2x2, (b)-(m) in {time.perf_counter() - t0:.1f} s")
     return paths
 
 
@@ -4940,7 +5324,9 @@ P14_TRACES = (("a", ("qwen3-moe-30b-a3b", "train_4k", False)),
               ("b", ("qwen3-moe-30b-a3b", "decode_32k", False, None,
                      "bfloat16", False, True)),
               ("a", ("hymba-1.5b", "long_500k", False)),
-              ("a", ("xlstm-350m", "decode_32k", False)))
+              ("a", ("xlstm-350m", "decode_32k", False)),
+              ("a", ("llama-3.2-vision-11b", "decode_32k", False)),
+              ("a", ("whisper-tiny", "decode_32k", False)))
 #: the phase's stated limit, seconds (logged beside its time)
 P14_LIMIT_S = 45.0
 #: (c): the real runs' combos (reduced, float32, 8 x 64 tokens)
@@ -5005,7 +5391,7 @@ def _p14_report(label, rec):
     m = rec["memory_analysis"]
     gb = {k: m[k] / 1e9 for k in ("params_bytes", "moments_bytes",
                                   "batch_bytes", "cache_bytes",
-                                  "temp_size_in_bytes",
+                                  "ctx_kv_bytes", "temp_size_in_bytes",
                                   "argument_size_in_bytes")}
     total = gb["argument_size_in_bytes"] + gb["temp_size_in_bytes"]
     rl = rec["roofline"]
@@ -5013,7 +5399,9 @@ def _p14_report(label, rec):
         f"(rank 0 traced on meta, sched {rec['schedule']}): per rank "
         f"params {gb['params_bytes']:.3f} GB, moments "
         f"{gb['moments_bytes']:.3f} GB, batch {gb['batch_bytes']:.4f} GB, "
-        f"cache {gb['cache_bytes']:.3f} GB, temp "
+        f"cache {gb['cache_bytes']:.3f} GB"
+        + (f", ctx_kv {gb['ctx_kv_bytes']:.3f} GB" if m["ctx_kv_bytes"]
+           else "") + f", temp "
         f"{gb['temp_size_in_bytes']:.3f} GB, total {total:.3f} GB, "
         f"fits_80gb {rec['fits_80gb']}; trace {rec['trace_s']:.2f} s")
     log(f"      roofline (modeled from the H100 SXM data sheet, not "
@@ -5022,7 +5410,7 @@ def _p14_report(label, rec):
         f"{rl['t_collective_s'] * 1e3:.3f} ms -> {rl['bottleneck']}; "
         f"collective bytes a rank by kind {rec['collectives']['bytes']}")
     parts = (m["params_bytes"] + m["opt_state_bytes"] + m["batch_bytes"]
-             + m["cache_bytes"])
+             + m["cache_bytes"] + m["ctx_kv_bytes"])
     if rec["chips"] != 256 or m["argument_size_in_bytes"] != parts \
             or not m["temp_size_in_bytes"] > 0 \
             or not all(math.isfinite(rl[k]) and rl[k] > 0 for k in (
@@ -5625,6 +6013,20 @@ SHAPE_OF.update({("rmsnorm", "train_hymba_mesh"): "train-hymba",
 #: phase 12 (l)'s paths, in ``by_path`` with rank 0's launches
 P12_RZOO_PATHS = tuple(f"{what}_{tag}_mesh" for _, tag, _, _, _ in P12_RZOO
                        for what in ("train", "decode"))
+# phase 12 (m): one rank of (2, 2): llama-3.2-vision's 1 x 2048 step at
+# 4096 wide with 16 / 4 heads a rank and its decode rows; whisper's flash
+# at 3 heads a rank, its step's and ``ctx_kv``'s time the encoder's 8 x
+# 1500 frames (4 launches of 0.24 ms against 8 of the decoder's 8 x 448 at
+# ~0.04); layernorm, so no rmsnorm
+SHAPE_OF.update({("rmsnorm", "train_vision_mesh"): "train-4096",
+                 ("flash_attention", "train_vision_mesh"): "llama-vision-mp2",
+                 ("rmsnorm", "decode_vision_mesh"): "decode-4096",
+                 ("flash_attention", "train_whisper_mesh"): "whisper-enc-mp2",
+                 ("flash_attention", "decode_whisper_mesh"):
+                     "whisper-enc-mp2"})
+#: phase 12 (m)'s paths, in ``by_path`` with rank 0's launches
+P12_XZOO_PATHS = tuple(f"{what}_{tag}_mesh" for _, tag, _, _, _ in P12_XZOO
+                       for what in ("train", "decode"))
 #: (kernel, multi-rank path) -> the phase-3 row at the shapes one rank's
 #: launches take there: phase 12 (k)'s prefill on one rank of (2, 2) (16 /
 #: 4 heads; B=1 one row of 16384, B=2 one row of 2048 a data rank) and its
@@ -5919,7 +6321,7 @@ def main(argv=None) -> int:
         log("phase 12: Parm's schedules across ranks (gpt2-moe, qwen3's "
             "block, gloo ranks on cuda:0)")
         multi_paths = multirank(dev, p9_losses=p9_losses)
-        for path in P12_RZOO_PATHS:
+        for path in P12_RZOO_PATHS + P12_XZOO_PATHS:
             path_launches[path] = {k: multi_paths[path].get(k, [0])[0]
                                    for k in KERNELS}
         log(f"  phase 12 in {time.perf_counter() - t0:.1f} s")

@@ -191,9 +191,11 @@ def meta_state(model, mesh, dims, shape, *, zero_axes=(),
     """One rank's arguments of ``shape``'s step on the meta device:
     ``params`` (this rank's shards, ``Model.param_specs``), ``opt_state``
     (AdamW, ZeRO-1 over ``zero_axes``) to train, ``cache`` and its
-    ``cache_specs`` to decode, and ``batch`` (this rank's rows where the
-    batch axes divide the batch, as JAX's dry run shards it).  ``full``:
-    :func:`full_param_shapes`, if made already."""
+    ``cache_specs`` to decode (and a cross-attention arch's ``ctx_kv``,
+    this rank's rows and kv heads, ``Model.ctx_kv`` on the meta device:
+    JAX lowers it as an argument of the serve step), and ``batch`` (this
+    rank's rows where the batch axes divide the batch, as JAX's dry run
+    shards it).  ``full``: :func:`full_param_shapes`, if made already."""
     from repro_torch.optim.adamw import adamw_init
     from repro_torch.parallel.sharding import local_shape
     from repro_torch.train.loop import cache_specs, zero1_layout
@@ -204,7 +206,8 @@ def meta_state(model, mesh, dims, shape, *, zero_axes=(),
                   full, specs)
     B = shape.global_batch
     state = {"params": params, "opt_state": None, "cache": None,
-             "c_specs": None, "batch": local_batch(cfg, shape, mesh, dims)}
+             "c_specs": None, "ctx_kv": None,
+             "batch": local_batch(cfg, shape, mesh, dims)}
     if shape.kind == "train":
         state["opt_state"] = adamw_init(
             params, zero=zero1_layout(model, params, mesh, dims, zero_axes),
@@ -216,6 +219,10 @@ def meta_state(model, mesh, dims, shape, *, zero_axes=(),
         state["cache"] = model.init_cache(
             B, shape.seq_len, getattr(torch, cfg.dtype), mesh=mesh,
             dims=dims, specs=c_specs)
+        if model.has_cross:
+            with torch.no_grad():
+                state["ctx_kv"] = model.ctx_kv(params, state["batch"],
+                                               mesh=mesh, dims=dims)
     return state
 
 
@@ -233,7 +240,8 @@ def make_step(model, mesh, dims, shape, state, *, schedule=None,
     """The step ``shape.kind`` runs on ``state`` (:func:`meta_state`), as
     a call of no arguments: ``make_train_step`` (or, with ``guards``,
     ``make_guarded_train_step`` at ``lr_scale`` 1 and no fault),
-    ``make_prefill_fn`` or ``make_serve_step``."""
+    ``make_prefill_fn`` or ``make_serve_step`` (with ``ctx_kv``, its
+    fourth argument)."""
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train import loop
     p, b = state["params"], state["batch"]
@@ -251,7 +259,7 @@ def make_step(model, mesh, dims, shape, state, *, schedule=None,
         return lambda: fn(p, b)
     fn = loop.make_serve_step(model, mesh, dims, schedule,
                               specs=state["c_specs"])
-    return lambda: fn(p, state["cache"], b)
+    return lambda: fn(p, state["cache"], b, state["ctx_kv"])
 
 
 def layerwise_costs(model, cfg, mesh, dims, shape, *, kind: str,

@@ -10,7 +10,8 @@ at once, and the kernels answer through their meta rules
 (``kernels/meta.py``).  The record has JAX's keys:
 
   * ``memory_analysis``: this rank's arguments (parameters, AdamW
-    moments under ZeRO-1, the batch, and the KV cache to decode), its
+    moments under ZeRO-1, the batch, and the KV cache to decode, with a
+    cross-attention arch's ``ctx_kv``, an argument of JAX's step too), its
     outputs, and the temporaries (the peak of the live storage the step
     allocated), with ``fits_80gb`` beside it;
   * ``cost_flops`` / ``cost_bytes`` and ``collectives`` (counts and bytes
@@ -355,7 +356,6 @@ def dry_one(arch: str, shape_name: str, multi_pod: bool,
     from repro_torch.launch.mesh import (dims_for, fake_world,
                                          make_production_mesh,
                                          make_test_mesh)
-    from repro_torch.models.blocks import refuse_mesh
     from repro_torch.models.model import Model
     if save_hlo:
         raise ValueError("--save-hlo: the port traces eager PyTorch on "
@@ -369,7 +369,6 @@ def dry_one(arch: str, shape_name: str, multi_pod: bool,
     if cfg is None:
         return {"arch": arch, "shape": shape_name, "mesh": mesh_name,
                 "skipped": variant}
-    refuse_mesh(cfg.name, cfg.layer_kinds())
     if dist.is_initialized():
         raise RuntimeError("the dry run starts its own fake "
                            "torch.distributed world; one is running")
@@ -409,7 +408,8 @@ def dry_one(arch: str, shape_name: str, multi_pod: bool,
     parts = {"params_bytes": tree_bytes(state["params"]),
              "opt_state_bytes": tree_bytes(opt),
              "batch_bytes": tree_bytes(state["batch"]),
-             "cache_bytes": tree_bytes(state["cache"])}
+             "cache_bytes": tree_bytes(state["cache"]),
+             "ctx_kv_bytes": tree_bytes(state["ctx_kv"])}
     args_b = sum(parts.values())
     # the arguments the step updates in place: params and AdamW state to
     # train, the cache to decode

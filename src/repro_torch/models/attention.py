@@ -18,11 +18,11 @@ share) and returns its row-parallel part of the output, which the block
 sums over MP.  A query head split across ranks (JAX allows it where
 ``H * hd`` but not ``H`` divides over MP) is refused, except in the
 gathered-heads layout (``gathered=True``, :func:`attn_layout`; hymba's 25
-query heads over 5 kv heads): this rank's columns of ``q`` are gathered
-over MP, every rank runs every head over K/V it computes from the
-replicated kv projection, and feeds its columns of the output to its
-rows of ``wo``.  JAX's specs stay as they are; the attention core runs
-on every MP rank.
+query heads over 5 kv heads, whisper's 6 over MP 4 or 16): this rank's
+columns of ``q`` are gathered over MP, every rank runs every head over
+K/V it computes from the replicated kv projection, and feeds its columns
+of the output to its rows of ``wo``.  JAX's specs stay as they are; the
+attention core runs on every MP rank.
 
 ``paged_chunk_attn`` is plain array code in JAX too, no Pallas kernel.  The
 port keeps its layout, op order and mask constants: ``-inf`` score masking
@@ -36,7 +36,9 @@ launch; chunked layers take the plain path, as in JAX); ``decode_attn``
 is plain code with JAX's ``-inf`` masks, as JAX's is.  Both write the
 cache in place.  Cross attention (``apply_attn(kv_x=)``, and
 ``decode_attn(kv_cache_static=)`` over a precomputed context) is plain
-code too, as JAX's kernel path excludes it: no rope, no mask.  Where
+code too, as JAX's kernel path excludes it: no rope, no mask.  On a mesh
+both run this rank's heads, or every head in the gathered layout, over
+the context's kv heads this rank holds (:func:`context_kv`).  Where
 ``train.loop.cache_specs`` splits the cache's W over a group of ranks
 (JAX's context-parallel decode, a GSPMD sharding hint there), the port
 writes the exchange out: the queries and the new token's K/V are
@@ -134,10 +136,11 @@ def mp_heads(cfg: AttnConfig, n_mp: int, index: int = 0):
 
 def attn_layout(cfg: AttnConfig, n_mp: int) -> str:
     """How the attention of a kind that takes the gathered-heads layout
-    (hymba) runs over ``n_mp`` MP ranks under JAX's ``attn_specs``:
-    ``"whole"`` where ``wq``/``wo`` are replicated (one rank, or ``H *
-    hd`` does not divide), ``"heads"`` where :func:`mp_heads` keeps whole
-    heads a rank, else ``"gathered"``."""
+    (hymba's, and the cross-attention kinds' self- and cross attention)
+    runs over ``n_mp`` MP ranks under JAX's ``attn_specs``: ``"whole"``
+    where ``wq``/``wo`` are replicated (one rank, or ``H * hd`` does not
+    divide), ``"heads"`` where :func:`mp_heads` keeps whole heads a rank,
+    else ``"gathered"``."""
     if n_mp <= 1 or (cfg.n_heads * cfg.head_dim) % n_mp:
         return "whole"
     try:
@@ -490,29 +493,50 @@ def _grouped(q, K):
     return q.reshape(B, K, H // K, hd)
 
 
-def _decode_static(p, cfg: AttnConfig, x, kv):
+def context_kv(p, cfg: AttnConfig, ctx, tp=None):
+    """A cross layer's static context K/V (``Model.ctx_kv``): k, v (B,
+    Lctx, K, hd) of ``ctx`` through the kv projection, JAX's ``ctx_kv``.
+    With ``tp`` this rank's kv heads (:func:`_rank_heads`: its block of a
+    sharded projection, or the one kv head its query heads share); None
+    gives every head (one rank, or the gathered and whole layouts)."""
+    _, K, kv = _rank_heads(p, cfg, tp)
+    return _project_kv(kv, cfg, ctx, K)
+
+
+def _decode_static(p, cfg: AttnConfig, x, kv, tp=None, gathered=False):
     """JAX's static-K/V branch of ``decode_attn``: one query token against
     a precomputed context ``kv`` (``{"k", "v": (B, Lctx, K, hd)}``,
     ``Model.ctx_kv``), repeated by H / K, an f32 softmax over every
-    context slot.  Returns (B, 1, D)."""
+    context slot.  Returns (B, 1, D).  With ``tp`` this rank's query
+    heads over the kv heads ``kv`` holds (:func:`context_kv`), its
+    row-parallel part returned; with ``gathered`` every head over every
+    kv head, this rank's columns of the output meeting its rows of
+    ``wo``."""
     B = x.shape[0]
-    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, 1, H, hd)
-    if cfg.qkv_bias:
-        q = q + p["bq"].reshape(H, hd)
+    hd = cfg.head_dim
+    if gathered:
+        H = cfg.n_heads
+        q = _gathered_q(p, cfg, x, tp)
+    else:
+        H = _rank_heads(p, cfg, tp)[0]
+        q = (x @ p["wq"]).reshape(B, 1, H, hd)
+        if cfg.qkv_bias:
+            q = q + p["bq"].reshape(H, hd)
+    K = kv["k"].shape[2]
     k = _repeat_kv(kv["k"], H // K)
     v = _repeat_kv(kv["v"], H // K)
     s = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * cfg.scale
     pr = torch.softmax(s, dim=-1).to(x.dtype)
-    out = torch.einsum("bhqk,bkhd->bqhd", pr, v)
-    return out.reshape(B, 1, H * hd) @ p["wo"]
+    out = torch.einsum("bhqk,bkhd->bqhd", pr, v).reshape(B, 1, H * hd)
+    return (_own_columns(out, tp) if gathered else out) @ p["wo"]
 
 
 def decode_attn(p, cfg: AttnConfig, x, cache, step, *, tp=None, wgrp=None,
                 kv_cache_static=None, gathered=False):
     """One-token decode.  With ``kv_cache_static`` it is cross attention
-    over a precomputed context (:func:`_decode_static`; ``cache`` and
-    ``step`` unused, nothing written).  Otherwise self-attention: x:
+    over a precomputed context (:func:`_decode_static`, ``tp`` and
+    ``gathered`` as below; ``cache`` and ``step`` unused, nothing
+    written).  Otherwise self-attention: x:
     (B, 1, D); ``step`` the
     absolute position, a scalar (every row at one position) or a (B,)
     tensor (each row at its own).  The token's K/V land IN PLACE at slot
@@ -533,7 +557,7 @@ def decode_attn(p, cfg: AttnConfig, x, cache, step, *, tp=None, wgrp=None,
     holds every kv head, every head is attended on every rank, and this
     rank's columns of the output meet its rows of ``wo``."""
     if kv_cache_static is not None:
-        return _decode_static(p, cfg, x, kv_cache_static)
+        return _decode_static(p, cfg, x, kv_cache_static, tp, gathered)
     B = x.shape[0]
     hd = cfg.head_dim
     if gathered:

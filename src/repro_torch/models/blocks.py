@@ -17,8 +17,11 @@ mesh too, Megatron-split over MP on JAX's specs (``_recurrent``): hymba's
 attention by head or in the gathered-heads layout
 (``attention.attn_layout``) beside its Mamba cell on its channels, the
 mLSTM cell on its heads or gathered heads, the sLSTM cell whole on every
-rank.  The cross-attention kinds raise on a mesh (:func:`refuse_mesh`,
-ROADMAP 7d-mesh), while ``block_specs`` gives JAX's specs for them."""
+rank.  The cross-attention kinds run on a mesh too (``_cross``): each
+attention (whisper's encoder's, an ``xdec`` layer's self-attention, the
+``xattn`` of both) by head or in the gathered-heads layout
+(:func:`layout`), the FFN on its columns, the ``cross`` gates on the
+MP-summed outputs, as in JAX's ``apply_block``."""
 
 from __future__ import annotations
 
@@ -32,13 +35,14 @@ from repro_torch.models.attention import AttnConfig
 from repro_torch.models.layers import (apply_ffn, apply_norm, ffn_specs,
                                        init_ffn, init_norm, norm_specs)
 from repro_torch.parallel.sharding import P
+from repro_torch.parallel.tensor import copy_to_mp
 
 #: Block kinds the port runs.
 KINDS = ("dense", "moe", "cross", "xdec", "hymba", "mlstm", "slstm",
          "encoder")
 #: the kinds with a recurrent state
 RECURRENT = ("hymba", "mlstm", "slstm")
-#: the cross-attention and encoder-decoder kinds, one rank only too
+#: the cross-attention and encoder-decoder kinds
 CROSS = ("cross", "xdec", "encoder")
 #: the kinds JAX's cache-filling prefill, paged step and engine take
 ATTENTION_ONLY = ("dense", "moe")
@@ -71,15 +75,26 @@ def _check_kind(kind: str) -> None:
             f"(the port runs {KINDS})")
 
 
-def refuse_mesh(name: str, kinds) -> None:
-    """Raise where ``kinds`` (a model's layer kinds) hold a cross-attention
-    one: on a mesh the port runs none of them yet."""
-    bad = sorted({base_kind(k) for k in kinds} & set(CROSS))
-    if bad:
-        raise NotImplementedError(
-            f"{name}: the cross-attention block kinds {bad} run on one "
-            "rank; on a mesh they come with ROADMAP 7d-mesh (the Megatron "
-            "split of xattn, ctx_kv's batch sharding, the dry run)")
+def layout(cfg: ModelConfig, kind: str, n_mp: int) -> str:
+    """How a layer of ``kind``'s attention runs over ``n_mp`` MP ranks:
+    hymba's and the cross-attention kinds' by ``attention.attn_layout``
+    (``"whole"``, ``"heads"`` or ``"gathered"``), the dense kinds' by head
+    (``"heads"``: ``attention.mp_heads`` refuses a head split across
+    ranks).  A layer's self- and cross attention have the same heads, so
+    one layout serves both."""
+    if base_kind(kind) in ("hymba",) + CROSS:
+        return attn_mod.attn_layout(attn_config(cfg, kind), n_mp)
+    return "heads"
+
+
+def _split_region(tp, how: str, h, fn):
+    """``fn(h, tp, gathered)``, an attention in the layout ``how``, summed
+    over MP: on this rank's shard between ``tp.enter`` and ``tp.leave``,
+    or whole on every rank (``tp.to_replicated`` / ``from_replicated``)
+    where ``how`` is ``"whole"``."""
+    if how == "whole":
+        return tp.from_replicated(fn(tp.to_replicated(h), None, False))
+    return tp.leave(fn(tp.enter(h), tp, how == "gathered"))
 
 
 def state_shards(cfg: ModelConfig, kind: str, n_mp: int) -> dict:
@@ -221,7 +236,9 @@ def apply_block(p, cfg: ModelConfig, kind: str, x, *, ctx=None,
     rank, ``parallel.tensor``) the attention and the dense FFN are
     Megatron-parallel: ``tp.enter`` at each sharded region's entry (so the
     input's cotangent is summed over MP), ``tp.leave`` after its
-    row-parallel product.  Under Megatron-SP (``tp.seq``) ``x`` is this
+    row-parallel product; the attention by head or, for the kinds that
+    take it (whisper's ``encoder``), in the gathered-heads layout
+    (:func:`layout`).  Under Megatron-SP (``tp.seq``) ``x`` is this
     rank's L / n_mp rows of the stream, the norms run on them, and the MoE
     layer takes the whole sequence (``tp.to_replicated``).  ``ctx`` is the
     context a ``cross`` or ``xdec`` layer attends (B, Lctx, D): None
@@ -234,20 +251,20 @@ def apply_block(p, cfg: ModelConfig, kind: str, x, *, ctx=None,
            "expert_load": torch.zeros((0,), dtype=torch.float32,
                                       device=x.device)}
     base = base_kind(kind)
-    if base in CROSS and (mesh is not None or tp is not None):
-        refuse_mesh(cfg.name, [kind])
     if base in RECURRENT:
         return _recurrent(p, cfg, kind, x, positions=positions, tp=tp), aux
     if base in ("cross", "xdec"):
-        return _cross(p, cfg, kind, x, ctx=ctx, positions=positions), aux
+        return _cross(p, cfg, kind, x, ctx=ctx, positions=positions,
+                      tp=tp), aux
     h = apply_norm(p["norm1"], x, eps, cfg.kernel)
     if tp is None:
         a = attn_mod.apply_attn(p["attn"], acfg, h, positions=positions,
                                 kernel=cfg.kernel)
     else:
-        a = tp.leave(attn_mod.apply_attn(p["attn"], acfg, tp.enter(h),
-                                         positions=positions,
-                                         kernel=cfg.kernel, tp=tp))
+        a = _split_region(tp, layout(cfg, kind, tp.n), h,
+                          lambda h, tp, g: attn_mod.apply_attn(
+                              p["attn"], acfg, h, positions=positions,
+                              kernel=cfg.kernel, tp=tp, gathered=g))
     if cfg.parallel_block:
         return x + (a + _ffn(p["ffn"], cfg, h, tp)), aux
     x = x + a
@@ -346,7 +363,7 @@ def _recurrent(p, cfg: ModelConfig, kind: str, x, cache=None, step=None, *,
 
 
 def _cross(p, cfg: ModelConfig, kind: str, x, *, ctx=None, cache=None,
-           step=None, ctx_kv=None, positions=None):
+           step=None, ctx_kv=None, positions=None, tp=None, wgrp=None):
     """A ``cross`` or ``xdec`` block (JAX's ``apply_block`` /
     ``decode_block`` for them).  Without ``cache`` the full sequence,
     attending ``ctx``; with ``cache`` one decode token, attending
@@ -355,37 +372,60 @@ def _cross(p, cfg: ModelConfig, kind: str, x, *, ctx=None, cache=None,
     ``cross`` (llama-3.2-vision): ``x + tanh(gate_attn) * xattn(norm1(x))``,
     then ``+ tanh(gate_ffn) * ffn(norm_x(x))``; ``xdec`` (whisper):
     self-attention, cross attention and the FFN, each behind its norm.
-    Returns the block's output."""
+    Returns the block's output.
+
+    With ``tp`` each sub-layer runs Megatron-split and summed over MP
+    (:func:`_split_region` in :func:`layout`'s layout; the FFN through
+    :func:`_ffn`), so the gates multiply the summed outputs, as in JAX.
+    ``ctx`` is whole on every MP rank and each rank's K/V read only part
+    of it: it enters the cross attention through ``copy_to_mp``, so its
+    cotangent (whisper's encoder's) is summed over MP.  ``ctx_kv`` holds
+    this rank's kv heads (``Model.ctx_kv``); ``wgrp``: the self-attention
+    cache's W split, as ``decode_attn`` takes it."""
     base = base_kind(kind)
+    how = "whole" if tp is None else layout(cfg, kind, tp.n)
+    xcfg = attn_config(cfg, kind, cross=True)
 
     def norm(pn, h):
         return apply_norm(pn, h, cfg.norm_eps, cfg.kernel)
 
-    def cross_attn(h):
-        xcfg = attn_config(cfg, kind, cross=True)
+    def region(h, fn):
+        return fn(h, None, False) if tp is None else \
+            _split_region(tp, how, h, fn)
+
+    def cross_attn(h, tp, gathered):
         if cache is None:
-            return attn_mod.apply_attn(p["xattn"], xcfg, h, kv_x=ctx)
+            kv_x = ctx
+            if ctx is not None and tp is not None:
+                kv_x = copy_to_mp(ctx, tp.grp)
+            return attn_mod.apply_attn(p["xattn"], xcfg, h, kv_x=kv_x, tp=tp,
+                                       gathered=gathered)
         if ctx_kv is None:
             raise ValueError(f"{cfg.name}: decoding a {base} layer needs "
                              "its context's K/V (ctx_kv=, Model.ctx_kv)")
         return attn_mod.decode_attn(p["xattn"], xcfg, h, None, step,
-                                    kv_cache_static=ctx_kv)
+                                    kv_cache_static=ctx_kv, tp=tp,
+                                    gathered=gathered)
 
     if base == "cross":
         gate = torch.tanh(p["gate_attn"]).to(x.dtype)
-        x = x + gate * cross_attn(norm(p["norm1"], x))
-        f = apply_ffn(p["ffn"], norm(p["norm_x"], x), cfg.ffn_act)
+        x = x + gate * region(norm(p["norm1"], x), cross_attn)
+        f = _ffn(p["ffn"], cfg, norm(p["norm_x"], x), tp)
         return x + torch.tanh(p["gate_ffn"]).to(x.dtype) * f
     acfg = attn_config(cfg, kind)
-    h = norm(p["norm1"], x)
-    if cache is None:
-        x = x + attn_mod.apply_attn(p["attn"], acfg, h, positions=positions,
-                                    kernel=cfg.kernel)
-    else:
-        x = x + attn_mod.decode_attn(p["attn"], acfg, h, cache["attn"],
-                                     step)
-    x = x + cross_attn(norm(p["norm_x"], x))
-    return x + apply_ffn(p["ffn"], norm(p["norm2"], x), cfg.ffn_act)
+
+    def self_attn(h, tp, gathered):
+        if cache is None:
+            return attn_mod.apply_attn(p["attn"], acfg, h,
+                                       positions=positions,
+                                       kernel=cfg.kernel, tp=tp,
+                                       gathered=gathered)
+        return attn_mod.decode_attn(p["attn"], acfg, h, cache["attn"], step,
+                                    tp=tp, wgrp=wgrp, gathered=gathered)
+
+    x = x + region(norm(p["norm1"], x), self_attn)
+    x = x + region(norm(p["norm_x"], x), cross_attn)
+    return x + _ffn(p["ffn"], cfg, norm(p["norm2"], x), tp)
 
 
 def _cached_block(p, cfg: ModelConfig, kind: str, x, attend, *, schedule,
@@ -511,17 +551,14 @@ def decode_block(p, cfg: ModelConfig, kind: str, x, cache, step, *,
     arguments as :func:`prefill_block`.  A recurrent kind also carries
     its state one token on, in place (on a mesh its shard of it,
     ``_recurrent``), and a ``cross`` or ``xdec`` layer attends its
-    context's precomputed ``ctx_kv`` (one rank only).  Returns the block's
-    output."""
+    context's precomputed ``ctx_kv`` (on a mesh this rank's kv heads of
+    it, ``_cross``).  Returns the block's output."""
     base = base_kind(kind)
-    if base in CROSS and (
-            mesh is not None or tp is not None or wgrp is not None):
-        refuse_mesh(cfg.name, [kind])
     if base in RECURRENT:
         return _recurrent(p, cfg, kind, x, cache, step, tp=tp, wgrp=wgrp)
     if base in ("cross", "xdec"):
         return _cross(p, cfg, kind, x, cache=cache, step=step,
-                      ctx_kv=ctx_kv)
+                      ctx_kv=ctx_kv, tp=tp, wgrp=wgrp)
     return _cached_block(
         p, cfg, kind, x,
         lambda pa, acfg, h, tp: attn_mod.decode_attn(

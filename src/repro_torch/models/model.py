@@ -4,18 +4,19 @@ for the serving engine's steps over a paged KV arena (``paged_step``) and
 for the KV-cache serve path over per-row caches (``init_cache``,
 ``prefill_step``, ``decode_step``; on a mesh in the layout
 ``train.loop.cache_specs`` gives).  The recurrent stacks (hymba, xlstm)
-train and decode on one rank and on a mesh (``blocks._recurrent``); the
-cross-attention ones (llama-3.2-vision's gated cross layers, whisper's
-encoder and decoder) on one rank, every mesh path but ``param_specs``
-refusing them (ROADMAP 7d-mesh).  ``prefill_step`` and ``paged_step``
-refuse both, as JAX's do.
+and the cross-attention ones (llama-3.2-vision's gated cross layers,
+whisper's encoder and decoder) train and decode on one rank and on a mesh
+(``blocks._recurrent``, ``blocks._cross``).  ``prefill_step`` and
+``paged_step`` refuse both, as JAX's do.
 
 A cross-attention model reads its context from ``batch["ctx_embeds"]``
 (B, Lctx, D), the modality frontends' output, which the port, as JAX,
 takes precomputed (``_encode_ctx``): llama-3.2-vision's image embeddings
 as they are, whisper's frames through its encoder (``encoder``,
-``enc_norm``).  Serving computes each ``cross`` / ``xdec`` layer's
-context K/V once (``ctx_kv``) and hands them to every ``decode_step``.
+``enc_norm``; on a mesh Megatron-split over MP, the frames whole on every
+MP rank).  Serving computes each ``cross`` / ``xdec`` layer's context K/V
+once (``ctx_kv``; on a mesh this rank's rows and kv heads) and hands them
+to every ``decode_step``.
 
 Parameters keep the JAX package's pytree layout: ``embed``,
 ``final_norm``, ``lm_head`` and one ``run{r}`` dict per run of same-kind
@@ -49,8 +50,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks as blk
-from repro_torch.models.attention import attn_layout, mp_heads
+from repro_torch.models.attention import mp_heads
 from repro_torch.models.layers import (apply_norm, embed, embedding_specs,
                                        init_embedding, init_norm, norm_specs,
                                        sinusoidal_positions, unembed)
@@ -109,6 +111,14 @@ def _stack(make, n: int) -> dict:
     return out
 
 
+def _batch_spec(run):
+    """The batch axes of a run's cache specs (every leaf's dim 1 is the
+    batch's, sharded alike), or None: a ``cross`` run's ``dummy`` has no
+    batch dim (its spec is ``P(None)``)."""
+    spec = _first_spec(run)
+    return spec[1] if len(spec) > 1 else None
+
+
 #: a recurrent state's leaf 0 dim that its MP shard cuts, by cell
 #: (``train.loop.cache_specs``): Mamba's ``conv_buf`` (n, B, C, Di) and
 #: mLSTM's ``C`` (n, B, H, hd, hd)
@@ -154,10 +164,6 @@ class Model:
             raise NotImplementedError(
                 f"{cfg.name}: block kinds {bad} come with a later slice of "
                 f"the port (it runs {blk.KINDS} stacks)")
-
-    def _refuse_mesh(self, mesh):
-        if mesh is not None:
-            blk.refuse_mesh(self.cfg.name, [k for k, _ in self.runs])
 
     def _refuse_kinds(self, what: str, tail: str):
         """JAX's refusal of a non-dense/moe stack in ``prefill_step`` and
@@ -218,7 +224,6 @@ class Model:
         this rank's shard (``blocks.state_shards``; with ``specs``, the
         MP axes of its leaves): Mamba's channels, mLSTM's heads."""
         cfg = self.cfg
-        self._refuse_mesh(mesh)
         dtype = dtype or getattr(torch, cfg.dtype)
         n_mp = axis_size(mesh, dims.mp) if mesh is not None else 1
 
@@ -237,7 +242,7 @@ class Model:
                 shard["kv_heads"] = self._kv_heads(kind, n_mp)
             if specs is not None:
                 run = specs[f"run{r}"]
-                rows //= axis_size(mesh, _first_spec(run)[1] or ())
+                rows //= axis_size(mesh, _batch_spec(run) or ())
                 if "attn" in run and run["attn"]["k"][2]:
                     shard = {"w_shards": axis_size(mesh,
                                                    run["attn"]["k"][2])}
@@ -249,12 +254,11 @@ class Model:
         return cache
 
     def _kv_heads(self, kind, n_mp: int) -> int:
-        """The kv heads a rank's attention cache holds over ``n_mp`` MP
-        ranks: ``mp_heads``', or every one in the gathered-heads and
-        whole layouts (hymba's)."""
+        """The kv heads a rank's attention cache (or a cross layer's
+        ``ctx_kv``) holds over ``n_mp`` MP ranks: ``mp_heads``', or every
+        one in the gathered-heads and whole layouts (``blocks.layout``)."""
         acfg = blk.attn_config(self.cfg, kind)
-        if blk.base_kind(kind) == "hymba" \
-                and attn_layout(acfg, n_mp) != "heads":
+        if blk.layout(self.cfg, kind, n_mp) != "heads":
             return acfg.n_kv_heads
         return mp_heads(acfg, n_mp)[1]
 
@@ -273,20 +277,18 @@ class Model:
         and key order (a JAX tree comes with sorted keys), so that the
         leaves of the two line up.  Raises, naming the config and the
         mesh, where the attention heads do not split over MP as the port
-        runs them (``attention.mp_heads``; hymba's attention takes the
-        gathered-heads layout where they do not, ``attention.attn_layout``);
-        a cross-attention stack, which the port does not run on a mesh yet
-        (ROADMAP 7d-mesh), gets JAX's specs unchecked."""
+        runs them (``attention.mp_heads``; hymba's and the cross-attention
+        kinds' attention takes the gathered-heads layout where they do
+        not, ``blocks.layout``)."""
         cfg = self.cfg
         n_mp = axis_size(mesh, dims.mp)
+        kinds = [k for k, _ in self.runs] + (
+            ["encoder"] if self.has_encoder else [])
         try:
-            for kind, _ in self.runs:
-                base = blk.base_kind(kind)
-                if base in blk.CROSS or not blk._has_attn(base):
-                    continue
-                acfg = blk.attn_config(cfg, kind)
-                if base != "hymba" or attn_layout(acfg, n_mp) == "heads":
-                    mp_heads(acfg, n_mp)
+            for kind in kinds:
+                if blk._has_attn(blk.base_kind(kind)) \
+                        and blk.layout(cfg, kind, n_mp) == "heads":
+                    mp_heads(blk.attn_config(cfg, kind), n_mp)
         except ValueError as e:
             raise ValueError(f"{cfg.name} on mesh {dict(mesh.shape)} (MP "
                              f"axes {dims.mp}): {e}") from None
@@ -311,12 +313,14 @@ class Model:
     def mp_partial(self, params, mesh, dims, seq_len: int) -> dict:
         """Per leaf (``param_specs``'s tree), whether each MP rank's
         gradient of it is only its part of the whole: a kv projection
-        replicated over MP where the attention runs split (each rank reads
-        the kv head its query heads use, or, in hymba's gathered-heads
-        layout, feeds only its columns of the output), a split mLSTM
-        cell's replicated gates (``w_if``, ``b_i``, ``b_f``: each rank's
-        heads or output columns) and, under Megatron-SP, the norms and a
-        row-parallel FFN's ``b_out`` (they see this rank's L / n_mp rows).
+        (``attn``'s or ``xattn``'s) replicated over MP where the attention
+        runs split (each rank reads the kv head its query heads use, or,
+        in the gathered-heads layout, feeds only its columns of the
+        output), a split mLSTM cell's replicated gates (``w_if``, ``b_i``,
+        ``b_f``: each rank's heads or output columns) and, under
+        Megatron-SP, the norms, the ``cross`` gates and a row-parallel
+        FFN's ``b_out`` (they see this rank's L / n_mp rows; whisper's
+        encoder runs on whole frames, so not its leaves).
         ``train.loop.sync_grads`` sums those over MP.  Every other leaf
         replicated over MP (a sub-layer that runs whole on every rank:
         sLSTM, a cell JAX does not split) gets its whole gradient on every
@@ -325,14 +329,14 @@ class Model:
         tp = tensor_parallel(mesh, dims, seq_len, self.cfg.seq_parallel)
         mp = set(dims.mp)
         kinds = {f"run{r}": kind for r, (kind, _) in enumerate(self.runs)}
-        norms = ("norm1", "norm2", "final_norm", "norm_a", "norm_s")
+        norms = ("norm1", "norm2", "norm_x", "final_norm", "norm_a",
+                 "norm_s")
 
         def split(path):
             """Whether the sub-layer ``path`` ends in runs split over MP."""
             kind = kinds.get(path[0], "encoder")
-            if path[-2] == "attn":    # mp_heads splits the dense kinds'
-                return blk.base_kind(kind) != "hymba" or attn_layout(
-                    blk.attn_config(self.cfg, kind), tp.n) != "whole"
+            if path[-2] in ("attn", "xattn"):
+                return blk.layout(self.cfg, kind, tp.n) != "whole"
             if path[-2] == "mlstm":
                 return path[-1] in ("w_if", "b_i", "b_f") and \
                     mlstm_split(blk._mlstm_cfg(self.cfg), tp.n)
@@ -345,8 +349,10 @@ class Model:
                 return False          # no MP, or sharded over it
             if split(path):
                 return True
-            if not tp.seq:
-                return False
+            if not tp.seq or path[0] in ("encoder", "enc_norm"):
+                return False          # the encoder's frames are whole
+            if path[-1] in ("gate_attn", "gate_ffn"):
+                return True
             if path[-2:] == ("ffn", "b_out"):
                 return self.cfg.d_ff % tp.n == 0      # ffn_specs' rule
             return path[-2] in norms
@@ -360,21 +366,26 @@ class Model:
                                  tp=tp)
         return y, aux["loss"], aux["expert_load"]
 
-    def _encode_ctx(self, params, batch):
+    def _encode_ctx(self, params, batch, mesh=None, dims=None):
         """The context the ``cross`` / ``xdec`` layers attend (JAX's
         ``_encode_ctx``): None without ``batch["ctx_embeds"]``; an audio
         arch's frames plus sinusoidal positions through the encoder layers
         (without remat, as JAX's scan runs them) and ``enc_norm``; any
         other arch's ``ctx_embeds`` as they are (the image frontend's
-        patch embeddings)."""
+        patch embeddings).  On a mesh the encoder runs Megatron-split over
+        MP on its own ``TensorParallel``, the frames whole on every MP
+        rank (never Megatron-SP: JAX constrains only the decoder stream's
+        sharding); the context comes out whole on every MP rank."""
         cfg = self.cfg
         ctx = batch.get("ctx_embeds")
         if ctx is None or cfg.arch_type != "audio":
             return ctx
+        tp = tensor_parallel(mesh, dims, ctx.shape[1])
         x = ctx + sinusoidal_positions(ctx.shape[1], cfg.d_model,
                                        ctx.device).to(ctx.dtype)
         for p in layer_views(params["encoder"], cfg.encoder_layers):
-            x, _ = blk.apply_block(p, cfg, "encoder", x)
+            x, _ = blk.apply_block(p, cfg, "encoder", x, mesh=mesh,
+                                   dims=dims, tp=tp)
         return apply_norm(params["enc_norm"], x, cfg.norm_eps, cfg.kernel)
 
     def _vocab_sharded(self, tp) -> bool:
@@ -404,7 +415,6 @@ class Model:
         (this rank's L-slice under Megatron-SP) and ``tp`` this rank's
         ``TensorParallel`` (None off a mesh or on one MP rank)."""
         cfg = self.cfg
-        self._refuse_mesh(mesh)
         tokens = batch["tokens"]
         B, L = tokens.shape
         tp = tensor_parallel(mesh, dims, L, cfg.seq_parallel)
@@ -417,7 +427,7 @@ class Model:
         if not cfg.use_rope and cfg.arch_type != "ssm":
             pe = sinusoidal_positions(L, cfg.d_model, x.device)
             x = x + (pe if tp is None else tp.rows(pe)).to(x.dtype)
-        ctx = self._encode_ctx(params, batch)
+        ctx = self._encode_ctx(params, batch, mesh, dims)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         expert_load = torch.zeros((0,), dtype=torch.float32, device=x.device)
         for r, (kind, n) in enumerate(self.runs):
@@ -592,23 +602,30 @@ class Model:
         request batch for its decode steps (JAX's ``ctx_kv``): ``{"run{r}":
         {"k", "v": (n, B, Lctx, K, hd)}}`` from the context of
         ``batch["ctx_embeds"]`` (``_encode_ctx``: whisper's encoder runs
-        here).  None without ``ctx_embeds``."""
-        self._refuse_mesh(mesh)
-        ctx = self._encode_ctx(params, batch)
+        here).  None without ``ctx_embeds``.
+
+        On a mesh ``batch`` is this rank's rows and ``K`` this rank's kv
+        heads (``_kv_heads``: its block where the kv projection is
+        sharded over MP, the one its query heads share where it is not,
+        every head in the gathered-heads and whole layouts), as the
+        self-attention cache keeps them: ``decode_step`` reads them where
+        they are, and no K or V crosses ranks.  JAX's batch-sharded
+        ``ctx_kv`` holds every kv head."""
+        ctx = self._encode_ctx(params, batch, mesh, dims)
         if ctx is None:
             return None
-        B, Lc, _ = ctx.shape
+        tp = tensor_parallel(mesh, dims, ctx.shape[1])
         out = {}
         for r, (kind, n) in enumerate(self.runs):
             if blk.base_kind(kind) not in ("cross", "xdec"):
                 continue
             acfg = blk.attn_config(self.cfg, kind, cross=True)
-            shape = (B, Lc, acfg.n_kv_heads, acfg.head_dim)
-            views = layer_views(params[f"run{r}"], n)
-            out[f"run{r}"] = {
-                name: torch.stack([(ctx @ p["xattn"][w]).reshape(shape)
-                                   for p in views])
-                for name, w in (("k", "wk"), ("v", "wv"))}
+            heads = tp if tp is not None and \
+                blk.layout(self.cfg, kind, tp.n) == "heads" else None
+            kv = [attn_mod.context_kv(p["xattn"], acfg, ctx, heads)
+                  for p in layer_views(params[f"run{r}"], n)]
+            out[f"run{r}"] = {"k": torch.stack([k for k, _ in kv]),
+                              "v": torch.stack([v for _, v in kv])}
         return out
 
     def _cache_layout(self, r, mesh, specs):
@@ -624,7 +641,7 @@ class Model:
                              "specs= (train.loop.cache_specs)")
         run = specs[f"run{r}"]
         w = run["attn"]["k"][2] if "attn" in run else None
-        return (mesh.group(w) if w else None), _first_spec(run)[1] is None
+        return (mesh.group(w) if w else None), _batch_spec(run) is None
 
     def _serve_head(self, params, x, tp):
         """Logits of the (B, C, D) final hidden states: every rank the whole
@@ -683,10 +700,9 @@ class Model:
         state one token on, in place; a ``cross`` / ``xdec`` run attends
         its layers' ``ctx_kv`` (:meth:`ctx_kv`).  Mesh arguments as
         :meth:`prefill_step`; a recurrent run carries this rank's shard of
-        its state, which never crosses ranks; a cross-attention stack
-        refuses a mesh."""
+        its state, and a cross run reads this rank's kv heads of
+        ``ctx_kv`` (made with the same mesh): neither crosses ranks."""
         cfg = self.cfg
-        self._refuse_mesh(mesh)
         tokens = batch["tokens"]
         step = batch["step"]
         tp = tensor_parallel(mesh, dims, 1)
@@ -696,8 +712,10 @@ class Model:
             pe = sinusoidal_positions(2048, cfg.d_model, x.device)
             idx = torch.clamp(torch.as_tensor(step, device=x.device).long(),
                               max=2047)
-            row = pe[idx]
-            x = x + (row[:, None] if row.dim() == 2 else row).to(x.dtype)
+            # (1 or B, D): an index_select, which a 0-d step on the meta
+            # device (the dry run) takes where ``pe[idx]`` asks its value
+            row = pe.index_select(0, idx.reshape(-1))
+            x = x + row[:, None].to(x.dtype)
         for r, (kind, n) in enumerate(self.runs):
             wgrp, replicated = self._cache_layout(r, mesh, specs)
             run_p, run_c = params[f"run{r}"], cache[f"run{r}"]

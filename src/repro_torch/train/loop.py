@@ -54,6 +54,9 @@ from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
 from repro_torch.runtime import guards as guardlib
 
 _ACTIONS = (guardlib.OK, guardlib.SKIP, guardlib.ROLLBACK)
+#: at most this many bytes of gradients in one ``psum`` of
+#: :func:`sync_grads` (a leaf above it goes alone)
+SYNC_BUCKET_BYTES = 1 << 28
 
 
 def sync_grads(grads, specs, mesh, dims, mp_partial=None):
@@ -61,7 +64,10 @@ def sync_grads(grads, specs, mesh, dims, mp_partial=None):
     mention (the ranks that hold other tokens and the same block), and
     over MP where ``mp_partial`` (aligned with ``grads``;
     ``Model.mp_partial``) says each MP rank holds only its part, one
-    ``psum`` per distinct axis set over the leaves' flattened gradients;
+    ``psum`` per distinct axis set over the leaves' flattened gradients,
+    in buckets of at most ``SYNC_BUCKET_BYTES`` (a sum's bits do not
+    depend on the bucket: each element adds the same sources in the same
+    order), so a step holds one bucket's buffers beside the gradients;
     ``apply_moe``'s boundary and the Megatron operators
     (``parallel.tensor``) have already summed the other non-batch axes.
     So a replicated leaf ends with the global gradient on every rank, and
@@ -80,7 +86,17 @@ def sync_grads(grads, specs, mesh, dims, mp_partial=None):
         if axes and mesh.group(axes).size > 1:
             buckets.setdefault((axes, g.dtype), []).append(i)
     out = list(grads)
+    split = []
     for (axes, _), idx in buckets.items():
+        size = SYNC_BUCKET_BYTES
+        for i in idx:
+            nb = grads[i].numel() * grads[i].element_size()
+            if size + nb > SYNC_BUCKET_BYTES:
+                split.append((axes, []))
+                size = 0
+            split[-1][1].append(i)
+            size += nb
+    for axes, idx in split:
         flat = torch.cat([grads[i].reshape(-1) for i in idx])
         red = comm.psum(flat, mesh.group(axes))
         off = 0
@@ -217,23 +233,23 @@ def cache_specs(model: Model, mesh, dims, batch: int, max_len: int, *,
     paged arena does (``init_cache(mesh=)``), where JAX's spec leaves
     them replicated.  Where the kv heads do not divide over MP the spec
     leaves them whole and each rank keeps the one its query heads read
-    (``attention.mp_heads``), or all of them (hymba's gathered-heads
-    layout).  And a recurrent state sits where the cell's Megatron split
-    reads it (``blocks.state_shards``), where JAX's shards only its
-    batch dim, so GSPMD gathers the whole state every decode step: Mamba's
+    (``attention.mp_heads``), or all of them (the gathered-heads layout
+    of hymba and the cross-attention kinds, ``blocks.layout``).  And a
+    recurrent state sits where the cell's Megatron split reads it
+    (``blocks.state_shards``), where JAX's shards only its batch dim, so
+    GSPMD gathers the whole state every decode step: Mamba's
     ``conv_buf`` (n, B, C, Di) and ``h`` (n, B, Di, N) shard Di over MP
     where the cell is split, mLSTM's ``C`` (n, B, H, hd, hd), ``n`` (n,
     B, H, hd) and ``m`` (n, B, H) shard H over MP where the heads divide,
     sLSTM's stay whole.  The state then never crosses ranks.  Each leaf
     is keyed by its name: JAX's rule for W reads any 5-d leaf as K/V,
-    mLSTM's ``C`` too."""
+    mLSTM's ``C`` too.  A ``cross`` run's ``dummy`` is JAX's ``P(None)``
+    (its rule on the stacked ``(n,)`` leaf)."""
     from repro_torch.models.attention import cache_len
-    from repro_torch.models.blocks import (attn_config, refuse_mesh,
-                                           state_shards)
+    from repro_torch.models.blocks import attn_config, base_kind, state_shards
     from repro_torch.models.model import _cache_kinds
     from repro_torch.parallel.mesh import axis_size
     from repro_torch.parallel.sharding import P
-    refuse_mesh(model.cfg.name, [k for k, _ in model.runs])
     axes = tuple(dims.batch_axes)
     n = axis_size(mesh, axes) if axes else 1
     mp = tuple(dims.mp)
@@ -255,6 +271,8 @@ def cache_specs(model: Model, mesh, dims, batch: int, max_len: int, *,
                 kv[3] = mp
             run["attn"] = {"k": P(*kv), "v": P(*kv),
                            "pos": P(None, rows, None)}
+        if base_kind(kind) == "cross":
+            run["dummy"] = P(None)      # the (n,) stack of 0-d leaves
         for cell, shards in state_shards(model.cfg, kind, n_mp).items():
             sp = mp if shards > 1 else None
             run[cell] = {

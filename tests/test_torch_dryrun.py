@@ -43,11 +43,15 @@ COMBOS = [("qwen1.5-0.5b", "train_4k", "single", None, 64),
           ("qwen3-moe-30b-a3b", "prefill_32k", "single", "s1", 256),
           ("hymba-1.5b", "train_4k", "single", None, 64),
           ("xlstm-350m", "train_4k", "single", None, 64)]
-#: the recurrent archs' full-size shapes whose JAX records on the 8-device
-#: test mesh (``lower_one``, the records ``repro.launch.dryrun`` saves as
+#: the recurrent and encoder-decoder archs' full-size shapes whose JAX
+#: records on the 8-device test mesh (``lower_one``, the records
+#: ``repro.launch.dryrun`` saves as
 #: ``artifacts/dryrun/<arch>__<shape>__single.json``) the port's are held
 #: to
-JAX_ARTIFACTS = {"hymba-1.5b": "long_500k", "xlstm-350m": "decode_32k"}
+JAX_ARTIFACTS = {"hymba-1.5b": "long_500k", "xlstm-350m": "decode_32k",
+                 "whisper-tiny": "decode_32k"}
+#: the combinations JAX skips, whose records the port's equal
+SKIPPED = (("whisper-tiny", "long_500k"),)
 #: ZeRO-1 cases: (arch, multi_pod) -> JAX's rule's axes
 ZERO = {("qwen1.5-0.5b", False): ("data",),
         ("qwen3-moe-30b-a3b", True): ("pod",)}
@@ -100,12 +104,15 @@ def _jax_main(path):
     jas.tpu_v5e_model = h100_for_jax
 
     out = {"records": {}, "zero": {}, "variant": {}, "inputs": {},
-           "full": {}}
+           "full": {}, "skipped": {}}
     for arch, shape in JAX_ARTIFACTS.items():
         rec = jdry.lower_one(arch, shape, False)
         out["full"][arch] = {k: rec[k] for k in (
             "chips", "n_params", "tokens_per_step", "memory_analysis",
             "collectives")}
+    for arch, shape in SKIPPED:
+        out["skipped"][f"{arch}|{shape}"] = jdry.lower_one(arch, shape,
+                                                           False)
     for arch, shape, mesh, sched, seq in COMBOS:
         rec = jdry.lower_one(arch, shape, mesh == "multi", sched,
                              reduced=True, seq=seq, batch_size=8,
@@ -251,18 +258,66 @@ def _state_saving(arch, shape_name):
     return (mamba + mlstm) // 2
 
 
+def _kv_saving(arch, shape_name):
+    """whisper-tiny's: the half of the self-attention K/V and of
+    ``ctx_kv`` whose kv heads the other MP rank holds (JAX's are
+    replicated over MP), at B / 4 rows."""
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    cfg, shape = get_config(arch), INPUT_SHAPES[shape_name]
+    rows, bf16 = shape.global_batch // 4, 2
+    per_pos = 2 * cfg.n_layers * rows * cfg.n_kv_heads * cfg.hd * bf16
+    return per_pos * shape.seq_len // 2, per_pos * cfg.encoder_seq // 2
+
+
+def _unread_at_decode(arch, shape_name):
+    """The bytes of this rank's arguments that a whisper decode step never
+    reads, which JAX's jit drops and the port's record counts: the
+    batch's ``ctx_embeds`` (``ctx_kv`` stands for them), the encoder's
+    and ``enc_norm``'s parameters and the ``xattn`` kv projections, at
+    their shards on rank 0 of the 4 x 2 test mesh."""
+    from repro_torch.analysis.layerwise import full_param_shapes
+    from repro_torch.launch.dryrun import build_config
+    from repro_torch.launch.mesh import dims_for
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.parallel.mesh import Mesh
+    from repro_torch.parallel.sharding import local_shape
+    cfg, shape, _ = build_config(arch, shape_name)      # bf16, as traced
+    mesh = Mesh((4, 2), ("data", "model"), 0, groups=False)
+    full = full_param_shapes(cfg)
+    specs = Model(cfg, "meta").param_specs(full, mesh, dims_for(cfg))
+    unread = [(full[k], specs[k]) for k in ("encoder", "enc_norm")]
+    unread += [(full["run0"]["xattn"][k], specs["run0"]["xattn"][k])
+               for k in ("wk", "wv")]
+    n = sum(math.prod(local_shape(t.shape, s, mesh)) * t.element_size()
+            for tree, stree in unread
+            for t, s in zip(leaves(tree) if isinstance(tree, dict)
+                            else [tree],
+                            leaves(stree) if isinstance(stree, dict)
+                            else [stree]))
+    ctx = shape.global_batch // 4 * cfg.encoder_seq * cfg.d_model * 2
+    return n + ctx
+
+
 @pytest.mark.parametrize("arch", list(JAX_ARTIFACTS))
 def test_full_size_decode_is_jaxs_less_the_split_states(arch, jax_run):
-    """hymba-1.5b ``long_500k`` and xlstm-350m ``decode_32k`` at full size
-    on the 8-rank test mesh against JAX's records of them (made in the
-    subprocess, as ``artifacts/dryrun`` keeps them): ``n_params``
-    and ``tokens_per_step`` equal; the arguments JAX's less the state
-    bytes the port shards over MP (hymba: half of ``conv_buf`` and ``h``,
-    3,686,400 B; xlstm: half of mLSTM's ``C``, ``n``, ``m``, ~1.41 GB),
-    plus the 4 bytes of the ``step`` scalar that JAX's jit drops where no
-    layer reads a position (xlstm).  At xlstm ``decode_32k`` no
-    collective carries a state leaf: all of them move less than one
-    layer's ``C`` shard, and the AllGathers under 1% of JAX's 2.83 GB."""
+    """hymba-1.5b ``long_500k``, xlstm-350m and whisper-tiny
+    ``decode_32k`` at full size on the 8-rank test mesh against JAX's
+    records of them (made in the subprocess, as ``artifacts/dryrun`` keeps
+    them): ``n_params`` and ``tokens_per_step`` equal; the arguments JAX's
+    less the state bytes the port shards over MP (hymba: half of
+    ``conv_buf`` and ``h``, 3,686,400 B; xlstm: half of mLSTM's ``C``,
+    ``n``, ``m``, ~1.41 GB; whisper: half of the self-attention K/V,
+    3,221,225,472 B, and of ``ctx_kv``, 147,456,000 B, the kv heads kept
+    over MP), plus what JAX's jit drops as unread: the 4 bytes of the
+    ``step`` scalar where no layer reads a position (xlstm), and at
+    whisper's decode step the batch's ``ctx_embeds``, the encoder's
+    parameters and the ``xattn`` kv projections (36,864,000 + 8,299,008
+    B).  At xlstm ``decode_32k`` no collective carries a state leaf: all
+    of them move less than one layer's ``C`` shard, and the AllGathers
+    under 1% of JAX's 2.83 GB; at whisper's none carries K or V: the
+    AllGathers under 1% of JAX's 12.9 GB.  whisper ``long_500k`` is
+    JAX's skip record."""
     from repro_torch.launch import dryrun
     shape = JAX_ARTIFACTS[arch]
     got = dryrun.dry_one(arch, shape, False, test_mesh=True)
@@ -270,15 +325,32 @@ def test_full_size_decode_is_jaxs_less_the_split_states(arch, jax_run):
     assert got["chips"] == want["chips"] == 8
     for k in ("n_params", "tokens_per_step"):
         assert got[k] == want[k], k
-    saving = _state_saving(arch, shape)
-    unused_step = 4 if arch == "xlstm-350m" else 0
+    unused = 4 if arch == "xlstm-350m" else 0
     if arch == "hymba-1.5b":
+        saving = _state_saving(arch, shape)
         assert saving == 3_686_400
-    else:
+    elif arch == "xlstm-350m":
+        saving = _state_saving(arch, shape)
         assert 1.40e9 < saving < 1.42e9
+    else:
+        kv, ctx = _kv_saving(arch, shape)
+        assert (kv, ctx) == (3_221_225_472, 147_456_000)
+        saving = kv + ctx
+        unused = _unread_at_decode(arch, shape)
+        assert unused == 36_864_000 + 8_299_008
+        assert want["memory_analysis"]["argument_size_in_bytes"] \
+            == 6_802_283_908
+        assert got["n_params"] == 36_472_704 \
+            and got["tokens_per_step"] == 128
+        assert got["collectives"]["bytes"].get("all-gather", 0) \
+            < 0.01 * want["collectives"]["bytes"]["all-gather"]
+        assert want["collectives"]["bytes"]["all-gather"] == 12_884_901_888
+        for arch_, shape_ in SKIPPED:
+            assert dryrun.dry_one(arch_, shape_, False, test_mesh=True) \
+                == jax_run()["skipped"][f"{arch_}|{shape_}"]
     assert got["memory_analysis"]["argument_size_in_bytes"] == \
         want["memory_analysis"]["argument_size_in_bytes"] - saving \
-        + unused_step
+        + unused
     if arch == "xlstm-350m":
         c_shard = 32 * 2 * 512 * 512 * 4
         assert got["collectives"]["total_bytes"] < c_shard
@@ -398,19 +470,29 @@ def test_assigned_is_jaxs_order_cut_to_the_port():
     assert len(ASSIGNED) == 10
 
 
-def test_refusals(capsys):
-    """An arch whose block kinds the port runs on one rank only (the
-    cross-attention ones here) fails on the production mesh with the mesh
-    refusal, naming ROADMAP 7d-mesh (and the CLI counts it and exits
-    non-zero); an unknown arch with the registry's error; ``--save-hlo``
-    is refused."""
+def test_refusals(capsys, monkeypatch):
+    """The cross-attention archs, which the port ran on one rank only
+    before, trace on a mesh: ``dry_one`` gives a record
+    (llama-3.2-vision-11b ``train_4k``, reduced, on the 4 x 2 test mesh:
+    its 4 query heads do not divide over 16) and the CLI's ``--arch
+    whisper-tiny --shape decode_32k`` (the 16x16 production mesh) exits 0
+    with its ``[ok]`` line; an unknown arch fails with the registry's
+    error; ``--save-hlo`` is refused."""
     from repro_torch.launch import dryrun
-    with pytest.raises(NotImplementedError, match="7d-mesh"):
-        dryrun.dry_one("llama-3.2-vision-11b", "train_4k", False)
-    with pytest.raises(SystemExit) as e:
-        dryrun.main(["--arch", "whisper-tiny", "--shape", "decode_32k"])
-    assert "1 dry-run failures" in str(e.value.code)
-    assert "ROADMAP 7d-mesh" in capsys.readouterr().out
+    rec = dryrun.dry_one("llama-3.2-vision-11b", "train_4k", False,
+                         reduced=True, seq=64, batch_size=8, test_mesh=True)
+    assert rec["chips"] == 8 and rec["variant"] == "reduced"
+    assert rec["memory_analysis"]["argument_size_in_bytes"] > 0
+    assert rec["collectives"]["total_bytes"] > 0
+    saved = []
+    monkeypatch.setattr(dryrun, "save", lambda rec, sfx="": saved.append(
+        rec) or "")
+    dryrun.main(["--arch", "whisper-tiny", "--shape", "decode_32k"])
+    out = capsys.readouterr().out
+    assert "[ok]   whisper-tiny x decode_32k x single" in out
+    assert "dry-run complete" in out
+    assert [r["arch"] for r in saved] == ["whisper-tiny"]
+    assert saved[0]["memory_analysis"]["ctx_kv_bytes"] > 0
     with pytest.raises(KeyError, match="unknown arch 'llama-5'"):
         dryrun.dry_one("llama-5", "train_4k", False)
     with pytest.raises(SystemExit) as e:

@@ -7,8 +7,8 @@ gradient (the encoder's, the gates', the cross layer's unread ``attn`` and
 ``norm2`` among them) from the JAX parameters, ``Model.ctx_kv``,
 teacher-forced ``decode_step`` logits and every cache leaf at each step,
 then ``make_serve_step``'s greedy tokens, ``param_specs`` against JAX's
-``Model.specs``, the refusals (the ``Engine``, ``prefill_step``,
-``paged_step`` and any mesh), JAX's ``Trainer`` without ``ctx_embeds``
+``Model.specs``, the refusals (the ``Engine``, ``prefill_step`` and
+``paged_step``; the mesh paths run), JAX's ``Trainer`` without ``ctx_embeds``
 and the train launcher's events, and the cross attention itself on both
 of its paths.
 
@@ -404,14 +404,20 @@ def test_param_specs_are_jaxs(arch, full):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_refusals(arch, capsys):
+def test_refusals(arch, capsys, monkeypatch):
     """The ``Engine``, ``prefill_step`` and ``paged_step`` refuse with
-    JAX's errors; on a mesh every path refuses, naming ROADMAP 7d-mesh,
-    and the dry run counts the arch as a failure."""
+    JAX's errors.  The mesh paths, which the port refused before, run:
+    ``loss``, ``ctx_kv`` and ``decode_step`` on a one-rank mesh give the
+    one-rank results; ``cache_specs`` and ``init_cache(mesh=, specs=)``
+    on rank 0 of (2, 2) lay out this rank's rows and kv heads, a ``cross``
+    run's ``dummy`` under JAX's ``P(None)``; the dry run gives a record
+    and its CLI's full-size ``decode_32k`` exits 0 (the four ranks'
+    numbers: ``test_torch_cross_dist.py``)."""
     from repro.serve.engine import Engine as JEngine
     from repro_torch.launch import dryrun
     from repro_torch.parallel.mesh import Mesh
     from repro_torch.parallel.mesh import ParallelDims as TDims
+    from repro_torch.parallel.sharding import P
     from repro_torch.serve import Engine
     from repro_torch.train import cache_specs
     jcfg, tcfg = reduce(j_get_config(arch)), reduce(get_config(arch))
@@ -444,27 +450,45 @@ def test_refusals(arch, capsys):
             jparams, {}, {k: jnp.asarray(v) for k, v in paged.items()},
             mesh=mesh, dims=DIMS))
 
-    tmesh = Mesh((2, 2), ("data", "model"), 0, groups=False)
+    one = Mesh((1, 1), ("data", "model"))
     tdims = TDims(dp=("data",), mp=("model",))
     batch = {"tokens": torch.zeros((B, 8), dtype=torch.long),
              "labels": torch.zeros((B, 8), dtype=torch.long),
              "ctx_embeds": torch.from_numpy(_ctx(tcfg))}
-    for fn in (lambda: tmodel.loss(tparams, batch, mesh=tmesh, dims=tdims),
-               lambda: tmodel.init_cache(B, 16, mesh=tmesh, dims=tdims),
-               lambda: tmodel.ctx_kv(tparams, batch, mesh=tmesh, dims=tdims),
-               lambda: tmodel.decode_step(
-                   tparams, tmodel.init_cache(B, 16),
-                   {"tokens": batch["tokens"][:, :1], "step": 0},
-                   mesh=tmesh, dims=tdims),
-               lambda: cache_specs(tmodel, tmesh, tdims, B, 16)):
-        assert "cross-attention block kinds" in message(fn)
-        assert "ROADMAP 7d-mesh" in message(fn)
-    with pytest.raises(NotImplementedError, match="7d-mesh"):
-        dryrun.dry_one(arch, "train_4k", False)
-    with pytest.raises(SystemExit) as e:
-        dryrun.main(["--arch", arch, "--shape", "decode_32k"])
-    assert "1 dry-run failures" in str(e.value.code)
-    assert "7d-mesh" in capsys.readouterr().out
+    step = {"tokens": batch["tokens"][:, :1], "step": 0}
+    with torch.no_grad():
+        for kw in ({}, {"mesh": one, "dims": tdims}):
+            loss, _ = tmodel.loss(tparams, batch, **kw)
+            kv = tmodel.ctx_kv(tparams, batch, **kw)
+            specs = cache_specs(tmodel, one, tdims, B, 16) if kw else None
+            logits, _ = tmodel.decode_step(
+                tparams, tmodel.init_cache(B, 16, specs=specs, **kw), step,
+                ctx_kv=kv, specs=specs, **kw)
+            if not kw:
+                want = (loss, kv, logits)
+    assert torch.equal(loss, want[0]) and torch.equal(logits, want[2])
+    assert all(torch.equal(kv[r][n], want[1][r][n]) for r in kv
+               for n in ("k", "v"))
+
+    two = Mesh((2, 2), ("data", "model"), 0, groups=False)
+    specs = cache_specs(tmodel, two, tdims, B, 16)
+    cache = tmodel.init_cache(B, 16, mesh=two, dims=tdims, specs=specs)
+    for r, (kind, n) in enumerate(tcfg.runs()):
+        run, c = specs[f"run{r}"], cache[f"run{r}"]
+        if kind == "cross":
+            assert run == {"dummy": P(None)}
+            assert tuple(c["dummy"].shape) == (n,)
+        else:
+            assert run["attn"]["k"] == P(None, ("data",), None, ("model",),
+                                         None)
+            assert tuple(c["attn"]["k"].shape) == (
+                n, B // 2, 16, tcfg.n_kv_heads // 2, tcfg.hd)
+    rec = dryrun.dry_one(arch, "decode_32k", False, reduced=True, seq=64,
+                         batch_size=8, test_mesh=True)
+    assert rec["chips"] == 8 and rec["memory_analysis"]["ctx_kv_bytes"] > 0
+    monkeypatch.setattr(dryrun, "save", lambda rec, sfx="": "")
+    dryrun.main(["--arch", arch, "--shape", "decode_32k"])
+    assert f"[ok]   {arch} x decode_32k x single" in capsys.readouterr().out
 
 
 def _close_tree(got, want, rel, floor=0.0):
