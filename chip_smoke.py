@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--phases 1,2,12]
 
 ``--phases`` runs the named phases, the ones they need and 1 and 2 (the
-kernels line, phase 17, only on a full run); by default every phase runs
+kernels line, phase 18, only on a full run); by default every phase runs
 once.  Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 repository's ``src/`` next to this file; imports nothing of JAX.  Phases,
 each fatal on error (nothing is caught, nothing falls back to the CPU or
@@ -131,7 +131,11 @@ to a plain version):
      to the one-rank s1g layer's (``P12_WIRE`` on a bf16 / fp8 wire),
      expert_load to its routed rows exactly (times the schedule's gate
      multiplicity), each path's kernels launched on every rank, each
-     case's host ms and collective seconds; (b) in the same 4-rank spawn,
+     case's host ms and collective seconds, and on the merged mesh the
+     forward collectives of baseline, s1, s2 and s1_seqpar (kind, group,
+     count, result bytes) on every rank equal to the paper's Eq. 1, 11
+     and 14 at N_EP = 2, N_ESP = N_MP = 2
+     (``expected_volumes``); (b) in the same 4-rank spawn,
      gpt2-moe (cut to 2 layers, ``P12_TRAIN_LAYERS``; 8 x 1024 global,
      factor 4) trained 3 steps on
      the merged mesh under s1 and s2 (``P12_TRAIN_SCHEDS``): every step's
@@ -319,9 +323,20 @@ to a plain version):
      ``make_train_step`` on the card with ``nonfinite`` 0, and reduced
      qwen1.5-0.5b's ZeRO-1 step (moments over ``data``) ``torch.equal``
      to the whole-moment step on every rank, each rank's moment bytes the
-     meta record's; each kernel's launches per rank (paths
-     ``dryrun_4x2_gpt2_moe`` and ``dryrun_4x2_qwen1.5_zero1``); the
-     phase's seconds beside ``P14_LIMIT_S``;
+     meta record's, then on the same ranks the schedule_comparison example
+     (``repro_torch.examples.schedule_comparison.compare``: one MoE layer
+     of ``d_model`` 256 over x (8, 512, 256) under baseline, s1, s2,
+     s1_seqpar, s1 and s2 with 4 chunks, and auto, ``P14_COMPARISON_ITERS``
+     timed calls a row): on every rank ``max|y - y_base|`` 0 for the
+     rows that gate the baseline's pool (``P14_COMPARISON_EXACT``), within
+     ``P14_COMPARISON_ATOL`` for the rest, and baseline's, s1's, s2's and
+     s1_seqpar's collectives by kind
+     and group, counts and result bytes, equal to the paper's Eq. 1, 11
+     and 14 (``expected_volumes``, with the aux means and s1_seqpar's
+     output gather the port's layer moves beside the plan); each kernel's
+     launches per rank (paths ``dryrun_4x2_gpt2_moe``,
+     ``dryrun_4x2_qwen1.5_zero1`` and ``comparison_4x2``); the phase's
+     seconds beside ``P14_LIMIT_S``;
  15. the recurrent zoo: hymba-1.5b (32 hymba layers: attention with a
      1024-token window and 25 / 5 heads beside a Mamba head) and
      xlstm-350m (24 layers, an sLSTM every 8th among mLSTMs) at full
@@ -369,12 +384,34 @@ to a plain version):
      flash launches counted, path ``launcher_whisper``); each config's
      parameter GB, ms/step, tokens/s, decode tok/s and peak memory, and
      the phase's seconds beside ``P16_LIMIT_S``;
- 17. print the kernels' JSON line (each kernel's launches on its main path
+ 17. the examples (``repro_torch.examples``) and bert-moe: (a) the
+     quickstart (reduced qwen3-moe-30b-a3b, Algorithm 1's pick under
+     ``h100_model``, 60 steps under ``schedule="auto"``: finite losses,
+     the last below the first); (b) serve_batched (qwen1.5-0.5b,
+     qwen3-moe-30b-a3b, xlstm-350m and hymba-1.5b reduced, 4 rows x 24
+     greedy tokens through the KV cache, every token in the vocabulary
+     and equal to the plain versions' on the same weights);
+     (c) train_100m at its full width (``config_100m``: ~100M parameters,
+     ``P17_100M_STEPS`` steps of 8 x 256 tokens; the cross-entropy must
+     fall, as the example asserts); (d) bert-moe (the paper's Table V
+     BERT-Base-MoE, whole: 12 layers, 768 wide, E=8 top-2 every other
+     layer) trained through ``train`` at ``P17_BERT`` (loss within 1e-4
+     and gradient norm within 1e-3 of the plain versions' step, a finite,
+     falling loss); (e)
+     bert-moe served through the paged ``Engine`` (phase 4's 16 requests,
+     ``P17_BERT_GEN`` tokens each, one request's logits through
+     ``reference_check``); each path's launches exactly as ``P17_USES``
+     (and serve_batched's as predicted there) predicts, paths
+     ``example_quickstart``, ``example_serve_batched``,
+     ``example_train_100m``, ``train_bert_moe`` and ``serve_bert_moe``;
+     the phase's seconds beside ``P17_LIMIT_S``;
+ 18. print the kernels' JSON line (each kernel's launches on its main path
      and the phase-3 row at that path's shapes, under ``by_path`` every
      path's launches beside the phase-3 row at that path's shapes, and
      under ``multirank`` each phase-12 path's launches per rank, (i)'s
      as ``placement_2x2_*``, (j)'s as ``overlap_2x2_*``, (k)'s as
-     ``kvcache_2x2_*``, phase 14 (c)'s as ``dryrun_4x2_*``, and under
+     ``kvcache_2x2_*``, phase 14 (c)'s as ``dryrun_4x2_*`` and
+     ``comparison_4x2``, and under
      ``multirank_shape`` (k)'s paths beside
      the phase-3 row at one rank's shapes, ``MULTI_SHAPE_OF``), then
      ``{"ok": true, ...}`` as the last line.
@@ -404,7 +441,14 @@ NO_SPILL = ("flash_attention", "expert_ffn_grouped", "rmsnorm",
             "moe_dispatch", "expert_ffn")
 
 
+#: ``main``'s start (``time.perf_counter``): each phase's first line
+#: carries its seconds into the run
+_T_START = None
+
+
 def log(msg):
+    if _T_START is not None and msg.startswith("phase "):
+        msg = f"{msg} [{time.perf_counter() - _T_START:.1f} s into the run]"
     print(msg, flush=True)
 
 
@@ -458,7 +502,9 @@ def check_rmsnorm(dev):
     # phase 15's hymba at 1600: its training step and its decode rows, and
     # phase 16's llama-3.2-vision training step at 4096 (its decode rows
     # are yi's ``decode-4096``), and phase 12 (l)'s xlstm step on a rank
-    # of (2, 2), 1 x 512 at 1024.
+    # of (2, 2), 1 x 512 at 1024, and phase 17's reduced archs: the
+    # quickstart's step (8 x 64 tokens at 256) and serve_batched's 4
+    # decode rows.
     f32 = torch.float32
     for label, R, D, dt, tol in (("decode", 8, 2048, f32, 1e-5),
                                  ("prefill128", 128, 2048, f32, 1e-5),
@@ -473,7 +519,9 @@ def check_rmsnorm(dev):
                                  ("train-hymba", 2048, 1600, f32, 1e-5),
                                  ("decode-1600", 8, 1600, f32, 1e-5),
                                  ("train-4096", 2048, 4096, f32, 1e-5),
-                                 ("train-512x1024", 512, 1024, f32, 1e-5)):
+                                 ("train-512x1024", 512, 1024, f32, 1e-5),
+                                 ("train-quickstart", 512, 256, f32, 1e-5),
+                                 ("decode-256", 4, 256, f32, 1e-5)):
         x = torch.randn((R, D), generator=g, device=dev).to(dt)
         scale = 1.0 + 0.1 * torch.randn((D,), generator=g, device=dev)
         err = compare(f"rmsnorm[{label}]", rmsnorm(x, scale, eps=1e-6),
@@ -507,10 +555,20 @@ def check_grouped(dev):
 
     weights_of = {}
 
+    def moe_of(arch):
+        """``arch``'s MoE layer; phase 17's reduced qwen3 and the 100M
+        example's gpt2-moe by name."""
+        if arch == QS:
+            return get_config(q3).reduced().moe
+        if arch == "train-100m":
+            from repro_torch.examples.train_100m import config_100m
+            return config_100m().moe
+        return get_config(arch).moe
+
     def arch_weights(arch):
         """(MoEConfig, f32 weights, gate weight) of ``arch``, made once."""
         if arch not in weights_of:
-            mcfg = get_config(arch).moe
+            mcfg = moe_of(arch)
             E, M, F = mcfg.n_experts, mcfg.d_model, mcfg.d_ff
             w = {"w1": randn(E, M, F, scale=M ** -0.5),
                  "w3": randn(E, M, F, scale=M ** -0.5),
@@ -523,8 +581,11 @@ def check_grouped(dev):
     # tol): f32 sums of up to 8192 products in another order than cuBLAS's;
     # a bf16 output or bf16 wire rounding may differ by one bf16 ulp.  The
     # serving shapes first, then the two training steps' (phases 6 and 7:
-    # all tokens of a step, the training capacity, each model's experts).
-    q3, g2 = "qwen3-moe-30b-a3b", "gpt2-moe"
+    # all tokens of a step, the training capacity, each model's experts),
+    # then phase 17's: the quickstart's reduced qwen3 step and
+    # serve_batched's 4 decode rows, train_100m's step (8 x 256) and
+    # bert-moe's (8 x 512) and its decode rows.
+    q3, g2, QS = "qwen3-moe-30b-a3b", "gpt2-moe", "quickstart"
     f32, bf16 = torch.float32, torch.bfloat16
     cases = (("decode", q3, 8, True, f32, False, True, "silu", "f32", 1e-4),
              ("decode-llama4", L4, 8, True, f32, False, True, "silu", "f32",
@@ -542,7 +603,17 @@ def check_grouped(dev):
              ("train-gpt2-moe", g2, 8192, False, f32, False, False, "silu",
               "f32", 1e-4),
              ("train-gpt2-moe-wire-bf16", g2, 8192, False, f32, False, False,
-              "silu", "bf16", 1e-2))
+              "silu", "bf16", 1e-2),
+             ("train-quickstart", QS, 512, False, f32, False, True, "silu",
+              "f32", 1e-4),
+             ("decode-quickstart", QS, 4, True, f32, False, True, "silu",
+              "f32", 1e-4),
+             ("train-100m", "train-100m", 2048, False, f32, False, False,
+              "silu", "f32", 1e-4),
+             ("train-bert-moe", "bert-moe", 4096, False, f32, False, False,
+              "silu", "f32", 1e-4),
+             ("decode-bert-moe", "bert-moe", 8, True, f32, False, False,
+              "silu", "f32", 1e-4))
     for label, arch, S, infer, dt, wbf, glu, act, wire, tol in cases:
         if arch != L4:
             weights_of.pop(L4, None)       # llama4's 8 GB, once used
@@ -636,7 +707,10 @@ def check_flash(dev):
     # non-causal cross layers over those tokens themselves (``noncausal``),
     # and llama-3.2-vision's training step (1 x 2048, 32 / 8 x 128), and
     # phase 12 (m)'s on one rank of (2, 2): whisper's encoder at 3 heads a
-    # rank, llama-3.2-vision's step at 16 / 4.  f32:
+    # rank, llama-3.2-vision's step at 16 / 4, and phase 17's: the
+    # quickstart's reduced qwen3 (8 x 64), train_100m's 8 x 256 and
+    # bert-moe's training step (8 x 512, 12 x 64; causal, as JAX keys
+    # it).  f32:
     # sums of up to L terms in another order, and the online softmax's
     # per-tile rescaling; bf16 output: one bf16 ulp.
     cases = (("qwen3", 1, 2048, 32, 4, 128, torch.float32, True, None, 5e-5),
@@ -671,7 +745,13 @@ def check_flash(dev):
              ("whisper-enc-mp2", 8, 1500, 3, 3, 64, torch.float32, True,
               None, 5e-5),
              ("llama-vision-mp2", 1, 2048, 16, 4, 128, torch.float32, True,
-              None, 5e-5))
+              None, 5e-5),
+             ("quickstart", 8, 64, 4, 4, 64, torch.float32, True, None,
+              5e-5),
+             ("train-100m", 8, 256, 8, 8, 64, torch.float32, True, None,
+              5e-5),
+             ("bert-moe", 8, 512, 12, 12, 64, torch.float32, True, None,
+              5e-5))
     for label, B, L, H, K, hd, dt, causal, window, tol in cases:
         q = torch.randn((B, L, H, hd), generator=g, device=dev).to(dt)
         k = torch.randn((B, L, K, hd), generator=g, device=dev).to(dt)
@@ -737,7 +817,7 @@ def check_dispatch_combine(dev):
     from repro_torch.kernels.moe_dispatch import moe_combine, moe_dispatch
     from repro_torch.kernels.ref import moe_combine_ref, moe_dispatch_ref
     g = torch.Generator(device=dev).manual_seed(4)
-    q3, g2 = "qwen3-moe-30b-a3b", "gpt2-moe"
+    q3, g2, QS = "qwen3-moe-30b-a3b", "gpt2-moe", "quickstart"
     f32, bf16 = torch.float32, torch.bfloat16
     disp, comb = [], []
     # (label, arch, tokens, infer, dtype, duplicates).  Tolerances: dispatch
@@ -1238,8 +1318,10 @@ def train(label, cfg, dev, *, batch, seq, steps, lr, uses, schedule=None,
             disable_fp8_monitor()
             reset_fp8_counter()
 
+    t0 = time.perf_counter()
     bad, bad_guarded = first_steps(tr, data.tensors(0, dev), [
         tr.train_step, tr.train_step, guarded_clean]) if repeat else ([], [])
+    t_repeat = time.perf_counter() - t0
     if bad:
         raise AssertionError(f"{label}: the first step taken twice from "
                              f"the same state differs in tensors {bad} of "
@@ -1261,14 +1343,16 @@ def train(label, cfg, dev, *, batch, seq, steps, lr, uses, schedule=None,
     log(f"  {label}: {cfg.name}, {cfg.n_layers} layers, {n_bytes / 1e9:.2f} "
         f"GB of parameters, batch {batch} x {seq} tokens, remat "
         f"{cfg.remat}, {moe}")
+    t0 = time.perf_counter()
     (lk, gk), (lp, gp) = reference_step(model, params, data.tensors(0, dev),
                                         schedule, grad_rtol)
     log(f"  {label}: one step from the same parameters: loss {lk:.6f} "
-        f"(kernels) vs {lp:.6f} (plain), grad norm {gk:.6f} vs {gp:.6f}"
+        f"(kernels) vs {lp:.6f} (plain), grad norm {gk:.6f} vs {gp:.6f} "
+        f"({time.perf_counter() - t0:.1f} s)"
         + ("; the first step taken twice, and once guarded (lr_scale 1.0, "
            f"grad_fault 0.0, fp8 monitor on): all {3 * n_leaves} parameter "
-           "and moment tensors, the step counter and the loss torch.equal"
-           if repeat else ""))
+           "and moment tensors, the step counter and the loss torch.equal "
+           f"({t_repeat:.1f} s)" if repeat else ""))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     wrappers = reset_counts()
@@ -2143,6 +2227,86 @@ P12_TRAIN_SCHEDS = ("s1", "s2")
 P12_TRAIN_LAYERS = 2
 
 
+#: the schedules that have a closed form (the paper's Eq. 1, 11, 14),
+#: held in 12 (a) and in 14 (c)'s schedule_comparison rows
+CLOSED = ("baseline", "s1", "s2", "s1_seqpar")
+
+
+def expected_volumes(sched: str, cfg, tokens: int, mesh, dims,
+                     el: int = 4) -> dict:
+    """What one forward of the MoE layer ``cfg`` under ``sched`` (one of
+    :data:`CLOSED`; one chunk) moves on a rank of ``mesh`` over ``tokens``
+    global tokens of ``el``-byte elements, as
+    ``schedule_comparison.volumes`` records it (HLO kind -> {group axes:
+    (count, result bytes)}).  The paper's closed forms, with S the tokens
+    of a data rank and T the per-expert capacity of its pool, derived here
+    from the gate's parameters and not from the port's code: k f S / E
+    rounded up to a multiple of 8, then of max(8, N_MP):
+
+      baseline (Eq. 1):  AG(S M N_ESP) + AR(E T M N_ESP) + 2 A2A(E T M N_ESP)
+      S1 (Eq. 11):       2 A2A(E T M N_ESP / N_MP) + AG(S M)
+      S2 (Eq. 14):       2 A2A(E T M N_ESP / N_MP) + AG(E T M), the combine
+                         AlltoAll and the AllGather in ``saa_chunks``
+                         pieces each (SAA)
+      s1_seqpar:         S1's AlltoAlls; no MP collective in the plan
+
+    and what the port's eager layer moves beside them: the means of the
+    aux outputs over every axis (the aux and z losses, the drop fraction
+    and ``expert_load``: four all-reduces of 3 + E elements in all), which
+    JAX's jit drops where the caller discards them, and under
+    ``s1_seqpar`` the AllGather of the output's rows over MP (the port's
+    layer returns this rank's batch block whole on every MP rank, where
+    JAX's shard_map leaves it split)."""
+    from repro_torch.parallel.mesh import axis_size
+    sizes = dims.sizes(mesh)
+    ne, ns, nm = sizes["ep"], sizes["esp"], sizes["mp"]
+    S = tokens // axis_size(mesh, dims.batch_axes)
+    E, M, n = cfg.n_experts, cfg.d_model, cfg.saa_chunks
+    c = int(-(-cfg.top_k * cfg.capacity_factor * S // E))
+    align = max(8, nm)
+    T = max(align, -(-max(8, -(-c // 8) * 8) // align) * align)
+    ep, esp, mp = tuple(dims.ep), tuple(dims.esp), tuple(dims.mp)
+    fused = tuple(dict.fromkeys(ep + esp))
+    a2a = 2 * E * T * M * ns // nm * el
+    plan = {
+        "baseline": {"all-gather": {esp: (1, S * M * ns * el)},
+                     "all-reduce": {esp: (1, E * T * M * ns * el)},
+                     "all-to-all": {ep: (2, 2 * E * T * M * ns * el)}},
+        "s1": {"all-to-all": {fused: (2, a2a)},
+               "all-gather": {mp: (1, S * M * el)}},
+        "s2": {"all-to-all": {fused: (1 + n, a2a)},
+               "all-gather": {mp: (n, E * T * M * el)}},
+        "s1_seqpar": {"all-to-all": {fused: (2, a2a)}},
+    }[sched]
+    every = tuple(mesh.axis_names)
+    plan.setdefault("all-reduce", {})[every] = (4, (3 + E) * el)
+    if sched == "s1_seqpar":
+        plan["all-gather"] = {mp: (1, S * M * el)}
+    return plan
+
+
+def check_volumes(rows: list, mesh, dims, tokens: int, cfg) -> list:
+    """Hold each one-chunk row of a :data:`CLOSED` schedule (rows of
+    ``schedule_comparison.compare``) to :func:`expected_volumes`, group by
+    group, count and bytes exactly (raises ``AssertionError``); returns a
+    line per row held."""
+    from repro_torch.examples.schedule_comparison import totals
+    lines = []
+    for row in rows:
+        if row["schedule"] not in CLOSED or row["chunks"] != 1:
+            continue
+        want = expected_volumes(row["schedule"], cfg, tokens, mesh, dims)
+        if row["volumes"] != want:
+            raise AssertionError(f"{row['label']}: collectives "
+                                 f"{row['volumes']}, the closed form "
+                                 f"{want}")
+        nbytes, _ = totals(row["volumes"])
+        by_kind = {k: sum(b for _, b in groups.values())
+                   for k, groups in sorted(row["volumes"].items())}
+        lines.append(f"{row['schedule']} {nbytes} {by_kind}")
+    return lines
+
+
 def _p12_cfg(model_cfg, schedule="s1g", n_chunks=1, wire="f32"):
     """``model_cfg``'s MoE layer at the drop-free capacity factor E / k."""
     from dataclasses import replace
@@ -2241,6 +2405,11 @@ def _p12_layer_rank(rank, kind, ref_path, model_cfg, with_h=False):
     base = _p12_cfg(model_cfg)
     specs = moe_param_specs(base, mesh, dims)
     xspec = P(dims.batch_axes, None, None)
+    # each forward's collectives (with ``comm.timing`` on): the merged
+    # mesh's one-chunk f32 baseline, s1, s2 and s1_seqpar are held to the
+    # paper's closed forms (``expected_volumes``)
+    from repro_torch.examples import schedule_comparison
+    fwd_vol = {}
 
     def block(t, spec):
         return local_shard(t, spec, mesh).to(dev)
@@ -2272,6 +2441,7 @@ def _p12_layer_rank(rank, kind, ref_path, model_cfg, with_h=False):
             return y, aux, {}
         x.requires_grad_()
         y, aux = apply_moe(x, p, cfg=cfg, mesh=mesh, dims=dims)
+        fwd_vol["last"] = schedule_comparison.volumes()
         if mark is not None:
             mark(P12_FWD_END)
         r = block(ref["r"], xspec)
@@ -2319,6 +2489,11 @@ def _p12_layer_rank(rank, kind, ref_path, model_cfg, with_h=False):
         out.append({"name": name, "wire": wire, "reads": reads,
                     "load_ok": load_ok, "mult": mult, "launches": launches,
                     "ms": ms, "comm": coll})
+        if kind == "merged" and name in CLOSED:
+            out[-1]["volumes"] = fwd_vol["last"]
+            out[-1]["closed_form"] = expected_volumes(
+                sched, _p12_cfg(model_cfg, sched), ref["x"].shape[0]
+                * ref["x"].shape[1], mesh, dims)
         if with_h and name in P12_PLACED_SCHEDS:
             kept[name] = (y.detach(), {k: v.detach() for k, v in
                                        aux.items()}, grads)
@@ -3724,6 +3899,17 @@ def _p12_report(label, n, res, paths):
             + ("" if ok else " FAILED"))
         if not ok:
             failed.append(f"{label} {name}")
+        if "volumes" in case:
+            # the forward's collectives, by kind and group, on every rank
+            bad = [r for r, c in enumerate(cases)
+                   if c["volumes"] != c["closed_form"]]
+            if bad:
+                raise AssertionError(
+                    f"phase 12 (a) {label} {name}: ranks {bad}' forward "
+                    f"collectives {cases[bad[0]]['volumes']}, the closed "
+                    f"form {case['closed_form']}")
+            log(f"      forward collectives on every rank = the closed form"
+                f" (kind: {{group: (count, bytes)}}): {case['volumes']}")
         paths[f"layer_{label}_{name}"] = per_rank
     return failed
 
@@ -5310,6 +5496,8 @@ def zoo(dev):
                 per_step={"rmsnorm": 4 * cfg.n_layers + 1,
                           "flash_attention": 2 * cfg.n_layers,
                           "expert_ffn_grouped": 0, "moe_dispatch": 0})
+            from repro_torch.launch.determinism import release_host_blocks
+            release_host_blocks()
             peak = max(peak, torch.cuda.max_memory_allocated() / 1e9)
         log(f"    {arch} in {time.perf_counter() - t0:.1f} s, peak device "
             f"memory {peak:.2f} GB")
@@ -5332,6 +5520,24 @@ P14_LIMIT_S = 45.0
 #: (c): the real runs' combos (reduced, float32, 8 x 64 tokens)
 P14_GPT2 = ("gpt2-moe", "train_4k")
 P14_QWEN = ("qwen1.5-0.5b", "train_4k")
+#: (c): the schedule_comparison example's timed calls a row (its command
+#: line's default is 5)
+P14_COMPARISON_ITERS = 3
+#: (c): schedule_comparison's ``max|y - y_base|``.  The rows whose
+#: schedule (``auto``'s as its decision names it) gates the baseline's
+#: pool must give its bits; the others gate each MP rank's half of it
+#: (s1, s1_seqpar, s1 x4), and the card's cuBLAS may sum the gate's
+#: logits over a pool of another row count in another order (``(c)``
+#: logs that product's difference): those are held to the JAX package's
+#: schedule-equivalence atol (``run_schedule_equiv.py``; y is O(1)).
+#: On the CPU every row gives the baseline's bits, as in JAX's run
+#: (``tests/test_torch_comm_volume_dist.py``)
+P14_COMPARISON_EXACT = ("baseline", "s2", "s2h")
+P14_COMPARISON_ATOL = 2e-5
+#: (c): the kernels each row of schedule_comparison runs on every rank
+#: (every row dispatch -> expert_ffn -> combine, s2h under auto included;
+#: one launch each a chunk, the SAA pieces sharing one FFN)
+P14_COMPARISON_USES = ("moe_dispatch", "expert_ffn", "moe_combine")
 
 
 def p14_combo(arch, shape_name):
@@ -5382,7 +5588,15 @@ def _p14_rank(rank, job):
     out["moment_bytes"] = sum(t.numel() * t.element_size() for t in
                               leaves(opt_z["mu"]) + leaves(opt_z["nu"]))
     out["launches"] = stepped[("data",)][2]
-    out["clock"] = (t_in, t_gpt2, time.time())
+    t_qwen = time.time()
+    # the schedule_comparison example on the same ranks and mesh
+    from repro_torch.examples import schedule_comparison
+    registry.launches(reset=True)
+    out["comparison"] = schedule_comparison.compare(
+        mesh, schedule_comparison.DIMS, dev, iters=P14_COMPARISON_ITERS)
+    torch.cuda.synchronize()
+    out["comparison_launches"] = registry.launches()
+    out["clock"] = (t_in, t_gpt2, t_qwen, time.time())
     return out
 
 
@@ -5501,17 +5715,85 @@ def dry_run(dev):
         f"spawn, gpt2-moe took "
         f"{max(r['clock'][1] - r['clock'][0] for r in ranks):.1f} s, "
         f"qwen1.5's two steps "
-        f"{max(r['clock'][2] - r['clock'][1] for r in ranks):.1f} s, the "
-        f"spawn returned {t_back - max(r['clock'][2] for r in ranks):.1f} s "
+        f"{max(r['clock'][2] - r['clock'][1] for r in ranks):.1f} s, "
+        f"schedule_comparison "
+        f"{max(r['clock'][3] - r['clock'][2] for r in ranks):.1f} s, the "
+        f"spawn returned {t_back - max(r['clock'][3] for r in ranks):.1f} s "
         f"after the last rank; the host work ended "
         f"{host['done'] - t_c:+.1f} s from (c)'s end")
+    _p14_comparison(ranks, dev)
     for i, (label, _) in enumerate(P14_TRACES):
         _p14_report(label, host[i])
     names = sorted(ranks[0]["launches"])
     return {"dryrun_4x2_gpt2_moe": {
                 k: [r["gpt2"]["launches"][k] for r in ranks] for k in names},
             "dryrun_4x2_qwen1.5_zero1": {
-                k: [r["launches"][k] for r in ranks] for k in names}}
+                k: [r["launches"][k] for r in ranks] for k in names},
+            "comparison_4x2": {
+                k: [r["comparison_launches"][k] for r in ranks]
+                for k in names}}
+
+
+def _p14_resolved(row) -> str:
+    """A schedule_comparison row's schedule, ``auto``'s as its decision
+    line names it (``... -> s2h x1 chunks ...``)."""
+    if row["schedule"] != "auto":
+        return row["schedule"]
+    return re.search(r"-> (\S+) x\d+ chunks", row["decision"]).group(1)
+
+
+def _p14_comparison(ranks, dev):
+    """(c)'s schedule_comparison rows: rank 0's table logged; on every
+    rank each closed-form row's collectives held to the paper's Eq. 1 / 11
+    / 14 (``check_volumes``), ``max|y - y_base|`` as
+    ``P14_COMPARISON_EXACT`` / ``_ATOL`` say, and the rows' kernels
+    launched.  Then the gate's logits over one MP rank's half of a data
+    rank's pool against the same rows of the product over the whole pool,
+    on the card."""
+    import torch
+    from repro_torch.examples import schedule_comparison as sc
+    from repro_torch.parallel.mesh import Mesh
+    rows = ranks[0]["comparison"]
+    log(f"  (c) schedule_comparison on the 8 ranks (4x2), d_model 256, "
+        f"x (8, 512, 256), {P14_COMPARISON_ITERS} timed calls a row; rank "
+        f"0 (gloo through the host):")
+    for row in rows:
+        nbytes, counts = sc.totals(row["volumes"])
+        log(f"      {row['label']:10s} coll bytes {nbytes:9d} {counts} "
+            f"{row['ms']:8.2f} ms/call  max|y-y_base| {row['err']:.2e}"
+            + (f"  [{row['decision']}]" if row["decision"] else ""))
+    held, bad = None, []
+    for r, rank in enumerate(ranks):
+        lines = check_volumes(rank["comparison"],
+                              Mesh(sc.SHAPE, sc.NAMES, r), sc.DIMS, 8 * 512,
+                              sc.layer_config())
+        held = held or lines
+        if any(row["err"] != 0.0
+               if _p14_resolved(row) in P14_COMPARISON_EXACT
+               else not row["err"] <= P14_COMPARISON_ATOL
+               for row in rank["comparison"]) or any(
+                rank["comparison_launches"][k] <= 0
+                for k in P14_COMPARISON_USES):
+            bad.append(r)
+    if bad:
+        raise AssertionError(f"phase 14 (c) schedule_comparison: ranks "
+                             f"{bad}: {[ranks[r]['comparison'] for r in bad]}"
+                             f" launches {[ranks[r]['comparison_launches'] for r in bad]}")
+    for line in held:
+        log(f"      {line}")
+    log(f"      VOLUMES OK on every rank (Eq. 1, 11, 14; the aux means and "
+        f"s1_seqpar's output gather beside the plan); launches a rank "
+        f"{ {k: v for k, v in ranks[0]['comparison_launches'].items() if v} }")
+    cfg = sc.layer_config()
+    g = torch.Generator(device=dev).manual_seed(14)
+    x = torch.randn((2 * 512, cfg.d_model), generator=g, device=dev)
+    wg = torch.randn((cfg.d_model, cfg.n_experts), generator=g,
+                     device=dev) * cfg.d_model ** -0.5
+    d = float((x[:512] @ wg - (x @ wg)[:512]).abs().max())
+    log(f"      rows {[r['label'] for r in rows if r['err'] == 0.0]} give the "
+        f"baseline's bits on every rank; the gate's logits over 512 rows "
+        f"(one MP rank's half of a data rank's pool) against the same rows "
+        f"of the 1024-row product on {dev.type}: max |d| {d:.3e}")
 
 # --- phase 15: the recurrent zoo -------------------------------------------
 
@@ -5858,11 +6140,168 @@ def cross_zoo(dev):
     return paths
 
 
+# --- phase 17: the examples and bert-moe -----------------------------------
+
+#: the phase's stated limit, seconds (logged beside its time)
+P17_LIMIT_S = 60.0
+#: the quickstart's steps (the example's own 60) and train_100m's (its
+#: command line's default is 300; 30 show the cross-entropy falling)
+P17_QUICKSTART_STEPS = 60
+P17_100M_STEPS = 30
+#: bert-moe (the paper's Table V BERT-Base-MoE) trained whole: batch,
+#: sequence, steps and learning rate (gpt2-moe's of phase 8); served
+#: through the paged engine with phase 4's requests
+P17_BERT = dict(batch=8, seq=512, steps=5, lr=1e-3)
+P17_BERT_GEN = 32
+#: each path's kernels and their launches, exactly: per step of training
+#: (the quickstart's reduced qwen3, 2 layers: 2 rmsnorm a layer + 1, one
+#: flash and one grouped launch a layer; train_100m's 8 layers, 4 of them
+#: MoE; bert-moe's 12 layers, 6 MoE, remat on: each block's forward twice)
+#: and in all of serve_batched's 4 x 24 decode steps (rmsnorm 2 a layer + 1
+#: a step of qwen1.5's and qwen3's, ``rzoo_launches``' of xlstm's and
+#: hymba's, the grouped kernel a step of qwen3's 2 MoE layers; decode
+#: attention is plain code, as in JAX)
+P17_USES = {
+    "example_quickstart": {"rmsnorm": 5, "flash_attention": 2,
+                           "expert_ffn_grouped": 2},
+    "example_train_100m": {"flash_attention": 8, "expert_ffn_grouped": 4},
+    "train_bert_moe": {"flash_attention": 24, "expert_ffn_grouped": 12},
+}
+
+
+def examples(dev):
+    """Phase 17 (see the module docstring).  Returns the launches of each
+    path by kernel."""
+    import types
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.examples import quickstart, serve_batched, train_100m
+    from repro_torch.models import Model
+    paths = {}
+    none = {k: 0 for k in kernel_wrappers()}
+
+    def want_exact(path, launches, steps):
+        want = dict(none, **{k: v * steps for k, v in
+                             P17_USES[path].items()})
+        if launches != want:
+            raise AssertionError(f"phase 17 {path}: launches {launches}, "
+                                 f"predicted {want}")
+
+    # (a) the quickstart: Algorithm 1's pick, 60 steps under auto
+    t0 = time.perf_counter()
+    wrappers = reset_counts()
+    hist = quickstart.run(types.SimpleNamespace(steps=P17_QUICKSTART_STEPS),
+                          dev)
+    torch.cuda.synchronize()
+    paths["example_quickstart"] = read_counts(wrappers)
+    losses = [h["loss"] for h in hist]
+    if not (all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"phase 17 (a): losses {losses}")
+    want_exact("example_quickstart", paths["example_quickstart"],
+               P17_QUICKSTART_STEPS)
+    step_ms = ((hist[-1]["wall_s"] - hist[0]["wall_s"])
+               / (hist[-1]["step"] - hist[0]["step"]) * 1e3)
+    log(f"  (a) quickstart: {P17_QUICKSTART_STEPS} steps of 8 x 64 tokens, "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, {step_ms:.1f} ms/step "
+        f"after the first; {time.perf_counter() - t0:.1f} s")
+
+    # (b) serve_batched: four reduced archs, 4 rows x 24 greedy tokens,
+    # then each again through the plain versions on the same weights
+    t0 = time.perf_counter()
+    wrappers = reset_counts()
+    served = {name: serve_batched.serve(name, dev)
+              for name in serve_batched.ARCHS}
+    torch.cuda.synchronize()
+    got = paths["example_serve_batched"] = read_counts(wrappers)
+    for name, toks in served.items():
+        vocab = get_config(name).reduced().vocab_size
+        if len(toks) != 24 or not all(
+                len(row) == 4 and all(0 <= t < vocab for t in row)
+                for row in toks):
+            raise AssertionError(f"phase 17 (b) {name}: tokens {toks}")
+        with plain_ops(), contextlib.redirect_stdout(io.StringIO()):
+            plain = serve_batched.serve(name, dev)
+        if plain != toks:
+            raise AssertionError(f"phase 17 (b) {name}: tokens {toks}, "
+                                 f"the plain versions' {plain}")
+    n_rms = 24 * sum(
+        rzoo_launches(c, decode=True)["rmsnorm"] if c.arch_type in (
+            "hybrid", "ssm") else 2 * c.n_layers + 1
+        for c in (get_config(n).reduced() for n in serve_batched.ARCHS))
+    q3 = get_config("qwen3-moe-30b-a3b").reduced()
+    want = dict(none, rmsnorm=n_rms, expert_ffn_grouped=24 * sum(
+        n for kind, n in q3.runs() if "moe" in kind))
+    if got != want:
+        raise AssertionError(f"phase 17 (b): launches {got}, predicted "
+                             f"{want}")
+    log(f"  (b) serve_batched in {time.perf_counter() - t0:.1f} s, every "
+        f"token equal to the plain versions' on the same weights")
+
+    # (c) train_100m at full width (the cross-entropy must fall)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = reset_counts()
+    hist = train_100m.train(dev, P17_100M_STEPS)
+    torch.cuda.synchronize()
+    paths["example_train_100m"] = read_counts(wrappers)
+    want_exact("example_train_100m", paths["example_train_100m"],
+               P17_100M_STEPS)
+    step_ms = ((hist[-1]["wall_s"] - hist[0]["wall_s"])
+               / (hist[-1]["step"] - hist[0]["step"]) * 1e3)
+    log(f"  (c) train_100m: {P17_100M_STEPS} steps of 8 x 256 tokens, CE "
+        f"{hist[0]['ce']:.4f} -> {hist[-1]['ce']:.4f}, {step_ms:.1f} "
+        f"ms/step after the first, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    # (d) bert-moe trained whole: kernels vs plain versions, then AdamW
+    # steps (the first step's repeat, bitwise, is phases 7 and 8's: the
+    # same blocks, layernorm and MoE code on gpt2-moe)
+    t0 = time.perf_counter()
+    cfg = get_config("bert-moe")
+    b = P17_BERT
+    paths["train_bert_moe"], bert_ms = train(
+        "bert-moe", cfg, dev, batch=b["batch"], seq=b["seq"],
+        steps=b["steps"], lr=b["lr"],
+        uses=tuple(P17_USES["train_bert_moe"]),
+        per_step=dict(none, **P17_USES["train_bert_moe"]), with_ms=True,
+        repeat=False)
+    log(f"  (d) bert-moe trained in {time.perf_counter() - t0:.1f} s "
+        f"({bert_ms:.1f} ms/step)")
+
+    # (e) bert-moe served through the paged engine
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    prompts = make_requests(cfg.vocab_size)
+    err = reference_check(model, params, prompts[0])
+    serve(model, params, prompts[:2], gen=4)          # warm-up (not counted)
+    wrappers = reset_counts()
+    done, eng, wall = serve(model, params, prompts, gen=P17_BERT_GEN)
+    launches = paths["serve_bert_moe"] = read_counts(wrappers)
+    serve_report("bert-moe", done, eng, wall, len(prompts), P17_BERT_GEN)
+    if launches["expert_ffn_grouped"] <= 0 or any(
+            v for k, v in launches.items() if k != "expert_ffn_grouped"):
+        raise AssertionError(f"phase 17 (e): launches {launches}")
+    log(f"  (e) bert-moe served: paged_step logits kernels vs plain "
+        f"max_abs_err {err:.3e}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+        f"{time.perf_counter() - t0:.1f} s")
+    del model, params, eng, done
+    torch.cuda.empty_cache()
+    return paths
+
+
 #: the phases, and the ones each needs to have run before it (their model,
 #: prompts, reference runs or launch counts); 1 and 2 (the card, the
-#: build) always run, and 17 (the kernels line) only when every phase did
-PHASES = tuple(range(1, 18))
-PHASE_NEEDS = {5: (4,), 9: (7, 8), 10: (4, 5, 6), 11: (4, 6), 17: PHASES[:16]}
+#: build) always run, and 18 (the kernels line) only when every phase did
+PHASES = tuple(range(1, 19))
+PHASE_NEEDS = {5: (4,), 9: (7, 8), 10: (4, 5, 6), 11: (4, 6), 18: PHASES[:17]}
 
 
 def parse_phases(argv=None) -> set:
@@ -6024,6 +6463,20 @@ SHAPE_OF.update({("rmsnorm", "train_vision_mesh"): "train-4096",
                  ("flash_attention", "train_whisper_mesh"): "whisper-enc-mp2",
                  ("flash_attention", "decode_whisper_mesh"):
                      "whisper-enc-mp2"})
+# phase 17: the examples' reduced archs and full-width runs, bert-moe's
+# training step and its decode rows (most of its serving's launches)
+SHAPE_OF.update({("rmsnorm", "example_quickstart"): "train-quickstart",
+                 ("flash_attention", "example_quickstart"): "quickstart",
+                 ("expert_ffn_grouped", "example_quickstart"):
+                     "train-quickstart",
+                 ("rmsnorm", "example_serve_batched"): "decode-256",
+                 ("expert_ffn_grouped", "example_serve_batched"):
+                     "decode-quickstart",
+                 ("flash_attention", "example_train_100m"): "train-100m",
+                 ("expert_ffn_grouped", "example_train_100m"): "train-100m",
+                 ("flash_attention", "train_bert_moe"): "bert-moe",
+                 ("expert_ffn_grouped", "train_bert_moe"): "train-bert-moe",
+                 ("expert_ffn_grouped", "serve_bert_moe"): "decode-bert-moe"})
 #: phase 12 (m)'s paths, in ``by_path`` with rank 0's launches
 P12_XZOO_PATHS = tuple(f"{what}_{tag}_mesh" for _, tag, _, _, _ in P12_XZOO
                        for what in ("train", "decode"))
@@ -6067,7 +6520,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    t_start = time.perf_counter()
+    global _T_START
+    t_start = _T_START = time.perf_counter()
 
     # 1. the card
     smi = subprocess.run(
@@ -6283,6 +6737,11 @@ def main(argv=None) -> int:
                       "flash_attention": 24, "expert_ffn_grouped": 0,
                       "rmsnorm": 0})
 
+    if 7 in phases or 8 in phases:
+        # the page-locked host blocks of their first-step checks
+        from repro_torch.launch.determinism import release_host_blocks
+        release_host_blocks()
+
     p9_losses = None          # phase 9 (a)'s, phase 12 (e)'s reference
     if 9 in phases:
         # 9. guarded training; the launch predictions per MoE layer and step
@@ -6366,6 +6825,17 @@ def main(argv=None) -> int:
         log(f"  phase 16 in {time.perf_counter() - t0:.1f} s (limit "
             f"{P16_LIMIT_S:.0f} s)")
 
+    if 17 in phases:
+        # 17. the examples and bert-moe
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        log(f"phase 17: the examples (quickstart, serve_batched, "
+            f"train_100m) and bert-moe trained and served (predicted ~30 s, "
+            f"limit {P17_LIMIT_S:.0f} s)")
+        path_launches.update(examples(dev))
+        log(f"  phase 17 in {time.perf_counter() - t0:.1f} s (limit "
+            f"{P17_LIMIT_S:.0f} s)")
+
     if phases != set(PHASES):
         log(f"chip_smoke: phases {sorted(phases)} passed in "
             f"{time.perf_counter() - t_start:.1f} s (a selection: no "
@@ -6374,7 +6844,7 @@ def main(argv=None) -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
-    # 17. results.  Each kernel's top-level numbers are those of its main
+    # 18. results.  Each kernel's top-level numbers are those of its main
     # path (KERNELS): its launches there, counted from 0 just before the
     # run, and the phase-3 row at the shapes that path gives it.
     # ``by_path`` pairs every path's launches with the phase-3 row at that

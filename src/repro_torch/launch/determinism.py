@@ -74,6 +74,54 @@ def _state(params, opt_state):
     return leaves(params) + leaves(opt_state["mu"]) + leaves(opt_state["nu"])
 
 
+#: the bytes of each host block a taking's state waits in
+#: (:func:`hold`): one size, so the caching host allocator rounds no
+#: tensor up to a power of two and hands a later check the same blocks
+HOST_BLOCK = 1 << 30
+
+
+def hold(state, block_bytes=HOST_BLOCK, pin=False):
+    """Copies of ``state``'s tensors packed into host blocks of
+    ``block_bytes`` bytes, page-locked where ``pin`` (the card's copies
+    then run at the link's rate; into fresh pageable memory they run at
+    the rate the host faults pages in).  Per tensor, its shape and its
+    ``(flat start, piece)`` pairs, each piece a view of a block in the
+    tensor's dtype."""
+    held, block, off = [], None, block_bytes
+    for t in state:
+        flat, es, pieces, pos = t.reshape(-1), t.element_size(), [], 0
+        while pos < flat.numel():
+            off = -(-off // 8) * 8
+            if block_bytes - off < es:
+                block, off = torch.empty(block_bytes, dtype=torch.uint8,
+                                         pin_memory=pin), 0
+            n = min(flat.numel() - pos, (block_bytes - off) // es)
+            piece = block[off:off + n * es].view(t.dtype)
+            piece.copy_(flat[pos:pos + n])
+            pieces.append((pos, piece))
+            pos, off = pos + n, off + n * es
+        held.append((t.shape, pieces))
+    return held
+
+
+def same(held_t, t) -> bool:
+    """Whether ``t`` is ``torch.equal`` to ``held_t`` (one tensor of
+    :func:`hold`), a piece brought to ``t``'s device at a time."""
+    shape, pieces = held_t
+    flat = t.reshape(-1)
+    return t.shape == shape and all(
+        torch.equal(flat[p:p + piece.numel()], piece.to(t.device))
+        for p, piece in pieces)
+
+
+def release_host_blocks():
+    """Give the caching host allocator's free page-locked blocks back to
+    the system (where the build has one)."""
+    empty = getattr(torch._C, "_host_emptyCache", None)
+    if empty is not None and torch.cuda.is_available():
+        empty()
+
+
 def first_steps(trainer, batch, steps, seed=0):
     """Take the first step once with each of ``steps`` (callables
     ``(params, opt_state, batch) -> (params, opt_state, metrics)``), each
@@ -82,7 +130,11 @@ def first_steps(trainer, batch, steps, seed=0):
     the indices of the tensors that are not ``torch.equal`` to the first
     taking's, in ``leaves(params) + leaves(mu) + leaves(nu)`` order, then
     the step counter and the loss.  The first taking's state waits on the
-    host, so the card holds one state at a time."""
+    host (:func:`hold`, page-locked for a card; the blocks stay with the
+    caching host allocator for the next check, until
+    :func:`release_host_blocks`), so the card holds one state at a time;
+    each later taking is compared with it on its own device, a piece of
+    the first brought back at a time."""
     dev = trainer.model.device
     first, bad = None, []
     for step in steps:
@@ -92,10 +144,10 @@ def first_steps(trainer, batch, steps, seed=0):
         state = [t.detach() for t in _state(params, opt_state)] + [
             opt_state["step"], m["loss"]]
         if first is None:
-            first = [t.to("cpu") for t in state]
+            first = hold(state, pin=dev.type == "cuda")
         else:
             bad.append([i for i, (a, b) in enumerate(zip(first, state))
-                        if not torch.equal(a, b.to("cpu"))])
+                        if not same(a, b)])
         del params, opt_state, state, m
         if dev.type == "cuda":
             torch.cuda.empty_cache()

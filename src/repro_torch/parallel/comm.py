@@ -51,10 +51,10 @@ import time
 import torch
 
 #: host-side timing of the collectives, off by default (``timing(True)``):
-#: name -> [calls, bytes in, seconds, {group axes: bytes out}]; a call
-#: inside another (``psum``'s reduce-scatter and AllGather) counts to the
-#: outermost; ``in_flight`` -> [spans, 0, wall seconds during which one or
-#: more was in flight, {}]
+#: name -> [calls, bytes in, seconds, {group axes: bytes out},
+#: {group axes: calls}]; a call inside another (``psum``'s reduce-scatter
+#: and AllGather) counts to the outermost; ``in_flight`` -> [spans, 0, wall
+#: seconds during which one or more was in flight, {}, {}]
 _TIMES = None
 _DEPTH = 0
 #: timed collectives in flight, and when the first of them started
@@ -95,6 +95,13 @@ def bytes_out() -> dict:
             if k != "in_flight"}
 
 
+def calls_out() -> dict:
+    """The timed collectives' calls by group: name -> {group axes: calls
+    on this rank} (beside :func:`bytes_out`'s bytes)."""
+    return {k: dict(v[4]) for k, v in (_TIMES or {}).items()
+            if k != "in_flight"}
+
+
 def _sync(t):
     if t.is_cuda:
         torch.cuda.synchronize(t.device)
@@ -117,14 +124,15 @@ def _close(name, x, out, t0, axes=()) -> None:
     when it was the last in flight."""
     _sync(out)
     now = time.perf_counter()
-    rec = _TIMES.setdefault(name, [0, 0, 0.0, {}])
+    rec = _TIMES.setdefault(name, [0, 0, 0.0, {}, {}])
     rec[0] += 1
     rec[1] += x.numel() * x.element_size()
     rec[2] += now - t0
     rec[3][axes] = rec[3].get(axes, 0) + out.numel() * out.element_size()
+    rec[4][axes] = rec[4].get(axes, 0) + 1
     _OPEN[0] -= 1
     if not _OPEN[0]:
-        span = _TIMES.setdefault("in_flight", [0, 0, 0.0, {}])
+        span = _TIMES.setdefault("in_flight", [0, 0, 0.0, {}, {}])
         span[0] += 1
         span[2] += now - _OPEN[1]
 

@@ -96,17 +96,18 @@ def test_entry_points_refuse_to_run_without_a_card():
 
 
 @pytest.mark.parametrize("arg,want", [
-    (None, set(range(1, 18))), ("1,2,12", {1, 2, 12}), ("12", {1, 2, 12}),
+    (None, set(range(1, 19))), ("1,2,12", {1, 2, 12}), ("12", {1, 2, 12}),
     ("9", {1, 2, 7, 8, 9}), ("10", {1, 2, 4, 5, 6, 10}),
     ("11,3", {1, 2, 3, 4, 6, 11}), ("13", {1, 2, 13}), ("14", {1, 2, 14}),
     ("0", None), ("15", {1, 2, 15}), ("16", {1, 2, 16}),
-    ("17", set(range(1, 18))), ("18", None), ("2,x", None), ("", None)],
+    ("17", {1, 2, 17}), ("18", set(range(1, 19))), ("19", None),
+    ("2,x", None), ("", None)],
     ids=["default", "1,2,12", "12", "9", "10", "11,3", "13", "14", "0",
-         "15", "16", "17", "18", "2,x", "empty"])
+         "15", "16", "17", "18", "19", "2,x", "empty"])
 def test_chip_smoke_phase_selection(arg, want, capsys):
     """``chip_smoke.py --phases``: the named phases, those they need, and
     the card and the build; with no argument every phase (and the kernels
-    line, phase 17, only then).  A bad selection exits 2 before anything
+    line, phase 18, only then).  A bad selection exits 2 before anything
     runs.  No card needed: only the flag is parsed."""
     sys.path.insert(0, REPO)
     try:
@@ -121,6 +122,24 @@ def test_chip_smoke_phase_selection(arg, want, capsys):
         assert "--phases" in capsys.readouterr().err
     else:
         assert chip_smoke.parse_phases(argv) == want
+
+
+EXAMPLES = ("quickstart", "schedule_comparison", "serve_batched",
+            "train_100m")
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_the_examples_stand_alone_and_refuse_without_a_card(name):
+    """Each example of ``repro_torch.examples`` is among the checked
+    sources (no JAX, no JAX package) and, without a card and without
+    ``--device cpu``, stops with the launchers' error before it runs."""
+    import torch
+    rel = os.path.join("examples", f"{name}.py")
+    assert rel in {os.path.relpath(p, PORT) for p in _sources()}, rel
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the example would run on it")
+    r = _run(["-m", f"repro_torch.examples.{name}"])
+    assert r.returncode != 0 and "no CUDA device" in r.stderr, r.stderr
 
 
 @pytest.mark.parametrize("flag", [["--placement", "auto",

@@ -386,6 +386,31 @@ def test_first_step_repeats_bitwise(arch, schedule, chunks, wire):
     assert first_step_twice(tr, batch) == []
 
 
+@pytest.mark.parametrize("block_bytes", [8, 24, 64, 1 << 20])
+def test_held_state_pieces_compare_as_the_whole(block_bytes):
+    """``determinism.hold`` packs a state into host blocks, a tensor split
+    over as many as it takes; ``same`` is ``torch.equal`` of the whole:
+    true for an equal state, false for one element changed in any piece
+    or for another shape."""
+    from repro_torch.launch.determinism import hold, same
+    g = torch.Generator().manual_seed(0)
+    state = [torch.randn((5, 7), generator=g),
+             torch.randn(13, generator=g).to(torch.bfloat16),
+             torch.tensor(3, dtype=torch.int64),
+             torch.randn((3, 2, 2), generator=g).double(),
+             torch.tensor(0.25)]
+    held = hold(state, block_bytes=block_bytes)
+    assert all(same(h, t.clone()) for h, t in zip(held, state))
+    for i, t in enumerate(state):
+        flat = t.reshape(-1)
+        for j in (0, flat.numel() // 2, flat.numel() - 1):
+            other = flat.clone()
+            other[j] += 1
+            assert not same(held[i], other.reshape(t.shape))
+    assert not same(held[0], state[0].reshape(7, 5))
+    assert [len(p) > 1 for _, p in held][0] == (block_bytes < 140)
+
+
 def test_embedding_gradient_is_jax_bits():
     """The embedding's backward sums a row's cotangents in ids order, as
     the transpose of JAX's gather does: bitwise ``jax.vjp``, with tokens
