@@ -23,7 +23,9 @@ to a plain version):
      peak, whichever is larger) and, as a yardstick the port never calls,
      ``torch.nn.functional.rms_norm`` / ``scaled_dot_product_attention`` /
      ``torch.index_add`` / ``torch.nn.functional.embedding_bag`` (held to
-     the plain combine within its tolerance first);
+     the plain combine within its tolerance first); dispatch's and
+     combine's rows also log the device time alone (the calls replayed
+     from a CUDA graph), cold and L2-warm;
   4. serve full-width qwen3-moe-30b-a3b cut to 4 layers (random weights
      from a seed) through ``Engine``: 16 requests, some sharing a 32-token
      prefix, once one-shot, once with 32-token prefill chunks and once
@@ -433,6 +435,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM
+L2_BYTES = 50 * 2 ** 20            # H100 SXM
 PEAK_FLOPS = {"torch.float32": 67e12, "torch.bfloat16": 989e12}
 N_LAYERS = 4
 L4 = "llama4-scout-17b-a16e"
@@ -466,6 +469,61 @@ def time_ms(fn, iters=20, warmup=3):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def _replay_ms(calls, name):
+    """(ms, how): the mean device time of the thunks ``calls``, captured
+    once in a CUDA graph and the graph replayed between CUDA events (how =
+    "graph"); where the capture fails, the summed device time of the
+    kernels whose names hold ``name`` under ``torch.profiler`` over the
+    same calls (how = "profiler")."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    calls[0]()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for c in calls:
+                c()
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        log(f"    (CUDA graph capture failed: {e}; torch.profiler instead)")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for c in calls:
+                c()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and name in e.name)
+        return us / 1e3 / len(calls), "profiler"
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / len(calls), "graph"
+
+
+def device_ms(fn, args, touched, name, iters=20):
+    """(cold ms, warm ms, how): the mean device time of ``fn(*args)``, the
+    wrapper's host work left out (``_replay_ms``).  Warm: ``iters`` calls
+    on ``args``, whose data stays in the card's L2 between calls where it
+    fits.  Cold: calls that cycle through copies of the tensors in
+    ``args``, enough copies that three L2s' worth of the ``touched`` bytes
+    (what one call reads and writes) come between two uses of one copy, so
+    every call reads its inputs from DRAM."""
+    import torch
+    n = max(2, -(-3 * L2_BYTES // touched))
+    copies = [args] + [tuple(a.clone() if torch.is_tensor(a) else a
+                             for a in args) for _ in range(n - 1)]
+    warm, how = _replay_ms([lambda: fn(*args)] * iters, name)
+    cold, how_cold = _replay_ms(
+        [lambda c=c: fn(*c) for c in copies] * -(-iters // n), name)
+    return cold, warm, how if how == how_cold else f"{how_cold} / {how}"
 
 
 def bound(nbytes, flops, dtype):
@@ -811,13 +869,17 @@ def _gate_case(g, dev, arch, S, infer):
 def check_dispatch_combine(dev):
     """moe_dispatch and moe_combine at the paths' shapes: serving decode
     (s1d; qwen3's and llama4's), the qwen3 and gpt2-moe training steps,
-    bf16, and a dispatch
-    whose every odd token shares its even neighbour's first slot."""
+    bf16, and a dispatch whose every odd token shares its even neighbour's
+    first slot.  Each row's kernel time is logged host-inclusive
+    (``time_ms``, the wrapper's calls back to back: at decode the host's
+    time) and device-only (``device_ms``), cold (every call's inputs read
+    from DRAM: the figure the bound, a DRAM rate, is held against) and
+    L2-warm (one input reread, as the back-to-back calls read it)."""
     import torch
     from repro_torch.kernels.moe_dispatch import moe_combine, moe_dispatch
     from repro_torch.kernels.ref import moe_combine_ref, moe_dispatch_ref
     g = torch.Generator(device=dev).manual_seed(4)
-    q3, g2, QS = "qwen3-moe-30b-a3b", "gpt2-moe", "quickstart"
+    q3, g2 = "qwen3-moe-30b-a3b", "gpt2-moe"
     f32, bf16 = torch.float32, torch.bfloat16
     disp, comb = [], []
     # (label, arch, tokens, infer, dtype, duplicates).  Tolerances: dispatch
@@ -846,6 +908,9 @@ def check_dispatch_combine(dev):
         err = compare(f"moe_dispatch[{label}]", moe_dispatch(x, flat, n),
                       moe_dispatch_ref(x, flat, n), tol)
         ms = time_ms(lambda: moe_dispatch(x, flat, n))
+        nbytes = S * M * es + S * k * 4 + n * M * es
+        cold, warm, how = device_ms(moe_dispatch, (x, flat, n), nbytes,
+                                    "dispatch_kernel")
         plain = time_ms(lambda: moe_dispatch_ref(x, flat, n))
         src = x[:, None].expand(S, k, M).reshape(S * k, M)
         idx = flat.reshape(-1).long()
@@ -853,11 +918,12 @@ def check_dispatch_combine(dev):
         # timing, and never written (index_add returns a new tensor)
         zeros = torch.zeros((n + 1, M), dtype=dt, device=dev)
         lib = time_ms(lambda: torch.index_add(zeros, 0, idx, src))
-        b_ms, b_by = bound(S * M * es + S * k * 4 + n * M * es, S * k * M,
-                           dt)
+        b_ms, b_by = bound(nbytes, S * k * M, dt)
         log(f"  moe_dispatch[{label}] S={S} k={k} M={M} n_slots={n} {dt}: "
-            f"max_abs_err {err:.3e} (tol {tol:.0e}) kernel {ms:.4f} ms  "
-            f"plain {plain:.4f} ms  torch.index_add {lib:.4f} ms  bound "
+            f"max_abs_err {err:.3e} (tol {tol:.0e}) kernel {ms:.4f} ms "
+            f"(host-inclusive), device {cold:.4f} ms cold, {warm:.4f} ms "
+            f"L2-warm ({how})  plain "
+            f"{plain:.4f} ms  torch.index_add {lib:.4f} ms  bound "
             f"{b_ms:.4f} ms ({b_by})")
         disp.append(dict(label=label, max_abs_err=err, ms=ms, plain_ms=plain,
                          bound_ms=b_ms, bound_by=b_by, library_ms=lib))
@@ -868,6 +934,10 @@ def check_dispatch_combine(dev):
         err = compare(f"moe_combine[{label}]", moe_combine(buf, flat, w),
                       moe_combine_ref(buf, flat, w), tol)
         ms = time_ms(lambda: moe_combine(buf, flat, w))
+        kept = int((flat < n).sum())
+        nbytes = kept * M * es + S * k * 8 + S * M * es
+        cold, warm, how = device_ms(moe_combine, (buf, flat, w), nbytes,
+                                    "combine_kernel")
         plain = time_ms(lambda: moe_combine_ref(buf, flat, w))
         # the same function in one call: bags of k rows, the indices
         # clamped to n - 1 and the dropped choices' weights 0, as the
@@ -881,12 +951,12 @@ def check_dispatch_combine(dev):
             moe_combine_ref(buf, flat, w), tol)
         lib = time_ms(lambda: torch.nn.functional.embedding_bag(
             bag, buf, per_sample_weights=bag_w, mode="sum"))
-        kept = int((flat < n).sum())
-        b_ms, b_by = bound(kept * M * es + S * k * 8 + S * M * es,
-                           2 * kept * M, dt)
+        b_ms, b_by = bound(nbytes, 2 * kept * M, dt)
         log(f"  moe_combine[{label}] S={S} k={k} M={M} kept {kept} {dt}: "
-            f"max_abs_err {err:.3e} (tol {tol:.0e}) kernel {ms:.4f} ms  "
-            f"plain {plain:.4f} ms  F.embedding_bag {lib:.4f} ms "
+            f"max_abs_err {err:.3e} (tol {tol:.0e}) kernel {ms:.4f} ms "
+            f"(host-inclusive), device {cold:.4f} ms cold, {warm:.4f} ms "
+            f"L2-warm ({how})  plain "
+            f"{plain:.4f} ms  F.embedding_bag {lib:.4f} ms "
             f"(max_abs_err {err_lib:.3e})  bound {b_ms:.4f} ms ({b_by})")
         comb.append(dict(label=label, max_abs_err=err, ms=ms, plain_ms=plain,
                          bound_ms=b_ms, bound_by=b_by, library_ms=lib))

@@ -16,16 +16,20 @@
 //             at most once, so a row is 0 + x[s]: x[s] exactly (-0 becomes
 //             +0, as in the reference).
 //   combine:  y[s] = sum_j w[s, j] * buf[flat[s, j]], one FMA chain per
-//             output in choice order j = 0..k-1, in f32, then cast to the
-//             buffer's dtype.  Each weight is first rounded to the buffer's
-//             dtype, as the plain version casts it.  A dropped choice adds
-//             nothing.  No atomics: deterministic and row-independent.
+//             output element, from 0.f in choice order j = 0..k-1, in f32,
+//             then cast to the buffer's dtype.  Each weight is first
+//             rounded to the buffer's dtype, as the plain version casts
+//             it.  A dropped choice (slot < 0 or >= n_slots) adds nothing.
+//             No atomics: deterministic, every output row independent of
+//             every other (the grouped op's combine, csrc/
+//             expert_ffn_grouped.cu, runs the same chains: phase 6 and the
+//             card tests hold the two bitwise).
 //
 // What bounds them on an H100: memory.  Neither does more than one add or
 // FMA per element moved.  Dispatch must write the whole buffer (n_slots x
 // M, zero rows included) and read each routed token row; combine reads k
 // gathered rows per token and writes S x M.
-//
+
 // Dispatch's design: one launch, no memset and no atomics; every buffer
 // row is written once, by the block that owns it.  Block b owns the
 // contiguous slot rows [b * rows, (b + 1) * rows) (rows chosen by the host
@@ -46,10 +50,31 @@
 // block where one warp's share names its rows more than kSeg times (only
 // possible when slots repeat) sums every row by scanning flat itself in
 // entry order.
+//
+// Combine's design: one warp per (token row, column tile) item, as many
+// blocks of eight warps as the SMs run at once (the instance's occupancy)
+// striding over the items in row-major order.  Every lane loads the row's
+// k slot ids and weights itself: the same address across the warp, one
+// broadcast load each (measured faster at every shape than lanes 0..k-1
+// loading them and __shfl_sync, with or without the next item's loaded
+// ahead); each weight is rounded to the buffer's dtype there.  Instances
+// unrolled for k = 1, 2, 4 and 8 (llama4, gpt2-moe and bert-moe, the
+// quickstart, qwen3) issue all k rows' 16-byte loads of a tile before the
+// first fmaf, eight loads a lane (a tile is 32 x 8 / k vectors); any other
+// k runs one choice at a time, four loads a lane.  A dropped choice is
+// left out by predicate: the chain's order never changes.  Loads and
+// stores carry no cache hint: the buffer comes from expert_ffn's stores
+// just before, and the residual add reads y next.  Rows of a multiple of
+// 16 bytes at 16-byte-aligned addresses move as 16-byte vectors, any
+// other element by element.  Where the rows give fewer items than a full
+// grid has warps (decode's 8 rows), each row is cut into narrower tiles,
+// down to one vector a lane, in blocks of fewer warps, so that the
+// gathers spread over more SMs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <climits>
 #include <cstring>
 
@@ -218,28 +243,136 @@ dispatch_kernel(const T* __restrict__ x, const int* __restrict__ flat,
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-combine_kernel(const T* __restrict__ buf, const int* __restrict__ flat,
-               const float* __restrict__ weights, T* __restrict__ y, int k,
-               int M, int n_slots) {
-  const int s = blockIdx.x;
-  const int m = blockIdx.y * kThreads + threadIdx.x;
-  if (m >= M) return;
-  float acc = 0.f;
-  for (int j = 0; j < k; ++j) {
-    const size_t sj = static_cast<size_t>(s) * k + j;
-    const int slot = flat[sj];
-    if (slot < 0 || slot >= n_slots) continue;  // dropped: adds nothing
-    const float w = repro::widen(repro::narrow<T>(weights[sj]));
-    acc = fmaf(w, repro::widen(buf[static_cast<size_t>(slot) * M + m]), acc);
-  }
-  y[static_cast<size_t>(s) * M + m] = repro::narrow<T>(acc);
+// Column vectors each lane gathers per choice in one tile of the K-choice
+// instance: all K choices' loads of a tile are issued before the first
+// fmaf, eight of them a lane.  The generic loop: kGenericCols a choice.
+constexpr int kGenericCols = 4;
+template <int K>
+__host__ __device__ constexpr int combine_cols() {
+  return K == 0 ? kGenericCols : 8 / K;
 }
 
-// Slot rows per dispatch block: about four blocks per SM (measured faster
-// than two, three or six at both training shapes), 8..256 rows.
-int dispatch_rows(int n_slots) {
+// Entry rj = r * k + j of flat: its slot row, or -1 where the choice is
+// dropped, and its weight rounded to T.  Every lane of a warp loads the
+// same entry: one broadcast load each, the two in flight together.
+struct Choice {
+  int slot;
+  float w;
+};
+template <typename T>
+__device__ __forceinline__ Choice load_choice(const int* __restrict__ flat,
+                                              const float* __restrict__ weights,
+                                              size_t rj, int n_slots) {
+  const int slot = flat[rj];
+  const float w = weights[rj];
+  if (slot < 0 || slot >= n_slots) return {-1, 0.f};
+  return {slot, repro::widen(repro::narrow<T>(w))};
+}
+
+// One warp per (token row, column tile) item, items in row-major order,
+// each warp striding by the grid's warp count (blocks of 1..8 warps).  K:
+// the unrolled choice count (k == K), or 0 for the generic loop over any
+// k.  A tile is tv vectors of W elements from column vector t * tv; lane l
+// takes vectors l, l + 32, ... of it (tv <= 32 * combine_cols<K>()).
+template <typename T, int W, int K>
+__global__ void __launch_bounds__(kThreads)
+combine_kernel(const T* __restrict__ buf, const int* __restrict__ flat,
+               const float* __restrict__ weights, T* __restrict__ y, int S,
+               int k, int M, int n_slots, int n_tiles, int tv) {
+  constexpr int C = combine_cols<K>(), NW = repro::kWords<W>;
+  const int lane = threadIdx.x & 31;
+  const int nvec = M / W;
+  // this warp's first item and its stride, as (row, tile) steps
+  const int wpb = blockDim.x >> 5, warps = gridDim.x * wpb;
+  const int first = blockIdx.x * wpb + (threadIdx.x >> 5);
+  int s = first / n_tiles, t = first % n_tiles;
+  const int ds = warps / n_tiles, dt = warps % n_tiles;
+
+  while (s < S) {
+    const int t0 = t * tv;
+    const size_t r0 = static_cast<size_t>(s) * k;
+    bool live[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      live[c] = c * 32 + lane < tv && t0 + c * 32 + lane < nvec;
+    T* dst = y + static_cast<size_t>(s) * M;
+
+    if constexpr (K > 0) {
+      // every choice's loads of the tile in flight, then the chains
+      float wj[K];
+      bool ok[K];
+      uint32_t bits[K][C][NW];
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        const Choice ch = load_choice<T>(flat, weights, r0 + j, n_slots);
+        wj[j] = ch.w;
+        ok[j] = ch.slot >= 0;
+        const T* src = buf + static_cast<size_t>(ok[j] ? ch.slot : 0) * M;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+#pragma unroll
+          for (int i = 0; i < NW; ++i) bits[j][c][i] = 0u;
+          if (ok[j] && live[c])
+            repro::load_bits<T, W>(src + (t0 + c * 32 + lane) * W,
+                                         bits[j][c]);
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        if (!live[c]) continue;
+        float acc[W];
+#pragma unroll
+        for (int e = 0; e < W; ++e) {
+          acc[e] = 0.f;
+#pragma unroll
+          for (int j = 0; j < K; ++j)
+            if (ok[j])
+              acc[e] = fmaf(wj[j], repro::element<T, W>(bits[j][c], e),
+                            acc[e]);
+        }
+        repro::store<T, W>(dst + (t0 + c * 32 + lane) * W, acc);
+      }
+    } else {
+      // any k: one choice at a time, its C loads in flight
+      float acc[C][W];
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+#pragma unroll
+        for (int e = 0; e < W; ++e) acc[c][e] = 0.f;
+      for (int j = 0; j < k; ++j) {
+        const Choice ch = load_choice<T>(flat, weights, r0 + j, n_slots);
+        if (ch.slot < 0) continue;  // dropped: adds nothing
+        const T* src = buf + static_cast<size_t>(ch.slot) * M;
+        // a column past the tile reads the row's first vector again
+        // (unused): unconditional loads, which ptxas keeps in registers
+        uint32_t bits[C][NW];
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          repro::load_bits<T, W>(
+              src + (live[c] ? t0 + c * 32 + lane : 0) * W, bits[c]);
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+#pragma unroll
+          for (int e = 0; e < W; ++e)
+            acc[c][e] = fmaf(ch.w, repro::element<T, W>(bits[c], e),
+                             acc[c][e]);
+      }
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        if (live[c])
+          repro::store<T, W>(dst + (t0 + c * 32 + lane) * W, acc[c]);
+    }
+    s += ds;
+    t += dt;
+    if (t >= n_tiles) {
+      t -= n_tiles;
+      ++s;
+    }
+  }
+}
+
+// The card's SM count, read once.
+int sm_count() {
   static int sms = 0;
   if (sms <= 0) {
     int dev = 0;
@@ -248,6 +381,13 @@ int dispatch_rows(int n_slots) {
             cudaSuccess || sms <= 0)
       sms = 132;  // an H100 SXM
   }
+  return sms;
+}
+
+// Slot rows per dispatch block: about four blocks per SM (measured faster
+// than two, three or six at both training shapes), 8..256 rows.
+int dispatch_rows(int n_slots) {
+  const int sms = sm_count();
   const int rows = (n_slots + kBlocksPerSM * sms - 1) / (kBlocksPerSM * sms);
   return rows < kWarps ? kWarps : rows > kMaxRows ? kMaxRows : rows;
 }
@@ -263,6 +403,66 @@ void launch_dispatch(const T* x, const int* flat, T* buf, int n, int k,
   else
     dispatch_kernel<T, 1><<<grid, kThreads, 0, st>>>(x, flat, buf, n, k, M,
                                                      n_slots, rows);
+}
+
+// Combine's launch.  Items: S rows of n_tiles column tiles, a row's tiles
+// as wide as a tile's loads allow (32 * combine_cols<K>() vectors).  The
+// grid holds as many blocks of eight warps as the SMs run at once (the
+// instance's occupancy, read once), each warp striding over the items.
+// Where the rows give fewer items than those warps (decode's few rows),
+// each row is cut into narrower tiles, down to one vector a lane, and the
+// blocks shrink to as few warps as put the items on every SM.
+template <typename T, int W, int K>
+void launch_combine_k(const T* buf, const int* flat, const float* w, T* y,
+                      int S, int k, int M, int n_slots, cudaStream_t st) {
+  constexpr int C = combine_cols<K>();
+  static int per_sm = 0;
+  if (per_sm <= 0 &&
+      (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, combine_kernel<T, W, K>, kThreads, 0) != cudaSuccess ||
+       per_sm <= 0))
+    per_sm = 1;
+  const long long sms = sm_count(), blocks_max = sms * per_sm,
+                  warps_max = blocks_max * kWarps, nvec = M / W;
+  long long n_tiles = (nvec + 32 * C - 1) / (32 * C);
+  if (S * n_tiles < warps_max)
+    n_tiles = std::min((nvec + 31) / 32,
+                       std::max(n_tiles, (warps_max + S - 1) / S));
+  const int tv = static_cast<int>((nvec + n_tiles - 1) / n_tiles);
+  const long long items = S * n_tiles;
+  const int wpb = static_cast<int>(
+      std::min<long long>(kWarps, std::max(1LL, (items + sms - 1) / sms)));
+  const long long blocks = std::min((items + wpb - 1) / wpb, blocks_max);
+  combine_kernel<T, W, K><<<static_cast<int>(blocks), 32 * wpb, 0, st>>>(
+      buf, flat, w, y, S, k, M, n_slots, static_cast<int>(n_tiles), tv);
+}
+
+template <typename T, int W>
+void launch_combine_w(const T* buf, const int* flat, const float* w, T* y,
+                      int S, int k, int M, int n_slots, cudaStream_t st) {
+  switch (k) {
+    case 1:
+      return launch_combine_k<T, W, 1>(buf, flat, w, y, S, k, M, n_slots, st);
+    case 2:
+      return launch_combine_k<T, W, 2>(buf, flat, w, y, S, k, M, n_slots, st);
+    case 4:
+      return launch_combine_k<T, W, 4>(buf, flat, w, y, S, k, M, n_slots, st);
+    case 8:
+      return launch_combine_k<T, W, 8>(buf, flat, w, y, S, k, M, n_slots, st);
+    default:
+      return launch_combine_k<T, W, 0>(buf, flat, w, y, S, k, M, n_slots, st);
+  }
+}
+
+// 16-byte vectors where every row starts on a 16-byte boundary, else one
+// element at a time.
+template <typename T>
+void launch_combine(const T* buf, const int* flat, const float* w, T* y,
+                    int S, int k, int M, int n_slots, cudaStream_t st) {
+  if (M % kVec<T> == 0 && repro::aligned16(buf, y))
+    launch_combine_w<T, kVec<T>>(buf, flat, w, y, S, k, M, n_slots, st);
+  else
+    launch_combine_w<T, 1>(buf, flat, w, y, S, k, M, n_slots, st);
 }
 
 }  // namespace
@@ -323,14 +523,12 @@ extern "C" int repro_moe_combine(const void* packed) {
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.S == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t st = static_cast<cudaStream_t>(a.stream);
-  const dim3 grid(a.S, (a.M + kThreads - 1) / kThreads);
   if (a.dtype == 0)
-    combine_kernel<float><<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(a.buf), a.flat, a.weights,
-        static_cast<float*>(a.y), a.k, a.M, a.n_slots);
+    launch_combine(static_cast<const float*>(a.buf), a.flat, a.weights,
+                   static_cast<float*>(a.y), a.S, a.k, a.M, a.n_slots, st);
   else
-    combine_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(a.buf), a.flat, a.weights,
-        static_cast<__nv_bfloat16*>(a.y), a.k, a.M, a.n_slots);
+    launch_combine(static_cast<const __nv_bfloat16*>(a.buf), a.flat,
+                   a.weights, static_cast<__nv_bfloat16*>(a.y), a.S, a.k,
+                   a.M, a.n_slots, st);
   return static_cast<int>(cudaGetLastError());
 }

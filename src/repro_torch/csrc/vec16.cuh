@@ -4,9 +4,10 @@
 //
 // An access of W elements of T goes through float registers: load<T, W>
 // widens W elements (exactly: bf16 -> f32 is exact) and store<T, W>
-// narrows W floats (round to nearest even, as XLA's astype).  W == 1 is
-// one scalar access; W == kVec<T> (4 f32 or 8 bf16) is one 16-byte
-// ld.global.v4 / st.global.v4 and needs a 16-byte-aligned address.
+// narrows W floats (round to nearest even, as XLA's astype); load_bits
+// and element split a load in two.  W == 1 is one scalar access; W ==
+// kVec<T> (4 f32 or 8 bf16) is one 16-byte ld.global.v4 / st.global.v4
+// and needs a 16-byte-aligned address.
 
 #pragma once
 
@@ -14,6 +15,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace repro {
 
@@ -63,6 +65,42 @@ __device__ __forceinline__ void load(const T* __restrict__ p, float (&f)[W]) {
       }
     }
   }
+}
+
+// load in two, for a kernel that keeps many loads in flight as loaded
+// words and widens each element where it uses it: the words holding W
+// elements' bits (one 16-byte vector, or one element in the low bits of
+// one word) ...
+template <int W>
+constexpr int kWords = W == 1 ? 1 : 4;
+
+// ... loaded from p.
+template <typename T, int W>
+__device__ __forceinline__ void load_bits(const T* __restrict__ p,
+                                          uint32_t (&b)[kWords<W>]) {
+  if constexpr (W == 1) {
+    using U = std::conditional_t<sizeof(T) == 4, uint32_t, unsigned short>;
+    b[0] = *reinterpret_cast<const U*>(p);
+  } else {
+    static_assert(W == kVec<T>, "a vector access is 16 bytes");
+    const uint4 r = *reinterpret_cast<const uint4*>(p);
+    b[0] = r.x;
+    b[1] = r.y;
+    b[2] = r.z;
+    b[3] = r.w;
+  }
+}
+
+// Element e of those words, widened to float (exactly), as load widens it.
+template <typename T, int W>
+__device__ __forceinline__ float element(const uint32_t (&b)[kWords<W>],
+                                         int e) {
+  if constexpr (sizeof(T) == 4)
+    return __uint_as_float(b[e]);
+  else if constexpr (W == 1)
+    return __uint_as_float(b[0] << 16);
+  else  // two bf16 per word, the lower address in the low half
+    return __uint_as_float(e % 2 ? b[e / 2] & 0xffff0000u : b[e / 2] << 16);
 }
 
 // kStream: the streaming (evict-first) cache hint, for an output this

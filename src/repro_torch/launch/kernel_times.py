@@ -14,7 +14,9 @@ prefill 128 x 2048 in f32 and bf16, qwen3's training step 2048 x 2048),
 ``moe_dispatch`` (qwen3 decode, both training steps, gpt2-moe's in bf16,
 and its step with every odd token sharing its even neighbour's first
 slot) and ``moe_combine`` (decode, both steps, bf16): the shapes of
-``chip_smoke.py`` phase 3.  For each it prints the time of back-to-back
+``chip_smoke.py`` phase 3; and ``moe_combine`` after ``expert_ffn`` at
+qwen3's decode and both steps, reading the buffer the FFN has just
+written.  For each it prints the time of back-to-back
 wrapper calls (CUDA events, as phase 3 times them: the wrapper's host work
 included), the host time per call (wall clock over the same back-to-back
 calls, nothing synchronised inside the loop), and the device time per call
@@ -195,6 +197,17 @@ def _combine_case(arch, S, infer, dtype, dev, g):
             lambda: moe_combine(buf, flat, w), None)
 
 
+def _combine_after_ffn_case(arch, S, infer, dev, g):
+    """moe_combine on the buffer ``expert_ffn`` has just written, as the
+    s1 path runs them: the combine's per-launch device time on the path's
+    traffic (buffer rows that fit stay in L2 from the FFN's stores)."""
+    from repro_torch.kernels.moe_dispatch import moe_combine
+    _, flat, w, n = _gate(arch, S, infer, dev, g)
+    label, ffn, _ = _ffn_case(arch, S, infer, 1, dev, g)
+    return (f"moe_combine after {label}, n_slots={n}",
+            lambda: moe_combine(ffn().reshape(n, -1), flat, w), None)
+
+
 def _report(label, fn, iters):
     """Print event, host and device time of ``fn`` and of its kernels."""
     ev = _event_ms(fn, iters)
@@ -294,7 +307,11 @@ def main(argv=None):
              _combine_case(a, S, inf, dt, dev, g))
             for a, S, inf, dt in (
                 (q3, 8, True, f32), (q3, 2048, False, f32),
-                (g2, 8192, False, f32), (g2, 8192, False, bf16))),
+                (g2, 8192, False, f32), (g2, 8192, False, bf16))) + tuple(
+            (lambda a=a, S=S, inf=inf:
+             _combine_after_ffn_case(a, S, inf, dev, g))
+            for a, S, inf in ((q3, 8, True), (q3, 2048, False),
+                              (g2, 8192, False))),
     }
     chosen = args.kernels.split(",") if args.kernels else list(makers)
     unknown = sorted(set(chosen) - set(makers))

@@ -11,9 +11,13 @@ row or address the 16-byte copies cannot take raises.  rmsnorm's vector
 and scalar paths, its rows' independence of the batch and its launch on
 the current stream; dispatch's sums in token order (bitwise a loop on the
 CPU), its rows written on dirty memory, its edge cases and its one launch
-per call.  The dense and ragged FFN on all three row-tile instances and
-mixed dtypes: bitwise the grouped kernel's pre-combine rows and each
-other, dead ragged tiles written on dirty memory.  A training step taken
+per call.  Combine's instances (k 1, 2 and 8 unrolled, 3 the generic
+loop; 16-byte and scalar rows; decode's narrow tiles) against its plain
+version, on an unaligned buffer too; each row the same bits whatever call
+it is in, two calls the same bits, one launch per call.  The dense and
+ragged FFN on all three row-tile instances and mixed dtypes: bitwise the
+grouped kernel's pre-combine rows and each other, dead ragged tiles
+written on dirty memory.  A training step taken
 twice from one state, on each training path of the smoke at reduced
 size: bitwise, with no deterministic flag.  The guarded step: clean,
 bitwise the plain step; poisoned, the state bitwise untouched; the fp8
@@ -630,21 +634,101 @@ def test_moe_dispatch_is_one_kernel_launch(dev):
     assert len(names) == 1 and "dispatch_kernel" in names[0], names
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6),
-                                       (torch.bfloat16, 2e-2)])
-def test_moe_combine_vs_plain(dev, dtype, tol):
-    flat, w, n_slots = _slots(dev)
-    buf = torch.randn((n_slots, 200), device=dev).to(dtype)
+def _combine_case(dev, S, k, M, dtype, seed=7):
+    """A gate's slots for S tokens at top-k of 16 experts (some choices
+    dropped by capacity), with, where S allows, one row whose every choice
+    is dropped and one whose first is; and a random (n_slots, M) buffer."""
+    flat, w, n_slots = _slots(dev, S=S, k=k, E=16, cap=max(1, S // 4),
+                              seed=seed)
+    flat = flat.clone()
+    if S > 1:
+        flat[S // 2] = n_slots
+    if S > 2:
+        flat[-1, 0] = n_slots
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    buf = torch.randn((n_slots, M), generator=g, device=dev).to(dtype)
+    return buf, flat, w
+
+
+COMBINE_DTYPES = [(torch.float32, 1e-6), (torch.bfloat16, 2e-2)]
+
+
+# k 1, 2 and 8 take the unrolled instances, 3 the generic loop; M 200 and
+# 2048 the 16-byte vectors (2048 f32 in 16 narrow tiles a decode row), 202
+# the scalar access; 1 and 8 rows cut each row into tiles over more warps
+@pytest.mark.parametrize("S", [1, 8, 300])
+@pytest.mark.parametrize("M", [200, 2048, 202])
+@pytest.mark.parametrize("k", [1, 2, 3, 8])
+@pytest.mark.parametrize("dtype,tol", COMBINE_DTYPES)
+def test_moe_combine_vs_plain(dev, dtype, tol, k, M, S):
+    buf, flat, w = _combine_case(dev, S, k, M, dtype)
+    n_slots = buf.shape[0]
     n0 = moe_combine.launches
     got = moe_combine(buf, flat, w)
     torch.cuda.synchronize()
     assert moe_combine.launches == n0 + 1
-    assert got.dtype == dtype
+    assert got.dtype == dtype and got.shape == (S, M)
     dropped = (flat == n_slots).all(dim=1)
     assert torch.equal(got[dropped], torch.zeros_like(got[dropped]))
     torch.testing.assert_close(got.float(),
                                moe_combine_ref(buf, flat, w).float(),
                                rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("M", [200, 201])
+@pytest.mark.parametrize("dtype,tol", COMBINE_DTYPES)
+def test_moe_combine_unaligned_buffer_vs_plain(dev, dtype, tol, M):
+    """A buffer one element into a larger allocation (M 201: odd rows too)
+    takes the scalar access, and agrees with the plain version."""
+    whole, flat, w = _combine_case(dev, 300, 2, M, dtype)
+    buf = torch.empty(whole.numel() + 1, dtype=dtype,
+                      device=dev)[1:].view(whole.shape)
+    buf.copy_(whole)
+    assert buf.is_contiguous() and buf.data_ptr() % 16
+    got = moe_combine(buf, flat, w)
+    torch.testing.assert_close(got.float(),
+                               moe_combine_ref(buf, flat, w).float(),
+                               rtol=tol, atol=tol)
+    assert torch.equal(got, moe_combine(whole, flat, w))
+
+
+@pytest.mark.parametrize("M", [2048, 202])
+@pytest.mark.parametrize("k", [2, 3, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_combine_rows_are_independent(dev, dtype, k, M):
+    """A row's output is the same bits combined in a 300-row call (wide
+    tiles), in an 8-row call and alone (narrow tiles)."""
+    buf, flat, w = _combine_case(dev, 300, k, M, dtype)
+    whole = moe_combine(buf, flat, w)
+    for a in (0, 146, 292):                  # 150, the dropped row, in 146
+        assert torch.equal(moe_combine(buf, flat[a:a + 8], w[a:a + 8]),
+                           whole[a:a + 8])
+    for i in (0, 150, 151, 299):
+        assert torch.equal(moe_combine(buf, flat[i:i + 1], w[i:i + 1]),
+                           whole[i:i + 1])
+
+
+@pytest.mark.parametrize("k", [1, 3, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_combine_repeats_bitwise(dev, dtype, k):
+    buf, flat, w = _combine_case(dev, 300, k, 2048, dtype)
+    assert torch.equal(moe_combine(buf, flat, w), moe_combine(buf, flat, w))
+
+
+@pytest.mark.parametrize("S", [8, 300])
+def test_moe_combine_is_one_kernel_launch(dev, S):
+    """One call is one kernel on the card, at decode's rows and more."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    buf, flat, w = _combine_case(dev, S, 8, 2048, torch.float32)
+    moe_combine(buf, flat, w)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        moe_combine(buf, flat, w)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    assert len(names) == 1 and "combine_kernel" in names[0], names
 
 
 # T rows per expert: 8 and 37 take the 16-row tiles (1-3 live 16-row

@@ -159,14 +159,14 @@ class TestDispatchCombineVsJax:
 
     N_SLOTS = 12
 
-    def _case(self, seed):
+    def _case(self, seed, k=K, m=M):
         rng = np.random.RandomState(seed)
-        x = rng.randn(S, M).astype(np.float32)
-        flat = rng.randint(0, self.N_SLOTS + 1, (S, K)).astype(np.int32)
-        flat[0] = [3, 3]                       # one token, one slot twice
-        flat[1, 0] = flat[2, 1] = 5            # two tokens, one slot
-        flat[3] = self.N_SLOTS                 # both choices dropped
-        w = rng.rand(S, K).astype(np.float32)
+        x = rng.randn(S, m).astype(np.float32)
+        flat = rng.randint(0, self.N_SLOTS + 1, (S, k)).astype(np.int32)
+        flat[0] = 3                            # one token, one slot k times
+        flat[1, 0] = flat[2, k - 1] = 5        # two tokens, one slot
+        flat[3] = self.N_SLOTS                 # every choice dropped
+        w = rng.rand(S, k).astype(np.float32)
         return x, flat, w
 
     @pytest.mark.parametrize("backend", ["ref", "pallas"])
@@ -252,11 +252,15 @@ class TestDispatchCombineVsJax:
         np.testing.assert_array_equal(got.float().numpy(),
                                       np.asarray(want.astype(jnp.float32)))
 
+    # k 1, 2 and 8 and an odd width: the shapes that pick the CUDA
+    # kernel's unrolled instances and its scalar rows, where the card holds
+    # it to this plain version
+    @pytest.mark.parametrize("k,m", [(K, M), (1, M), (8, M), (K, 33)])
     @pytest.mark.parametrize("backend", ["ref", "pallas"])
     @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
-    def test_combine(self, backend, dtype):
-        _, flat, w = self._case(1)
-        buf = np.random.RandomState(2).randn(self.N_SLOTS, M).astype(
+    def test_combine(self, backend, dtype, k, m):
+        _, flat, w = self._case(1, k, m)
+        buf = np.random.RandomState(2).randn(self.N_SLOTS, m).astype(
             np.float32)
         want = j_get_op("moe_combine", backend=backend)(
             _j(buf, dtype), _j(flat), _j(w))
